@@ -1,0 +1,448 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py
+
+Needs one CUDA card (an H100 for the numbers in PERF.md). Phases, each
+printing one line of facts; any failure exits non-zero before the last
+line:
+
+1. facts: the card's name and power limit, torch, CUDA, nvcc, triton;
+   TF32 off for fp32 matrix products;
+2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the serving path's shapes, with its time, the plain version's time and
+   the least time the card could take (the bound);
+4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
+   bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
+   request finishes, the launch counters show both kernels on the path,
+   and decode logits agree with a fresh prefill;
+5. profile: host wall against device kernel time of one decode step
+   (4 slots) and one prefill batch (4 x 512), with the top kernels.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "float32": 67e12}    # fp32 outside the tensor cores
+CHUNK_ROWS = 64                    # rows per chunk of the K1 CUDA kernel
+
+# Tolerances. o: the reference's kernel tests (tests/test_kernels.py:14).
+# State and log decay: both sides accumulate in fp32 over up to 512 rows in
+# another order (chunks of 64 against blocks of 128), which moves the sums
+# by ~1e-6 relative; 1e-4 leaves two orders of margin.
+TOL_O = {"bfloat16": 4e-2, "float32": 3e-4}
+TOL_STATE = 1e-4
+TOL_LD = 1e-5
+# Decode logits against a fresh prefill, full width in bf16: bf16 keeps an
+# 8-bit mantissa (relative step 2^-8), and the chunked and recurrent forms
+# round o, the residual stream and every projection at different points
+# through 16 layers.
+TOL_LOGITS = 1e-1
+
+
+def log(phase: str, **facts) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in facts.items()),
+          flush=True)
+
+
+def check(ok, message: str) -> None:
+    """Fail the run (an explicit raise, kept under ``python -O``)."""
+    if not ok:
+        raise AssertionError(message)
+
+
+def max_err_within(got, want, tol):
+    """(max |got - want|, whether |got - want| <= tol + tol·|want|)."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool((diff <= tol + tol * want.abs()).all()) \
+        and bool(torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+def time_ms(fn, arg_sets, iters):
+    """Mean ms per call over ``iters`` calls after warm-up, timed with CUDA
+    events. Calls rotate over ``arg_sets``, sized together above the 50 MB
+    L2 cache, so each call finds its inputs in device memory as the
+    serving path does."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# Phase 1-2: facts and build.
+# ---------------------------------------------------------------------------
+
+def phase_facts() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    from repro_torch.kernels import _build
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    try:
+        import triton
+        triton_v = triton.__version__
+    except ImportError:
+        triton_v = "absent"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi, flush=True)
+    log("facts", torch=torch.__version__, cuda=torch.version.cuda,
+        nvcc=repr(nvcc[-1]), triton=triton_v,
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    return smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    built = _build.build_kernels()
+    wall = time.perf_counter() - t0
+    for stem, info in built.items():
+        res = [ln.split("info    :")[-1].strip()
+               for ln in info["ptxas"].splitlines()
+               if "registers" in ln or "spill" in ln]
+        log("build", kernel=stem, nvcc_s=f"{info['seconds']:.2f}",
+            ptxas=repr("; ".join(res)))
+    log("build", wall_s=f"{wall:.2f}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions.
+# ---------------------------------------------------------------------------
+
+def _chunk_inputs(gen, bh, s, d, dtype, la_kind):
+    from repro_torch.core.linear_attention import RESET_LOG_A
+    dev = "cuda"
+    q = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.3).to(dtype)
+    k = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.3).to(dtype)
+    v = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.5).to(dtype)
+    la = torch.zeros(bh, s, device=dev)
+    if la_kind == "reset":       # a reset mid-chunk, as left-padded prefill
+        la[:, s // 2 - 7] = RESET_LOG_A
+        la[:, 5] = RESET_LOG_A
+    elif la_kind == "decay":
+        la = -torch.randn(bh, s, generator=gen, device=dev).abs() * 0.03
+    return q, k, v, la
+
+
+def _chunk_bound(bh, s, dk, dv, dtype):
+    """Least time for K1's work: every input read once and every output
+    written once at the HBM rate, against the products of the 64-row
+    chunked algorithm (causal half of QK^T and SV, full QM and K^T V) at
+    the peak rate for the input type."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes = el * bh * s * (2 * dk + 2 * dv) + 4 * bh * s \
+        + 4 * bh * dk * dv + 4 * bh
+    nch = -(-s // CHUNK_ROWS)
+    c = CHUNK_ROWS
+    flops = bh * nch * (c * c * dk + c * c * dv + 4 * c * dk * dv)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels() -> list:
+    from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_fwd,
+                                                 lasp2_chunk_fwd_plain)
+    from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
+                                                  lasp2_decode_step_plain)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bh, d = 64, 128               # 4 rows × 16 heads of 128
+    failures = []
+    k1_err = 0.0
+    cases = [(dt, s, lk) for dt in (torch.bfloat16, torch.float32)
+             for s, lk in ((512, "zero"), (512, "reset"), (512, "decay"),
+                           (37, "reset"))]
+    for dtype, s, la_kind in cases:
+        q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind)
+        o, st, ld = lasp2_chunk_fwd(q, k, v, la)
+        torch.cuda.synchronize()
+        o_p, st_p, ld_p = lasp2_chunk_fwd_plain(
+            q, k, v, la, block_size=pick_block(s, 128))
+        name = str(dtype).split(".")[-1]
+        e_o, ok_o = max_err_within(o, o_p, TOL_O[name])
+        e_s, ok_s = max_err_within(st, st_p, TOL_STATE)
+        e_l, ok_l = max_err_within(ld, ld_p, TOL_LD)
+        k1_err = max(k1_err, e_o, e_s, e_l)
+        log("kernels", kernel="lasp2_chunk_fwd", dtype=name, S=s,
+            log_a=la_kind, err_o=f"{e_o:.3e}", tol_o=TOL_O[name],
+            err_state=f"{e_s:.3e}", tol_state=TOL_STATE,
+            err_log_decay=f"{e_l:.3e}", ok=ok_o and ok_s and ok_l)
+        if not (ok_o and ok_s and ok_l):
+            failures.append(f"lasp2_chunk_fwd {name} S={s} {la_kind}")
+
+    # K3: 8 steps chained from a K1 prefill state, against recurrent_step
+    q, k, v, la = _chunk_inputs(gen, bh, 512, d, torch.bfloat16, "reset")
+    _, st0, ld0 = lasp2_chunk_fwd(q, k, v, la)
+    st_k, ld_k = st0.clone(), ld0.clone()
+    st_p, ld_p = st0.clone(), ld0.clone()
+    e_o, ok_o = 0.0, True
+    for _ in range(8):
+        qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda") * sc
+                      for sc in (0.3, 0.3, 0.5))
+        qs, ks, vs = (x.to(torch.bfloat16) for x in (qs, ks, vs))
+        las = -torch.rand(bh, generator=gen, device="cuda") * 0.05
+        o_k, st_k, ld_k = lasp2_decode_step(qs, ks, vs, las, st_k, ld_k)
+        o_p, st_p, ld_p = lasp2_decode_step_plain(qs, ks, vs, las, st_p,
+                                                  ld_p)
+        e, ok = max_err_within(o_k, o_p, TOL_O["float32"])
+        e_o, ok_o = max(e_o, e), ok_o and ok
+    torch.cuda.synchronize()
+    e_s, ok_s = max_err_within(st_k, st_p, TOL_STATE)
+    e_l, ok_l = max_err_within(ld_k, ld_p, TOL_LD)
+    k3_err = max(e_o, e_s, e_l)
+    log("kernels", kernel="lasp2_decode_step", steps=8, BH=bh, dk=d, dv=d,
+        err_o=f"{e_o:.3e}", tol_o=TOL_O["float32"], err_state=f"{e_s:.3e}",
+        tol_state=TOL_STATE, err_log_decay=f"{e_l:.3e}",
+        ok=ok_o and ok_s and ok_l)
+    if not (ok_o and ok_s and ok_l):
+        failures.append("lasp2_decode_step")
+
+    # Times at the serving path's shapes: K1 at BH 64, S 512 (4 prompts of
+    # the 512 bucket), K3 at BH 64 (4 slots), bf16 activations.
+    sets = [_chunk_inputs(gen, bh, 512, d, torch.bfloat16, "reset")
+            for _ in range(2)]
+    k1_ms = time_ms(lambda *a: lasp2_chunk_fwd(*a), sets, 50)
+    k1_plain = time_ms(lambda *a: lasp2_chunk_fwd_plain(*a), sets, 10)
+    k1_bound, k1_by = _chunk_bound(bh, 512, d, d, torch.bfloat16)
+    dec_sets = []
+    for _ in range(8):               # 8 × 8.4 MB of state > 50 MB of L2
+        qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda")
+                      .to(torch.bfloat16) for _ in range(3))
+        dec_sets.append((qs, ks, vs, torch.zeros(bh, device="cuda"),
+                         st0.clone(), ld0.clone()))
+    k3_ms = time_ms(lambda *a: lasp2_decode_step(*a), dec_sets, 400)
+    k3_plain = time_ms(lambda *a: lasp2_decode_step_plain(*a), dec_sets, 100)
+    k3_bytes = 2 * 4 * bh * d * d + 2 * 3 * bh * d + 4 * bh * d + 4 * 3 * bh
+    k3_t_bytes = k3_bytes / HBM_BYTES_PER_S
+    k3_t_ops = 5 * bh * d * d / PEAK_FLOPS["bfloat16"]
+    k3_bound = max(k3_t_bytes, k3_t_ops) * 1e3
+    k3_by = "bytes" if k3_t_bytes >= k3_t_ops else "operations"
+    log("kernels", kernel="lasp2_chunk_fwd", shape="BH64xS512x128 bf16",
+        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain:.4f}",
+        bound_ms=f"{k1_bound:.4f}", bound_by=k1_by)
+    log("kernels", kernel="lasp2_decode_step", shape="BH64x128x128",
+        ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain:.4f}",
+        bound_ms=f"{k3_bound:.4f}", bound_by=k3_by)
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+    return [
+        {"name": "lasp2_chunk_fwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lasp2_chunk_fwd.cu",
+         "replaces": "src/repro/kernels/lasp2_chunk.py:111",
+         "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None},
+        {"name": "lasp2_decode_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/lasp2_decode.cu",
+         "replaces": "src/repro/kernels/lasp2_decode.py:49",
+         "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
+         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve full-width linear-llama3-1b.
+# ---------------------------------------------------------------------------
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def phase_serve(kernels: list):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config("linear-llama3-1b")
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = _numel(params)
+    log("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        params=n_params, dtype=cfg.dtype,
+        init_s=f"{time.perf_counter() - t0:.2f}")
+
+    new_tokens, max_batch = 32, 4
+    engine = ServeEngine(cfg, params, max_len=512 + new_tokens,
+                         max_batch=max_batch)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 513, size=8)     # as launch/serve.py draws them
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
+    uids = [engine.submit(p, new_tokens, seed=0, stream=i)
+            for i, p in enumerate(prompts)]
+
+    lasp2_chunk_fwd.launches = 0
+    lasp2_decode_step.launches = 0
+    t0 = time.perf_counter()
+    results = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k3 = lasp2_chunk_fwd.launches, lasp2_decode_step.launches
+
+    stats = engine.stats()
+    batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
+    check(sorted(results) == sorted(uids), "not every request finished")
+    for uid in uids:
+        toks = results[uid]
+        check(len(toks) == new_tokens, f"request {uid}: {len(toks)} tokens")
+        check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+              f"request {uid}: token out of vocab")
+    check(k1 == cfg.n_layers * batches and k1 > 0,
+          f"K1 launches {k1} != {cfg.n_layers} x {batches} prefill batches")
+    check(k3 == cfg.n_layers * steps and k3 > 0,
+          f"K3 launches {k3} != {cfg.n_layers} x {steps} decode steps")
+    kernels[0]["launches"], kernels[1]["launches"] = k1, k3
+    total_new = sum(len(t) for t in results.values())
+    cache = engine.cache_stats()
+    log("serve", requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
+        slots=max_batch, prefill_batches=batches, decode_steps=steps,
+        k1_launches=k1, k3_launches=k3, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{total_new / wall:.1f}",
+        ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
+        prefill_p50_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
+        decode_step_p50_ms=f"{stats['decode_step_s_p50'] * 1e3:.3f}",
+        cache_linear_state_bytes=cache["linear_state"],
+        cache_total_bytes=cache["total"])
+
+    # Decode logits against a fresh prefill of prompt + generated tokens.
+    prompt, gen_toks = prompts[0], results[uids[0]]
+    dev = torch.device("cuda")
+    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
+    logits, cache = M.prefill(params, tokens, cfg, max_len=512 + new_tokens)
+    worst, scale = 0.0, 0.0
+    for n in range(1, 9):
+        step_tok = torch.as_tensor(gen_toks[n - 1:n], dtype=torch.int32,
+                                   device=dev)
+        logits, cache = M.decode_step(params, step_tok, cache, cfg)
+        full = np.concatenate([prompt, gen_toks[:n]])
+        ref, _ = M.prefill(params, torch.as_tensor(
+            full, dtype=torch.int32, device=dev)[None], cfg)
+        got, want = logits[0, :cfg.vocab_size], ref[0, :cfg.vocab_size]
+        check(bool(torch.isfinite(got).all()), "non-finite decode logits")
+        err, ok = max_err_within(got, want, TOL_LOGITS)
+        worst, scale = max(worst, err), max(scale, float(want.abs().max()))
+        check(ok, f"decode step {n}: logits off by {err:.3e} > {TOL_LOGITS}")
+    log("serve", check="decode logits vs fresh prefill", steps=8,
+        max_abs_err=f"{worst:.4f}", max_abs_logit=f"{scale:.3f}",
+        tol=TOL_LOGITS, ok=True)
+    return cfg, params
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: where a decode step and a prefill batch spend their time.
+# ---------------------------------------------------------------------------
+
+def _profile(fn, n):
+    """(host wall ms per call, device kernel ms per call, kernels per call,
+    top kernels) over ``n`` calls after warm-up. The wall is taken without
+    the profiler; the device time is the sum of the kernel rows the
+    profiler records on the card (0.0 when it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = sum(r[0] for r in rows) / n / 1e3
+    kernels = sum(r[1] for r in rows) / n
+    top = sorted(rows, reverse=True)[:5]
+    return wall, device, kernels, ";".join(
+        f"{k[:48]}:{t / n / 1e3:.3f}ms" for t, _, k in top)
+
+
+def phase_profile(cfg, params) -> None:
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    cache = M.init_cache(cfg, 4, 544)
+    tok = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def decode():
+        nonlocal cache
+        _, cache = M.decode_step(params, tok, cache, cfg)
+
+    prompts = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    pads = torch.tensor([0, 40, 100, 200], device=dev)
+
+    def prefill():
+        M.prefill(params, prompts, cfg, pad_lens=pads)
+
+    for name, fn, n in (("decode_step B4", decode, 10),
+                        ("prefill B4xS512", prefill, 3)):
+        wall, device, kernels, top = _profile(fn, n)
+        idle = f"{1 - device / wall:.3f}" if device else "not measured"
+        log("profile", what=repr(name), wall_ms=f"{wall:.3f}",
+            device_kernel_ms=f"{device:.3f}" if device else "not measured",
+            device_idle_share=idle, kernels_per_call=f"{kernels:.0f}",
+            top=repr(top))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this check runs on the card",
+              file=sys.stderr)
+        return 1
+    smi = phase_facts()
+    phase_build()
+    kernels = phase_kernels()
+    cfg, params = phase_serve(kernels)
+    phase_profile(cfg, params)
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,34 @@
+"""Architecture registry of the port: ``get_config`` / ``get_smoke``.
+
+This slice serves ``linear-llama3-1b`` only; every other architecture of
+``repro.configs`` is ported in a later slice and raises ``KeyError`` here.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import linear_llama3_1b
+from repro_torch.configs.base import (LayerSpec, LinearAttnConfig,  # noqa: F401
+                                      ModelConfig)
+
+_MODULES = {"linear-llama3-1b": linear_llama3_1b}
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(
+            f"arch {arch_id!r} is not ported yet (later slice); the port "
+            f"serves {sorted(_MODULES)}")
+    return _MODULES[arch_id]
+
+
+def get_config(arch_id: str, *, linearize: int | None = None) -> ModelConfig:
+    """``linearize``: None = native stack; 0 = pure linear attention;
+    k>0 = 1/k hybrid (every k-th layer stays softmax)."""
+    cfg = _module(arch_id).CONFIG
+    if linearize is not None:
+        cfg = cfg.linearize(hybrid_every=linearize)
+    return cfg
+
+
+def get_smoke(arch_id: str) -> ModelConfig:
+    return _module(arch_id).SMOKE

@@ -1,0 +1,143 @@
+"""Config dataclasses for the port: model architecture and its layer pattern.
+
+Own copy of the parts of ``repro.configs.base`` the serving slice needs
+(``LinearAttnConfig``, ``LayerSpec``, ``ModelConfig``); the port imports
+nothing of ``repro``. Field names, defaults and derived properties match
+the reference so configs compare one to one in the tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class LinearAttnConfig:
+    """Linear-attention variant settings (paper §4 modules)."""
+
+    feature_map: str = "identity"   # identity | elu1 | silu | relu | taylor
+    decay: str = "none"             # none | retention | lightning | data
+    backward: str = "faithful"      # faithful (Alg. 3/4) | autodiff
+    block_size: int = 128
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer of the repeating pattern.
+
+    mixer: softmax | linear (this slice runs ``linear`` only)
+    mlp:   dense | moe | none (this slice runs ``dense`` only)
+    """
+
+    mixer: str = "softmax"
+    mlp: str = "dense"
+    sliding_window: Optional[int] = None   # softmax attention window
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # layer pattern: `pattern` repeated `n_layers / len(pattern)` times.
+    pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
+
+    linear_attn: LinearAttnConfig = field(default_factory=LinearAttnConfig)
+
+    dtype: str = "bfloat16"
+    mlp_act: str = "swiglu"
+
+    # padded so the vocab projection tiles evenly
+    vocab_pad_multiple: int = 128
+
+    # provenance note: [source; verified-tier]
+    source: str = ""
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.n_layers % len(self.pattern):
+            raise ValueError(
+                f"{self.name}: n_layers={self.n_layers} not divisible by "
+                f"pattern length {len(self.pattern)}")
+
+    @property
+    def padded_vocab(self) -> int:
+        return _round_up(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def n_groups(self) -> int:
+        return self.n_layers // len(self.pattern)
+
+    def layer_specs(self) -> Tuple[LayerSpec, ...]:
+        """The spec of every layer, in order (``pattern`` tiled
+        ``n_groups`` times): layer ``g·len(pattern) + p`` is
+        ``pattern[p]``."""
+        return self.pattern * self.n_groups
+
+    def linearize(self, hybrid_every: int = 0) -> "ModelConfig":
+        """Paper's Linear-X recipe: replace softmax mixers with linear
+        attention; ``hybrid_every=4`` keeps every 4th softmax layer as
+        softmax with a 2048-token window (the paper's 1/4 hybrid)."""
+        unit = self.pattern
+        if hybrid_every and len(unit) == 1:
+            unit = unit * hybrid_every   # expand so every k-th can differ
+        count = 0
+        new = []
+        for spec in unit:
+            if spec.mixer != "softmax":
+                new.append(spec)
+                continue
+            count += 1
+            if hybrid_every and count % hybrid_every == 0:
+                new.append(dataclasses.replace(spec, sliding_window=2048))
+            else:
+                new.append(dataclasses.replace(spec, mixer="linear",
+                                               sliding_window=None))
+        if self.n_layers % len(new):
+            raise ValueError(
+                f"n_layers={self.n_layers} not divisible by expanded "
+                f"pattern {len(new)}")
+        suffix = f"-hybrid{hybrid_every}" if hybrid_every else "-linear"
+        return dataclasses.replace(self, name=self.name + suffix,
+                                   pattern=tuple(new))
+
+    def param_count(self) -> int:
+        """Parameter count (embeddings + blocks) for softmax/linear mixers
+        with dense MLPs."""
+        d, dh = self.d_model, self.head_dim
+        n = self.padded_vocab * d  # embed
+        if not self.tie_embeddings:
+            n += self.padded_vocab * d
+        for spec in self.pattern:
+            per = 2 * d  # two norms
+            if spec.mixer in ("softmax", "linear"):
+                per += d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh)
+                per += (self.n_heads * dh) * d
+            else:
+                raise NotImplementedError(
+                    f"mixer {spec.mixer!r} is ported in a later slice")
+            if spec.mlp == "dense":
+                per += (2 if self.mlp_act == "gelu" else 3) * d * self.d_ff
+            elif spec.mlp != "none":
+                raise NotImplementedError(
+                    f"mlp {spec.mlp!r} is ported in a later slice")
+            n += per * self.n_groups
+        return n

@@ -1,0 +1,72 @@
+"""Dispatch for the linear-attention ops (twin of ``repro/kernels/ops.py``).
+
+Model code calls these wrappers. The backend follows the tensors: on CPU
+tensors the kernel wrappers take their plain PyTorch versions (``torch``
+backend), on CUDA tensors they launch the Hopper kernels (``cuda``
+backend). Same signatures and semantics as the reference ops.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.linear_attention import pick_block
+from repro_torch.kernels import lasp2_chunk as _chunk
+from repro_torch.kernels import lasp2_decode as _decode
+
+
+def linear_attention_op(q, k, v, log_a=None, *, block_size: int = 128):
+    """Local chunked decayed causal linear attention.
+
+    q, k: (..., S, dk); v: (..., S, dv); log_a: (..., S) or None.
+    Returns (o, state (..., dk, dv) fp32, log_decay (...,) fp32).
+    """
+    *lead, s, dk = q.shape
+    dv = v.shape[-1]
+    if log_a is None:
+        log_a = torch.zeros((*lead, s), dtype=torch.float32, device=q.device)
+    # Block policy of the reference: the preferred block when it divides S,
+    # else the largest aligned divisor; where no usable divisor exists,
+    # right-pad to a block multiple. Zero k/v rows add nothing to the state
+    # and log_a = 0 leaves the decay alone, so the outputs (sliced back to
+    # S), final state and log decay are exact.
+    bs = pick_block(s, block_size)
+    if bs != s and bs % 32:
+        bs = min(block_size, s)
+    if s % bs:
+        pad = bs - s % bs
+        q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        log_a = F.pad(log_a, (0, pad))
+        o, st, ld = linear_attention_op(q, k, v, log_a,
+                                        block_size=block_size)
+        return o[..., :s, :], st, ld
+    bh = math.prod(lead)
+    o, st, ld = _chunk.lasp2_chunk_fwd(
+        q.reshape(bh, s, dk).contiguous(), k.reshape(bh, s, dk).contiguous(),
+        v.reshape(bh, s, dv).contiguous(),
+        log_a.float().reshape(bh, s).contiguous(), block_size=bs)
+    return (o.reshape(*lead, s, dv), st.reshape(*lead, dk, dv),
+            ld.reshape(lead))
+
+
+def linear_decode_op(q, k, v, log_a, state, log_decay):
+    """Single-token recurrent linear-attention decode.
+
+    q, k: (B, H, dk); v: (B, H, dv); log_a: (B, H) or None;
+    state: (B, H, dk, dv) fp32; log_decay: (B, H) fp32.
+    Returns (o (B, H, dv) fp32, state', log_decay'). On CUDA a contiguous
+    ``state`` and ``log_decay`` are updated in place.
+    """
+    b, h, dk = q.shape
+    dv = v.shape[-1]
+    if log_a is None:
+        log_a = torch.zeros((b, h), dtype=torch.float32, device=q.device)
+    o, st, ld = _decode.lasp2_decode_step(
+        q.reshape(b * h, dk).contiguous(), k.reshape(b * h, dk).contiguous(),
+        v.reshape(b * h, dv).contiguous(),
+        log_a.float().reshape(b * h).contiguous(),
+        state.reshape(b * h, dk, dv), log_decay.reshape(b * h))
+    return o.reshape(b, h, dv), st.reshape(b, h, dk, dv), ld.reshape(b, h)

@@ -1,0 +1,164 @@
+"""Model builder: init / forward / prefill / decode over the layer stack.
+
+Twin of ``repro/models/model.py`` for the serving slice. The reference
+stacks each pattern position's params over groups and runs the stack with
+``lax.scan``; here the stack is a Python list of layers, layer
+``g·len(pattern) + p`` built from ``pattern[p]``, walked in a loop.
+
+Params are a plain dict::
+
+    {"embed": {"table", "lm_head"}, "layers": [layer params, ...],
+     "final_norm": {"scale"}}
+
+The decode cache is ``{"layers": [{"mixer": {"m", "log_decay"}}, ...],
+"pos": (B,) int32}`` with per-layer ``m`` (B, H, dk, dv) fp32 and
+``log_decay`` (B, H) fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device, torch_dtype
+from repro_torch.models import blocks
+from repro_torch.models.blocks import Ctx
+from repro_torch.models.layers import (embed_init, embed_lookup, logits_out,
+                                       rmsnorm, rmsnorm_init)
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig, *,
+                device=None):
+    """Random params with the reference's shapes and scales.
+
+    ``generator`` must live on ``device`` (the CUDA card unless the caller
+    names another device, e.g. ``torch.Generator().manual_seed(0)`` with
+    ``device="cpu"``). Matrices and embeddings are stored in ``cfg.dtype``,
+    norm scales in fp32.
+    """
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, params on "
+                         f"{device}: create the generator on the device")
+    dtype = torch_dtype(cfg.dtype)
+    return {
+        "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype,
+                            device, tie=cfg.tie_embeddings),
+        "layers": [blocks.layer_init(generator, cfg, spec, dtype, device)
+                   for spec in cfg.layer_specs()],
+        "final_norm": rmsnorm_init(cfg.d_model, device),
+    }
+
+
+def _device(params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def forward(params, tokens, cfg: ModelConfig):
+    """Full-sequence forward → logits (B, S, padded_vocab). tokens: (B, S)
+    int."""
+    dtype = torch_dtype(cfg.dtype)
+    tokens = tokens.to(_device(params))
+    _, s = tokens.shape
+    x = embed_lookup(params["embed"], tokens, dtype)
+    ctx = Ctx(cfg=cfg, positions=torch.arange(s, device=x.device))
+    for p, spec in zip(params["layers"], cfg.layer_specs()):
+        x = blocks.layer_apply(p, x, ctx, spec)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return logits_out(params["embed"], x, cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# Decode (single token, cached)
+# ---------------------------------------------------------------------------
+
+def pad_safe(cfg: ModelConfig) -> bool:
+    """True if left-padded (length-bucketed) prefill is exact for this
+    config: every mixer is recurrent (the state reset at the first real
+    token erases the filler) and every MLP is position-wise."""
+    mixers = {sp.mixer for sp in cfg.pattern}
+    if not all(sp.mixer in ("linear", "mamba2") and sp.mlp != "moe"
+               for sp in cfg.pattern):
+        return False
+    return not (cfg.qkv_bias and "mamba2" in mixers)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+    """Decode cache: per linear layer a constant-size fp32 state plus its
+    cumulative log decay (``max_len`` does not change its size); ``pos`` is
+    per row, since rows of a continuous batch sit at different offsets."""
+    device = resolve_device(device)
+    del max_len   # linear layers keep no per-token cache
+    return {"layers": [blocks.layer_cache(cfg, spec, batch, device)
+                       for spec in cfg.layer_specs()],
+            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def decode_step(params, token, cache, cfg: ModelConfig):
+    """One decode step. token: (B,) int → (logits (B, V), new cache).
+
+    No prefix re-scan: every linear layer advances its recurrent state by
+    one step. On CUDA the layers' states are updated in place, so the
+    returned cache holds the caller's tensors.
+    """
+    dtype = torch_dtype(cfg.dtype)
+    pos = cache["pos"]
+    x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
+    ctx = Ctx(cfg=cfg, positions=pos[:, None])
+    new_layers = []
+    for p, c, spec in zip(params["layers"], cache["layers"],
+                          cfg.layer_specs()):
+        x, nc = blocks.layer_decode(p, x, c, ctx, spec)
+        new_layers.append(nc)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_out(params["embed"], x, cfg.vocab_size)
+    return logits[:, 0, :], {"layers": new_layers, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Prefill (full prompt → cache)
+# ---------------------------------------------------------------------------
+
+def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
+            pad_lens=None):
+    """Run the prompt, returning (logits of the last position (B, V),
+    decode cache).
+
+    ``pad_lens`` (B,) enables length-bucketed batched prefill for pure
+    recurrent stacks: row ``b`` is LEFT-padded with ``pad_lens[b]`` filler
+    tokens, its positions start at ``-pad_lens[b]`` so real tokens sit at
+    0..L-1, filler embeddings are zeroed, and a state reset
+    (``RESET_LOG_A``) at the first real token erases the filler's
+    contribution to the state.
+    """
+    device = _device(params)
+    dtype = torch_dtype(cfg.dtype)
+    tokens = tokens.to(device)
+    b, s = tokens.shape
+    del max_len   # linear layers keep no per-token cache
+    x = embed_lookup(params["embed"], tokens, dtype)
+    resets = None
+    if pad_lens is not None:
+        if not pad_safe(cfg):
+            raise ValueError(
+                "pad_lens prefill requires a pure linear/SSM stack with "
+                "dense MLPs")
+        pad_lens = torch.as_tensor(pad_lens, device=device).long()
+        cols = torch.arange(s, device=device)[None, :]
+        positions = cols - pad_lens[:, None]                    # (B, S)
+        resets = cols == pad_lens[:, None]
+        x = torch.where((cols >= pad_lens[:, None])[..., None], x,
+                        torch.zeros((), dtype=x.dtype, device=device))
+    else:
+        positions = torch.arange(s, device=device)
+    ctx = Ctx(cfg=cfg, positions=positions, resets=resets)
+    caches = []
+    for p, spec in zip(params["layers"], cfg.layer_specs()):
+        x, c = blocks.layer_prefill(p, x, ctx, spec)
+        caches.append(c)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    logits = logits_out(params["embed"], x, cfg.vocab_size)
+    pos = torch.full((b,), s, dtype=torch.int32, device=device)
+    if pad_lens is not None:
+        pos = pos - pad_lens.to(torch.int32)      # per-row true lengths
+    return logits[:, 0, :], {"layers": caches, "pos": pos}

@@ -1,0 +1,270 @@
+"""Constant-memory serving engine with continuous batching.
+
+Twin of ``repro/serve/engine.py`` (continuous path). The decode cache holds,
+per linear layer, only the fp32 ``dk × dv`` recurrent state plus its
+cumulative log decay: O(1) in context length. Prefill runs the chunked
+scan (the ``lasp2_chunk_fwd`` kernel on the card) and lands the final
+per-layer states in the cache; decode advances every slot by one
+recurrent step (the ``lasp2_decode_step`` kernel), updating the cache in
+place where the JAX engine donates it.
+
+Scheduling is continuous: a fixed grid of ``max_batch`` decode slots, with
+per-step admission of waiting requests (batched prefill, grouped by
+bucketed prompt length) and per-step eviction of finished ones
+(:mod:`repro_torch.serve.scheduler`). Each request samples from its own
+``(seed, stream)`` generator, so its tokens do not depend on what it was
+batched with.
+
+API::
+
+    engine = ServeEngine(cfg, params, max_len=2048, max_batch=8)
+    uid = engine.submit([1, 2, 3], max_new_tokens=32, temperature=0.8)
+    results = engine.run()          # {uid: np.ndarray of generated tokens}
+
+    outs = engine.generate(prompts, max_new_tokens=32)   # ragged welcome
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.device import resolve_device, synchronize
+from repro_torch.models import model as M
+from repro_torch.obs.metrics import Metrics, as_sink
+from repro_torch.serve.scheduler import (ContinuousScheduler, PrefillBatch,
+                                         Request)
+
+_MASK64 = (1 << 64) - 1
+
+
+def _mix_seed(seed: int, stream: int, step: int) -> int:
+    """A 63-bit generator seed from ``(seed, stream, step)`` (splitmix64
+    finaliser over the three words), so a request's draw at each step is
+    fixed by its own identity alone."""
+    x = 0
+    for word in (seed, stream, step):
+        x = (x ^ (word & _MASK64)) * 0x9E3779B97F4A7C15 & _MASK64
+        x ^= x >> 30
+        x = x * 0xBF58476D1CE4E5B9 & _MASK64
+        x ^= x >> 27
+        x = x * 0x94D049BB133111EB & _MASK64
+        x ^= x >> 31
+    return x >> 1
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 2048,
+                 max_batch: int = 8, bucket_lengths: Optional[bool] = None,
+                 sink=None, max_queue: Optional[int] = None,
+                 finished_timeout: Optional[float] = None, device=None):
+        """``device``: the CUDA card unless the caller names another one
+        (``"cpu"`` in the tests); ``params`` must already live there."""
+        self.device = resolve_device(device)
+        param_dev = params["embed"]["table"].device
+        if param_dev.type != self.device.type:
+            raise ValueError(f"params on {param_dev}, engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_len = max_len
+        self.max_batch = max_batch
+        self.sink = as_sink(sink)
+        self.metrics = Metrics()
+        self._submit_t: Dict[int, float] = {}
+        self._ttft: Dict[int, float] = {}
+        # Length bucketing left-pads prompts, which is only exact for pure
+        # recurrent stacks.
+        self.bucket_lengths = M.pad_safe(cfg) if bucket_lengths is None \
+            else bucket_lengths
+        self.sched = ContinuousScheduler(max_batch, max_len,
+                                         bucket_lengths=self.bucket_lengths,
+                                         metrics=self.metrics,
+                                         max_queue=max_queue,
+                                         finished_timeout=finished_timeout)
+        self._cache = M.init_cache(cfg, max_batch, max_len,
+                                   device=self.device)
+        self._tok = np.zeros((max_batch,), np.int32)
+        self._temps = np.zeros((max_batch,), np.float32)
+        self._seeds = np.zeros((max_batch, 2), np.int64)   # (seed, stream)
+        for kind, nbytes in self.cache_stats().items():
+            if not kind.endswith("_arrays"):
+                self.metrics.gauge(f"cache_bytes_{kind}", nbytes)
+
+    # -- request API --------------------------------------------------------
+
+    def submit(self, prompt, max_new_tokens: int, *,
+               temperature: float = 0.0, eos_id: Optional[int] = None,
+               seed: int = 0, stream: int = 0,
+               deadline_s: Optional[float] = None) -> int:
+        """Queue one request; returns its uid. Work happens in step().
+
+        ``(seed, stream)`` names the request's random stream. Raises
+        :class:`repro_torch.serve.scheduler.QueueFullError` when the
+        bounded admission queue is full."""
+        uid = self.sched.submit(prompt, max_new_tokens,
+                                temperature=temperature, eos_id=eos_id,
+                                seed=seed, stream=stream,
+                                deadline_s=deadline_s)
+        self._submit_t[uid] = time.perf_counter()
+        return uid
+
+    def step(self) -> List[Request]:
+        """One scheduler tick: admit + prefill waiting requests into free
+        slots, decode all active slots by one token. Returns the requests
+        that finished this tick."""
+        finished: List[Request] = list(self.sched.expire())
+        for batch in self.sched.admit():
+            finished += self._admit(batch)
+        if self.sched.active:
+            t0 = time.perf_counter()
+            logits, self._cache = M.decode_step(
+                self.params, torch.as_tensor(self._tok, device=self.device),
+                self._cache, self.cfg)
+            steps = [len(r.tokens) if r is not None else 0
+                     for r in self.sched.slots]
+            tok = self._sample(logits, self._temps, self._seeds, steps)
+            synchronize(self.device)
+            self.metrics.observe("decode_step_s", time.perf_counter() - t0)
+            active = [i for i, r in enumerate(self.sched.slots)
+                      if r is not None]
+            self.metrics.inc("decode_steps")
+            self.metrics.inc("decode_tokens", len(active))
+            self._tok[active] = tok[active]
+            finished += self.sched.record_step(tok)
+        n_active = len(self.sched.active)
+        self.metrics.gauge("active_slots", n_active)
+        self.metrics.gauge("cache_occupancy", n_active / self.max_batch)
+        for r in finished:
+            self._finish(r)
+        return finished
+
+    def run(self) -> Dict[int, np.ndarray]:
+        """Drive step() until all submitted requests finished; returns
+        {uid: generated tokens}."""
+        done: List[Request] = []
+        while self.sched.has_work():
+            done += self.step()
+        return {r.uid: np.asarray(r.tokens, np.int32) for r in done}
+
+    def _sample(self, logits, temps, seeds, steps) -> np.ndarray:
+        """Greedy rows: argmax (first index on ties). Sampled rows: the
+        Gumbel-max draw from the row's own ``(seed, stream, step)``
+        generator."""
+        tok = torch.argmax(logits, dim=-1)
+        for i in np.flatnonzero(temps > 0.0):
+            g = torch.Generator(device=logits.device).manual_seed(
+                _mix_seed(int(seeds[i, 0]), int(seeds[i, 1]), int(steps[i])))
+            u = torch.rand(logits.shape[-1], generator=g,
+                           device=logits.device).clamp_(min=1e-20)
+            gumbel = -torch.log(-torch.log(u))
+            tok[i] = torch.argmax(logits[i].float() / float(temps[i])
+                                  + gumbel)
+        return tok.to(torch.int32).cpu().numpy()
+
+    def _admit(self, batch: PrefillBatch) -> List[Request]:
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(batch.prompts, device=self.device)
+        pad_lens = batch.pad_lens if self.bucket_lengths else None
+        logits, small = M.prefill(self.params, tokens, self.cfg,
+                                  max_len=self.max_len, pad_lens=pad_lens)
+        slots = torch.as_tensor(batch.slots, dtype=torch.long,
+                                device=self.device)
+        for big, new in zip(self._cache["layers"], small["layers"]):
+            for name, t in new["mixer"].items():
+                big["mixer"][name][slots] = t.to(big["mixer"][name].dtype)
+        self._cache["pos"][slots] = small["pos"]
+        temps = np.array([r.temperature for r in batch.requests], np.float32)
+        seeds = np.array([[r.seed, r.stream] for r in batch.requests],
+                         np.int64)
+        tok = self._sample(logits, temps, seeds, [0] * len(batch.requests))
+        synchronize(self.device)
+        now = time.perf_counter()
+        self.metrics.observe("prefill_s", now - t0)
+        self.metrics.inc("prefill_batches")
+        self.metrics.inc("prefill_tokens", int(batch.prompts.size))
+        for j, r in enumerate(batch.requests):
+            self._tok[r.slot] = tok[j]
+            self._temps[r.slot] = r.temperature
+            self._seeds[r.slot] = seeds[j]
+            # TTFT: submit() → the first token, sampled here from the
+            # prefill logits.
+            self._ttft[r.uid] = now - self._submit_t.get(r.uid, t0)
+            self.metrics.observe("ttft_s", self._ttft[r.uid])
+        return self.sched.record_prefill(batch, tok)
+
+    def _finish(self, req: Request) -> None:
+        """Emit the per-request telemetry record (kind="request")."""
+        now = time.perf_counter()
+        rec: Dict[str, Any] = {
+            "kind": "request", "uid": req.uid,
+            "prompt_len": req.prompt_len, "new_tokens": len(req.tokens),
+            "finish_reason": req.finish_reason,
+            "wall_s": now - self._submit_t.pop(req.uid, now),
+        }
+        ttft = self._ttft.pop(req.uid, None)
+        if ttft is not None:
+            rec["ttft_s"] = ttft
+        self.sink.emit(rec)
+
+    # -- one-shot batch API -------------------------------------------------
+
+    def generate(self, prompts, max_new_tokens: int, *, temperature=0.0,
+                 seed: int = 0, img_emb=None, enc_frames=None,
+                 eos_id: Optional[int] = None):
+        """prompts: (B, S) int (or a ragged list of 1-D prompts).
+        Returns (B, max_new_tokens) int32; rows that stop early at EOS are
+        padded by repeating their final token."""
+        if img_emb is not None or enc_frames is not None:
+            raise NotImplementedError(
+                "static-batch generation for encoder / image models is "
+                "ported in a later slice")
+        if self.sched.has_work():
+            raise RuntimeError("generate() needs an idle engine; use "
+                               "submit()/run() to mix")
+        prompts = [np.asarray(p, np.int32).reshape(-1) for p in prompts]
+        uids = [self.submit(p, max_new_tokens, temperature=temperature,
+                            eos_id=eos_id, seed=seed, stream=i)
+                for i, p in enumerate(prompts)]
+        results = self.run()
+        out = np.zeros((len(uids), max_new_tokens), np.int32)
+        for i, uid in enumerate(uids):
+            t = results[uid]
+            out[i, :len(t)] = t
+            if len(t) < max_new_tokens:      # early EOS: repeat last token
+                out[i, len(t):] = t[-1]
+        return out
+
+    # -- introspection ------------------------------------------------------
+
+    def stats(self) -> Dict[str, Any]:
+        """Flat snapshot of the engine+scheduler telemetry: counters,
+        gauges, latency histogram summaries (``decode_step_s_p50`` …
+        ``ttft_s_p99``) and the steady-state decode throughput."""
+        out = self.metrics.snapshot()
+        dec = self.metrics.histograms.get("decode_step_s")
+        if dec is not None and dec.total:
+            out["decode_tokens_per_s"] = \
+                self.metrics.counters.get("decode_tokens", 0) / dec.total
+        return out
+
+    def cache_stats(self) -> Dict[str, int]:
+        """Decode-cache footprint by kind (bytes) plus the tensor count per
+        kind (``<kind>_arrays``). ``linear_state`` is per linear layer
+        ``B·H·(dk·dv + 1)·4`` bytes, constant in context length and in
+        ``max_len``."""
+        stats = {"linear_state": 0, "other": 0}
+        arrays = dict.fromkeys(stats, 0)
+        for layer in self._cache["layers"]:
+            for name, t in layer["mixer"].items():
+                kind = "linear_state" if name in ("m", "log_decay") \
+                    else "other"
+                stats[kind] += t.numel() * t.element_size()
+                arrays[kind] += 1
+        stats["total"] = sum(stats.values())
+        stats.update({f"{k}_arrays": n for k, n in arrays.items()})
+        return stats
