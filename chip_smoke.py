@@ -11,14 +11,24 @@ line:
    TF32 off for fp32 matrix products;
 2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes, with its time, the plain version's time and
-   the least time the card could take (the bound);
+   its path's shapes (K1 and K3 at the serving shapes, K2a and K2b, the
+   two passes of the chunk backward, at the training shape), with its
+   time, the plain version's time and the least time the card could take
+   (the bound);
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
-   request finishes, the launch counters show both kernels on the path,
+   request finishes, the launch counters show K1 and K3 on the path,
    and decode logits agree with a fresh prefill;
 5. profile: host wall against device kernel time of one decode step
-   (4 slots) and one prefill batch (4 x 512), with the top kernels.
+   (4 slots) and one prefill batch (4 x 512), with the top kernels;
+6. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
+   through ``train()`` (fp32 masters, bf16 compute, 8 x 2048 packed
+   tokens in 2 microbatches); every loss is finite, none is skipped, the
+   loss falls, and each step launches K1, K2a and K2b 16 x 2 times; then
+   the profile of one train step;
+7. grad check: a 2-layer fp32 copy of the config at full width, the same
+   params on the card (kernels) and on the host CPU (plain versions): the
+   loss and every parameter gradient agree.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -26,6 +36,8 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -48,6 +60,12 @@ CHUNK_ROWS = 64                    # rows per chunk of the K1 CUDA kernel
 # another order (chunks of 64 against blocks of 128), which moves the sums
 # by ~1e-6 relative; 1e-4 leaves two orders of margin.
 TOL_O = {"bfloat16": 4e-2, "float32": 3e-4}
+# Gradients: the reference's GRAD_TOL in fp32 (tests/test_kernels.py:15)
+# and its bf16 kernel tolerance for bf16 outputs. dlog_a (fp32 on both
+# sides) is a suffix sum of up to S terms of the size of the largest
+# entries, so it also gets S·2^-24·max|dlog_a| of absolute slack: the fp32
+# rounding of such a sum taken in another order.
+TOL_GRAD = {"bfloat16": 4e-2, "float32": 1e-3}
 TOL_STATE = 1e-4
 TOL_LD = 1e-5
 # Decode logits against a fresh prefill, full width in bf16: bf16 keeps an
@@ -273,6 +291,138 @@ def phase_kernels() -> list:
     ]
 
 
+def _bwd_bounds(bh, s, dk, dv, dtype):
+    """Least times of K2a's and K2b's work, as ``_chunk_bound``: inputs
+    read once and outputs written once at the HBM rate, against the
+    products of the 64-row chunked algorithm (causal halves of the C x C
+    score products, full products with the carried state) at the peak
+    rate for the input type. Returns ((ms, by), (ms, by))."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+    c, nch = CHUNK_ROWS, -(-s // CHUNK_ROWS)
+    rows = bh * s
+    # K2a reads k, v, dO, log a; writes dq. Products: dO V^T, dsc K,
+    # dO M^T, the carried M.
+    a_bytes = el * rows * (2 * dk + 2 * dv) + 4 * rows
+    a_flops = bh * nch * (c * c * dv + c * c * dk + 4 * c * dk * dv)
+    # K2b reads q, k, v, o, dO, log a, dM; writes dk, dv, dlog a. Products:
+    # Q K^T, dO V^T, dsc^T Q, sc^T dO, V N^T, K N, the carried N, and r.
+    b_bytes = el * rows * (3 * dk + 4 * dv) + 8 * rows + 4 * bh * dk * dv
+    b_flops = bh * nch * (2 * c * c * dk + 2 * c * c * dv + 6 * c * dk * dv
+                          + 2 * c * (dk + dv))
+    out = []
+    for nbytes, flops in ((a_bytes, a_flops), (b_bytes, b_flops)):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+        out.append((max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full"):
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind)
+    o, _, _ = lasp2_chunk_fwd(q, k, v, la)
+    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
+    if cot == "state":            # only the end-of-chunk state is pulled on
+        do.zero_()
+    dst = torch.randn(bh, d, d, generator=gen, device="cuda")
+    return q, k, v, la, o, do, dst
+
+
+def phase_bwd_kernels(kernels: list) -> list:
+    """K2a and K2b (``lasp2_chunk_bwd``) against the plain passes at the
+    training path's shape, BH 64 (4 rows x 16 heads) x S 2048 x 128, and
+    at S 37; K1's time at that shape joins its entry."""
+    from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
+                                                 lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dkv_plain,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_bwd_dq_plain,
+                                                 lasp2_chunk_bwd_plain,
+                                                 lasp2_chunk_fwd,
+                                                 lasp2_chunk_fwd_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bh, d, s_train = 64, 128, 2048
+    failures = []
+    err_a = err_b = 0.0
+    cases = [(dt, s, lk, cot) for dt in (torch.bfloat16, torch.float32)
+             for s, lk, cot in ((s_train, "zero", "full"),
+                                (s_train, "reset", "full"),
+                                (s_train, "decay", "full"),
+                                (s_train, "reset", "state"),
+                                (37, "reset", "full"))]
+    for dtype, s, la_kind, cot in cases:
+        ins = _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot)
+        got = lasp2_chunk_bwd(*ins)
+        torch.cuda.synchronize()
+        want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
+        name = str(dtype).split(".")[-1]
+        errs, ok = {}, True
+        for key, g, w in zip(("dq", "dk", "dv"), got, want):
+            errs[key], good = max_err_within(g, w, TOL_GRAD[name])
+            ok = ok and good and g.dtype == dtype
+        slack = s * 2.0 ** -24 * float(want[3].abs().max())
+        diff = (got[3] - want[3]).abs()
+        errs["dla"] = float(diff.max())
+        ok = ok and bool((diff <= 1e-3 + slack + 1e-3 * want[3].abs())
+                         .all()) and bool(torch.isfinite(got[3]).all())
+        if cot == "state":
+            ok = ok and float(got[0].abs().max()) == 0.0
+        err_a = max(err_a, errs["dq"])
+        err_b = max(err_b, errs["dk"], errs["dv"], errs["dla"])
+        log("kernels", kernel="lasp2_chunk_bwd", dtype=name, S=s,
+            log_a=la_kind, cotangent=cot,
+            **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()},
+            tol=TOL_GRAD[name], dla_slack=f"{slack:.2e}", ok=ok)
+        if not ok:
+            failures.append(f"lasp2_chunk_bwd {name} S={s} {la_kind} {cot}")
+        del ins, got, want
+
+    # Times at the training path's shape, bf16, with resets; two input
+    # sets of 5 x 33.5 MB each rotate above the 50 MB L2.
+    sets = [_bwd_inputs(gen, bh, s_train, d, torch.bfloat16, "reset")
+            for _ in range(2)]
+    k1_ms = time_ms(lambda q, k, v, la, *_: lasp2_chunk_fwd(q, k, v, la),
+                    sets, 20)
+    k1_plain = time_ms(
+        lambda q, k, v, la, *_: lasp2_chunk_fwd_plain(q, k, v, la), sets, 4)
+    k1_bound, k1_by = _chunk_bound(bh, s_train, d, d, torch.bfloat16)
+    a_ms = time_ms(lambda q, k, v, la, o, do, dst:
+                   lasp2_chunk_bwd_dq(k, v, la, do), sets, 10)
+    a_plain = time_ms(lambda q, k, v, la, o, do, dst:
+                      lasp2_chunk_bwd_dq_plain(k, v, la, do), sets, 4)
+    b_ms = time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 10)
+    b_plain = time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4)
+    (a_bound, a_by), (b_bound, b_by) = _bwd_bounds(bh, s_train, d, d,
+                                                   torch.bfloat16)
+    shape = f"BH{bh}xS{s_train}x{d} bf16"
+    for kname, ms, plain, bound, by in (
+            ("lasp2_chunk_fwd", k1_ms, k1_plain, k1_bound, k1_by),
+            ("lasp2_chunk_bwd_dq", a_ms, a_plain, a_bound, a_by),
+            ("lasp2_chunk_bwd_dkv", b_ms, b_plain, b_bound, b_by)):
+        log("kernels", kernel=kname, shape=shape, ms=f"{ms:.4f}",
+            plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+    del sets
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+    kernels[0].update(train_shape=shape, train_shape_ms=k1_ms,
+                      train_shape_plain_ms=k1_plain,
+                      train_shape_bound_ms=k1_bound)
+    src = "src/repro_torch/kernels/csrc/lasp2_chunk_bwd.cu"
+    return [
+        {"name": "lasp2_chunk_bwd_dq", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/lasp2_chunk.py:271",
+         "launches": None, "max_abs_err": err_a, "ms": a_ms,
+         "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by,
+         "library_ms": None},
+        {"name": "lasp2_chunk_bwd_dkv", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/lasp2_chunk.py:271",
+         "launches": None, "max_abs_err": err_b, "ms": b_ms,
+         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
+         "library_ms": None},
+    ]
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: serve full-width linear-llama3-1b.
 # ---------------------------------------------------------------------------
@@ -331,6 +481,7 @@ def phase_serve(kernels: list):
     check(k3 == cfg.n_layers * steps and k3 > 0,
           f"K3 launches {k3} != {cfg.n_layers} x {steps} decode steps")
     kernels[0]["launches"], kernels[1]["launches"] = k1, k3
+    kernels[0]["launches_by_path"] = {"serve": k1}
     total_new = sum(len(t) for t in results.values())
     cache = engine.cache_stats()
     log("serve", requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
@@ -426,6 +577,165 @@ def phase_profile(cfg, params) -> None:
             top=repr(top))
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: train full-width, full-depth linear-llama3-1b.
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 2048, 8, 2
+
+
+def phase_train(kernels: list) -> None:
+    """10 steps through ``train()``: fp32 masters drawn on the card from
+    seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token row,
+    so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
+    kernels), no remat, no checkpoints (16 GB of state a save)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_fwd)
+    from repro_torch.train.loop import train
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config("linear-llama3-1b")
+    run = RunConfig(num_microbatches=TRAIN_MICRO, remat="none",
+                    learning_rate=3e-4, warmup_steps=2,
+                    total_steps=TRAIN_STEPS, seed=0)
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    # the loop logs every step after the step's work: the counters read
+    # there give each step's launches
+    marks = []
+
+    def log_fn(msg):
+        if msg.startswith("step"):
+            marks.append([c.launches for c in counters])
+
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state, hist = train(cfg, run, data, log_every=1, log_fn=log_fn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2a, k2b = (c.launches for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = [[b - a for a, b in zip(prev, cur)]
+                for prev, cur in zip([[0, 0, 0]] + marks, marks)]
+
+    losses = [h["loss"] for h in hist]
+    want = cfg.n_layers * TRAIN_MICRO
+    check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(not any(h["skipped"] for h in hist), "a step was skipped")
+    check(np.mean(losses[-3:]) < losses[0],
+          f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
+    check(len(per_step) == TRAIN_STEPS
+          and all(n == [want] * 3 for n in per_step),
+          f"launches of K1, K2a, K2b per step {per_step}; want "
+          f"{cfg.n_layers} x {TRAIN_MICRO} = {want} of each")
+    kernels[0]["launches_by_path"]["train"] = k1
+    kernels[0]["launches"] += k1
+    kernels[2]["launches"], kernels[3]["launches"] = k2a, k2b
+    dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
+    p50 = float(np.median(dts))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train", arch=cfg.name, layers=cfg.n_layers, steps=TRAIN_STEPS,
+        batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", microbatches=TRAIN_MICRO,
+        remat=run.remat, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
+        loss_first=f"{losses[0]:.4f}",
+        loss_last3=f"{np.mean(losses[-3:]):.4f}",
+        losses=repr([round(x, 4) for x in losses]),
+        grad_norm_first=f"{hist[0]['grad_norm']:.3f}",
+        launches_per_step_k1_k2a_k2b=repr(per_step[0]),
+        launches_k1_k2a_k2b=repr([k1, k2a, k2b]), wall_s=f"{wall:.2f}",
+        step0_ms=f"{hist[0]['dt'] * 1e3:.1f}", step_p50_ms=f"{p50 * 1e3:.1f}",
+        tokens_per_s=f"{tokens / p50:.0f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+
+    step_fn = make_train_step(cfg, run)
+    batch = data.microbatched(TRAIN_STEPS, TRAIN_MICRO)
+
+    def one_step():
+        nonlocal state
+        state, _ = step_fn(state, batch)
+
+    wall_ms, device, n_kernels, top = _profile(one_step, 1)
+    idle = f"{1 - device / wall_ms:.3f}" if device else "not measured"
+    log("profile", what=repr(f"train step {TRAIN_BATCH}x{TRAIN_SEQ} "
+                             f"({TRAIN_MICRO} microbatches)"),
+        wall_ms=f"{wall_ms:.3f}",
+        device_kernel_ms=f"{device:.3f}" if device else "not measured",
+        device_idle_share=idle, kernels_per_call=f"{n_kernels:.0f}",
+        top=repr(top))
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: full-width gradient check, kernel path against plain path.
+# ---------------------------------------------------------------------------
+
+TOL_CHECK = 1e-3
+
+
+def phase_grad_check() -> None:
+    """A 2-layer fp32 copy of ``CONFIG`` (d_model 2048, 16 heads of 128,
+    vocab 128256): the same params on the card, where every linear layer
+    runs K1, K2a and K2b, and on the host CPU, where the wrappers take
+    their plain versions; one row of 256 tokens with a reset mid-row. TF32
+    is off (phase 1). The loss and every gradient agree within 1e-3
+    relative-plus-absolute."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_fwd)
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config("linear-llama3-1b"), n_layers=2,
+                              dtype="float32")
+    host = M.init_params(torch.Generator().manual_seed(1), cfg,
+                         device="cpu", param_dtype="float32")
+    card = tree_map(lambda t: t.to("cuda"), host)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, size=(1, 257))
+    resets = np.zeros((1, 256), bool)
+    resets[0, [0, 100]] = True
+
+    def loss_and_grads(params):
+        leaves = [p.requires_grad_(True) for _, p in
+                  leaves_with_paths(params)]
+        loss = M.lm_loss(M.forward(params, torch.as_tensor(toks[:, :-1]),
+                                   cfg, resets=torch.as_tensor(resets)),
+                         torch.as_tensor(toks[:, 1:]))
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    before = [c.launches for c in counters]
+    loss_c, grads_c = loss_and_grads(card)
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    check(launched == [cfg.n_layers] * 3,
+          f"card path launched K1, K2a, K2b {launched} times")
+    loss_h, grads_h = loss_and_grads(host)
+    e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
+    worst, worst_at = 0.0, ""
+    names = ["/".join(p) for p, _ in leaves_with_paths(host)]
+    bad = []
+    for name, gc_, gh in zip(names, grads_c, grads_h):
+        err, good = max_err_within(gc_.cpu(), gh, TOL_CHECK)
+        if err > worst:
+            worst, worst_at = err, name
+        if not good:
+            bad.append(name)
+    log("gradcheck", arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
+        tokens="1x256", resets="0,100", loss_card=f"{float(loss_c):.6f}",
+        loss_host=f"{float(loss_h):.6f}", err_loss=f"{e_loss:.3e}",
+        leaves=len(names), max_abs_grad_err=f"{worst:.3e}",
+        worst_leaf=worst_at, tol=TOL_CHECK, ok=ok and not bad)
+    check(ok and not bad, f"gradients differ: loss ok={ok}, leaves {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -434,8 +744,16 @@ def main() -> int:
     smi = phase_facts()
     phase_build()
     kernels = phase_kernels()
+    kernels += phase_bwd_kernels(kernels)
     cfg, params = phase_serve(kernels)
     phase_profile(cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train(kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_grad_check()
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Config dataclasses for the port: model architecture and its layer pattern.
 
-Own copy of the parts of ``repro.configs.base`` the serving slice needs
-(``LinearAttnConfig``, ``LayerSpec``, ``ModelConfig``); the port imports
-nothing of ``repro``. Field names, defaults and derived properties match
-the reference so configs compare one to one in the tests.
+Own copy of the parts of ``repro.configs.base`` the serving and one-device
+training slices need (``LinearAttnConfig``, ``LayerSpec``, ``ModelConfig``,
+``RunConfig``); the port imports nothing of ``repro``. Field names,
+defaults and derived properties match the reference so configs compare one
+to one in the tests.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ class ModelConfig:
 
     linear_attn: LinearAttnConfig = field(default_factory=LinearAttnConfig)
 
-    dtype: str = "bfloat16"
+    dtype: str = "bfloat16"         # activations (compute)
+    param_dtype: str = "float32"    # training master weights
     mlp_act: str = "swiglu"
 
     # padded so the vocab projection tiles evenly
@@ -141,3 +143,25 @@ class ModelConfig:
                     f"mlp {spec.mlp!r} is ported in a later slice")
             n += per * self.n_groups
         return n
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Per-run knobs of the one-device train step (the fields of the
+    reference's ``RunConfig`` that step reads; its SP, communication,
+    guard and chaos fields come with the slices that use them)."""
+
+    num_microbatches: int = 1        # gradient accumulation steps
+    remat: str = "full"              # full | none
+    learning_rate: float = 3e-4
+    min_lr: float = 1e-6             # paper §4.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1        # paper §4.1
+    grad_clip: float = 1.0           # paper §4.1
+    adam_b1: float = 0.9             # paper §4.1
+    adam_b2: float = 0.95            # paper §4.1
+    seed: int = 0
+    # Verify per-array SHA-256 checksums on restore; on a corrupt latest
+    # checkpoint the loop falls back to the newest valid one.
+    ckpt_verify: bool = True

@@ -151,6 +151,41 @@ def _block_terms(q, k, v, log_a):
     return o_intra, m_blk, torch.exp(cb), a_blk
 
 
+def block_summary(k, v, log_a):
+    """State contribution and total log decay of a block (no output).
+
+    Cheaper than ``_block_terms``: skips the intra-block score matrix.
+    Returns ``(m_blk (..., dk, dv) fp32, a_blk (...,) fp32)``.
+    """
+    kf, vf = k.float(), v.float()
+    cb = torch.cumsum(log_a.float(), dim=-1)
+    a_blk = cb[..., -1]
+    w = torch.exp(a_blk[..., None] - cb)               # <= 1
+    return (kf * w[..., None]).transpose(-1, -2) @ vf, a_blk
+
+
+def chunk_summaries(k, v, log_a=None, *, block_size=128):
+    """``(M_local, A_local)`` of a local sequence without its outputs: the
+    final fp32 state and total log decay, carried block by block."""
+    *lead, s, dk = k.shape
+    dv = v.shape[-1]
+    if log_a is None:
+        log_a = _zeros_log_a(k)
+    if s % block_size:
+        raise ValueError(f"S={s} not divisible by block_size={block_size}")
+    nb = s // block_size
+    m_blk, a_blk = block_summary(
+        k.reshape(*lead, nb, block_size, dk),
+        v.reshape(*lead, nb, block_size, dv),
+        log_a.float().reshape(*lead, nb, block_size))
+    m = torch.zeros((*lead, dk, dv), dtype=torch.float32, device=k.device)
+    ld = torch.zeros(tuple(lead), dtype=torch.float32, device=k.device)
+    for i in range(nb):
+        m = torch.exp(a_blk[..., i])[..., None, None] * m + m_blk[..., i, :, :]
+        ld = ld + a_blk[..., i]
+    return m, ld
+
+
 def chunk_scan(q, k, v, log_a=None, *, initial_state=None, block_size=128):
     """Chunked causal linear attention over a local sequence (plain path).
 

@@ -19,10 +19,12 @@ from repro_torch.kernels import lasp2_decode as _decode
 
 
 def linear_attention_op(q, k, v, log_a=None, *, block_size: int = 128):
-    """Local chunked decayed causal linear attention.
+    """Local chunked decayed causal linear attention (differentiable).
 
     q, k: (..., S, dk); v: (..., S, dv); log_a: (..., S) or None.
-    Returns (o, state (..., dk, dv) fp32, log_decay (...,) fp32).
+    Returns (o, state (..., dk, dv) fp32, log_decay (...,) fp32). Autograd
+    runs the two backward passes behind ``LASP2Chunk``; the padding path
+    differentiates through ``F.pad`` and the slice.
     """
     *lead, s, dk = q.shape
     dv = v.shape[-1]
@@ -44,10 +46,10 @@ def linear_attention_op(q, k, v, log_a=None, *, block_size: int = 128):
                                         block_size=block_size)
         return o[..., :s, :], st, ld
     bh = math.prod(lead)
-    o, st, ld = _chunk.lasp2_chunk_fwd(
+    o, st, ld = _chunk.LASP2Chunk.apply(
         q.reshape(bh, s, dk).contiguous(), k.reshape(bh, s, dk).contiguous(),
         v.reshape(bh, s, dv).contiguous(),
-        log_a.float().reshape(bh, s).contiguous(), block_size=bs)
+        log_a.float().reshape(bh, s).contiguous(), bs)
     return (o.reshape(*lead, s, dv), st.reshape(*lead, dk, dv),
             ld.reshape(lead))
 

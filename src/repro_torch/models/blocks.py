@@ -48,9 +48,10 @@ def _heads_merge(x):
 
 
 def _qkv(p, x, cfg: ModelConfig, positions=None):
-    q = _heads_split(x @ p["wq"], cfg.n_heads, cfg.head_dim)
-    k = _heads_split(x @ p["wk"], cfg.n_kv_heads, cfg.head_dim)
-    v = _heads_split(x @ p["wv"], cfg.n_kv_heads, cfg.head_dim)
+    dt = x.dtype
+    q = _heads_split(x @ p["wq"].to(dt), cfg.n_heads, cfg.head_dim)
+    k = _heads_split(x @ p["wk"].to(dt), cfg.n_kv_heads, cfg.head_dim)
+    v = _heads_split(x @ p["wv"].to(dt), cfg.n_kv_heads, cfg.head_dim)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -113,7 +114,7 @@ def linear_apply(params, x, ctx: Ctx):
     q, k, v, log_a = _linear_qkv(params, x, ctx)
     o, _, _ = ops.linear_attention_op(
         q, k, v, log_a, block_size=ctx.cfg.linear_attn.block_size)
-    return _heads_merge(o.to(x.dtype)) @ params["wo"]
+    return _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
 
 
 def linear_cache(cfg: ModelConfig, batch, device):
@@ -134,7 +135,7 @@ def linear_decode(params, x, cache, ctx: Ctx):
         log_a[..., 0] if log_a is not None else None,
         cache["m"], cache["log_decay"])
     o = _heads_merge(o[:, :, None, :].to(x.dtype))
-    return o @ params["wo"], {"m": m, "log_decay": ld}
+    return o @ params["wo"].to(x.dtype), {"m": m, "log_decay": ld}
 
 
 def _linear_prefill(params, x, ctx: Ctx):
@@ -143,7 +144,7 @@ def _linear_prefill(params, x, ctx: Ctx):
     b, h = q.shape[0], q.shape[1]
     o, m, _ = ops.linear_attention_op(q, k, v, log_a,
                                       block_size=cfg.linear_attn.block_size)
-    y = _heads_merge(o.to(x.dtype)) @ params["wo"]
+    y = _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
     # The cache's log decay is the sum of every log a, resets included.
     ld = (log_a.float().sum(-1) if log_a is not None
           else torch.zeros((b, h), dtype=torch.float32, device=x.device))

@@ -2,9 +2,9 @@
 
 Twin of ``repro/models/layers.py``. Leaf names match the reference (wq/wk/
 wv/wo, w1/w2/w3, table/lm_head, scale) so ``models/weights.py`` maps a JAX
-tree one to one. Matrices are stored in the activation dtype (the
-reference casts its fp32 params to that dtype at every use, which gives
-the same values); norm scales stay fp32.
+tree one to one. Each matrix is cast to the activation dtype at its use,
+as in the reference: a no-op on the bf16 serving params, the bf16 compute
+copy of the fp32 masters in training. Norm scales stay fp32.
 """
 
 from __future__ import annotations
@@ -70,12 +70,13 @@ def mlp_init(generator, d, d_ff, dtype, device, act="swiglu"):
 
 
 def mlp_apply(params, x, act="swiglu"):
-    h = x @ params["w1"]
+    dt = x.dtype
+    h = x @ params["w1"].to(dt)
     if act == "swiglu":
-        h = F.silu(h) * (x @ params["w3"])
+        h = F.silu(h) * (x @ params["w3"].to(dt))
     else:
         h = F.gelu(h)
-    return h @ params["w2"]
+    return h @ params["w2"].to(dt)
 
 
 # --- embeddings ------------------------------------------------------------

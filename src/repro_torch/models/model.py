@@ -1,9 +1,10 @@
-"""Model builder: init / forward / prefill / decode over the layer stack.
+"""Model builder: init / forward / loss / prefill / decode over the layer
+stack.
 
-Twin of ``repro/models/model.py`` for the serving slice. The reference
-stacks each pattern position's params over groups and runs the stack with
-``lax.scan``; here the stack is a Python list of layers, layer
-``g·len(pattern) + p`` built from ``pattern[p]``, walked in a loop.
+Twin of ``repro/models/model.py`` for the serving and training slices.
+The reference stacks each pattern position's params over groups and runs
+the stack with ``lax.scan``; here the stack is a Python list of layers,
+layer ``g·len(pattern) + p`` built from ``pattern[p]``, walked in a loop.
 
 Params are a plain dict::
 
@@ -18,6 +19,7 @@ The decode cache is ``{"layers": [{"mixer": {"m", "log_decay"}}, ...],
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device, torch_dtype
@@ -28,19 +30,21 @@ from repro_torch.models.layers import (embed_init, embed_lookup, logits_out,
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
-                device=None):
+                device=None, param_dtype=None):
     """Random params with the reference's shapes and scales.
 
     ``generator`` must live on ``device`` (the CUDA card unless the caller
     names another device, e.g. ``torch.Generator().manual_seed(0)`` with
-    ``device="cpu"``). Matrices and embeddings are stored in ``cfg.dtype``,
-    norm scales in fp32.
+    ``device="cpu"``). Matrices and embeddings are stored in
+    ``param_dtype`` (a config dtype name): by default ``cfg.dtype`` (bf16
+    serving params); training passes ``cfg.param_dtype`` for fp32
+    masters. Norm scales are fp32 either way.
     """
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}: create the generator on the device")
-    dtype = torch_dtype(cfg.dtype)
+    dtype = torch_dtype(param_dtype or cfg.dtype)
     return {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype,
                             device, tie=cfg.tie_embeddings),
@@ -54,18 +58,54 @@ def _device(params) -> torch.device:
     return params["embed"]["table"].device
 
 
-def forward(params, tokens, cfg: ModelConfig):
-    """Full-sequence forward → logits (B, S, padded_vocab). tokens: (B, S)
-    int."""
+def forward(params, tokens, cfg: ModelConfig, *, resets=None,
+            remat: str = "none"):
+    """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``.
+
+    tokens: (B, S) int; ``resets`` (B, S) bool marks document starts of
+    packed rows (the linear state is zeroed there). ``remat="full"``
+    recomputes each layer in the backward pass (``torch.utils.checkpoint``)
+    instead of keeping its activations; ``"none"`` keeps them.
+    """
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     dtype = torch_dtype(cfg.dtype)
-    tokens = tokens.to(_device(params))
+    device = _device(params)
+    tokens = tokens.to(device)
     _, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, dtype)
-    ctx = Ctx(cfg=cfg, positions=torch.arange(s, device=x.device))
+    ctx = Ctx(cfg=cfg, positions=torch.arange(s, device=device),
+              resets=None if resets is None else resets.to(device))
     for p, spec in zip(params["layers"], cfg.layer_specs()):
-        x = blocks.layer_apply(p, x, ctx, spec)
+        if remat == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                blocks.layer_apply, p, x, ctx, spec, use_reentrant=False)
+        else:
+            x = blocks.layer_apply(p, x, ctx, spec)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_out(params["embed"], x, cfg.vocab_size)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def lm_loss_sum(logits, labels):
+    """Unnormalized masked cross-entropy over positions with label >= 0:
+    ``(ce_sum, n_valid, lse * mask)``, in fp32."""
+    lf = logits.float()
+    labels = labels.to(lf.device).long()
+    mask = labels >= 0
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    ce_sum = torch.sum((lse - gold) * mask)
+    return ce_sum, mask.sum(), lse * mask
+
+
+def lm_loss(logits, labels):
+    """Mean cross-entropy over positions with label >= 0."""
+    ce_sum, n_valid, _ = lm_loss_sum(logits, labels)
+    return ce_sum / n_valid.clamp(min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -12,10 +12,17 @@ import torch
 
 from repro_torch.configs import get_smoke
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+from repro_torch.configs.base import RunConfig
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
+                                             lasp2_chunk_bwd_dkv,
+                                             lasp2_chunk_bwd_dq,
+                                             lasp2_chunk_fwd)
 from repro_torch.kernels.lasp2_decode import lasp2_decode_step
 from repro_torch.models import model as TM
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.train.loop import train
+from repro_torch.train.step import init_state
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -47,7 +54,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_port_imports_without_loading_jax():
     code = ("import sys; sys.path.insert(0, 'src'); "
             "import repro_torch.serve.engine, repro_torch.launch.serve, "
-            "repro_torch.models.weights; "
+            "repro_torch.models.weights, repro_torch.launch.train, "
+            "repro_torch.train.loop, repro_torch.checkpoint.manager; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -109,3 +117,52 @@ def test_failed_build_raises_with_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="fake compiler refused"):
         _build.build_kernels.__wrapped__()
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_train_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke("linear-llama3-1b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(torch.Generator().manual_seed(0), cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, RunConfig(total_steps=1), SyntheticLM(cfg.vocab_size, 8, 2),
+              log_fn=lambda *_: None)
+    from repro_torch.launch import train as cli
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--smoke", "--steps", "1"])
+
+
+def test_backward_on_cpu_tensors_takes_plain_versions():
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, 16))
+                                .astype(np.float32)).requires_grad_(True)
+               for _ in range(3))
+    la = torch.zeros((1, 2, 40), requires_grad=True)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    saved = [c.launches for c in counters]
+    try:
+        for c in counters:
+            c.launches = 0
+        o, st, _ = ops.linear_attention_op(q, k, v, la)
+        grads = torch.autograd.grad(o.sum() + st.sum(), (q, k, v, la))
+        assert all(torch.isfinite(g).all() for g in grads)
+        assert [c.launches for c in counters] == [0, 0, 0]
+    finally:
+        for c, n in zip(counters, saved):
+            c.launches = n
+
+
+def test_backward_wrappers_raise_on_other_devices():
+    x = torch.zeros((2, 8, 16), device="meta")
+    la = torch.zeros((2, 8), device="meta")
+    st = torch.zeros((2, 16, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lasp2_chunk_bwd(x, x, x, la, x, x, st)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lasp2_chunk_bwd_dkv(x, x, x, la, x, x, st)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        lasp2_chunk_bwd_dq(x, x, la, x)
+    with pytest.raises(ValueError, match="several devices"):
+        lasp2_chunk_bwd(x, x, x, la, x, x, torch.zeros((2, 16, 16)))
+    with pytest.raises(ValueError, match="want o, dO"):
+        lasp2_chunk_bwd(x, x, x, la, x[:, :4], x, st)

@@ -5,14 +5,19 @@ sweep of shapes. Needs a CUDA card: marked ``gpu`` and skipped elsewhere.
 
 Tolerances: o at the reference's kernel tolerances (3e-4 fp32, 4e-2 bf16,
 ``tests/test_kernels.py:14``); states in fp32 at 1e-4 (both sides sum in
-fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5.
+fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
+gradients at the reference's 1e-3 (4e-2 for bf16 outputs).
 """
 
 import pytest
 import torch
 
 from repro_torch.core.linear_attention import RESET_LOG_A, pick_block
-from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_fwd,
+from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
+                                             lasp2_chunk_bwd_dkv,
+                                             lasp2_chunk_bwd_dq,
+                                             lasp2_chunk_bwd_plain,
+                                             lasp2_chunk_fwd,
                                              lasp2_chunk_fwd_plain)
 from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
                                               lasp2_decode_step_plain)
@@ -90,3 +95,73 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(TypeError, match="float32"):
         lasp2_chunk_fwd(q[..., :16], q[..., :16],
                         torch.zeros(2, 8, 64, device="cuda"), la.half())
+
+
+def _bwd_inputs(gen, bh, s, dk, dv, dtype):
+    q = torch.randn(bh, s, dk, generator=gen, device="cuda") * 0.3
+    k = torch.randn(bh, s, dk, generator=gen, device="cuda") * 0.3
+    v = torch.randn(bh, s, dv, generator=gen, device="cuda") * 0.5
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    la = -torch.rand(bh, s, generator=gen, device="cuda") * 0.05
+    la[:, s // 3] = RESET_LOG_A
+    la[:, (2 * s) // 3] = RESET_LOG_A
+    o, _, _ = lasp2_chunk_fwd_plain(q, k, v, la, block_size=pick_block(s, 128))
+    do = torch.randn(bh, s, dv, generator=gen, device="cuda").to(dtype)
+    dst = torch.randn(bh, dk, dv, generator=gen, device="cuda")
+    return q, k, v, la, o, do, dst
+
+
+@pytest.mark.parametrize("s", [1, 37, 64, 200, 512])
+@pytest.mark.parametrize("dk", [16, 32, 64, 128])
+@pytest.mark.parametrize("dv", [64, 128, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
+    """K2a and K2b against the plain passes, with resets and decays.
+    Gradients within 1e-3 in fp32 (the reference's GRAD_TOL) and 4e-2 in
+    bf16. dlog_a is fp32 on both sides, from the same inputs: each entry
+    is a suffix sum of up to S terms of the size of the largest entries,
+    so besides 1e-3 it gets the fp32 rounding of such a sum taken in
+    another order, S·2^-24·max|dlog_a|, as absolute slack."""
+    bh = 3
+    ins = _bwd_inputs(gen, bh, s, dk, dv, dtype)
+    got = lasp2_chunk_bwd(*ins)
+    torch.cuda.synchronize()
+    want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype, name
+        _close(g, w, tol)
+    assert got[3].dtype == torch.float32
+    slack = s * 2.0 ** -24 * float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3,
+                               atol=1e-3 + slack)
+
+
+def test_chunk_autograd_launches_both_passes(gen):
+    """Autograd through ops.linear_attention_op on the card launches K1
+    once and K2a, K2b once each, and pulling only on the state gives
+    dq == 0 exactly."""
+    from repro_torch.kernels import ops
+    q, k, v, la, _, _, dst = _bwd_inputs(gen, 4, 256, 64, 64, torch.float32)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v, la)]
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    before = [c.launches for c in counters]
+    _, st, _ = ops.linear_attention_op(xs[0][None], xs[1][None],
+                                       xs[2][None], xs[3][None])
+    grads = torch.autograd.grad((st[0] * dst).sum(), xs)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    assert float(grads[0].abs().max()) == 0.0
+
+
+def test_bwd_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = torch.zeros(2, 8, 24, device="cuda")           # dk % 16 != 0
+    v = torch.zeros(2, 8, 64, device="cuda")
+    la = torch.zeros(2, 8, device="cuda")
+    dst = torch.zeros(2, 24, 64, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        lasp2_chunk_bwd(q, q, v, la, v, v, dst)
+    with pytest.raises(TypeError, match="float32"):
+        lasp2_chunk_bwd(q[..., :16].contiguous(), q[..., :16].contiguous(),
+                        v, la, v, v, dst[:, :16].contiguous().half())
+    with pytest.raises(ValueError, match="contiguous"):
+        lasp2_chunk_bwd_dq(q[..., :16], v, la, v)
