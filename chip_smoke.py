@@ -12,23 +12,36 @@ line:
 2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes (K1 and K3 at the serving shapes, K2a and K2b, the
-   two passes of the chunk backward, at the training shape), with its
-   time, the plain version's time and the least time the card could take
-   (the bound);
+   two passes of the chunk backward, at the training shape; K4, K5a and
+   K5b, flash attention's forward and two backward passes, at the hybrid's
+   training shape, a prefill shape, a trimmed band, GQA 4:1 and an
+   explicit offset), with its time, the plain version's time, the least
+   time the card could take (the bound) and, for flash attention, the time
+   of ``F.scaled_dot_product_attention`` on the same causal shape;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
    request finishes, the launch counters show K1 and K3 on the path,
    and decode logits agree with a fresh prefill;
 5. profile: host wall against device kernel time of one decode step
-   (4 slots) and one prefill batch (4 x 512), with the top kernels;
-6. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
+   (4 slots) and one prefill batch (4 x 512), with the top kernels (and
+   for the hybrid after phase 6: a decode step and one exact-length
+   prefill row of 300);
+6. hybrid serve: the same with the LASP-2H ``HYBRID`` (12 linear layers,
+   4 softmax layers with a 2048-token window): exact-length prefill
+   through K1 and K4, decode through K3 and the ring cache; the cache's
+   ``linear_state`` is constant in ``max_len`` and ``kv_ring`` matches its
+   formula;
+7. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
    through ``train()`` (fp32 masters, bf16 compute, 8 x 2048 packed
    tokens in 2 microbatches); every loss is finite, none is skipped, the
    loss falls, and each step launches K1, K2a and K2b 16 x 2 times; then
    the profile of one train step;
-7. grad check: a 2-layer fp32 copy of the config at full width, the same
+8. hybrid train: the same with ``HYBRID``; each step launches K1, K2a and
+   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times;
+9. grad check: a 2-layer fp32 copy of the config at full width, the same
    params on the card (kernels) and on the host CPU (plain versions): the
-   loss and every parameter gradient agree.
+   loss and every parameter gradient agree; then a 4-layer copy of
+   ``HYBRID`` (3 linear + 1 softmax layer) the same way.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
@@ -93,6 +106,25 @@ def max_err_within(got, want, tol):
     ok = bool((diff <= tol + tol * want.abs()).all()) \
         and bool(torch.isfinite(got).all())
     return float(diff.max()), ok
+
+
+def max_err_bf16(got, want):
+    """(max |got - want|, whether |got - want| <= 2^-7·|want| +
+    2^-8·rms(want)) for bf16 results that both sides accumulate in fp32
+    and round once: the two roundings of nearly equal fp32 values differ
+    by at most one bf16 step (2^-7 relative), and 2^-8 of the tensor's rms
+    covers entries near zero whose fp32 sums cancel in another order. The
+    limit scales with the data, so a result off by a factor or by one
+    tile of the band fails."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = float(want.pow(2).mean().sqrt())
+    ok = bool((diff <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms).all()) \
+        and bool(torch.isfinite(got).all())
+    return float(diff.max()), ok
+
+
+BF16_LIMIT = "2^-7|want|+2^-8rms(want)"
 
 
 def time_ms(fn, arg_sets, iters):
@@ -423,8 +455,169 @@ def phase_bwd_kernels(kernels: list) -> list:
     ]
 
 
+# Flash-attention cases against the plain versions: (what, B, Hq, Hkv, Sq,
+# Sk, dh, dtype, causal, window, q_offset). The first is the hybrid's train
+# shape (4 rows x 16 heads, S 2048, window 2048, bf16), then the same in
+# fp32, one prefill row of an odd length, a band trimmed to a 512 window
+# (bf16 and fp32), GQA 4:1, an explicit offset, a non-causal window and SMOKE's dh 16.
+FLASH_CASES = [
+    ("train", 4, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 2048, None),
+    ("train", 4, 16, 16, 2048, 2048, 128, torch.float32, True, 2048, None),
+    ("prefill", 1, 16, 16, 300, 300, 128, torch.bfloat16, True, 2048, None),
+    ("band512", 2, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 512, None),
+    ("band512", 2, 16, 16, 2048, 2048, 128, torch.float32, True, 512, None),
+    ("gqa4", 2, 16, 4, 1024, 1024, 128, torch.float32, True, None, None),
+    ("offset", 2, 8, 8, 256, 2048, 128, torch.float32, True, 512, 1024),
+    ("noncausal", 1, 8, 2, 200, 333, 64, torch.bfloat16, False, 100, None),
+    ("dh16", 2, 4, 4, 100, 100, 16, torch.float32, True, None, None),
+]
+TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
+# o, dq, dk and dv: fp32 at TOL_O / TOL_GRAD, bf16 at the data-scaled
+# max_err_bf16 limit.
+
+
+def _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs):
+    """Least times of K4's, K5a's and K5b's work: inputs read once and
+    outputs written once at the HBM rate, against 2, 3 and 4 products of
+    2·dh flops over every valid (query, key) pair of this mask at the peak
+    rate for the input type. Returns [(ms, by)] * 3."""
+    el = torch.tensor([], dtype=dtype).element_size()
+    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
+    nq, nkv, rows = b * hq * sq * dh, b * hkv * sk * dh, b * hq * sq
+    work = ((el * (2 * nq + 2 * nkv) + 4 * rows, 2),      # q, o; k, v; lse
+            (el * (3 * nq + 2 * nkv) + 8 * rows, 3),      # q, dO, dq; lse, delta
+            (el * (2 * nq + 4 * nkv) + 8 * rows, 4))      # q, dO; k, v, dk, dv
+    out = []
+    for nbytes, products in work:
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = products * 2 * dh * pairs / peak
+        out.append((max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
+    dev = "cuda"
+    q = torch.randn(b, hq, sq, dh, generator=gen, device=dev) * 0.4
+    k = torch.randn(b, hkv, sk, dh, generator=gen, device=dev) * 0.4
+    v = torch.randn(b, hkv, sk, dh, generator=gen, device=dev) * 0.5
+    do = torch.randn(b, hq, sq, dh, generator=gen, device=dev)
+    return tuple(x.to(dtype) for x in (q, k, v, do))
+
+
+def phase_flash_kernels() -> list:
+    """K4, K5a and K5b against their plain versions over ``FLASH_CASES``;
+    times at the train shape (bf16), with the SDPA forward and backward on
+    the same causal inputs as the library yardstick (timed here only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    failures = []
+    errs = [0.0, 0.0, 0.0]
+    for what, b, hq, hkv, sq, sk, dh, dtype, causal, window, off in \
+            FLASH_CASES:
+        q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+        name = str(dtype).split(".")[-1]
+        bf16 = dtype == torch.bfloat16
+        close_o = max_err_bf16 if bf16 else \
+            (lambda g, w: max_err_within(g, w, TOL_O[name]))
+        close_g = max_err_bf16 if bf16 else \
+            (lambda g, w: max_err_within(g, w, TOL_GRAD[name]))
+        e_o, ok_o = close_o(o, o_p)
+        e_l, ok_l = max_err_within(lse, lse_p, TOL_LSE)
+        delta = (do.float() * o_p.float()).sum(-1)
+        dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+        dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+        torch.cuda.synchronize()
+        dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta,
+                                               **kw)
+        e_dq, ok_dq = close_g(dq, dq_p)
+        del dq_p
+        dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p,
+                                                      delta, **kw)
+        e_dk, ok_dk = close_g(dk, dk_p)
+        e_dv, ok_dv = close_g(dv, dv_p)
+        ok = ok_o and ok_l and ok_dq and ok_dk and ok_dv and \
+            all(t.dtype == dtype for t in (o, dq, dk, dv))
+        errs = [max(errs[0], e_o, e_l), max(errs[1], e_dq),
+                max(errs[2], e_dk, e_dv)]
+        log("kernels", kernel="flash_attention", case=what,
+            shape=f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh}", dtype=name,
+            causal=causal, window=window, q_offset=off,
+            err_o=f"{e_o:.3e}", err_lse=f"{e_l:.3e}", err_dq=f"{e_dq:.3e}",
+            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}",
+            tol=BF16_LIMIT if bf16 else TOL_O[name],
+            tol_grad=BF16_LIMIT if bf16 else TOL_GRAD[name], ok=ok)
+        if not ok:
+            failures.append(f"flash {what} {name}")
+        del q, k, v, do, o, lse, o_p, lse_p, delta, dq, dk, dv, dk_p, dv_p
+    torch.cuda.empty_cache()
+
+    # Times at the train shape, bf16: two input sets (4 x 33.5 MB each)
+    # rotate above the 50 MB L2.
+    _, b, hq, hkv, sq, sk, dh, dtype, causal, window, _ = FLASH_CASES[0]
+    kw = dict(causal=causal, window=window)
+    sets = []
+    for _ in range(2):
+        q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
+        o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+        sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+    fwd = lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw)
+    fwd_p = lambda q, k, v, *_: fl.flash_attention_fwd_plain(q, k, v, **kw)
+    dqk = lambda *a: fl.flash_attention_bwd_dq(*a, **kw)
+    dqk_p = lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw)
+    dkv = lambda *a: fl.flash_attention_bwd_dkv(*a, **kw)
+    dkv_p = lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw)
+    ms = [time_ms(fwd, sets, 10), time_ms(dqk, sets, 10),
+          time_ms(dkv, sets, 10)]
+    plain = [time_ms(fwd_p, sets, 2), time_ms(dqk_p, sets, 2),
+             time_ms(dkv_p, sets, 2)]
+    # The library yardstick: SDPA forward, and its backward (dq, dk and dv
+    # in one call), on the same causal inputs (window 2048 = S adds nothing).
+    sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True)
+    lib_fwd = time_ms(sdpa, sets, 10)
+    graphs = []
+    for q, k, v, do, *_ in sets:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        graphs.append((sdpa(*leaves), leaves, do))
+    lib_bwd = time_ms(lambda o, leaves, do: torch.autograd.grad(
+        o, leaves, do, retain_graph=True), graphs, 10)
+    del graphs
+    mask = fl._mask(sq, sk, sk - sq, sk, causal, window, "cuda")
+    pairs = b * hq * int(mask.sum())
+    bounds = _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs)
+    shape = f"B{b}xH{hq}xS{sq}x{dh} bf16 causal window {window}"
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for kname, t, tp, (bound, by), lib in zip(
+            names, ms, plain, bounds, (lib_fwd, lib_bwd, lib_bwd)):
+        log("kernels", kernel=kname, shape=repr(shape), ms=f"{t:.4f}",
+            plain_ms=f"{tp:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
+            sdpa_ms=f"{lib:.4f}", pairs=pairs)
+    del sets
+    torch.cuda.empty_cache()
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+    fwd_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
+    bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+    replaces = ("src/repro/kernels/flash_attention.py:246",
+                "src/repro/kernels/flash_attention.py:411",
+                "src/repro/kernels/flash_attention.py:411")
+    return [{"name": kname, "route": "cuda", "source": src,
+             "replaces": rep, "launches": None, "max_abs_err": err,
+             "ms": t, "plain_ms": tp, "bound_ms": bound, "bound_by": by,
+             "library_ms": lib}
+            for kname, src, rep, err, t, tp, (bound, by), lib in zip(
+                names, (fwd_src, bwd_src, bwd_src), replaces, errs, ms,
+                plain, bounds, (lib_fwd, lib_bwd, lib_bwd))]
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: serve full-width linear-llama3-1b.
+# Phases 4 and 6: serve full-width linear-llama3-1b and its hybrid.
 # ---------------------------------------------------------------------------
 
 def _numel(tree) -> int:
@@ -435,38 +628,57 @@ def _numel(tree) -> int:
     return tree.numel()
 
 
-def phase_serve(kernels: list):
-    from repro_torch.configs import get_config
+def _mixer_counts(cfg):
+    """(linear layers, softmax layers) of ``cfg``."""
+    mixers = [spec.mixer for spec in cfg.layer_specs()]
+    return mixers.count("linear"), mixers.count("softmax")
+
+
+def _count(kernels, name, path, n):
+    """Add the launches a path made of kernel ``name`` to its entry."""
+    entry = next(k for k in kernels if k["name"] == name)
+    entry["launches"] = (entry["launches"] or 0) + n
+    entry.setdefault("launches_by_path", {})[path] = n
+
+
+def phase_serve(kernels: list, cfg, path: str):
+    """8 ragged greedy requests through ``ServeEngine`` (4 slots, max_len
+    544). Pure linear stacks prefill left-padded buckets; hybrids prefill
+    by exact length. Checks the launches of K1 and K4 per prefill batch and
+    K3 per decode step, the cache footprint, and decode logits against a
+    fresh prefill."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
 
-    cfg = get_config("linear-llama3-1b")
+    n_lin, n_soft = _mixer_counts(cfg)
     t0 = time.perf_counter()
     params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
     torch.cuda.synchronize()
     n_params = _numel(params)
-    log("serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        params=n_params, dtype=cfg.dtype,
+    log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        softmax=n_soft, d_model=cfg.d_model, params=n_params, dtype=cfg.dtype,
         init_s=f"{time.perf_counter() - t0:.2f}")
 
     new_tokens, max_batch = 32, 4
-    engine = ServeEngine(cfg, params, max_len=512 + new_tokens,
-                         max_batch=max_batch)
+    max_len = 512 + new_tokens
+    engine = ServeEngine(cfg, params, max_len=max_len, max_batch=max_batch)
     rng = np.random.default_rng(0)
     lens = rng.integers(256, 513, size=8)     # as launch/serve.py draws them
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
     uids = [engine.submit(p, new_tokens, seed=0, stream=i)
             for i, p in enumerate(prompts)]
 
-    lasp2_chunk_fwd.launches = 0
-    lasp2_decode_step.launches = 0
+    counters = (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
+    for c in counters:
+        c.launches = 0
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3 = lasp2_chunk_fwd.launches, lasp2_decode_step.launches
+    k1, k3, k4 = (c.launches for c in counters)
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -476,29 +688,46 @@ def phase_serve(kernels: list):
         check(len(toks) == new_tokens, f"request {uid}: {len(toks)} tokens")
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
               f"request {uid}: token out of vocab")
-    check(k1 == cfg.n_layers * batches and k1 > 0,
-          f"K1 launches {k1} != {cfg.n_layers} x {batches} prefill batches")
-    check(k3 == cfg.n_layers * steps and k3 > 0,
-          f"K3 launches {k3} != {cfg.n_layers} x {steps} decode steps")
-    kernels[0]["launches"], kernels[1]["launches"] = k1, k3
-    kernels[0]["launches_by_path"] = {"serve": k1}
+    check(k1 == n_lin * batches and k1 > 0,
+          f"K1 launches {k1} != {n_lin} x {batches} prefill batches")
+    check(k3 == n_lin * steps and k3 > 0,
+          f"K3 launches {k3} != {n_lin} x {steps} decode steps")
+    check(k4 == n_soft * batches,
+          f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
+    _count(kernels, "lasp2_chunk_fwd", path, k1)
+    _count(kernels, "lasp2_decode_step", path, k3)
+    if n_soft:
+        _count(kernels, "flash_attention_fwd", path, k4)
     total_new = sum(len(t) for t in results.values())
     cache = engine.cache_stats()
-    log("serve", requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
+    # linear_state is constant in max_len; kv_ring is 2·B·n_kv·ring·dh·2
+    # (bf16 K/V) + B·ring·4 (int32 positions) per softmax layer
+    longer = ServeEngine(cfg, params, max_len=4096, max_batch=max_batch)
+    check(longer.cache_stats()["linear_state"] == cache["linear_state"]
+          == n_lin * max_batch * cfg.n_heads * (cfg.head_dim ** 2 + 1) * 4,
+          f"linear_state {cache['linear_state']} moves with max_len")
+    del longer
+    ring = min(cfg.pattern[-1].sliding_window or max_len, max_len)
+    kv_ring = n_soft * (2 * max_batch * cfg.n_kv_heads * ring
+                        * cfg.head_dim * 2 + max_batch * ring * 4)
+    check(cache["kv_ring"] == kv_ring,
+          f"kv_ring {cache['kv_ring']} != formula {kv_ring}")
+    log(path, requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
-        k1_launches=k1, k3_launches=k3, wall_s=f"{wall:.3f}",
+        k1_launches=k1, k3_launches=k3, k4_launches=k4, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{total_new / wall:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
         prefill_p50_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
         decode_step_p50_ms=f"{stats['decode_step_s_p50'] * 1e3:.3f}",
         cache_linear_state_bytes=cache["linear_state"],
+        cache_kv_ring_bytes=cache["kv_ring"],
         cache_total_bytes=cache["total"])
 
     # Decode logits against a fresh prefill of prompt + generated tokens.
     prompt, gen_toks = prompts[0], results[uids[0]]
     dev = torch.device("cuda")
     tokens = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
-    logits, cache = M.prefill(params, tokens, cfg, max_len=512 + new_tokens)
+    logits, cache = M.prefill(params, tokens, cfg, max_len=max_len)
     worst, scale = 0.0, 0.0
     for n in range(1, 9):
         step_tok = torch.as_tensor(gen_toks[n - 1:n], dtype=torch.int32,
@@ -512,10 +741,10 @@ def phase_serve(kernels: list):
         err, ok = max_err_within(got, want, TOL_LOGITS)
         worst, scale = max(worst, err), max(scale, float(want.abs().max()))
         check(ok, f"decode step {n}: logits off by {err:.3e} > {TOL_LOGITS}")
-    log("serve", check="decode logits vs fresh prefill", steps=8,
+    log(path, check="decode logits vs fresh prefill", steps=8,
         max_abs_err=f"{worst:.4f}", max_abs_logit=f"{scale:.3f}",
         tol=TOL_LOGITS, ok=True)
-    return cfg, params
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -551,7 +780,11 @@ def _profile(fn, n):
         f"{k[:48]}:{t / n / 1e3:.3f}ms" for t, _, k in top)
 
 
-def phase_profile(cfg, params) -> None:
+def phase_profile(cfg, params, path: str, prefill_rows: int,
+                  prefill_len: int, pads) -> None:
+    """Profile one decode step of 4 slots and one prefill call:
+    ``prefill_rows`` prompts of ``prefill_len`` tokens, left-padded by
+    ``pads`` (pure linear stacks) or of exact length (``pads=None``)."""
     from repro_torch.models import model as M
     dev = torch.device("cuda")
     cache = M.init_cache(cfg, 4, 544)
@@ -561,14 +794,16 @@ def phase_profile(cfg, params) -> None:
         nonlocal cache
         _, cache = M.decode_step(params, tok, cache, cfg)
 
-    prompts = torch.zeros((4, 512), dtype=torch.int32, device=dev)
-    pads = torch.tensor([0, 40, 100, 200], device=dev)
+    prompts = torch.zeros((prefill_rows, prefill_len), dtype=torch.int32,
+                          device=dev)
+    pad_lens = None if pads is None else torch.tensor(pads, device=dev)
 
     def prefill():
-        M.prefill(params, prompts, cfg, pad_lens=pads)
+        M.prefill(params, prompts, cfg, max_len=544, pad_lens=pad_lens)
 
-    for name, fn, n in (("decode_step B4", decode, 10),
-                        ("prefill B4xS512", prefill, 3)):
+    for name, fn, n in (
+            (f"{path} decode_step B4", decode, 10),
+            (f"{path} prefill B{prefill_rows}xS{prefill_len}", prefill, 3)):
         wall, device, kernels, top = _profile(fn, n)
         idle = f"{1 - device / wall:.3f}" if device else "not measured"
         log("profile", what=repr(name), wall_ms=f"{wall:.3f}",
@@ -578,32 +813,34 @@ def phase_profile(cfg, params) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: train full-width, full-depth linear-llama3-1b.
+# Phases 7 and 8: train full-width, full-depth linear-llama3-1b and its
+# hybrid.
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 2048, 8, 2
 
 
-def phase_train(kernels: list) -> None:
+def phase_train(kernels: list, cfg, path: str) -> None:
     """10 steps through ``train()``: fp32 masters drawn on the card from
     seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token row,
     so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
     kernels), no remat, no checkpoints (16 GB of state a save)."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
                                                  lasp2_chunk_fwd)
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_step
 
-    cfg = get_config("linear-llama3-1b")
     run = RunConfig(num_microbatches=TRAIN_MICRO, remat="none",
                     learning_rate=3e-4, warmup_steps=2,
                     total_steps=TRAIN_STEPS, seed=0)
     data = SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
-    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
+                fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
     # the loop logs every step after the step's work: the counters read
     # there give each step's launches
     marks = []
@@ -619,37 +856,38 @@ def phase_train(kernels: list) -> None:
     state, hist = train(cfg, run, data, log_every=1, log_fn=log_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2a, k2b = (c.launches for c in counters)
+    totals = [c.launches for c in counters]
     peak = torch.cuda.max_memory_allocated()
     per_step = [[b - a for a, b in zip(prev, cur)]
-                for prev, cur in zip([[0, 0, 0]] + marks, marks)]
+                for prev, cur in zip([[0] * len(counters)] + marks, marks)]
 
     losses = [h["loss"] for h in hist]
-    want = cfg.n_layers * TRAIN_MICRO
+    n_lin, n_soft = _mixer_counts(cfg)
+    want = [n_lin * TRAIN_MICRO] * 3 + [n_soft * TRAIN_MICRO] * 3
     check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
     check(np.mean(losses[-3:]) < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
-    check(len(per_step) == TRAIN_STEPS
-          and all(n == [want] * 3 for n in per_step),
-          f"launches of K1, K2a, K2b per step {per_step}; want "
-          f"{cfg.n_layers} x {TRAIN_MICRO} = {want} of each")
-    kernels[0]["launches_by_path"]["train"] = k1
-    kernels[0]["launches"] += k1
-    kernels[2]["launches"], kernels[3]["launches"] = k2a, k2b
+    check(len(per_step) == TRAIN_STEPS and all(n == want for n in per_step),
+          f"launches of K1, K2a, K2b, K4, K5a, K5b per step {per_step}; "
+          f"want {want}")
+    for c, n in zip(counters, totals):
+        if n:
+            _count(kernels, c.__name__, path, n)
     dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
     p50 = float(np.median(dts))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    log("train", arch=cfg.name, layers=cfg.n_layers, steps=TRAIN_STEPS,
+    log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        softmax=n_soft, steps=TRAIN_STEPS,
         batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", microbatches=TRAIN_MICRO,
         remat=run.remat, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
         loss_first=f"{losses[0]:.4f}",
         loss_last3=f"{np.mean(losses[-3:]):.4f}",
         losses=repr([round(x, 4) for x in losses]),
         grad_norm_first=f"{hist[0]['grad_norm']:.3f}",
-        launches_per_step_k1_k2a_k2b=repr(per_step[0]),
-        launches_k1_k2a_k2b=repr([k1, k2a, k2b]), wall_s=f"{wall:.2f}",
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b=repr(per_step[0]),
+        launches_k1_k2a_k2b_k4_k5a_k5b=repr(totals), wall_s=f"{wall:.2f}",
         step0_ms=f"{hist[0]['dt'] * 1e3:.1f}", step_p50_ms=f"{p50 * 1e3:.1f}",
         tokens_per_s=f"{tokens / p50:.0f}",
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
@@ -663,7 +901,7 @@ def phase_train(kernels: list) -> None:
 
     wall_ms, device, n_kernels, top = _profile(one_step, 1)
     idle = f"{1 - device / wall_ms:.3f}" if device else "not measured"
-    log("profile", what=repr(f"train step {TRAIN_BATCH}x{TRAIN_SEQ} "
+    log("profile", what=repr(f"{path} step {TRAIN_BATCH}x{TRAIN_SEQ} "
                              f"({TRAIN_MICRO} microbatches)"),
         wall_ms=f"{wall_ms:.3f}",
         device_kernel_ms=f"{device:.3f}" if device else "not measured",
@@ -672,28 +910,26 @@ def phase_train(kernels: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: full-width gradient check, kernel path against plain path.
+# Phase 9: full-width gradient checks, kernel path against plain path.
 # ---------------------------------------------------------------------------
 
 TOL_CHECK = 1e-3
 
 
-def phase_grad_check() -> None:
-    """A 2-layer fp32 copy of ``CONFIG`` (d_model 2048, 16 heads of 128,
-    vocab 128256): the same params on the card, where every linear layer
-    runs K1, K2a and K2b, and on the host CPU, where the wrappers take
-    their plain versions; one row of 256 tokens with a reset mid-row. TF32
-    is off (phase 1). The loss and every gradient agree within 1e-3
-    relative-plus-absolute."""
-    from repro_torch.configs import get_config
+def phase_grad_check(cfg, path: str) -> None:
+    """A shallow fp32 copy of a config at full width (d_model 2048, 16
+    heads of 128, vocab 128256): the same params on the card, where every
+    linear layer runs K1, K2a and K2b and every softmax layer K4, K5a and
+    K5b, and on the host CPU, where the wrappers take their plain versions;
+    one row of 256 tokens with a reset mid-row. TF32 is off (phase 1). The
+    loss and every gradient agree within 1e-3 relative-plus-absolute."""
     from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
                                                  lasp2_chunk_fwd)
     from repro_torch.models import model as M
 
-    cfg = dataclasses.replace(get_config("linear-llama3-1b"), n_layers=2,
-                              dtype="float32")
     host = M.init_params(torch.Generator().manual_seed(1), cfg,
                          device="cpu", param_dtype="float32")
     card = tree_map(lambda t: t.to("cuda"), host)
@@ -710,13 +946,16 @@ def phase_grad_check() -> None:
                          torch.as_tensor(toks[:, 1:]))
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
+                fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
     loss_c, grads_c = loss_and_grads(card)
     torch.cuda.synchronize()
     launched = [c.launches - b for c, b in zip(counters, before)]
-    check(launched == [cfg.n_layers] * 3,
-          f"card path launched K1, K2a, K2b {launched} times")
+    n_lin, n_soft = _mixer_counts(cfg)
+    check(launched == [n_lin] * 3 + [n_soft] * 3,
+          f"card path launched K1, K2a, K2b, K4, K5a, K5b {launched} times")
     loss_h, grads_h = loss_and_grads(host)
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""
@@ -728,12 +967,18 @@ def phase_grad_check() -> None:
             worst, worst_at = err, name
         if not good:
             bad.append(name)
-    log("gradcheck", arch=cfg.name, layers=cfg.n_layers, dtype=cfg.dtype,
-        tokens="1x256", resets="0,100", loss_card=f"{float(loss_c):.6f}",
-        loss_host=f"{float(loss_h):.6f}", err_loss=f"{e_loss:.3e}",
-        leaves=len(names), max_abs_grad_err=f"{worst:.3e}",
-        worst_leaf=worst_at, tol=TOL_CHECK, ok=ok and not bad)
+    log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        softmax=n_soft, dtype=cfg.dtype, tokens="1x256", resets="0,100",
+        loss_card=f"{float(loss_c):.6f}", loss_host=f"{float(loss_h):.6f}",
+        err_loss=f"{e_loss:.3e}", leaves=len(names),
+        max_abs_grad_err=f"{worst:.3e}", worst_leaf=worst_at, tol=TOL_CHECK,
+        ok=ok and not bad)
     check(ok and not bad, f"gradients differ: loss ok={ok}, leaves {bad}")
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -741,19 +986,30 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
         return 1
+    from repro_torch.configs import get_config, get_variant
+    linear = get_config("linear-llama3-1b")
+    hybrid = get_variant("linear-llama3-1b", "HYBRID")
     smi = phase_facts()
     phase_build()
     kernels = phase_kernels()
     kernels += phase_bwd_kernels(kernels)
-    cfg, params = phase_serve(kernels)
-    phase_profile(cfg, params)
+    kernels += phase_flash_kernels()
+    params = phase_serve(kernels, linear, "serve")
+    phase_profile(linear, params, "serve", 4, 512, [0, 40, 100, 200])
     del params
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_train(kernels)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_grad_check()
+    _free()
+    params = phase_serve(kernels, hybrid, "hybrid_serve")
+    phase_profile(hybrid, params, "hybrid_serve", 1, 300, None)
+    del params
+    _free()
+    phase_train(kernels, linear, "train")
+    _free()
+    phase_train(kernels, hybrid, "hybrid_train")
+    _free()
+    phase_grad_check(dataclasses.replace(linear, n_layers=2, dtype="float32"),
+                     "gradcheck")
+    phase_grad_check(dataclasses.replace(hybrid, n_layers=4, dtype="float32"),
+                     "hybrid_gradcheck")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

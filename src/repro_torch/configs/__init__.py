@@ -1,6 +1,8 @@
-"""Architecture registry of the port: ``get_config`` / ``get_smoke``.
+"""Architecture registry of the port: ``get_config`` / ``get_smoke`` /
+``get_variant``.
 
-This slice serves ``linear-llama3-1b`` only; every other architecture of
+The port runs ``linear-llama3-1b`` only (its ``CONFIG`` and its named
+variants, ``HYBRID`` among them); every other architecture of
 ``repro.configs`` is ported in a later slice and raises ``KeyError`` here.
 """
 
@@ -32,3 +34,10 @@ def get_config(arch_id: str, *, linearize: int | None = None) -> ModelConfig:
 
 def get_smoke(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
+
+
+def get_variant(arch_id: str, variant: str) -> ModelConfig:
+    """Named variants exported by a config module (e.g. ``HYBRID``,
+    ``DENSE``). ``get_config(arch, linearize=4)`` does not reach the hybrid:
+    ``CONFIG`` is already all-linear, and linearizing keeps it so."""
+    return getattr(_module(arch_id), variant)

@@ -1,8 +1,8 @@
 """Config dataclasses for the port: model architecture and its layer pattern.
 
-Own copy of the parts of ``repro.configs.base`` the serving and one-device
-training slices need (``LinearAttnConfig``, ``LayerSpec``, ``ModelConfig``,
-``RunConfig``); the port imports nothing of ``repro``. Field names,
+Own copy of the parts of ``repro.configs.base`` the serving, one-device
+training and hybrid slices need (``LinearAttnConfig``, ``LayerSpec``,
+``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``. Field names,
 defaults and derived properties match the reference so configs compare one
 to one in the tests.
 """
@@ -32,8 +32,8 @@ class LinearAttnConfig:
 class LayerSpec:
     """One layer of the repeating pattern.
 
-    mixer: softmax | linear (this slice runs ``linear`` only)
-    mlp:   dense | moe | none (this slice runs ``dense`` only)
+    mixer: softmax | linear (the mixers the port runs so far)
+    mlp:   dense | moe | none (the port runs ``dense`` so far)
     """
 
     mixer: str = "softmax"

@@ -2,7 +2,9 @@
 
 Llama3-style 1B: 16 layers, d_model 2048, 16 heads of 128, SwiGLU d_ff
 5504, vocab 128256, untied embeddings. ``CONFIG`` is the pure-linear basic
-variant (identity feature map, no decay); ``SMOKE`` is the reduced config
+variant (identity feature map, no decay); ``HYBRID`` the paper's 1/4
+LASP-2H hybrid (every 4th layer softmax attention with a 2048-token
+window); ``DENSE`` the softmax baseline; ``SMOKE`` is the reduced config
 the CPU tests run. Same values as ``repro/configs/linear_llama3_1b.py``.
 """
 
@@ -21,6 +23,11 @@ DENSE = ModelConfig(
 
 CONFIG = dataclasses.replace(
     DENSE.linearize(), name="linear-llama3-1b",
+    linear_attn=LinearAttnConfig(feature_map="identity", decay="none",
+                                 backward="faithful"))
+
+HYBRID = dataclasses.replace(
+    DENSE.linearize(hybrid_every=4), name="linear-llama3-1b-hybrid4",
     linear_attn=LinearAttnConfig(feature_map="identity", decay="none",
                                  backward="faithful"))
 

@@ -1,0 +1,87 @@
+"""LASP-2H on one device: the standard-attention half of the hybrid models.
+
+Twin of the one-device parts of ``repro/core/lasp2h.py``: the plain
+softmax attention with its mask, and the decode-time attention of one
+token against a ring-buffer KV cache. The reference computes all three in
+XLA without a Pallas kernel, so here they are plain tensor code. The
+sequence-parallel forms (the K/V all-gather of Alg. 7, Ulysses, the
+chunked banded form and the sharded decode merge) come with the slices
+that port sequence parallelism.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import mask_value
+
+# Masked-logit fill for fp32 score tensors (the kernels' fill).
+NEG_INF = mask_value(torch.float32)
+
+
+def _softmax_attend(q, k, v, *, scale, mask=None):
+    """Plain fp32-softmax attention on local tensors.
+
+    q: (B, Hq, Sq, dh); k, v: (B, Hkv, Sk, dh). GQA via head repeat.
+    mask: broadcastable to (B, 1|Hq, Sq, Sk), True = attend.
+    """
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
+    if mask is not None:
+        scores = torch.where(mask, scores,
+                             torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, v.float()).to(q.dtype)
+
+
+def causal_mask(sq, sk, q_offset, *, sliding_window: Optional[int] = None,
+                device=None):
+    """(sq, sk) boolean mask. Query global position = q_offset + row index."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = qpos >= kpos
+    if sliding_window is not None:
+        m = m & ((qpos - kpos) < sliding_window)
+    return m
+
+
+def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,
+                          sliding_window=None, scale: Optional[float] = None):
+    """One-token attention against a ring-buffer KV cache.
+
+    Slot ``i`` of the ring holds the key/value written at absolute position
+    ``key_pos[b, i]`` (``-1`` = never written). Softmax attention is
+    permutation invariant given the mask, so slots are attended in storage
+    order with validity from the stored positions:
+
+        valid = key_pos >= 0  &  key_pos <= q_pos
+                [&  q_pos - key_pos < sliding_window]
+
+    q: (B, Hq, 1, dh); k_cache, v_cache: (B, Hkv, R, dh); key_pos: (B, R)
+    int; q_pos: (B,) int per-row query positions (continuous batching).
+    Returns (B, Hq, 1, dh) in q's dtype.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    rep = q.shape[1] // k_cache.shape[1]
+    if rep > 1:
+        k_cache = torch.repeat_interleave(k_cache, rep, dim=1)
+        v_cache = torch.repeat_interleave(v_cache, rep, dim=1)
+    kf, vf = k_cache.float(), v_cache.float()
+    valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
+    if sliding_window is not None:
+        valid = valid & ((q_pos[:, None] - key_pos) < sliding_window)
+    s = torch.einsum("bhd,bhtd->bht", q[:, :, 0].float(), kf) * scale
+    s = torch.where(valid[:, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.where(valid[:, None, :], torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    o = torch.einsum("bht,bhtd->bhd", p, vf)
+    o = o / p.sum(dim=-1).clamp(min=1e-30)[..., None]
+    return o[:, :, None, :].to(q.dtype)

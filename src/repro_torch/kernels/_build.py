@@ -89,12 +89,13 @@ def build_kernels() -> Dict[str, dict]:
 
 
 @functools.cache
-def entry(source: str, symbol: str, n_pointers: int, n_ints: int):
+def entry(source: str, symbol: str, n_pointers: int, n_ints: int,
+          n_floats: int = 0):
     """The C entry ``symbol`` of ``csrc/<source>.cu``, typed as
-    ``int symbol(void* × n_pointers, int × n_ints, void* stream)``.
-    It returns the launch's ``cudaGetLastError()``."""
+    ``int symbol(void* × n_pointers, int × n_ints, float × n_floats,
+    void* stream)``. It returns the launch's ``cudaGetLastError()``."""
     fn = getattr(build_kernels()[source]["lib"], symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -1,4 +1,4 @@
-"""Dispatch for the linear-attention ops (twin of ``repro/kernels/ops.py``).
+"""Dispatch for the attention ops (twin of ``repro/kernels/ops.py``).
 
 Model code calls these wrappers. The backend follows the tensors: on CPU
 tensors the kernel wrappers take their plain PyTorch versions (``torch``
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.linear_attention import pick_block
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import lasp2_chunk as _chunk
 from repro_torch.kernels import lasp2_decode as _decode
 
@@ -72,3 +73,23 @@ def linear_decode_op(q, k, v, log_a, state, log_decay):
         log_a.float().reshape(b * h).contiguous(),
         state.reshape(b * h, dk, dv), log_decay.reshape(b * h))
     return o.reshape(b, h, dv), st.reshape(b, h, dk, dv), ld.reshape(b, h)
+
+
+def flash_attention_op(q, k, v, *, causal: bool = True, sliding_window=None,
+                       scale=None, q_offset=None):
+    """GQA softmax attention (differentiable). q: (B,Hq,S,dh); k/v:
+    (B,Hkv,Sk,dh).
+
+    Queries sit at global positions ``q_offset + i``, by default
+    ``sk - sq`` (prefill-with-cache shapes). Any ``sq`` and ``sk`` go
+    through unpadded: the kernels zero-fill ragged tiles and mask keys by
+    ``kv_len = sk``, so the reference's pad-to-block policy would change
+    nothing but the work. Runs ``FlashAttention``: the kernels on CUDA
+    tensors, their plain versions on CPU tensors.
+    """
+    sq, sk = q.shape[2], k.shape[2]
+    if q_offset is None:
+        q_offset = sk - sq
+    return _flash.FlashAttention.apply(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal,
+        sliding_window, scale, int(q_offset), sk)

@@ -1,6 +1,5 @@
-"""Direct-form oracle for the linear-attention kernels (twin of
-``repro/kernels/ref.py``): an independent O(S²) derivation used by the
-parity tests."""
+"""Direct-form oracles for the kernels (twin of ``repro/kernels/ref.py``):
+independent O(S²) derivations used by the parity tests."""
 
 from __future__ import annotations
 
@@ -27,3 +26,27 @@ def linear_attention_ref(q, k, v, log_a=None):
     w = torch.exp(cb[:, -1:] - cb)                    # decay i -> end
     state = torch.einsum("bsk,bsv->bkv", kf * w[..., None], vf)
     return o.to(q.dtype), state
+
+
+def flash_attention_ref(q, k, v, *, causal=True, sliding_window=None,
+                        scale=None):
+    """GQA softmax attention, direct form. q: (B,Hq,Sq,dh), k/v:
+    (B,Hkv,Sk,dh). Query row i sits at global position (sk - sq) + i."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    sq, sk = q.shape[2], k.shape[2]
+    rep = q.shape[1] // k.shape[1]
+    kf = torch.repeat_interleave(k, rep, dim=1).float()
+    vf = torch.repeat_interleave(v, rep, dim=1).float()
+    s = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * scale
+    if causal or sliding_window is not None:
+        qpos = (sk - sq) + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        m = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+        if causal:
+            m &= qpos >= kpos
+        if sliding_window is not None:
+            m &= (qpos - kpos) < sliding_window
+        s = torch.where(m, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)

@@ -2,6 +2,7 @@
 requests through the continuous-batching engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch linear-llama3-1b
+  PYTHONPATH=src python -m repro_torch.launch.serve --variant HYBRID
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
@@ -18,6 +19,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="linear-llama3-1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--variant", default=None,
+                    help="config-module variant (e.g. HYBRID, DENSE)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0,
@@ -42,14 +45,19 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_config, get_smoke, get_variant
     from repro_torch.core.device import resolve_device, synchronize
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.scheduler import QueueFullError
 
     device = resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.smoke:
+        cfg = get_smoke(args.arch)
+    elif args.variant:
+        cfg = get_variant(args.arch, args.variant)
+    else:
+        cfg = get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(gen, cfg, device=device)
     max_len = args.prompt_len + args.new_tokens

@@ -4,6 +4,8 @@
       --steps 5
   PYTHONPATH=src python -m repro_torch.launch.train --arch linear-llama3-1b \
       --steps 10 --batch 8 --seq 2048 --microbatches 2
+  PYTHONPATH=src python -m repro_torch.launch.train --variant HYBRID \
+      --steps 10 --batch 8 --seq 2048 --microbatches 2   # LASP-2H hybrid
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``; data is ``SyntheticLM`` (packed
@@ -19,6 +21,8 @@ import argparse
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="linear-llama3-1b")
+    ap.add_argument("--variant", default=None,
+                    help="config-module variant (e.g. HYBRID, DENSE)")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--device", default=None,
@@ -39,14 +43,19 @@ def main(argv=None):
     ap.add_argument("--remat", default="none", choices=["none", "full"])
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.configs import get_config, get_smoke, get_variant
     from repro_torch.configs.base import RunConfig
     from repro_torch.core.device import resolve_device
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train.loop import train
 
     device = resolve_device(args.device)
-    cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.smoke:
+        cfg = get_smoke(args.arch)
+    elif args.variant:
+        cfg = get_variant(args.arch, args.variant)
+    else:
+        cfg = get_config(args.arch)
     run = RunConfig(num_microbatches=args.microbatches,
                     learning_rate=args.lr, total_steps=args.steps,
                     warmup_steps=max(args.steps // 20, 5),

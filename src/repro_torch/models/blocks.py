@@ -1,11 +1,11 @@
-"""Transformer-layer bodies: the linear-attention mixer and the layer glue,
-with full-sequence (forward, prefill) and single-token (decode) entry
-points.
+"""Transformer-layer bodies: the softmax (GQA) and linear-attention mixers
+and the layer glue, with full-sequence (forward, prefill) and single-token
+(decode) entry points.
 
-Twin of the linear and dense parts of ``repro/models/blocks.py``. Mixers
-consume and produce ``(B, S, d)``; inside, activations are ``(B, H, S,
-dh)``. Softmax, mamba2, hymba, cross-attention and MoE layers are ported
-in later slices and raise ``NotImplementedError`` here.
+Twin of the softmax, linear and dense parts of ``repro/models/blocks.py``.
+Mixers consume and produce ``(B, S, d)``; inside, activations are ``(B, H,
+S, dh)``. Mamba2, hymba, cross-attention and MoE layers are ported in
+later slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import linear_attention as la_core
+from repro_torch.core.lasp2h import ring_decode_attention
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, rope)
@@ -27,14 +28,16 @@ class Ctx:
     cfg: ModelConfig
     positions: Any = None          # (S,) or (B, S) global positions
     causal: bool = True
+    decode_pos: Any = None         # (B,) int positions during decode
     resets: Any = None             # (B, S) bool: state resets (doc starts)
 
 
 def _unported(spec: LayerSpec):
-    if spec.mixer != "linear" or spec.mlp != "dense":
+    if spec.mixer not in ("linear", "softmax") or spec.mlp != "dense":
         raise NotImplementedError(
             f"layer mixer={spec.mixer!r} mlp={spec.mlp!r} is ported in a "
-            f"later slice; this slice runs mixer='linear', mlp='dense'")
+            f"later slice; the port runs mixer='linear' or 'softmax', "
+            f"mlp='dense'")
 
 
 def _heads_split(x, n_heads, head_dim):
@@ -59,13 +62,12 @@ def _qkv(p, x, cfg: ModelConfig, positions=None):
 
 
 # ===========================================================================
-# Linear attention mixer (the paper's module)
+# Softmax (GQA) attention mixer
 # ===========================================================================
 
-def linear_init(generator, cfg: ModelConfig, dtype, device):
-    if cfg.qkv_bias or cfg.linear_attn.decay == "data":
-        raise NotImplementedError("qkv biases and data-dependent decay are "
-                                  "ported in a later slice")
+def softmax_init(generator, cfg: ModelConfig, dtype, device):
+    if cfg.qkv_bias:
+        raise NotImplementedError("qkv biases are ported in a later slice")
     d, dh = cfg.d_model, cfg.head_dim
     return {"wq": dense_init(generator, d, cfg.n_heads * dh, dtype, device),
             "wk": dense_init(generator, d, cfg.n_kv_heads * dh, dtype,
@@ -73,6 +75,105 @@ def linear_init(generator, cfg: ModelConfig, dtype, device):
             "wv": dense_init(generator, d, cfg.n_kv_heads * dh, dtype,
                              device),
             "wo": dense_init(generator, cfg.n_heads * dh, d, dtype, device)}
+
+
+def _softmax_out(params, x, q, k, v, ctx: Ctx, window):
+    o = ops.flash_attention_op(q, k, v, causal=ctx.causal,
+                               sliding_window=window)
+    return _heads_merge(o) @ params["wo"].to(x.dtype)
+
+
+def softmax_apply(params, x, ctx: Ctx, *, window=None):
+    """Full-sequence GQA attention through ``ops.flash_attention_op`` (the
+    flash kernels on the card). The reference takes its banded XLA form
+    when ``S % window == 0``; it computes the same function, and the
+    kernels' run-time band skips the same blocks. Softmax layers ignore
+    ``ctx.resets``: on packed rows they attend across documents, as in the
+    reference."""
+    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
+    return _softmax_out(params, x, q, k, v, ctx, window)
+
+
+def softmax_ring_len(spec: LayerSpec, max_len: int) -> int:
+    """Ring-buffer length of a softmax layer's decode KV cache: the window
+    for sliding-window layers (constant in context length), else
+    ``max_len``."""
+    if spec.sliding_window:
+        return min(max_len, spec.sliding_window)
+    return max_len
+
+
+def softmax_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
+    """Empty ring cache: bf16 K/V (B, Hkv, R, dh) whatever ``cfg.dtype``,
+    and the absolute position of each slot (-1 = never written)."""
+    r = softmax_ring_len(spec, max_len)
+    shape = (batch, cfg.n_kv_heads, r, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            "kpos": torch.full((batch, r), -1, dtype=torch.int32,
+                               device=device)}
+
+
+def softmax_prefill_cache(k, v, positions, ring: int):
+    """Place the prompt's K/V (B, Hkv, S, dh) in a fresh ring of ``ring``
+    slots.
+
+    Slot ``i`` receives the prompt token at the highest position ``p <=
+    last`` with ``p % ring == i`` (the ``slot = pos % ring`` rule decode
+    uses), tagged with its absolute position in ``kpos``; slots no token
+    reached hold -1. K/V are stored in bf16, as the reference's cache.
+    """
+    b, hkv, s, dh = k.shape
+    pos2d = torch.broadcast_to(torch.atleast_2d(positions),
+                               (b, s)).to(torch.int64)
+    last = pos2d[:, -1:]                                      # (B, 1)
+    i = torch.arange(ring, device=k.device)[None, :]          # (1, R)
+    p_i = last - torch.remainder(last - i, ring)              # (B, R)
+    col = torch.clamp(p_i - pos2d[:, :1], 0, s - 1)
+    idx = col[:, None, :, None].expand(b, hkv, ring, dh)
+    return {"k": torch.gather(k, 2, idx).to(torch.bfloat16),
+            "v": torch.gather(v, 2, idx).to(torch.bfloat16),
+            "kpos": torch.where(p_i >= 0, p_i,
+                                torch.full_like(p_i, -1)).to(torch.int32)}
+
+
+def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
+    """One token per row at position ``ctx.decode_pos`` (B,): write its K/V
+    in place into slot ``pos % R`` of the ring (rounded to the cache's
+    bf16), then attend to the ring."""
+    cfg = ctx.cfg
+    posv = ctx.decode_pos.to(device=x.device, dtype=torch.int32)
+    q, k, v = _qkv(params, x, cfg, None)
+    q = rope(q, posv[:, None], cfg.rope_theta)
+    k = rope(k, posv[:, None], cfg.rope_theta)
+    rows = torch.arange(x.shape[0], device=x.device)
+    slot = torch.remainder(posv, cache["k"].shape[2]).long()
+    cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
+    cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
+    cache["kpos"][rows, slot] = posv.to(cache["kpos"].dtype)
+    o = ring_decode_attention(q, cache["k"], cache["v"], cache["kpos"], posv,
+                              sliding_window=window)
+    y = _heads_merge(o) @ params["wo"].to(x.dtype)
+    return y, cache
+
+
+def _softmax_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
+    """Prompt attention and its ring cache from one K/V projection."""
+    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
+    y = _softmax_out(params, x, q, k, v, ctx, spec.sliding_window)
+    return y, softmax_prefill_cache(k, v, ctx.positions,
+                                    softmax_ring_len(spec, max_len))
+
+
+# ===========================================================================
+# Linear attention mixer (the paper's module)
+# ===========================================================================
+
+def linear_init(generator, cfg: ModelConfig, dtype, device):
+    if cfg.linear_attn.decay == "data":
+        raise NotImplementedError("data-dependent decay is ported in a "
+                                  "later slice")
+    return softmax_init(generator, cfg, dtype, device)
 
 
 def _linear_qkv(params, x, ctx: Ctx):
@@ -157,8 +258,9 @@ def _linear_prefill(params, x, ctx: Ctx):
 
 def layer_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
     _unported(spec)
+    mix_init = {"softmax": softmax_init, "linear": linear_init}[spec.mixer]
     return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "mixer": linear_init(generator, cfg, dtype, device),
+            "mixer": mix_init(generator, cfg, dtype, device),
             "ln2": rmsnorm_init(cfg.d_model, device),
             "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device,
                             act=cfg.mlp_act)}
@@ -172,24 +274,36 @@ def _mlp_residual(params, x, cfg: ModelConfig):
 def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    x = x + linear_apply(params["mixer"], h, ctx)
-    return _mlp_residual(params, x, ctx.cfg)
+    if spec.mixer == "softmax":
+        y = softmax_apply(params["mixer"], h, ctx, window=spec.sliding_window)
+    else:
+        y = linear_apply(params["mixer"], h, ctx)
+    return _mlp_residual(params, x + y, ctx.cfg)
 
 
-def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, device):
+def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
     _unported(spec)
+    if spec.mixer == "softmax":
+        return {"mixer": softmax_cache(cfg, spec, batch, max_len, device)}
     return {"mixer": linear_cache(cfg, batch, device)}
 
 
-def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec):
+def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    y, mc = _linear_prefill(params["mixer"], h, ctx)
+    if spec.mixer == "softmax":
+        y, mc = _softmax_prefill(params["mixer"], h, ctx, spec, max_len)
+    else:
+        y, mc = _linear_prefill(params["mixer"], h, ctx)
     return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}
 
 
 def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    y, mc = linear_decode(params["mixer"], h, cache["mixer"], ctx)
+    if spec.mixer == "softmax":
+        y, mc = softmax_decode(params["mixer"], h, cache["mixer"], ctx,
+                               window=spec.sliding_window)
+    else:
+        y, mc = linear_decode(params["mixer"], h, cache["mixer"], ctx)
     return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}

@@ -1,7 +1,8 @@
 """Model builder: init / forward / loss / prefill / decode over the layer
 stack.
 
-Twin of ``repro/models/model.py`` for the serving and training slices.
+Twin of ``repro/models/model.py`` for the serving, training and hybrid
+slices.
 The reference stacks each pattern position's params over groups and runs
 the stack with ``lax.scan``; here the stack is a Python list of layers,
 layer ``g·len(pattern) + p`` built from ``pattern[p]``, walked in a loop.
@@ -11,9 +12,10 @@ Params are a plain dict::
     {"embed": {"table", "lm_head"}, "layers": [layer params, ...],
      "final_norm": {"scale"}}
 
-The decode cache is ``{"layers": [{"mixer": {"m", "log_decay"}}, ...],
-"pos": (B,) int32}`` with per-layer ``m`` (B, H, dk, dv) fp32 and
-``log_decay`` (B, H) fp32.
+The decode cache is ``{"layers": [{"mixer": {...}}, ...], "pos": (B,)
+int32}``: a linear layer holds ``m`` (B, H, dk, dv) fp32 and ``log_decay``
+(B, H) fp32; a softmax layer a ring of ``k``, ``v`` (B, Hkv, R, dh) bf16
+and ``kpos`` (B, R) int32.
 """
 
 from __future__ import annotations
@@ -125,11 +127,12 @@ def pad_safe(cfg: ModelConfig) -> bool:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
     """Decode cache: per linear layer a constant-size fp32 state plus its
-    cumulative log decay (``max_len`` does not change its size); ``pos`` is
-    per row, since rows of a continuous batch sit at different offsets."""
+    cumulative log decay (``max_len`` does not change its size), per
+    softmax layer a ring-buffer KV cache (ring = the sliding window of the
+    hybrids' softmax layers, capped at ``max_len``); ``pos`` is per row,
+    since rows of a continuous batch sit at different offsets."""
     device = resolve_device(device)
-    del max_len   # linear layers keep no per-token cache
-    return {"layers": [blocks.layer_cache(cfg, spec, batch, device)
+    return {"layers": [blocks.layer_cache(cfg, spec, batch, max_len, device)
                        for spec in cfg.layer_specs()],
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
@@ -138,13 +141,14 @@ def decode_step(params, token, cache, cfg: ModelConfig):
     """One decode step. token: (B,) int → (logits (B, V), new cache).
 
     No prefix re-scan: every linear layer advances its recurrent state by
-    one step. On CUDA the layers' states are updated in place, so the
-    returned cache holds the caller's tensors.
+    one step (on CUDA in place, so the returned cache holds the caller's
+    state tensors); every softmax layer writes one ring slot in place (on
+    every device) and attends to the ring.
     """
     dtype = torch_dtype(cfg.dtype)
     pos = cache["pos"]
     x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
-    ctx = Ctx(cfg=cfg, positions=pos[:, None])
+    ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos)
     new_layers = []
     for p, c, spec in zip(params["layers"], cache["layers"],
                           cfg.layer_specs()):
@@ -169,13 +173,14 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
     tokens, its positions start at ``-pad_lens[b]`` so real tokens sit at
     0..L-1, filler embeddings are zeroed, and a state reset
     (``RESET_LOG_A``) at the first real token erases the filler's
-    contribution to the state.
+    contribution to the state. Softmax layers build their ring caches for
+    ``max_len`` (default: the prompt length).
     """
     device = _device(params)
     dtype = torch_dtype(cfg.dtype)
     tokens = tokens.to(device)
     b, s = tokens.shape
-    del max_len   # linear layers keep no per-token cache
+    max_len = max_len or s
     x = embed_lookup(params["embed"], tokens, dtype)
     resets = None
     if pad_lens is not None:
@@ -194,7 +199,7 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
     ctx = Ctx(cfg=cfg, positions=positions, resets=resets)
     caches = []
     for p, spec in zip(params["layers"], cfg.layer_specs()):
-        x, c = blocks.layer_prefill(p, x, ctx, spec)
+        x, c = blocks.layer_prefill(p, x, ctx, spec, max_len)
         caches.append(c)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], x, cfg.vocab_size)

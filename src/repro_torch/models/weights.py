@@ -73,7 +73,8 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     layers = []
     for g in range(cfg.n_groups):
         for p, spec in enumerate(cfg.pattern):
-            if spec.mixer != "linear" or spec.mlp != "dense":
+            if spec.mixer not in ("linear", "softmax") \
+                    or spec.mlp != "dense":
                 raise NotImplementedError(
                     f"params_from_jax: mixer={spec.mixer!r} "
                     f"mlp={spec.mlp!r} is ported in a later slice")

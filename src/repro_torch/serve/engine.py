@@ -2,15 +2,18 @@
 
 Twin of ``repro/serve/engine.py`` (continuous path). The decode cache holds,
 per linear layer, only the fp32 ``dk × dv`` recurrent state plus its
-cumulative log decay: O(1) in context length. Prefill runs the chunked
-scan (the ``lasp2_chunk_fwd`` kernel on the card) and lands the final
-per-layer states in the cache; decode advances every slot by one
-recurrent step (the ``lasp2_decode_step`` kernel), updating the cache in
-place where the JAX engine donates it.
+cumulative log decay: O(1) in context length; per softmax layer of a
+LASP-2H hybrid, a ring of bf16 K/V as long as the layer's window. Prefill
+runs the chunked scan (the ``lasp2_chunk_fwd`` kernel on the card) and
+flash attention (``flash_attention_fwd``) and lands the final per-layer
+states and rings in the cache; decode advances every slot by one
+recurrent step (the ``lasp2_decode_step`` kernel, updating the state in
+place where the JAX engine donates it) and one ring-attention step.
 
 Scheduling is continuous: a fixed grid of ``max_batch`` decode slots, with
 per-step admission of waiting requests (batched prefill, grouped by
-bucketed prompt length) and per-step eviction of finished ones
+bucketed prompt length; by exact length for hybrids, whose softmax layers
+would attend left-padding) and per-step eviction of finished ones
 (:mod:`repro_torch.serve.scheduler`). Each request samples from its own
 ``(seed, stream)`` generator, so its tokens do not depend on what it was
 batched with.
@@ -256,13 +259,16 @@ class ServeEngine:
         """Decode-cache footprint by kind (bytes) plus the tensor count per
         kind (``<kind>_arrays``). ``linear_state`` is per linear layer
         ``B·H·(dk·dv + 1)·4`` bytes, constant in context length and in
-        ``max_len``."""
-        stats = {"linear_state": 0, "other": 0}
+        ``max_len``; ``kv_ring`` per softmax layer
+        ``2·B·n_kv·ring·head_dim·2`` (bf16 K/V) ``+ B·ring·4`` (int32
+        positions), with ring = min(window, ``max_len``)."""
+        stats = {"linear_state": 0, "kv_ring": 0, "other": 0}
         arrays = dict.fromkeys(stats, 0)
         for layer in self._cache["layers"]:
             for name, t in layer["mixer"].items():
-                kind = "linear_state" if name in ("m", "log_decay") \
-                    else "other"
+                kind = ("linear_state" if name in ("m", "log_decay")
+                        else "kv_ring" if name in ("k", "v", "kpos")
+                        else "other")
                 stats[kind] += t.numel() * t.element_size()
                 arrays[kind] += 1
         stats["total"] = sum(stats.values())

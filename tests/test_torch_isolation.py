@@ -18,6 +18,7 @@ from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
                                              lasp2_chunk_bwd_dkv,
                                              lasp2_chunk_bwd_dq,
                                              lasp2_chunk_fwd)
+from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels.lasp2_decode import lasp2_decode_step
 from repro_torch.models import model as TM
 from repro_torch.serve.engine import ServeEngine
@@ -166,3 +167,46 @@ def test_backward_wrappers_raise_on_other_devices():
         lasp2_chunk_bwd(x, x, x, la, x, x, torch.zeros((2, 16, 16)))
     with pytest.raises(ValueError, match="want o, dO"):
         lasp2_chunk_bwd(x, x, x, la, x[:, :4], x, st)
+
+
+FLASH = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+         fl.flash_attention_bwd_dkv)
+
+
+def test_flash_on_cpu_tensors_takes_plain_versions():
+    """ops.flash_attention_op and FlashAttention, forward and backward, on
+    CPU tensors launch nothing."""
+    rng = np.random.default_rng(2)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 40, 16)).astype(
+        np.float32)).requires_grad_(True)
+    k, v = (torch.from_numpy(rng.standard_normal((1, 2, 40, 16)).astype(
+        np.float32)).requires_grad_(True) for _ in range(2))
+    saved = [c.launches for c in FLASH]
+    try:
+        for c in FLASH:
+            c.launches = 0
+        o = ops.flash_attention_op(q, k, v, sliding_window=8)
+        o2 = fl.FlashAttention.apply(q, k, v, True, None, None, 0, 40)
+        grads = torch.autograd.grad(o.sum() + o2.sum(), (q, k, v))
+        assert all(torch.isfinite(g).all() for g in grads)
+        assert [c.launches for c in FLASH] == [0, 0, 0]
+    finally:
+        for c, n in zip(FLASH, saved):
+            c.launches = n
+
+
+def test_flash_wrappers_raise_on_other_devices():
+    x = torch.zeros((1, 2, 8, 16), device="meta")
+    lse = torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fl.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fl.FlashAttention.apply(x, x, x, True, None, None, 0, 8)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fl.flash_attention_bwd_dq(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError, match="no kernel for meta"):
+        fl.flash_attention_bwd_dkv(x, x, x, x, lse, lse)
+    with pytest.raises(ValueError, match="several devices"):
+        fl.flash_attention_fwd(x, torch.zeros((1, 2, 8, 16)), x)
+    with pytest.raises(ValueError, match="several devices"):
+        fl.flash_attention_bwd_dkv(x, x, x, x, torch.zeros((1, 2, 8)), lse)

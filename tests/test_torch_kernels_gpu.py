@@ -6,7 +6,8 @@ sweep of shapes. Needs a CUDA card: marked ``gpu`` and skipped elsewhere.
 Tolerances: o at the reference's kernel tolerances (3e-4 fp32, 4e-2 bf16,
 ``tests/test_kernels.py:14``); states in fp32 at 1e-4 (both sides sum in
 fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
-gradients at the reference's 1e-3 (4e-2 for bf16 outputs).
+flash lse (fp32 on both sides) at 1e-4; gradients at the reference's 1e-3
+(4e-2 for bf16 outputs).
 """
 
 import pytest
@@ -19,6 +20,7 @@ from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
                                              lasp2_chunk_bwd_plain,
                                              lasp2_chunk_fwd,
                                              lasp2_chunk_fwd_plain)
+from repro_torch.kernels import flash_attention as fl
 from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
                                               lasp2_decode_step_plain)
 
@@ -36,6 +38,17 @@ def gen():
 
 def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_bf16(got, want):
+    """bf16 results both sides accumulate in fp32 and round once: within
+    one bf16 step (2^-7·|want|) plus 2^-8 of the tensor's rms for entries
+    near zero, a limit that scales with the data."""
+    got, want = got.float(), want.float()
+    rms = float(want.pow(2).mean().sqrt())
+    bad = (got - want).abs() > 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms
+    assert not bool(bad.any()), \
+        f"{int(bad.sum())} entries off, max {float((got - want).abs().max())}"
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 200, 512])
@@ -165,3 +178,111 @@ def test_bwd_wrappers_reject_what_the_kernels_do_not_take(gen):
                         v, la, v, v, dst[:, :16].contiguous().half())
     with pytest.raises(ValueError, match="contiguous"):
         lasp2_chunk_bwd_dq(q[..., :16], v, la, v)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention: K4, K5a, K5b against their plain versions.
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
+    q = torch.randn(b, hq, sq, dh, generator=gen, device="cuda") * 0.4
+    k = torch.randn(b, hkv, sk, dh, generator=gen, device="cuda") * 0.4
+    v = torch.randn(b, hkv, sk, dh, generator=gen, device="cuda") * 0.5
+    do = torch.randn(b, hq, sq, dh, generator=gen, device="cuda")
+    return tuple(x.to(dtype) for x in (q, k, v, do))
+
+
+@pytest.mark.parametrize("sq,sk,hq,hkv", [(64, 64, 4, 4), (100, 100, 4, 2),
+                                          (37, 200, 8, 1), (256, 256, 8, 2),
+                                          (128, 300, 4, 4)])
+@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, None),
+                                           (True, 48), (False, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
+                                   dtype):
+    """K4 (o, lse), K5a (dq) and K5b (dk, dv) over GQA ratios 1-8, ragged
+    lengths, sq != sk (q_offset = sk - sq), windows, fp32 (3e-4 for o, the
+    reference's 1e-3 for gradients) and bf16 (``_close_bf16``)."""
+    q, k, v, do = _flash_inputs(gen, 2, hq, hkv, sq, sk, dh, dtype)
+    kw = dict(causal=causal, window=window)
+    o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+    def close(got, want, fp32_tol):
+        if dtype == torch.bfloat16:
+            _close_bf16(got, want)
+        else:
+            _close(got, want, fp32_tol)
+
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    close(o, o_p, 3e-4)
+    fully_masked = lse_p < -1e37          # rows that see no key
+    _close(lse.masked_fill(fully_masked, 0), lse_p.masked_fill(
+        fully_masked, 0), 1e-4)
+    assert bool((lse[fully_masked] < -1e37).all())
+    delta = (do.float() * o_p.float()).sum(-1)
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                                  **kw)
+    for g, w in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert g.dtype == dtype
+        close(g, w, 1e-3)
+
+
+@pytest.mark.parametrize("q_offset,kv_len", [(64, 256), (0, 200), (-32, 256),
+                                             (1000, 256)])
+def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len):
+    """An explicit q_offset (ahead of, at, behind and past the keys) and a
+    kv_len below Sk, causal with a 96-token window, fp32."""
+    q, k, v, do = _flash_inputs(gen, 2, 4, 2, 128, 256, 64, torch.float32)
+    kw = dict(causal=True, window=96, q_offset=q_offset, kv_len=kv_len)
+    o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+    _close(o, o_p, 3e-4)
+    _close(lse.clamp(min=-1e30), lse_p.clamp(min=-1e30), 1e-4)
+    delta = (do * o_p).sum(-1)
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    want = (fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                              **kw))
+    for g, w in zip((dq, dk, dv), want):
+        _close(g, w, 1e-3)
+    if kv_len < 256:              # keys past kv_len get no gradient
+        assert float(dk[:, :, kv_len:].abs().max()) == 0.0
+        assert float(dv[:, :, kv_len:].abs().max()) == 0.0
+
+
+def test_flash_autograd_launches_each_kernel_once(gen):
+    """Autograd through ops.flash_attention_op on the card launches K4,
+    K5a and K5b once each, on an odd length (ragged tiles, unpadded)."""
+    from repro_torch.kernels import ops
+    q, k, v, do = _flash_inputs(gen, 1, 4, 2, 300, 300, 64, torch.bfloat16)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    o = ops.flash_attention_op(*xs, causal=True, sliding_window=128)
+    grads = torch.autograd.grad((o.float() * do.float()).sum(), xs)
+    assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    assert o.shape == q.shape and all(torch.isfinite(g).all() for g in grads)
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = torch.zeros(1, 2, 8, 32, device="cuda")          # dh 32
+    with pytest.raises(ValueError, match="dh in"):
+        fl.flash_attention_fwd(q, q, q)
+    x = torch.zeros(1, 2, 64, 8, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        fl.flash_attention_fwd(x.transpose(2, 3), x.transpose(2, 3),
+                               x.transpose(2, 3))
+    y = torch.zeros(1, 2, 8, 64, device="cuda")
+    with pytest.raises(TypeError, match="one dtype"):
+        fl.flash_attention_fwd(y, y.half(), y.half())
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        fl.flash_attention_bwd_dq(y, y, y, y, lse.half(), lse)
