@@ -14,10 +14,14 @@ line:
    its path's shapes (K1 and K3 at the serving shapes, K2a and K2b, the
    two passes of the chunk backward, at the training shape; K4, K5a and
    K5b, flash attention's forward and two backward passes, at the hybrid's
-   training shape, a prefill shape, a trimmed band, GQA 4:1 and an
-   explicit offset), with its time, the plain version's time, the least
+   training shape, a prefill shape, a trimmed band, GQA 4:1, an explicit
+   offset and a non-causal window, K4 and K5b on both routes: ``sm90``
+   (tensor cores) for bf16 at dh 64 and 128, ``simt`` (CUDA cores) for
+   fp32 and dh 16), with its time, the plain version's time, the least
    time the card could take (the bound) and, for flash attention, the time
-   of ``F.scaled_dot_product_attention`` on the same causal shape;
+   of ``F.scaled_dot_product_attention`` on the same causal shape; flash
+   times at the train shape in bf16 (``sm90``, and K5a) and in fp32
+   (``simt``), and K5b's ``sm90`` output bitwise equal on two launches;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
    request finishes, the launch counters show K1 and K3 on the path,
@@ -37,13 +41,18 @@ line:
    loss falls, and each step launches K1, K2a and K2b 16 x 2 times; then
    the profile of one train step;
 8. hybrid train: the same with ``HYBRID``; each step launches K1, K2a and
-   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times;
+   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times, K4 and K5b all on
+   their ``sm90`` route;
 9. grad check: a 2-layer fp32 copy of the config at full width, the same
    params on the card (kernels) and on the host CPU (plain versions): the
    loss and every parameter gradient agree; then a 4-layer copy of
-   ``HYBRID`` (3 linear + 1 softmax layer) the same way.
+   ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so K4 and
+   K5b take their ``simt`` route.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (K1, K3, K2a, K2b,
+K4 ``sm90`` and ``simt``, K5a, K5b ``sm90`` and ``simt``; ``launches``
+summed over the paths that ran each, listed in ``launches_by_path``); the
+last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -108,23 +117,29 @@ def max_err_within(got, want, tol):
     return float(diff.max()), ok
 
 
-def max_err_bf16(got, want):
+def max_err_bf16(got, want, extra=None):
     """(max |got - want|, whether |got - want| <= 2^-7·|want| +
-    2^-8·rms(want)) for bf16 results that both sides accumulate in fp32
-    and round once: the two roundings of nearly equal fp32 values differ
-    by at most one bf16 step (2^-7 relative), and 2^-8 of the tensor's rms
-    covers entries near zero whose fp32 sums cancel in another order. The
-    limit scales with the data, so a result off by a factor or by one
-    tile of the band fails."""
+    2^-8·rms(want) [+ extra]) for bf16 results that both sides accumulate
+    in fp32 and round once: the two roundings of nearly equal fp32 values
+    differ by at most one bf16 step (2^-7 relative), and 2^-8 of the
+    tensor's rms covers entries near zero whose fp32 sums cancel in
+    another order. The limit scales with the data, so a result off by a
+    factor or by one tile of the band fails. ``extra`` is the flash
+    ``sm90`` route's rounding of P and dS to bf16 inside its products,
+    2^-8 times those products over absolute values
+    (``sm90_rounding_bound``)."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     rms = float(want.pow(2).mean().sqrt())
-    ok = bool((diff <= 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms).all()) \
-        and bool(torch.isfinite(got).all())
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms
+    if extra is not None:
+        limit = limit + extra
+    ok = bool((diff <= limit).all()) and bool(torch.isfinite(got).all())
     return float(diff.max()), ok
 
 
 BF16_LIMIT = "2^-7|want|+2^-8rms(want)"
+SM90_LIMIT = BF16_LIMIT + "+2^-8A"
 
 
 def time_ms(fn, arg_sets, iters):
@@ -459,16 +474,22 @@ def phase_bwd_kernels(kernels: list) -> list:
 # Sk, dh, dtype, causal, window, q_offset). The first is the hybrid's train
 # shape (4 rows x 16 heads, S 2048, window 2048, bf16), then the same in
 # fp32, one prefill row of an odd length, a band trimmed to a 512 window
-# (bf16 and fp32), GQA 4:1, an explicit offset, a non-causal window and SMOKE's dh 16.
+# (bf16 and fp32), GQA 4:1, an explicit offset and a non-causal window
+# (each in bf16 and fp32, or at dh 64 and 128), and SMOKE's dh 16. bf16 at
+# dh 64 and 128 runs K4 and K5b on their ``sm90`` route, the rest on
+# ``simt``.
 FLASH_CASES = [
     ("train", 4, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 2048, None),
     ("train", 4, 16, 16, 2048, 2048, 128, torch.float32, True, 2048, None),
     ("prefill", 1, 16, 16, 300, 300, 128, torch.bfloat16, True, 2048, None),
     ("band512", 2, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 512, None),
     ("band512", 2, 16, 16, 2048, 2048, 128, torch.float32, True, 512, None),
+    ("gqa4", 2, 16, 4, 1024, 1024, 128, torch.bfloat16, True, None, None),
     ("gqa4", 2, 16, 4, 1024, 1024, 128, torch.float32, True, None, None),
+    ("offset", 2, 8, 8, 256, 2048, 128, torch.bfloat16, True, 512, 1024),
     ("offset", 2, 8, 8, 256, 2048, 128, torch.float32, True, 512, 1024),
     ("noncausal", 1, 8, 2, 200, 333, 64, torch.bfloat16, False, 100, None),
+    ("noncausal", 1, 8, 2, 200, 333, 128, torch.bfloat16, False, 100, None),
     ("dh16", 2, 4, 4, 100, 100, 16, torch.float32, True, None, None),
 ]
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
@@ -506,114 +527,151 @@ def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
 
 
 def phase_flash_kernels() -> list:
-    """K4, K5a and K5b against their plain versions over ``FLASH_CASES``;
-    times at the train shape (bf16), with the SDPA forward and backward on
-    the same causal inputs as the library yardstick (timed here only)."""
+    """K4, K5a and K5b against their plain versions over ``FLASH_CASES``,
+    each on the route its inputs take; then times at the train shape: bf16
+    (K4 and K5b on ``sm90``, K5a) and fp32 (K4 and K5b on ``simt``), with
+    the SDPA forward and backward on the same causal inputs as the library
+    yardstick (timed here only), and K5b's run-to-run bitwise equality on
+    ``sm90``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
     gen = torch.Generator(device="cuda").manual_seed(2)
     failures = []
-    errs = [0.0, 0.0, 0.0]
+    errs = {}
+
+    def worst(name, *values):
+        errs[name] = max(errs.get(name, 0.0), *values)
+
     for what, b, hq, hkv, sq, sk, dh, dtype, causal, window, off in \
             FLASH_CASES:
         q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
+        route = fl._route(dtype, dh)
         kw = dict(causal=causal, window=window, q_offset=off)
         o, lse = fl.flash_attention_fwd(q, k, v, **kw)
         torch.cuda.synchronize()
         o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+        delta = (do.float() * o_p.float()).sum(-1)
         name = str(dtype).split(".")[-1]
         bf16 = dtype == torch.bfloat16
-        close_o = max_err_bf16 if bf16 else \
-            (lambda g, w: max_err_within(g, w, TOL_O[name]))
-        close_g = max_err_bf16 if bf16 else \
-            (lambda g, w: max_err_within(g, w, TOL_GRAD[name]))
-        e_o, ok_o = close_o(o, o_p)
+        extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw) \
+            if route == "sm90" else (None, None, None)
+        if bf16:
+            close_o = close_g = max_err_bf16
+        else:
+            close_o = lambda g, w, _: max_err_within(g, w, TOL_O[name])
+            close_g = lambda g, w, _: max_err_within(g, w, TOL_GRAD[name])
+        e_o, ok_o = close_o(o, o_p, extra[0])
         e_l, ok_l = max_err_within(lse, lse_p, TOL_LSE)
-        delta = (do.float() * o_p.float()).sum(-1)
         dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
         dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
         torch.cuda.synchronize()
         dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta,
                                                **kw)
-        e_dq, ok_dq = close_g(dq, dq_p)
+        e_dq, ok_dq = close_g(dq, dq_p, None)
         del dq_p
         dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p,
                                                       delta, **kw)
-        e_dk, ok_dk = close_g(dk, dk_p)
-        e_dv, ok_dv = close_g(dv, dv_p)
+        e_dk, ok_dk = close_g(dk, dk_p, extra[1])
+        e_dv, ok_dv = close_g(dv, dv_p, extra[2])
         ok = ok_o and ok_l and ok_dq and ok_dk and ok_dv and \
             all(t.dtype == dtype for t in (o, dq, dk, dv))
-        errs = [max(errs[0], e_o, e_l), max(errs[1], e_dq),
-                max(errs[2], e_dk, e_dv)]
+        worst(f"flash_attention_fwd_{route}", e_o, e_l)
+        worst("flash_attention_bwd_dq", e_dq)
+        worst(f"flash_attention_bwd_dkv_{route}", e_dk, e_dv)
+        tol = (SM90_LIMIT if route == "sm90" else BF16_LIMIT) if bf16 \
+            else TOL_O[name]
         log("kernels", kernel="flash_attention", case=what,
             shape=f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh}", dtype=name,
-            causal=causal, window=window, q_offset=off,
+            route=route, causal=causal, window=window, q_offset=off,
             err_o=f"{e_o:.3e}", err_lse=f"{e_l:.3e}", err_dq=f"{e_dq:.3e}",
-            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}",
-            tol=BF16_LIMIT if bf16 else TOL_O[name],
-            tol_grad=BF16_LIMIT if bf16 else TOL_GRAD[name], ok=ok)
+            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}", tol_o_dk_dv=tol,
+            tol_dq=BF16_LIMIT if bf16 else TOL_GRAD[name], ok=ok)
         if not ok:
-            failures.append(f"flash {what} {name}")
-        del q, k, v, do, o, lse, o_p, lse_p, delta, dq, dk, dv, dk_p, dv_p
+            failures.append(f"flash {what} {name} dh{dh}")
+        del q, k, v, do, o, lse, o_p, lse_p, delta, dq, dk, dv, dk_p, dv_p, \
+            extra
     torch.cuda.empty_cache()
 
-    # Times at the train shape, bf16: two input sets (4 x 33.5 MB each)
-    # rotate above the 50 MB L2.
-    _, b, hq, hkv, sq, sk, dh, dtype, causal, window, _ = FLASH_CASES[0]
+    # Times at the train shape, bf16 then fp32: two input sets (4 x 33.5 MB
+    # each in bf16) rotate above the 50 MB L2. The SDPA forward and its
+    # backward (dq, dk and dv in one call) on the same causal inputs (window
+    # 2048 = S adds nothing) are the library yardstick.
+    _, b, hq, hkv, sq, sk, dh, _, causal, window, _ = FLASH_CASES[0]
     kw = dict(causal=causal, window=window)
-    sets = []
-    for _ in range(2):
-        q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
-        o, lse = fl.flash_attention_fwd(q, k, v, **kw)
-        sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+    mask = fl._mask(sq, sk, sk - sq, sk, causal, window, "cuda")
+    pairs = b * hq * int(mask.sum())
     fwd = lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw)
     fwd_p = lambda q, k, v, *_: fl.flash_attention_fwd_plain(q, k, v, **kw)
     dqk = lambda *a: fl.flash_attention_bwd_dq(*a, **kw)
     dqk_p = lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw)
     dkv = lambda *a: fl.flash_attention_bwd_dkv(*a, **kw)
     dkv_p = lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw)
-    ms = [time_ms(fwd, sets, 10), time_ms(dqk, sets, 10),
-          time_ms(dkv, sets, 10)]
-    plain = [time_ms(fwd_p, sets, 2), time_ms(dqk_p, sets, 2),
-             time_ms(dkv_p, sets, 2)]
-    # The library yardstick: SDPA forward, and its backward (dq, dk and dv
-    # in one call), on the same causal inputs (window 2048 = S adds nothing).
     sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
         q, k, v, is_causal=True)
-    lib_fwd = time_ms(sdpa, sets, 10)
-    graphs = []
-    for q, k, v, do, *_ in sets:
-        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
-        graphs.append((sdpa(*leaves), leaves, do))
-    lib_bwd = time_ms(lambda o, leaves, do: torch.autograd.grad(
-        o, leaves, do, retain_graph=True), graphs, 10)
-    del graphs
-    mask = fl._mask(sq, sk, sk - sq, sk, causal, window, "cuda")
-    pairs = b * hq * int(mask.sum())
-    bounds = _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs)
-    shape = f"B{b}xH{hq}xS{sq}x{dh} bf16 causal window {window}"
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
-    for kname, t, tp, (bound, by), lib in zip(
-            names, ms, plain, bounds, (lib_fwd, lib_bwd, lib_bwd)):
+    timed = {}   # entry name -> (ms, plain ms, (bound, by), library ms, shape)
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        route = fl._route(dtype, dh)
+        sets = []
+        for _ in range(2):
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
+            o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        lib_fwd = time_ms(sdpa, sets, 10)
+        graphs = []
+        for q, k, v, do, *_ in sets:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            graphs.append((sdpa(*leaves), leaves, do))
+        lib_bwd = time_ms(lambda o, leaves, do: torch.autograd.grad(
+            o, leaves, do, retain_graph=True), graphs, 10)
+        del graphs
+        bounds = _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs)
+        shape = f"B{b}xH{hq}xS{sq}x{dh} {name} causal window {window}"
+        timed[f"flash_attention_fwd_{route}"] = (
+            time_ms(fwd, sets, 10), time_ms(fwd_p, sets, 2), bounds[0],
+            lib_fwd, shape)
+        timed[f"flash_attention_bwd_dkv_{route}"] = (
+            time_ms(dkv, sets, 10), time_ms(dkv_p, sets, 2), bounds[2],
+            lib_bwd, shape)
+        if dtype == torch.bfloat16:
+            timed["flash_attention_bwd_dq"] = (
+                time_ms(dqk, sets, 10), time_ms(dqk_p, sets, 2), bounds[1],
+                lib_bwd, shape)
+            # K5b sums over the GQA group in registers, no atomics: two
+            # launches on the same inputs agree bit for bit.
+            first, second = dkv(*sets[0]), dkv(*sets[0])
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            log("kernels", kernel=f"flash_attention_bwd_dkv_{route}",
+                check="two launches bitwise equal", shape=repr(shape),
+                ok=same)
+            if not same:
+                failures.append(f"flash_attention_bwd_dkv_{route} not "
+                                f"bitwise repeatable")
+            del first, second
+        del sets
+        torch.cuda.empty_cache()
+    for kname, (t, tp, (bound, by), lib, shape) in timed.items():
         log("kernels", kernel=kname, shape=repr(shape), ms=f"{t:.4f}",
             plain_ms=f"{tp:.4f}", bound_ms=f"{bound:.4f}", bound_by=by,
             sdpa_ms=f"{lib:.4f}", pairs=pairs)
-    del sets
-    torch.cuda.empty_cache()
     check(not failures, "kernel parity failed: " + ", ".join(failures))
-    fwd_src = "src/repro_torch/kernels/csrc/flash_attention_fwd.cu"
-    bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
-    replaces = ("src/repro/kernels/flash_attention.py:246",
-                "src/repro/kernels/flash_attention.py:411",
-                "src/repro/kernels/flash_attention.py:411")
-    return [{"name": kname, "route": "cuda", "source": src,
-             "replaces": rep, "launches": None, "max_abs_err": err,
-             "ms": t, "plain_ms": tp, "bound_ms": bound, "bound_by": by,
-             "library_ms": lib}
-            for kname, src, rep, err, t, tp, (bound, by), lib in zip(
-                names, (fwd_src, bwd_src, bwd_src), replaces, errs, ms,
-                plain, bounds, (lib_fwd, lib_bwd, lib_bwd))]
+    csrc = "src/repro_torch/kernels/csrc/"
+    where = {
+        "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90.cu", 246),
+        "flash_attention_fwd_simt": ("flash_attention_fwd.cu", 246),
+        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 411),
+        "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_dkv_sm90.cu",
+                                         411),
+        "flash_attention_bwd_dkv_simt": ("flash_attention_bwd.cu", 411),
+    }
+    return [{"name": kname, "route": "cuda", "source": csrc + src,
+             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+             "launches": None, "max_abs_err": errs[kname], "ms": t,
+             "plain_ms": tp, "bound_ms": bound, "bound_by": by,
+             "library_ms": lib, "timed_at": shape}
+            for kname, (src, line) in where.items()
+            for t, tp, (bound, by), lib, shape in [timed[kname]]]
 
 
 # ---------------------------------------------------------------------------
@@ -639,6 +697,27 @@ def _count(kernels, name, path, n):
     entry = next(k for k in kernels if k["name"] == name)
     entry["launches"] = (entry["launches"] or 0) + n
     entry.setdefault("launches_by_path", {})[path] = n
+
+
+def _zero(*fns) -> None:
+    """Set each wrapper's launch counters, total and per route, to 0."""
+    for fn in fns:
+        fn.launches = 0
+        for route in getattr(fn, "route_launches", {}):
+            fn.route_launches[route] = 0
+
+
+def _read(fns, routed) -> list:
+    """Each wrapper's total launches, then each routed wrapper's per route
+    (in ``ROUTES`` order)."""
+    from repro_torch.kernels.flash_attention import ROUTES
+    return [fn.launches for fn in fns] + \
+        [fn.route_launches[r] for fn in routed for r in ROUTES]
+
+
+def _routed_names(routed) -> list:
+    from repro_torch.kernels.flash_attention import ROUTES
+    return [f"{fn.__name__}_{r}" for fn in routed for r in ROUTES]
 
 
 def phase_serve(kernels: list, cfg, path: str):
@@ -672,13 +751,12 @@ def phase_serve(kernels: list, cfg, path: str):
             for i, p in enumerate(prompts)]
 
     counters = (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
-    for c in counters:
-        c.launches = 0
+    _zero(*counters)
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3, k4 = (c.launches for c in counters)
+    k1, k3, k4, k4_sm90, k4_simt = _read(counters, (flash_attention_fwd,))
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -694,10 +772,12 @@ def phase_serve(kernels: list, cfg, path: str):
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
     check(k4 == n_soft * batches,
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
+    check(k4_sm90 == k4 and k4_simt == 0,
+          f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
     _count(kernels, "lasp2_chunk_fwd", path, k1)
     _count(kernels, "lasp2_decode_step", path, k3)
     if n_soft:
-        _count(kernels, "flash_attention_fwd", path, k4)
+        _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
     total_new = sum(len(t) for t in results.values())
     cache = engine.cache_stats()
     # linear_state is constant in max_len; kv_ring is 2·B·n_kv·ring·dh·2
@@ -714,7 +794,8 @@ def phase_serve(kernels: list, cfg, path: str):
           f"kv_ring {cache['kv_ring']} != formula {kv_ring}")
     log(path, requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
-        k1_launches=k1, k3_launches=k3, k4_launches=k4, wall_s=f"{wall:.3f}",
+        k1_launches=k1, k3_launches=k3, k4_launches=k4,
+        k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{total_new / wall:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
         prefill_p50_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
@@ -841,40 +922,44 @@ def phase_train(kernels: list, cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
+    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
     # the loop logs every step after the step's work: the counters read
     # there give each step's launches
     marks = []
 
     def log_fn(msg):
         if msg.startswith("step"):
-            marks.append([c.launches for c in counters])
+            marks.append(_read(counters, routed))
 
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    _zero(*counters)
     t0 = time.perf_counter()
     state, hist = train(cfg, run, data, log_every=1, log_fn=log_fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    totals = [c.launches for c in counters]
+    totals = _read(counters, routed)
     peak = torch.cuda.max_memory_allocated()
     per_step = [[b - a for a, b in zip(prev, cur)]
-                for prev, cur in zip([[0] * len(counters)] + marks, marks)]
+                for prev, cur in zip([[0] * len(totals)] + marks, marks)]
 
     losses = [h["loss"] for h in hist]
     n_lin, n_soft = _mixer_counts(cfg)
-    want = [n_lin * TRAIN_MICRO] * 3 + [n_soft * TRAIN_MICRO] * 3
+    # K1, K2a, K2b, K4, K5a, K5b, then K4 and K5b on sm90 and on simt:
+    # the bf16 train path takes sm90 only
+    soft = n_soft * TRAIN_MICRO
+    want = [n_lin * TRAIN_MICRO] * 3 + [soft] * 3 + [soft, 0, soft, 0]
     check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
     check(np.mean(losses[-3:]) < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
     check(len(per_step) == TRAIN_STEPS and all(n == want for n in per_step),
-          f"launches of K1, K2a, K2b, K4, K5a, K5b per step {per_step}; "
-          f"want {want}")
-    for c, n in zip(counters, totals):
-        if n:
-            _count(kernels, c.__name__, path, n)
+          f"launches of K1, K2a, K2b, K4, K5a, K5b, K4 sm90/simt, K5b "
+          f"sm90/simt per step {per_step}; want {want}")
+    names = [c.__name__ for c in counters] + _routed_names(routed)
+    for name, n in zip(names, totals):
+        if n and name not in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+            _count(kernels, name, path, n)
     dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
     p50 = float(np.median(dts))
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -886,8 +971,9 @@ def phase_train(kernels: list, cfg, path: str) -> None:
         loss_last3=f"{np.mean(losses[-3:]):.4f}",
         losses=repr([round(x, 4) for x in losses]),
         grad_norm_first=f"{hist[0]['grad_norm']:.3f}",
-        launches_per_step_k1_k2a_k2b_k4_k5a_k5b=repr(per_step[0]),
-        launches_k1_k2a_k2b_k4_k5a_k5b=repr(totals), wall_s=f"{wall:.2f}",
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routes=repr(per_step[0]),
+        launches_k1_k2a_k2b_k4_k5a_k5b_routes=repr(totals),
+        wall_s=f"{wall:.2f}",
         step0_ms=f"{hist[0]['dt'] * 1e3:.1f}", step_p50_ms=f"{p50 * 1e3:.1f}",
         tokens_per_s=f"{tokens / p50:.0f}",
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
@@ -916,7 +1002,7 @@ def phase_train(kernels: list, cfg, path: str) -> None:
 TOL_CHECK = 1e-3
 
 
-def phase_grad_check(cfg, path: str) -> None:
+def phase_grad_check(kernels: list, cfg, path: str) -> None:
     """A shallow fp32 copy of a config at full width (d_model 2048, 16
     heads of 128, vocab 128256): the same params on the card, where every
     linear layer runs K1, K2a and K2b and every softmax layer K4, K5a and
@@ -949,13 +1035,20 @@ def phase_grad_check(cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    before = [c.launches for c in counters]
+    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    _zero(*counters)
     loss_c, grads_c = loss_and_grads(card)
     torch.cuda.synchronize()
-    launched = [c.launches - b for c, b in zip(counters, before)]
+    launched = _read(counters, routed)
     n_lin, n_soft = _mixer_counts(cfg)
-    check(launched == [n_lin] * 3 + [n_soft] * 3,
-          f"card path launched K1, K2a, K2b, K4, K5a, K5b {launched} times")
+    # fp32: K4 and K5b take their simt route
+    check(launched == [n_lin] * 3 + [n_soft] * 3 + [0, n_soft, 0, n_soft],
+          f"card path launched K1, K2a, K2b, K4, K5a, K5b, K4 sm90/simt, "
+          f"K5b sm90/simt {launched} times")
+    names = [c.__name__ for c in counters] + _routed_names(routed)
+    for name, n in zip(names, launched):
+        if n and name not in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+            _count(kernels, name, path, n)
     loss_h, grads_h = loss_and_grads(host)
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""
@@ -1006,9 +1099,11 @@ def main() -> int:
     _free()
     phase_train(kernels, hybrid, "hybrid_train")
     _free()
-    phase_grad_check(dataclasses.replace(linear, n_layers=2, dtype="float32"),
+    phase_grad_check(kernels, dataclasses.replace(linear, n_layers=2,
+                                                  dtype="float32"),
                      "gradcheck")
-    phase_grad_check(dataclasses.replace(hybrid, n_layers=4, dtype="float32"),
+    phase_grad_check(kernels, dataclasses.replace(hybrid, n_layers=4,
+                                                  dtype="float32"),
                      "hybrid_gradcheck")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,9 @@ shared library with a plain ``extern "C"`` interface, loaded with
 ``ctypes``. The build runs at the first CUDA use (never at import, so the
 CPU tests import every module), one ``nvcc`` per source, all started
 together. Libraries land in ``build/repro_torch_kernels/`` under the
-checkout, named by a hash of their source and flags, so a changed source
-is rebuilt and an unchanged one is loaded as it is. A failed build raises
+checkout, named by a hash of their source, the shared headers
+(``csrc/*.cuh``) and the flags, so a changed source or header is rebuilt
+and an unchanged one is loaded as it is. A failed build raises
 with nvcc's output; nothing falls back to the plain versions.
 """
 
@@ -41,7 +42,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``src``, named by a hash of its text, of every header
+    beside it (``*.cuh``, which a source may include) and of the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -1,0 +1,320 @@
+// Hopper (sm_90a) building blocks for the hand-written kernels under csrc/:
+// mbarriers, TMA tensor loads, wgmma shared-memory descriptors and issue
+// helpers, the accumulator -> A-register conversion, and the host-side
+// creation of TMA tensor maps.
+//
+// Shared-memory tiles are bf16, stored as column blocks of 64 elements
+// (128 bytes a row) with the 128-byte swizzle that both TMA
+// (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma (layout type 1) use; each block
+// starts on a 1024-byte boundary. A row of dh = 128 is therefore two blocks,
+// loaded by two TMA boxes of 64 columns. In such a block:
+// * K-major operand (the contraction runs along the row): 8-row groups
+//   1024 bytes apart (SBO), the leading offset unused; k-step kk of 16
+//   elements starts 32·kk bytes into the row (block kk / 4 for dh 128).
+// * MN-major operand (the contraction runs down the rows, the operand's N
+//   along the row; the transpose bit is set): 8-row groups 1024 bytes
+//   apart (SBO), the next 64 columns at the next block (LBO = the block's
+//   size); k-step kk of 16 rows starts 16 rows = 2048 bytes further.
+//
+// The accumulator of wgmma m64nNk16 (f32) gives thread t of the warpgroup
+// (warp w = t / 32, lane l) rows w·16 + l/4 and that + 8; register r holds
+// row w·16 + l/4 + 8·((r / 2) % 2), column 8·(r / 4) + 2·(l % 4) + r % 2.
+// The bf16 A operand from registers of m64nNk16 has the same layout for its
+// 16 columns, so columns 16·kk .. 16·kk + 15 of an accumulator become the A
+// fragment of k-step kk by packing registers 8·kk .. 8·kk + 7 in pairs
+// (acc_to_a).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+// ---------------------------------------------------------------------------
+// Shared-memory addresses and mbarriers.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// After the inits, before any thread or the TMA unit uses the barriers
+// (followed by a __syncthreads()).
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// One arrival that also adds `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed. A wait that
+// outlasts 2^30 tries (seconds; every wait of these kernels is a few tiles
+// of work) traps, so a broken protocol fails the launch instead of hanging
+// the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 30)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// TMA.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Box at (c0, c1, c2) of a 3-D map into shared memory at `dst`; completion
+// counted in bytes on `bar`. Out-of-bounds elements arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.
+// ---------------------------------------------------------------------------
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence, commit or wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define SM90_D8(i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),        \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_D32 SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24)
+#define SM90_D64 SM90_D32, SM90_D8(32), SM90_D8(40), SM90_D8(48), SM90_D8(56)
+#define SM90_R32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define SM90_R64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (64 x N, f32) {=, +=} A (64 x 16, shared, K-major) · B (16 x N, shared;
+// K-major for TB = 0, MN-major for TB = 1). `acc` = 0 overwrites d.
+template <int N, int TB>
+struct MmaSS;
+
+template <int TB>
+struct MmaSS<64, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_R32
+        ", %32, %33, p, 1, 1, 0, %35;\n"
+        "}\n"
+        : SM90_D32
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaSS<128, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+        ", %64, %65, p, 1, 1, 0, %67;\n"
+        "}\n"
+        : SM90_D64
+        : "l"(a), "l"(b), "r"(acc), "n"(TB));
+  }
+};
+
+// d (64 x N, f32) {=, +=} A (64 x 16, bf16 in registers: a[0..3], the
+// layout of acc_to_a) · B (16 x N, shared; K-major for TB = 0, MN-major for
+// TB = 1).
+template <int N, int TB>
+struct MmaRS;
+
+template <int TB>
+struct MmaRS<64, TB> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+        "}\n"
+        : SM90_D32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct MmaRS<128, TB> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+        "}\n"
+        : SM90_D64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+          "n"(TB));
+  }
+};
+
+#undef SM90_D8
+#undef SM90_D32
+#undef SM90_D64
+#undef SM90_R32
+#undef SM90_R64
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// An m64nNk16 f32 accumulator (NR = N / 2 registers) as bf16 A fragments of
+// the next product, whose contraction runs over the accumulator's N
+// columns: k-step kk is a[4·kk .. 4·kk + 3].
+template <int NR>
+__device__ __forceinline__ void acc_to_a(const float (&d)[NR],
+                                         uint32_t (&a)[NR / 2]) {
+#pragma unroll
+  for (int i = 0; i < NR / 2; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
+}
+
+// ---------------------------------------------------------------------------
+// Host: TMA tensor maps. cuTensorMapEncodeTiled is a driver function; it is
+// reached through the runtime's entry-point query, so the library needs no
+// link against libcuda.
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A contiguous bf16 tensor (mats, rows, dh) as a 3-D map with boxes of 64
+// columns x box_rows rows of one matrix, 128-byte swizzle, zeros out of
+// bounds (a ragged tail never reads the next matrix). Needs dh a multiple of
+// 64 and a 16-byte aligned base. Returns false if the driver refuses.
+inline bool make_map(CUtensorMap* map, const void* base, int mats, int rows,
+                     int dh, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)rows * dh * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+__host__ __device__ __forceinline__ int floordiv(int a, int b) {
+  return (a >= 0) ? a / b : -((-a + b - 1) / b);
+}
+
+}  // namespace sm90

@@ -7,7 +7,10 @@ Tolerances: o at the reference's kernel tolerances (3e-4 fp32, 4e-2 bf16,
 ``tests/test_kernels.py:14``); states in fp32 at 1e-4 (both sides sum in
 fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
 flash lse (fp32 on both sides) at 1e-4; gradients at the reference's 1e-3
-(4e-2 for bf16 outputs).
+(4e-2 for bf16 outputs). bf16 flash results at 2^-7·|want| + 2^-8·rms(want),
+plus, on the ``sm90`` route of K4 and K5b, which rounds P and dS to bf16
+inside its products, 2^-8 times those products over absolute values
+(``fl.sm90_rounding_bound``).
 """
 
 import pytest
@@ -40,13 +43,17 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _close_bf16(got, want):
+def _close_bf16(got, want, extra=None):
     """bf16 results both sides accumulate in fp32 and round once: within
     one bf16 step (2^-7·|want|) plus 2^-8 of the tensor's rms for entries
-    near zero, a limit that scales with the data."""
+    near zero, a limit that scales with the data; plus ``extra`` (the
+    ``sm90`` route's rounding of P and dS) where given."""
     got, want = got.float(), want.float()
     rms = float(want.pow(2).mean().sqrt())
-    bad = (got - want).abs() > 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -8 * rms
+    if extra is not None:
+        limit = limit + extra
+    bad = (got - want).abs() > limit
     assert not bool(bad.any()), \
         f"{int(bad.sum())} entries off, max {float((got - want).abs().max())}"
 
@@ -203,55 +210,82 @@ def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
                                    dtype):
     """K4 (o, lse), K5a (dq) and K5b (dk, dv) over GQA ratios 1-8, ragged
     lengths, sq != sk (q_offset = sk - sq), windows, fp32 (3e-4 for o, the
-    reference's 1e-3 for gradients) and bf16 (``_close_bf16``)."""
+    reference's 1e-3 for gradients) and bf16 (``_close_bf16``), on both
+    routes: bf16 at dh 64 and 128 through ``sm90`` (o, dk and dv with its
+    rounding bound), the rest through ``simt``."""
+    route = fl._route(dtype, dh)
     q, k, v, do = _flash_inputs(gen, 2, hq, hkv, sq, sk, dh, dtype)
     kw = dict(causal=causal, window=window)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    before = [c.route_launches[route] for c in counters]
     o, lse = fl.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
-    def close(got, want, fp32_tol):
+    delta = (do.float() * o_p.float()).sum(-1)
+    extra = (None, None, None)
+    if route == "sm90":
+        extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw)
+
+    def close(got, want, fp32_tol, bound=None):
         if dtype == torch.bfloat16:
-            _close_bf16(got, want)
+            _close_bf16(got, want, bound)
         else:
             _close(got, want, fp32_tol)
 
     assert o.dtype == dtype and lse.dtype == torch.float32
-    close(o, o_p, 3e-4)
+    close(o, o_p, 3e-4, extra[0])
     fully_masked = lse_p < -1e37          # rows that see no key
     _close(lse.masked_fill(fully_masked, 0), lse_p.masked_fill(
         fully_masked, 0), 1e-4)
     assert bool((lse[fully_masked] < -1e37).all())
-    delta = (do.float() * o_p.float()).sum(-1)
     dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
     dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
     torch.cuda.synchronize()
+    assert [c.route_launches[route] - n for c, n in zip(counters, before)] \
+        == [1, 1]
     dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
     dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
                                                   **kw)
-    for g, w in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+    for g, w, bound in ((dq, dq_p, None), (dk, dk_p, extra[1]),
+                        (dv, dv_p, extra[2])):
         assert g.dtype == dtype
-        close(g, w, 1e-3)
+        close(g, w, 1e-3, bound)
 
 
 @pytest.mark.parametrize("q_offset,kv_len", [(64, 256), (0, 200), (-32, 256),
                                              (1000, 256)])
-def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len,
+                                                  dtype):
     """An explicit q_offset (ahead of, at, behind and past the keys) and a
-    kv_len below Sk, causal with a 96-token window, fp32."""
-    q, k, v, do = _flash_inputs(gen, 2, 4, 2, 128, 256, 64, torch.float32)
+    kv_len below Sk, causal with a 96-token window: fp32 through the
+    ``simt`` route, bf16 (dh 64) through ``sm90``."""
+    route = fl._route(dtype, 64)
+    q, k, v, do = _flash_inputs(gen, 2, 4, 2, 128, 256, 64, dtype)
     kw = dict(causal=True, window=96, q_offset=q_offset, kv_len=kv_len)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    before = [c.route_launches[route] for c in counters]
     o, lse = fl.flash_attention_fwd(q, k, v, **kw)
     o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
-    _close(o, o_p, 3e-4)
+    delta = (do.float() * o_p.float()).sum(-1)
     _close(lse.clamp(min=-1e30), lse_p.clamp(min=-1e30), 1e-4)
-    delta = (do * o_p).sum(-1)
     dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
     dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    assert [c.route_launches[route] - n for c, n in zip(counters, before)] \
+        == [1, 1]
     want = (fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
             *fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
                                               **kw))
-    for g, w in zip((dq, dk, dv), want):
-        _close(g, w, 1e-3)
+    if dtype == torch.float32:
+        _close(o, o_p, 3e-4)
+        for g, w in zip((dq, dk, dv), want):
+            _close(g, w, 1e-3)
+    else:
+        b_o, b_dk, b_dv = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta,
+                                                 **kw)
+        _close_bf16(o, o_p, b_o)
+        for g, w, bound in zip((dq, dk, dv), want, (None, b_dk, b_dv)):
+            _close_bf16(g, w, bound)
     if kv_len < 256:              # keys past kv_len get no gradient
         assert float(dk[:, :, kv_len:].abs().max()) == 0.0
         assert float(dv[:, :, kv_len:].abs().max()) == 0.0
@@ -259,17 +293,50 @@ def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len):
 
 def test_flash_autograd_launches_each_kernel_once(gen):
     """Autograd through ops.flash_attention_op on the card launches K4,
-    K5a and K5b once each, on an odd length (ragged tiles, unpadded)."""
+    K5a and K5b once each, on an odd length (ragged tiles, unpadded); bf16
+    at dh 64 takes K4's and K5b's ``sm90`` route, never ``simt``."""
     from repro_torch.kernels import ops
     q, k, v, do = _flash_inputs(gen, 1, 4, 2, 300, 300, 64, torch.bfloat16)
     xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
+    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
     before = [c.launches for c in counters]
+    before_routes = [dict(c.route_launches) for c in routed]
     o = ops.flash_attention_op(*xs, causal=True, sliding_window=128)
     grads = torch.autograd.grad((o.float() * do.float()).sum(), xs)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
+    for c, b in zip(routed, before_routes):
+        assert c.route_launches["sm90"] - b["sm90"] == 1
+        assert c.route_launches["simt"] == b["simt"]
     assert o.shape == q.shape and all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_dkv_sm90_is_bitwise_repeatable(gen, dh):
+    """K5b on the ``sm90`` route sums dk and dv over the GQA group in
+    registers in a fixed order, with no atomics: two launches on the same
+    inputs agree bit for bit."""
+    q, k, v, do = _flash_inputs(gen, 2, 8, 2, 512, 512, dh, torch.bfloat16)
+    o, lse = fl.flash_attention_fwd(q, k, v, window=384)
+    delta = (do.float() * o.float()).sum(-1)
+    before = fl.flash_attention_bwd_dkv.route_launches["sm90"]
+    first = fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta, window=384)
+    second = fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta, window=384)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_bwd_dkv.route_launches["sm90"] - before == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_sm90_rejects_misaligned_inputs(gen):
+    """TMA reads from a 16-byte aligned base: a contiguous view that starts
+    elsewhere is refused on the ``sm90`` route, never read wrong."""
+    flat = torch.zeros(1 * 2 * 8 * 64 + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_attention_fwd(q, q, q)
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
