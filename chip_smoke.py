@@ -15,13 +15,14 @@ line:
    two passes of the chunk backward, at the training shape; K4, K5a and
    K5b, flash attention's forward and two backward passes, at the hybrid's
    training shape, a prefill shape, a trimmed band, GQA 4:1, an explicit
-   offset and a non-causal window, K4 and K5b on both routes: ``sm90``
-   (tensor cores) for bf16 at dh 64 and 128, ``simt`` (CUDA cores) for
-   fp32 and dh 16), with its time, the plain version's time, the least
-   time the card could take (the bound) and, for flash attention, the time
-   of ``F.scaled_dot_product_attention`` on the same causal shape; flash
-   times at the train shape in bf16 (``sm90``, and K5a) and in fp32
-   (``simt``), and K5b's ``sm90`` output bitwise equal on two launches;
+   offset and a non-causal window). K2b, K4, K5a and K5b each have two
+   routes: ``sm90`` (tensor cores) for bf16 at dh 64 and 128 (K2b: dk and
+   dv in {64, 128}), ``simt`` (CUDA cores) for fp32 and the rest. Each is
+   timed beside the plain version's time, the least time the card could
+   take (the bound) and, for flash attention, the time of
+   ``F.scaled_dot_product_attention`` on the same causal shape: ``sm90``
+   in bf16 and ``simt`` in fp32 at the train shape; K2b, K5a and K5b on
+   ``sm90`` are bitwise equal on two launches;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
    request finishes, the launch counters show K1 and K3 on the path,
@@ -38,21 +39,20 @@ line:
 7. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
    through ``train()`` (fp32 masters, bf16 compute, 8 x 2048 packed
    tokens in 2 microbatches); every loss is finite, none is skipped, the
-   loss falls, and each step launches K1, K2a and K2b 16 x 2 times; then
-   the profile of one train step;
+   loss falls, and each step launches K1, K2a and K2b 16 x 2 times, K2b
+   all on ``sm90``; then the profile of one train step;
 8. hybrid train: the same with ``HYBRID``; each step launches K1, K2a and
-   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times, K4 and K5b all on
-   their ``sm90`` route;
+   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times, all of K2b, K4, K5a
+   and K5b on their ``sm90`` route;
 9. grad check: a 2-layer fp32 copy of the config at full width, the same
    params on the card (kernels) and on the host CPU (plain versions): the
    loss and every parameter gradient agree; then a 4-layer copy of
-   ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so K4 and
-   K5b take their ``simt`` route.
+   ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so K2b, K4,
+   K5a and K5b take their ``simt`` route.
 
-The line before the last is the kernel table as JSON (K1, K3, K2a, K2b,
-K4 ``sm90`` and ``simt``, K5a, K5b ``sm90`` and ``simt``; ``launches``
-summed over the paths that ran each, listed in ``launches_by_path``); the
-last line is
+The line before the last is the kernel table as JSON (K1, K3, K2a, then
+K2b, K4, K5a and K5b once per route; ``launches`` summed over the paths
+that ran each, listed in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -379,8 +379,13 @@ def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full"):
 def phase_bwd_kernels(kernels: list) -> list:
     """K2a and K2b (``lasp2_chunk_bwd``) against the plain passes at the
     training path's shape, BH 64 (4 rows x 16 heads) x S 2048 x 128, and
-    at S 37; K1's time at that shape joins its entry."""
+    at S 37; K2b on the route its inputs take (bf16: ``sm90``, the tensor
+    cores; fp32: ``simt``), both held to the same limits against the fp32
+    plain version. Times at that shape: K1, K2a, K2b ``sm90`` in bf16, K2b
+    ``simt`` in fp32; K2b ``sm90`` bitwise equal on two launches. K1's time
+    at that shape joins its entry."""
     from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels import lasp2_chunk as lc
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
                                                  lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dkv_plain,
@@ -392,7 +397,8 @@ def phase_bwd_kernels(kernels: list) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1)
     bh, d, s_train = 64, 128, 2048
     failures = []
-    err_a = err_b = 0.0
+    err_a = 0.0
+    err_b = dict.fromkeys(lc.ROUTES, 0.0)
     cases = [(dt, s, lk, cot) for dt in (torch.bfloat16, torch.float32)
              for s, lk, cot in ((s_train, "zero", "full"),
                                 (s_train, "reset", "full"),
@@ -401,11 +407,14 @@ def phase_bwd_kernels(kernels: list) -> list:
                                 (37, "reset", "full"))]
     for dtype, s, la_kind, cot in cases:
         ins = _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot)
+        route = lc._route(dtype, d, d)
+        before = lasp2_chunk_bwd_dkv.route_launches[route]
         got = lasp2_chunk_bwd(*ins)
         torch.cuda.synchronize()
         want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
         name = str(dtype).split(".")[-1]
-        errs, ok = {}, True
+        errs = {}
+        ok = lasp2_chunk_bwd_dkv.route_launches[route] - before == 1
         for key, g, w in zip(("dq", "dk", "dv"), got, want):
             errs[key], good = max_err_within(g, w, TOL_GRAD[name])
             ok = ok and good and g.dtype == dtype
@@ -417,17 +426,19 @@ def phase_bwd_kernels(kernels: list) -> list:
         if cot == "state":
             ok = ok and float(got[0].abs().max()) == 0.0
         err_a = max(err_a, errs["dq"])
-        err_b = max(err_b, errs["dk"], errs["dv"], errs["dla"])
+        err_b[route] = max(err_b[route], errs["dk"], errs["dv"], errs["dla"])
         log("kernels", kernel="lasp2_chunk_bwd", dtype=name, S=s,
-            log_a=la_kind, cotangent=cot,
+            log_a=la_kind, cotangent=cot, k2b_route=route,
             **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()},
-            tol=TOL_GRAD[name], dla_slack=f"{slack:.2e}", ok=ok)
+            tol=TOL_GRAD[name], tol_dla="1e-3+S2^-24max|want|+1e-3|want|",
+            dla_slack=f"{slack:.2e}", ok=ok)
         if not ok:
             failures.append(f"lasp2_chunk_bwd {name} S={s} {la_kind} {cot}")
         del ins, got, want
 
-    # Times at the training path's shape, bf16, with resets; two input
-    # sets of 5 x 33.5 MB each rotate above the 50 MB L2.
+    # Times at the training path's shape with resets; two input sets of
+    # 5 x 33.5 MB each (bf16) rotate above the 50 MB L2. bf16 runs K2b on
+    # sm90, fp32 on simt.
     sets = [_bwd_inputs(gen, bh, s_train, d, torch.bfloat16, "reset")
             for _ in range(2)]
     k1_ms = time_ms(lambda q, k, v, la, *_: lasp2_chunk_fwd(q, k, v, la),
@@ -439,35 +450,55 @@ def phase_bwd_kernels(kernels: list) -> list:
                    lasp2_chunk_bwd_dq(k, v, la, do), sets, 10)
     a_plain = time_ms(lambda q, k, v, la, o, do, dst:
                       lasp2_chunk_bwd_dq_plain(k, v, la, do), sets, 4)
-    b_ms = time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 10)
-    b_plain = time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4)
-    (a_bound, a_by), (b_bound, b_by) = _bwd_bounds(bh, s_train, d, d,
-                                                   torch.bfloat16)
-    shape = f"BH{bh}xS{s_train}x{d} bf16"
-    for kname, ms, plain, bound, by in (
-            ("lasp2_chunk_fwd", k1_ms, k1_plain, k1_bound, k1_by),
-            ("lasp2_chunk_bwd_dq", a_ms, a_plain, a_bound, a_by),
-            ("lasp2_chunk_bwd_dkv", b_ms, b_plain, b_bound, b_by)):
-        log("kernels", kernel=kname, shape=shape, ms=f"{ms:.4f}",
-            plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
+    (a_bound, a_by), b_bound = _bwd_bounds(bh, s_train, d, d, torch.bfloat16)
+    timed = {"lasp2_chunk_fwd": (k1_ms, k1_plain, k1_bound, k1_by),
+             "lasp2_chunk_bwd_dq": (a_ms, a_plain, a_bound, a_by),
+             "lasp2_chunk_bwd_dkv_sm90": (
+                 time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 20),
+                 time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4),
+                 *b_bound)}
+    # K2b sums in a fixed order with no atomics: two launches agree bit
+    # for bit.
+    first, second = (lasp2_chunk_bwd_dkv(*sets[0]) for _ in range(2))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    log("kernels", kernel="lasp2_chunk_bwd_dkv_sm90",
+        check="two launches bitwise equal",
+        shape=repr(f"BH{bh}xS{s_train}x{d} bf16"), ok=same)
+    if not same:
+        failures.append("lasp2_chunk_bwd_dkv_sm90 not bitwise repeatable")
+    del sets, first, second
+    sets = [_bwd_inputs(gen, bh, s_train, d, torch.float32, "reset")
+            for _ in range(2)]
+    timed["lasp2_chunk_bwd_dkv_simt"] = (
+        time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 10),
+        time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4),
+        *_bwd_bounds(bh, s_train, d, d, torch.float32)[1])
     del sets
+    shapes = {kname: f"BH{bh}xS{s_train}x{d} "
+              + ("float32" if kname.endswith("simt") else "bf16")
+              for kname in timed}
+    for kname, (ms, plain, bound, by) in timed.items():
+        log("kernels", kernel=kname, shape=repr(shapes[kname]),
+            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}",
+            bound_by=by)
     check(not failures, "kernel parity failed: " + ", ".join(failures))
-    kernels[0].update(train_shape=shape, train_shape_ms=k1_ms,
-                      train_shape_plain_ms=k1_plain,
+    kernels[0].update(train_shape=shapes["lasp2_chunk_fwd"],
+                      train_shape_ms=k1_ms, train_shape_plain_ms=k1_plain,
                       train_shape_bound_ms=k1_bound)
-    src = "src/repro_torch/kernels/csrc/lasp2_chunk_bwd.cu"
-    return [
-        {"name": "lasp2_chunk_bwd_dq", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/lasp2_chunk.py:271",
-         "launches": None, "max_abs_err": err_a, "ms": a_ms,
-         "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by,
-         "library_ms": None},
-        {"name": "lasp2_chunk_bwd_dkv", "route": "cuda", "source": src,
-         "replaces": "src/repro/kernels/lasp2_chunk.py:271",
-         "launches": None, "max_abs_err": err_b, "ms": b_ms,
-         "plain_ms": b_plain, "bound_ms": b_bound, "bound_by": b_by,
-         "library_ms": None},
-    ]
+    csrc = "src/repro_torch/kernels/csrc/"
+    where = {"lasp2_chunk_bwd_dq": ("lasp2_chunk_bwd.cu", 271, err_a),
+             "lasp2_chunk_bwd_dkv_sm90": ("lasp2_chunk_bwd_sm90.cu", 207,
+                                          err_b["sm90"]),
+             "lasp2_chunk_bwd_dkv_simt": ("lasp2_chunk_bwd.cu", 207,
+                                          err_b["simt"])}
+    return [{"name": kname, "route": "cuda", "source": csrc + src,
+             "replaces": f"src/repro/kernels/lasp2_chunk.py:{line}",
+             "launches": None, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+             "library_ms": None, "timed_at": shapes[kname]}
+            for kname, (src, line, err) in where.items()
+            for ms, plain, bound, by in [timed[kname]]]
 
 
 # Flash-attention cases against the plain versions: (what, B, Hq, Hkv, Sq,
@@ -476,7 +507,7 @@ def phase_bwd_kernels(kernels: list) -> list:
 # fp32, one prefill row of an odd length, a band trimmed to a 512 window
 # (bf16 and fp32), GQA 4:1, an explicit offset and a non-causal window
 # (each in bf16 and fp32, or at dh 64 and 128), and SMOKE's dh 16. bf16 at
-# dh 64 and 128 runs K4 and K5b on their ``sm90`` route, the rest on
+# dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the rest on
 # ``simt``.
 FLASH_CASES = [
     ("train", 4, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 2048, None),
@@ -529,9 +560,9 @@ def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
 def phase_flash_kernels() -> list:
     """K4, K5a and K5b against their plain versions over ``FLASH_CASES``,
     each on the route its inputs take; then times at the train shape: bf16
-    (K4 and K5b on ``sm90``, K5a) and fp32 (K4 and K5b on ``simt``), with
-    the SDPA forward and backward on the same causal inputs as the library
-    yardstick (timed here only), and K5b's run-to-run bitwise equality on
+    (all three on ``sm90``) and fp32 (on ``simt``), with the SDPA forward
+    and backward on the same causal inputs as the library yardstick (timed
+    here only), and K5a's and K5b's run-to-run bitwise equality on
     ``sm90``."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fl
@@ -554,7 +585,7 @@ def phase_flash_kernels() -> list:
         name = str(dtype).split(".")[-1]
         bf16 = dtype == torch.bfloat16
         extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw) \
-            if route == "sm90" else (None, None, None)
+            if route == "sm90" else (None, None, None, None)
         if bf16:
             close_o = close_g = max_err_bf16
         else:
@@ -567,16 +598,16 @@ def phase_flash_kernels() -> list:
         torch.cuda.synchronize()
         dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta,
                                                **kw)
-        e_dq, ok_dq = close_g(dq, dq_p, None)
+        e_dq, ok_dq = close_g(dq, dq_p, extra[1])
         del dq_p
         dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p,
                                                       delta, **kw)
-        e_dk, ok_dk = close_g(dk, dk_p, extra[1])
-        e_dv, ok_dv = close_g(dv, dv_p, extra[2])
+        e_dk, ok_dk = close_g(dk, dk_p, extra[2])
+        e_dv, ok_dv = close_g(dv, dv_p, extra[3])
         ok = ok_o and ok_l and ok_dq and ok_dk and ok_dv and \
             all(t.dtype == dtype for t in (o, dq, dk, dv))
         worst(f"flash_attention_fwd_{route}", e_o, e_l)
-        worst("flash_attention_bwd_dq", e_dq)
+        worst(f"flash_attention_bwd_dq_{route}", e_dq)
         worst(f"flash_attention_bwd_dkv_{route}", e_dk, e_dv)
         tol = (SM90_LIMIT if route == "sm90" else BF16_LIMIT) if bf16 \
             else TOL_O[name]
@@ -584,8 +615,8 @@ def phase_flash_kernels() -> list:
             shape=f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh}", dtype=name,
             route=route, causal=causal, window=window, q_offset=off,
             err_o=f"{e_o:.3e}", err_lse=f"{e_l:.3e}", err_dq=f"{e_dq:.3e}",
-            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}", tol_o_dk_dv=tol,
-            tol_dq=BF16_LIMIT if bf16 else TOL_GRAD[name], ok=ok)
+            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}", tol_o=tol,
+            tol_grads=tol if bf16 else TOL_GRAD[name], ok=ok)
         if not ok:
             failures.append(f"flash {what} {name} dh{dh}")
         del q, k, v, do, o, lse, o_p, lse_p, delta, dq, dk, dv, dk_p, dv_p, \
@@ -630,25 +661,28 @@ def phase_flash_kernels() -> list:
         timed[f"flash_attention_fwd_{route}"] = (
             time_ms(fwd, sets, 10), time_ms(fwd_p, sets, 2), bounds[0],
             lib_fwd, shape)
+        timed[f"flash_attention_bwd_dq_{route}"] = (
+            time_ms(dqk, sets, 10), time_ms(dqk_p, sets, 2), bounds[1],
+            lib_bwd, shape)
         timed[f"flash_attention_bwd_dkv_{route}"] = (
             time_ms(dkv, sets, 10), time_ms(dkv_p, sets, 2), bounds[2],
             lib_bwd, shape)
         if dtype == torch.bfloat16:
-            timed["flash_attention_bwd_dq"] = (
-                time_ms(dqk, sets, 10), time_ms(dqk_p, sets, 2), bounds[1],
-                lib_bwd, shape)
-            # K5b sums over the GQA group in registers, no atomics: two
-            # launches on the same inputs agree bit for bit.
-            first, second = dkv(*sets[0]), dkv(*sets[0])
-            torch.cuda.synchronize()
-            same = all(torch.equal(x, y) for x, y in zip(first, second))
-            log("kernels", kernel=f"flash_attention_bwd_dkv_{route}",
-                check="two launches bitwise equal", shape=repr(shape),
-                ok=same)
-            if not same:
-                failures.append(f"flash_attention_bwd_dkv_{route} not "
-                                f"bitwise repeatable")
-            del first, second
+            # K5a owns its dq rows and K5b sums over the GQA group in
+            # registers, no atomics: two launches on the same inputs agree
+            # bit for bit.
+            for kname, fn in ((f"flash_attention_bwd_dq_{route}", dqk),
+                              (f"flash_attention_bwd_dkv_{route}", dkv)):
+                first, second = ((r,) if torch.is_tensor(r) else r
+                                 for r in (fn(*sets[0]), fn(*sets[0])))
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(first, second))
+                log("kernels", kernel=kname,
+                    check="two launches bitwise equal", shape=repr(shape),
+                    ok=same)
+                if not same:
+                    failures.append(f"{kname} not bitwise repeatable")
+                del first, second
         del sets
         torch.cuda.empty_cache()
     for kname, (t, tp, (bound, by), lib, shape) in timed.items():
@@ -660,7 +694,9 @@ def phase_flash_kernels() -> list:
     where = {
         "flash_attention_fwd_sm90": ("flash_attention_fwd_sm90.cu", 246),
         "flash_attention_fwd_simt": ("flash_attention_fwd.cu", 246),
-        "flash_attention_bwd_dq": ("flash_attention_bwd.cu", 411),
+        "flash_attention_bwd_dq_sm90": ("flash_attention_bwd_dq_sm90.cu",
+                                        305),
+        "flash_attention_bwd_dq_simt": ("flash_attention_bwd.cu", 305),
         "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_dkv_sm90.cu",
                                          411),
         "flash_attention_bwd_dkv_simt": ("flash_attention_bwd.cu", 411),
@@ -715,9 +751,16 @@ def _read(fns, routed) -> list:
         [fn.route_launches[r] for fn in routed for r in ROUTES]
 
 
-def _routed_names(routed) -> list:
+def _count_routed(kernels, counters, routed, launched, path) -> None:
+    """Add a path's launches (as ``_read`` gives them) to the kernel
+    entries: each unrouted wrapper's total, each routed one's per route."""
     from repro_torch.kernels.flash_attention import ROUTES
-    return [f"{fn.__name__}_{r}" for fn in routed for r in ROUTES]
+    names = [c.__name__ for c in counters] + \
+        [f"{fn.__name__}_{r}" for fn in routed for r in ROUTES]
+    skip = {fn.__name__ for fn in routed}
+    for name, n in zip(names, launched):
+        if n and name not in skip:
+            _count(kernels, name, path, n)
 
 
 def phase_serve(kernels: list, cfg, path: str):
@@ -922,7 +965,8 @@ def phase_train(kernels: list, cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    routed = (lasp2_chunk_bwd_dkv, fl.flash_attention_fwd,
+              fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv)
     # the loop logs every step after the step's work: the counters read
     # there give each step's launches
     marks = []
@@ -944,22 +988,19 @@ def phase_train(kernels: list, cfg, path: str) -> None:
 
     losses = [h["loss"] for h in hist]
     n_lin, n_soft = _mixer_counts(cfg)
-    # K1, K2a, K2b, K4, K5a, K5b, then K4 and K5b on sm90 and on simt:
-    # the bf16 train path takes sm90 only
-    soft = n_soft * TRAIN_MICRO
-    want = [n_lin * TRAIN_MICRO] * 3 + [soft] * 3 + [soft, 0, soft, 0]
+    # K1, K2a, K2b, K4, K5a, K5b, then K2b, K4, K5a and K5b on sm90 and
+    # on simt: the bf16 train path takes sm90 only
+    lin, soft = n_lin * TRAIN_MICRO, n_soft * TRAIN_MICRO
+    want = [lin] * 3 + [soft] * 3 + [lin, 0] + [soft, 0] * 3
     check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
     check(np.mean(losses[-3:]) < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
     check(len(per_step) == TRAIN_STEPS and all(n == want for n in per_step),
-          f"launches of K1, K2a, K2b, K4, K5a, K5b, K4 sm90/simt, K5b "
+          f"launches of K1, K2a, K2b, K4, K5a, K5b, K2b, K4, K5a, K5b "
           f"sm90/simt per step {per_step}; want {want}")
-    names = [c.__name__ for c in counters] + _routed_names(routed)
-    for name, n in zip(names, totals):
-        if n and name not in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
-            _count(kernels, name, path, n)
+    _count_routed(kernels, counters, routed, totals, path)
     dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
     p50 = float(np.median(dts))
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -971,8 +1012,8 @@ def phase_train(kernels: list, cfg, path: str) -> None:
         loss_last3=f"{np.mean(losses[-3:]):.4f}",
         losses=repr([round(x, 4) for x in losses]),
         grad_norm_first=f"{hist[0]['grad_norm']:.3f}",
-        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routes=repr(per_step[0]),
-        launches_k1_k2a_k2b_k4_k5a_k5b_routes=repr(totals),
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routed=repr(per_step[0]),
+        launches_k1_k2a_k2b_k4_k5a_k5b_routed=repr(totals),
         wall_s=f"{wall:.2f}",
         step0_ms=f"{hist[0]['dt'] * 1e3:.1f}", step_p50_ms=f"{p50 * 1e3:.1f}",
         tokens_per_s=f"{tokens / p50:.0f}",
@@ -1035,20 +1076,19 @@ def phase_grad_check(kernels: list, cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    routed = (lasp2_chunk_bwd_dkv, fl.flash_attention_fwd,
+              fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv)
     _zero(*counters)
     loss_c, grads_c = loss_and_grads(card)
     torch.cuda.synchronize()
     launched = _read(counters, routed)
     n_lin, n_soft = _mixer_counts(cfg)
-    # fp32: K4 and K5b take their simt route
-    check(launched == [n_lin] * 3 + [n_soft] * 3 + [0, n_soft, 0, n_soft],
-          f"card path launched K1, K2a, K2b, K4, K5a, K5b, K4 sm90/simt, "
-          f"K5b sm90/simt {launched} times")
-    names = [c.__name__ for c in counters] + _routed_names(routed)
-    for name, n in zip(names, launched):
-        if n and name not in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
-            _count(kernels, name, path, n)
+    # fp32: K2b, K4, K5a and K5b take their simt route
+    check(launched == [n_lin] * 3 + [n_soft] * 3 + [0, n_lin]
+          + [0, n_soft] * 3,
+          f"card path launched K1, K2a, K2b, K4, K5a, K5b, then K2b, K4, "
+          f"K5a, K5b sm90/simt {launched} times")
+    _count_routed(kernels, counters, routed, launched, path)
     loss_h, grads_h = loss_and_grads(host)
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""

@@ -88,6 +88,52 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads by the async proxy (wgmma operands, TMA); each writer fences, then
+// the block synchronises.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 (16 contiguous bytes) and receives
+// in r[m] the elements (2·(l % 4), l / 4) and (2·(l % 4) + 1, l / 4) of
+// matrix m. With matrices (k0, m0), (k0, m0 + 8), (k0 + 8, m0),
+// (k0 + 8, m0 + 8) of a row-major [k][m] tile this is the A fragment of an
+// m16k16 slice of its transpose, in the layout of acc_to_a.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr,
+                                                  uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Thread block clusters: the address of the same shared variable in block
+// `rank` of the cluster, a store there, and a barrier of every thread of
+// the cluster (release / acquire: shared and global writes before it are
+// seen after it).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void cluster_store(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // TMA.
 // ---------------------------------------------------------------------------
@@ -110,6 +156,28 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// Shared memory at `src` into the box at (c0, c1, c2) of a 3-D map, as one
+// bulk group of this thread; rows out of bounds are not written. Before
+// the source is rewritten, the issuing thread waits with
+// tma_store_wait_read; the writers fence (fence_proxy_async) before it is
+// issued.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until every committed store of this thread has read its source.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -258,6 +326,30 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[NR],
                                          uint32_t (&a)[NR / 2]) {
 #pragma unroll
   for (int i = 0; i < NR / 2; ++i) a[i] = pack_bf16(d[2 * i], d[2 * i + 1]);
+}
+
+// The same accumulator as two bf16 A fragments whose sum carries about 16
+// bits of each value: hi = bf16(x), lo = bf16(x - hi). Two products, one
+// with each, into one f32 accumulator leave ~2^-16 of |x|·|B| where one
+// rounding to bf16 leaves 2^-8.
+template <int NR>
+__device__ __forceinline__ void split_to_a(const float (&d)[NR],
+                                           uint32_t (&hi)[NR / 2],
+                                           uint32_t (&lo)[NR / 2]) {
+#pragma unroll
+  for (int i = 0; i < NR / 2; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(d[2 * i], d[2 * i + 1]);
+    const float2 hf = __bfloat1622float2(h);
+    hi[i] = *reinterpret_cast<const uint32_t*>(&h);
+    lo[i] = pack_bf16(d[2 * i] - hf.x, d[2 * i + 1] - hf.y);
+  }
+}
+
+// Byte offset of element (row, col), col < 64, in a 64-column block with
+// the 128-byte swizzle (the block starts on a 1024-byte boundary): the
+// 16-byte chunk col / 8 of each 128-byte row is XORed with row % 8.
+__host__ __device__ __forceinline__ uint32_t sw128_off(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
 }
 
 // ---------------------------------------------------------------------------

@@ -5,15 +5,15 @@ Twin of ``repro/kernels/flash_attention.py``. On CUDA tensors the wrappers
 launch the kernels under ``csrc/`` (design and bound in each header):
 
 * :func:`flash_attention_fwd` — o and lse = m + log l (K4);
-* :func:`flash_attention_bwd_dq` — the q-major dq pass,
-  ``csrc/flash_attention_bwd.cu`` (K5a);
+* :func:`flash_attention_bwd_dq` — the q-major dq pass (K5a);
 * :func:`flash_attention_bwd_dkv` — the kv-major dk/dv pass over the
   transposed band, summed over the GQA group (K5b).
 
-K4 and K5b have two routes, fixed by the inputs' dtype and head dim
+Each has two routes, fixed by the inputs' dtype and head dim
 (:func:`_route`): ``sm90``, tensor-core kernels (wgmma, TMA, mbarrier
-rings) for bf16 at dh 64 and 128, in ``csrc/flash_attention_fwd_sm90.cu``
-and ``csrc/flash_attention_bwd_dkv_sm90.cu``; and ``simt``, the CUDA-core
+rings) for bf16 at dh 64 and 128, in ``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_dq_sm90.cu`` and
+``csrc/flash_attention_bwd_dkv_sm90.cu``; and ``simt``, the CUDA-core
 kernels of ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
 for fp32 at any dh and bf16 at dh 16. The tensor cores have no fp32 product
 that holds fp32's 3e-4, so fp32 stays on the CUDA cores. The ``sm90``
@@ -40,20 +40,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.lasp2_chunk import _check_devices, _launch
+from repro_torch.kernels.lasp2_chunk import (ROUTES, _check_devices,
+                                             _check_sm90, _launch)
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (16, 64, 128)
 _SOURCE_BWD = "flash_attention_bwd"
-ROUTES = ("sm90", "simt")
 _SM90 = {(torch.bfloat16, 64), (torch.bfloat16, 128)}
 
 
 def _route(dtype, dh) -> str:
-    """The kernel route of K4 and K5b for inputs of ``dtype`` and head dim
-    ``dh``, a fixed table: bf16 at dh 64 and 128 go to the tensor-core
-    kernels (``sm90``), fp32 at any dh and bf16 at dh 16 to the CUDA-core
-    kernels (``simt``)."""
+    """The kernel route of K4, K5a and K5b for inputs of ``dtype`` and
+    head dim ``dh``, a fixed table: bf16 at dh 64 and 128 go to the
+    tensor-core kernels (``sm90``), fp32 at any dh and bf16 at dh 16 to the
+    CUDA-core kernels (``simt``)."""
     return "sm90" if (dtype, dh) in _SM90 else "simt"
 
 
@@ -172,11 +172,12 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, *, causal=True,
 def sm90_rounding_bound(q, k, v, do, lse, delta, *, causal=True,
                         window=None, scale=None, q_offset=None, kv_len=None):
     """How far rounding P and dS to bf16 inside the ``sm90`` kernels'
-    products may move o, dk and dv: 2^-8 (bf16's unit roundoff) times the
-    same products over absolute values, o: (P·|V|)/l = exp(s − lse)·|V|,
-    dv: Σ_group Pᵀ·|dO|, dk: scale·Σ_group |dS|ᵀ·|Q|, from the plain
-    formulas with this ``lse`` and ``delta``. Returns (o, dk, dv) bounds in
-    fp32, shaped like o, k and v."""
+    products may move o, dq, dk and dv: 2^-8 (bf16's unit roundoff) times
+    the same products over absolute values, o: (P·|V|)/l = exp(s − lse)·|V|,
+    dq: scale·|dS|·|K| over the band, dv: Σ_group Pᵀ·|dO|, dk:
+    scale·Σ_group |dS|ᵀ·|Q|, from the plain formulas with this ``lse`` and
+    ``delta``. Returns (o, dq, dk, dv) bounds in fp32, shaped like o, q, k
+    and v."""
     scale, q_offset, kv_len = _resolve(q, k, scale, q_offset, kv_len)
     b, hkv, sk, dh = k.shape
     rep = q.shape[1] // hkv
@@ -186,12 +187,13 @@ def sm90_rounding_bound(q, k, v, do, lse, delta, *, causal=True,
     dp = torch.einsum("bhsd,bhtd->bhst", do.float(), _expand(v, rep))
     ds = (p * (dp - delta[..., None])).abs()
     del dp
+    a_dq = torch.einsum("bhst,bhtd->bhsd", ds, _expand(k, rep).abs()) * scale
     a_dv = torch.einsum("bhst,bhsd->bhtd", p, do.float().abs())
     a_dk = torch.einsum("bhst,bhsd->bhtd", ds, q.float().abs()) * scale
     a_dk = a_dk.reshape(b, hkv, rep, sk, dh).sum(dim=2)
     a_dv = a_dv.reshape(b, hkv, rep, sk, dh).sum(dim=2)
     u = 2.0 ** -8
-    return a_o * u, a_dk * u, a_dv * u
+    return a_o * u, a_dq * u, a_dk * u, a_dv * u
 
 
 # ---------------------------------------------------------------------------
@@ -216,13 +218,6 @@ def _check_cuda(name, ts, f32s):
     if dh not in _HEAD_DIMS or ts[0].shape[2] < 1:
         raise ValueError(f"{name}: kernel takes dh in {_HEAD_DIMS} and "
                          f"Sq >= 1; got dh={dh}, Sq={ts[0].shape[2]}")
-
-
-def _check_sm90(name, ts):
-    """TMA reads each tensor from a 16-byte aligned base."""
-    if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError(f"{name}: the sm90 route needs 16-byte aligned "
-                         f"inputs")
 
 
 def _ints(q, k, q_offset, kv_len, causal, window):
@@ -293,15 +288,24 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     _check_cuda(name, (q, k, v, do), (lse, delta))
+    route = _route(q.dtype, q.shape[-1])
     dq = torch.empty_like(q)
-    fn = _build.entry(_SOURCE_BWD, name, 7, 12, 1)
+    if route == "sm90":
+        _check_sm90(name, (q, k, v, do, dq))
+        fn = _build.entry("flash_attention_bwd_dq_sm90",
+                          "flash_attention_bwd_dq_sm90", 7, 12, 1)
+    else:
+        fn = _build.entry(_SOURCE_BWD, name, 7, 12, 1)
     _launch(name, fn, q, k, v, do, lse, delta, dq,
             *_ints(q, k, q_offset, kv_len, causal, window), scale)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.route_launches[route] += 1
     return dq
 
 
-flash_attention_bwd_dq.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), in all and per route
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,

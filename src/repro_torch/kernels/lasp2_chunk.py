@@ -7,8 +7,13 @@ launch the kernels under ``csrc/`` (design and bound in each header):
 * :func:`lasp2_chunk_fwd` — ``csrc/lasp2_chunk_fwd.cu`` (K1);
 * :func:`lasp2_chunk_bwd_dq` — the forward-order dq pass,
   ``csrc/lasp2_chunk_bwd.cu`` (K2a);
-* :func:`lasp2_chunk_bwd_dkv` — the reverse-order dk/dv/dlog_a pass, same
-  source (K2b).
+* :func:`lasp2_chunk_bwd_dkv` — the reverse-order dk/dv/dlog_a pass (K2b),
+  on one of two routes fixed by :func:`_route`: ``sm90``, the tensor-core
+  kernel of ``csrc/lasp2_chunk_bwd_sm90.cu`` (wgmma, TMA) for bf16 with dk
+  and dv in {64, 128}, whose fp32 operands enter its products as two bf16
+  terms each so that it meets the fp32 plain version's limits; and
+  ``simt``, the CUDA-core kernel of ``csrc/lasp2_chunk_bwd.cu``, for fp32
+  and every other shape.
 
 On CPU tensors each runs its plain version. There is no other path: a CUDA
 tensor the kernel does not take raises. :class:`LASP2Chunk` is the
@@ -25,6 +30,17 @@ from repro_torch.kernels import _build
 
 DEFAULT_BLOCK = 128
 _DTYPES = (torch.bfloat16, torch.float32)
+ROUTES = ("sm90", "simt")
+_SM90_DIMS = (64, 128)
+
+
+def _route(dtype, dk, dv) -> str:
+    """The kernel route of K2b for inputs of ``dtype`` with key width
+    ``dk`` and value width ``dv``, a fixed table: bf16 with dk and dv in
+    {64, 128} go to the tensor-core kernel (``sm90``), fp32 and every other
+    shape to the CUDA-core kernel (``simt``)."""
+    return "sm90" if dtype == torch.bfloat16 and dk in _SM90_DIMS \
+        and dv in _SM90_DIMS else "simt"
 
 
 def lasp2_chunk_fwd_plain(q, k, v, log_a, *, block_size: int = DEFAULT_BLOCK):
@@ -73,6 +89,13 @@ def _check_cuda(name, ts, f32s):
                          f"multiple of 16 up to 128, dv a multiple of 64; "
                          f"got S={s}, dk={dk}, dv={dv}")
     return bh, s, dk, dv
+
+
+def _check_sm90(name, ts):
+    """TMA reads each tensor from a 16-byte aligned base."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name}: the sm90 route needs 16-byte aligned "
+                         f"inputs")
 
 
 def _launch(name, fn, *args):
@@ -262,19 +285,30 @@ def lasp2_chunk_bwd_dkv(q, k, v, log_a, o, do, dstate, *,
                                          block_size=block_size)
     name = "lasp2_chunk_bwd_dkv"
     bh, s, dk, dv = _check_cuda(name, (q, k, v, o, do), (log_a, dstate))
+    route = _route(q.dtype, dk, dv)
     dk_out = torch.empty((bh, s, dk), dtype=k.dtype, device=k.device)
     dv_out = torch.empty((bh, s, dv), dtype=v.dtype, device=v.device)
     dla = torch.empty((bh, s), dtype=torch.float32, device=q.device)
-    n_scratch = torch.empty((bh, dk, dv), dtype=torch.float32,
-                            device=q.device)
-    fn = _build.entry("lasp2_chunk_bwd", name, 11, 5)
-    _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
-            n_scratch, bh, s, dk, dv, int(q.dtype == torch.bfloat16))
+    if route == "sm90":
+        _check_sm90(name, (q, k, v, o, do))
+        fn = _build.entry("lasp2_chunk_bwd_sm90", "lasp2_chunk_bwd_dkv_sm90",
+                          10, 4)
+        _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
+                bh, s, dk, dv)
+    else:
+        n_scratch = torch.empty((bh, dk, dv), dtype=torch.float32,
+                                device=q.device)
+        fn = _build.entry("lasp2_chunk_bwd", name, 11, 5)
+        _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
+                n_scratch, bh, s, dk, dv, int(q.dtype == torch.bfloat16))
     lasp2_chunk_bwd_dkv.launches += 1
+    lasp2_chunk_bwd_dkv.route_launches[route] += 1
     return dk_out, dv_out, dla
 
 
-lasp2_chunk_bwd_dkv.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), in all and per route
+lasp2_chunk_bwd_dkv.launches = 0
+lasp2_chunk_bwd_dkv.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def lasp2_chunk_bwd(q, k, v, log_a, o, do, dstate, *,

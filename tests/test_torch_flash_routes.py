@@ -1,9 +1,9 @@
 """Flash attention's kernel routes, the build's source hashing, and the
 limit the ``sm90`` route is held to, on the CPU.
 
-* ``_route`` is a fixed table: bf16 at dh 64 and 128 go to the tensor-core
-  kernels (``sm90``), fp32 at any dh and bf16 at dh 16 to the CUDA-core
-  kernels (``simt``).
+* ``_route`` is a fixed table, the same for K4, K5a and K5b: bf16 at dh 64
+  and 128 go to the tensor-core kernels (``sm90``), fp32 at any dh and bf16
+  at dh 16 to the CUDA-core kernels (``simt``).
 * ``_build._lib_path`` names a library by its source, the shared headers
   (``csrc/*.cuh``) and the flags, so a changed header rebuilds the kernels
   that include it.
@@ -11,8 +11,8 @@ limit the ``sm90`` route is held to, on the CPU.
   the reference keeps fp32. Their card tests add ``sm90_rounding_bound``
   (2^-8 times the same products over absolute values) to the bf16 limit;
   here the plain formulas with P and dS rounded to bf16 stay inside that
-  bound over shapes with sq != sk, windows, GQA 1, 2, 4 and 8, and dh 64
-  and 128.
+  bound (o, dq, dk and dv) over shapes with sq != sk, windows, GQA 1, 2, 4
+  and 8, and dh 64 and 128.
 """
 
 import numpy as np
@@ -39,10 +39,12 @@ def test_cpu_tensors_take_no_route():
     q, k, v, do = (torch.from_numpy(
         rng.standard_normal((1, 2, 40, 64)).astype(np.float32)).bfloat16()
         for _ in range(4))
-    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
     before = [(c.launches, dict(c.route_launches)) for c in counters]
     o, lse = fl.flash_attention_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
+    fl.flash_attention_bwd_dq(q, k, v, do, lse, delta)
     fl.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
     assert [(c.launches, dict(c.route_launches)) for c in counters] == before
 
@@ -87,14 +89,15 @@ def _round_bf16(x):
     (64, 96, True, None), (80, 80, True, 32), (48, 100, False, 40)])
 def test_bf16_rounding_of_p_and_ds_stays_inside_bound(hq, hkv, dh, sq, sk,
                                                       causal, window):
-    """o, dv and dk from the plain formulas with P (and dS) rounded to bf16
-    before their products, against the same with fp32 P and dS, all in
-    float64: every difference is inside ``sm90_rounding_bound``."""
+    """o, dq, dv and dk from the plain formulas with P (and dS) rounded to
+    bf16 before their products, against the same with fp32 P and dS, all
+    in float64: every difference is inside ``sm90_rounding_bound``."""
     q, k, v, do = _bf16_inputs(hq * 100 + dh + sq, 2, hq, hkv, sq, sk, dh)
     kw = dict(causal=causal, window=window)
     o, lse = fl.flash_attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o.float()).sum(-1)
-    b_o, b_dk, b_dv = fl.sm90_rounding_bound(q, k, v, do, lse, delta, **kw)
+    b_o, b_dq, b_dk, b_dv = fl.sm90_rounding_bound(q, k, v, do, lse, delta,
+                                                   **kw)
 
     scale, q_offset, kv_len = fl._resolve(q, k, None, None, None)
     rep = hq // hkv
@@ -113,13 +116,16 @@ def test_bf16_rounding_of_p_and_ds_stays_inside_bound(hq, hkv, dh, sq, sk,
                                       do.double()))
     dv_round = group_sum(torch.einsum("bhst,bhsd->bhtd", _round_bf16(p),
                                       do.double()))
+    dq_exact = torch.einsum("bhst,bhtd->bhsd", ds.double(), kx) * scale
+    dq_round = torch.einsum("bhst,bhtd->bhsd", _round_bf16(ds), kx) * scale
     dk_exact = group_sum(torch.einsum("bhst,bhsd->bhtd", ds.double(),
                                       q.double())) * scale
     dk_round = group_sum(torch.einsum("bhst,bhsd->bhtd", _round_bf16(ds),
                                       q.double())) * scale
     assert float(p.max()) > 0 and float(ds.abs().max()) > 0
     for name, exact, rounded, bound in (
-            ("o", o_exact, o_round, b_o), ("dv", dv_exact, dv_round, b_dv),
+            ("o", o_exact, o_round, b_o), ("dq", dq_exact, dq_round, b_dq),
+            ("dv", dv_exact, dv_round, b_dv),
             ("dk", dk_exact, dk_round, b_dk)):
         diff = (rounded - exact).abs()
         assert bool((diff <= bound.double()).all()), \

@@ -7,9 +7,11 @@ Tolerances: o at the reference's kernel tolerances (3e-4 fp32, 4e-2 bf16,
 ``tests/test_kernels.py:14``); states in fp32 at 1e-4 (both sides sum in
 fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
 flash lse (fp32 on both sides) at 1e-4; gradients at the reference's 1e-3
-(4e-2 for bf16 outputs). bf16 flash results at 2^-7·|want| + 2^-8·rms(want),
-plus, on the ``sm90`` route of K4 and K5b, which rounds P and dS to bf16
-inside its products, 2^-8 times those products over absolute values
+(4e-2 for bf16 outputs), on both routes of K2b (``sm90`` for bf16 with dk
+and dv in {64, 128}, ``simt`` otherwise) against the fp32 plain version.
+bf16 flash results at 2^-7·|want| + 2^-8·rms(want), plus, on the ``sm90``
+route of K4, K5a and K5b, which rounds P and dS to bf16 inside its
+products, 2^-8 times those products over absolute values
 (``fl.sm90_rounding_bound``).
 """
 
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core.linear_attention import RESET_LOG_A, pick_block
+from repro_torch.kernels import lasp2_chunk as lc
 from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
                                              lasp2_chunk_bwd_dkv,
                                              lasp2_chunk_bwd_dq,
@@ -136,7 +139,8 @@ def _bwd_inputs(gen, bh, s, dk, dv, dtype):
 @pytest.mark.parametrize("dv", [64, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
-    """K2a and K2b against the plain passes, with resets and decays.
+    """K2a and K2b against the plain passes, with resets and decays, K2b on
+    the route its inputs take (bf16 with dk, dv in {64, 128}: ``sm90``).
     Gradients within 1e-3 in fp32 (the reference's GRAD_TOL) and 4e-2 in
     bf16. dlog_a is fp32 on both sides, from the same inputs: each entry
     is a suffix sum of up to S terms of the size of the largest entries,
@@ -144,8 +148,11 @@ def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
     another order, S·2^-24·max|dlog_a|, as absolute slack."""
     bh = 3
     ins = _bwd_inputs(gen, bh, s, dk, dv, dtype)
+    route = lc._route(dtype, dk, dv)
+    before = lasp2_chunk_bwd_dkv.route_launches[route]
     got = lasp2_chunk_bwd(*ins)
     torch.cuda.synchronize()
+    assert lasp2_chunk_bwd_dkv.route_launches[route] - before == 1
     want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
     tol = 1e-3 if dtype == torch.float32 else 4e-2
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -171,6 +178,47 @@ def test_chunk_autograd_launches_both_passes(gen):
     grads = torch.autograd.grad((st[0] * dst).sum(), xs)
     assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 1]
     assert float(grads[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
+                                         (torch.bfloat16, "sm90")])
+def test_chunk_autograd_takes_the_k2b_route(gen, dtype, route):
+    """Autograd through ops.linear_attention_op on the card launches K2b
+    once, on ``sm90`` for bf16 at dk = dv = 64 and on ``simt`` for fp32,
+    never on the other route."""
+    from repro_torch.kernels import ops
+    ins = _bwd_inputs(gen, 4, 200, 64, 64, dtype)
+    xs = [x.clone().requires_grad_(True) for x in ins[:4]]
+    before = dict(lasp2_chunk_bwd_dkv.route_launches)
+    o, _, _ = ops.linear_attention_op(*(x[None] for x in xs))
+    grads = torch.autograd.grad((o.float() * ins[5][None].float()).sum(), xs)
+    moved = {r: lasp2_chunk_bwd_dkv.route_launches[r] - before[r]
+             for r in before}
+    assert moved == {r: int(r == route) for r in before}
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128)])
+def test_chunk_dkv_sm90_is_bitwise_repeatable(gen, dk, dv):
+    """K2b on the ``sm90`` route sums in a fixed order with no atomics: two
+    launches on the same inputs agree bit for bit."""
+    ins = _bwd_inputs(gen, 4, 1000, dk, dv, torch.bfloat16)
+    first = lasp2_chunk_bwd_dkv(*ins)
+    second = lasp2_chunk_bwd_dkv(*ins)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_chunk_dkv_sm90_rejects_misaligned_inputs(gen):
+    """TMA reads from a 16-byte aligned base: a contiguous view that starts
+    elsewhere is refused on the ``sm90`` route, never read wrong."""
+    ins = list(_bwd_inputs(gen, 2, 64, 64, 64, torch.bfloat16))
+    flat = torch.zeros(ins[0].numel() + 1, device="cuda",
+                       dtype=torch.bfloat16)
+    ins[0] = flat[1:].view(ins[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        lasp2_chunk_bwd_dkv(*ins)
 
 
 def test_bwd_wrappers_reject_what_the_kernels_do_not_take(gen):
@@ -216,13 +264,14 @@ def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
     route = fl._route(dtype, dh)
     q, k, v, do = _flash_inputs(gen, 2, hq, hkv, sq, sk, dh, dtype)
     kw = dict(causal=causal, window=window)
-    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
     before = [c.route_launches[route] for c in counters]
     o, lse = fl.flash_attention_fwd(q, k, v, **kw)
     torch.cuda.synchronize()
     o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
     delta = (do.float() * o_p.float()).sum(-1)
-    extra = (None, None, None)
+    extra = (None, None, None, None)
     if route == "sm90":
         extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw)
 
@@ -242,12 +291,12 @@ def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
     dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
     torch.cuda.synchronize()
     assert [c.route_launches[route] - n for c, n in zip(counters, before)] \
-        == [1, 1]
+        == [1, 1, 1]
     dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
     dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
                                                   **kw)
-    for g, w, bound in ((dq, dq_p, None), (dk, dk_p, extra[1]),
-                        (dv, dv_p, extra[2])):
+    for g, w, bound in ((dq, dq_p, extra[1]), (dk, dk_p, extra[2]),
+                        (dv, dv_p, extra[3])):
         assert g.dtype == dtype
         close(g, w, 1e-3, bound)
 
@@ -263,7 +312,8 @@ def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len,
     route = fl._route(dtype, 64)
     q, k, v, do = _flash_inputs(gen, 2, 4, 2, 128, 256, 64, dtype)
     kw = dict(causal=True, window=96, q_offset=q_offset, kv_len=kv_len)
-    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
     before = [c.route_launches[route] for c in counters]
     o, lse = fl.flash_attention_fwd(q, k, v, **kw)
     o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
@@ -272,7 +322,7 @@ def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len,
     dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
     dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
     assert [c.route_launches[route] - n for c, n in zip(counters, before)] \
-        == [1, 1]
+        == [1, 1, 1]
     want = (fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
             *fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
                                               **kw))
@@ -281,10 +331,10 @@ def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len,
         for g, w in zip((dq, dk, dv), want):
             _close(g, w, 1e-3)
     else:
-        b_o, b_dk, b_dv = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta,
-                                                 **kw)
+        b_o, *b_grads = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta,
+                                               **kw)
         _close_bf16(o, o_p, b_o)
-        for g, w, bound in zip((dq, dk, dv), want, (None, b_dk, b_dv)):
+        for g, w, bound in zip((dq, dk, dv), want, b_grads):
             _close_bf16(g, w, bound)
     if kv_len < 256:              # keys past kv_len get no gradient
         assert float(dk[:, :, kv_len:].abs().max()) == 0.0
@@ -294,13 +344,13 @@ def test_flash_kernels_explicit_offset_and_kv_len(gen, q_offset, kv_len,
 def test_flash_autograd_launches_each_kernel_once(gen):
     """Autograd through ops.flash_attention_op on the card launches K4,
     K5a and K5b once each, on an odd length (ragged tiles, unpadded); bf16
-    at dh 64 takes K4's and K5b's ``sm90`` route, never ``simt``."""
+    at dh 64 takes the ``sm90`` route of all three, never ``simt``."""
     from repro_torch.kernels import ops
     q, k, v, do = _flash_inputs(gen, 1, 4, 2, 300, 300, 64, torch.bfloat16)
     xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
     counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    routed = (fl.flash_attention_fwd, fl.flash_attention_bwd_dkv)
+    routed = counters
     before = [c.launches for c in counters]
     before_routes = [dict(c.route_launches) for c in routed]
     o = ops.flash_attention_op(*xs, causal=True, sliding_window=128)
@@ -310,6 +360,22 @@ def test_flash_autograd_launches_each_kernel_once(gen):
         assert c.route_launches["sm90"] - b["sm90"] == 1
         assert c.route_launches["simt"] == b["simt"]
     assert o.shape == q.shape and all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_dq_sm90_is_bitwise_repeatable(gen, dh):
+    """K5a on the ``sm90`` route: each block owns its dq rows and sums its
+    band in a fixed order, with no atomics: two launches on the same inputs
+    agree bit for bit."""
+    q, k, v, do = _flash_inputs(gen, 2, 8, 2, 512, 512, dh, torch.bfloat16)
+    o, lse = fl.flash_attention_fwd(q, k, v, window=384)
+    delta = (do.float() * o.float()).sum(-1)
+    before = fl.flash_attention_bwd_dq.route_launches["sm90"]
+    first = fl.flash_attention_bwd_dq(q, k, v, do, lse, delta, window=384)
+    second = fl.flash_attention_bwd_dq(q, k, v, do, lse, delta, window=384)
+    torch.cuda.synchronize()
+    assert fl.flash_attention_bwd_dq.route_launches["sm90"] - before == 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("dh", [64, 128])
@@ -337,6 +403,9 @@ def test_flash_sm90_rejects_misaligned_inputs(gen):
     q = flat[1:].view(1, 2, 8, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fl.flash_attention_fwd(q, q, q)
+    lse = torch.zeros(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fl.flash_attention_bwd_dq(q, q, q, q, lse, lse)
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
