@@ -11,22 +11,25 @@ line:
    TF32 off for fp32 matrix products;
 2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   its path's shapes (K1 and K3 at the serving shapes, K2a and K2b, the
-   two passes of the chunk backward, at the training shape; K4, K5a and
+   its path's shapes (K1 at the serving shapes and, on ``sm90``, the
+   training shape; K3 at the serving shape; K2a and K2b, the two passes
+   of the chunk backward, at the training shape; K4, K5a and
    K5b, flash attention's forward and two backward passes, at the hybrid's
    training shape, a prefill shape, a trimmed band, GQA 4:1, an explicit
-   offset and a non-causal window). K2b, K4, K5a and K5b each have two
-   routes: ``sm90`` (tensor cores) for bf16 at dh 64 and 128 (K2b: dk and
-   dv in {64, 128}), ``simt`` (CUDA cores) for fp32 and the rest. Each is
-   timed beside the plain version's time, the least time the card could
-   take (the bound) and, for flash attention, the time of
+   offset and a non-causal window). K1, K2a, K2b, K4, K5a and K5b each
+   have two routes: ``sm90`` (tensor cores) for bf16 at dh 64 and 128
+   (the chunk kernels: dk and dv in {64, 128}), ``simt`` (CUDA cores) for
+   fp32 and the rest; each case checks the route it took. Each is timed
+   beside the plain version's time, the least time the card could take
+   (the bound) and, for flash attention, the time of
    ``F.scaled_dot_product_attention`` on the same causal shape: ``sm90``
-   in bf16 and ``simt`` in fp32 at the train shape; K2b, K5a and K5b on
-   ``sm90`` are bitwise equal on two launches;
+   in bf16 and ``simt`` in fp32 (K1 at S 512 and S 2048, the others at the
+   train shape); K1, K2a, K2b, K5a and K5b on ``sm90`` are bitwise equal
+   on two launches;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
-   request finishes, the launch counters show K1 and K3 on the path,
-   and decode logits agree with a fresh prefill;
+   request finishes, the launch counters show K1 (all on ``sm90``) and K3
+   on the path, and decode logits agree with a fresh prefill;
 5. profile: host wall against device kernel time of one decode step
    (4 slots) and one prefill batch (4 x 512), with the top kernels (and
    for the hybrid after phase 6: a decode step and one exact-length
@@ -39,20 +42,20 @@ line:
 7. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
    through ``train()`` (fp32 masters, bf16 compute, 8 x 2048 packed
    tokens in 2 microbatches); every loss is finite, none is skipped, the
-   loss falls, and each step launches K1, K2a and K2b 16 x 2 times, K2b
-   all on ``sm90``; then the profile of one train step;
+   loss falls, and each step launches K1, K2a and K2b 16 x 2 times, all
+   on ``sm90``; then the profile of one train step;
 8. hybrid train: the same with ``HYBRID``; each step launches K1, K2a and
-   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times, all of K2b, K4, K5a
-   and K5b on their ``sm90`` route;
+   K2b 12 x 2 times and K4, K5a and K5b 4 x 2 times, all six on their
+   ``sm90`` route;
 9. grad check: a 2-layer fp32 copy of the config at full width, the same
    params on the card (kernels) and on the host CPU (plain versions): the
    loss and every parameter gradient agree; then a 4-layer copy of
-   ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so K2b, K4,
-   K5a and K5b take their ``simt`` route.
+   ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so all six
+   routed kernels take their ``simt`` route.
 
-The line before the last is the kernel table as JSON (K1, K3, K2a, then
-K2b, K4, K5a and K5b once per route; ``launches`` summed over the paths
-that ran each, listed in ``launches_by_path``); the last line is
+The line before the last is the kernel table as JSON, 13 entries (K3,
+and K1, K2a, K2b, K4, K5a and K5b once per route; ``launches`` summed over
+the paths that ran each, listed in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -117,6 +120,13 @@ def max_err_within(got, want, tol):
     return float(diff.max()), ok
 
 
+def limit_share(got, want, tol):
+    """The largest |got - want| / (tol + tol·|want|): the share of
+    ``max_err_within``'s limit that the worst entry takes (at most 1)."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
 def max_err_bf16(got, want, extra=None):
     """(max |got - want|, whether |got - want| <= 2^-7·|want| +
     2^-8·rms(want) [+ extra]) for bf16 results that both sides accumulate
@@ -158,6 +168,24 @@ def time_ms(fn, arg_sets, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, arg_sets, iters):
+    """Device ms per call over ``iters`` calls after warm-up: the kernel
+    rows that torch.profiler records on the card, summed, per call. Unlike
+    ``time_ms`` it leaves out the host time of the wrapper, which
+    back-to-back launches of a short kernel wait on."""
+    from torch.profiler import ProfilerActivity, profile
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / iters / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -239,6 +267,7 @@ def _chunk_bound(bh, s, dk, dv, dtype):
 
 def phase_kernels() -> list:
     from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels import lasp2_chunk as lc
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_fwd,
                                                  lasp2_chunk_fwd_plain)
     from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
@@ -246,12 +275,17 @@ def phase_kernels() -> list:
     gen = torch.Generator(device="cuda").manual_seed(0)
     bh, d = 64, 128               # 4 rows × 16 heads of 128
     failures = []
-    k1_err = 0.0
+    k1_err = dict.fromkeys(lc.ROUTES, 0.0)
+    # S 512 and 37 on both routes, and the train path's S 2048 on sm90,
+    # where the carried state sums the most rows
     cases = [(dt, s, lk) for dt in (torch.bfloat16, torch.float32)
              for s, lk in ((512, "zero"), (512, "reset"), (512, "decay"),
-                           (37, "reset"))]
+                           (37, "reset"))] \
+        + [(torch.bfloat16, 2048, lk) for lk in ("zero", "reset", "decay")]
     for dtype, s, la_kind in cases:
         q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind)
+        route = lc._route(dtype, d, d)
+        before = lasp2_chunk_fwd.route_launches[route]
         o, st, ld = lasp2_chunk_fwd(q, k, v, la)
         torch.cuda.synchronize()
         o_p, st_p, ld_p = lasp2_chunk_fwd_plain(
@@ -260,12 +294,17 @@ def phase_kernels() -> list:
         e_o, ok_o = max_err_within(o, o_p, TOL_O[name])
         e_s, ok_s = max_err_within(st, st_p, TOL_STATE)
         e_l, ok_l = max_err_within(ld, ld_p, TOL_LD)
-        k1_err = max(k1_err, e_o, e_s, e_l)
+        ok = ok_o and ok_s and ok_l and o.dtype == dtype \
+            and lasp2_chunk_fwd.route_launches[route] - before == 1
+        k1_err[route] = max(k1_err[route], e_o, e_s, e_l)
         log("kernels", kernel="lasp2_chunk_fwd", dtype=name, S=s,
-            log_a=la_kind, err_o=f"{e_o:.3e}", tol_o=TOL_O[name],
-            err_state=f"{e_s:.3e}", tol_state=TOL_STATE,
-            err_log_decay=f"{e_l:.3e}", ok=ok_o and ok_s and ok_l)
-        if not (ok_o and ok_s and ok_l):
+            log_a=la_kind, route=route, err_o=f"{e_o:.3e}",
+            tol_o=TOL_O[name], err_state=f"{e_s:.3e}", tol_state=TOL_STATE,
+            err_log_decay=f"{e_l:.3e}",
+            share_of_limit_o=f"{limit_share(o, o_p, TOL_O[name]):.3f}",
+            share_of_limit_state=f"{limit_share(st, st_p, TOL_STATE):.3f}",
+            ok=ok)
+        if not ok:
             failures.append(f"lasp2_chunk_fwd {name} S={s} {la_kind}")
 
     # K3: 8 steps chained from a K1 prefill state, against recurrent_step
@@ -296,12 +335,17 @@ def phase_kernels() -> list:
         failures.append("lasp2_decode_step")
 
     # Times at the serving path's shapes: K1 at BH 64, S 512 (4 prompts of
-    # the 512 bucket), K3 at BH 64 (4 slots), bf16 activations.
-    sets = [_chunk_inputs(gen, bh, 512, d, torch.bfloat16, "reset")
-            for _ in range(2)]
-    k1_ms = time_ms(lambda *a: lasp2_chunk_fwd(*a), sets, 50)
-    k1_plain = time_ms(lambda *a: lasp2_chunk_fwd_plain(*a), sets, 10)
-    k1_bound, k1_by = _chunk_bound(bh, 512, d, d, torch.bfloat16)
+    # the 512 bucket; bf16 on sm90, fp32 on simt), K3 at BH 64 (4 slots),
+    # bf16 activations.
+    k1 = {}   # route -> (ms, device ms, plain ms, bound ms, bound by)
+    for dtype in (torch.bfloat16, torch.float32):
+        sets = [_chunk_inputs(gen, bh, 512, d, dtype, "reset")
+                for _ in range(2)]
+        k1[lc._route(dtype, d, d)] = (
+            time_ms(lambda *a: lasp2_chunk_fwd(*a), sets, 50),
+            device_ms(lambda *a: lasp2_chunk_fwd(*a), sets, 20),
+            time_ms(lambda *a: lasp2_chunk_fwd_plain(*a), sets, 10),
+            *_chunk_bound(bh, 512, d, d, dtype))
     dec_sets = []
     for _ in range(8):               # 8 × 8.4 MB of state > 50 MB of L2
         qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda")
@@ -315,20 +359,25 @@ def phase_kernels() -> list:
     k3_t_ops = 5 * bh * d * d / PEAK_FLOPS["bfloat16"]
     k3_bound = max(k3_t_bytes, k3_t_ops) * 1e3
     k3_by = "bytes" if k3_t_bytes >= k3_t_ops else "operations"
-    log("kernels", kernel="lasp2_chunk_fwd", shape="BH64xS512x128 bf16",
-        ms=f"{k1_ms:.4f}", plain_ms=f"{k1_plain:.4f}",
-        bound_ms=f"{k1_bound:.4f}", bound_by=k1_by)
+    shapes = {"sm90": "BH64xS512x128 bf16", "simt": "BH64xS512x128 float32"}
+    for route, (ms, dev, plain, bound, by) in k1.items():
+        log("kernels", kernel=f"lasp2_chunk_fwd_{route}",
+            shape=repr(shapes[route]), ms=f"{ms:.4f}", device_ms=f"{dev:.4f}",
+            plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
     log("kernels", kernel="lasp2_decode_step", shape="BH64x128x128",
         ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain:.4f}",
         bound_ms=f"{k3_bound:.4f}", bound_by=k3_by)
     check(not failures, "kernel parity failed: " + ", ".join(failures))
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"sm90": "lasp2_chunk_fwd_sm90.cu", "simt": "lasp2_chunk_fwd.cu"}
     return [
-        {"name": "lasp2_chunk_fwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/lasp2_chunk_fwd.cu",
+        {"name": f"lasp2_chunk_fwd_{route}", "route": "cuda",
+         "source": csrc + sources[route],
          "replaces": "src/repro/kernels/lasp2_chunk.py:111",
-         "launches": None, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain, "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None},
+         "launches": None, "max_abs_err": k1_err[route], "ms": ms,
+         "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+         "bound_by": by, "library_ms": None, "timed_at": shapes[route]}
+        for route, (ms, dev, plain, bound, by) in k1.items()] + [
         {"name": "lasp2_decode_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lasp2_decode.cu",
          "replaces": "src/repro/kernels/lasp2_decode.py:49",
@@ -379,11 +428,12 @@ def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full"):
 def phase_bwd_kernels(kernels: list) -> list:
     """K2a and K2b (``lasp2_chunk_bwd``) against the plain passes at the
     training path's shape, BH 64 (4 rows x 16 heads) x S 2048 x 128, and
-    at S 37; K2b on the route its inputs take (bf16: ``sm90``, the tensor
-    cores; fp32: ``simt``), both held to the same limits against the fp32
-    plain version. Times at that shape: K1, K2a, K2b ``sm90`` in bf16, K2b
-    ``simt`` in fp32; K2b ``sm90`` bitwise equal on two launches. K1's time
-    at that shape joins its entry."""
+    at S 37, each on the route its inputs take (bf16: ``sm90``, the tensor
+    cores; fp32: ``simt``), all held to the same limits against the fp32
+    plain versions. Times at that shape, each route: K1, K2a and K2b on
+    ``sm90`` in bf16 and on ``simt`` in fp32 (K1's join its entries as
+    their train-shape times); K1, K2a and K2b on ``sm90`` bitwise equal on
+    two launches."""
     from repro_torch.core.linear_attention import pick_block
     from repro_torch.kernels import lasp2_chunk as lc
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
@@ -397,8 +447,9 @@ def phase_bwd_kernels(kernels: list) -> list:
     gen = torch.Generator(device="cuda").manual_seed(1)
     bh, d, s_train = 64, 128, 2048
     failures = []
-    err_a = 0.0
+    err_a = dict.fromkeys(lc.ROUTES, 0.0)
     err_b = dict.fromkeys(lc.ROUTES, 0.0)
+    passes = (lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
     cases = [(dt, s, lk, cot) for dt in (torch.bfloat16, torch.float32)
              for s, lk, cot in ((s_train, "zero", "full"),
                                 (s_train, "reset", "full"),
@@ -408,13 +459,14 @@ def phase_bwd_kernels(kernels: list) -> list:
     for dtype, s, la_kind, cot in cases:
         ins = _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot)
         route = lc._route(dtype, d, d)
-        before = lasp2_chunk_bwd_dkv.route_launches[route]
+        before = [fn.route_launches[route] for fn in passes]
         got = lasp2_chunk_bwd(*ins)
         torch.cuda.synchronize()
         want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
         name = str(dtype).split(".")[-1]
         errs = {}
-        ok = lasp2_chunk_bwd_dkv.route_launches[route] - before == 1
+        ok = [fn.route_launches[route] - n
+              for fn, n in zip(passes, before)] == [1, 1]
         for key, g, w in zip(("dq", "dk", "dv"), got, want):
             errs[key], good = max_err_within(g, w, TOL_GRAD[name])
             ok = ok and good and g.dtype == dtype
@@ -425,10 +477,10 @@ def phase_bwd_kernels(kernels: list) -> list:
                          .all()) and bool(torch.isfinite(got[3]).all())
         if cot == "state":
             ok = ok and float(got[0].abs().max()) == 0.0
-        err_a = max(err_a, errs["dq"])
+        err_a[route] = max(err_a[route], errs["dq"])
         err_b[route] = max(err_b[route], errs["dk"], errs["dv"], errs["dla"])
         log("kernels", kernel="lasp2_chunk_bwd", dtype=name, S=s,
-            log_a=la_kind, cotangent=cot, k2b_route=route,
+            log_a=la_kind, cotangent=cot, route=route,
             **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()},
             tol=TOL_GRAD[name], tol_dla="1e-3+S2^-24max|want|+1e-3|want|",
             dla_slack=f"{slack:.2e}", ok=ok)
@@ -436,58 +488,69 @@ def phase_bwd_kernels(kernels: list) -> list:
             failures.append(f"lasp2_chunk_bwd {name} S={s} {la_kind} {cot}")
         del ins, got, want
 
-    # Times at the training path's shape with resets; two input sets of
-    # 5 x 33.5 MB each (bf16) rotate above the 50 MB L2. bf16 runs K2b on
-    # sm90, fp32 on simt.
-    sets = [_bwd_inputs(gen, bh, s_train, d, torch.bfloat16, "reset")
-            for _ in range(2)]
-    k1_ms = time_ms(lambda q, k, v, la, *_: lasp2_chunk_fwd(q, k, v, la),
-                    sets, 20)
-    k1_plain = time_ms(
-        lambda q, k, v, la, *_: lasp2_chunk_fwd_plain(q, k, v, la), sets, 4)
-    k1_bound, k1_by = _chunk_bound(bh, s_train, d, d, torch.bfloat16)
-    a_ms = time_ms(lambda q, k, v, la, o, do, dst:
-                   lasp2_chunk_bwd_dq(k, v, la, do), sets, 10)
-    a_plain = time_ms(lambda q, k, v, la, o, do, dst:
-                      lasp2_chunk_bwd_dq_plain(k, v, la, do), sets, 4)
-    (a_bound, a_by), b_bound = _bwd_bounds(bh, s_train, d, d, torch.bfloat16)
-    timed = {"lasp2_chunk_fwd": (k1_ms, k1_plain, k1_bound, k1_by),
-             "lasp2_chunk_bwd_dq": (a_ms, a_plain, a_bound, a_by),
-             "lasp2_chunk_bwd_dkv_sm90": (
-                 time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 20),
-                 time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4),
-                 *b_bound)}
-    # K2b sums in a fixed order with no atomics: two launches agree bit
-    # for bit.
-    first, second = (lasp2_chunk_bwd_dkv(*sets[0]) for _ in range(2))
-    torch.cuda.synchronize()
-    same = all(torch.equal(x, y) for x, y in zip(first, second))
-    log("kernels", kernel="lasp2_chunk_bwd_dkv_sm90",
-        check="two launches bitwise equal",
-        shape=repr(f"BH{bh}xS{s_train}x{d} bf16"), ok=same)
-    if not same:
-        failures.append("lasp2_chunk_bwd_dkv_sm90 not bitwise repeatable")
-    del sets, first, second
-    sets = [_bwd_inputs(gen, bh, s_train, d, torch.float32, "reset")
-            for _ in range(2)]
-    timed["lasp2_chunk_bwd_dkv_simt"] = (
-        time_ms(lambda *a: lasp2_chunk_bwd_dkv(*a), sets, 10),
-        time_ms(lambda *a: lasp2_chunk_bwd_dkv_plain(*a), sets, 4),
-        *_bwd_bounds(bh, s_train, d, d, torch.float32)[1])
-    del sets
+    # Times at the training path's shape with resets, bf16 (sm90) then fp32
+    # (simt): two input sets of 5 x 33.5 MB each (bf16) rotate above the
+    # 50 MB L2. K1's entries take these as their train-shape times.
+    fwd = lambda q, k, v, la, *_: lasp2_chunk_fwd(q, k, v, la)
+    fwd_p = lambda q, k, v, la, *_: lasp2_chunk_fwd_plain(q, k, v, la)
+    dq = lambda q, k, v, la, o, do, dst: lasp2_chunk_bwd_dq(k, v, la, do)
+    dq_p = lambda q, k, v, la, o, do, dst: lasp2_chunk_bwd_dq_plain(
+        k, v, la, do)
+    dkv = lambda *a: lasp2_chunk_bwd_dkv(*a)
+    timed = {}   # entry name -> (ms, device ms, plain ms, bound ms, by)
+    for dtype in (torch.bfloat16, torch.float32):
+        route = lc._route(dtype, d, d)
+        sets = [_bwd_inputs(gen, bh, s_train, d, dtype, "reset")
+                for _ in range(2)]
+        k1_bound = _chunk_bound(bh, s_train, d, d, dtype)
+        a_bound, b_bound = _bwd_bounds(bh, s_train, d, d, dtype)
+        n = 20 if route == "sm90" else 5
+        for kname, fn, fn_p, bound in (
+                ("lasp2_chunk_fwd", fwd, fwd_p, k1_bound),
+                ("lasp2_chunk_bwd_dq", dq, dq_p, a_bound),
+                ("lasp2_chunk_bwd_dkv", dkv, lasp2_chunk_bwd_dkv_plain,
+                 b_bound)):
+            timed[f"{kname}_{route}"] = (
+                time_ms(fn, sets, n), device_ms(fn, sets, n),
+                time_ms(fn_p, sets, 4), *bound)
+        if route == "sm90":
+            # K1, K2a and K2b sum in a fixed order with no atomics: two
+            # launches agree bit for bit.
+            for kname, fn in (("lasp2_chunk_fwd_sm90", fwd),
+                              ("lasp2_chunk_bwd_dq_sm90", dq),
+                              ("lasp2_chunk_bwd_dkv_sm90", dkv)):
+                first, second = ((r,) if torch.is_tensor(r) else r
+                                 for r in (fn(*sets[0]), fn(*sets[0])))
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(first, second))
+                log("kernels", kernel=kname,
+                    check="two launches bitwise equal",
+                    shape=repr(f"BH{bh}xS{s_train}x{d} bf16"), ok=same)
+                if not same:
+                    failures.append(f"{kname} not bitwise repeatable")
+                del first, second
+        del sets
+        torch.cuda.empty_cache()
     shapes = {kname: f"BH{bh}xS{s_train}x{d} "
               + ("float32" if kname.endswith("simt") else "bf16")
               for kname in timed}
-    for kname, (ms, plain, bound, by) in timed.items():
+    for kname, (ms, dev, plain, bound, by) in timed.items():
         log("kernels", kernel=kname, shape=repr(shapes[kname]),
-            ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}",
-            bound_by=by)
+            ms=f"{ms:.4f}", device_ms=f"{dev:.4f}", plain_ms=f"{plain:.4f}",
+            bound_ms=f"{bound:.4f}", bound_by=by)
     check(not failures, "kernel parity failed: " + ", ".join(failures))
-    kernels[0].update(train_shape=shapes["lasp2_chunk_fwd"],
-                      train_shape_ms=k1_ms, train_shape_plain_ms=k1_plain,
-                      train_shape_bound_ms=k1_bound)
+    for entry in kernels:
+        if entry["name"].startswith("lasp2_chunk_fwd_"):
+            ms, dev, plain, bound, _ = timed[entry["name"]]
+            entry.update(train_shape=shapes[entry["name"]],
+                         train_shape_ms=ms, train_shape_device_ms=dev,
+                         train_shape_plain_ms=plain,
+                         train_shape_bound_ms=bound)
     csrc = "src/repro_torch/kernels/csrc/"
-    where = {"lasp2_chunk_bwd_dq": ("lasp2_chunk_bwd.cu", 271, err_a),
+    where = {"lasp2_chunk_bwd_dq_sm90": ("lasp2_chunk_bwd_dq_sm90.cu", 170,
+                                         err_a["sm90"]),
+             "lasp2_chunk_bwd_dq_simt": ("lasp2_chunk_bwd.cu", 170,
+                                         err_a["simt"]),
              "lasp2_chunk_bwd_dkv_sm90": ("lasp2_chunk_bwd_sm90.cu", 207,
                                           err_b["sm90"]),
              "lasp2_chunk_bwd_dkv_simt": ("lasp2_chunk_bwd.cu", 207,
@@ -495,10 +558,10 @@ def phase_bwd_kernels(kernels: list) -> list:
     return [{"name": kname, "route": "cuda", "source": csrc + src,
              "replaces": f"src/repro/kernels/lasp2_chunk.py:{line}",
              "launches": None, "max_abs_err": err, "ms": ms,
-             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-             "library_ms": None, "timed_at": shapes[kname]}
+             "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
+             "bound_by": by, "library_ms": None, "timed_at": shapes[kname]}
             for kname, (src, line, err) in where.items()
-            for ms, plain, bound, by in [timed[kname]]]
+            for ms, dev, plain, bound, by in [timed[kname]]]
 
 
 # Flash-attention cases against the plain versions: (what, B, Hq, Hkv, Sq,
@@ -698,8 +761,8 @@ def phase_flash_kernels() -> list:
                                         305),
         "flash_attention_bwd_dq_simt": ("flash_attention_bwd.cu", 305),
         "flash_attention_bwd_dkv_sm90": ("flash_attention_bwd_dkv_sm90.cu",
-                                         411),
-        "flash_attention_bwd_dkv_simt": ("flash_attention_bwd.cu", 411),
+                                         355),
+        "flash_attention_bwd_dkv_simt": ("flash_attention_bwd.cu", 355),
     }
     return [{"name": kname, "route": "cuda", "source": csrc + src,
              "replaces": f"src/repro/kernels/flash_attention.py:{line}",
@@ -794,12 +857,13 @@ def phase_serve(kernels: list, cfg, path: str):
             for i, p in enumerate(prompts)]
 
     counters = (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
+    routed = (lasp2_chunk_fwd, flash_attention_fwd)
     _zero(*counters)
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3, k4, k4_sm90, k4_simt = _read(counters, (flash_attention_fwd,))
+    k1, k3, k4, k1_sm90, k1_simt, k4_sm90, k4_simt = _read(counters, routed)
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -811,13 +875,15 @@ def phase_serve(kernels: list, cfg, path: str):
               f"request {uid}: token out of vocab")
     check(k1 == n_lin * batches and k1 > 0,
           f"K1 launches {k1} != {n_lin} x {batches} prefill batches")
+    check(k1_sm90 == k1 and k1_simt == 0,
+          f"K1 took sm90 {k1_sm90}, simt {k1_simt} times; want sm90 only")
     check(k3 == n_lin * steps and k3 > 0,
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
     check(k4 == n_soft * batches,
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
     check(k4_sm90 == k4 and k4_simt == 0,
           f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
-    _count(kernels, "lasp2_chunk_fwd", path, k1)
+    _count(kernels, "lasp2_chunk_fwd_sm90", path, k1_sm90)
     _count(kernels, "lasp2_decode_step", path, k3)
     if n_soft:
         _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
@@ -837,8 +903,8 @@ def phase_serve(kernels: list, cfg, path: str):
           f"kv_ring {cache['kv_ring']} != formula {kv_ring}")
     log(path, requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
-        k1_launches=k1, k3_launches=k3, k4_launches=k4,
-        k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
+        k1_launches=k1, k1_sm90_launches=k1_sm90, k3_launches=k3,
+        k4_launches=k4, k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{total_new / wall:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
         prefill_p50_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
@@ -965,8 +1031,7 @@ def phase_train(kernels: list, cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    routed = (lasp2_chunk_bwd_dkv, fl.flash_attention_fwd,
-              fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv)
+    routed = counters
     # the loop logs every step after the step's work: the counters read
     # there give each step's launches
     marks = []
@@ -988,18 +1053,18 @@ def phase_train(kernels: list, cfg, path: str) -> None:
 
     losses = [h["loss"] for h in hist]
     n_lin, n_soft = _mixer_counts(cfg)
-    # K1, K2a, K2b, K4, K5a, K5b, then K2b, K4, K5a and K5b on sm90 and
-    # on simt: the bf16 train path takes sm90 only
+    # K1, K2a, K2b, K4, K5a, K5b, then each on sm90 and on simt: the bf16
+    # train path takes sm90 only
     lin, soft = n_lin * TRAIN_MICRO, n_soft * TRAIN_MICRO
-    want = [lin] * 3 + [soft] * 3 + [lin, 0] + [soft, 0] * 3
+    want = [lin] * 3 + [soft] * 3 + [lin, 0] * 3 + [soft, 0] * 3
     check(len(hist) == TRAIN_STEPS, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
     check(np.mean(losses[-3:]) < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
     check(len(per_step) == TRAIN_STEPS and all(n == want for n in per_step),
-          f"launches of K1, K2a, K2b, K4, K5a, K5b, K2b, K4, K5a, K5b "
-          f"sm90/simt per step {per_step}; want {want}")
+          f"launches of K1, K2a, K2b, K4, K5a, K5b, then each sm90/simt, "
+          f"per step {per_step}; want {want}")
     _count_routed(kernels, counters, routed, totals, path)
     dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
     p50 = float(np.median(dts))
@@ -1076,18 +1141,17 @@ def phase_grad_check(kernels: list, cfg, path: str) -> None:
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
-    routed = (lasp2_chunk_bwd_dkv, fl.flash_attention_fwd,
-              fl.flash_attention_bwd_dq, fl.flash_attention_bwd_dkv)
+    routed = counters
     _zero(*counters)
     loss_c, grads_c = loss_and_grads(card)
     torch.cuda.synchronize()
     launched = _read(counters, routed)
     n_lin, n_soft = _mixer_counts(cfg)
-    # fp32: K2b, K4, K5a and K5b take their simt route
-    check(launched == [n_lin] * 3 + [n_soft] * 3 + [0, n_lin]
+    # fp32: every routed kernel takes its simt route
+    check(launched == [n_lin] * 3 + [n_soft] * 3 + [0, n_lin] * 3
           + [0, n_soft] * 3,
-          f"card path launched K1, K2a, K2b, K4, K5a, K5b, then K2b, K4, "
-          f"K5a, K5b sm90/simt {launched} times")
+          f"card path launched K1, K2a, K2b, K4, K5a, K5b, then each "
+          f"sm90/simt {launched} times")
     _count_routed(kernels, counters, routed, launched, path)
     loss_h, grads_h = loss_and_grads(host)
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)

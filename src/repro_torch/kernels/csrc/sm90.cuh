@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels under csrc/:
 // mbarriers, TMA tensor loads, wgmma shared-memory descriptors and issue
-// helpers, the accumulator -> A-register conversion, and the host-side
+// helpers, the accumulator -> A-register conversion, the pieces of the
+// chunked linear-attention kernel of K1 and K2a (decay rows, causal decay,
+// the carry of the state M and its bf16 terms), and the host-side
 // creation of TMA tensor maps.
 //
 // Shared-memory tiles are bf16, stored as column blocks of 64 elements
@@ -350,6 +352,157 @@ __device__ __forceinline__ void split_to_a(const float (&d)[NR],
 // 16-byte chunk col / 8 of each 128-byte row is XORed with row % 8.
 __host__ __device__ __forceinline__ uint32_t sw128_off(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// A barrier of `count` threads (a multiple of 32) on named barrier `id`
+// (1 .. 15; __syncthreads takes 0): one warpgroup synchronises alone.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Chunked decayed linear attention in 64-row chunks (the kernel of
+// lasp2_chunk_sm90.cuh, which runs the forward, K1, and the backward's dq
+// pass, K2a): the chunk's decay rows, the causal decay of a score tile,
+// and the carried state M <- e^A M + (A ⊙ w)^T B.
+// ---------------------------------------------------------------------------
+
+// A chunk's decay rows from log a, by one warp: lane l holds log a of rows
+// l and l + 32 in a0 and a1 (0 past the sequence's end, which adds
+// nothing). Writes, for cb the inclusive cumsum over the chunk and A its
+// last entry, rows[0, 64) = cb, rows[64, 128) = e^{cb}, rows[128, 192) =
+// w = e^{A - cb} and rows[192] = e^A; returns A on every lane.
+__device__ __forceinline__ float chunk_decay_rows(float a0, float a1,
+                                                  float* rows) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float n0 = __shfl_up_sync(0xffffffffu, a0, off);
+    const float n1 = __shfl_up_sync(0xffffffffu, a1, off);
+    if (lane >= off) {
+      a0 += n0;
+      a1 += n1;
+    }
+  }
+  a1 += __shfl_sync(0xffffffffu, a0, 31);
+  const float A = __shfl_sync(0xffffffffu, a1, 31);
+  rows[lane] = a0;
+  rows[lane + 32] = a1;
+  rows[64 + lane] = expf(a0);
+  rows[96 + lane] = expf(a1);
+  rows[128 + lane] = expf(A - a0);
+  rows[160 + lane] = expf(A - a1);
+  if (lane == 0) rows[192] = expf(A);
+  return A;
+}
+
+// A 64 x 64 score accumulator (m64n64: rows i, columns j of the chunk) of
+// the calling warpgroup times the decay D_ij = e^{cb_i - cb_j} for j <= i,
+// 0 above the diagonal. __expf (ex2.approx) is within 2 + 1.16|x| ulp of
+// e^x: far below the two-term operands' 2^-16 wherever the factor is not
+// negligible.
+__device__ __forceinline__ void causal_decay(float (&x)[32], const float* cb) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = ((threadIdx.x % 128) / 32) * 16 + lane / 4;
+  const int c0 = 2 * (lane % 4);
+  const float cbi[2] = {cb[r0], cb[r0 + 8]};
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const float2 cj = *reinterpret_cast<const float2*>(cb + 8 * jj + c0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 4 * jj + e, h = e >> 1, j = 8 * jj + c0 + (e & 1);
+      const float d = __expf(cbi[h] - ((e & 1) ? cj.y : cj.x));
+      x[r] = (j <= r0 + 8 * h) ? x[r] * d : 0.f;
+    }
+  }
+}
+
+// Issues the carry of 64 rows of a carried state M, held by the calling
+// warpgroup as one fp32 m64nN accumulator: M <- e^A M + (A ⊙ w)^T B, where
+// row r of M belongs to column r of the chunk's 64-column tile of A at
+// `atile` (64 rows, swizzled), and B is the chunk's tile at `btile` (64
+// rows, N columns in 64-column blocks of 64 · 128 bytes). (A ⊙ w)^T enters
+// as hi and lo bf16 A fragments read from the A tile by ldmatrix.trans and
+// scaled by w in fp32: one rounding to bf16 would leave 2^-9 of each row
+// in the state. Every register is written before the one wgmma fence:
+// ptxas serialises the wgmmas of a kernel in which a non-wgmma instruction
+// writes an accumulator between the wgmmas of one stage. Only issues the
+// wgmmas; the caller commits and waits.
+template <int N>
+__device__ __forceinline__ void carry_issue(float (&m)[N / 2], uint32_t atile,
+                                            uint32_t btile, const float* w,
+                                            float eA) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int c0 = 2 * (lane % 4);
+  const int cw = 16 * (t / 32) + 8 * ((lane / 8) & 1);
+  uint32_t hi[16], lo[16];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {   // 16 chunk rows j a k-step
+    uint32_t f[4];
+    ldmatrix_x4_trans(
+        atile + sw128_off(16 * kk + 8 * (lane / 16) + lane % 8, cw), f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 16 * kk + 8 * (i >> 1) + c0;
+      const float2 av = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&f[i]));
+      const float y0 = av.x * w[j], y1 = av.y * w[j + 1];
+      const __nv_bfloat162 yh = __floats2bfloat162_rn(y0, y1);
+      const float2 hf = __bfloat1622float2(yh);
+      hi[4 * kk + i] = *reinterpret_cast<const uint32_t*>(&yh);
+      lo[4 * kk + i] = pack_bf16(y0 - hf.x, y1 - hf.y);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < N / 2; ++r) m[r] *= eA;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = desc_sw128(btile + kk * 16 * 128, 64 * 128, 1024);
+    MmaRS<N, 1>::run(m, &hi[4 * kk], b, 1);
+    MmaRS<N, 1>::run(m, &lo[4 * kk], b, 1);
+  }
+}
+
+// The 64 rows of a carried state M (fp32 m64nN accumulator of the calling
+// warpgroup) as bf16 hi and lo terms in two row-major swizzled 64-row tiles
+// (generic pointers `hi`, `lo`) of 64-column blocks: the K-major B operand
+// of the next chunk's product with M^T.
+template <int N>
+__device__ __forceinline__ void store_terms(const float (&m)[N / 2],
+                                            uint8_t* hi, uint8_t* lo) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 8 * jj + c0;
+      const uint32_t off =
+          (col / 64) * 64 * 128 + sw128_off(r + 8 * h, col % 64);
+      const float x0 = m[4 * jj + 2 * h], x1 = m[4 * jj + 2 * h + 1];
+      const __nv_bfloat162 xh = __floats2bfloat162_rn(x0, x1);
+      const float2 hf = __bfloat1622float2(xh);
+      *reinterpret_cast<__nv_bfloat162*>(hi + off) = xh;
+      *reinterpret_cast<__nv_bfloat162*>(lo + off) =
+          __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+    }
+}
+
+// A 64 x 64 fp32 accumulator of the calling warpgroup in bf16 into a
+// swizzled 64-column tile (generic pointer), the source of a TMA store.
+__device__ __forceinline__ void stage_bf16(const float (&x)[32],
+                                           uint8_t* tile) {
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int r = (t / 32) * 16 + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(
+          tile + sw128_off(r + 8 * h, 8 * jj + c0)) =
+          __floats2bfloat162_rn(x[4 * jj + 2 * h], x[4 * jj + 2 * h + 1]);
 }
 
 // ---------------------------------------------------------------------------

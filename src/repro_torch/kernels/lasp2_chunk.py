@@ -2,18 +2,23 @@
 kernels and their plain PyTorch versions.
 
 Twin of ``repro/kernels/lasp2_chunk.py``. On CUDA tensors the wrappers
-launch the kernels under ``csrc/`` (design and bound in each header):
+launch the kernels under ``csrc/`` (design and bound in each header), each
+on one of two routes fixed by :func:`_route`:
 
-* :func:`lasp2_chunk_fwd` — ``csrc/lasp2_chunk_fwd.cu`` (K1);
-* :func:`lasp2_chunk_bwd_dq` — the forward-order dq pass,
-  ``csrc/lasp2_chunk_bwd.cu`` (K2a);
-* :func:`lasp2_chunk_bwd_dkv` — the reverse-order dk/dv/dlog_a pass (K2b),
-  on one of two routes fixed by :func:`_route`: ``sm90``, the tensor-core
-  kernel of ``csrc/lasp2_chunk_bwd_sm90.cu`` (wgmma, TMA) for bf16 with dk
-  and dv in {64, 128}, whose fp32 operands enter its products as two bf16
-  terms each so that it meets the fp32 plain version's limits; and
-  ``simt``, the CUDA-core kernel of ``csrc/lasp2_chunk_bwd.cu``, for fp32
-  and every other shape.
+* :func:`lasp2_chunk_fwd` (K1) — ``sm90``: ``csrc/lasp2_chunk_fwd_sm90.cu``;
+  ``simt``: ``csrc/lasp2_chunk_fwd.cu``;
+* :func:`lasp2_chunk_bwd_dq` (K2a), the forward-order dq pass — ``sm90``:
+  ``csrc/lasp2_chunk_bwd_dq_sm90.cu``; ``simt``: ``csrc/lasp2_chunk_bwd.cu``;
+* :func:`lasp2_chunk_bwd_dkv` (K2b), the reverse-order dk/dv/dlog_a pass —
+  ``sm90``: ``csrc/lasp2_chunk_bwd_sm90.cu``; ``simt``:
+  ``csrc/lasp2_chunk_bwd.cu``.
+
+``sm90`` is the tensor-core route (wgmma, TMA) for bf16 with dk and dv in
+{64, 128}: its kernels feed every fp32 operand to their products as two
+bf16 terms, so that they meet the fp32 plain versions' limits. K1's and
+K2a's ``sm90`` entries launch one kernel body,
+``csrc/lasp2_chunk_sm90.cuh`` (K1 with its operands swapped). ``simt`` is
+the CUDA-core route, for fp32 and every other shape.
 
 On CPU tensors each runs its plain version. There is no other path: a CUDA
 tensor the kernel does not take raises. :class:`LASP2Chunk` is the
@@ -35,10 +40,10 @@ _SM90_DIMS = (64, 128)
 
 
 def _route(dtype, dk, dv) -> str:
-    """The kernel route of K2b for inputs of ``dtype`` with key width
-    ``dk`` and value width ``dv``, a fixed table: bf16 with dk and dv in
-    {64, 128} go to the tensor-core kernel (``sm90``), fp32 and every other
-    shape to the CUDA-core kernel (``simt``)."""
+    """The kernel route of K1, K2a and K2b for inputs of ``dtype`` with key
+    width ``dk`` and value width ``dv``, a fixed table: bf16 with dk and dv
+    in {64, 128} go to the tensor-core kernels (``sm90``), fp32 and every
+    other shape to the CUDA-core kernels (``simt``)."""
     return "sm90" if dtype == torch.bfloat16 and dk in _SM90_DIMS \
         and dv in _SM90_DIMS else "simt"
 
@@ -123,18 +128,29 @@ def lasp2_chunk_fwd(q, k, v, log_a, *, block_size: int = DEFAULT_BLOCK):
     _check(q, k, v, log_a)
     if q.device.type == "cpu":
         return lasp2_chunk_fwd_plain(q, k, v, log_a, block_size=block_size)
-    bh, s, dk, dv = _check_cuda("lasp2_chunk_fwd", (q, k, v), (log_a,))
+    name = "lasp2_chunk_fwd"
+    bh, s, dk, dv = _check_cuda(name, (q, k, v), (log_a,))
+    route = _route(q.dtype, dk, dv)
     o = torch.empty((bh, s, dv), dtype=q.dtype, device=q.device)
     state = torch.empty((bh, dk, dv), dtype=torch.float32, device=q.device)
     ld = torch.empty((bh,), dtype=torch.float32, device=q.device)
-    fn = _build.entry("lasp2_chunk_fwd", "lasp2_chunk_fwd", 7, 5)
-    _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, bh, s, dk,
-            dv, int(q.dtype == torch.bfloat16))
+    if route == "sm90":
+        _check_sm90(name, (q, k, v))
+        fn = _build.entry("lasp2_chunk_fwd_sm90", "lasp2_chunk_fwd_sm90", 7,
+                          4)
+        _launch(name, fn, q, k, v, log_a, o, state, ld, bh, s, dk, dv)
+    else:
+        fn = _build.entry("lasp2_chunk_fwd", name, 7, 5)
+        _launch(name, fn, q, k, v, log_a, o, state, ld, bh, s, dk, dv,
+                int(q.dtype == torch.bfloat16))
     lasp2_chunk_fwd.launches += 1
+    lasp2_chunk_fwd.route_launches[route] += 1
     return o, state, ld
 
 
-lasp2_chunk_fwd.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), in all and per route
+lasp2_chunk_fwd.launches = 0
+lasp2_chunk_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -260,17 +276,27 @@ def lasp2_chunk_bwd_dq(k, v, log_a, do, *, block_size: int = DEFAULT_BLOCK):
                                         block_size=block_size)
     name = "lasp2_chunk_bwd_dq"
     bh, s, dk, dv = _check_cuda(name, (k, v, do), (log_a,))
+    route = _route(k.dtype, dk, dv)
     dq = torch.empty((bh, s, dk), dtype=k.dtype, device=k.device)
-    m_scratch = torch.empty((bh, dk, dv), dtype=torch.float32,
-                            device=k.device)
-    fn = _build.entry("lasp2_chunk_bwd", name, 6, 5)
-    _launch(name, fn, k, v, log_a, do, dq, m_scratch, bh, s, dk, dv,
-            int(k.dtype == torch.bfloat16))
+    if route == "sm90":
+        _check_sm90(name, (k, v, do))
+        fn = _build.entry("lasp2_chunk_bwd_dq_sm90", "lasp2_chunk_bwd_dq_sm90",
+                          5, 4)
+        _launch(name, fn, k, v, log_a, do, dq, bh, s, dk, dv)
+    else:
+        m_scratch = torch.empty((bh, dk, dv), dtype=torch.float32,
+                                device=k.device)
+        fn = _build.entry("lasp2_chunk_bwd", name, 6, 5)
+        _launch(name, fn, k, v, log_a, do, dq, m_scratch, bh, s, dk, dv,
+                int(k.dtype == torch.bfloat16))
     lasp2_chunk_bwd_dq.launches += 1
+    lasp2_chunk_bwd_dq.route_launches[route] += 1
     return dq
 
 
-lasp2_chunk_bwd_dq.launches = 0   # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), in all and per route
+lasp2_chunk_bwd_dq.launches = 0
+lasp2_chunk_bwd_dq.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def lasp2_chunk_bwd_dkv(q, k, v, log_a, o, do, dstate, *,

@@ -1,10 +1,11 @@
-"""The chunk backward's K2b routes and the precision of its ``sm90`` design,
+"""The chunk kernels' routes and the precision of their ``sm90`` designs,
 on the CPU.
 
-* ``lasp2_chunk._route`` is a fixed table: bf16 with dk and dv in {64, 128}
-  go to the tensor-core kernel (``sm90``), fp32 and every other shape to
-  the CUDA-core kernel (``simt``).
-* The ``sm90`` kernel feeds its fp32 intermediates (the decayed scores sc
+* ``lasp2_chunk._route`` is a fixed table for K1, K2a and K2b: bf16 with dk
+  and dv in {64, 128} go to the tensor-core kernels (``sm90``), fp32 and
+  every other shape to the CUDA-core kernels (``simt``). CPU tensors run
+  the plain versions and move no launch counter.
+* K2b's ``sm90`` kernel feeds its fp32 intermediates (the decayed scores sc
   and dsc, the carried state gradient N and Q ⊙ e^{cb}) to bf16 products as
   two bf16 terms each, x_hi = bf16(x) and x_lo = bf16(x − x_hi), and takes
   r and dlog_a's suffix sum in fp32 from dk's fp32 accumulator. Here a
@@ -14,6 +15,16 @@ on the CPU.
   resets: dk and dv within 4e-2 absolute + relative, dlog_a within
   1e-3 + S·2^-24·max|want| + 1e-3·|want|. With one bf16 term in place of
   two, dlog_a leaves that limit: the split is what meets it.
+* K1 and K2a share one ``sm90`` kernel body, K1 with its operands
+  swapped: it carries M ← e^A M + (A ⊙ w)ᵀ B with A ⊙ w (K2a: K ⊙ w; K1:
+  V ⊙ w) in two terms, and takes M (in Q M and dO Mᵀ) and the decayed
+  score tile (in S V and dsc K) in two terms as well. Its transcriptions
+  meet the unchanged limits against ``lasp2_chunk_fwd_plain`` and
+  ``lasp2_chunk_bwd_dq_plain`` (o 4e-2, state 1e-4, log decay 1e-5, dq
+  4e-2) at BH 2 × S 2048 × 128; one term of A ⊙ w misses the state limit,
+  one term of M misses o's and dq's, one term of dsc misses dq's, and one
+  term of K1's scores stays inside o's limit with over twice the error of
+  two.
 """
 
 import numpy as np
@@ -170,3 +181,118 @@ def test_emulation_handles_a_ragged_last_chunk(s):
     want = lc.lasp2_chunk_bwd_dkv_plain(*ins, block_size=pick_block(s, 128))
     oks, errs = _within_limits(sm90_dkv_emulation(*ins), want, s)
     assert all(oks), f"{oks}, {errs}"
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2a: the forward and the dq pass.
+# ---------------------------------------------------------------------------
+
+def test_cpu_tensors_move_no_fwd_or_dq_counter():
+    """On the CPU, K1's and K2a's wrappers run their plain versions: no
+    launch counter, total or per route, moves."""
+    q, k, v, la, _, do, _ = _inputs(0, 1, 128, 64, "reset")
+    fns = (lc.lasp2_chunk_fwd, lc.lasp2_chunk_bwd_dq)
+    before = [(fn.launches, dict(fn.route_launches)) for fn in fns]
+    lc.lasp2_chunk_fwd(q, k, v, la)
+    lc.lasp2_chunk_bwd_dq(k, v, la, do)
+    assert [(fn.launches, dict(fn.route_launches)) for fn in fns] == before
+    assert all(set(fn.route_launches) == set(lc.ROUTES) for fn in fns)
+
+
+def sm90_chunk_emulation(a, b, la, x, *, n_score=2, n_state=2, n_kw=2):
+    """The arithmetic of the one ``sm90`` kernel body of K1 and K2a on the
+    CPU: 64-row chunks in order; sc = X Bᵀ from bf16 inputs in fp32, sc ⊙ D;
+    out = sc_terms A + e^{cb} ⊙ (X M_termsᵀ) with M the state before the
+    chunk; then M ← e^{cb_last} M + (A ⊙ w)_termsᵀ B. Returns (out in bf16,
+    the final M, sum(log a))."""
+    bh, s, na = a.shape
+    m = torch.zeros(bh, na, b.shape[-1])
+    ld = torch.zeros(bh)
+    outs = []
+    for ch in range(-(-s // CHUNK)):
+        rows = slice(ch * CHUNK, min(s, (ch + 1) * CHUNK))
+        ab, bb, xb = (t[:, rows].float() for t in (a, b, x))
+        cb = torch.cumsum(la[:, rows], dim=-1)
+        sc = (xb @ bb.transpose(1, 2)) * lc._decay_mat(cb)
+        outs.append(_mm(_terms(sc, n_score), ab) + torch.exp(cb)[..., None]
+                    * sum(xb @ t.transpose(1, 2) for t in _terms(m, n_state)))
+        a_last = cb[:, -1:]
+        aw = ab * torch.exp(a_last - cb)[..., None]
+        m = torch.exp(a_last)[..., None] * m \
+            + _mm([t.transpose(1, 2) for t in _terms(aw, n_kw)], bb)
+        ld = ld + cb[:, -1]
+    return torch.cat(outs, 1).to(a.dtype), m, ld
+
+
+def sm90_fwd_emulation(q, k, v, la, **terms):
+    """K1: the kernel body with (A, B, X) = (v, k, q), whose carried M is
+    the transpose of the forward's state. Returns (o, state, log decay)."""
+    o, m, ld = sm90_chunk_emulation(v, k, la, q, **terms)
+    return o, m.transpose(1, 2), ld
+
+
+def sm90_dq_emulation(k, v, la, do, **terms):
+    """K2a: the kernel body with (A, B, X) = (k, v, dO). Returns dq."""
+    return sm90_chunk_emulation(k, v, la, do, **terms)[0]
+
+
+def _worst(got, want, tol):
+    """The largest |got − want| / (tol + tol·|want|): at most 1 within the
+    card's limit."""
+    return float(((got.float() - want.float()).abs()
+                  / (tol + tol * want.float().abs())).max())
+
+
+def _fwd_bwd_ratios(seed, s, d, la_kind, **terms):
+    """(o, state, log decay, dq) worst errors against the plain versions as
+    fractions of the card's limits (``TOL_O``, ``TOL_STATE``, ``TOL_LD``,
+    ``TOL_GRAD``), for the emulations with ``terms``."""
+    q, k, v, la, _, do, _ = _inputs(seed, 2, s, d, la_kind)
+    bs = pick_block(s, 128)
+    o_p, st_p, ld_p = lc.lasp2_chunk_fwd_plain(q, k, v, la, block_size=bs)
+    dq_p = lc.lasp2_chunk_bwd_dq_plain(k, v, la, do, block_size=bs)
+    o, st, ld = sm90_fwd_emulation(q, k, v, la, **terms)
+    dq = sm90_dq_emulation(k, v, la, do, **terms)
+    return (_worst(o, o_p, 4e-2), _worst(st, st_p, 1e-4),
+            _worst(ld, ld_p, 1e-5), _worst(dq, dq_p, 4e-2))
+
+
+@pytest.mark.parametrize("la_kind", ["zero", "reset", "decay"])
+def test_fwd_and_dq_two_term_products_meet_fp32_limits(la_kind):
+    """K1's and K2a's two-term products at BH 2 × S 2048 × 128 meet the
+    unchanged o, state, log decay and dq limits against the fp32 plain
+    versions, with no decay (the largest state), resets and decays."""
+    ratios = _fwd_bwd_ratios(1, 2048, 128, la_kind)
+    assert max(ratios) <= 1.0, f"o, state, ld, dq at {ratios} of the limits"
+
+
+@pytest.mark.parametrize("operand,la_kind,misses", [
+    ("n_kw", "decay", "state"),      # V ⊙ w: 2^-9 of a row, decayed sums
+    ("n_state", "reset", "o"),       # M in Q M
+    ("n_state", "reset", "dq"),      # M in dO Mᵀ
+    ("n_score", "reset", "dq")])     # dsc in dsc K
+def test_one_bf16_term_misses_a_limit(operand, la_kind, misses):
+    """With one bf16 term of ``operand`` (the others in two), the output
+    ``misses`` leaves its limit at BH 2 × S 2048 × 128: that operand needs
+    two terms."""
+    ratios = dict(zip(("o", "state", "ld", "dq"),
+                      _fwd_bwd_ratios(1, 2048, 128, la_kind, **{operand: 1})))
+    assert ratios[misses] > 1.0, f"one term of {operand}: {ratios}"
+
+
+def test_one_term_scores_fit_o_with_less_margin():
+    """K1's score tile in one bf16 term keeps o inside its limit at BH 2 ×
+    S 2048, but its worst error is over 0.4 of the limit and over twice
+    that of two terms: the kernel takes two, for margin at the card's
+    larger shapes."""
+    one = _fwd_bwd_ratios(1, 2048, 128, "reset", n_score=1)[0]
+    two = _fwd_bwd_ratios(1, 2048, 128, "reset")[0]
+    assert 0.4 < one <= 1.0 and one > 2 * two, (one, two)
+
+
+@pytest.mark.parametrize("s", [37, 200])
+def test_fwd_and_dq_emulations_handle_a_ragged_last_chunk(s):
+    """A ragged last chunk (S not a multiple of 64) is exact in K1's and
+    K2a's arithmetic: the kernels' zero-filled tail adds nothing."""
+    ratios = _fwd_bwd_ratios(2, s, 64, "reset")
+    assert max(ratios) <= 1.0, ratios

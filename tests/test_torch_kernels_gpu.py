@@ -7,8 +7,9 @@ Tolerances: o at the reference's kernel tolerances (3e-4 fp32, 4e-2 bf16,
 ``tests/test_kernels.py:14``); states in fp32 at 1e-4 (both sides sum in
 fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
 flash lse (fp32 on both sides) at 1e-4; gradients at the reference's 1e-3
-(4e-2 for bf16 outputs), on both routes of K2b (``sm90`` for bf16 with dk
-and dv in {64, 128}, ``simt`` otherwise) against the fp32 plain version.
+(4e-2 for bf16 outputs). K1, K2a and K2b run on both routes (``sm90``
+for bf16 with dk and dv in {64, 128}, ``simt`` otherwise), each held to
+the same limits against the fp32 plain version.
 bf16 flash results at 2^-7·|want| + 2^-8·rms(want), plus, on the ``sm90``
 route of K4, K5a and K5b, which rounds P and dS to bf16 inside its
 products, 2^-8 times those products over absolute values
@@ -63,7 +64,7 @@ def _close_bf16(got, want, extra=None):
 
 @pytest.mark.parametrize("s", [1, 37, 64, 200, 512])
 @pytest.mark.parametrize("dk,dv", [(16, 64), (64, 64), (128, 128),
-                                   (32, 192)])
+                                   (64, 128), (128, 64), (32, 192)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_kernel_matches_plain(gen, s, dk, dv, dtype):
     bh = 6
@@ -73,8 +74,12 @@ def test_chunk_kernel_matches_plain(gen, s, dk, dv, dtype):
     q, k, v = (x.to(dtype) for x in (q, k, v))
     la = -torch.rand(bh, s, generator=gen, device="cuda") * 0.05
     la[:, s // 3] = RESET_LOG_A
+    route = lc._route(dtype, dk, dv)
+    before = dict(lasp2_chunk_fwd.route_launches)
     o, st, ld = lasp2_chunk_fwd(q, k, v, la)
     torch.cuda.synchronize()
+    assert {r: lasp2_chunk_fwd.route_launches[r] - before[r] for r in before} \
+        == {r: int(r == route) for r in before}
     o_p, st_p, ld_p = lasp2_chunk_fwd_plain(q, k, v, la,
                                             block_size=pick_block(s, 128))
     assert o.dtype == dtype and st.dtype == torch.float32
@@ -139,7 +144,7 @@ def _bwd_inputs(gen, bh, s, dk, dv, dtype):
 @pytest.mark.parametrize("dv", [64, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
-    """K2a and K2b against the plain passes, with resets and decays, K2b on
+    """K2a and K2b against the plain passes, with resets and decays, each on
     the route its inputs take (bf16 with dk, dv in {64, 128}: ``sm90``).
     Gradients within 1e-3 in fp32 (the reference's GRAD_TOL) and 4e-2 in
     bf16. dlog_a is fp32 on both sides, from the same inputs: each entry
@@ -149,10 +154,12 @@ def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
     bh = 3
     ins = _bwd_inputs(gen, bh, s, dk, dv, dtype)
     route = lc._route(dtype, dk, dv)
-    before = lasp2_chunk_bwd_dkv.route_launches[route]
+    before = [fn.route_launches[route]
+              for fn in (lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)]
     got = lasp2_chunk_bwd(*ins)
     torch.cuda.synchronize()
-    assert lasp2_chunk_bwd_dkv.route_launches[route] - before == 1
+    assert [fn.route_launches[route] - n for fn, n in zip(
+        (lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv), before)] == [1, 1]
     want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
     tol = 1e-3 if dtype == torch.float32 else 4e-2
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
@@ -183,18 +190,19 @@ def test_chunk_autograd_launches_both_passes(gen):
 @pytest.mark.parametrize("dtype,route", [(torch.float32, "simt"),
                                          (torch.bfloat16, "sm90")])
 def test_chunk_autograd_takes_the_k2b_route(gen, dtype, route):
-    """Autograd through ops.linear_attention_op on the card launches K2b
-    once, on ``sm90`` for bf16 at dk = dv = 64 and on ``simt`` for fp32,
-    never on the other route."""
+    """Autograd through ops.linear_attention_op on the card launches K1,
+    K2a and K2b once each, on ``sm90`` for bf16 at dk = dv = 64 and on
+    ``simt`` for fp32, never on the other route."""
     from repro_torch.kernels import ops
     ins = _bwd_inputs(gen, 4, 200, 64, 64, dtype)
     xs = [x.clone().requires_grad_(True) for x in ins[:4]]
-    before = dict(lasp2_chunk_bwd_dkv.route_launches)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    before = [dict(c.route_launches) for c in counters]
     o, _, _ = ops.linear_attention_op(*(x[None] for x in xs))
     grads = torch.autograd.grad((o.float() * ins[5][None].float()).sum(), xs)
-    moved = {r: lasp2_chunk_bwd_dkv.route_launches[r] - before[r]
-             for r in before}
-    assert moved == {r: int(r == route) for r in before}
+    for c, b in zip(counters, before):
+        moved = {r: c.route_launches[r] - b[r] for r in b}
+        assert moved == {r: int(r == route) for r in b}, c.__name__
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
@@ -208,6 +216,51 @@ def test_chunk_dkv_sm90_is_bitwise_repeatable(gen, dk, dv):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (64, 128)])
+def test_chunk_fwd_sm90_is_bitwise_repeatable(gen, dk, dv):
+    """K1 on the ``sm90`` route sums in a fixed order with no atomics: two
+    launches on the same inputs agree bit for bit, o, state and log decay."""
+    q, k, v, la, *_ = _bwd_inputs(gen, 4, 1000, dk, dv, torch.bfloat16)
+    before = lasp2_chunk_fwd.route_launches["sm90"]
+    first = lasp2_chunk_fwd(q, k, v, la)
+    second = lasp2_chunk_fwd(q, k, v, la)
+    torch.cuda.synchronize()
+    assert lasp2_chunk_fwd.route_launches["sm90"] - before == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 64), (128, 128), (128, 64)])
+def test_chunk_dq_sm90_is_bitwise_repeatable(gen, dk, dv):
+    """K2a on the ``sm90`` route sums in a fixed order with no atomics: two
+    launches on the same inputs agree bit for bit."""
+    _, k, v, la, _, do, _ = _bwd_inputs(gen, 4, 1000, dk, dv, torch.bfloat16)
+    before = lasp2_chunk_bwd_dq.route_launches["sm90"]
+    first = lasp2_chunk_bwd_dq(k, v, la, do)
+    second = lasp2_chunk_bwd_dq(k, v, la, do)
+    torch.cuda.synchronize()
+    assert lasp2_chunk_bwd_dq.route_launches["sm90"] - before == 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("which", ["fwd", "dq"])
+def test_chunk_fwd_and_dq_sm90_reject_misaligned_inputs(gen, which):
+    """K1 and K2a read by TMA from a 16-byte aligned base: a bf16 input at
+    dk = dv = 64 whose contiguous view starts elsewhere raises on the
+    ``sm90`` route, and neither route launches (no fallback)."""
+    q, k, v, la, _, do, _ = _bwd_inputs(gen, 2, 64, 64, 64, torch.bfloat16)
+    flat = torch.zeros(k.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    k = flat[1:].view(k.shape)
+    fn = lasp2_chunk_fwd if which == "fwd" else lasp2_chunk_bwd_dq
+    before = (fn.launches, dict(fn.route_launches))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        if which == "fwd":
+            lasp2_chunk_fwd(q, k, v, la)
+        else:
+            lasp2_chunk_bwd_dq(k, v, la, do)
+    assert (fn.launches, dict(fn.route_launches)) == before
 
 
 def test_chunk_dkv_sm90_rejects_misaligned_inputs(gen):
