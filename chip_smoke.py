@@ -12,33 +12,38 @@ line:
 2. build: nvcc builds every kernel under ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain PyTorch version on the card at
    its path's shapes (K1 at the serving shapes and, on ``sm90``, the
-   training shape; K3 at the serving shape; K2a and K2b, the two passes
-   of the chunk backward, at the training shape; K4, K5a and
-   K5b, flash attention's forward and two backward passes, at the hybrid's
-   training shape, a prefill shape, a trimmed band, GQA 4:1, an explicit
-   offset and a non-causal window). K1, K2a, K2b, K4, K5a and K5b each
-   have two routes: ``sm90`` (tensor cores) for bf16 at dh 64 and 128
-   (the chunk kernels: dk and dv in {64, 128}), ``simt`` (CUDA cores) for
-   fp32 and the rest; each case checks the route it took. Each is timed
+   training shape; K3, the decode step, on both routes at the serving
+   shape, and on ``sm90`` at (dk, dv) = (128, 64) and (16, 64) and without
+   log a; K2a and K2b, the two passes of the chunk backward, at the
+   training shape; K4, K5a and K5b, flash attention's forward and two
+   backward passes, at the hybrid's training shape, a prefill shape, a
+   trimmed band, GQA 4:1, an explicit offset and a non-causal window).
+   K1, K2a, K2b, K4, K5a and K5b each have two routes: ``sm90`` (tensor
+   cores) for bf16 at dh 64 and 128 (the chunk kernels: dk and dv in {64,
+   128}), ``simt`` (CUDA cores) for fp32 and the rest; K3's ``sm90``
+   (16-column slices of the state by asynchronous copies) takes dk a
+   multiple of 16 up to 256 and dv a multiple of 4, in bf16 and fp32. Each case checks the route it took. Each is timed
    beside the plain version's time, the least time the card could take
    (the bound) and, for flash attention, the time of
    ``F.scaled_dot_product_attention`` on the same causal shape: ``sm90``
    in bf16 and ``simt`` in fp32 (K1 at S 512 and S 2048, the others at the
-   train shape); K1, K2a, K2b, K5a and K5b on ``sm90`` are bitwise equal
-   on two launches;
+   train shape; K3 in bf16 on each route, in turns, with the wrapper's
+   host us a call); K1, K2a, K2b, K3, K5a and K5b on ``sm90`` are bitwise
+   equal on two launches;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
-   request finishes, the launch counters show K1 (all on ``sm90``) and K3
-   on the path, and decode logits agree with a fresh prefill;
+   request finishes, the launch counters show K1 and K3 (16 a decode
+   step) on the path, all on ``sm90``, and decode logits agree with a
+   fresh prefill;
 5. profile: host wall against device kernel time of one decode step
-   (4 slots) and one prefill batch (4 x 512), with the top kernels (and
-   for the hybrid after phase 6: a decode step and one exact-length
-   prefill row of 300);
+   (4 slots, with K3's device ms in it) and one prefill batch (4 x 512),
+   with the top kernels (and for the hybrid after phase 6: a decode step
+   and one exact-length prefill row of 300);
 6. hybrid serve: the same with the LASP-2H ``HYBRID`` (12 linear layers,
    4 softmax layers with a 2048-token window): exact-length prefill
-   through K1 and K4, decode through K3 and the ring cache; the cache's
-   ``linear_state`` is constant in ``max_len`` and ``kv_ring`` matches its
-   formula;
+   through K1 and K4, decode through K3 (12 a step, ``sm90``) and the
+   ring cache; the cache's ``linear_state`` is constant in ``max_len`` and
+   ``kv_ring`` matches its formula;
 7. train: full-width, full-depth ``linear-llama3-1b`` trains 10 steps
    through ``train()`` (fp32 masters, bf16 compute, 8 x 2048 packed
    tokens in 2 microbatches); every loss is finite, none is skipped, the
@@ -53,8 +58,8 @@ line:
    ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so all six
    routed kernels take their ``simt`` route.
 
-The line before the last is the kernel table as JSON, 13 entries (K3,
-and K1, K2a, K2b, K4, K5a and K5b once per route; ``launches`` summed over
+The line before the last is the kernel table as JSON, 14 entries (K1,
+K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
 the paths that ran each, listed in ``launches_by_path``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
@@ -270,8 +275,6 @@ def phase_kernels() -> list:
     from repro_torch.kernels import lasp2_chunk as lc
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_fwd,
                                                  lasp2_chunk_fwd_plain)
-    from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
-                                                  lasp2_decode_step_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
     bh, d = 64, 128               # 4 rows × 16 heads of 128
     failures = []
@@ -307,36 +310,8 @@ def phase_kernels() -> list:
         if not ok:
             failures.append(f"lasp2_chunk_fwd {name} S={s} {la_kind}")
 
-    # K3: 8 steps chained from a K1 prefill state, against recurrent_step
-    q, k, v, la = _chunk_inputs(gen, bh, 512, d, torch.bfloat16, "reset")
-    _, st0, ld0 = lasp2_chunk_fwd(q, k, v, la)
-    st_k, ld_k = st0.clone(), ld0.clone()
-    st_p, ld_p = st0.clone(), ld0.clone()
-    e_o, ok_o = 0.0, True
-    for _ in range(8):
-        qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda") * sc
-                      for sc in (0.3, 0.3, 0.5))
-        qs, ks, vs = (x.to(torch.bfloat16) for x in (qs, ks, vs))
-        las = -torch.rand(bh, generator=gen, device="cuda") * 0.05
-        o_k, st_k, ld_k = lasp2_decode_step(qs, ks, vs, las, st_k, ld_k)
-        o_p, st_p, ld_p = lasp2_decode_step_plain(qs, ks, vs, las, st_p,
-                                                  ld_p)
-        e, ok = max_err_within(o_k, o_p, TOL_O["float32"])
-        e_o, ok_o = max(e_o, e), ok_o and ok
-    torch.cuda.synchronize()
-    e_s, ok_s = max_err_within(st_k, st_p, TOL_STATE)
-    e_l, ok_l = max_err_within(ld_k, ld_p, TOL_LD)
-    k3_err = max(e_o, e_s, e_l)
-    log("kernels", kernel="lasp2_decode_step", steps=8, BH=bh, dk=d, dv=d,
-        err_o=f"{e_o:.3e}", tol_o=TOL_O["float32"], err_state=f"{e_s:.3e}",
-        tol_state=TOL_STATE, err_log_decay=f"{e_l:.3e}",
-        ok=ok_o and ok_s and ok_l)
-    if not (ok_o and ok_s and ok_l):
-        failures.append("lasp2_decode_step")
-
-    # Times at the serving path's shapes: K1 at BH 64, S 512 (4 prompts of
-    # the 512 bucket; bf16 on sm90, fp32 on simt), K3 at BH 64 (4 slots),
-    # bf16 activations.
+    # Times at the serving path's shape: K1 at BH 64, S 512 (4 prompts of
+    # the 512 bucket; bf16 on sm90, fp32 on simt).
     k1 = {}   # route -> (ms, device ms, plain ms, bound ms, bound by)
     for dtype in (torch.bfloat16, torch.float32):
         sets = [_chunk_inputs(gen, bh, 512, d, dtype, "reset")
@@ -346,27 +321,11 @@ def phase_kernels() -> list:
             device_ms(lambda *a: lasp2_chunk_fwd(*a), sets, 20),
             time_ms(lambda *a: lasp2_chunk_fwd_plain(*a), sets, 10),
             *_chunk_bound(bh, 512, d, d, dtype))
-    dec_sets = []
-    for _ in range(8):               # 8 × 8.4 MB of state > 50 MB of L2
-        qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda")
-                      .to(torch.bfloat16) for _ in range(3))
-        dec_sets.append((qs, ks, vs, torch.zeros(bh, device="cuda"),
-                         st0.clone(), ld0.clone()))
-    k3_ms = time_ms(lambda *a: lasp2_decode_step(*a), dec_sets, 400)
-    k3_plain = time_ms(lambda *a: lasp2_decode_step_plain(*a), dec_sets, 100)
-    k3_bytes = 2 * 4 * bh * d * d + 2 * 3 * bh * d + 4 * bh * d + 4 * 3 * bh
-    k3_t_bytes = k3_bytes / HBM_BYTES_PER_S
-    k3_t_ops = 5 * bh * d * d / PEAK_FLOPS["bfloat16"]
-    k3_bound = max(k3_t_bytes, k3_t_ops) * 1e3
-    k3_by = "bytes" if k3_t_bytes >= k3_t_ops else "operations"
     shapes = {"sm90": "BH64xS512x128 bf16", "simt": "BH64xS512x128 float32"}
     for route, (ms, dev, plain, bound, by) in k1.items():
         log("kernels", kernel=f"lasp2_chunk_fwd_{route}",
             shape=repr(shapes[route]), ms=f"{ms:.4f}", device_ms=f"{dev:.4f}",
             plain_ms=f"{plain:.4f}", bound_ms=f"{bound:.4f}", bound_by=by)
-    log("kernels", kernel="lasp2_decode_step", shape="BH64x128x128",
-        ms=f"{k3_ms:.4f}", plain_ms=f"{k3_plain:.4f}",
-        bound_ms=f"{k3_bound:.4f}", bound_by=k3_by)
     check(not failures, "kernel parity failed: " + ", ".join(failures))
     csrc = "src/repro_torch/kernels/csrc/"
     sources = {"sm90": "lasp2_chunk_fwd_sm90.cu", "simt": "lasp2_chunk_fwd.cu"}
@@ -377,14 +336,175 @@ def phase_kernels() -> list:
          "launches": None, "max_abs_err": k1_err[route], "ms": ms,
          "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
          "bound_by": by, "library_ms": None, "timed_at": shapes[route]}
-        for route, (ms, dev, plain, bound, by) in k1.items()] + [
-        {"name": "lasp2_decode_step", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/lasp2_decode.cu",
-         "replaces": "src/repro/kernels/lasp2_decode.py:49",
-         "launches": None, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
-         "library_ms": None},
-    ]
+        for route, (ms, dev, plain, bound, by) in k1.items()]
+
+
+def _decode_bound(bh, dk, dv, el):
+    """Least time of K3's work: the fp32 state read once and written once,
+    q, k, v (``el`` bytes an element), log a and L read, o and L written,
+    at the HBM rate, against 5 fp32 flops a state element (a·M, k·v, the
+    sum, q·M' and its sum) at the CUDA cores' rate."""
+    nbytes = 2 * 4 * bh * dk * dv + el * bh * (2 * dk + dv) + 4 * bh * dv \
+        + 3 * 4 * bh
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 5 * bh * dk * dv / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def host_us(fn, arg_sets, n=1000):
+    """Host us per call over ``n`` back-to-back calls after warm-up: the
+    wall until the last call has returned, before the device is waited
+    on. When the device keeps up (a short kernel), that is what the
+    wrapper costs the host."""
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(*arg_sets[i % len(arg_sets)])
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / n * 1e6
+
+
+K3_SM90_KERNEL = "lasp2_decode_sm90_kernel"   # its name in profiler rows
+
+
+def phase_decode() -> list:
+    """K3, the decode step, on both routes against ``recurrent_step``: 8
+    steps chained from a K1 prefill state at the serving shape (BH 64 = 4
+    slots x 16 heads, 128 x 128, bf16 q/k/v, resets in the prompt and at
+    step 3 for half the rows), each route forced by ``route=``; ``sm90``
+    also at (dk, dv) = (128, 64) and (16, 64) and with ``log_a=None``, and
+    bitwise equal on two launches. Times each route at the serving
+    shape, in turns (simt, sm90, sm90, simt): CUDA events over
+    400 launches, profiler device time over 100, and the wrapper's host us
+    over 1,000, rotating 16 states above the 50 MB L2; beside them the
+    device time of an in-place ``mul_`` over the same states (the copy
+    floor)."""
+    from repro_torch.core.linear_attention import RESET_LOG_A
+    from repro_torch.kernels import lasp2_decode as ldm
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    step, plain = ldm.lasp2_decode_step, ldm.lasp2_decode_step_plain
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bh, d, bf16 = 64, 128, torch.bfloat16
+    failures = []
+
+    def draw(dk, dv, n, reset_at=None):
+        out = []
+        for i in range(n):
+            qs, ks = ((torch.randn(bh, dk, generator=gen, device="cuda")
+                       * 0.3).to(bf16) for _ in range(2))
+            vs = (torch.randn(bh, dv, generator=gen, device="cuda")
+                  * 0.5).to(bf16)
+            las = -torch.rand(bh, generator=gen, device="cuda") * 0.05
+            if i == reset_at:
+                las[: bh // 2] = RESET_LOG_A
+            out.append((qs, ks, vs, las))
+        return out
+
+    def chained(steps, st0, ld0, route, no_log_a=False):
+        """Errors of o (worst step), state and log decay after the steps,
+        and whether all are within their limits with one launch a step,
+        all on ``route``."""
+        st_k, ld_k = st0.clone(), ld0.clone()
+        st_p, ld_p = st0.clone(), ld0.clone()
+        before = dict(step.route_launches)
+        e_o, ok_o = 0.0, True
+        for qs, ks, vs, las in steps:
+            la = None if no_log_a else las
+            o_k, st_k, ld_k = step(qs, ks, vs, la, st_k, ld_k, route=route)
+            o_p, st_p, ld_p = plain(qs, ks, vs, la, st_p, ld_p)
+            e, ok = max_err_within(o_k, o_p, TOL_O["float32"])
+            e_o, ok_o = max(e_o, e), ok_o and ok
+        torch.cuda.synchronize()
+        e_s, ok_s = max_err_within(st_k, st_p, TOL_STATE)
+        e_l, ok_l = max_err_within(ld_k, ld_p, TOL_LD)
+        launched = {r: step.route_launches[r] - before[r] for r in before}
+        want = {r: len(steps) * (r == route) for r in before}
+        return (e_o, e_s, e_l), ok_o and ok_s and ok_l and launched == want
+
+    q, k, v, la = _chunk_inputs(gen, bh, 512, d, bf16, "reset")
+    _, st0, ld0 = lasp2_chunk_fwd(q, k, v, la)
+    steps = draw(d, d, 8, reset_at=3)
+    cases = [(route, d, d, False, steps, st0, ld0) for route in ldm.ROUTES]
+    for dk, dv, no_la in ((128, 64, False), (16, 64, False), (d, d, True)):
+        cases.append(("sm90", dk, dv, no_la,
+                      draw(dk, dv, 8, reset_at=None if no_la else 3),
+                      torch.randn(bh, dk, dv, generator=gen, device="cuda"),
+                      -torch.rand(bh, generator=gen, device="cuda")))
+    err = dict.fromkeys(ldm.ROUTES, 0.0)
+    for route, dk, dv, no_la, case_steps, st, ldd in cases:
+        (e_o, e_s, e_l), ok = chained(case_steps, st, ldd, route, no_la)
+        ok = ok and (route == "simt" or ldm._route(bf16, dk, dv) == "sm90")
+        err[route] = max(err[route], e_o, e_s, e_l)
+        log("kernels", kernel=f"lasp2_decode_step_{route}", steps=8, BH=bh,
+            dk=dk, dv=dv, log_a="None" if no_la else "decay+reset",
+            err_o=f"{e_o:.3e}", tol_o=TOL_O["float32"],
+            err_state=f"{e_s:.3e}", tol_state=TOL_STATE,
+            err_log_decay=f"{e_l:.3e}", tol_log_decay=TOL_LD, ok=ok)
+        if not ok:
+            failures.append(f"lasp2_decode_step_{route} {dk}x{dv}")
+    # Fixed-order sums, no atomics: two launches agree bit for bit.
+    outs = []
+    for _ in range(2):
+        st, ldd = st0.clone(), ld0.clone()
+        o, _, _ = step(*steps[0], st, ldd, route="sm90")
+        outs.append((o, st, ldd))
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*outs))
+    log("kernels", kernel="lasp2_decode_step_sm90",
+        check="two launches bitwise equal", shape=repr("BH64x128x128 bf16"),
+        ok=same)
+    if not same:
+        failures.append("lasp2_decode_step_sm90 not bitwise repeatable")
+    del outs, cases
+
+    # 16 states of 4.2 MB: 67 MB rotate above the 50 MB L2, as a layer's
+    # state finds itself after a step's 2.7 GB of weights
+    dec_sets = []
+    for _ in range(16):
+        qs, ks, vs = (torch.randn(bh, d, generator=gen, device="cuda")
+                      .to(bf16) for _ in range(3))
+        dec_sets.append((qs, ks, vs, torch.zeros(bh, device="cuda"),
+                         st0.clone(), ld0.clone()))
+    order = ["simt", "sm90"]
+    readings = {r: [] for r in order}
+    for route in order + order[::-1]:
+        fn = lambda *a, route=route: step(*a, route=route)
+        readings[route].append((time_ms(fn, dec_sets, 400),
+                                device_ms(fn, dec_sets, 100),
+                                host_us(fn, dec_sets)))
+    plain_ms = time_ms(lambda *a: plain(*a), dec_sets, 100)
+    # The same state bytes read and written by one of PyTorch's own
+    # elementwise kernels (in place, x 1.0): what moving them costs on this
+    # card in practice, beside the bound's data-sheet rate.
+    floor_ms = device_ms(lambda *a: a[4].mul_(1.0), dec_sets, 100)
+    bound, by = _decode_bound(bh, d, d, 2)
+    shape = "BH64x128x128 bf16"
+    timed = {}
+    for route, rs in readings.items():
+        timed[route] = tuple(float(np.mean(x)) for x in zip(*rs))
+        ms, dev, hus = timed[route]
+        log("kernels", kernel=f"lasp2_decode_step_{route}", shape=repr(shape),
+            ms=f"{ms:.4f}", device_ms=f"{dev:.5f}",
+            device_ms_readings=repr([f"{r[1]:.5f}" for r in rs]),
+            host_us=f"{hus:.2f}",
+            host_us_readings=repr([f"{r[2]:.2f}" for r in rs]),
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=by,
+            copy_floor_device_ms=f"{floor_ms:.5f}")
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+    csrc = "src/repro_torch/kernels/csrc/"
+    sources = {"sm90": "lasp2_decode_sm90.cu", "simt": "lasp2_decode.cu"}
+    return [{"name": f"lasp2_decode_step_{route}", "route": "cuda",
+             "source": csrc + sources[route],
+             "replaces": "src/repro/kernels/lasp2_decode.py:49",
+             "launches": 0, "max_abs_err": err[route], "ms": ms,
+             "device_ms": dev, "host_us": hus, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "copy_floor_device_ms": floor_ms, "timed_at": shape}
+            for route, (ms, dev, hus) in timed.items()]
 
 
 def _bwd_bounds(bh, s, dk, dv, dtype):
@@ -830,8 +950,8 @@ def phase_serve(kernels: list, cfg, path: str):
     """8 ragged greedy requests through ``ServeEngine`` (4 slots, max_len
     544). Pure linear stacks prefill left-padded buckets; hybrids prefill
     by exact length. Checks the launches of K1 and K4 per prefill batch and
-    K3 per decode step, the cache footprint, and decode logits against a
-    fresh prefill."""
+    K3 per decode step (each all on ``sm90``), the cache footprint, and
+    decode logits against a fresh prefill."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
@@ -857,13 +977,14 @@ def phase_serve(kernels: list, cfg, path: str):
             for i, p in enumerate(prompts)]
 
     counters = (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
-    routed = (lasp2_chunk_fwd, flash_attention_fwd)
+    routed = counters
     _zero(*counters)
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k3, k4, k1_sm90, k1_simt, k4_sm90, k4_simt = _read(counters, routed)
+    k1, k3, k4, k1_sm90, k1_simt, k3_sm90, k3_simt, k4_sm90, k4_simt = \
+        _read(counters, routed)
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -879,12 +1000,14 @@ def phase_serve(kernels: list, cfg, path: str):
           f"K1 took sm90 {k1_sm90}, simt {k1_simt} times; want sm90 only")
     check(k3 == n_lin * steps and k3 > 0,
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
+    check(k3_sm90 == k3 and k3_simt == 0,
+          f"K3 took sm90 {k3_sm90}, simt {k3_simt} times; want sm90 only")
     check(k4 == n_soft * batches,
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
     check(k4_sm90 == k4 and k4_simt == 0,
           f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
     _count(kernels, "lasp2_chunk_fwd_sm90", path, k1_sm90)
-    _count(kernels, "lasp2_decode_step", path, k3)
+    _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
     if n_soft:
         _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
     total_new = sum(len(t) for t in results.values())
@@ -904,6 +1027,7 @@ def phase_serve(kernels: list, cfg, path: str):
     log(path, requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
         k1_launches=k1, k1_sm90_launches=k1_sm90, k3_launches=k3,
+        k3_sm90_launches=k3_sm90, k3_per_decode_step=k3 / steps,
         k4_launches=k4, k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
         tokens_per_s=f"{total_new / wall:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
@@ -941,10 +1065,11 @@ def phase_serve(kernels: list, cfg, path: str):
 # Phase 5: where a decode step and a prefill batch spend their time.
 # ---------------------------------------------------------------------------
 
-def _profile(fn, n):
+def _profile(fn, n, match=None):
     """(host wall ms per call, device kernel ms per call, kernels per call,
-    top kernels) over ``n`` calls after warm-up. The wall is taken without
-    the profiler; the device time is the sum of the kernel rows the
+    top kernels, (device ms, launches) per call of the kernels whose name
+    holds ``match``) over ``n`` calls after warm-up. The wall is taken
+    without the profiler; the device time is the sum of the kernel rows the
     profiler records on the card (0.0 when it records none)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
@@ -966,8 +1091,10 @@ def _profile(fn, n):
     device = sum(r[0] for r in rows) / n / 1e3
     kernels = sum(r[1] for r in rows) / n
     top = sorted(rows, reverse=True)[:5]
+    hits = [(t, c) for t, c, k in rows if match and match in k]
     return wall, device, kernels, ";".join(
-        f"{k[:48]}:{t / n / 1e3:.3f}ms" for t, _, k in top)
+        f"{k[:48]}:{t / n / 1e3:.3f}ms" for t, _, k in top), \
+        (sum(t for t, _ in hits) / n / 1e3, sum(c for _, c in hits) / n)
 
 
 def phase_profile(cfg, params, path: str, prefill_rows: int,
@@ -994,11 +1121,16 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
     for name, fn, n in (
             (f"{path} decode_step B4", decode, 10),
             (f"{path} prefill B{prefill_rows}xS{prefill_len}", prefill, 3)):
-        wall, device, kernels, top = _profile(fn, n)
+        wall, device, kernels, top, (k3_ms, k3_n) = _profile(
+            fn, n, K3_SM90_KERNEL)
         idle = f"{1 - device / wall:.3f}" if device else "not measured"
+        k3 = {}
+        if fn is decode:     # K3's share of the step's device time
+            k3 = {"k3_sm90_device_ms": f"{k3_ms:.4f}" if device
+                  else "not measured", "k3_sm90_launches": f"{k3_n:.0f}"}
         log("profile", what=repr(name), wall_ms=f"{wall:.3f}",
             device_kernel_ms=f"{device:.3f}" if device else "not measured",
-            device_idle_share=idle, kernels_per_call=f"{kernels:.0f}",
+            **k3, device_idle_share=idle, kernels_per_call=f"{kernels:.0f}",
             top=repr(top))
 
 
@@ -1091,7 +1223,7 @@ def phase_train(kernels: list, cfg, path: str) -> None:
         nonlocal state
         state, _ = step_fn(state, batch)
 
-    wall_ms, device, n_kernels, top = _profile(one_step, 1)
+    wall_ms, device, n_kernels, top, _ = _profile(one_step, 1)
     idle = f"{1 - device / wall_ms:.3f}" if device else "not measured"
     log("profile", what=repr(f"{path} step {TRAIN_BATCH}x{TRAIN_SEQ} "
                              f"({TRAIN_MICRO} microbatches)"),
@@ -1189,6 +1321,7 @@ def main() -> int:
     smi = phase_facts()
     phase_build()
     kernels = phase_kernels()
+    kernels += phase_decode()
     kernels += phase_bwd_kernels(kernels)
     kernels += phase_flash_kernels()
     params = phase_serve(kernels, linear, "serve")

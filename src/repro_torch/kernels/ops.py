@@ -61,16 +61,17 @@ def linear_decode_op(q, k, v, log_a, state, log_decay):
     q, k: (B, H, dk); v: (B, H, dv); log_a: (B, H) or None;
     state: (B, H, dk, dv) fp32; log_decay: (B, H) fp32.
     Returns (o (B, H, dv) fp32, state', log_decay'). On CUDA a contiguous
-    ``state`` and ``log_decay`` are updated in place.
+    ``state`` and ``log_decay`` are updated in place. A ``log_a`` of None
+    goes through as None (no decay, ``log_decay`` unchanged): no zeros are
+    made for it.
     """
     b, h, dk = q.shape
     dv = v.shape[-1]
-    if log_a is None:
-        log_a = torch.zeros((b, h), dtype=torch.float32, device=q.device)
     o, st, ld = _decode.lasp2_decode_step(
         q.reshape(b * h, dk).contiguous(), k.reshape(b * h, dk).contiguous(),
         v.reshape(b * h, dv).contiguous(),
-        log_a.float().reshape(b * h).contiguous(),
+        None if log_a is None
+        else log_a.float().reshape(b * h).contiguous(),
         state.reshape(b * h, dk, dv), log_decay.reshape(b * h))
     return o.reshape(b, h, dv), st.reshape(b, h, dk, dv), ld.reshape(b, h)
 

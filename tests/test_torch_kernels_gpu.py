@@ -9,7 +9,11 @@ fp32, in chunks of 64 against blocks of up to 128); log decay at 1e-5;
 flash lse (fp32 on both sides) at 1e-4; gradients at the reference's 1e-3
 (4e-2 for bf16 outputs). K1, K2a and K2b run on both routes (``sm90``
 for bf16 with dk and dv in {64, 128}, ``simt`` otherwise), each held to
-the same limits against the fp32 plain version.
+the same limits against the fp32 plain version. K3, the decode step, runs
+on each route by ``route=`` (its table sends dk a multiple of 16 up to 256
+with dv a multiple of 4 to ``sm90``, the rest to ``simt``), at the same
+limits, in place, and on ``sm90`` also bitwise repeatable and inside a
+replayed CUDA graph.
 bf16 flash results at 2^-7·|want| + 2^-8·rms(want), plus, on the ``sm90``
 route of K4, K5a and K5b, which rounds P and dS to bf16 inside its
 products, 2^-8 times those products over absolute values
@@ -28,6 +32,7 @@ from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
                                              lasp2_chunk_fwd,
                                              lasp2_chunk_fwd_plain)
 from repro_torch.kernels import flash_attention as fl
+from repro_torch.kernels import lasp2_decode as lasp2_decode_mod
 from repro_torch.kernels.lasp2_decode import (lasp2_decode_step,
                                               lasp2_decode_step_plain)
 
@@ -88,27 +93,122 @@ def test_chunk_kernel_matches_plain(gen, s, dk, dv, dtype):
     _close(ld, ld_p, 1e-5)
 
 
-@pytest.mark.parametrize("dk,dv", [(16, 16), (64, 128), (128, 64),
-                                   (128, 128), (32, 200)])
+DECODE_SHAPES = [(16, 16), (64, 128), (128, 64), (128, 128), (32, 200),
+                 (16, 64), (16, 260)]
+
+
+def _decode_inputs(gen, bh, dk, dv, dtype):
+    q, k = (torch.randn(bh, dk, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    v = torch.randn(bh, dv, generator=gen, device="cuda").to(dtype)
+    la = -torch.rand(bh, generator=gen, device="cuda") * 0.1
+    return q, k, v, la
+
+
+@pytest.mark.parametrize("bh", [1, 10, 64])
+@pytest.mark.parametrize("route", lasp2_decode_mod.ROUTES)
+@pytest.mark.parametrize("dk,dv", DECODE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_kernel_matches_plain_in_place(gen, dk, dv, dtype):
-    bh = 10
+def test_decode_kernel_matches_plain_in_place(gen, dk, dv, dtype, route, bh):
     st0 = torch.randn(bh, dk, dv, generator=gen, device="cuda")
     ld0 = -torch.rand(bh, generator=gen, device="cuda")
     st, ld = st0.clone(), ld0.clone()
     st_p, ld_p = st0.clone(), ld0.clone()
+    before = dict(lasp2_decode_step.route_launches)
     for _ in range(4):
-        q, k = (torch.randn(bh, dk, generator=gen, device="cuda").to(dtype)
-                for _ in range(2))
-        v = torch.randn(bh, dv, generator=gen, device="cuda").to(dtype)
-        la = -torch.rand(bh, generator=gen, device="cuda") * 0.1
-        o, st_out, ld_out = lasp2_decode_step(q, k, v, la, st, ld)
+        q, k, v, la = _decode_inputs(gen, bh, dk, dv, dtype)
+        o, st_out, ld_out = lasp2_decode_step(q, k, v, la, st, ld,
+                                              route=route)
         assert st_out.data_ptr() == st.data_ptr()      # updated in place
         o_p, st_p, ld_p = lasp2_decode_step_plain(q, k, v, la, st_p, ld_p)
         _close(o, o_p, TOL[torch.float32])
     torch.cuda.synchronize()
+    assert {r: lasp2_decode_step.route_launches[r] - before[r]
+            for r in before} == {r: 4 * (r == route) for r in before}
     _close(st, st_p, 1e-4)
     _close(ld, ld_p, 1e-5)
+
+
+@pytest.mark.parametrize("dk,dv", [(128, 128), (32, 200), (16, 64)])
+def test_decode_sm90_is_bitwise_repeatable(gen, dk, dv):
+    """Fixed-order sums, no atomics: two launches on the same inputs agree
+    bit for bit."""
+    q, k, v, la = _decode_inputs(gen, 64, dk, dv, torch.bfloat16)
+    st0 = torch.randn(64, dk, dv, generator=gen, device="cuda")
+    ld0 = -torch.rand(64, generator=gen, device="cuda")
+    outs = []
+    for _ in range(2):
+        st, ld = st0.clone(), ld0.clone()
+        o, _, _ = lasp2_decode_step(q, k, v, la, st, ld, route="sm90")
+        outs.append((o, st, ld))
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+@pytest.mark.parametrize("route", lasp2_decode_mod.ROUTES)
+def test_decode_takes_a_null_log_a(gen, route):
+    """log_a None is log a = 0: the state is not decayed and log decay is
+    left as it was."""
+    q, k, v, _ = _decode_inputs(gen, 10, 128, 64, torch.bfloat16)
+    st = torch.randn(10, 128, 64, generator=gen, device="cuda")
+    ld = -torch.rand(10, generator=gen, device="cuda")
+    st_p, ld_p = st.clone(), ld.clone()
+    o, _, ld_out = lasp2_decode_step(q, k, v, None, st, ld, route=route)
+    o_p, st_p, _ = lasp2_decode_step_plain(q, k, v, None, st_p, ld_p)
+    torch.cuda.synchronize()
+    _close(o, o_p, TOL[torch.float32])
+    _close(st, st_p, 1e-4)
+    assert torch.equal(ld_out, ld_p)
+
+
+def test_decode_sm90_replays_in_a_cuda_graph(gen):
+    """One sm90 launch captured in a CUDA graph, replayed 8 times on fresh
+    inputs copied into its static tensors, matches 8 plain steps: the state
+    is updated in place on every replay."""
+    bh, dk, dv = 64, 128, 128
+    st = torch.randn(bh, dk, dv, generator=gen, device="cuda")
+    ld = -torch.rand(bh, generator=gen, device="cuda")
+    st_p, ld_p = st.clone(), ld.clone()
+    static = _decode_inputs(gen, bh, dk, dv, torch.bfloat16)
+    warm_st, warm_ld = st.clone(), ld.clone()     # builds and loads first
+    lasp2_decode_step(*static, warm_st, warm_ld)
+    torch.cuda.synchronize()
+    before = lasp2_decode_step.route_launches["sm90"]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, _, _ = lasp2_decode_step(*static, st, ld)
+    assert lasp2_decode_step.route_launches["sm90"] == before + 1
+    for _ in range(8):
+        fresh = _decode_inputs(gen, bh, dk, dv, torch.bfloat16)
+        for dst, src in zip(static, fresh):
+            dst.copy_(src)
+        graph.replay()
+        o_p, st_p, ld_p = lasp2_decode_step_plain(*fresh, st_p, ld_p)
+        torch.cuda.synchronize()
+        _close(o, o_p, TOL[torch.float32])
+    _close(st, st_p, 1e-4)
+    _close(ld, ld_p, 1e-5)
+
+
+@pytest.mark.parametrize("dk,dv", [(128, 30), (272, 64), (64, 2),
+                                   (64, 258)])
+def test_decode_routes_shapes_sm90_does_not_take_to_simt(gen, dk, dv):
+    """Shapes outside the sm90 table launch the simt kernel, not an error;
+    forcing sm90 on them raises."""
+    q, k, v, la = _decode_inputs(gen, 4, dk, dv, torch.bfloat16)
+    st = torch.randn(4, dk, dv, generator=gen, device="cuda")
+    ld = torch.zeros(4, device="cuda")
+    st_p, ld_p = st.clone(), ld.clone()
+    before = dict(lasp2_decode_step.route_launches)
+    o, _, _ = lasp2_decode_step(q, k, v, la, st, ld)
+    o_p, st_p, ld_p = lasp2_decode_step_plain(q, k, v, la, st_p, ld_p)
+    torch.cuda.synchronize()
+    assert {r: lasp2_decode_step.route_launches[r] - before[r]
+            for r in before} == {"sm90": 0, "simt": 1}
+    _close(o, o_p, TOL[torch.float32])
+    _close(st, st_p, 1e-4)
+    with pytest.raises(ValueError, match="route 'sm90' does not take"):
+        lasp2_decode_step(q, k, v, la, st, ld, route="sm90")
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
