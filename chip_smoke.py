@@ -17,7 +17,10 @@ line:
    log a; K2a and K2b, the two passes of the chunk backward, at the
    training shape; K4, K5a and K5b, flash attention's forward and two
    backward passes, at the hybrid's training shape, a prefill shape, a
-   trimmed band, GQA 4:1, an explicit offset and a non-causal window).
+   trimmed band, GQA 4:1, an explicit offset and a non-causal window;
+   and K1, K2a, K2b, K4, K5a and K5b at the shapes phase 10 gives them:
+   a rank's chunk of S 1024, K2a/K2b with a nonzero end-state cotangent,
+   K4/K5a/K5b with 1024 queries at q_offset 1024 over 2048 keys).
    K1, K2a, K2b, K4, K5a and K5b each have two routes: ``sm90`` (tensor
    cores) for bf16 at dh 64 and 128 (the chunk kernels: dk and dv in {64,
    128}), ``simt`` (CUDA cores) for fp32 and the rest; K3's ``sm90``
@@ -56,11 +59,30 @@ line:
    params on the card (kernels) and on the host CPU (plain versions): the
    loss and every parameter gradient agree; then a 4-layer copy of
    ``HYBRID`` (3 linear + 1 softmax layer) the same way, fp32, so all six
-   routed kernels take their ``simt`` route.
+   routed kernels take their ``simt`` route;
+10. sp, LASP-2 and LASP-2H sequence parallelism (the DP×SP step,
+   ``ShardedStep``): (a) at (dp, sp) = (1, 1) over NCCL in this process,
+   full ``CONFIG``, 3 steps on phase 7's data: losses within 2e-4 and
+   grad norms within 2^-8 of phase 7's first three, peak memory; (b) two
+   ranks on the one card over
+   gloo (NCCL refuses two ranks on one device; gloo stages every exchange
+   through the host), full width, depth cut to 4 layers (two ranks share
+   80 GB and every step moves the flat gradients through the host),
+   4 × 2048 tokens: b1 the ``HYBRID`` cut (3 linear + 1 softmax) at (1, 2)
+   on packed rows (the autodiff backward) and b2 the ``CONFIG`` cut at
+   (1, 2) on rows without resets (the faithful backward), each with its
+   loss (2e-3) and gradients (3e-2 relative L2 a leaf) against one device,
+   then 3 steps; b3 the ``CONFIG`` cut at (2, 1) with ZeRO-1, 3 losses
+   within 2e-4 and grad norms within 2^-8 of (1, 1), and every param
+   after the 3 steps within 1e-6 relative (1e-7 absolute) of replicated
+   AdamW at (2, 1). Each rank prints its launches per step (every
+   kernel on ``sm90``), its tape per step, its step walls and peak
+   memory, and the state all-gather's bytes at C 512 and 1024 (equal).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
-the paths that ran each, listed in ``launches_by_path``); the last line is
+the paths that ran each, listed in ``launches_by_path``, phase 10's per
+cell and rank); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -279,12 +301,14 @@ def phase_kernels() -> list:
     bh, d = 64, 128               # 4 rows × 16 heads of 128
     failures = []
     k1_err = dict.fromkeys(lc.ROUTES, 0.0)
-    # S 512 and 37 on both routes, and the train path's S 2048 on sm90,
-    # where the carried state sums the most rows
+    # S 512 and 37 on both routes, the train path's S 2048 on sm90, where
+    # the carried state sums the most rows, and a rank's chunk under SP at
+    # W = 2 (phase 10 b1/b2: S 1024)
     cases = [(dt, s, lk) for dt in (torch.bfloat16, torch.float32)
              for s, lk in ((512, "zero"), (512, "reset"), (512, "decay"),
                            (37, "reset"))] \
-        + [(torch.bfloat16, 2048, lk) for lk in ("zero", "reset", "decay")]
+        + [(torch.bfloat16, 2048, lk) for lk in ("zero", "reset", "decay")] \
+        + [(torch.bfloat16, 1024, "reset")]
     for dtype, s, la_kind in cases:
         q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind)
         route = lc._route(dtype, d, d)
@@ -547,8 +571,11 @@ def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full"):
 
 def phase_bwd_kernels(kernels: list) -> list:
     """K2a and K2b (``lasp2_chunk_bwd``) against the plain passes at the
-    training path's shape, BH 64 (4 rows x 16 heads) x S 2048 x 128, and
-    at S 37, each on the route its inputs take (bf16: ``sm90``, the tensor
+    training path's shape, BH 64 (4 rows x 16 heads) x S 2048 x 128, at S
+    37, and in bf16 at a rank's chunk under SP at W = 2 (S 1024; every
+    case but "state" pulls on both o and a random nonzero end-state
+    cotangent, as ``dm_loc`` does under SP), each on the route its inputs
+    take (bf16: ``sm90``, the tensor
     cores; fp32: ``simt``), all held to the same limits against the fp32
     plain versions. Times at that shape, each route: K1, K2a and K2b on
     ``sm90`` in bf16 and on ``simt`` in fp32 (K1's join its entries as
@@ -565,7 +592,7 @@ def phase_bwd_kernels(kernels: list) -> list:
                                                  lasp2_chunk_fwd,
                                                  lasp2_chunk_fwd_plain)
     gen = torch.Generator(device="cuda").manual_seed(1)
-    bh, d, s_train = 64, 128, 2048
+    bh, d, s_train, s_sp = 64, 128, 2048, 1024
     failures = []
     err_a = dict.fromkeys(lc.ROUTES, 0.0)
     err_b = dict.fromkeys(lc.ROUTES, 0.0)
@@ -575,7 +602,8 @@ def phase_bwd_kernels(kernels: list) -> list:
                                 (s_train, "reset", "full"),
                                 (s_train, "decay", "full"),
                                 (s_train, "reset", "state"),
-                                (37, "reset", "full"))]
+                                (37, "reset", "full"))] \
+        + [(torch.bfloat16, s_sp, "reset", "full")]
     for dtype, s, la_kind, cot in cases:
         ins = _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot)
         route = lc._route(dtype, d, d)
@@ -689,7 +717,9 @@ def phase_bwd_kernels(kernels: list) -> list:
 # shape (4 rows x 16 heads, S 2048, window 2048, bf16), then the same in
 # fp32, one prefill row of an odd length, a band trimmed to a 512 window
 # (bf16 and fp32), GQA 4:1, an explicit offset and a non-causal window
-# (each in bf16 and fp32, or at dh 64 and 128), and SMOKE's dh 16. bf16 at
+# (each in bf16 and fp32, or at dh 64 and 128), SMOKE's dh 16, and the
+# hybrid's softmax layer under SP at W = 2 (phase 10 b1: rank 1's chunk of
+# 1024 queries over both chunks' 2048 gathered keys, q_offset 1024). bf16 at
 # dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the rest on
 # ``simt``.
 FLASH_CASES = [
@@ -705,6 +735,7 @@ FLASH_CASES = [
     ("noncausal", 1, 8, 2, 200, 333, 64, torch.bfloat16, False, 100, None),
     ("noncausal", 1, 8, 2, 200, 333, 128, torch.bfloat16, False, 100, None),
     ("dh16", 2, 4, 4, 100, 100, 16, torch.float32, True, None, None),
+    ("sp", 4, 16, 16, 1024, 2048, 128, torch.bfloat16, True, 2048, 1024),
 ]
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
 # o, dq, dk and dv: fp32 at TOL_O / TOL_GRAD, bf16 at the data-scaled
@@ -1142,11 +1173,12 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 2048, 8, 2
 
 
-def phase_train(kernels: list, cfg, path: str) -> None:
+def phase_train(kernels: list, cfg, path: str) -> list:
     """10 steps through ``train()``: fp32 masters drawn on the card from
     seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token row,
     so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
-    kernels), no remat, no checkpoints (16 GB of state a save)."""
+    kernels), no remat, no checkpoints (16 GB of state a save). Returns
+    the history (one metrics dict a step)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import flash_attention as fl
@@ -1231,6 +1263,7 @@ def phase_train(kernels: list, cfg, path: str) -> None:
         device_kernel_ms=f"{device:.3f}" if device else "not measured",
         device_idle_share=idle, kernels_per_call=f"{n_kernels:.0f}",
         top=repr(top))
+    return hist
 
 
 # ---------------------------------------------------------------------------
@@ -1304,6 +1337,391 @@ def phase_grad_check(kernels: list, cfg, path: str) -> None:
         ok=ok and not bad)
     check(ok and not bad, f"gradients differ: loss ok={ok}, leaves {bad}")
 
+# ---------------------------------------------------------------------------
+# Phase 10: LASP-2 and LASP-2H sequence parallelism (the DP×SP step).
+# ---------------------------------------------------------------------------
+
+SP_ROWS, SP_SEQ, SP_STEPS, SP_LAYERS = 4, 2048, 3, 4
+# Losses against one device, relative: the reference's DP×SP-vs-single-
+# device limit (tests/distributed_checks.py:513-519). Between two runs of
+# the same data and params, each step's loss and grad norm, relative:
+# (a)'s (1, 1) steps against phase 7's one-device steps, and b3's (2, 1)
+# with ZeRO-1 against (1, 1). The loss limit is the reference's between
+# layouts. The grad norms part by bf16 rounding: the two bf16 backwards
+# round at other points ((a): the CE gradient enters scaled by 1/n on one
+# device, unscaled under SP; b3: each rank rounds its partial weight
+# gradients), and from the first step with a nonzero learning rate the
+# trajectories carry it; so their limit is bf16's resolution, 2^-8
+# (PERF.md §6). The update itself is held bitwise-tight in b3, ZeRO-1
+# against replicated AdamW.
+TOL_SP_LOSS, TOL_SP_LAYOUT, TOL_SP_GNORM = 2e-3, 2e-4, 2.0 ** -8
+# ZeRO-1 against replicated AdamW on the same layout and data after
+# SP_STEPS steps, every param: the CPU test's limit
+# (test_zero1_equals_replicated_adamw). Both runs reduce the same
+# gradients and apply the same elementwise update.
+TOL_ZERO1_RTOL, TOL_ZERO1_ATOL = 1e-6, 1e-7
+# Gradients of the bf16 step under SP against the bf16 step on one device,
+# relative L2 per leaf. The two round to bf16 at other points (a chunk's
+# o is K1's bf16 intra part plus the fp32 prefix term, rounded again; dk
+# and dv arrive by the reduce-scatter or the dM suffix sum), so they part
+# by about what bf16 itself moves a gradient: the phase prints, beside
+# each worst leaf, the same leaf's distance between one device's bf16 and
+# fp32 gradients. 3e-2 is the size of that yardstick (PERF.md §6).
+TOL_SP_GRAD = 3e-2
+
+
+def _sp_counters():
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_fwd)
+    return (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
+            fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+            fl.flash_attention_bwd_dkv)
+
+
+def _sp_batches(cfg, resets, seq=SP_SEQ, rows=SP_ROWS, micro=1):
+    from repro_torch.data.pipeline import SyntheticLM
+    data = SyntheticLM(cfg.vocab_size, seq, rows, seed=0)
+    out = [data.microbatched(i, micro) for i in range(SP_STEPS)]
+    if not resets:
+        for b in out:
+            b.pop("resets")
+    return out
+
+
+def _sp_params(cfg):
+    from repro_torch.models import model as M
+    return M.init_params(torch.Generator(device="cuda").manual_seed(1), cfg,
+                         device="cuda", param_dtype="float32")
+
+
+def _sp_run(**kw):
+    from repro_torch.configs.base import RunConfig
+    return RunConfig(**{**dict(num_microbatches=1, remat="none",
+                               learning_rate=3e-4, warmup_steps=2,
+                               total_steps=10, seed=0), **kw})
+
+
+def _tape_counts(records):
+    """{"op tag": [count, payload bytes]} of one step's tape."""
+    out = {}
+    for r in records:
+        key = f"{r.op} {r.tag}"
+        n, _ = out.get(key, (0, 0))
+        out[key] = [n + 1, r.payload_bytes]
+    return out
+
+
+def _sp_steps(cfg, run, layout, state, batches):
+    """The DP×SP step over ``batches``, counters zeroed just before and
+    read just after. Returns a dict: the final ``state``, the ``losses``
+    and ``gnorms``, each step's ``tapes`` (tape counts), ``launched`` (as
+    ``_read`` gives them), ``per_step`` launch lists, step ``walls`` and
+    ``peak`` bytes."""
+    from repro_torch.comm import primitives
+    from repro_torch.train.step import make_train_step
+    step = make_train_step(cfg, run, layout)
+    counters = _sp_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(*counters)
+    out = {k: [] for k in ("losses", "gnorms", "tapes", "walls")}
+    marks = []
+    for b in batches:
+        t0 = time.perf_counter()
+        with primitives.tape() as rec:
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        out["walls"].append(time.perf_counter() - t0)
+        marks.append(_read(counters, counters))
+        out["tapes"].append(_tape_counts(rec))
+        out["losses"].append(m["loss"])
+        out["gnorms"].append(m["grad_norm"])
+        check(not m["skipped"] and np.isfinite(m["loss"]),
+              f"step skipped or non-finite: {m}")
+    out["per_step"] = [[b - a for a, b in zip(prev, cur)] for prev, cur in
+                       zip([[0] * len(marks[0])] + marks, marks)]
+    return dict(out, state=state, launched=marks[-1],
+                peak=torch.cuda.max_memory_allocated())
+
+
+def _rel_errs(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def _flat_params(params):
+    from repro_torch.core.tree import leaves_with_paths
+    return torch.cat([p.detach().reshape(-1)
+                      for _, p in leaves_with_paths(params)])
+
+
+def _want_launches(k1, k2, flash):
+    """``_read``'s list for K1, K2a, K2b, K4, K5a, K5b all on sm90."""
+    totals = [k1, k2, k2, flash, flash, flash]
+    return totals + [x for n in totals for x in (n, 0)]
+
+
+def _sp_grad_check(rank, path, cfg, layout, params, batch):
+    """The DP×SP step's reduced gradients and loss against one device's on
+    the same rows (rank 0 computes the one-device side)."""
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.models import model as M
+    from repro_torch.train.step import ShardedStep
+    leaves = [p.requires_grad_(True) for _, p in leaves_with_paths(params)]
+    gflat, ce, n = ShardedStep(cfg, _sp_run(), layout).grads(params, batch)
+    loss_sp = float(ce / n)
+    check(bool(torch.isfinite(gflat).all()), "non-finite SP gradients")
+    if rank:
+        return
+    loss = M.lm_loss(M.forward(params, torch.as_tensor(batch["tokens"][0]),
+                               cfg, resets=None if "resets" not in batch
+                               else torch.as_tensor(batch["resets"][0])),
+                     torch.as_tensor(batch["labels"][0]))
+    grads = torch.autograd.grad(loss, leaves)
+    loss_f32 = M.lm_loss(M.forward(
+        params, torch.as_tensor(batch["tokens"][0]),
+        dataclasses.replace(cfg, dtype="float32"),
+        resets=None if "resets" not in batch
+        else torch.as_tensor(batch["resets"][0])),
+        torch.as_tensor(batch["labels"][0]))
+    grads_f32 = torch.autograd.grad(loss_f32, leaves)
+    rel = lambda a, b: float((a - b).norm() / b.norm().clamp(min=1e-30))
+    e_loss = abs(loss_sp - float(loss)) / abs(float(loss))
+    worst, worst_at, yard, off = 0.0, "", 0.0, 0
+    for (name, p), g, g32 in zip(leaves_with_paths(params), grads,
+                                 grads_f32):
+        g_sp = gflat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+        err = rel(g_sp, g)
+        if err > worst:
+            worst, worst_at, yard = err, "/".join(name), rel(g, g32)
+    log(path, rank=rank, check="grads_vs_one_device",
+        loss_sp=f"{loss_sp:.6f}", loss_one_device=f"{float(loss):.6f}",
+        rel_err_loss=f"{e_loss:.3e}", tol_loss=TOL_SP_LOSS,
+        worst_rel_l2_grad=f"{worst:.3e}", worst_leaf=worst_at,
+        same_leaf_bf16_vs_fp32_one_device=f"{yard:.3e}",
+        tol_grad=TOL_SP_GRAD)
+    check(e_loss <= TOL_SP_LOSS, f"{path}: loss {loss_sp} vs {float(loss)}")
+    check(worst <= TOL_SP_GRAD, f"{path}: gradient {worst_at} off by "
+          f"{worst:.3e} relative L2")
+
+
+def _sp_cell(rank, path, cfg, layout, resets, grad_check):
+    """One cell of phase 10 (b) on this rank: the gradient check, then
+    SP_STEPS steps with their launches, tapes, walls and peak memory. With
+    ZeRO-1 (dp > 1), the same steps again with replicated AdamW: every
+    param after the last step agrees."""
+    from repro_torch.train.step import state_from_params, zero1_degree
+    run = _sp_run()
+    params = _sp_params(cfg)
+    batches = _sp_batches(cfg, resets)
+    if grad_check:
+        _sp_grad_check(rank, path, cfg, layout, params, batches[0])
+        _free()
+    state = state_from_params(params, zero1_degree(run, layout))
+    res = _sp_steps(cfg, run, layout, state, batches)
+    del state
+    losses, tapes, per_step = res["losses"], res["tapes"], res["per_step"]
+    n_lin, n_soft = _mixer_counts(cfg)
+    faithful = layout.sp > 1 and not resets
+    want = _want_launches(n_lin * (2 if faithful else 1), n_lin, n_soft)
+    check(all(n == want for n in per_step),
+          f"{path} rank {rank}: launches per step of K1, K2a, K2b, K4, K5a, "
+          f"K5b, then each sm90/simt {per_step}; want {want}")
+    rows = SP_ROWS // layout.dp
+    c = SP_SEQ // layout.sp
+    state_bytes = rows * cfg.n_heads * (cfg.head_dim ** 2 + 1) * 4
+    want_tape = {"all-reduce train.grads": 1}
+    if layout.sp > 1:
+        want_tape["all-gather lasp2.states"] = n_lin
+        want_tape["all-gather lasp2.dstates" if faithful else
+                  "reduce-scatter lasp2.states.bwd"] = n_lin
+        for t in ("k", "v"):
+            if n_soft:
+                want_tape[f"all-gather lasp2h.{t}"] = n_soft
+                want_tape[f"reduce-scatter lasp2h.{t}.bwd"] = n_soft
+    if layout.dp > 1:
+        want_tape["all-gather zero1.param_gather"] = 1
+    for tape in tapes:
+        check({k: v[0] for k, v in tape.items()} == want_tape,
+              f"{path} rank {rank}: tape {tape}; want counts {want_tape}")
+        if layout.sp > 1:
+            check(tape["all-gather lasp2.states"][1] == state_bytes,
+                  f"{path}: state payload {tape['all-gather lasp2.states']}")
+    log(path, rank=rank, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        softmax=n_soft, dp=layout.dp, sp=layout.sp,
+        rows_x_chunk=f"{rows}x{c}", resets=resets,
+        backward=("faithful" if faithful else "autodiff") if layout.sp > 1
+        else "one-device", zero1=run.zero1 and layout.dp > 1,
+        transport="gloo (host-staged)",
+        losses=repr([round(x, 6) for x in losses]),
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routed=repr(per_step[0]),
+        tape_per_step=repr(tapes[0]).replace(" ", ""),
+        state_payload_bytes_per_linear_layer=state_bytes
+        if layout.sp > 1 else "none",
+        grad_norms=repr([round(x, 6) for x in res["gnorms"]]),
+        step_wall_ms=repr([round(w * 1e3, 1) for w in res["walls"]]),
+        max_memory_allocated_gb=f"{res['peak'] / 1e9:.2f}")
+    if zero1_degree(run, layout) > 1:
+        _zero1_vs_replicated(rank, path, cfg, layout, res, batches)
+    return {"losses": losses, "gnorms": res["gnorms"],
+            "launched": res["launched"]}
+
+
+def _zero1_vs_replicated(rank, path, cfg, layout, res, batches):
+    """The ZeRO-1 run ``res`` against replicated AdamW on the same layout,
+    params and data: losses and every param after the last step, at the
+    CPU test's limits."""
+    from repro_torch.train.step import state_from_params
+    got = _flat_params(res.pop("state")["params"]).cpu()
+    _free()
+    rep = _sp_steps(cfg, _sp_run(zero1=False), layout,
+                    state_from_params(_sp_params(cfg)), batches)
+    want = _flat_params(rep.pop("state")["params"]).cpu()
+    _free()
+    diff = (got - want).abs()
+    over = int((diff > TOL_ZERO1_ATOL + TOL_ZERO1_RTOL * want.abs()).sum())
+    e_loss = max(_rel_errs(res["losses"], rep["losses"]))
+    log(path, rank=rank, check="zero1_vs_replicated_adamw",
+        params=want.numel(), max_abs_param_diff=f"{float(diff.max()):.3e}",
+        params_over_limit=over, bitwise_equal=bool(torch.equal(got, want)),
+        rtol=TOL_ZERO1_RTOL, atol=TOL_ZERO1_ATOL,
+        max_rel_err_loss=f"{e_loss:.3e}",
+        replicated_tape_per_step=repr(rep["tapes"][0]).replace(" ", ""))
+    check(over == 0, f"{path} rank {rank}: {over} params of ZeRO-1 off "
+          f"replicated AdamW by up to {float(diff.max()):.3e}")
+    check(e_loss <= TOL_ZERO1_RTOL, f"{path} rank {rank}: ZeRO-1 losses "
+          f"{res['losses']} vs replicated {rep['losses']}")
+
+
+def _sp_payload(rank, layout):
+    """The forward exchange of one linear layer (4 rows, 16 heads of 128,
+    bf16) at C 512 and C 1024: the same bytes."""
+    from repro_torch.comm import primitives
+    from repro_torch.core.lasp2 import SPConfig, lasp2
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    sp = SPConfig(layout.sp_group)
+    out = {}
+    for c in (512, 1024):
+        x = torch.randn(SP_ROWS, 16, c, 128, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        with primitives.tape() as rec:
+            lasp2(x, x, x, sp=sp)
+        out[c] = [r.payload_bytes for r in rec if r.tag == "lasp2.states"]
+    log("sp_payload", rank=rank, rows=SP_ROWS, heads=16, dk=128, dv=128,
+        lasp2_states_bytes_c512=out[512], lasp2_states_bytes_c1024=out[1024])
+    check(out[512] == out[1024] == [SP_ROWS * 16 * (128 * 128 + 1) * 4],
+          f"state payload moved with the chunk: {out}")
+
+
+def _sp_rank(rank, world, device, linear_cut, hybrid_cut):
+    """Phase 10 (b) on one of two ranks sharing the card over gloo."""
+    from repro_torch.launch.mesh import make_training_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sp_layout = make_training_groups(1, 2)
+    dp_layout = make_training_groups(2, 1)
+    out = {"b1": _sp_cell(rank, "sp_b1", hybrid_cut, sp_layout, True, True)}
+    _free()
+    out["b2"] = _sp_cell(rank, "sp_b2", linear_cut, sp_layout, False, True)
+    _free()
+    out["b3"] = _sp_cell(rank, "sp_b3", linear_cut, dp_layout, True, False)
+    _free()
+    _sp_payload(rank, sp_layout)
+    return out
+
+
+def phase_sp(kernels: list, linear, hybrid, train_hist) -> None:
+    """(a) The DP×SP step at (1, 1) over NCCL in this process, full width
+    and depth, 3 steps on phase 7's data: losses and grad norms equal phase
+    7's first three. Then the (1, 1) run of b3's cut. (b) Two ranks on the
+    one card over gloo (NCCL refuses two ranks on one device), full width,
+    depth cut to 4 layers: b1 ``HYBRID`` (3 linear + 1 softmax) at (1, 2)
+    on packed rows (the autodiff backward), b2 ``CONFIG`` at (1, 2) on rows
+    without resets (the faithful backward), b3 ``CONFIG`` at (2, 1) with
+    ZeRO-1, its losses and grad norms against (a)'s (1, 1) run and its
+    params against replicated AdamW at (2, 1)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_training_groups, run_ranks
+    from repro_torch.train.step import init_state, state_from_params
+    linear_cut = dataclasses.replace(linear, n_layers=SP_LAYERS)
+    hybrid_cut = dataclasses.replace(hybrid, n_layers=SP_LAYERS)
+    want_loss = [h["loss"] for h in train_hist[:SP_STEPS]]
+    want_gnorm = [h["grad_norm"] for h in train_hist[:SP_STEPS]]
+    with tempfile.TemporaryDirectory(prefix="sp-") as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            layout = make_training_groups(1, 1)
+            run = _sp_run(num_microbatches=TRAIN_MICRO,
+                          total_steps=TRAIN_STEPS)
+            state = init_state(torch.Generator(device="cuda").manual_seed(0),
+                               linear, device="cuda")
+            n_params = _numel(state["params"])
+            batches = _sp_batches(linear, True, TRAIN_SEQ, TRAIN_BATCH,
+                                  TRAIN_MICRO)
+            res = _sp_steps(linear, run, layout, state, batches)
+            del state, res["state"]
+            _free()
+            n_lin, _ = _mixer_counts(linear)
+            want = _want_launches(*[n_lin * TRAIN_MICRO] * 2, 0)
+            check(all(n == want for n in res["per_step"]),
+                  f"sp_a launches per step {res['per_step']}; want {want}")
+            check(all(t == {"all-reduce train.grads": [1, (n_params + 2) * 4]}
+                      for t in res["tapes"]), f"sp_a tapes {res['tapes']}")
+            e_loss = max(_rel_errs(res["losses"], want_loss))
+            e_gnorm = max(_rel_errs(res["gnorms"], want_gnorm))
+            log("sp_a", arch=linear.name, layers=linear.n_layers, dp=1,
+                sp=1, transport="nccl", batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}",
+                microbatches=TRAIN_MICRO,
+                losses=repr([round(x, 6) for x in res["losses"]]),
+                phase7_losses=repr([round(x, 6) for x in want_loss]),
+                max_rel_err_loss=f"{e_loss:.3e}", tol_loss=TOL_SP_LAYOUT,
+                grad_norms=repr([round(x, 6) for x in res["gnorms"]]),
+                phase7_grad_norms=repr([round(x, 6) for x in want_gnorm]),
+                max_rel_err_grad_norm=f"{e_gnorm:.3e}",
+                tol_grad_norm=TOL_SP_GNORM,
+                tape_per_step=repr(res["tapes"][0]).replace(" ", ""),
+                step_wall_ms=repr([round(w * 1e3, 1) for w in res["walls"]]),
+                max_memory_allocated_gb=f"{res['peak'] / 1e9:.2f}")
+            check(e_loss <= TOL_SP_LAYOUT,
+                  f"sp_a losses {res['losses']} vs phase 7's {want_loss}")
+            check(e_gnorm <= TOL_SP_GNORM, f"sp_a grad norms "
+                  f"{res['gnorms']} vs phase 7's {want_gnorm}")
+            _count_routed(kernels, _sp_counters(), _sp_counters(),
+                          res["launched"], "sp_a")
+            ref = _sp_steps(linear_cut, _sp_run(), layout,
+                            state_from_params(_sp_params(linear_cut)),
+                            _sp_batches(linear_cut, True))
+            del ref["state"]
+            _free()
+        finally:
+            dist.destroy_process_group()
+    ranks = run_ranks(_sp_rank, 2, backend="gloo", device="cuda",
+                      args=(linear_cut, hybrid_cut), timeout_s=900)
+    for rank, res in enumerate(ranks):
+        for cell in ("b1", "b2", "b3"):
+            _count_routed(kernels, _sp_counters(), _sp_counters(),
+                          res[cell]["launched"], f"sp_{cell}_rank{rank}")
+        b3 = res["b3"]
+        e_loss = max(_rel_errs(b3["losses"], ref["losses"]))
+        e_gnorm = max(_rel_errs(b3["gnorms"], ref["gnorms"]))
+        log("sp_b3", rank=rank, losses=repr(b3["losses"]),
+            losses_dp1sp1=repr(ref["losses"]),
+            max_rel_err_loss=f"{e_loss:.3e}", tol_loss=TOL_SP_LAYOUT,
+            grad_norms=repr(b3["gnorms"]),
+            grad_norms_dp1sp1=repr(ref["gnorms"]),
+            max_rel_err_grad_norm=f"{e_gnorm:.3e}",
+            tol_grad_norm=TOL_SP_GNORM)
+        check(e_loss <= TOL_SP_LAYOUT,
+              f"b3 rank {rank}: (2, 1) ZeRO-1 losses {b3['losses']} vs "
+              f"(1, 1) {ref['losses']}")
+        check(e_gnorm <= TOL_SP_GNORM,
+              f"b3 rank {rank}: (2, 1) ZeRO-1 grad norms {b3['gnorms']} vs "
+              f"(1, 1) {ref['gnorms']}")
+
 
 def _free() -> None:
     gc.collect()
@@ -1332,7 +1750,7 @@ def main() -> int:
     phase_profile(hybrid, params, "hybrid_serve", 1, 300, None)
     del params
     _free()
-    phase_train(kernels, linear, "train")
+    train_hist = phase_train(kernels, linear, "train")
     _free()
     phase_train(kernels, hybrid, "hybrid_train")
     _free()
@@ -1342,6 +1760,8 @@ def main() -> int:
     phase_grad_check(kernels, dataclasses.replace(hybrid, n_layers=4,
                                                   dtype="float32"),
                      "hybrid_gradcheck")
+    _free()
+    phase_sp(kernels, linear, hybrid, train_hist)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,264 @@
+"""Named sequence-parallel collectives with call-time communication
+accounting (twin of ``repro/comm/primitives.py``).
+
+Each primitive issues exactly one collective on a ``torch.distributed``
+process group and appends a :class:`CommRecord` to the ambient tape
+(:func:`tape`): the op, the payload entering the collective, the
+per-rank wire traffic under the ring cost model the reference uses, the
+number of sequential exchange steps and the call-site tag. The reference
+records at trace time; here records are taken when the primitive is
+called, so a tape around one train step holds that step's collectives
+(the backward ones included: autograd calls the primitives' backward
+collectives, which record themselves).
+
+    with comm.tape() as records:
+        step(state, batch)
+    bytes_on_wire = sum(r.traffic_bytes for r in records)
+
+Transport. An NCCL group takes device tensors as they are. gloo is a host
+transport: on a gloo group every primitive copies its operand to host
+memory and its result back to the operand's device itself (a no-op for
+CPU tensors). The rule follows the group's backend; it does not wait for
+an error. Two ranks that share one card cannot use NCCL (it refuses two
+ranks on one device), so they run gloo through the host.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+# Wire-dtype registry of the ``comm_dtype`` knob: exchanges cast their
+# payload to this dtype before the collective and combine in fp32 locally;
+# "bf16" halves every state/KV exchange's bytes.
+_COMM_DTYPES = {
+    "fp32": torch.float32, "float32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+}
+
+
+def wire_dtype(comm_dtype: Optional[str]) -> torch.dtype:
+    """Resolve a ``comm_dtype`` knob value ("fp32" | "bf16") to a dtype."""
+    if comm_dtype is None:
+        return torch.float32
+    try:
+        return _COMM_DTYPES[comm_dtype]
+    except KeyError:
+        raise ValueError(
+            f"unknown comm_dtype {comm_dtype!r}; expected one of "
+            f"{tuple(_COMM_DTYPES)}") from None
+
+
+def upcast_gathered(x, dtype=torch.float32):
+    """Upcast a gathered wire-dtype payload to the local accumulate dtype.
+    The reference pins the cast behind an optimization barrier so XLA
+    cannot move it across the collective; eager PyTorch moves nothing, so
+    this is a plain cast (a no-op when no cast is needed)."""
+    return x if x.dtype == dtype else x.to(dtype)
+
+
+@dataclass(frozen=True)
+class CommRecord:
+    """One collective issued by an SP layer or the train step."""
+
+    op: str              # all-gather | reduce-scatter | all-reduce
+    payload_bytes: int   # bytes entering the collective, per rank
+    traffic_bytes: int   # per-rank wire traffic (ring cost model)
+    steps: int           # sequential exchange steps this call represents
+    group: int           # ranks participating
+    tag: str = ""        # call-site label, e.g. "lasp2.states"
+
+
+# The tape is process-wide, not per thread: autograd runs the backward of
+# CUDA tensors on its own device thread, and those collectives belong on
+# the tape of the step that caused them.
+_LOCK = threading.Lock()
+_TAPES: List[List[CommRecord]] = []
+
+
+@contextmanager
+def tape():
+    """Collect the CommRecords of every primitive called inside the
+    block (nested tapes each see the records made while they are open)."""
+    records: List[CommRecord] = []
+    with _LOCK:
+        _TAPES.append(records)
+    try:
+        yield records
+    finally:
+        with _LOCK:
+            _TAPES.remove(records)
+
+
+def _record(rec: CommRecord) -> None:
+    with _LOCK:
+        for records in _TAPES:
+            records.append(rec)
+
+
+def tape_summary(records: List[CommRecord]) -> Dict[str, float]:
+    """Totals per op and overall (the reference's summary keys)."""
+    out: Dict[str, float] = {}
+    for r in records:
+        out[r.op] = out.get(r.op, 0) + r.traffic_bytes
+        out[f"{r.op}_count"] = out.get(f"{r.op}_count", 0) + 1
+        out[f"{r.op}_steps"] = out.get(f"{r.op}_steps", 0) + r.steps
+    out["total_bytes"] = sum(r.traffic_bytes for r in records)
+    out["total_steps"] = sum(r.steps for r in records)
+    return out
+
+
+def _nbytes(x) -> int:
+    return x.numel() * x.element_size()
+
+
+def group_index(group) -> int:
+    """This rank's index in ``group``: its sequence chunk ``t`` on an SP
+    group, its shard on a data group (the counterpart of the reference's
+    ``multi_axis_index``; groups list their ranks in global order, data
+    index major, so the index is the gathered position of this rank's
+    slice)."""
+    return dist.get_rank(group)
+
+
+# ---------------------------------------------------------------------------
+# Transport: host staging on gloo groups, and a pending collective.
+# ---------------------------------------------------------------------------
+
+def _staged(group) -> bool:
+    """True where the group's transport is the host (gloo)."""
+    return dist.get_backend(group) == dist.Backend.GLOO
+
+
+class Pending:
+    """A collective in flight: ``wait()`` waits for it and returns its
+    result, passed through ``finish``."""
+
+    def __init__(self, work, out, finish):
+        self._work, self._out, self._finish = work, out, finish
+
+    def then(self, fn) -> "Pending":
+        """The same collective, its result passed on through ``fn``."""
+        return Pending(self._work, self._out,
+                       lambda out: fn(self._finish(out)))
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+        return self._finish(self._out)
+
+
+def _start(op, out_shape, x, group, async_op) -> Pending:
+    """Issue ``op(out, x, group=, async_op=)`` into a new ``out`` of
+    ``out_shape``, staged through host memory on gloo. The result comes
+    back on ``x``'s device."""
+    device = x.device
+    if _staged(group):
+        x = x.cpu()
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+    work = op(out, x.contiguous(), group=group, async_op=async_op)
+    return Pending(work, out, lambda o: o.to(device))
+
+
+def _gather(x, group, gather_axis, tiled, async_op) -> Pending:
+    w = dist.get_world_size(group)
+    src = x.movedim(gather_axis, 0) if tiled else x
+    pend = _start(dist.all_gather_into_tensor,
+                  (w * src.shape[0], *src.shape[1:]), src, group, async_op)
+    if tiled:
+        return pend.then(lambda out: out.movedim(0, gather_axis))
+    return pend.then(lambda out: out.view(w, *x.shape))
+
+
+def _scatter(ct, group, scatter_axis, tiled):
+    """This rank's slice of the gathered layout of :func:`_gather`, summed
+    over the ranks' ``ct``."""
+    w = dist.get_world_size(group)
+    src = ct.movedim(scatter_axis, 0) if tiled else ct.flatten(0, 1)
+    out = _start(dist.reduce_scatter_tensor,
+                 (src.shape[0] // w, *src.shape[1:]), src, group,
+                 False).wait()
+    return out.movedim(0, scatter_axis) if tiled else out
+
+
+# ---------------------------------------------------------------------------
+# The collectives.
+# ---------------------------------------------------------------------------
+
+class _AttachGather(torch.autograd.Function):
+    """Identity on the gathered tensor whose backward is the AD transpose
+    of the all-gather: a reduce-scatter that sums over ranks the
+    cotangents of this rank's slice. ``torch.distributed.nn``'s gather is
+    not used: on backends other than NCCL its backward is an all-to-all
+    emulation, and the tape would then record the wrong collective."""
+
+    @staticmethod
+    def forward(ctx, x, gathered, group, gather_axis, tiled, tag):
+        ctx.group, ctx.axis, ctx.tiled, ctx.tag = group, gather_axis, \
+            tiled, tag
+        return gathered
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (reduce_scatter_grads(ct, ctx.group, scatter_axis=ctx.axis,
+                                     tiled=ctx.tiled, tag=f"{ctx.tag}.bwd"),
+                None, None, None, None, None)
+
+
+def allgather_states(x, group, *, gather_axis: int = 0, tiled: bool = False,
+                     tag: str = "", async_op: bool = False):
+    """AllGather over ``group`` — THE LASP-2 exchange.
+
+    ``tiled=False`` stacks the ranks' tensors on a new leading axis (W,
+    ...); ``tiled=True`` concatenates them along ``gather_axis`` in rank
+    order. Differentiable: the backward is the reduce-scatter (recorded
+    with tag ``<tag>.bwd``). Traffic per rank (ring model): ``(g-1) ×
+    payload``; one call is one sequential step whatever the group size.
+    ``async_op=True`` returns a :class:`Pending` (issued, not waited on);
+    otherwise the gathered tensor.
+    """
+    w = dist.get_world_size(group)
+    pb = _nbytes(x)
+    _record(CommRecord("all-gather", pb, (w - 1) * pb, steps=1, group=w,
+                       tag=tag))
+    pend = _gather(x.detach(), group, gather_axis, tiled, async_op).then(
+        lambda out: _AttachGather.apply(x, out, group, gather_axis, tiled,
+                                        tag))
+    return pend if async_op else pend.wait()
+
+
+def reduce_scatter_grads(x, group, *, scatter_axis: int = 0,
+                         tiled: bool = True, tag: str = ""):
+    """Reduce-scatter over ``group`` — the AD transpose of the state
+    AllGather. ``tiled=True`` splits ``scatter_axis`` into the ranks'
+    slices; ``tiled=False`` takes a leading axis of size W. Traffic per
+    rank: ``(g-1)/g × payload``."""
+    w = dist.get_world_size(group)
+    pb = _nbytes(x)
+    _record(CommRecord("reduce-scatter", pb, (w - 1) * pb // w, steps=1,
+                       group=w, tag=tag))
+    return _scatter(x, group, scatter_axis, tiled)
+
+
+def psum_packed(x, group, *, tag: str = ""):
+    """All-reduce (sum) ``x`` over ``group`` in ONE collective, in place —
+    the DP×SP step's single gradient reduction (every gradient plus the
+    loss and token counters in one fp32 vector, ``repro_torch.train``).
+    Traffic per rank (ring model): ``2(g-1)/g × payload``. Returns ``x``.
+    """
+    w = dist.get_world_size(group)
+    pb = _nbytes(x)
+    _record(CommRecord("all-reduce", pb, 2 * (w - 1) * pb // max(w, 1),
+                       steps=1, group=w, tag=tag))
+    if _staged(group) and x.device.type != "cpu":
+        host = x.cpu()
+        dist.all_reduce(host, group=group)
+        x.copy_(host)
+    else:
+        dist.all_reduce(x, group=group)
+    return x

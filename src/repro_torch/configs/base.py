@@ -147,9 +147,9 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class RunConfig:
-    """Per-run knobs of the one-device train step (the fields of the
-    reference's ``RunConfig`` that step reads; its SP, communication,
-    guard and chaos fields come with the slices that use them)."""
+    """Per-run knobs of the train step (the fields of the reference's
+    ``RunConfig`` the port's steps read; its guard, chaos, compression and
+    compiled-step fields come with the slices that use them)."""
 
     num_microbatches: int = 1        # gradient accumulation steps
     remat: str = "full"              # full | none
@@ -162,6 +162,13 @@ class RunConfig:
     adam_b1: float = 0.9             # paper §4.1
     adam_b2: float = 0.95            # paper §4.1
     seed: int = 0
+    zero1: bool = True               # shard optimizer state over data ranks
+    # SP communication (``repro_torch.comm``): the overlap of the state
+    # all-gather with the intra-chunk kernel, and the wire dtype of the
+    # state and K/V exchanges (bf16 halves their bytes; combines stay
+    # fp32). The DP×SP layout itself is ``launch.mesh.TrainingGroups``.
+    comm_overlap: str = "overlap"    # overlap | none (A/B baseline)
+    comm_dtype: str = "fp32"         # fp32 | bf16
     # Verify per-array SHA-256 checksums on restore; on a corrupt latest
     # checkpoint the loop falls back to the newest valid one.
     ckpt_verify: bool = True

@@ -1,12 +1,11 @@
-"""LASP-2H on one device: the standard-attention half of the hybrid models.
+"""LASP-2H: the standard-attention half of the hybrid models.
 
-Twin of the one-device parts of ``repro/core/lasp2h.py``: the plain
-softmax attention with its mask, and the decode-time attention of one
-token against a ring-buffer KV cache. The reference computes all three in
-XLA without a Pallas kernel, so here they are plain tensor code. The
-sequence-parallel forms (the K/V all-gather of Alg. 7, Ulysses, the
-chunked banded form and the sharded decode merge) come with the slices
-that port sequence parallelism.
+Twin of ``repro/core/lasp2h.py``: the plain softmax attention with its
+mask, the decode-time attention of one token against a ring-buffer KV
+cache (both plain tensor code, as the reference computes them in XLA),
+and the AllGather context attention of paper Alg. 7, the softmax layers'
+sequence parallelism. Ulysses, the chunked banded form and the sharded
+decode merge come with later slices (M8, serving under SP).
 """
 
 from __future__ import annotations
@@ -15,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.comm import primitives
+from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import mask_value
 
 # Masked-logit fill for fp32 score tensors (the kernels' fill).
@@ -48,6 +49,39 @@ def causal_mask(sq, sk, q_offset, *, sliding_window: Optional[int] = None,
     if sliding_window is not None:
         m = m & ((qpos - kpos) < sliding_window)
     return m
+
+
+def _narrow(x, comm_dtype):
+    """``comm_dtype`` only narrows the wire payload: bf16 activations under
+    the default "fp32" keep their own dtype on the wire."""
+    wire = primitives.wire_dtype(comm_dtype)
+    return x.to(wire) if wire.itemsize < x.element_size() else x
+
+
+def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
+                                sliding_window: Optional[int] = None,
+                                scale: Optional[float] = None):
+    """Paper Algorithm 7: AllGather-based context parallelism.
+
+    q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk of the
+    sequence (``sp``: a ``core.lasp2.SPConfig``; None or degree 1 → local
+    attention over the whole sequence). One all-gather each of K and V
+    along the sequence (``lasp2h.k``, ``lasp2h.v``; in ``sp.comm_dtype``,
+    upcast back on arrival), whose backward is the mirrored reduce-scatter
+    of dK and dV; then the flash op for this rank's queries at global
+    positions ``t·C + i`` over the ``W·C`` gathered keys.
+    """
+    if sp is None or sp.degree == 1:
+        return ops.flash_attention_op(q, k, v, causal=causal,
+                                      sliding_window=sliding_window,
+                                      scale=scale)
+    c = q.shape[-2]
+    kg, vg = (primitives.upcast_gathered(primitives.allgather_states(
+        _narrow(x, sp.comm_dtype), sp.group, gather_axis=2, tiled=True,
+        tag=tag), x.dtype) for x, tag in ((k, "lasp2h.k"), (v, "lasp2h.v")))
+    return ops.flash_attention_op(q, kg, vg, causal=causal,
+                                  sliding_window=sliding_window, scale=scale,
+                                  q_offset=sp.chunk_index * c)
 
 
 def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,

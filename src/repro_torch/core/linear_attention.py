@@ -220,6 +220,43 @@ def chunk_scan(q, k, v, log_a=None, *, initial_state=None, block_size=128):
 
 
 # ---------------------------------------------------------------------------
+# Gathered-state combines (the local math around an SP exchange).
+# ---------------------------------------------------------------------------
+
+def _chunk_weights(logw, mask):
+    """``exp(logw)`` where ``mask`` (over the leading W axis), else 0; the
+    exponent is neutralised where masked (not min-clamped), as in
+    :func:`_block_terms`."""
+    m = mask.reshape((-1,) + (1,) * (logw.ndim - 1)).expand_as(logw)
+    zero = torch.zeros((), dtype=logw.dtype, device=logw.device)
+    return torch.where(m, torch.exp(torch.where(m, logw, zero)), zero)
+
+
+def prefix_state_combine(ms, cum, t: int):
+    """Decayed prefix-combine of gathered chunk states (paper Alg. 2 line 9).
+
+    ms: (W, ..., dk, dv) gathered chunk states (fp32); cum: (W, ...)
+    inclusive cumulative chunk log decays along axis 0; t: my chunk index.
+    Returns M_{1:t-1} decayed to the start of chunk t:
+    ``sum_{j < t} exp(cum[t-1] - cum[j]) * ms[j]``.
+    """
+    w_idx = torch.arange(ms.shape[0], device=ms.device)
+    logw = cum[max(t - 1, 0)][None] - cum               # <= 0 for j <= t-1
+    w = _chunk_weights(logw, w_idx < t)
+    return torch.einsum("w...,w...kv->...kv", w, ms)
+
+
+def suffix_grad_combine(dms, cum, t: int):
+    """Decayed suffix-combine of gathered state grads (paper Alg. 4 line 9):
+    ``dM_t^loc = sum_{t' > t} exp(cum[t'-1] - cum[t]) * dms[t']``."""
+    w_idx = torch.arange(dms.shape[0], device=dms.device)
+    cum_prev = torch.cat([torch.zeros_like(cum[:1]), cum[:-1]], dim=0)
+    logw = cum_prev - cum[t][None]                       # <= 0 for t' > t
+    w = _chunk_weights(logw, w_idx > t)
+    return torch.einsum("w...,w...kv->...kv", w, dms)
+
+
+# ---------------------------------------------------------------------------
 # Feature maps and decays (paper §4 variants).
 # ---------------------------------------------------------------------------
 

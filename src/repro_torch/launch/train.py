@@ -6,16 +6,24 @@
       --steps 10 --batch 8 --seq 2048 --microbatches 2
   PYTHONPATH=src python -m repro_torch.launch.train --variant HYBRID \
       --steps 10 --batch 8 --seq 2048 --microbatches 2   # LASP-2H hybrid
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
+      --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``; data is ``SyntheticLM`` (packed
-documents with state resets). The mesh, communication and guard flags of
+documents with state resets). Under ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and the store address in the environment)
+each rank runs the DP×SP step of a ``--dp-degree`` × ``--sp-degree``
+layout: NCCL with rank r on card ``LOCAL_RANK``, gloo with ``--device
+cpu``; only rank 0 logs. The guard and chaos flags of
 ``repro.launch.train`` come with the slices that port them.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def main(argv=None):
@@ -41,6 +49,15 @@ def main(argv=None):
                          "a corrupt latest checkpoint falls back to the "
                          "newest valid one (--no-ckpt-verify to disable)")
     ap.add_argument("--remat", default="none", choices=["none", "full"])
+    ap.add_argument("--dp-degree", type=int, default=1)
+    ap.add_argument("--sp-degree", type=int, default=1)
+    ap.add_argument("--zero1", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="shard the Adam moments over the data ranks "
+                         "(--no-zero1 to replicate them)")
+    ap.add_argument("--comm-dtype", default="fp32", choices=["fp32", "bf16"])
+    ap.add_argument("--comm-overlap", default="overlap",
+                    choices=["overlap", "none"])
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_config, get_smoke, get_variant
@@ -50,6 +67,10 @@ def main(argv=None):
     from repro_torch.train.loop import train
 
     device = resolve_device(args.device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.dp_degree * args.sp_degree != world:
+        raise ValueError(f"--dp-degree × --sp-degree = {args.dp_degree} × "
+                         f"{args.sp_degree} must equal the {world} ranks")
     if args.smoke:
         cfg = get_smoke(args.arch)
     elif args.variant:
@@ -60,15 +81,35 @@ def main(argv=None):
                     learning_rate=args.lr, total_steps=args.steps,
                     warmup_steps=max(args.steps // 20, 5),
                     remat=args.remat, seed=args.seed,
-                    ckpt_verify=args.ckpt_verify)
+                    ckpt_verify=args.ckpt_verify, zero1=args.zero1,
+                    comm_dtype=args.comm_dtype,
+                    comm_overlap=args.comm_overlap)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
-    _, history = train(cfg, run, data, device=device,
-                       ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every)
+    layout, log_fn = None, print
+    if world > 1:
+        import torch
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_training_groups
+
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        layout = make_training_groups(args.dp_degree, args.sp_degree)
+        if dist.get_rank():
+            log_fn = lambda *_: None
+    try:
+        _, history = train(cfg, run, data, device=device,
+                           ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                           layout=layout, log_fn=log_fn)
+    finally:
+        if layout is not None:
+            dist.destroy_process_group()
     first = sum(h["loss"] for h in history[:10]) / max(len(history[:10]), 1)
     last = sum(h["loss"] for h in history[-10:]) / max(len(history[-10:]), 1)
-    print(f"[train] {cfg.name} on {device}: loss {first:.4f} -> {last:.4f} "
-          f"over {len(history)} steps "
-          f"({'improved' if last < first else 'NOT improved'})")
+    log_fn(f"[train] {cfg.name} on {device}: loss {first:.4f} -> "
+           f"{last:.4f} over {len(history)} steps "
+           f"({'improved' if last < first else 'NOT improved'})")
     return history
 
 

@@ -4,8 +4,11 @@ and the layer glue, with full-sequence (forward, prefill) and single-token
 
 Twin of the softmax, linear and dense parts of ``repro/models/blocks.py``.
 Mixers consume and produce ``(B, S, d)``; inside, activations are ``(B, H,
-S, dh)``. Mamba2, hymba, cross-attention and MoE layers are ported in
-later slices and raise ``NotImplementedError`` here.
+S, dh)``. Under sequence parallelism (``Ctx.sp``) ``S`` is this rank's
+chunk: linear layers run LASP-2 (``core.lasp2``), softmax layers the K/V
+all-gather of LASP-2H (``core.lasp2h``). Mamba2, hymba, cross-attention
+and MoE layers are ported in later slices and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import linear_attention as la_core
-from repro_torch.core.lasp2h import ring_decode_attention
+from repro_torch.core.lasp2 import lasp2
+from repro_torch.core.lasp2h import (allgather_context_attention,
+                                     ring_decode_attention)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, rope)
@@ -30,6 +35,7 @@ class Ctx:
     causal: bool = True
     decode_pos: Any = None         # (B,) int positions during decode
     resets: Any = None             # (B, S) bool: state resets (doc starts)
+    sp: Any = None                 # core.lasp2.SPConfig: S is a chunk
 
 
 def _unported(spec: LayerSpec):
@@ -78,18 +84,19 @@ def softmax_init(generator, cfg: ModelConfig, dtype, device):
 
 
 def _softmax_out(params, x, q, k, v, ctx: Ctx, window):
-    o = ops.flash_attention_op(q, k, v, causal=ctx.causal,
-                               sliding_window=window)
+    o = allgather_context_attention(q, k, v, sp=ctx.sp, causal=ctx.causal,
+                                    sliding_window=window)
     return _heads_merge(o) @ params["wo"].to(x.dtype)
 
 
 def softmax_apply(params, x, ctx: Ctx, *, window=None):
     """Full-sequence GQA attention through ``ops.flash_attention_op`` (the
-    flash kernels on the card). The reference takes its banded XLA form
-    when ``S % window == 0``; it computes the same function, and the
-    kernels' run-time band skips the same blocks. Softmax layers ignore
-    ``ctx.resets``: on packed rows they attend across documents, as in the
-    reference."""
+    flash kernels on the card); under sequence parallelism the K/V
+    all-gather of LASP-2H first. The reference takes its banded XLA form
+    when ``S % window == 0`` (never inside its DP×SP step); it computes
+    the same function, and the kernels' run-time band skips the same
+    blocks. Softmax layers ignore ``ctx.resets``: on packed rows they
+    attend across documents, as in the reference."""
     q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
     return _softmax_out(params, x, q, k, v, ctx, window)
 
@@ -212,9 +219,17 @@ def linear_apply(params, x, ctx: Ctx):
     if not ctx.causal:
         raise NotImplementedError("bidirectional linear attention is ported "
                                   "in a later slice")
+    lac = ctx.cfg.linear_attn
     q, k, v, log_a = _linear_qkv(params, x, ctx)
-    o, _, _ = ops.linear_attention_op(
-        q, k, v, log_a, block_size=ctx.cfg.linear_attn.block_size)
+    if ctx.sp is not None:
+        # Resets (packed documents) and data decay give log_a a role the
+        # faithful backward treats as constant: autodiff, as the reference.
+        o = lasp2(q, k, v, log_a, sp=ctx.sp, block_size=lac.block_size,
+                  backward="autodiff" if lac.decay == "data"
+                  or ctx.resets is not None else lac.backward)
+    else:
+        o, _, _ = ops.linear_attention_op(q, k, v, log_a,
+                                          block_size=lac.block_size)
     return _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
 
 

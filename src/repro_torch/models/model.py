@@ -61,13 +61,17 @@ def _device(params) -> torch.device:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, resets=None,
-            remat: str = "none"):
+            remat: str = "none", sp=None):
     """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``.
 
     tokens: (B, S) int; ``resets`` (B, S) bool marks document starts of
     packed rows (the linear state is zeroed there). ``remat="full"``
     recomputes each layer in the backward pass (``torch.utils.checkpoint``)
-    instead of keeping its activations; ``"none"`` keeps them.
+    instead of keeping its activations; ``"none"`` keeps them. ``sp``
+    (``core.lasp2.SPConfig``): ``tokens`` and ``resets`` are this rank's
+    chunk ``t`` of a sequence split over ``sp.degree`` ranks; its RoPE
+    positions are ``t·S + arange(S)``. Under ``remat="full"`` a layer's
+    recompute issues its forward exchanges again inside the backward.
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
@@ -76,7 +80,10 @@ def forward(params, tokens, cfg: ModelConfig, *, resets=None,
     tokens = tokens.to(device)
     _, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, dtype)
-    ctx = Ctx(cfg=cfg, positions=torch.arange(s, device=device),
+    positions = torch.arange(s, device=device)
+    if sp is not None:
+        positions = sp.chunk_index * s + positions
+    ctx = Ctx(cfg=cfg, positions=positions, sp=sp,
               resets=None if resets is None else resets.to(device))
     for p, spec in zip(params["layers"], cfg.layer_specs()):
         if remat == "full":

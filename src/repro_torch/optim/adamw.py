@@ -9,8 +9,13 @@ the scalar factors formed in fp32 as the reference forms them. Unlike the
 reference, which returns new arrays, :func:`update` and
 :func:`clip_by_global_norm` work **in place** under ``torch.no_grad()``:
 at full width the params, moments and gradients are 21 GB, and a second
-copy of each would not fit beside the activations. ZeRO-1 (the flat,
-sharded state of the DP×SP step) comes with the multi-GPU slice.
+copy of each would not fit beside the activations.
+
+ZeRO-1 (the DP×SP step): the params raveled in tree order into one flat
+fp32 vector, padded to a multiple of the data degree, each data rank
+holding the moments of one contiguous slice. The reference keeps the
+full-length moments under a jit-level sharding; here each rank holds only
+its slice, and never materialises the full flat params or decay mask.
 """
 
 from __future__ import annotations
@@ -88,6 +93,88 @@ def update(grads, state: AdamState, params, *, lr, b1=0.9, b2=0.95,
             step = step + weight_decay * p.float()
         p.copy_(p.float() - lr * step)
     return AdamState(state.m, state.v, count)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: flat, data-rank-sharded optimizer state.
+# ---------------------------------------------------------------------------
+
+class Zero1AdamState(NamedTuple):
+    """Flat fp32 Adam moments of this rank's slice of the raveled params
+    (``zero1_padded_size / n_shards`` long)."""
+
+    m: torch.Tensor
+    v: torch.Tensor
+    count: int
+
+
+def zero1_padded_size(params, n_shards: int) -> int:
+    """Total parameter count rounded up to a multiple of ``n_shards``."""
+    n = sum(p.numel() for _, p in leaves_with_paths(params))
+    return ((n + n_shards - 1) // n_shards) * n_shards
+
+
+def zero1_init(params, n_shards: int) -> Zero1AdamState:
+    """Zero moments for one rank's slice."""
+    size = zero1_padded_size(params, n_shards) // n_shards
+    device = leaves_with_paths(params)[0][1].device
+    zeros = lambda: torch.zeros((size,), dtype=torch.float32, device=device)
+    return Zero1AdamState(m=zeros(), v=zeros(), count=0)
+
+
+def _raveled(params, lo, hi, piece):
+    """Elements ``[lo, hi)`` of the params raveled in tree order, as a new
+    fp32 vector (zero past the end, the padding): for each leaf whose
+    raveled elements ``[a, b)`` fall in the range, ``piece(path, leaf, a,
+    b)`` gives their values."""
+    leaves = leaves_with_paths(params)
+    out = torch.zeros((hi - lo,), dtype=torch.float32,
+                      device=leaves[0][1].device)
+    off = 0
+    with torch.no_grad():
+        for path, p in leaves:
+            a, b = max(lo - off, 0), min(hi - off, p.numel())
+            if a < b:
+                out[off + a - lo:off + b - lo] = piece(path, p, a, b)
+            off += p.numel()
+    return out
+
+
+def flat_slice(params, lo: int, hi: int) -> torch.Tensor:
+    """Elements ``[lo, hi)`` of the raveled params, fp32."""
+    return _raveled(params, lo, hi,
+                    lambda path, p, a, b: p.reshape(-1)[a:b])
+
+
+def decay_mask(params, lo: int = 0, hi=None) -> torch.Tensor:
+    """Flat fp32 mask over elements ``[lo, hi)`` of the raveled params
+    (default all, unpadded), 1.0 where weight decay applies
+    (:func:`_decayable` by leaf path, the rule of :func:`update`)."""
+    if hi is None:
+        hi = sum(p.numel() for _, p in leaves_with_paths(params))
+    return _raveled(params, lo, hi,
+                    lambda path, p, a, b: float(_decayable(path)))
+
+
+@torch.no_grad()
+def zero1_update_shard(grad_shard, m_shard, v_shard, param_shard,
+                       decay_shard, count, *, lr, b1=0.9, b2=0.95,
+                       eps=1e-8, weight_decay=0.1):
+    """One AdamW step on one rank's flat fp32 slice, the moments in place.
+
+    ``count`` is the post-increment step count. Returns the new param
+    slice: the same elementwise math as :func:`update`, so the gathered
+    result is the replicated optimizer's."""
+    bc1 = float(_f32(1.0) - _f32(b1) ** _f32(count))
+    bc2 = float(_f32(1.0) - _f32(b2) ** _f32(count))
+    lr = float(_f32(lr))
+    gf = grad_shard.float()
+    m_shard.mul_(b1).add_((1 - b1) * gf)
+    v_shard.mul_(b2).add_((1 - b2) * gf * gf)
+    step = (m_shard / bc1) / (torch.sqrt(v_shard / bc2) + eps)
+    if weight_decay:
+        step = step + weight_decay * decay_shard * param_shard
+    return param_shard - lr * step
 
 
 def cosine_schedule(step, *, base_lr, warmup_steps, total_steps,

@@ -9,7 +9,10 @@
 * SIGTERM or KeyboardInterrupt → final checkpoint, clean exit.
 
 Runs on the CUDA card unless ``device`` names another one; without a card
-it raises. The reference's ``sink=`` telemetry comes with a later slice.
+it raises. With a ``layout`` (``launch.mesh.TrainingGroups``) this rank
+runs the DP×SP step on its rows and chunk of the same seeded global batch
+every rank draws. The reference's ``sink=`` telemetry comes with a later
+slice.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.train.step import init_state, make_train_step, \
-    state_from_params
+    state_from_params, zero1_degree
 
 
 class StepWatchdog:
@@ -60,7 +63,8 @@ class StepWatchdog:
 def train(cfg: ModelConfig, run: RunConfig, data: SyntheticLM, *,
           device=None, params=None, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 50, log_every: int = 10,
-          log_fn: Callable[[str], None] = print, max_steps=None):
+          log_fn: Callable[[str], None] = print, max_steps=None,
+          layout=None):
     """Returns ``(final_state, history)``, one metrics dict per step (loss,
     grad_norm, lr, skipped, step, dt in host seconds after the step's
     device work).
@@ -68,18 +72,23 @@ def train(cfg: ModelConfig, run: RunConfig, data: SyntheticLM, *,
     ``params``: initial fp32 master params on ``device`` (e.g. carried
     across from the reference with ``params_from_jax``); by default they
     are drawn by ``init_params`` from a generator seeded with
-    ``run.seed``.
+    ``run.seed`` (the same params on every rank).
     """
     device = resolve_device(device)
+    if ckpt_dir and layout is not None and layout.world > 1:
+        raise NotImplementedError(
+            "checkpoints of a DP×SP run (restore onto another layout) are "
+            "ported with M9")
+    zero1 = zero1_degree(run, layout)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(run.seed)
-        state = init_state(gen, cfg, device=device)
+        state = init_state(gen, cfg, device=device, zero1=zero1)
     else:
         where = {p.device for _, p in leaves_with_paths(params)}
         if where != {device}:
             raise ValueError(f"params on {sorted(map(str, where))}, the run "
                              f"on {device}")
-        state = state_from_params(params)
+        state = state_from_params(params, zero1)
     start_step = 0
 
     mgr = CheckpointManager(ckpt_dir, verify=run.ckpt_verify) \
@@ -98,7 +107,7 @@ def train(cfg: ModelConfig, run: RunConfig, data: SyntheticLM, *,
                        f"(rejected {[s for s, _ in rejected]})")
             log_fn(f"[resume] restored step {start_step} from {ckpt_dir}")
 
-    step_fn = make_train_step(cfg, run)
+    step_fn = make_train_step(cfg, run, layout)
     watchdog = StepWatchdog()
     history = []
     total = max_steps if max_steps is not None else run.total_steps

@@ -1,7 +1,7 @@
-"""The one-device train step (twin of the single-device step of
-``repro/train/step.py``): gradient accumulation over microbatches in fp32,
-global-norm clipping, the cosine learning rate, skip-on-nonfinite, AdamW
-on fp32 master weights.
+"""The train steps (twin of ``repro/train/step.py``): gradient
+accumulation over microbatches in fp32, global-norm clipping, the cosine
+learning rate, skip-on-nonfinite, AdamW on fp32 master weights; on one
+device, or across the ranks of a DP×SP layout (:class:`ShardedStep`).
 
 ``train_step(state, batch)``:
   state = {"params": fp32 master params, "opt": AdamState, "step": int}
@@ -20,26 +20,40 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.comm import primitives
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.lasp2 import SPConfig
 from repro_torch.core.tree import leaves_with_paths, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
 
 
-def state_from_params(params):
+def zero1_degree(run: RunConfig, layout=None) -> int:
+    """Ranks the optimizer state is sharded over: the data degree under
+    ZeRO-1 (``run.zero1`` and dp > 1, as the reference's plan), else 1."""
+    if layout is not None and run.zero1 and layout.dp > 1:
+        return layout.dp
+    return 1
+
+
+def state_from_params(params, zero1: int = 1):
     """A fresh train state around ``params`` (fp32 masters): they are made
-    to require gradients, the moments start at zero, step 0."""
+    to require gradients, the moments start at zero (one rank's flat
+    slice of ``zero1`` when above 1), step 0."""
     for _, p in leaves_with_paths(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": adamw.init(params), "step": 0}
+    opt = adamw.zero1_init(params, zero1) if zero1 > 1 \
+        else adamw.init(params)
+    return {"params": params, "opt": opt, "step": 0}
 
 
-def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None):
+def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None,
+               zero1: int = 1):
     """Random fp32 master params (``cfg.param_dtype``) on ``device`` (the
     card unless another device is named) and a fresh train state."""
     params = M.init_params(generator, cfg, device=device,
                            param_dtype=cfg.param_dtype)
-    return state_from_params(params)
+    return state_from_params(params, zero1)
 
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig):
@@ -72,7 +86,29 @@ def _accum_grads(loss_fn, params, batch):
     return tree_map(lambda _: next(it), params), torch.stack(losses).mean()
 
 
-def make_train_step(cfg: ModelConfig, run: RunConfig):
+def _finish_step(run: RunConfig, state, gnorm, update):
+    """The tail both steps share, after the gradients are clipped: the
+    cosine learning rate and skip-on-nonfinite. ``update(lr)`` applies
+    AdamW and returns the new optimizer state; a non-finite step does not
+    call it, so params, moments and the Adam count stay, and the step
+    advances. Returns ``(new_state, metrics without the loss)``."""
+    finite = bool(torch.isfinite(gnorm))
+    lr = adamw.cosine_schedule(
+        state["step"], base_lr=run.learning_rate,
+        warmup_steps=run.warmup_steps, total_steps=run.total_steps,
+        min_lr=run.min_lr)
+    opt = update(lr) if finite else state["opt"]
+    new_state = {"params": state["params"], "opt": opt,
+                 "step": state["step"] + 1}
+    return new_state, {"grad_norm": float(gnorm), "lr": lr,
+                       "skipped": 0.0 if finite else 1.0}
+
+
+def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
+    """The one-device step, or with a ``layout``
+    (``launch.mesh.TrainingGroups``) the DP×SP step of this rank."""
+    if layout is not None:
+        return ShardedStep(cfg, run, layout)
     loss_fn = make_loss_fn(cfg, run)
 
     def train_step(state, batch):
@@ -81,21 +117,167 @@ def make_train_step(cfg: ModelConfig, run: RunConfig):
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         grads, loss = _accum_grads(loss_fn, params, batch)
         grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
-        # Fault tolerance: a non-finite step is skipped, not applied:
-        # params, moments and the Adam count stay, the step advances.
-        finite = bool(torch.isfinite(gnorm))
-        lr = adamw.cosine_schedule(
-            state["step"], base_lr=run.learning_rate,
-            warmup_steps=run.warmup_steps, total_steps=run.total_steps,
-            min_lr=run.min_lr)
-        opt = state["opt"]
-        if finite:
-            opt = adamw.update(grads, opt, params, lr=lr, b1=run.adam_b1,
-                               b2=run.adam_b2,
-                               weight_decay=run.weight_decay)
-        new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
-        metrics = {"loss": float(loss), "grad_norm": float(gnorm), "lr": lr,
-                   "skipped": 0.0 if finite else 1.0}
-        return new_state, metrics
+        new_state, metrics = _finish_step(
+            run, state, gnorm,
+            lambda lr: adamw.update(grads, state["opt"], params, lr=lr,
+                                    b1=run.adam_b1, b2=run.adam_b2,
+                                    weight_decay=run.weight_decay))
+        return new_state, {"loss": float(loss), **metrics}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# The DP×SP step (data × sequence ranks).
+# ---------------------------------------------------------------------------
+
+def shard_batch(batch, layout):
+    """This rank's rows and sequence chunk of a global (A, B/A, S) batch:
+    rows ``[d·R, (d+1)·R)`` and positions ``[t·C, (t+1)·C)`` for data index
+    d and chunk index t. Labels were shifted over the whole row, so a
+    chunk's last label is the next chunk's first token; a chunk's resets
+    start False unless a document starts there."""
+    rows, seq = batch["tokens"].shape[1], batch["tokens"].shape[2]
+    if rows % layout.dp or seq % layout.sp:
+        raise ValueError(
+            f"DP×SP step needs microbatch rows ({rows}) divisible by dp "
+            f"({layout.dp}) and seq len ({seq}) by sp ({layout.sp})")
+    r, c = rows // layout.dp, seq // layout.sp
+    d, t = layout.data_index, layout.chunk_index
+    return {k: v[:, d * r:(d + 1) * r, t * c:(t + 1) * c]
+            for k, v in batch.items()}
+
+
+class ShardedStep:
+    """The DP×SP step of one rank (``repro/train/step.py``'s manual step):
+
+    - the unnormalised local objective (the CE sum of this rank's rows and
+      chunk), its gradients accumulated by autograd over the microbatches
+      into per-leaf views of ONE flat fp32 buffer (a second full-width
+      copy is what a full-width step on one card could not hold);
+    - every collective of the model on its SP group: per linear layer one
+      state all-gather forward (``lasp2.states``), per softmax layer the
+      K/V all-gathers (``lasp2h.k``, ``lasp2h.v``), their backwards;
+    - exactly ONE gradient reduction: the flat gradients ‖ [ce_sum, n]
+      all-reduced over every rank (``train.grads``), then normalised by
+      the global token count;
+    - clipping, the learning rate and skip-on-nonfinite as the one-device
+      step (``_finish_step``); only the loss differs: the global token
+      mean here, the mean of the microbatch means there (the reference's
+      two steps differ the same way);
+    - ZeRO-1 over the data group (``zero1_degree`` > 1): each rank Adam-
+      updates its slice of the raveled params and ONE all-gather
+      (``zero1.param_gather``) re-forms them.
+
+    Every rank must issue the same collectives in the same order, so a
+    rank whose rows are all masked still joins the reduction
+    (``n_tot = max(n, 1)``).
+    """
+
+    def __init__(self, cfg: ModelConfig, run: RunConfig, layout):
+        self.cfg, self.run, self.layout = cfg, run, layout
+        self.sp = SPConfig(layout.sp_group, comm_dtype=run.comm_dtype,
+                           overlap=run.comm_overlap) if layout.sp > 1 \
+            else None
+        self.zero1 = zero1_degree(run, layout)
+        self._buf = None
+        self._decay = None
+
+    def _buffer(self, params):
+        """The flat fp32 buffer (gradients ‖ [ce, n]) and the number of
+        gradient entries."""
+        n = sum(p.numel() for _, p in leaves_with_paths(params))
+        size = n + 2
+        if self._buf is None or self._buf.numel() != size:
+            device = leaves_with_paths(params)[0][1].device
+            self._buf = torch.empty((size,), dtype=torch.float32,
+                                    device=device)
+        return self._buf, n
+
+    def grads(self, params, batch):
+        """Gradients of the global mean CE over this step's global batch,
+        reduced over every rank: ``(flat grads (a view of the buffer),
+        ce_tot, n_tot)``, both 0-d fp32 tensors."""
+        leaves = [p for _, p in leaves_with_paths(params)]
+        device = leaves[0].device
+        buf, n = self._buffer(params)
+        buf.zero_()
+        off = 0
+        for p in leaves:
+            p.grad = buf[off:off + p.numel()].view_as(p)
+            off += p.numel()
+        batch = shard_batch({k: torch.as_tensor(v) for k, v in
+                             batch.items()}, self.layout)
+        ce = torch.zeros((), dtype=torch.float32, device=device)
+        cnt = torch.zeros((), dtype=torch.float32, device=device)
+        try:
+            for i in range(batch["tokens"].shape[0]):
+                micro = {k: v[i].to(device) for k, v in batch.items()}
+                logits = M.forward(params, micro["tokens"], self.cfg,
+                                   remat=self.run.remat,
+                                   resets=micro.get("resets"), sp=self.sp)
+                ce_sum, n_valid, _ = M.lm_loss_sum(logits, micro["labels"])
+                del logits
+                ce_sum.backward()
+                ce += ce_sum.detach()
+                cnt += n_valid
+        finally:
+            for p in leaves:
+                p.grad = None
+        buf[n] = ce
+        buf[n + 1] = cnt
+        primitives.psum_packed(buf[:n + 2], self.layout.world_group,
+                               tag="train.grads")
+        n_tot = torch.clamp(buf[n + 1], min=1.0)   # all masked → loss 0
+        gflat = buf[:n]
+        gflat.div_(n_tot)
+        return gflat, buf[n].clone(), n_tot
+
+    @torch.no_grad()
+    def _zero1_update(self, params, opt, gflat, n, lr):
+        run, layout = self.run, self.layout
+        padded = adamw.zero1_padded_size(params, self.zero1)
+        shard = padded // self.zero1
+        lo = layout.data_index * shard
+        if self._decay is None:
+            self._decay = adamw.decay_mask(params, lo, lo + shard)
+        count = opt.count + 1
+        g_sh = torch.zeros((shard,), dtype=torch.float32,
+                           device=gflat.device)
+        g_sh[:max(min(n - lo, shard), 0)] = gflat[lo:lo + shard]
+        new_p = adamw.zero1_update_shard(
+            g_sh, opt.m, opt.v, adamw.flat_slice(params, lo, lo + shard),
+            self._decay, count, lr=lr, b1=run.adam_b1, b2=run.adam_b2,
+            weight_decay=run.weight_decay)
+        # ZeRO-1's all-gather-on-update
+        gathered = primitives.allgather_states(
+            new_p, layout.dp_group, gather_axis=0, tiled=True,
+            tag="zero1.param_gather")
+        off = 0
+        for _, p in leaves_with_paths(params):
+            p.copy_(gathered[off:off + p.numel()].view_as(p))
+            off += p.numel()
+        return adamw.Zero1AdamState(opt.m, opt.v, count)
+
+    def _update(self, params, opt, gflat, lr):
+        """AdamW on the clipped flat gradients: this rank's ZeRO-1 slice,
+        or every param (replicated)."""
+        run = self.run
+        if self.zero1 > 1:
+            return self._zero1_update(params, opt, gflat, gflat.numel(), lr)
+        it = iter(torch.split(gflat, [p.numel() for _, p in
+                                      leaves_with_paths(params)]))
+        grads = tree_map(lambda p: next(it).view_as(p), params)
+        return adamw.update(grads, opt, params, lr=lr, b1=run.adam_b1,
+                            b2=run.adam_b2, weight_decay=run.weight_decay)
+
+    def __call__(self, state, batch):
+        params = state["params"]
+        gflat, ce_tot, n_tot = self.grads(params, batch)
+        # the norm is the same on every rank after the one reduction, so a
+        # non-finite step is skipped on every rank
+        gflat, gnorm = adamw.clip_by_global_norm(gflat, self.run.grad_clip)
+        new_state, metrics = _finish_step(
+            self.run, state, gnorm,
+            lambda lr: self._update(params, state["opt"], gflat, lr))
+        return new_state, {"loss": float(ce_tot / n_tot), **metrics}

@@ -56,7 +56,9 @@ def test_port_imports_without_loading_jax():
     code = ("import sys; sys.path.insert(0, 'src'); "
             "import repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.models.weights, repro_torch.launch.train, "
-            "repro_torch.train.loop, repro_torch.checkpoint.manager; "
+            "repro_torch.train.loop, repro_torch.checkpoint.manager, "
+            "repro_torch.comm.primitives, repro_torch.comm.strategy, "
+            "repro_torch.core.lasp2, repro_torch.launch.mesh; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -575,3 +575,57 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
     lse = torch.zeros(1, 2, 8, device="cuda")
     with pytest.raises(TypeError, match="float32"):
         fl.flash_attention_bwd_dq(y, y, y, y, lse.half(), lse)
+
+
+def test_chunk_bwd_sm90_with_the_sp_state_cotangent(gen):
+    """Under sequence parallelism K2a and K2b get what no one-device path
+    gives them: a nonzero end-state cotangent (the faithful backward's
+    decayed suffix sum of the later chunks' dM). At the chunk shape of two
+    ranks over 2048 tokens (BH 64 × C 1024 × 128, bf16, ``sm90``), with
+    resets and decays, against the fp32 plain passes at the limits of
+    ``test_chunk_bwd_kernels_match_plain``."""
+    s = 1024
+    ins = _bwd_inputs(gen, 64, s, 128, 128, torch.bfloat16)
+    assert float(ins[-1].abs().max()) > 0           # dstate
+    before = [fn.route_launches["sm90"]
+              for fn in (lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)]
+    got = lasp2_chunk_bwd(*ins)
+    torch.cuda.synchronize()
+    assert [fn.route_launches["sm90"] - n for fn, n in zip(
+        (lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv), before)] == [1, 1]
+    want = lasp2_chunk_bwd_plain(*ins, block_size=pick_block(s, 128))
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w, 4e-2)
+    slack = s * 2.0 ** -24 * float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3,
+                               atol=1e-3 + slack)
+
+
+def test_flash_sm90_at_the_sp_context_shape(gen):
+    """Under sequence parallelism a softmax layer attends with its rank's
+    chunk of queries (sq = C = 1024) over the gathered keys (sk = W·C =
+    2048) at q_offset t·C = 1024, window 2048, dh 128: K4, K5a and K5b on
+    ``sm90`` against the plain versions at the limits of
+    ``test_flash_kernels_explicit_offset_and_kv_len``."""
+    q, k, v, do = _flash_inputs(gen, 4, 16, 16, 1024, 2048, 128,
+                                torch.bfloat16)
+    kw = dict(causal=True, window=2048, q_offset=1024, kv_len=2048)
+    counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
+    before = [c.route_launches["sm90"] for c in counters]
+    o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+    o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    _close(lse, lse_p, 1e-4)
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    assert [c.route_launches["sm90"] - n for c, n in zip(counters, before)] \
+        == [1, 1, 1]
+    want = (fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw),
+            *fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                              **kw))
+    b_o, *b_grads = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw)
+    _close_bf16(o, o_p, b_o)
+    for g, w, bound in zip((dq, dk, dv), want, b_grads):
+        _close_bf16(g, w, bound)

@@ -1,0 +1,332 @@
+"""Port vs reference: the DP×SP train step, ZeRO-1 and the DP×SP CLI on
+gloo ranks, at SMOKE size.
+
+The reference's manual DP×SP step (``repro/train/step.py``) takes 3 steps
+at (dp, sp) = (1, 4) and (2, 2), and at (1, 4) on rows without resets
+(the faithful backward), on 4 virtual CPU devices in one subprocess
+started from this file (``python tests/test_torch_sp_step.py
+--jax-reference out.npz``), which also writes its initial params. The
+port starts from those params (``params_from_jax``, fp32 masters) on 4
+gloo ranks (``launch.mesh.run_ranks``) of the same layouts, each rank its
+rows and chunk of the same seeded global batch, through the plain
+versions of the kernels. SMOKE runs in fp32 on both sides (the frameworks
+round bf16 at other points). Tolerances: losses 1e-3, as the one-device
+step's (``tests/test_torch_train.py``); ZeRO-1 against replicated AdamW
+1e-6, and the bf16 wire against fp32 2e-2
+(``tests/distributed_checks.py:513-549``).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch_sp_ranks as R
+from repro_torch.configs.base import RunConfig
+from repro_torch.launch.mesh import TrainingGroups, run_ranks
+
+HERE = Path(__file__).resolve()
+ROOT = HERE.parent.parent
+TOL = 1e-3
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    """The reference's losses, tapes and initial params."""
+    out = tmp_path_factory.mktemp("jax") / "ref.npz"
+    env = dict(os.environ,
+               XLA_FLAGS="--xla_force_host_platform_device_count=4",
+               JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, str(HERE), "--jax-reference",
+                           str(out)], env=env, capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return out
+
+
+def _port(ref, dp, sp):
+    ranks = run_ranks(R.step_rank, dp * sp, args=(dp, sp, str(ref)),
+                      timeout_s=300)
+    with np.load(ref) as npz:
+        want = {k: npz[k] for k in npz.files if not k.startswith("param/")}
+    return dp, sp, ranks, want
+
+
+@pytest.fixture(scope="module")
+def sp4(ref):
+    """The port at (dp, sp) = (1, 4): pure sequence parallelism."""
+    return _port(ref, 1, 4)
+
+
+@pytest.fixture(scope="module")
+def dp2sp2(ref):
+    """The port at (2, 2), ZeRO-1 over the data pairs."""
+    return _port(ref, 2, 2)
+
+
+@pytest.fixture(params=["sp4", "dp2sp2"])
+def port(request):
+    return request.getfixturevalue(request.param)
+
+
+def _rows(arr):
+    return [str(x) for x in arr]
+
+
+def test_layout_places_ranks_data_major(port):
+    """Global rank r sits at data index r // sp, chunk index r % sp."""
+    dp, sp, ranks, _ = port
+    assert [r["layout"] for r in ranks] == [
+        divmod(i, sp) for i in range(dp * sp)]
+
+
+def test_step_losses_match_reference(port):
+    """3 steps of packed rows (resets: the autodiff backward under SP):
+    every rank reports the reference's losses within 1e-3."""
+    dp, sp, ranks, want = port
+    for r in ranks:
+        np.testing.assert_allclose(r["losses"], want[f"dp{dp}sp{sp}/loss"],
+                                   rtol=TOL, atol=TOL)
+
+
+def test_faithful_step_losses_match_reference(sp4):
+    """Rows without resets take the faithful Alg. 3/4 backward: 3 steps
+    at (1, 4) within 1e-3 of the reference's."""
+    dp, sp, ranks, want = sp4
+    for r in ranks:
+        np.testing.assert_allclose(r["faithful_losses"],
+                                   want[f"dp{dp}sp{sp}/faithful_loss"],
+                                   rtol=TOL, atol=TOL)
+        assert any("lasp2.dstates" in row for row in r["faithful_tape"])
+
+
+def test_step_tape(port):
+    """One step's collectives: per linear layer and microbatch one forward
+    state all-gather (its backward: the reduce-scatter on packed rows),
+    ONE gradient all-reduce, and under ZeRO-1 ONE param all-gather; each
+    with the reference's payload. (The reference records while it traces,
+    and traces its microbatch and layer scans once, so its tape holds each
+    row once.)"""
+    dp, sp, ranks, want = port
+    cfg = R.step_cfg()
+    per_step = cfg.n_layers * R.RUN["num_microbatches"]
+    ref_rows = _rows(want[f"dp{dp}sp{sp}/tape"])
+    for r in ranks:
+        tape = r["tape"]
+        fwd = [x for x in tape if not x.split("|")[1].endswith(".bwd")]
+        assert sorted(set(fwd)) == sorted(ref_rows)
+        states = [x for x in fwd if "|lasp2.states|" in x]
+        assert len(states) == per_step
+        assert sum("|train.grads|" in x for x in tape) == 1
+        assert sum("|zero1.param_gather|" in x for x in tape) == \
+            (1 if dp > 1 else 0)
+        assert sum(x.startswith("reduce-scatter|lasp2.states.bwd")
+                   for x in tape) == per_step
+
+
+def test_bf16_wire_halves_state_bytes(sp4):
+    """comm_dtype="bf16" at (1, 4): the state gathers carry half the bytes,
+    the collective counts are unchanged, the losses stay within 2e-2."""
+    _, _, ranks, _ = sp4
+    for r in ranks:
+        np.testing.assert_allclose(r["bf16_losses"], r["losses"], rtol=2e-2,
+                                   atol=2e-2)
+        assert len(r["bf16_tape"]) == len(r["tape"])
+        for a, b in zip(r["tape"], r["bf16_tape"]):
+            op_a, tag_a, n_a = a.split("|")
+            op_b, tag_b, n_b = b.split("|")
+            assert (op_a, tag_a) == (op_b, tag_b)
+            want = int(n_a) // 2 if tag_a.startswith("lasp2.states") \
+                else int(n_a)
+            assert int(n_b) == want, (a, b)
+
+
+def test_remat_full_replays_the_forward_gathers(sp4):
+    """remat="full" recomputes each layer in the backward, exchange
+    included: the state all-gathers of one forward and backward double."""
+    _, _, ranks, _ = sp4
+    n = R.step_cfg().n_layers
+    for r in ranks:
+        assert r["remat_counts"] == {"none": n, "full": 2 * n}
+
+
+def test_zero1_equals_replicated_adamw(dp2sp2):
+    """ZeRO-1 over the data ranks against replicated AdamW at (2, 2), 2
+    steps: losses within 1e-6, every param within 1e-6 relative and 1e-7
+    absolute."""
+    _, _, ranks, _ = dp2sp2
+    for r in ranks:
+        assert r["opt_type"] == "Zero1AdamState"
+        np.testing.assert_allclose(r["zero1_losses"], r["replicated_losses"],
+                                   rtol=1e-6, atol=1e-6)
+        assert r["zero1_params_close"], r["zero1_param_diff"]
+
+
+def test_nonfinite_step_is_skipped_on_every_rank(dp2sp2):
+    """A NaN in the params at (2, 2) with ZeRO-1: every rank skips the step
+    (one reduction, one verdict); params, moments and the Adam count stay;
+    the step advances."""
+    _, _, ranks, _ = dp2sp2
+    for r in ranks:
+        assert r["nonfinite"] == {"skipped": 1.0, "step": 1, "count": 0,
+                                  "frozen": True}
+
+
+def test_run_config_fields_carry_the_reference_defaults():
+    """Every field of the port's RunConfig, the SP and ZeRO-1 knobs among
+    them, exists in the reference's with the same default."""
+    from repro.configs.base import RunConfig as JRunConfig
+    want, got = JRunConfig(), RunConfig()
+    for f in dataclasses.fields(RunConfig):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 7])
+def test_zero1_pieces_match_reference(n_shards):
+    """ZeRO-1's padded size and decay-mask count on the SMOKE params equal
+    the reference's; the flat slice and mask of each shard cover the
+    raveled params exactly once; one AdamW step on a shard equals the
+    reference's ``zero1_update_shard`` (1e-6)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from repro.configs import get_smoke as j_get_smoke
+    from repro.models import model as JM
+    from repro.optim import adamw as jadamw
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.optim import adamw
+    jcfg = dataclasses.replace(j_get_smoke(R.ARCH), dtype="float32")
+    jparams = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams),
+                             R.step_cfg(), device="cpu", dtype=torch.float32)
+    padded = adamw.zero1_padded_size(params, n_shards)
+    assert padded == jadamw.zero1_padded_size(jparams, n_shards)
+    n = sum(p.numel() for _, p in leaves_with_paths(params))
+    assert float(adamw.decay_mask(params).sum()) == float(
+        jadamw.decay_mask(jparams).sum())
+    shard = padded // n_shards
+    flat = torch.cat([p.reshape(-1) for _, p in leaves_with_paths(params)])
+    mask = adamw.decay_mask(params)
+    for i in range(n_shards):
+        lo, hi = i * shard, (i + 1) * shard
+        got = adamw.flat_slice(params, lo, hi)
+        assert torch.equal(got[:max(n - lo, 0)], flat[lo:hi])
+        assert not got[max(n - lo, 0):].any()
+        assert torch.equal(adamw.decay_mask(params, lo, hi)[:max(n - lo, 0)],
+                           mask[lo:hi])
+    rng = np.random.default_rng(0)
+    g, m, v, p, d = (rng.standard_normal(64).astype(np.float32)
+                     for _ in range(5))
+    v, d = np.abs(v), (d > 0).astype(np.float32)
+    want = jadamw.zero1_update_shard(*(jnp.asarray(x) for x in (g, m, v, p,
+                                                               d)),
+                                     jnp.asarray(3), lr=1e-3)
+    mt, vt = torch.from_numpy(m.copy()), torch.from_numpy(v.copy())
+    new_p = adamw.zero1_update_shard(torch.from_numpy(g), mt, vt,
+                                     torch.from_numpy(p), torch.from_numpy(d),
+                                     3, lr=1e-3)
+    for a, b in zip((new_p, mt, vt), want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_sp_config_refuses_unknown_knob_values():
+    """The overlap mode and the wire dtype are checked when the split is
+    made, before any collective."""
+    from repro_torch.core.lasp2 import SPConfig
+    with pytest.raises(ValueError, match="overlap mode"):
+        SPConfig(None, overlap="ring")
+    with pytest.raises(ValueError, match="comm_dtype"):
+        SPConfig(None, comm_dtype="fp8")
+
+
+def test_checkpoints_of_a_sharded_run_wait_for_m9(tmp_path):
+    """Restoring onto another layout is M9: a multi-rank run with a
+    checkpoint directory refuses before any collective."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.loop import train
+    cfg = R.step_cfg()
+    layout = TrainingGroups(dp=2, sp=1, data_index=0, chunk_index=0,
+                            sp_group=None, dp_group=None, world_group=None)
+    with pytest.raises(NotImplementedError, match="M9"):
+        train(cfg, RunConfig(total_steps=1), SyntheticLM(cfg.vocab_size, 8, 2),
+              device="cpu", ckpt_dir=str(tmp_path), layout=layout,
+              log_fn=lambda *_: None)
+
+
+def test_train_cli_under_torchrun_with_sp_degree_2():
+    """``torchrun --nproc-per-node 2 -m repro_torch.launch.train
+    --sp-degree 2 --device cpu``: two gloo ranks train and the loss
+    falls."""
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--smoke", "--device", "cpu", "--sp-degree", "2", "--steps", "20",
+         "--seq", "64", "--batch", "4", "--lr", "1e-3"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+                       "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("over 20 steps (improved)") == 1, out.stdout
+
+
+# ---------------------------------------------------------------------------
+# The reference side (run as a script, in its own process).
+# ---------------------------------------------------------------------------
+
+def _jax_reference(path):
+    import jax
+
+    from repro.comm import primitives as jprim
+    from repro.comm.spec import CommSpec
+    from repro.configs import get_smoke
+    from repro.configs.base import RunConfig as JRunConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.launch.mesh import make_training_mesh
+    from repro.sharding.rules import make_plan
+    from repro.train.step import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_smoke(R.ARCH), dtype="float32")
+    run = JRunConfig(**R.RUN)
+    data = SyntheticLM(cfg.vocab_size, R.DATA["seq_len"],
+                       R.DATA["global_batch"], seed=R.DATA["seed"])
+    out = {}
+    cells = [(dp, sp, "") for dp, sp in R.STEP_LAYOUTS] + [(1, 4, "faithful_")]
+    for dp, sp, kind in cells:
+        plan = make_plan(make_training_mesh(dp, sp), "train",
+                         global_batch=R.DATA["global_batch"],
+                         n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                         zero1=True, comm=CommSpec(dtype="fp32"))
+        state = init_state(jax.random.PRNGKey(0), cfg, run, plan)
+        if not out:
+            for p, leaf in jax.tree_util.tree_flatten_with_path(
+                    state["params"])[0]:
+                key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                               for k in p)
+                out[f"param/{key}"] = np.asarray(leaf)
+        step = jax.jit(make_train_step(cfg, run, plan))
+        losses = []
+        for i in range(R.N_STEPS):
+            batch = data.microbatched(i, run.num_microbatches)
+            if kind:
+                batch.pop("resets")
+            with jprim.tape() as rec:       # records while jit traces
+                state, m = step(state, batch)
+            if i == 0:
+                out[f"dp{dp}sp{sp}/{kind}tape"] = np.array(
+                    R.tape_rows(rec))
+            losses.append(float(m["loss"]))
+        out[f"dp{dp}sp{sp}/{kind}loss"] = np.array(losses)
+    np.savez(path, **out)
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] != ["--jax-reference"] or len(sys.argv) != 3:
+        raise SystemExit("usage: test_torch_sp_step.py --jax-reference "
+                         "OUT.npz")
+    _jax_reference(sys.argv[2])

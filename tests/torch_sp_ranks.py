@@ -1,0 +1,269 @@
+"""Rank bodies and shared inputs of the port's sequence-parallel tests
+(``tests/test_torch_lasp2_sp.py``, ``tests/test_torch_sp_step.py``).
+
+Spawned ranks import this module by name, so it imports only numpy, torch
+and ``repro_torch``: the JAX side of those tests runs in their own
+reference subprocess. Inputs are made here from a seed with numpy, and
+both sides read them from here.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.comm import primitives
+from repro_torch.core.linear_attention import RESET_LOG_A
+
+# ---------------------------------------------------------------------------
+# Layer level: lasp2, lasp2_with_state, allgather_context_attention.
+# ---------------------------------------------------------------------------
+
+WORLDS = (2, 4)
+B, H, S, DK, DV = 2, 2, 256, 16, 32
+HQ, HKV, DH = 4, 2, 16
+# Document starts: 64 is a chunk start at W = 4; 128, a chunk start at
+# W = 2 and 4, is not a document start, so no state resets there.
+RESETS = (0, 64, 100, 200)
+LINEAR_CASES = [(f"causal_{la}_{bwd}", True, la, bwd)
+                for la in ("none", "decay", "resets")
+                for bwd in ("faithful", "autodiff")] + [
+    ("bidir_faithful", False, "none", "faithful"),
+    ("bidir_autodiff", False, "none", "autodiff")]
+ATTN_CASES = [("attn_causal", True, None), ("attn_window", True, 96),
+              ("attn_bidir", False, None)]
+PAYLOAD_SEQS = (512, 2048)
+
+
+def layer_inputs():
+    rng = np.random.default_rng(0)
+    f32 = lambda x: x.astype(np.float32)
+    ins = {"q": f32(rng.standard_normal((B, H, S, DK)) * 0.3),
+           "k": f32(rng.standard_normal((B, H, S, DK)) * 0.3),
+           "v": f32(rng.standard_normal((B, H, S, DV)) * 0.5),
+           "decay": f32(-np.abs(rng.standard_normal((B, H, S))) * 0.03),
+           "qs": f32(rng.standard_normal((B, HQ, S, DH)) * 0.5),
+           "ks": f32(rng.standard_normal((B, HKV, S, DH)) * 0.5),
+           "vs": f32(rng.standard_normal((B, HKV, S, DH)) * 0.5)}
+    ins["resets"] = ins["decay"].copy()
+    ins["resets"][..., list(RESETS)] = RESET_LOG_A
+    return ins
+
+
+def tape_rows(records):
+    """A tape as ``op|tag|payload bytes`` strings (both sides' form)."""
+    return [f"{r.op}|{r.tag}|{r.payload_bytes}" for r in records]
+
+
+def _chunk(x, rank, world, axis):
+    c = x.shape[axis] // world
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(x, range(rank * c, (rank + 1) * c), axis=axis)))
+
+
+def _num(ts):
+    return [t.detach().numpy() for t in ts]
+
+
+def layer_rank(rank, world, device):
+    """Every layer-level case on this rank's chunk: outputs, gradients of
+    ``sum(sin(o))`` and the tape of the forward and backward."""
+    from repro_torch.core.lasp2 import SPConfig, lasp2, lasp2_with_state
+    from repro_torch.core.lasp2h import allgather_context_attention
+
+    sp = SPConfig(dist.group.WORLD)
+    ins = layer_inputs()
+    seq = lambda name: _chunk(ins[name], rank, world, 2)
+    res = {}
+
+    def linear(name, causal, la, bwd, spc):
+        xs = [seq(n).requires_grad_(True) for n in "qkv"]
+        a = None if la == "none" else seq(la).requires_grad_(True)
+        with primitives.tape() as rec:
+            o = lasp2(*xs, a, sp=spc, causal=causal, backward=bwd)
+            grads = torch.autograd.grad(torch.sin(o).sum(),
+                                        xs + ([a] if a is not None else []))
+        res[name] = {"o": o.detach().numpy(), "grads": _num(grads),
+                     "tape": tape_rows(rec)}
+
+    for name, causal, la, bwd in LINEAR_CASES:
+        linear(name, causal, la, bwd, sp)
+    linear("overlap_none", True, "decay", "faithful",
+           SPConfig(dist.group.WORLD, overlap="none"))
+    with primitives.tape() as rec:
+        o, st = lasp2_with_state(seq("q"), seq("k"), seq("v"), seq("decay"),
+                                 sp=sp)
+    res["with_state"] = {"o": o.numpy(), "state": st.numpy(),
+                         "tape": tape_rows(rec)}
+    for name, causal, window in ATTN_CASES:
+        xs = [seq(n).requires_grad_(True) for n in ("qs", "ks", "vs")]
+        with primitives.tape() as rec:
+            o = allgather_context_attention(*xs, sp=sp, causal=causal,
+                                            sliding_window=window)
+            grads = torch.autograd.grad(torch.sin(o).sum(), xs)
+        res[name] = {"o": o.detach().numpy(), "grads": _num(grads),
+                     "tape": tape_rows(rec)}
+    res["payload"] = {}
+    for s in PAYLOAD_SEQS:
+        x = torch.ones((1, 2, s // world, 16))
+        with primitives.tape() as rec:
+            lasp2(x, x, x, sp=sp)
+        res["payload"][s] = tape_rows(rec)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Step level: the DP×SP step on SMOKE linear-llama3-1b.
+# ---------------------------------------------------------------------------
+
+ARCH = "linear-llama3-1b"
+STEP_LAYOUTS = ((1, 4), (2, 2))
+N_STEPS = 3
+# tests/distributed_checks.py's 2D battery: 8 rows of 64 tokens, seed 3,
+# 2 microbatches, no remat, lr 1e-3 with 2 warm-up steps.
+RUN = dict(num_microbatches=2, remat="none", total_steps=10, warmup_steps=2,
+           learning_rate=1e-3)
+DATA = dict(seq_len=64, global_batch=8, seed=3)
+
+
+def step_cfg():
+    """SMOKE in fp32: the two frameworks round bf16 at other points."""
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke(ARCH), dtype="float32")
+
+
+def params_tree(npz):
+    """The reference's initial params (``param/<path>`` entries of the
+    reference's npz) as the nested dict ``params_from_jax`` reads."""
+    tree = {}
+    for key in npz.files:
+        if key.startswith("param/"):
+            *path, leaf = key.split("/")[1:]
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[leaf] = npz[key]
+    return tree
+
+
+def _batches(drop_resets=False):
+    from repro_torch.data.pipeline import SyntheticLM
+    cfg = step_cfg()
+    data = SyntheticLM(cfg.vocab_size, DATA["seq_len"], DATA["global_batch"],
+                       seed=DATA["seed"])
+    out = []
+    for i in range(N_STEPS + 1):
+        b = data.microbatched(i, RUN["num_microbatches"])
+        if drop_resets:
+            b.pop("resets")
+        out.append(b)
+    return out
+
+
+def _params(npz_path, device):
+    from repro_torch.models.weights import params_from_jax
+    with np.load(npz_path) as npz:
+        tree = params_tree(npz)
+    return params_from_jax(tree, step_cfg(), device=device,
+                           dtype=torch.float32)
+
+
+def _steps(npz_path, device, layout, n, drop_resets=False, **run_kw):
+    """``n`` steps from the reference's params; returns (state, losses,
+    tape of the first step)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    run = RunConfig(**{**RUN, **run_kw})
+    state = state_from_params(_params(npz_path, device),
+                              zero1_degree(run, layout))
+    step = make_train_step(step_cfg(), run, layout)
+    losses, first = [], None
+    for i, batch in enumerate(_batches(drop_resets)[:n]):
+        with primitives.tape() as rec:
+            state, m = step(state, batch)
+        first = first if first is not None else tape_rows(rec)
+        losses.append(m["loss"])
+    return state, losses, first
+
+
+def _flat(tree):
+    from repro_torch.core.tree import leaves_with_paths
+    return torch.cat([t.detach().reshape(-1).float()
+                      for _, t in leaves_with_paths(tree)])
+
+
+def step_rank(rank, world, device, dp, sp, npz_path):
+    """The step-level cases of one (dp, sp) layout on this rank."""
+    from repro_torch.launch.mesh import make_training_groups
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import AdamState, Zero1AdamState
+
+    layout = make_training_groups(dp, sp)
+    res = {"layout": (layout.data_index, layout.chunk_index)}
+    state, res["losses"], res["tape"] = _steps(npz_path, device, layout,
+                                               N_STEPS)
+    res["opt_type"] = type(state["opt"]).__name__
+    if dp == 1:
+        # rows without resets: the faithful backward
+        _, res["faithful_losses"], res["faithful_tape"] = _steps(
+            npz_path, device, layout, N_STEPS, drop_resets=True)
+        _, res["bf16_losses"], res["bf16_tape"] = _steps(
+            npz_path, device, layout, N_STEPS, comm_dtype="bf16")
+        # remat="full" replays each layer's forward exchange in backward
+        params = _params(npz_path, device)
+        batch = _batches()[0]
+        tok = _chunk(batch["tokens"][0], layout.chunk_index, sp, 1)
+        lab = _chunk(batch["labels"][0], layout.chunk_index, sp, 1)
+        from repro_torch.core.lasp2 import SPConfig
+        spc = SPConfig(layout.sp_group)
+        leaves = [p.requires_grad_(True) for p in _flat_leaves(params)]
+        counts = {}
+        for remat in ("none", "full"):
+            with primitives.tape() as rec:
+                loss, _, _ = M.lm_loss_sum(
+                    M.forward(params, tok, step_cfg(), remat=remat, sp=spc),
+                    lab)
+                torch.autograd.grad(loss, leaves)
+            counts[remat] = sum(r.tag == "lasp2.states" for r in rec)
+        res["remat_counts"] = counts
+    else:
+        s_z, l_z, _ = _steps(npz_path, device, layout, 2)
+        s_r, l_r, _ = _steps(npz_path, device, layout, 2, zero1=False)
+        res["zero1_losses"], res["replicated_losses"] = l_z, l_r
+        a, b = _flat(s_z["params"]), _flat(s_r["params"])
+        res["zero1_param_diff"] = float((a - b).abs().max())
+        res["zero1_params_close"] = bool(torch.allclose(a, b, rtol=1e-6,
+                                                        atol=1e-7))
+        assert isinstance(s_z["opt"], Zero1AdamState)
+        assert isinstance(s_r["opt"], AdamState)
+        res["nonfinite"] = _nonfinite(npz_path, device, layout)
+    return res
+
+
+def _flat_leaves(tree):
+    from repro_torch.core.tree import leaves_with_paths
+    return [t for _, t in leaves_with_paths(tree)]
+
+
+def _nonfinite(npz_path, device, layout):
+    """A NaN in the params on every rank: the step is skipped everywhere;
+    params, moments and the Adam count stay, the step advances."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    run = RunConfig(**RUN)
+    state = state_from_params(_params(npz_path, device),
+                              zero1_degree(run, layout))
+    with torch.no_grad():
+        state["params"]["embed"]["table"][0, 0] = float("nan")
+    tensors = lambda st: [t for t in _flat_leaves(
+        {"p": st["params"], "o": st["opt"]}) if isinstance(t, torch.Tensor)]
+    before = [t.detach().clone() for t in tensors(state)]
+    new, m = make_train_step(step_cfg(), run, layout)(state, _batches()[0])
+    same = all(torch.equal(a.detach(), b) or torch.allclose(
+        a.detach(), b, rtol=0, atol=0, equal_nan=True)
+        for a, b in zip(tensors(new), before))
+    return {"skipped": m["skipped"], "step": new["step"],
+            "count": new["opt"].count, "frozen": same}
