@@ -77,12 +77,24 @@ line:
    after the 3 steps within 1e-6 relative (1e-7 absolute) of replicated
    AdamW at (2, 1). Each rank prints its launches per step (every
    kernel on ``sm90``), its tape per step, its step walls and peak
-   memory, and the state all-gather's bytes at C 512 and 1024 (equal).
+   memory, and the state all-gather's bytes at C 512 and 1024 (equal);
+11. strategies, the exchange strategies and the paper's SP baselines on
+   two ranks sharing the card over gloo, as 10 (b): (a) one full-width
+   layer, B 1 x H 16 x S 2·4096 x dh 128 in bf16, each rank its chunk:
+   ``lasp2`` under "allgather", "ring" and "pipelined", each with both
+   overlap orders, and ``lasp1`` against one device's ``lasp2`` on the
+   whole sequence; ``ulysses_context_attention`` (with and without a
+   2048 window), ``ring_attention`` and ``megatron_sp_attention`` against
+   ``allgather_context_attention``; o, dq, dk and dv within phase 10's
+   3e-2 relative L2, each case's launches (sm90 only), tape and wall;
+   (b) 3 steps of ``ShardedStep`` at (1, 2) under "ulysses" on b1's cut
+   and data and under "ring" on b2's: losses within 2e-4 and grad norms
+   within 2^-8 of b1's and b2's, launches and tape per step.
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
-the paths that ran each, listed in ``launches_by_path``, phase 10's per
-cell and rank); the last line is
+the paths that ran each, listed in ``launches_by_path``, phases 10's
+and 11's per cell and rank); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -1631,7 +1643,7 @@ def _sp_rank(rank, world, device, linear_cut, hybrid_cut):
     return out
 
 
-def phase_sp(kernels: list, linear, hybrid, train_hist) -> None:
+def phase_sp(kernels: list, linear, hybrid, train_hist) -> list:
     """(a) The DP×SP step at (1, 1) over NCCL in this process, full width
     and depth, 3 steps on phase 7's data: losses and grad norms equal phase
     7's first three. Then the (1, 1) run of b3's cut. (b) Two ranks on the
@@ -1721,6 +1733,236 @@ def phase_sp(kernels: list, linear, hybrid, train_hist) -> None:
         check(e_gnorm <= TOL_SP_GNORM,
               f"b3 rank {rank}: (2, 1) ZeRO-1 grad norms {b3['gnorms']} vs "
               f"(1, 1) {ref['gnorms']}")
+    return ranks
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the exchange strategies and the paper's SP baselines.
+# ---------------------------------------------------------------------------
+
+# (a) one layer at full width, B 1 x H 16 x S 2·4096 x dh 128 in bf16, each
+# of two ranks its chunk of 4096. |log a| ~ 1e-4 a token keeps the prefix
+# state's weight near e^-0.4 across a chunk, so the exchange matters.
+ST_H, ST_C, ST_D, ST_WINDOW = 16, 4096, 128, 2048
+
+
+def _st_tape(name):
+    """The tape counts a case of phase 11 (a) must show at W 2."""
+    def pair(op, tag, bwd_op=None):
+        return {f"{op} {tag}": 1, f"{bwd_op or op} {tag}.bwd": 1}
+    if name.startswith("lasp2_allgather"):
+        return {"all-gather lasp2.states": 1, "all-gather lasp2.dstates": 1}
+    if name.startswith("lasp2_ring"):
+        return pair("collective-permute", "lasp2.ring")
+    if name.startswith("lasp2_pipelined"):
+        return {k: n for i in range(4) for k, n in pair(
+            "collective-permute", f"lasp2.pipelined[{i}]").items()}
+    if name == "lasp1":
+        return pair("collective-permute", "lasp1")
+    if name.startswith("ulysses"):
+        return {**pair("all-to-all", "ulysses.in"),
+                **pair("all-to-all", "ulysses.out")}
+    if name == "ring_attention":
+        return {"collective-permute ring_attn.k": 2,
+                "collective-permute ring_attn.v": 2,
+                "collective-permute ring_attn.k.bwd": 1,
+                "collective-permute ring_attn.v.bwd": 1}
+    return {k: n for t in "qkv" for k, n in pair(
+        "all-gather", f"megatron.{t}", "reduce-scatter").items()}
+
+
+def _rel_l2(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm().clamp(min=1e-30))
+
+
+def _fwd_bwd(fn, xs, dout):
+    """o and the gradients of sum(o · dout) wrt ``xs``."""
+    leaves = [x.detach().requires_grad_(True) for x in xs]
+    o = fn(*leaves)
+    grads = torch.autograd.grad((o.float() * dout).sum(), leaves)
+    return [o.detach(), *grads]
+
+
+def _st_case(rank, name, fn, xs, dout, want, kernels):
+    """One case of phase 11 (a) on this rank: ``fn`` on the chunks ``xs``
+    forward and backward twice, the first call held to ``want`` (o, dq,
+    dk, dv; relative L2 each, the phase 10 limit) with its launches and
+    tape checked, the second timed."""
+    from repro_torch.comm import primitives
+    counters = _sp_counters()
+    _zero(*counters)
+    with primitives.tape() as rec:
+        got = _fwd_bwd(fn, xs, dout)
+    torch.cuda.synchronize()
+    launched = _read(counters, counters)
+    tape = _tape_counts(rec)
+    t0 = time.perf_counter()
+    _fwd_bwd(fn, xs, dout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs = [_rel_l2(g, w) for g, w in zip(got, want)]
+    n = len(counters)
+    log("strategies_a", rank=rank, case=name,
+        rel_l2_o_dq_dk_dv=repr([f"{e:.2e}" for e in errs]), tol=TOL_SP_GRAD,
+        launches_k1_k2a_k2b_k4_k5a_k5b_routed=repr(launched),
+        tape=repr(tape).replace(" ", ""),
+        wall_ms_gloo_host_transport=f"{wall * 1e3:.1f}")
+    check(max(errs) <= TOL_SP_GRAD and all(
+        bool(torch.isfinite(g).all()) for g in got),
+        f"phase 11 rank {rank}: {name} off by {errs} relative L2")
+    check(not any(launched[n + 1::2]) and all(
+        launched[n::2][i] for i in kernels),
+        f"phase 11 rank {rank}: {name} launches {launched}; want kernels "
+        f"{kernels} on sm90 only")
+    want_tape = _st_tape(name)
+    check({k: c for k, (c, _) in tape.items()} == want_tape,
+          f"phase 11 rank {rank}: {name} tape {tape}; want {want_tape}")
+    return launched
+
+
+def _st_layers(rank, sp):
+    """Phase 11 (a): each linear strategy, both overlap orders, and LASP-1
+    against one device's ``lasp2`` on the whole sequence; Ulysses (with
+    and without a window), Ring Attention and Megatron-SP against
+    ``allgather_context_attention`` (causal, no window, as the
+    reference's baselines). Returns the launches summed over the cases."""
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core import baselines
+    from repro_torch.core.lasp2 import SPConfig, lasp2
+    from repro_torch.core.lasp2h import (allgather_context_attention,
+                                         ulysses_context_attention)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (1, ST_H, 2 * ST_C, ST_D)
+    rnd = lambda scale: (torch.randn(shape, generator=gen, device="cuda")
+                         * scale).to(torch.bfloat16)
+    q, k, v, dout = rnd(0.3), rnd(0.3), rnd(0.5), rnd(1.0)
+    log_a = -torch.rand(shape[:-1], generator=gen, device="cuda") * 2e-4
+    chunk = lambda x: x[:, :, rank * ST_C:(rank + 1) * ST_C]
+    xs, d_c, la_c = [chunk(x) for x in (q, k, v)], chunk(dout).float(), \
+        chunk(log_a)
+    total = None
+
+    def case(name, fn, want, kernels):
+        nonlocal total
+        got = _st_case(rank, name, fn, xs, d_c, want, kernels)
+        total = got if total is None else [a + b for a, b in zip(total, got)]
+
+    want = [chunk(t) for t in _fwd_bwd(lambda a, b, c: lasp2(a, b, c, log_a),
+                                       (q, k, v), dout.float())]
+    for strategy in ("allgather", "ring", "pipelined"):
+        for overlap in ("overlap", "none"):
+            case(f"lasp2_{strategy}_{overlap}", lambda a, b, c, s=SPConfig(
+                sp.group, comm=CommSpec(strategy, overlap)): lasp2(
+                    a, b, c, la_c, sp=s), want, (0, 1, 2))
+    case("lasp1", lambda a, b, c: baselines.lasp1(a, b, c, la_c, sp=sp),
+         want, (0, 1, 2))
+    spu = SPConfig(sp.group, comm=CommSpec("ulysses"))
+    want = _fwd_bwd(lambda a, b, c: allgather_context_attention(
+        a, b, c, sp=sp), xs, d_c)
+    case("ulysses", lambda a, b, c: ulysses_context_attention(
+        a, b, c, sp=spu), want, (3, 4, 5))
+    case("ring_attention", lambda a, b, c: baselines.ring_attention(
+        a, b, c, sp=sp), want, ())
+    case("megatron_sp", lambda a, b, c: baselines.megatron_sp_attention(
+        a, b, c, sp=sp), want, (3, 4, 5))
+    want = _fwd_bwd(lambda a, b, c: allgather_context_attention(
+        a, b, c, sp=sp, sliding_window=ST_WINDOW), xs, d_c)
+    case("ulysses_window", lambda a, b, c: ulysses_context_attention(
+        a, b, c, sp=spu, sliding_window=ST_WINDOW), want, (3, 4, 5))
+    return total
+
+
+def _st_cell(rank, path, cfg, layout, resets, strategy, base):
+    """Phase 11 (b): SP_STEPS steps of the DP×SP step under ``strategy``
+    on phase 10's params and data of the same cut, against that cell's
+    run under "allgather" (``base``): losses 2e-4, grad norms 2^-8
+    relative; launches and tape per step."""
+    from repro_torch.train.step import state_from_params
+    res = _sp_steps(cfg, _sp_run(comm_strategy=strategy), layout,
+                    state_from_params(_sp_params(cfg)),
+                    _sp_batches(cfg, resets))
+    del res["state"]
+    n_lin, n_soft = _mixer_counts(cfg)
+    want = _want_launches(n_lin, n_lin, n_soft)      # autodiff backwards
+    check(all(n == want for n in res["per_step"]),
+          f"{path} rank {rank}: launches per step {res['per_step']}; want "
+          f"{want}")
+    if strategy == "ring":
+        tags = {"collective-permute lasp2.ring": n_lin}
+    else:
+        tags = {"all-gather lasp2.states": n_lin,
+                "all-to-all ulysses.in": n_soft,
+                "all-to-all ulysses.out": n_soft}
+    want_tape = {"all-reduce train.grads": 1, **tags, **{
+        (f"reduce-scatter {k.split()[1]}" if k.startswith("all-gather")
+         else k) + ".bwd": n for k, n in tags.items()}}
+    for tape in res["tapes"]:
+        check({k: v[0] for k, v in tape.items()} == want_tape,
+              f"{path} rank {rank}: tape {tape}; want counts {want_tape}")
+    e_loss = max(_rel_errs(res["losses"], base["losses"]))
+    e_gnorm = max(_rel_errs(res["gnorms"], base["gnorms"]))
+    log(path, rank=rank, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        softmax=n_soft, dp=layout.dp, sp=layout.sp, strategy=strategy,
+        rows_x_chunk=f"{SP_ROWS}x{SP_SEQ // layout.sp}", resets=resets,
+        losses=repr([round(x, 6) for x in res["losses"]]),
+        allgather_losses=repr([round(x, 6) for x in base["losses"]]),
+        max_rel_err_loss=f"{e_loss:.3e}", tol_loss=TOL_SP_LAYOUT,
+        grad_norms=repr([round(x, 6) for x in res["gnorms"]]),
+        allgather_grad_norms=repr([round(x, 6) for x in base["gnorms"]]),
+        max_rel_err_grad_norm=f"{e_gnorm:.3e}", tol_grad_norm=TOL_SP_GNORM,
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routed=repr(
+            res["per_step"][0]),
+        tape_per_step=repr(res["tapes"][0]).replace(" ", ""),
+        transport="gloo (host-staged)",
+        step_wall_ms=repr([round(w * 1e3, 1) for w in res["walls"]]),
+        max_memory_allocated_gb=f"{res['peak'] / 1e9:.2f}")
+    check(e_loss <= TOL_SP_LAYOUT, f"{path} rank {rank}: losses "
+          f"{res['losses']} vs allgather {base['losses']}")
+    check(e_gnorm <= TOL_SP_GNORM, f"{path} rank {rank}: grad norms "
+          f"{res['gnorms']} vs allgather {base['gnorms']}")
+    return res["launched"]
+
+
+def _st_rank(rank, world, device, linear_cut, hybrid_cut, bases):
+    """Phase 11 on one of two ranks sharing the card over gloo: (a) the
+    layer cases, (b) the ulysses and ring steps against phase 10's b1 and
+    b2 (``bases[rank]``)."""
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.launch.mesh import make_training_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout = make_training_groups(1, 2)
+    out = {"a": _st_layers(rank, SPConfig(layout.sp_group))}
+    _free()
+    out["ulysses"] = _st_cell(rank, "strategies_ulysses", hybrid_cut,
+                              layout, True, "ulysses", bases[rank]["b1"])
+    _free()
+    out["ring"] = _st_cell(rank, "strategies_ring", linear_cut, layout,
+                           False, "ring", bases[rank]["b2"])
+    return out
+
+
+def phase_strategies(kernels: list, linear, hybrid, sp_ranks) -> None:
+    """Phase 11 on two ranks sharing the card over gloo, as phase 10 (b):
+    (a) one full-width layer under each exchange and baseline against its
+    one-device or all-gather counterpart, (b) 3 steps of the DP×SP step
+    at (1, 2) under "ulysses" (``HYBRID`` cut) and "ring" (``CONFIG``
+    cut) against phase 10's b1 and b2."""
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        _st_rank, 2, backend="gloo", device="cuda",
+        args=(dataclasses.replace(linear, n_layers=SP_LAYERS),
+              dataclasses.replace(hybrid, n_layers=SP_LAYERS),
+              [{c: {k: r[c][k] for k in ("losses", "gnorms")}
+                for c in ("b1", "b2")} for r in sp_ranks]),
+        timeout_s=600)
+    for rank, res in enumerate(ranks):
+        for cell, launched in res.items():
+            _count_routed(kernels, _sp_counters(), _sp_counters(), launched,
+                          f"strategies_{cell}_rank{rank}")
+    log("strategies", ranks=len(ranks), transport="gloo (host-staged)",
+        wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
 def _free() -> None:
@@ -1761,7 +2003,9 @@ def main() -> int:
                                                   dtype="float32"),
                      "hybrid_gradcheck")
     _free()
-    phase_sp(kernels, linear, hybrid, train_hist)
+    sp_ranks = phase_sp(kernels, linear, hybrid, train_hist)
+    _free()
+    phase_strategies(kernels, linear, hybrid, sp_ranks)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,3 +1,3 @@
 """Sequence-parallel communication of the port (twin of ``repro/comm``):
-named collectives with a call-time tape, and the allgather state
-exchange with its overlap of the intra-chunk kernel."""
+named collectives with a call-time tape, the state exchanges of LASP-2
+layers and their registry, and the spec that selects one."""

@@ -66,7 +66,8 @@ def upcast_gathered(x, dtype=torch.float32):
 class CommRecord:
     """One collective issued by an SP layer or the train step."""
 
-    op: str              # all-gather | reduce-scatter | all-reduce
+    op: str              # all-gather | reduce-scatter | all-reduce |
+    #                      all-to-all | collective-permute
     payload_bytes: int   # bytes entering the collective, per rank
     traffic_bytes: int   # per-rank wire traffic (ring cost model)
     steps: int           # sequential exchange steps this call represents
@@ -136,20 +137,20 @@ def _staged(group) -> bool:
 
 
 class Pending:
-    """A collective in flight: ``wait()`` waits for it and returns its
-    result, passed through ``finish``."""
+    """A collective in flight: ``wait()`` waits for its ``works`` and
+    returns its result, passed through ``finish``."""
 
-    def __init__(self, work, out, finish):
-        self._work, self._out, self._finish = work, out, finish
+    def __init__(self, works, out, finish):
+        self._works, self._out, self._finish = works, out, finish
 
     def then(self, fn) -> "Pending":
         """The same collective, its result passed on through ``fn``."""
-        return Pending(self._work, self._out,
+        return Pending(self._works, self._out,
                        lambda out: fn(self._finish(out)))
 
     def wait(self):
-        if self._work is not None:
-            self._work.wait()
+        for work in self._works:
+            work.wait()
         return self._finish(self._out)
 
 
@@ -162,7 +163,7 @@ def _start(op, out_shape, x, group, async_op) -> Pending:
         x = x.cpu()
     out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
     work = op(out, x.contiguous(), group=group, async_op=async_op)
-    return Pending(work, out, lambda o: o.to(device))
+    return Pending([work] if async_op else [], out, lambda o: o.to(device))
 
 
 def _gather(x, group, gather_axis, tiled, async_op) -> Pending:
@@ -262,3 +263,163 @@ def psum_packed(x, group, *, tag: str = ""):
     else:
         dist.all_reduce(x, group=group)
     return x
+
+
+def _hop(x, group, shift, tag) -> Pending:
+    """Issue one cyclic hop of ``x`` (recorded under ``tag``)."""
+    w = dist.get_world_size(group)
+    pb = _nbytes(x)
+    _record(CommRecord("collective-permute", pb, pb, steps=1, group=w,
+                       tag=tag))
+    t = group_index(group)
+    device = x.device
+    src = (x.cpu() if _staged(group) else x).contiguous()
+    out = torch.empty_like(src)
+    peer = lambda i: dist.get_global_rank(group, i % w)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, peer(t + shift), group),
+        dist.P2POp(dist.irecv, out, peer(t - shift), group)])
+    return Pending(works, out, lambda o: o.to(device))
+
+
+class _AttachHop(torch.autograd.Function):
+    """Identity on the received tensor whose backward is the hop the
+    other way round, from the sender's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, received, group, shift, tag):
+        ctx.group, ctx.shift, ctx.tag = group, shift, tag
+        return received
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (_hop(ct, ctx.group, -ctx.shift, f"{ctx.tag}.bwd").wait(),
+                None, None, None, None)
+
+
+def ring_sendrecv(x, group, *, shift: int = 1, tag: str = "",
+                  async_op: bool = False):
+    """One ring hop: every rank sends ``x`` to ``(t + shift) % W`` and
+    returns what ``(t - shift) % W`` sent. Differentiable: the backward is
+    the hop with ``-shift`` (tag ``<tag>.bwd``). Traffic per rank: the
+    payload, one step. ``async_op=True`` returns a :class:`Pending`.
+    Every rank must run every hop, backward included, in the same order:
+    a rank that skipped one would leave its peers waiting."""
+    pend = _hop(x.detach(), group, shift, tag).then(
+        lambda out: _AttachHop.apply(x, out, group, shift, tag))
+    return pend if async_op else pend.wait()
+
+
+def _a2a(x, group, split_axis, concat_axis, tag):
+    w = dist.get_world_size(group)
+    pb = _nbytes(x)
+    _record(CommRecord("all-to-all", pb, (w - 1) * pb // max(w, 1), steps=1,
+                       group=w, tag=tag))
+    device = x.device
+    # all_to_all_single splits dim 0: block j of the split axis to rank j
+    src = x.movedim(split_axis, 0)
+    src = src.reshape(w, src.shape[0] // w, *src.shape[1:])
+    if _staged(group):
+        src = src.cpu()
+    src = src.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    # out[j] is rank j's block; concatenate along concat_axis in rank order
+    out = out.to(device).movedim(1, split_axis + 1).movedim(0, concat_axis)
+    return out.flatten(concat_axis, concat_axis + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Tiled all-to-all whose backward is the mirrored all-to-all."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tag):
+        ctx.args = (group, split_axis, concat_axis, tag)
+        return _a2a(x, group, split_axis, concat_axis, tag)
+
+    @staticmethod
+    def backward(ctx, ct):
+        group, split_axis, concat_axis, tag = ctx.args
+        return (_a2a(ct, group, concat_axis, split_axis, f"{tag}.bwd"),
+                None, None, None, None)
+
+
+def alltoall(x, group, *, split_axis: int, concat_axis: int, tag: str = ""):
+    """Tiled All-to-All over ``group``: the Ulysses repartition.
+
+    Splits ``split_axis`` into W blocks (block j to rank j) and
+    concatenates the received blocks along ``concat_axis`` in rank order:
+    ``dim[split] /= W``, ``dim[concat] *= W``. Differentiable: the
+    backward is the all-to-all with the axes swapped (tag ``<tag>.bwd``).
+    Traffic per rank: ``(g-1)/g × payload``, one step."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis, tag)
+
+
+# ---------------------------------------------------------------------------
+# Ring and pipelined prefix-scan exchanges (LASP-1's pattern, ZeCO's
+# refinement).
+# ---------------------------------------------------------------------------
+
+def auto_slices(dv: int, preferred: int = 4) -> int:
+    """Slice count of the pipelined exchange: the largest power of two
+    <= ``preferred`` that divides the state's value dimension."""
+    n = preferred
+    while n > 1 and dv % n:
+        n //= 2
+    return max(n, 1)
+
+
+def pipelined_prefix_exchange(m_loc, log_decay, group, *,
+                              n_slices: Optional[int] = None,
+                              wire: torch.dtype = torch.float32,
+                              tag: str = "pipelined",
+                              async_op: bool = False):
+    """ZeCO-style pipelined ring prefix-scan of the chunk states.
+
+    ``m_loc``: (..., dk, dv) fp32 local chunk state; ``log_decay``: (...,)
+    fp32 total chunk log decay. Returns the decayed prefix state
+    ``M_{1:t-1}`` (what ``prefix_state_combine`` makes of a full gather).
+    The combine is linear in the state, so the state splits along ``dv``
+    into ``n_slices`` independent ring chains (tags ``<tag>[i]``); the
+    volume is the plain ring's. ``n_slices=1`` is LASP-1's ring (tag
+    ``tag``); None picks :func:`auto_slices`.
+
+    Each chain makes W-1 hops. At hop s, rank t receives the packet that
+    rank ``t-1-s`` started, with every forwarding rank's chunk decay
+    already folded in, and adds it when ``t-1-s >= 0``. The condition is
+    a 0/1 factor, not a branch, so every rank's autograd graph holds
+    every hop in the same order and the backward hops pair up across
+    ranks. A chain waits only for its own hop before it forwards the
+    packet, so one slice's hop is in flight while another's is added and
+    sent on. ``wire``: each hop's payload dtype (a bf16 wire rounds the
+    packet again at every hop); the sums stay fp32.
+
+    ``async_op=True`` issues every chain's first hop and returns a
+    :class:`Pending` whose ``wait()`` runs the rest.
+    """
+    dv = m_loc.shape[-1]
+    if n_slices is None:
+        n_slices = auto_slices(dv)
+    if dv % n_slices:
+        raise ValueError(f"n_slices={n_slices} does not divide dv={dv}")
+    w, t = dist.get_world_size(group), group_index(group)
+    chunk_decay = torch.exp(log_decay)[..., None, None]
+    slices = torch.chunk(m_loc, n_slices, dim=-1)
+    tags = [tag] if n_slices == 1 else \
+        [f"{tag}[{i}]" for i in range(n_slices)]
+    send = lambda i, packet: ring_sendrecv(packet.to(wire), group,
+                                           tag=tags[i], async_op=True)
+    hops = [send(i, m) for i, m in enumerate(slices)] if w > 1 else []
+
+    def finish(_):
+        m_prev = [torch.zeros_like(m) for m in slices]
+        for s in range(w - 1):
+            for i in range(n_slices):
+                packet = upcast_gathered(hops[i].wait())
+                m_prev[i] = m_prev[i] + packet * float(t - 1 - s >= 0)
+                if s < w - 2:
+                    hops[i] = send(i, packet * chunk_decay)
+        return torch.cat(m_prev, dim=-1) if n_slices > 1 else m_prev[0]
+
+    pend = Pending([], None, finish)
+    return pend if async_op else pend.wait()

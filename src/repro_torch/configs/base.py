@@ -163,12 +163,23 @@ class RunConfig:
     adam_b2: float = 0.95            # paper §4.1
     seed: int = 0
     zero1: bool = True               # shard optimizer state over data ranks
-    # SP communication (``repro_torch.comm``): the overlap of the state
-    # all-gather with the intra-chunk kernel, and the wire dtype of the
-    # state and K/V exchanges (bf16 halves their bytes; combines stay
-    # fp32). The DP×SP layout itself is ``launch.mesh.TrainingGroups``.
+    # SP communication (``repro_torch.comm``): the exchange strategy, its
+    # overlap with the intra-chunk kernel, and the wire dtype of the state
+    # and K/V exchanges (bf16 halves their bytes; combines stay fp32);
+    # ``comm_spec()`` folds them into one validated ``CommSpec``. The
+    # DP×SP layout itself is ``launch.mesh.TrainingGroups``.
+    comm_strategy: str = "allgather"   # allgather | ring | pipelined | ulysses
     comm_overlap: str = "overlap"    # overlap | none (A/B baseline)
     comm_dtype: str = "fp32"         # fp32 | bf16
     # Verify per-array SHA-256 checksums on restore; on a corrupt latest
     # checkpoint the loop falls back to the newest valid one.
     ckpt_verify: bool = True
+
+    def __post_init__(self):
+        self.comm_spec()                 # bad comm knobs fail on any layout
+
+    def comm_spec(self):
+        """The validated ``comm.spec.CommSpec`` of this run."""
+        from repro_torch.comm.spec import CommSpec
+        return CommSpec(strategy=self.comm_strategy,
+                        overlap=self.comm_overlap, dtype=self.comm_dtype)

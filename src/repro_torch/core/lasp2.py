@@ -11,7 +11,10 @@ group, one contiguous chunk a rank (rank ``t`` of the group holds chunk
   * backward: one all-gather of the state gradients ``dM_t`` (the faithful
               Alg. 3/4 backward), or the gather's reduce-scatter (autodiff),
 
-both independent of sequence length: the paper's central claim.
+both independent of sequence length: the paper's central claim. The
+exchange is chosen by ``SPConfig.comm`` (``comm.spec.CommSpec``): the
+paper's all-gather, or the ring and pipelined exchanges of LASP-1's
+pattern (``comm.strategy``), which differentiate by autodiff.
 
 Two backward modes:
 
@@ -32,14 +35,15 @@ backward on the card, their plain versions on the CPU.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.comm import primitives
-from repro_torch.comm.strategy import OVERLAP_MODES, prefix_allgather
+from repro_torch.comm.spec import CommSpec
+from repro_torch.comm.strategy import get_strategy, prefix_allgather
 from repro_torch.core.linear_attention import (chunk_summaries, pick_block,
                                                suffix_grad_combine)
 from repro_torch.kernels import ops
@@ -49,19 +53,12 @@ from repro_torch.kernels import ops
 class SPConfig:
     """How the sequence is split for LASP-2 style layers: ``group`` is the
     process group of the ranks that share one row's sequence, in chunk
-    order. ``comm_dtype`` is the wire dtype of the exchanges ("fp32" |
-    "bf16"), ``overlap`` the order of the state gather and the
-    intra-chunk kernel ("overlap" | "none")."""
+    order. ``comm`` is the exchange strategy, the order of the exchange
+    and the intra-chunk kernel, and the wire dtype, validated as one
+    value (``comm.spec.CommSpec``)."""
 
     group: Any
-    comm_dtype: str = "fp32"
-    overlap: str = "overlap"
-
-    def __post_init__(self):
-        primitives.wire_dtype(self.comm_dtype)
-        if self.overlap not in OVERLAP_MODES:
-            raise ValueError(f"unknown overlap mode {self.overlap!r}; "
-                             f"expected one of {OVERLAP_MODES}")
+    comm: CommSpec = field(default_factory=CommSpec)
 
     @property
     def degree(self) -> int:
@@ -89,18 +86,19 @@ def _intra_chunk(q, k, v, log_a, block_size):
 # Local (per-rank) forward bodies.
 # ---------------------------------------------------------------------------
 
-def _exchange(q, k, v, log_a, sp: SPConfig, block_size):
+def _exchange(q, k, v, log_a, sp: SPConfig, block_size, exchange):
     """Alg. 2 in line order: the chunk summaries (plain tensor code, as the
-    reference's XLA pass) form the payload; its one all-gather is issued
-    around the intra-chunk kernel. Returns ``(m_prev, (o, end state, log
-    decay) of the chunk, cum, states)`` (``comm.strategy.prefix_allgather``).
+    reference's XLA pass) form the payload; the strategy function
+    ``exchange`` is issued around the intra-chunk kernel. Returns
+    ``(m_prev, (o, end state, log decay) of the chunk, cum, states)``
+    (``comm.strategy``).
     """
     m_loc, a_loc = chunk_summaries(
         k, v, log_a, block_size=pick_block(q.shape[-2], block_size))
-    return prefix_allgather(
-        m_loc, a_loc, sp.group, sp.chunk_index, sp.overlap,
+    return exchange(
+        m_loc, a_loc, sp.group, sp.chunk_index, sp.comm.overlap,
         lambda: _intra_chunk(q, k, v, log_a, block_size),
-        primitives.wire_dtype(sp.comm_dtype))
+        primitives.wire_dtype(sp.comm.dtype))
 
 
 def _inter_chunk(q, log_a, m_prev):
@@ -112,7 +110,8 @@ def _inter_chunk(q, log_a, m_prev):
 def _causal_fwd_local(q, k, v, log_a, sp: SPConfig, block_size):
     """One rank's chunk: returns the output and the residuals of the
     faithful backward ``(m_prev, cum)``."""
-    m_prev, intra, cum, _ = _exchange(q, k, v, log_a, sp, block_size)
+    m_prev, intra, cum, _ = _exchange(q, k, v, log_a, sp, block_size,
+                                      get_strategy(sp.comm.strategy))
     o = intra[0].float() + _inter_chunk(q, log_a, m_prev)
     return o.to(q.dtype), (m_prev, cum)
 
@@ -122,7 +121,7 @@ def _noncausal_fwd_local(q, k, v, sp: SPConfig):
     state (no decay)."""
     m_loc = k.float().transpose(-1, -2) @ v.float()
     ms = primitives.allgather_states(
-        m_loc.to(primitives.wire_dtype(sp.comm_dtype)), sp.group,
+        m_loc.to(primitives.wire_dtype(sp.comm.dtype)), sp.group,
         tag="lasp2.noncausal")
     m_tot = primitives.upcast_gathered(ms).sum(0)
     return (q.float() @ m_tot).to(q.dtype), m_tot
@@ -155,7 +154,7 @@ class _CausalFaithful(torch.autograd.Function):
         dm_up = (q.float() * b).transpose(-1, -2) @ dof
         # line 4: the single backward AllGather (comm_dtype on the wire)
         dms = primitives.upcast_gathered(primitives.allgather_states(
-            dm_up.to(primitives.wire_dtype(sp.comm_dtype)), sp.group,
+            dm_up.to(primitives.wire_dtype(sp.comm.dtype)), sp.group,
             tag="lasp2.dstates"))
         # line 9: decayed suffix sum, local
         dm_loc = suffix_grad_combine(dms, cum, sp.chunk_index)
@@ -189,7 +188,7 @@ class _NoncausalFaithful(torch.autograd.Function):
         dof = do.float()
         dm_up = q.float().transpose(-1, -2) @ dof
         dms = primitives.upcast_gathered(primitives.allgather_states(
-            dm_up.to(primitives.wire_dtype(sp.comm_dtype)), sp.group,
+            dm_up.to(primitives.wire_dtype(sp.comm.dtype)), sp.group,
             tag="lasp2.nc.dstates"))
         # Alg. 3 line 5 writes a suffix sum; without the mask every chunk's
         # state feeds every output, so the cotangent is the full sum (as
@@ -214,13 +213,15 @@ def lasp2_with_state(q, k, v, log_a=None, *, sp: SPConfig = None,
     """Causal LASP-2 forward that also returns the end-of-sequence memory
     state (prefill seeds the decode cache with it; inference only, no
     custom backward). The end state needs every chunk's contribution,
-    which the gather provides."""
+    which the gather provides: the exchange is "allgather" whatever
+    ``sp.comm.strategy`` is."""
     if log_a is None:
         log_a = _zero_log_a(q)
     if sp is None or sp.degree == 1:
         o, state, _ = _intra_chunk(q, k, v, log_a, block_size)
         return o, state
-    m_prev, intra, cum, states = _exchange(q, k, v, log_a, sp, block_size)
+    m_prev, intra, cum, states = _exchange(q, k, v, log_a, sp, block_size,
+                                           prefix_allgather)
     o = intra[0].float() + _inter_chunk(q, log_a, m_prev)
     # global end state: decayed combine of all chunks (same on all ranks)
     logw = torch.clamp(cum[-1][None] - cum, max=0.0)
@@ -242,6 +243,12 @@ def lasp2(q, k, v, log_a=None, *, sp: SPConfig = None, causal: bool = True,
       causal: causal (Alg. 2) or bidirectional (Alg. 1, no decay).
       backward: "faithful" (Alg. 3/4) or "autodiff". A learned or
         data-dependent ``log_a`` needs "autodiff".
+
+    The exchange is ``sp.comm.strategy``. "ulysses" is "allgather" here
+    (its all-to-alls are the softmax layers'); the faithful backward is
+    the all-gather's Alg. 4, so any other strategy differentiates by
+    autodiff (each hop's backward is a hop); "ring" and "pipelined" are
+    causal only.
     """
     if backward not in ("faithful", "autodiff"):
         raise ValueError(f"backward must be 'faithful' or 'autodiff', got "
@@ -254,6 +261,12 @@ def lasp2(q, k, v, log_a=None, *, sp: SPConfig = None, causal: bool = True,
         m_tot, _ = chunk_summaries(
             k, v, None, block_size=pick_block(q.shape[-2], block_size))
         return (q.float() @ m_tot).to(q.dtype)
+    if sp.comm.strategy not in ("allgather", "ulysses"):
+        if not causal:
+            raise ValueError(
+                f"comm strategy {sp.comm.strategy!r} is causal-only; the "
+                f"bidirectional path uses the allgather exchange")
+        backward = "autodiff"
     if causal:
         if backward == "faithful":
             return _CausalFaithful.apply(q, k, v, log_a, sp, block_size)

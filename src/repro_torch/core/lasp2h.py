@@ -3,8 +3,10 @@
 Twin of ``repro/core/lasp2h.py``: the plain softmax attention with its
 mask, the decode-time attention of one token against a ring-buffer KV
 cache (both plain tensor code, as the reference computes them in XLA),
-and the AllGather context attention of paper Alg. 7, the softmax layers'
-sequence parallelism. Ulysses, the chunked banded form and the sharded
+the AllGather context attention of paper Alg. 7, the softmax layers'
+sequence parallelism, and its DeepSpeed-Ulysses alternative (two
+all-to-alls around full-sequence attention on a subset of the heads).
+The 3D (USP) form of Ulysses, the windowed halo exchange and the sharded
 decode merge come with later slices (M8, serving under SP).
 """
 
@@ -66,7 +68,7 @@ def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
     q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk of the
     sequence (``sp``: a ``core.lasp2.SPConfig``; None or degree 1 → local
     attention over the whole sequence). One all-gather each of K and V
-    along the sequence (``lasp2h.k``, ``lasp2h.v``; in ``sp.comm_dtype``,
+    along the sequence (``lasp2h.k``, ``lasp2h.v``; in ``sp.comm.dtype``,
     upcast back on arrival), whose backward is the mirrored reduce-scatter
     of dK and dV; then the flash op for this rank's queries at global
     positions ``t·C + i`` over the ``W·C`` gathered keys.
@@ -77,11 +79,80 @@ def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
                                       scale=scale)
     c = q.shape[-2]
     kg, vg = (primitives.upcast_gathered(primitives.allgather_states(
-        _narrow(x, sp.comm_dtype), sp.group, gather_axis=2, tiled=True,
+        _narrow(x, sp.comm.dtype), sp.group, gather_axis=2, tiled=True,
         tag=tag), x.dtype) for x, tag in ((k, "lasp2h.k"), (v, "lasp2h.v")))
     return ops.flash_attention_op(q, kg, vg, causal=causal,
                                   sliding_window=sliding_window, scale=scale,
                                   q_offset=sp.chunk_index * c)
+
+
+# ---------------------------------------------------------------------------
+# Ulysses head-parallel context attention (DeepSpeed-Ulysses).
+# ---------------------------------------------------------------------------
+
+def check_ulysses_heads(hq: int, hkv: int, degree: int) -> None:
+    """Raise unless both head counts split over the ``degree`` ranks
+    (under GQA the kv heads are the binding constraint)."""
+    if hq % degree or hkv % degree:
+        raise ValueError(
+            f"ulysses head-parallelism needs n_heads and n_kv_heads "
+            f"divisible by the sequence-parallel degree: n_heads={hq}, "
+            f"n_kv_heads={hkv}, degree {degree}. Pick a degree dividing "
+            f"both or use comm strategy 'allgather'.")
+
+
+def pack_ulysses(q, k, v, degree: int):
+    """q (B, Hq, C, dh), k, v (B, Hkv, C, dh) → one (B, Hq + 2·Hkv, C, dh)
+    tensor whose head axis splits into ``degree`` equal blocks, block i
+    being ``q_i ‖ k_i ‖ v_i``: the heads destination rank i attends with.
+    A plain q ‖ k ‖ v concat would send rank 0 query heads only."""
+    b, hq, c, dh = q.shape
+    hkv = k.shape[1]
+    check_ulysses_heads(hq, hkv, degree)
+    blocks = [x.to(q.dtype).reshape(b, degree, x.shape[1] // degree, c, dh)
+              for x in (q, k, v)]
+    return torch.cat(blocks, dim=2).reshape(b, hq + 2 * hkv, c, dh)
+
+
+def unpack_ulysses(block, hq: int, hkv: int, degree: int):
+    """One received head block (B, (Hq + 2·Hkv)/g, S, dh) → its (q, k, v)
+    heads: the inverse of one block of :func:`pack_ulysses`."""
+    nq, nkv = hq // degree, hkv // degree
+    return (block[:, :nq], block[:, nq:nq + nkv],
+            block[:, nq + nkv:nq + 2 * nkv])
+
+
+def ulysses_context_attention(q, k, v, *, sp=None, causal: bool = True,
+                              sliding_window: Optional[int] = None,
+                              scale: Optional[float] = None):
+    """DeepSpeed-Ulysses context attention for LASP-2H softmax layers
+    (comm strategy "ulysses"), the 2D form: the head-parallel group is the
+    SP group itself.
+
+    q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk (``sp``
+    None or degree 1 → local attention). One all-to-all of the packed
+    q‖k‖v takes the sequence-sharded layout to a head-sharded one
+    (``ulysses.in``, narrowed to ``sp.comm.dtype``); the flash op attends
+    this rank's 1/W of the heads over the whole sequence (``q_offset``
+    0); a second all-to-all takes the output back (``ulysses.out``).
+    Backward: the mirrored pair.
+    """
+    if sp is None or sp.degree == 1:
+        return ops.flash_attention_op(q, k, v, causal=causal,
+                                      sliding_window=sliding_window,
+                                      scale=scale)
+    g = sp.degree
+    hq, hkv = q.shape[1], k.shape[1]
+    blk = primitives.alltoall(
+        _narrow(pack_ulysses(q, k, v, g), sp.comm.dtype), sp.group,
+        split_axis=1, concat_axis=2, tag="ulysses.in")
+    ql, kl, vl = unpack_ulysses(primitives.upcast_gathered(blk, q.dtype),
+                                hq, hkv, g)
+    o = ops.flash_attention_op(ql, kl, vl, causal=causal,
+                               sliding_window=sliding_window, scale=scale,
+                               q_offset=0)
+    return primitives.alltoall(o, sp.group, split_axis=2, concat_axis=1,
+                               tag="ulysses.out")
 
 
 def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,

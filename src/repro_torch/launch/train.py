@@ -9,6 +9,7 @@
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
       -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
       --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks
+      # --comm-strategy ring | pipelined | ulysses: the other exchanges
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``; data is ``SyntheticLM`` (packed
@@ -55,6 +56,11 @@ def main(argv=None):
                     default=True,
                     help="shard the Adam moments over the data ranks "
                          "(--no-zero1 to replicate them)")
+    ap.add_argument("--comm-strategy", default="allgather",
+                    choices=["allgather", "ring", "pipelined", "ulysses"],
+                    help="the SP exchange: LASP-2's state all-gather, "
+                         "LASP-1's ring, the ring in dv slices, or "
+                         "Ulysses' all-to-alls for softmax layers")
     ap.add_argument("--comm-dtype", default="fp32", choices=["fp32", "bf16"])
     ap.add_argument("--comm-overlap", default="overlap",
                     choices=["overlap", "none"])
@@ -82,6 +88,7 @@ def main(argv=None):
                     warmup_steps=max(args.steps // 20, 5),
                     remat=args.remat, seed=args.seed,
                     ckpt_verify=args.ckpt_verify, zero1=args.zero1,
+                    comm_strategy=args.comm_strategy,
                     comm_dtype=args.comm_dtype,
                     comm_overlap=args.comm_overlap)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)

@@ -5,8 +5,9 @@ and the layer glue, with full-sequence (forward, prefill) and single-token
 Twin of the softmax, linear and dense parts of ``repro/models/blocks.py``.
 Mixers consume and produce ``(B, S, d)``; inside, activations are ``(B, H,
 S, dh)``. Under sequence parallelism (``Ctx.sp``) ``S`` is this rank's
-chunk: linear layers run LASP-2 (``core.lasp2``), softmax layers the K/V
-all-gather of LASP-2H (``core.lasp2h``). Mamba2, hymba, cross-attention
+chunk: linear layers run LASP-2 (``core.lasp2``, the exchange of
+``sp.comm``), softmax layers the K/V all-gather of LASP-2H or, under the
+"ulysses" strategy, its two all-to-alls (``core.lasp2h``). Mamba2, hymba, cross-attention
 and MoE layers are ported in later slices and raise
 ``NotImplementedError`` here.
 """
@@ -22,7 +23,8 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core import linear_attention as la_core
 from repro_torch.core.lasp2 import lasp2
 from repro_torch.core.lasp2h import (allgather_context_attention,
-                                     ring_decode_attention)
+                                     ring_decode_attention,
+                                     ulysses_context_attention)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
                                        rmsnorm, rmsnorm_init, rope)
@@ -84,19 +86,21 @@ def softmax_init(generator, cfg: ModelConfig, dtype, device):
 
 
 def _softmax_out(params, x, q, k, v, ctx: Ctx, window):
-    o = allgather_context_attention(q, k, v, sp=ctx.sp, causal=ctx.causal,
-                                    sliding_window=window)
+    attend = ulysses_context_attention if ctx.sp is not None and \
+        ctx.sp.comm.strategy == "ulysses" else allgather_context_attention
+    o = attend(q, k, v, sp=ctx.sp, causal=ctx.causal, sliding_window=window)
     return _heads_merge(o) @ params["wo"].to(x.dtype)
 
 
 def softmax_apply(params, x, ctx: Ctx, *, window=None):
     """Full-sequence GQA attention through ``ops.flash_attention_op`` (the
     flash kernels on the card); under sequence parallelism the K/V
-    all-gather of LASP-2H first. The reference takes its banded XLA form
-    when ``S % window == 0`` (never inside its DP×SP step); it computes
-    the same function, and the kernels' run-time band skips the same
-    blocks. Softmax layers ignore ``ctx.resets``: on packed rows they
-    attend across documents, as in the reference."""
+    all-gather of LASP-2H first, or under the "ulysses" strategy the two
+    all-to-alls of ``ulysses_context_attention``. The reference takes its
+    banded XLA form when ``S % window == 0`` (never inside its DP×SP
+    step); it computes the same function, and the kernels' run-time band
+    skips the same blocks. Softmax layers ignore ``ctx.resets``: on
+    packed rows they attend across documents, as in the reference."""
     q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
     return _softmax_out(params, x, q, k, v, ctx, window)
 

@@ -23,6 +23,7 @@ import torch
 from repro_torch.comm import primitives
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.lasp2 import SPConfig
+from repro_torch.core.lasp2h import check_ulysses_heads
 from repro_torch.core.tree import leaves_with_paths, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
@@ -155,9 +156,12 @@ class ShardedStep:
       chunk), its gradients accumulated by autograd over the microbatches
       into per-leaf views of ONE flat fp32 buffer (a second full-width
       copy is what a full-width step on one card could not hold);
-    - every collective of the model on its SP group: per linear layer one
-      state all-gather forward (``lasp2.states``), per softmax layer the
-      K/V all-gathers (``lasp2h.k``, ``lasp2h.v``), their backwards;
+    - every collective of the model on its SP group, by
+      ``run.comm_strategy``: per linear layer one state all-gather forward
+      (``lasp2.states``) or the ring's hops (``lasp2.ring``,
+      ``lasp2.pipelined[i]``), per softmax layer the K/V all-gathers
+      (``lasp2h.k``, ``lasp2h.v``) or Ulysses' two all-to-alls
+      (``ulysses.in``, ``ulysses.out``), their backwards;
     - exactly ONE gradient reduction: the flat gradients ‖ [ce_sum, n]
       all-reduced over every rank (``train.grads``), then normalised by
       the global token count;
@@ -176,9 +180,10 @@ class ShardedStep:
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, layout):
         self.cfg, self.run, self.layout = cfg, run, layout
-        self.sp = SPConfig(layout.sp_group, comm_dtype=run.comm_dtype,
-                           overlap=run.comm_overlap) if layout.sp > 1 \
-            else None
+        self.sp = SPConfig(layout.sp_group, comm=run.comm_spec()) \
+            if layout.sp > 1 else None
+        if self.sp is not None and run.comm_strategy == "ulysses":
+            check_ulysses_heads(cfg.n_heads, cfg.n_kv_heads, layout.sp)
         self.zero1 = zero1_degree(run, layout)
         self._buf = None
         self._decay = None

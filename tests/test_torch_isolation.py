@@ -58,6 +58,7 @@ def test_port_imports_without_loading_jax():
             "repro_torch.models.weights, repro_torch.launch.train, "
             "repro_torch.train.loop, repro_torch.checkpoint.manager, "
             "repro_torch.comm.primitives, repro_torch.comm.strategy, "
+            "repro_torch.comm.spec, repro_torch.core.baselines, "
             "repro_torch.core.lasp2, repro_torch.launch.mesh; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")

@@ -601,15 +601,12 @@ def test_chunk_bwd_sm90_with_the_sp_state_cotangent(gen):
                                atol=1e-3 + slack)
 
 
-def test_flash_sm90_at_the_sp_context_shape(gen):
-    """Under sequence parallelism a softmax layer attends with its rank's
-    chunk of queries (sq = C = 1024) over the gathered keys (sk = W·C =
-    2048) at q_offset t·C = 1024, window 2048, dh 128: K4, K5a and K5b on
-    ``sm90`` against the plain versions at the limits of
+def _flash_sm90_case(gen, b, h, sq, sk, q_offset):
+    """K4, K5a and K5b on ``sm90`` (bf16, dh 128, causal, window 2048)
+    against the plain versions at the limits of
     ``test_flash_kernels_explicit_offset_and_kv_len``."""
-    q, k, v, do = _flash_inputs(gen, 4, 16, 16, 1024, 2048, 128,
-                                torch.bfloat16)
-    kw = dict(causal=True, window=2048, q_offset=1024, kv_len=2048)
+    q, k, v, do = _flash_inputs(gen, b, h, h, sq, sk, 128, torch.bfloat16)
+    kw = dict(causal=True, window=2048, q_offset=q_offset, kv_len=sk)
     counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
     before = [c.route_launches["sm90"] for c in counters]
@@ -629,3 +626,17 @@ def test_flash_sm90_at_the_sp_context_shape(gen):
     _close_bf16(o, o_p, b_o)
     for g, w, bound in zip((dq, dk, dv), want, b_grads):
         _close_bf16(g, w, bound)
+
+
+def test_flash_sm90_at_the_sp_context_shape(gen):
+    """Under sequence parallelism a softmax layer attends with its rank's
+    chunk of queries (sq = C = 1024) over the gathered keys (sk = W·C =
+    2048) at q_offset t·C = 1024, window 2048, dh 128."""
+    _flash_sm90_case(gen, 4, 16, 1024, 2048, 1024)
+
+
+def test_flash_sm90_at_the_ulysses_shape(gen):
+    """Under the "ulysses" strategy at W 2 a softmax layer attends with
+    half its heads (8 of 16) over the whole sequence (S 2048) at q_offset
+    0, window 2048, dh 128."""
+    _flash_sm90_case(gen, 4, 8, 2048, 2048, 0)

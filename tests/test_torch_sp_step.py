@@ -52,7 +52,8 @@ def _port(ref, dp, sp):
     ranks = run_ranks(R.step_rank, dp * sp, args=(dp, sp, str(ref)),
                       timeout_s=300)
     with np.load(ref) as npz:
-        want = {k: npz[k] for k in npz.files if not k.startswith("param/")}
+        want = {k: npz[k] for k in npz.files
+                if not k.startswith(("param/", "hparam/"))}
     return dp, sp, ranks, want
 
 
@@ -126,6 +127,49 @@ def test_step_tape(port):
             (1 if dp > 1 else 0)
         assert sum(x.startswith("reduce-scatter|lasp2.states.bwd")
                    for x in tape) == per_step
+
+
+def test_ring_step_matches_reference(sp4):
+    """The "ring" strategy at (1, 4) on packed rows: 3 steps within 1e-3
+    of the reference's ring step; per linear layer and microbatch W-1 = 3
+    state hops forward and 3 back, no state all-gather."""
+    dp, sp, ranks, want = sp4
+    per_step = R.step_cfg().n_layers * R.RUN["num_microbatches"]
+    for r in ranks:
+        np.testing.assert_allclose(r["ring_losses"],
+                                   want[f"dp{dp}sp{sp}/ring_loss"],
+                                   rtol=TOL, atol=TOL)
+        fwd = [x for x in r["ring_tape"]
+               if not x.split("|")[1].endswith(".bwd")]
+        assert set(fwd) == set(_rows(want[f"dp{dp}sp{sp}/ring_tape"]))
+        tags = [x.split("|")[1] for x in r["ring_tape"]]
+        assert tags.count("lasp2.ring") == tags.count("lasp2.ring.bwd") \
+            == (sp - 1) * per_step
+        assert "lasp2.states" not in tags
+
+
+def test_ulysses_step_matches_reference(dp2sp2):
+    """The "ulysses" strategy at (2, 2) on the hybrid cut (3 linear + 1
+    softmax layer), ZeRO-1: 3 steps within 1e-3 of the reference's
+    ulysses step; per microbatch the linear layers' state all-gathers and
+    the softmax layer's two all-to-alls forward (their mirrors backward),
+    no K/V all-gather."""
+    dp, sp, ranks, want = dp2sp2
+    micro = R.RUN["num_microbatches"]
+    for r in ranks:
+        np.testing.assert_allclose(r["ulysses_losses"],
+                                   want[f"dp{dp}sp{sp}/ulysses_loss"],
+                                   rtol=TOL, atol=TOL)
+        # the reference records the all-to-alls' mirrors, not the
+        # reduce-scatters of its gathers
+        assert {x for x in r["ulysses_tape"]
+                if not x.startswith("reduce-scatter|")} == set(
+            _rows(want[f"dp{dp}sp{sp}/ulysses_tape"]))
+        tags = [x.split("|")[1] for x in r["ulysses_tape"]
+                if not x.split("|")[1].endswith(".bwd")]
+        assert tags.count("lasp2.states") == 3 * micro
+        assert tags.count("ulysses.in") == tags.count("ulysses.out") == micro
+        assert not any(t.startswith("lasp2h.") for t in tags)
 
 
 def test_bf16_wire_halves_state_bytes(sp4):
@@ -236,13 +280,21 @@ def test_zero1_pieces_match_reference(n_shards):
 
 
 def test_sp_config_refuses_unknown_knob_values():
-    """The overlap mode and the wire dtype are checked when the split is
-    made, before any collective."""
+    """The overlap mode, the wire dtype and the strategy are checked when
+    the split's spec is made, before any collective."""
+    from repro_torch.comm.spec import CommSpec
     from repro_torch.core.lasp2 import SPConfig
     with pytest.raises(ValueError, match="overlap mode"):
-        SPConfig(None, overlap="ring")
+        SPConfig(None, comm=CommSpec(overlap="ring"))
     with pytest.raises(ValueError, match="comm_dtype"):
-        SPConfig(None, comm_dtype="fp8")
+        SPConfig(None, comm=CommSpec(dtype="fp8"))
+    # a run's knobs fail when the run is made, whatever its layout
+    with pytest.raises(ValueError, match="comm strategy"):
+        RunConfig(comm_strategy="smoke")
+    with pytest.raises(ValueError, match="overlap mode"):
+        RunConfig(comm_overlap="ring")
+    with pytest.raises(ValueError, match="comm_dtype"):
+        RunConfig(comm_dtype="fp8")
 
 
 def test_checkpoints_of_a_sharded_run_wait_for_m9(tmp_path):
@@ -275,6 +327,24 @@ def test_train_cli_under_torchrun_with_sp_degree_2():
     assert out.stdout.count("over 20 steps (improved)") == 1, out.stdout
 
 
+@pytest.mark.parametrize("strategy", ["ring", "ulysses"])
+def test_train_cli_under_torchrun_with_comm_strategy(strategy):
+    """``--comm-strategy ring`` and ``ulysses`` under torchrun with
+    ``--sp-degree 2 --device cpu``: the loss falls (SMOKE is all linear,
+    so "ulysses" exchanges as "allgather")."""
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "repro_torch.launch.train",
+         "--smoke", "--device", "cpu", "--sp-degree", "2", "--steps", "20",
+         "--seq", "64", "--batch", "4", "--lr", "1e-3", "--comm-strategy",
+         strategy],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin",
+                       "OMP_NUM_THREADS": "1"},
+        capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.count("over 20 steps (improved)") == 1, out.stdout
+
+
 # ---------------------------------------------------------------------------
 # The reference side (run as a script, in its own process).
 # ---------------------------------------------------------------------------
@@ -285,35 +355,42 @@ def _jax_reference(path):
     from repro.comm import primitives as jprim
     from repro.comm.spec import CommSpec
     from repro.configs import get_smoke
+    from repro.configs.base import LayerSpec
     from repro.configs.base import RunConfig as JRunConfig
     from repro.data.pipeline import SyntheticLM
     from repro.launch.mesh import make_training_mesh
     from repro.sharding.rules import make_plan
     from repro.train.step import init_state, make_train_step
 
-    cfg = dataclasses.replace(get_smoke(R.ARCH), dtype="float32")
+    smoke = dataclasses.replace(get_smoke(R.ARCH), dtype="float32")
+    hybrid = R.hybrid_step_cfg(get_smoke(R.ARCH), LayerSpec)
     run = JRunConfig(**R.RUN)
-    data = SyntheticLM(cfg.vocab_size, R.DATA["seq_len"],
+    data = SyntheticLM(smoke.vocab_size, R.DATA["seq_len"],
                        R.DATA["global_batch"], seed=R.DATA["seed"])
     out = {}
-    cells = [(dp, sp, "") for dp, sp in R.STEP_LAYOUTS] + [(1, 4, "faithful_")]
-    for dp, sp, kind in cells:
+    cells = [(dp, sp, "", "allgather") for dp, sp in R.STEP_LAYOUTS] + [
+        (1, 4, "faithful_", "allgather"), (1, 4, "ring_", "ring"),
+        (2, 2, "ulysses_", "ulysses")]
+    for dp, sp, kind, strategy in cells:
+        cfg = hybrid if strategy == "ulysses" else smoke
         plan = make_plan(make_training_mesh(dp, sp), "train",
                          global_batch=R.DATA["global_batch"],
                          n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
-                         zero1=True, comm=CommSpec(dtype="fp32"))
+                         zero1=True, comm=CommSpec(strategy=strategy,
+                                                   dtype="fp32"))
         state = init_state(jax.random.PRNGKey(0), cfg, run, plan)
-        if not out:
+        prefix = "hparam" if cfg is hybrid else "param"
+        if not any(k.startswith(f"{prefix}/") for k in out):
             for p, leaf in jax.tree_util.tree_flatten_with_path(
                     state["params"])[0]:
                 key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                                for k in p)
-                out[f"param/{key}"] = np.asarray(leaf)
+                out[f"{prefix}/{key}"] = np.asarray(leaf)
         step = jax.jit(make_train_step(cfg, run, plan))
         losses = []
         for i in range(R.N_STEPS):
             batch = data.microbatched(i, run.num_microbatches)
-            if kind:
+            if kind == "faithful_":
                 batch.pop("resets")
             with jprim.tape() as rec:       # records while jit traces
                 state, m = step(state, batch)

@@ -69,6 +69,7 @@ def _num(ts):
 def layer_rank(rank, world, device):
     """Every layer-level case on this rank's chunk: outputs, gradients of
     ``sum(sin(o))`` and the tape of the forward and backward."""
+    from repro_torch.comm.spec import CommSpec
     from repro_torch.core.lasp2 import SPConfig, lasp2, lasp2_with_state
     from repro_torch.core.lasp2h import allgather_context_attention
 
@@ -90,7 +91,7 @@ def layer_rank(rank, world, device):
     for name, causal, la, bwd in LINEAR_CASES:
         linear(name, causal, la, bwd, sp)
     linear("overlap_none", True, "decay", "faithful",
-           SPConfig(dist.group.WORLD, overlap="none"))
+           SPConfig(dist.group.WORLD, comm=CommSpec(overlap="none")))
     with primitives.tape() as rec:
         o, st = lasp2_with_state(seq("q"), seq("k"), seq("v"), seq("decay"),
                                  sp=sp)
@@ -114,6 +115,124 @@ def layer_rank(rank, world, device):
 
 
 # ---------------------------------------------------------------------------
+# Layer level: the exchange strategies and the baselines.
+# ---------------------------------------------------------------------------
+
+STRATEGIES = ("allgather", "ring", "pipelined", "ulysses")
+OVERLAPS = ("overlap", "none")
+WIRES = ("fp32", "bf16")
+DECAYS = ("none", "decay", "resets")
+# Ulysses over W 2 and 4 with GQA 8:4.
+UHQ, UHKV = 8, 4
+ULYSSES_CASES = [("uly_causal", None, "fp32"), ("uly_window", 96, "fp32"),
+                 ("uly_bf16", None, "bf16")]
+
+
+def strategy_case(strategy, overlap, wire, la):
+    return f"{strategy}_{overlap}_{wire}_{la}"
+
+
+def ulysses_inputs():
+    rng = np.random.default_rng(1)
+    f32 = lambda x: (x * 0.5).astype(np.float32)
+    return {"qu": f32(rng.standard_normal((B, UHQ, S, DH))),
+            "ku": f32(rng.standard_normal((B, UHKV, S, DH))),
+            "vu": f32(rng.standard_normal((B, UHKV, S, DH)))}
+
+
+def tape_totals(rows):
+    """``op|tag|payload|traffic|steps`` rows summed by op, tag and payload
+    into ``{key: [traffic, steps]}``: the port records a hop each call,
+    the reference a loop's hops in one record."""
+    out = {}
+    for row in rows:
+        op, tag, pb, traffic, steps = row.split("|")
+        t = out.setdefault(f"{op}|{tag}|{pb}", [0, 0])
+        t[0] += int(traffic)
+        t[1] += int(steps)
+    return out
+
+
+def full_rows(records):
+    return [f"{r.op}|{r.tag}|{r.payload_bytes}|{r.traffic_bytes}|{r.steps}"
+            for r in records]
+
+
+def issued_before_compute(seq, sp):
+    """Per ``<strategy>_<overlap>``: the records on the tape when the
+    strategy calls its intra-chunk ``compute``."""
+    from repro_torch.comm.strategy import get_strategy
+    from repro_torch.core.linear_attention import (chunk_summaries,
+                                                   pick_block)
+    k = seq("k")
+    m_loc, a_loc = chunk_summaries(k, seq("v"), seq("decay"),
+                                   block_size=pick_block(k.shape[-2], 128))
+    out = {}
+    for strategy in ("allgather", "ring", "pipelined"):
+        for overlap in OVERLAPS:
+            with primitives.tape() as rec:
+                get_strategy(strategy)(
+                    m_loc, a_loc, sp.group, sp.chunk_index, overlap,
+                    lambda: out.__setitem__(f"{strategy}_{overlap}",
+                                            len(rec)), torch.float32)
+    return out
+
+
+def strategies_rank(rank, world, device):
+    """Every strategy and baseline case on this rank's chunk: outputs,
+    gradients of ``sum(sin(o))`` and the tape (``full_rows``) of the
+    forward and backward; and the errors of the causal-only strategies."""
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core import baselines
+    from repro_torch.core.lasp2 import SPConfig, lasp2
+    from repro_torch.core.lasp2h import ulysses_context_attention
+
+    sp = SPConfig(dist.group.WORLD)
+    ins = {**layer_inputs(), **ulysses_inputs()}
+    seq = lambda name: _chunk(ins[name], rank, world, 2)
+    res = {}
+
+    def run(name, fn, names):
+        xs = [seq(n).requires_grad_(True) for n in names]
+        with primitives.tape() as rec:
+            o = fn(*xs)
+            grads = torch.autograd.grad(torch.sin(o).sum(), xs)
+        res[name] = {"o": o.detach().numpy(), "grads": _num(grads),
+                     "tape": full_rows(rec)}
+
+    for strategy in STRATEGIES:
+        for overlap in OVERLAPS:
+            for wire in WIRES:
+                spc = SPConfig(dist.group.WORLD,
+                               comm=CommSpec(strategy, overlap, wire))
+                for la in DECAYS:
+                    names = "qkv" if la == "none" else ["q", "k", "v", la]
+                    run(strategy_case(strategy, overlap, wire, la),
+                        lambda *a, s=spc: lasp2(*a, sp=s), names)
+    for name, window, wire in ULYSSES_CASES:
+        spu = SPConfig(dist.group.WORLD, comm=CommSpec("ulysses", dtype=wire))
+        run(name, lambda *a, w=window, s=spu: ulysses_context_attention(
+            *a, sp=s, sliding_window=w), ("qu", "ku", "vu"))
+    for la in ("none", "decay"):
+        names = "qkv" if la == "none" else ["q", "k", "v", la]
+        run(f"lasp1_{la}", lambda *a: baselines.lasp1(*a, sp=sp), names)
+    run("ring_attn", lambda *a: baselines.ring_attention(*a, sp=sp),
+        ("qs", "ks", "vs"))
+    run("megatron", lambda *a: baselines.megatron_sp_attention(*a, sp=sp),
+        ("qs", "ks", "vs"))
+    res["issued"] = issued_before_compute(seq, sp)
+    res["errors"] = {}
+    for strategy in ("ring", "pipelined"):
+        try:
+            lasp2(seq("q"), seq("k"), seq("v"), causal=False,
+                  sp=SPConfig(dist.group.WORLD, comm=CommSpec(strategy)))
+            res["errors"][strategy] = None
+        except ValueError as e:
+            res["errors"][strategy] = str(e)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Step level: the DP×SP step on SMOKE linear-llama3-1b.
 # ---------------------------------------------------------------------------
 
@@ -133,12 +252,25 @@ def step_cfg():
     return dataclasses.replace(get_smoke(ARCH), dtype="float32")
 
 
-def params_tree(npz):
-    """The reference's initial params (``param/<path>`` entries of the
+def hybrid_step_cfg(base=None, layer_spec=None):
+    """SMOKE's widths as a 4-layer hybrid (3 linear + 1 softmax layer with
+    the hybrid's 2048-token window), fp32: the port's, or the
+    reference's from its ``base`` SMOKE and ``LayerSpec``."""
+    if base is None:
+        from repro_torch.configs import get_smoke
+        from repro_torch.configs.base import LayerSpec
+        base, layer_spec = get_smoke(ARCH), LayerSpec
+    dense = dataclasses.replace(base, pattern=(layer_spec(),), n_layers=4,
+                                name="smoke-dense", dtype="float32")
+    return dense.linearize(hybrid_every=4)
+
+
+def params_tree(npz, prefix="param/"):
+    """The reference's initial params (``<prefix><path>`` entries of the
     reference's npz) as the nested dict ``params_from_jax`` reads."""
     tree = {}
     for key in npz.files:
-        if key.startswith("param/"):
+        if key.startswith(prefix):
             *path, leaf = key.split("/")[1:]
             node = tree
             for p in path:
@@ -161,24 +293,26 @@ def _batches(drop_resets=False):
     return out
 
 
-def _params(npz_path, device):
+def _params(npz_path, device, hybrid=False):
     from repro_torch.models.weights import params_from_jax
     with np.load(npz_path) as npz:
-        tree = params_tree(npz)
-    return params_from_jax(tree, step_cfg(), device=device,
-                           dtype=torch.float32)
+        tree = params_tree(npz, "hparam/" if hybrid else "param/")
+    return params_from_jax(tree, hybrid_step_cfg() if hybrid else step_cfg(),
+                           device=device, dtype=torch.float32)
 
 
-def _steps(npz_path, device, layout, n, drop_resets=False, **run_kw):
-    """``n`` steps from the reference's params; returns (state, losses,
-    tape of the first step)."""
+def _steps(npz_path, device, layout, n, drop_resets=False, hybrid=False,
+           **run_kw):
+    """``n`` steps from the reference's params (of SMOKE, or of the
+    hybrid cut); returns (state, losses, tape of the first step)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.train.step import (make_train_step, state_from_params,
                                         zero1_degree)
     run = RunConfig(**{**RUN, **run_kw})
-    state = state_from_params(_params(npz_path, device),
+    state = state_from_params(_params(npz_path, device, hybrid),
                               zero1_degree(run, layout))
-    step = make_train_step(step_cfg(), run, layout)
+    step = make_train_step(hybrid_step_cfg() if hybrid else step_cfg(), run,
+                           layout)
     losses, first = [], None
     for i, batch in enumerate(_batches(drop_resets)[:n]):
         with primitives.tape() as rec:
@@ -211,6 +345,8 @@ def step_rank(rank, world, device, dp, sp, npz_path):
             npz_path, device, layout, N_STEPS, drop_resets=True)
         _, res["bf16_losses"], res["bf16_tape"] = _steps(
             npz_path, device, layout, N_STEPS, comm_dtype="bf16")
+        _, res["ring_losses"], res["ring_tape"] = _steps(
+            npz_path, device, layout, N_STEPS, comm_strategy="ring")
         # remat="full" replays each layer's forward exchange in backward
         params = _params(npz_path, device)
         batch = _batches()[0]
@@ -239,6 +375,9 @@ def step_rank(rank, world, device, dp, sp, npz_path):
         assert isinstance(s_z["opt"], Zero1AdamState)
         assert isinstance(s_r["opt"], AdamState)
         res["nonfinite"] = _nonfinite(npz_path, device, layout)
+        _, res["ulysses_losses"], res["ulysses_tape"] = _steps(
+            npz_path, device, layout, N_STEPS, hybrid=True,
+            comm_strategy="ulysses")
     return res
 
 
