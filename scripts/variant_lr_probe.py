@@ -1,0 +1,54 @@
+#!/usr/bin/env python3
+"""GLA at full width on the card at phase 7's learning rate, 3e-4, which
+``chip_smoke.py`` phase 12 does not use for it.
+
+    python3 scripts/variant_lr_probe.py
+
+GLA (``CONFIG`` with ``LinearAttnConfig("silu", "data", "autodiff")``)
+trains 5 steps through ``train()`` on phase 7's run and data
+(``chip_smoke.train_setup``) in bf16 (``sm90`` kernels) and in fp32
+(``simt`` kernels, ``remat="full"`` to fit). Prints one line per run: the
+loss, grad norm and learning rate of each step. Exits non-zero without a
+card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("variant_lr_probe: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as C
+    from repro_torch.configs import LinearAttnConfig, get_config
+    from repro_torch.train.loop import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    linear = get_config("linear-llama3-1b")
+    gla = dataclasses.replace(linear, name=linear.name + "-gla",
+                              linear_attn=LinearAttnConfig("silu", "data",
+                                                           "autodiff"))
+    for dtype, remat in (("bfloat16", "none"), ("float32", "full")):
+        cfg = dataclasses.replace(gla, dtype=dtype)
+        run, data = C.train_setup(cfg, 5, 3e-4, remat)
+        state, hist = train(cfg, run, data, log_every=10 ** 9,
+                            log_fn=lambda *_: None)
+        print(f"[probe] {cfg.name} dtype={dtype} lr={run.learning_rate} "
+              f"remat={remat} losses={[round(h['loss'], 4) for h in hist]} "
+              f"grad_norms={[round(h['grad_norm'], 3) for h in hist]} "
+              f"lrs={[round(h['lr'], 8) for h in hist]}", flush=True)
+        del state, hist
+        C._free()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """Transformer-layer bodies: the softmax (GQA) and linear-attention mixers
 and the layer glue, with full-sequence (forward, prefill) and single-token
-(decode) entry points.
+(decode) entry points. The linear mixer runs the paper's variants (§4):
+any feature map, the fixed decays and GLA's data-dependent gate (``wdt``),
+causal or bidirectional.
 
 Twin of the softmax, linear and dense parts of ``repro/models/blocks.py``.
 Mixers consume and produce ``(B, S, d)``; inside, activations are ``(B, H,
@@ -181,10 +183,12 @@ def _softmax_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
 # ===========================================================================
 
 def linear_init(generator, cfg: ModelConfig, dtype, device):
+    p = softmax_init(generator, cfg, dtype, device)
     if cfg.linear_attn.decay == "data":
-        raise NotImplementedError("data-dependent decay is ported in a "
-                                  "later slice")
-    return softmax_init(generator, cfg, dtype, device)
+        # GLA's gate: log a = logsigmoid(x @ wdt), one value a head a token
+        p["wdt"] = dense_init(generator, cfg.d_model, cfg.n_heads, dtype,
+                              device, scale=0.01)
+    return p
 
 
 def _linear_qkv(params, x, ctx: Ctx):
@@ -202,7 +206,10 @@ def _linear_qkv(params, x, ctx: Ctx):
     k = la_core.feature_map(k, lac.feature_map)
     q = q * (q.shape[-1] ** -0.5)
     b, _, s, _ = q.shape
-    if lac.decay == "none":
+    if lac.decay == "data":
+        gate = (x @ params["wdt"].to(x.dtype)).float()
+        log_a = torch.nn.functional.logsigmoid(gate).transpose(1, 2)
+    elif lac.decay == "none":
         log_a = None
     else:
         log_a = la_core.decay_log_a(lac.decay, heads=cfg.n_heads, s=s,
@@ -220,29 +227,34 @@ def _linear_qkv(params, x, ctx: Ctx):
 
 
 def linear_apply(params, x, ctx: Ctx):
-    if not ctx.causal:
-        raise NotImplementedError("bidirectional linear attention is ported "
-                                  "in a later slice")
+    """Causal: the chunk kernels (``ops.linear_attention_op``), or LASP-2
+    under sequence parallelism. Bidirectional (``ctx.causal`` False):
+    paper Alg. 1, every position reads the whole sequence's state; like
+    the reference it ignores log a and resets there."""
     lac = ctx.cfg.linear_attn
     q, k, v, log_a = _linear_qkv(params, x, ctx)
-    if ctx.sp is not None:
-        # Resets (packed documents) and data decay give log_a a role the
-        # faithful backward treats as constant: autodiff, as the reference.
-        o = lasp2(q, k, v, log_a, sp=ctx.sp, block_size=lac.block_size,
-                  backward="autodiff" if lac.decay == "data"
-                  or ctx.resets is not None else lac.backward)
-    else:
+    if ctx.sp is None and ctx.causal:
         o, _, _ = ops.linear_attention_op(q, k, v, log_a,
                                           block_size=lac.block_size)
+    else:
+        # Resets (packed documents) and data decay give log_a a role the
+        # faithful backward treats as constant: autodiff, as the reference.
+        o = lasp2(q, k, v, log_a, sp=ctx.sp, causal=ctx.causal,
+                  block_size=lac.block_size,
+                  backward="autodiff" if lac.decay == "data"
+                  or ctx.resets is not None else lac.backward)
     return _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
 
 
 def linear_cache(cfg: ModelConfig, batch, device):
     # Constant-size memory state, no KV cache; the cumulative log decay
-    # rides along so decode continues the chunked scan exactly.
-    return {"m": torch.zeros((batch, cfg.n_heads, cfg.head_dim,
-                              cfg.head_dim), dtype=torch.float32,
-                             device=device),
+    # rides along so decode continues the chunked scan exactly. Its rows
+    # are the feature map's width: 1 + dh + dh² for taylor.
+    dk = cfg.head_dim
+    if cfg.linear_attn.feature_map == "taylor":
+        dk = 1 + dk + dk * dk
+    return {"m": torch.zeros((batch, cfg.n_heads, dk, cfg.head_dim),
+                             dtype=torch.float32, device=device),
             "log_decay": torch.zeros((batch, cfg.n_heads),
                                      dtype=torch.float32, device=device)}
 

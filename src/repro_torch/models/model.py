@@ -61,13 +61,16 @@ def _device(params) -> torch.device:
 
 
 def forward(params, tokens, cfg: ModelConfig, *, resets=None,
-            remat: str = "none", sp=None):
+            remat: str = "none", sp=None, causal: bool = True):
     """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``.
 
     tokens: (B, S) int; ``resets`` (B, S) bool marks document starts of
     packed rows (the linear state is zeroed there). ``remat="full"``
     recomputes each layer in the backward pass (``torch.utils.checkpoint``)
-    instead of keeping its activations; ``"none"`` keeps them. ``sp``
+    instead of keeping its activations; ``"none"`` keeps them.
+    ``causal=False`` is the bidirectional model (paper Table 3): softmax
+    layers attend to every key, linear layers read the whole sequence's
+    state (no decay, resets ignored). ``sp``
     (``core.lasp2.SPConfig``): ``tokens`` and ``resets`` are this rank's
     chunk ``t`` of a sequence split over ``sp.degree`` ranks; its RoPE
     positions are ``t·S + arange(S)``. Under ``remat="full"`` a layer's
@@ -83,7 +86,7 @@ def forward(params, tokens, cfg: ModelConfig, *, resets=None,
     positions = torch.arange(s, device=device)
     if sp is not None:
         positions = sp.chunk_index * s + positions
-    ctx = Ctx(cfg=cfg, positions=positions, sp=sp,
+    ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
               resets=None if resets is None else resets.to(device))
     for p, spec in zip(params["layers"], cfg.layer_specs()):
         if remat == "full":

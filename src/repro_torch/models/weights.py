@@ -68,21 +68,24 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
                              f"{cfg.n_groups}")
         return tensor(arr[g], path[-1])
 
-    leaves = {"ln1": ("scale",), "ln2": ("scale",),
-              "mixer": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w2", "w3")}
-    layers = []
-    for g in range(cfg.n_groups):
-        for p, spec in enumerate(cfg.pattern):
-            if spec.mixer not in ("linear", "softmax") \
-                    or spec.mlp != "dense":
-                raise NotImplementedError(
-                    f"params_from_jax: mixer={spec.mixer!r} "
-                    f"mlp={spec.mlp!r} is ported in a later slice")
-            layers.append({mod: {name: unstacked(p, g, mod, name)
-                                 for name in names}
-                           for mod, names in leaves.items()})
-    for p in range(len(cfg.pattern)):
-        for mod, names in leaves.items():
+    def layer_leaves(spec):
+        mixer = ("wq", "wk", "wv", "wo")
+        if spec.mixer == "linear" and cfg.linear_attn.decay == "data":
+            mixer += ("wdt",)          # GLA's gate
+        return {"ln1": ("scale",), "ln2": ("scale",), "mixer": mixer,
+                "mlp": ("w1", "w2", "w3")}
+
+    for spec in cfg.pattern:
+        if spec.mixer not in ("linear", "softmax") or spec.mlp != "dense":
+            raise NotImplementedError(
+                f"params_from_jax: mixer={spec.mixer!r} "
+                f"mlp={spec.mlp!r} is ported in a later slice")
+    layers = [{mod: {name: unstacked(p, g, mod, name) for name in names}
+               for mod, names in layer_leaves(spec).items()}
+              for g in range(cfg.n_groups)
+              for p, spec in enumerate(cfg.pattern)]
+    for p, spec in enumerate(cfg.pattern):
+        for mod, names in layer_leaves(spec).items():
             for name in names:
                 del flat[("groups", str(p), mod, name)]
     embed = {"table": take("embed", "table")}

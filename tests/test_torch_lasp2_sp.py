@@ -16,6 +16,11 @@ states 3e-4, gradients 1e-3. Tapes: the reference records at trace
 time, the port at call time; the port also records each all-gather's
 backward reduce-scatter (tag ``<tag>.bwd``), which the reference's
 autodiff emits without a record, so those are compared apart.
+
+The same ranks then run three SMOKE-width models under SP from the
+reference's params (``torch_sp_ranks.MODEL_CASES``): GLA on packed rows
+and Table 3's bidirectional elu1 and softmax models, held to the port's
+one-device run and to the reference's one-device ``value_and_grad``.
 """
 
 import os
@@ -34,8 +39,9 @@ OUT_TOL, GRAD_TOL = 3e-4, 1e-3
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    """The reference's results (one subprocess for the file)."""
+def ref_path(tmp_path_factory):
+    """The reference's results and the model cases' initial params (one
+    subprocess for the file)."""
     out = tmp_path_factory.mktemp("jax") / "ref.npz"
     env = dict(os.environ,
                XLA_FLAGS="--xla_force_host_platform_device_count=4",
@@ -44,16 +50,23 @@ def ref(tmp_path_factory):
                            str(out)], env=env, capture_output=True,
                           text=True, timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    with np.load(out) as npz:
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref(ref_path):
+    with np.load(ref_path) as npz:
         return {k: npz[k] for k in npz.files}
 
 
 @pytest.fixture(scope="module", params=R.WORLDS, ids=lambda w: f"W{w}")
-def port(request):
+def port(request, ref_path):
     """The port's results at W ranks: outputs and gradients concatenated
-    over the ranks' chunks, and each rank's tapes."""
+    over the ranks' chunks, and each rank's tapes; the model cases from
+    the reference's params."""
     w = request.param
-    return w, run_ranks(R.layer_rank, w, timeout_s=300)
+    return w, run_ranks(R.layer_rank, w, args=(str(ref_path),),
+                        timeout_s=300)
 
 
 def _cat(ranks, name, key, i=None, axis=2):
@@ -214,6 +227,84 @@ def test_tape_summary_and_wire_dtype_match_reference():
 
 
 # ---------------------------------------------------------------------------
+# Model level: GLA and the bidirectional pair under sequence parallelism.
+# ---------------------------------------------------------------------------
+
+def _close_grads(got, want, scale, what):
+    assert sorted(got) == sorted(want), what
+    for key in want:
+        _close(got[key] * scale, want[key], GRAD_TOL, f"{what} {key}")
+
+
+@pytest.mark.parametrize("case,causal", R.MODEL_CASES,
+                         ids=[c[0] for c in R.MODEL_CASES])
+def test_model_under_sp_matches_one_device(ref, port, case, causal):
+    """The model forward on each rank's chunk (GLA on packed rows with
+    ``wdt``'s gate; the elu1 and softmax models with ``causal=False``):
+    logits concatenated over the ranks within 3e-4, and the mean CE's
+    gradients (the ranks' parts summed, over the global label count)
+    within 1e-3, of the port's one-device run and of the reference's
+    one-device ``value_and_grad``."""
+    w, ranks = port
+    parts = [r["models"][case] for r in ranks]
+    one = parts[0]["one_device"]
+    logits = np.concatenate([p["logits"] for p in parts], axis=1)
+    n = sum(p["n"] for p in parts)
+    assert n == one["n"] > 0
+    grads = {k: sum(p["grads"][k] for p in parts) for k in one["grads"]}
+    for what, want_logits, want_grads in (
+            ("one device", one["logits"],
+             {k: g / n for k, g in one["grads"].items()}),
+            ("reference", ref[f"model/{case}/logits"],
+             {k[len(f"model/{case}/grad/"):]: ref[k] for k in ref
+              if k.startswith(f"model/{case}/grad/")})):
+        _close(logits, want_logits, OUT_TOL, f"W{w} {case} logits vs {what}")
+        _close_grads(grads, want_grads, 1.0 / n,
+                     f"W{w} {case} grads vs {what}")
+    np.testing.assert_allclose(sum(p["ce"] for p in parts) / n,
+                               float(ref[f"model/{case}/loss"]),
+                               rtol=GRAD_TOL)
+    if case == "gla":
+        assert any(k.endswith("mixer/wdt") for k in grads)
+        assert all(np.abs(g).max() > 0 for k, g in grads.items()
+                   if k.endswith("mixer/wdt"))
+
+
+def test_model_under_sp_tapes(port):
+    """Per layer, what each model case exchanges: GLA the causal state
+    gather and (autodiff) its reduce-scatter; the bidirectional linear
+    model Alg. 1's gather of K^T V and Alg. 3's gather of dM (the faithful
+    backward, no resets); the softmax model its K and V gathers and their
+    reduce-scatters. ShardedStep's GLA gradients equal the summed ranks'
+    over the label count (1e-6)."""
+    w, ranks = port
+    layers = 2
+    want = {"gla": {"all-gather|lasp2.states": layers,
+                    "reduce-scatter|lasp2.states.bwd": layers},
+            "bidir_linear": {"all-gather|lasp2.noncausal": layers,
+                             "reduce-scatter|lasp2.noncausal.bwd": 0,
+                             "all-gather|lasp2.nc.dstates": layers},
+            "bidir_softmax": {"all-gather|lasp2h.k": layers,
+                              "all-gather|lasp2h.v": layers,
+                              "reduce-scatter|lasp2h.k.bwd": layers,
+                              "reduce-scatter|lasp2h.v.bwd": layers}}
+    for r in ranks:
+        for case, counts in want.items():
+            ops = ["|".join(row.split("|")[:2])
+                   for row in r["models"][case]["tape"]]
+            assert {k: ops.count(k) for k in counts} == counts, (case, ops)
+            assert len(ops) == sum(counts.values()), (case, ops)
+    parts = [r["models"]["gla"] for r in ranks]
+    n = sum(p["n"] for p in parts)
+    summed = {k: sum(p["grads"][k] for p in parts) / n
+              for k in parts[0]["grads"]}
+    for r in ranks:
+        for k, g in r["models"]["gla"]["sharded_grads"].items():
+            np.testing.assert_allclose(g, summed[k], rtol=1e-6, atol=1e-7,
+                                       err_msg=k)
+
+
+# ---------------------------------------------------------------------------
 # The reference side (run as a script, in its own process).
 # ---------------------------------------------------------------------------
 
@@ -266,7 +357,42 @@ def _jax_reference(path):
                         [ins["qs"], ins["ks"], ins["vs"]])
             for n, g in zip(("dq", "dk", "dv"), grads):
                 out[f"{key}/{n}"] = np.asarray(g)
+    _jax_model_reference(out)
     np.savez(path, **out)
+
+
+def _jax_model_reference(out):
+    """The model cases on one device: initial params (``mp_<case>/``),
+    logits, the mean CE and its gradients."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import base
+    from repro.models import model as JM
+
+    def keyed(tree):
+        return {"/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                         for k in p): np.asarray(leaf)
+                for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    for i, (case, causal) in enumerate(R.MODEL_CASES):
+        cfg = R.model_cfg(case, base)
+        params = JM.init_params(jax.random.PRNGKey(10 + i), cfg)
+        batch = {k: jnp.asarray(v) for k, v in R.model_batch(case).items()}
+
+        def loss(p):
+            logits, _ = JM.forward(p, batch["tokens"], cfg, remat="none",
+                                   resets=batch.get("resets"), causal=causal)
+            return JM.lm_loss(logits, batch["labels"]), logits
+
+        (val, logits), grads = jax.value_and_grad(loss, has_aux=True)(params)
+        out[f"model/{case}/logits"] = np.asarray(logits)[
+            ..., :cfg.vocab_size]
+        out[f"model/{case}/loss"] = np.asarray(val)
+        for k, v in keyed(params).items():
+            out[f"mp_{case}/{k}"] = v
+        for k, v in keyed(grads).items():
+            out[f"model/{case}/grad/{k}"] = v
 
 
 if __name__ == "__main__":

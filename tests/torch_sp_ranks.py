@@ -66,9 +66,11 @@ def _num(ts):
     return [t.detach().numpy() for t in ts]
 
 
-def layer_rank(rank, world, device):
+def layer_rank(rank, world, device, npz_path=None):
     """Every layer-level case on this rank's chunk: outputs, gradients of
-    ``sum(sin(o))`` and the tape of the forward and backward."""
+    ``sum(sin(o))`` and the tape of the forward and backward; then, with
+    the reference's params at ``npz_path``, the model-level cases
+    (``model_cases``) under "models"."""
     from repro_torch.comm.spec import CommSpec
     from repro_torch.core.lasp2 import SPConfig, lasp2, lasp2_with_state
     from repro_torch.core.lasp2h import allgather_context_attention
@@ -111,7 +113,132 @@ def layer_rank(rank, world, device):
         with primitives.tape() as rec:
             lasp2(x, x, x, sp=sp)
         res["payload"][s] = tape_rows(rec)
+    if npz_path is not None:
+        res["models"] = model_cases(rank, world, device, npz_path)
     return res
+
+
+# ---------------------------------------------------------------------------
+# Model level: the paper's variants under sequence parallelism.
+# ---------------------------------------------------------------------------
+
+# GLA (data decay, packed rows: the autodiff backward) and Table 3's
+# bidirectional pair (an elu1 linear model: the faithful Alg. 1/3 path;
+# a softmax model: the K/V all-gather with causal=False), at SMOKE's
+# widths, 2 layers, fp32.
+MODEL_CASES = (("gla", True), ("bidir_linear", False),
+               ("bidir_softmax", False))
+MODEL_ROWS, MODEL_SEQ = 2, 64
+
+
+def model_cfg(case, base=None):
+    """The case's config from a config module (``repro_torch.configs.base``
+    or the reference's ``repro.configs.base``)."""
+    if base is None:
+        from repro_torch.configs import base
+    lac = base.LinearAttnConfig("silu", "data", "autodiff") if case == "gla" \
+        else base.LinearAttnConfig("elu1", "none", "faithful")
+    mixer = "softmax" if case == "bidir_softmax" else "linear"
+    return base.ModelConfig(
+        name=f"smoke-{case}", family="dense", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=4, d_ff=160, vocab_size=512,
+        pattern=(base.LayerSpec(mixer=mixer),), linear_attn=lac,
+        dtype="float32")
+
+
+def model_batch(case):
+    """GLA: next-token rows with documents starting inside chunks.
+    Bidirectional: Table 3's masked tokens (15% become id 0, the other
+    labels -1)."""
+    rng = np.random.default_rng(4)
+    toks = rng.integers(1, 512, (MODEL_ROWS, MODEL_SEQ + 1)).astype(np.int32)
+    if case == "gla":
+        resets = np.zeros((MODEL_ROWS, MODEL_SEQ), bool)
+        resets[:, 0] = True
+        resets[0, 21] = resets[1, 40] = True
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                "resets": resets}
+    inp = toks[:, :-1]
+    mask = rng.random(inp.shape) < 0.15
+    return {"tokens": np.where(mask, 0, inp).astype(np.int32),
+            "labels": np.where(mask, inp, -1).astype(np.int32)}
+
+
+def ref_keys(tree, cfg):
+    """A port tree (one dict per layer) as ``{path: array}`` in the
+    reference's layout (layers stacked over groups per pattern position),
+    paths joined by "/" as the reference's npz names them."""
+    n = len(cfg.pattern)
+    out = {f"embed/{k}": v.detach().numpy()
+           for k, v in tree["embed"].items()}
+    out["final_norm/scale"] = tree["final_norm"]["scale"].detach().numpy()
+    for p in range(n):
+        layers = tree["layers"][p::n]
+        for mod, leaves in layers[0].items():
+            for name in leaves:
+                out[f"groups/{p}/{mod}/{name}"] = np.stack(
+                    [layer[mod][name].detach().numpy() for layer in layers])
+    return out
+
+
+def model_cases(rank, world, device, npz_path):
+    """Each ``MODEL_CASES`` model on this rank's chunk of the sequence
+    under ``SPConfig(WORLD)``: logits, CE sum, label count, the gradients
+    of the CE sum (this rank's part; the ranks' parts sum to the whole)
+    and the tape. Rank 0 also runs the whole sequence on one device; GLA
+    also runs ``ShardedStep.grads`` at (1, world), whose flat reduced
+    gradients come back as a tree."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.mesh import make_training_groups
+    from repro_torch.models import model as M
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.train.step import ShardedStep
+
+    sp = SPConfig(dist.group.WORLD)
+    layout = make_training_groups(1, world)
+    with np.load(npz_path) as npz:
+        trees = {case: params_tree(npz, f"mp_{case}/")
+                 for case, _ in MODEL_CASES}
+    out = {}
+    for case, causal in MODEL_CASES:
+        cfg = model_cfg(case)
+        params = params_from_jax(trees[case], cfg, device=device,
+                                 dtype=torch.float32)
+        batch = model_batch(case)
+        leaves = [p.requires_grad_(True) for p in _flat_leaves(params)]
+
+        def run(part, spc):
+            x = {k: part(v) for k, v in batch.items()}
+            logits = M.forward(params, x["tokens"], cfg,
+                               resets=x.get("resets"), sp=spc,
+                               causal=causal)
+            ce, n, _ = M.lm_loss_sum(logits, x["labels"])
+            it = iter(torch.autograd.grad(ce, leaves))
+            return {"logits": logits.detach()[..., :cfg.vocab_size].numpy(),
+                    "ce": float(ce.detach()), "n": int(n),
+                    "grads": ref_keys(tree_map(lambda _: next(it), params),
+                                      cfg)}
+
+        with primitives.tape() as rec:
+            res = run(lambda v: _chunk(v, rank, world, 1), sp)
+        res["tape"] = tape_rows(rec)
+        if rank == 0:
+            res["one_device"] = run(torch.from_numpy, None)
+        if case == "gla":
+            gflat, _, _ = ShardedStep(cfg, RunConfig(), layout).grads(
+                params, {k: v[None] for k, v in batch.items()})
+            off = 0
+
+            def piece(p):
+                nonlocal off
+                off += p.numel()
+                return gflat[off - p.numel():off].view_as(p)
+
+            res["sharded_grads"] = ref_keys(tree_map(piece, params), cfg)
+        out[case] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
