@@ -40,7 +40,8 @@ line:
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
    request finishes, the launch counters show K1 and K3 (16 a decode
    step) on the path, all on ``sm90``, and decode logits agree with a
-   fresh prefill;
+   fresh prefill in bf16, with the params in fp32, and with the caches
+   in fp32 too (``phase_decode_check``, which every serving path runs);
 5. profile: host wall against device kernel time of one decode step
    (4 slots, with K3's device ms in it) and one prefill batch (4 x 512),
    with the top kernels (and for the hybrid after phase 6: a decode step
@@ -111,12 +112,27 @@ line:
    Table 3's masked-token loop (``causal=False``, clip, AdamW) 3 steps on
    ``DENSE`` (K4, K5a, K5b 16 each a step, unmasked, ``sm90``) and
    ``elu1`` (Alg. 1, no kernel) at 4 x 2048, losses finite. (a), the
-   kernel cases, and (f), cell b4, run in phases 3 and 10.
+   kernel cases, and (f), cell b4, run in phases 3 and 10;
+13. ssm, the SSM family at full width (``mamba2-2.7b``: 64 layers of 80
+   SSD heads, (d_state, headdim) = (128, 64); ``hymba-1.5b``: 32 layers,
+   GQA 25:5 at dh 64 beside 25 SSD heads of (16, 64)): (a) K1, K2a, K2b
+   and K3 at both SSD shapes on SSD's log a at init (down to about −8 a
+   token), each against its plain version and timed (K1, K2a, K2b:
+   (128, 64) on ``sm90``, (16, 64) on ``simt`` in bf16 and fp32), and
+   K4, K5a, K5b timed at hymba's shape (their parity runs in phase 3);
+   (b) mamba2 serves phase 4's requests by left-padded buckets (K1 and
+   K3 64 a call, ``sm90``; the reference's cache bytes) with phase 4's
+   decode check and a profile; (c) hymba the
+   same by exact length (K1 32 on ``simt``, K4 32, K3 32), globals 0, 8,
+   16, 24, the gap on a 1100-token prompt past the 1024 window; (d) both
+   train 5 steps as phase 7 under full remat at lr 1e-4; (e) fp32 grad
+   checks of 2 layers of each against the host CPU.
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
 the paths that ran each, listed in ``launches_by_path``, phases 10's
-and 11's per cell and rank, phase 12's per path); the last line is
+and 11's per cell and rank, phase 12's and 13's per path; phase 13's
+timings at the SSM shapes under ``ssm_cases``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -154,11 +170,19 @@ TOL_O = {"bfloat16": 4e-2, "float32": 3e-4}
 TOL_GRAD = {"bfloat16": 4e-2, "float32": 1e-3}
 TOL_STATE = 1e-4
 TOL_LD = 1e-5
-# Decode logits against a fresh prefill, full width in bf16: bf16 keeps an
-# 8-bit mantissa (relative step 2^-8), and the chunked and recurrent forms
-# round o, the residual stream and every projection at different points
-# through 16 layers.
+# Decode logits against a fresh prefill (``phase_decode_check``, each entry
+# within tol + tol·|want|). In bf16: bf16 keeps an 8-bit mantissa (relative
+# step 2^-8), and the chunked and recurrent forms round o, the residual
+# stream and every projection at different points, through 16 layers
+# (``TOL_LOGITS``) or the SSM family's 32 and 64 (``TOL_LOGITS_DEEP``, set
+# from its readings 0.1709–0.2422, PERF.md §6). With the params in fp32 the
+# decode caches' bf16 K/V and conv inputs are the only bf16 roundings
+# (``TOL_LOGITS_FP32``, readings 0.0401–0.0671); with those caches in fp32
+# too, only fp32 roundings are left (``TOL_LOGITS_EXACT``).
 TOL_LOGITS = 1e-1
+TOL_LOGITS_DEEP = 2.5e-1
+TOL_LOGITS_FP32 = 1e-1
+TOL_LOGITS_EXACT = 1e-3
 
 
 def log(phase: str, **facts) -> None:
@@ -294,12 +318,31 @@ def phase_build() -> None:
 # Phase 3: kernels against their plain versions.
 # ---------------------------------------------------------------------------
 
-def _chunk_inputs(gen, bh, s, d, dtype, la_kind):
+def _ssd_log_a(gen, bh, s, nh):
+    """SSD's log a at init, per row of BH = B·nh: −exp(a_log)·dt with
+    a_log = log(h) for head h = 1..nh and dt = softplus(dt_bias + x·wdt),
+    dt_bias the softplus⁻¹ of a step drawn log-uniform in [1e-3, 0.1]
+    (``mamba2_init``), x·wdt ~ N(0, 0.1²) a token; down to about −8 a
+    token on mamba2's head 80."""
+    head = (torch.arange(bh, device="cuda") % nh + 1).float()[:, None]
+    lo, hi = np.log(1e-3), np.log(1e-1)
+    dt0 = torch.exp(lo + (hi - lo) * torch.rand(bh, 1, generator=gen,
+                                                device="cuda"))
+    dt = torch.nn.functional.softplus(
+        torch.log(torch.expm1(dt0))
+        + 0.1 * torch.randn(bh, s, generator=gen, device="cuda"))
+    return -head * dt
+
+
+def _chunk_inputs(gen, bh, s, d, dtype, la_kind, dv=None, nh=None):
+    """q, k (BH, S, d), v (BH, S, dv, default d) and log a of ``la_kind``
+    ("ssd": ``_ssd_log_a`` over ``nh`` heads, a reset mid-chunk)."""
     from repro_torch.core.linear_attention import RESET_LOG_A
     dev = "cuda"
+    dv = dv or d
     q = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.3).to(dtype)
     k = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.3).to(dtype)
-    v = (torch.randn(bh, s, d, generator=gen, device=dev) * 0.5).to(dtype)
+    v = (torch.randn(bh, s, dv, generator=gen, device=dev) * 0.5).to(dtype)
     la = torch.zeros(bh, s, device=dev)
     if la_kind == "reset":       # a reset mid-chunk, as left-padded prefill
         la[:, s // 2 - 7] = RESET_LOG_A
@@ -309,6 +352,9 @@ def _chunk_inputs(gen, bh, s, d, dtype, la_kind):
     elif la_kind == "gla":       # GLA's gate at init, a reset mid-chunk
         la = torch.nn.functional.logsigmoid(
             torch.randn(bh, s, generator=gen, device=dev) * 0.5)
+        la[:, s // 2 - 7] = RESET_LOG_A
+    elif la_kind == "ssd":       # SSD's decay at init, a reset mid-chunk
+        la = _ssd_log_a(gen, bh, s, nh)
         la[:, s // 2 - 7] = RESET_LOG_A
     return q, k, v, la
 
@@ -609,14 +655,16 @@ def _bwd_bounds(bh, s, dk, dv, dtype):
     return out
 
 
-def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full"):
+def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full", dv=None,
+                nh=None):
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
-    q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind)
+    dv = dv or d
+    q, k, v, la = _chunk_inputs(gen, bh, s, d, dtype, la_kind, dv, nh)
     o, _, _ = lasp2_chunk_fwd(q, k, v, la)
-    do = torch.randn(bh, s, d, generator=gen, device="cuda").to(dtype)
+    do = torch.randn(bh, s, dv, generator=gen, device="cuda").to(dtype)
     if cot == "state":            # only the end-of-chunk state is pulled on
         do.zero_()
-    dst = torch.randn(bh, d, d, generator=gen, device="cuda")
+    dst = torch.randn(bh, d, dv, generator=gen, device="cuda")
     return q, k, v, la, o, do, dst
 
 
@@ -773,7 +821,8 @@ def phase_bwd_kernels(kernels: list) -> list:
 # hybrid's softmax layer under SP at W = 2 (phase 10 b1: rank 1's chunk of
 # 1024 queries over both chunks' 2048 gathered keys, q_offset 1024), and
 # the bidirectional softmax model's train shape (phase 12: no mask, no
-# window, 2048 keys; bf16 and fp32). bf16 at
+# window, 2048 keys; bf16 and fp32), and hymba's attention heads (phase 13:
+# GQA 25:5 at dh 64, S 2048, window 1024 and global; bf16 and fp32). bf16 at
 # dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the rest on
 # ``simt``.
 FLASH_CASES = [
@@ -792,6 +841,12 @@ FLASH_CASES = [
     ("sp", 4, 16, 16, 1024, 2048, 128, torch.bfloat16, True, 2048, 1024),
     ("bidir", 4, 16, 16, 2048, 2048, 128, torch.bfloat16, False, None, None),
     ("bidir", 4, 16, 16, 2048, 2048, 128, torch.float32, False, None, None),
+    ("hymba", 4, 25, 5, 2048, 2048, 64, torch.bfloat16, True, 1024, None),
+    ("hymba", 4, 25, 5, 2048, 2048, 64, torch.float32, True, 1024, None),
+    ("hymba_global", 4, 25, 5, 2048, 2048, 64, torch.bfloat16, True, None,
+     None),
+    ("hymba_global", 4, 25, 5, 2048, 2048, 64, torch.float32, True, None,
+     None),
 ]
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
 # o, dq, dk and dv: fp32 at TOL_O / TOL_GRAD, bf16 at the data-scaled
@@ -993,9 +1048,34 @@ def _numel(tree) -> int:
 
 
 def _mixer_counts(cfg):
-    """(linear layers, softmax layers) of ``cfg``."""
+    """(layers that run the chunk kernels and K3: linear, mamba2 and hymba;
+    layers that run flash attention: softmax and hymba) of ``cfg``."""
     mixers = [spec.mixer for spec in cfg.layer_specs()]
-    return mixers.count("linear"), mixers.count("softmax")
+    ssm = mixers.count("mamba2") + mixers.count("hymba")
+    return mixers.count("linear") + ssm, \
+        mixers.count("softmax") + mixers.count("hymba")
+
+
+def _ssm(cfg) -> bool:
+    return any(spec.mixer in ("mamba2", "hymba") for spec in cfg.pattern)
+
+
+def _chunk_route(cfg) -> str:
+    """The route K1, K2a and K2b take on ``cfg``'s chunk layers: (dk, dv) =
+    (d_state, headdim) for SSD heads, (head_dim, head_dim) otherwise."""
+    from repro_torch.core.device import torch_dtype
+    from repro_torch.kernels import lasp2_chunk as lc
+    dk = dv = cfg.head_dim
+    if _ssm(cfg):
+        dk, dv = cfg.mamba.d_state, cfg.mamba.headdim
+    return lc._route(torch_dtype(cfg.dtype), dk, dv)
+
+
+def _log_decays(cache):
+    """Every layer's cumulative log decay (nested hymba dicts included)."""
+    from repro_torch.core.tree import leaves_with_paths
+    return [t.clone() for path, t in leaves_with_paths(cache["layers"])
+            if path[-1] == "log_decay"]
 
 
 def _count(kernels, name, path, n):
@@ -1033,43 +1113,130 @@ def _count_routed(kernels, counters, routed, launched, path) -> None:
             _count(kernels, name, path, n)
 
 
-def _decode_vs_prefill(params, cfg, prompt, gen_toks, max_len):
-    """8 decode steps after a prefill of ``prompt``, feeding ``gen_toks``,
-    each step's logits against a fresh prefill of prompt + the tokens so
-    far, within ``TOL_LOGITS``. Returns (max |error|, max |logit|, whether
-    each linear layer's cumulative log decay fell over the 8 steps)."""
+def _decode_logits(params, cfg, prompt, gen_toks, max_len, cache_dtype):
+    """Prefill ``prompt`` (rings ``max_len`` long), then 8 decode steps
+    feeding ``gen_toks``, with the K/V rings and conv inputs cached in
+    ``cache_dtype``: (each step's logits over the vocab, whether each
+    layer's cumulative log decay fell over the steps)."""
+    from repro_torch.models import blocks as B
     from repro_torch.models import model as M
-    dev = torch.device("cuda")
-    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
-    logits, cache = M.prefill(params, tokens, cfg, max_len=max_len)
-    log_decay = lambda c: [layer["mixer"]["log_decay"].clone()
-                           for layer in c["layers"]
-                           if "log_decay" in layer["mixer"]]
-    ld_prefill = log_decay(cache)
-    worst, scale = 0.0, 0.0
-    for n in range(1, 9):
-        step_tok = torch.as_tensor(gen_toks[n - 1:n], dtype=torch.int32,
-                                   device=dev)
-        logits, cache = M.decode_step(params, step_tok, cache, cfg)
-        full = np.concatenate([prompt, gen_toks[:n]])
-        ref, _ = M.prefill(params, torch.as_tensor(
-            full, dtype=torch.int32, device=dev)[None], cfg)
-        got, want = logits[0, :cfg.vocab_size], ref[0, :cfg.vocab_size]
-        check(bool(torch.isfinite(got).all()), "non-finite decode logits")
-        err, ok = max_err_within(got, want, TOL_LOGITS)
-        worst, scale = max(worst, err), max(scale, float(want.abs().max()))
-        check(ok, f"decode step {n}: logits off by {err:.3e} > {TOL_LOGITS}")
+    B.CACHE_DTYPE = cache_dtype
+    try:
+        tokens = torch.as_tensor(prompt, dtype=torch.int32,
+                                 device="cuda")[None]
+        _, cache = M.prefill(params, tokens, cfg, max_len=max_len)
+        ld_prefill = _log_decays(cache)
+        out = []
+        for n in range(8):
+            step_tok = torch.as_tensor(gen_toks[n:n + 1], dtype=torch.int32,
+                                       device="cuda")
+            logits, cache = M.decode_step(params, step_tok, cache, cfg)
+            out.append(logits[0, :cfg.vocab_size].float())
+    finally:
+        B.CACHE_DTYPE = torch.bfloat16
     fell = [bool((b < a).all()) for a, b in zip(ld_prefill,
-                                                 log_decay(cache))]
-    return worst, scale, fell
+                                                 _log_decays(cache))]
+    return out, fell
 
 
-def phase_serve(kernels: list, cfg, path: str):
+def phase_decode_check(params, cfg, path, prompt, gen_toks,
+                       max_len) -> None:
+    """Decode against a fresh prefill, for every serving path. Each of 8
+    steps' logits after a prefill of ``prompt`` and the tokens so far, held
+    to a fresh prefill of the same, entry by entry within tol + tol·|want|,
+    three ways: the bf16 serving params (``TOL_LOGITS``, or
+    ``TOL_LOGITS_DEEP`` past 16 layers); the same params cast to fp32,
+    with the caches bf16 as the reference keeps them (``TOL_LOGITS_FP32``);
+    and fp32 with the caches fp32 too (``TOL_LOGITS_EXACT``), which shows
+    the fp32 gap is the bf16 caches'. Logs max |prefill bf16 − prefill
+    fp32|, how far bf16 moves a prefill's logits, beside them. Also checks
+    K3 took a log a where the model has one: every such layer's cumulative
+    log decay fell over the steps (and none did without one)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import model as M
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    bf16, fp32 = torch.bfloat16, torch.float32
+    runs = {"bf16": (_decode_logits(params, cfg, prompt, gen_toks, max_len,
+                                    bf16),
+                     TOL_LOGITS if cfg.n_layers <= 16 else TOL_LOGITS_DEEP),
+            "fp32": (_decode_logits(p32, cfg32, prompt, gen_toks, max_len,
+                                    bf16), TOL_LOGITS_FP32),
+            "fp32_caches_fp32": (_decode_logits(p32, cfg32, prompt, gen_toks,
+                                                max_len, fp32),
+                                 TOL_LOGITS_EXACT)}
+    worst = dict.fromkeys(runs, 0.0)
+    ok = dict.fromkeys(runs, True)
+    yard = scale = 0.0
+    for n in range(8):
+        full = torch.as_tensor(np.concatenate([prompt, gen_toks[:n + 1]]),
+                               dtype=torch.int32, device="cuda")[None]
+        ref_b = M.prefill(params, full, cfg, max_len=max_len)[0][
+            0, :cfg.vocab_size].float()
+        ref_f = M.prefill(p32, full, cfg32, max_len=max_len)[0][
+            0, :cfg.vocab_size].float()
+        for name, ((logits, _), tol) in runs.items():
+            err, within = max_err_within(logits[n], ref_b if name == "bf16"
+                                         else ref_f, tol)
+            worst[name] = max(worst[name], err)
+            ok[name] = ok[name] and within
+        yard = max(yard, float((ref_b - ref_f).abs().max()))
+        scale = max(scale, float(ref_f.abs().max()))
+    del p32
+    _free()
+    fell = [f for (_, layers), _ in runs.values() for f in layers]
+    decays = _ssm(cfg) or cfg.linear_attn.decay != "none"
+    took = all(fell) if decays else not any(fell)
+    log(path, check="decode logits vs fresh prefill", steps=8,
+        prompt=len(prompt), max_len=max_len,
+        **{f"{name}_max_abs_err": f"{worst[name]:.4e}" for name in runs},
+        **{f"{name}_tol": tol for name, (_, tol) in runs.items()},
+        bf16_vs_fp32_prefill=f"{yard:.4f}", max_abs_logit=f"{scale:.3f}",
+        k3_took_log_a=decays and took, ok=all(ok.values()) and took)
+    check(all(ok.values()), f"{path}: decode vs prefill off: max |error| "
+          f"{worst} against tolerances "
+          f"{ {name: tol for name, (_, tol) in runs.items()} }")
+    check(took, f"{path}: log decay fell over decode in layers {fell} "
+          f"(decay {decays})")
+
+
+def _cache_formula(cfg, batch, max_len):
+    """The decode cache's bytes by kind from the config: per linear layer
+    B·H·(dh² + 1)·4, per SSD layer (mamba2, hymba's ``ssm``)
+    B·nh·(d_state·headdim + 1)·4 (``linear_state``); per softmax layer
+    2·B·n_kv·ring·dh·2 + B·ring·4, ring = min(window, ``max_len``), and
+    ``max_len`` on every hymba layer (``kv_ring``); per SSD layer
+    B·(d_conv − 1)·(d_in + 2·ngroups·d_state)·2 (``conv``)."""
+    out = {"linear_state": 0, "kv_ring": 0, "conv": 0}
+    for spec in cfg.layer_specs():
+        if spec.mixer == "linear":
+            out["linear_state"] += batch * cfg.n_heads * (
+                cfg.head_dim ** 2 + 1) * 4
+        if spec.mixer in ("mamba2", "hymba"):
+            mb = cfg.mamba
+            d_in = cfg.d_model * (mb.expand if spec.mixer == "mamba2" else 1)
+            nh = d_in // mb.headdim
+            out["linear_state"] += batch * nh * (mb.d_state * mb.headdim
+                                                 + 1) * 4
+            out["conv"] += batch * (mb.d_conv - 1) * (
+                d_in + 2 * mb.ngroups * mb.d_state) * 2
+        if spec.mixer in ("softmax", "hymba"):
+            ring = max_len if spec.mixer == "hymba" else \
+                min(spec.sliding_window or max_len, max_len)
+            out["kv_ring"] += 2 * batch * cfg.n_kv_heads * ring \
+                * cfg.head_dim * 2 + batch * ring * 4
+    return out
+
+
+def phase_serve(kernels: list, cfg, path: str, want_cache=None):
     """8 ragged greedy requests through ``ServeEngine`` (4 slots, max_len
-    544). Pure linear stacks prefill left-padded buckets; hybrids prefill
-    by exact length. Checks the launches of K1 and K4 per prefill batch and
-    K3 per decode step (each all on ``sm90``), the cache footprint, and
-    decode logits against a fresh prefill."""
+    544). Pure recurrent stacks (linear, mamba2) prefill left-padded
+    buckets; hybrids (LASP-2H, hymba) prefill by exact length. Checks the
+    launches of K1 and K4 per prefill batch and K3 per decode step (K3
+    and K4 all on ``sm90``, K1 on its shapes' route: ``simt`` for
+    hymba's 16 x 64 heads), the cache footprint against its formula
+    (and ``want_cache``, bytes by kind, where given), and decode logits
+    against a fresh prefill."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
@@ -1103,6 +1270,8 @@ def phase_serve(kernels: list, cfg, path: str):
     wall = time.perf_counter() - t0
     k1, k3, k4, k1_sm90, k1_simt, k3_sm90, k3_simt, k4_sm90, k4_simt = \
         _read(counters, routed)
+    k1_route = _chunk_route(cfg)
+    k1_on = {"sm90": k1_sm90, "simt": k1_simt}
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -1114,8 +1283,9 @@ def phase_serve(kernels: list, cfg, path: str):
               f"request {uid}: token out of vocab")
     check(k1 == n_lin * batches and k1 > 0,
           f"K1 launches {k1} != {n_lin} x {batches} prefill batches")
-    check(k1_sm90 == k1 and k1_simt == 0,
-          f"K1 took sm90 {k1_sm90}, simt {k1_simt} times; want sm90 only")
+    check(k1_on[k1_route] == k1,
+          f"K1 took sm90 {k1_sm90}, simt {k1_simt} times; want "
+          f"{k1_route} only")
     check(k3 == n_lin * steps and k3 > 0,
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
     check(k3_sm90 == k3 and k3_simt == 0,
@@ -1124,49 +1294,41 @@ def phase_serve(kernels: list, cfg, path: str):
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
     check(k4_sm90 == k4 and k4_simt == 0,
           f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
-    _count(kernels, "lasp2_chunk_fwd_sm90", path, k1_sm90)
+    _count(kernels, f"lasp2_chunk_fwd_{k1_route}", path, k1)
     _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
     if n_soft:
         _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
     total_new = sum(len(t) for t in results.values())
     cache = engine.cache_stats()
-    # linear_state is constant in max_len; kv_ring is 2·B·n_kv·ring·dh·2
-    # (bf16 K/V) + B·ring·4 (int32 positions) per softmax layer
+    # linear_state (and conv) constant in max_len, each kind its formula
     longer = ServeEngine(cfg, params, max_len=4096, max_batch=max_batch)
-    check(longer.cache_stats()["linear_state"] == cache["linear_state"]
-          == n_lin * max_batch * cfg.n_heads * (cfg.head_dim ** 2 + 1) * 4,
-          f"linear_state {cache['linear_state']} moves with max_len")
+    long_stats = longer.cache_stats()
     del longer
-    ring = min(cfg.pattern[-1].sliding_window or max_len, max_len)
-    kv_ring = n_soft * (2 * max_batch * cfg.n_kv_heads * ring
-                        * cfg.head_dim * 2 + max_batch * ring * 4)
-    check(cache["kv_ring"] == kv_ring,
-          f"kv_ring {cache['kv_ring']} != formula {kv_ring}")
+    check(all(long_stats[k] == cache[k] for k in ("linear_state", "conv")),
+          f"linear_state {cache['linear_state']} or conv {cache['conv']} "
+          f"moves with max_len: {long_stats}")
+    formula = _cache_formula(cfg, max_batch, max_len)
+    check(all(cache[k] == n for k, n in formula.items()),
+          f"cache bytes {cache} != formula {formula}")
+    check(want_cache is None
+          or all(cache[k] == n for k, n in want_cache.items()),
+          f"cache bytes {cache} != {want_cache}")
     log(path, requests=len(results), prompts=f"{lens.min()}..{lens.max()}",
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
         k1_launches=k1, k1_sm90_launches=k1_sm90, k3_launches=k3,
         k3_sm90_launches=k3_sm90, k3_per_decode_step=k3 / steps,
-        k4_launches=k4, k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
-        tokens_per_s=f"{total_new / wall:.1f}",
+        k4_launches=k4, k4_sm90_launches=k4_sm90, k1_route=k1_route,
+        wall_s=f"{wall:.3f}", tokens_per_s=f"{total_new / wall:.1f}",
+        decode_tokens_per_s=f"{stats['decode_tokens_per_s']:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
         prefill_p50_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
         decode_step_p50_ms=f"{stats['decode_step_s_p50'] * 1e3:.3f}",
         cache_linear_state_bytes=cache["linear_state"],
-        cache_kv_ring_bytes=cache["kv_ring"],
+        cache_kv_ring_bytes=cache["kv_ring"], cache_conv_bytes=cache["conv"],
         cache_total_bytes=cache["total"])
 
-    # Decode logits against a fresh prefill of prompt + generated tokens.
-    worst, scale, fell = _decode_vs_prefill(params, cfg, prompts[0],
-                                            results[uids[0]], max_len)
-    # With a decay, K3 took a log a (< 0 every step): each linear layer's
-    # cumulative log decay fell over the 8 steps; without one it stays.
-    check(all(fell) if cfg.linear_attn.decay != "none" else not any(fell),
-          f"decay {cfg.linear_attn.decay!r}: log decay fell over decode in "
-          f"layers {fell}")
-    log(path, check="decode logits vs fresh prefill", steps=8,
-        max_abs_err=f"{worst:.4f}", max_abs_logit=f"{scale:.3f}",
-        tol=TOL_LOGITS, decay=cfg.linear_attn.decay,
-        k3_took_log_a=all(fell) and bool(fell), ok=True)
+    phase_decode_check(params, cfg, path, prompts[0], results[uids[0]],
+                       max_len)
     return params
 
 
@@ -1179,7 +1341,10 @@ def _profile(fn, n, match=None):
     top kernels, (device ms, launches) per call of the kernels whose name
     holds ``match``) over ``n`` calls after warm-up. The wall is taken
     without the profiler; the device time is the sum of the kernel rows the
-    profiler records on the card (0.0 when it records none)."""
+    profiler records on the card (0.0 when it records none). Only the card
+    is traced: no number here reads host op events, and with them the
+    profile of one full-width mamba2 train step took 49 s (PERF.md
+    §6)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
         fn()
@@ -1189,8 +1354,7 @@ def _profile(fn, n, match=None):
         fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
@@ -1264,13 +1428,15 @@ def train_setup(cfg, steps: int, lr: float, remat: str = "none"):
 
 
 def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
-                lr: float = 3e-4) -> list:
+                lr: float = 3e-4, remat: str = "none") -> list:
     """``steps`` steps through ``train()``: fp32 masters drawn on the card
     from seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token
     row, so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
-    kernels), no remat, no checkpoints (16 GB of state a save), peak
-    learning rate ``lr`` after 2 warm-up steps, cosine over ``steps``.
-    Returns the history (one metrics dict a step)."""
+    kernels for linear-llama3), ``remat`` (under "full" each layer's
+    forward, its K1 and K4 among it, runs again in the backward), no
+    checkpoints (16 GB of state a save), peak learning rate ``lr`` after 2
+    warm-up steps, cosine over ``steps``. Returns the history (one metrics
+    dict a step)."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
@@ -1278,7 +1444,7 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_step
 
-    run, data = train_setup(cfg, steps, lr)
+    run, data = train_setup(cfg, steps, lr, remat)
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
@@ -1305,9 +1471,14 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     losses = [h["loss"] for h in hist]
     n_lin, n_soft = _mixer_counts(cfg)
     # K1, K2a, K2b, K4, K5a, K5b, then each on sm90 and on simt: the bf16
-    # train path takes sm90 only
+    # train path takes sm90 only, but for the chunk kernels at hymba's
+    # 16 x 64 heads (simt); remat="full" runs each forward kernel twice
     lin, soft = n_lin * TRAIN_MICRO, n_soft * TRAIN_MICRO
-    want = [lin] * 3 + [soft] * 3 + [lin, 0] * 3 + [soft, 0] * 3
+    fwd = 2 if remat == "full" else 1
+    on = (lambda n: [n, 0]) if _chunk_route(cfg) == "sm90" \
+        else (lambda n: [0, n])
+    want = [fwd * lin, lin, lin, fwd * soft, soft, soft] + on(fwd * lin) \
+        + on(lin) * 2 + [fwd * soft, 0] + [soft, 0] * 2
     check(len(hist) == steps, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
@@ -1361,13 +1532,15 @@ TOL_CHECK = 1e-3
 
 
 def phase_grad_check(kernels: list, cfg, path: str,
-                     causal: bool = True) -> None:
+                     causal: bool = True, tokens: int = 256) -> None:
     """A shallow fp32 copy of a config at full width (d_model 2048, 16
     heads of 128, vocab 128256): the same params on the card, where every
     linear layer runs K1, K2a and K2b and every softmax layer K4, K5a and
     K5b, and on the host CPU, where the wrappers take their plain versions;
-    one row of 256 tokens with a reset mid-row. TF32 is off (phase 1). The
-    loss and every gradient agree within 1e-3 relative-plus-absolute.
+    one row of ``tokens`` tokens (256) with a reset mid-row. TF32 is off
+    (phase 1). The loss and every gradient agree within 1e-3
+    relative-plus-absolute; SSD layers' ``a_log``, ``dt_bias`` and conv
+    kernels are among the leaves.
     ``causal=False``: the bidirectional model, whose linear layers run no
     kernel (paper Alg. 1 is two products) and whose softmax layers run
     K4, K5a and K5b unmasked."""
@@ -1382,8 +1555,8 @@ def phase_grad_check(kernels: list, cfg, path: str,
                          device="cpu", param_dtype="float32")
     card = tree_map(lambda t: t.to("cuda"), host)
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab_size, size=(1, 257))
-    resets = np.zeros((1, 256), bool)
+    toks = rng.integers(0, cfg.vocab_size, size=(1, tokens + 1))
+    resets = np.zeros((1, tokens), bool)
     resets[0, [0, 100]] = True
 
     def loss_and_grads(params):
@@ -1415,6 +1588,10 @@ def phase_grad_check(kernels: list, cfg, path: str,
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""
     names = ["/".join(p) for p, _ in leaves_with_paths(host)]
+    if _ssm(cfg):
+        leaf_names = {name.rsplit("/", 1)[-1] for name in names}
+        check({"a_log", "dt_bias", "conv_x", "conv_b", "conv_c"}
+              <= leaf_names, f"SSD leaves missing: {sorted(leaf_names)}")
     bad = []
     for name, gc_, gh in zip(names, grads_c, grads_h):
         err, good = max_err_within(gc_.cpu(), gh, TOL_CHECK)
@@ -1424,7 +1601,7 @@ def phase_grad_check(kernels: list, cfg, path: str,
             bad.append(name)
     log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
         softmax=n_soft, dtype=cfg.dtype, causal=causal,
-        decay=cfg.linear_attn.decay, tokens="1x256", resets="0,100",
+        decay=cfg.linear_attn.decay, tokens=f"1x{tokens}", resets="0,100",
         loss_card=f"{float(loss_c):.6f}", loss_host=f"{float(loss_h):.6f}",
         err_loss=f"{e_loss:.3e}", leaves=len(names),
         max_abs_grad_err=f"{worst:.3e}", worst_leaf=worst_at, tol=TOL_CHECK,
@@ -2146,35 +2323,11 @@ def phase_bidir_train(kernels: list, cfg, path: str) -> None:
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
 
 
-def phase_decode_precision(params, cfg) -> None:
-    """The decode-vs-prefill check of phase 4 on one prompt and 8 drawn
-    tokens, with the serving params in bf16 and cast to fp32 (K1 then on
-    ``simt``): how much of the gap the bf16 compute makes."""
-    from repro_torch.core.tree import tree_map
-    rng = np.random.default_rng(1)
-    prompt = rng.integers(0, cfg.vocab_size, size=400)
-    toks = rng.integers(0, cfg.vocab_size, size=8)
-    gaps = {}
-    for dtype in ("bfloat16", "float32"):
-        run_cfg = dataclasses.replace(cfg, dtype=dtype)
-        run_params = params if dtype == "bfloat16" else tree_map(
-            lambda t: t.float(), params)
-        gaps[dtype] = _decode_vs_prefill(run_params, run_cfg, prompt, toks,
-                                         544)[:2]
-        del run_params
-        _free()
-    log("decode_precision", arch=cfg.name, decay=cfg.linear_attn.decay,
-        prompt=len(prompt), steps=8,
-        bf16_max_abs_err=f"{gaps['bfloat16'][0]:.4f}",
-        fp32_max_abs_err=f"{gaps['float32'][0]:.3e}",
-        max_abs_logit=f"{gaps['float32'][1]:.3f}", tol=TOL_LOGITS, ok=True)
-
-
 def phase_variants(kernels: list, gla, elu1, dense) -> None:
     """Phase 12, the paper's variants at full width, built in code as
     Table 2 builds them: (b) the GLA model (``gla``: silu feature map,
     data-dependent decay through ``wdt``) serving phase 4's eight
-    requests, and its decode-vs-prefill gap in bf16 and fp32; (c) 5 steps
+    requests, with phase 4's decode check; (c) 5 steps
     of GLA training as phase 7 trains, at lr 1e-4;
     (d) fp32 grad checks of 2 layers of ``gla`` (``wdt``'s gradient among
     the leaves) and of 2 layers each of ``elu1`` and ``dense`` under
@@ -2185,7 +2338,6 @@ def phase_variants(kernels: list, gla, elu1, dense) -> None:
     t0 = time.perf_counter()
     params = phase_serve(kernels, gla, "gla_serve")
     phase_profile(gla, params, "gla_serve", 4, 512, [0, 40, 100, 200])
-    phase_decode_precision(params, gla)
     del params
     _free()
     # At phase 7's 3e-4 GLA's fifth step throws the loss up, in bf16 on
@@ -2211,6 +2363,360 @@ def phase_variants(kernels: list, gla, elu1, dense) -> None:
 def _free() -> None:
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the SSM family, mamba2-2.7b and hymba-1.5b.
+# ---------------------------------------------------------------------------
+
+# The SSD heads' shapes at the kernels: (BH, dk = d_state, dv = headdim,
+# heads): mamba2's 4 rows x 80 heads, hymba's 4 rows x 25 heads.
+SSD_SHAPES = {"mamba2": (4 * 80, 128, 64, 80), "hymba": (4 * 25, 16, 64, 25)}
+SSD_CHUNK_CASES = [("mamba2", torch.bfloat16, 512),
+                   ("mamba2", torch.bfloat16, 2048),
+                   ("hymba", torch.bfloat16, 2048),
+                   ("hymba", torch.float32, 2048)]
+# The reference's init_cache sizes at 4 slots (max_len 544; mamba2's the
+# same at 4096).
+MAMBA2_CACHE = {"linear_state": 671_170_560, "conv": 8_257_536}
+HYMBA_CACHE = {"kv_ring": 89_407_488, "linear_state": 13_120_000,
+               "conv": 1_253_376}
+SSM_TRAIN_STEPS = 5
+# At phase 7's 3e-4 both models' fourth step throws the loss up (mamba2
+# 16.18, hymba 20.03), in bf16 and in fp32 on simt alike
+# (scripts/variant_lr_probe.py --arch ...), and at SMOKE the port's steps
+# follow the reference's at 3e-4 and at a d_model·lr-matched 1e-2
+# (tests/test_torch_mamba2.py, tests/test_torch_hymba.py): the models'
+# own dynamics at full width, not a kernel's. 1e-4 trains both.
+SSM_TRAIN_LR = 1e-4
+# Without remat hymba's 32 layers keep ~2.3 GB of activations each a
+# microbatch (phase 7's layers keep 37 GB over 16) beside 22.3 GB of
+# masters, gradients and moments: ~96 GB, above the card's 80. Full remat
+# keeps each layer's input only: ~30 GB predicted (PERF.md §6).
+HYMBA_REMAT = "full"
+
+
+def _note(kernels, name, err, case=None) -> None:
+    """Fold a phase-13 case into a kernel entry: its worst error and, where
+    timed, its timing at an SSD or hymba shape under ``ssm_cases``."""
+    entry = next(k for k in kernels if k["name"] == name)
+    entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    if case is not None:
+        entry.setdefault("ssm_cases", []).append(case)
+
+
+def _timed_case(shape, ms, plain_ms, bound, library_ms=None):
+    return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+def _ssm_chunk_cases(kernels, gen, failures) -> None:
+    """K1, K2a and K2b at the SSD shapes on SSD's log a (``_ssd_log_a``,
+    down to about −8 a token, a reset mid-chunk) against the plain
+    versions, under phase 3's limits: mamba2's (128, 64) in bf16 on
+    ``sm90`` at S 512 and 2048, hymba's (16, 64) on ``simt`` in bf16 and
+    fp32 at S 2048; each timed beside its plain version and bound."""
+    from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels import lasp2_chunk as lc
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd,
+                                                 lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dkv_plain,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_bwd_dq_plain,
+                                                 lasp2_chunk_bwd_plain,
+                                                 lasp2_chunk_fwd,
+                                                 lasp2_chunk_fwd_plain)
+    passes = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    fwd = lambda q, k, v, la, *_: lasp2_chunk_fwd(q, k, v, la)
+    fwd_p = lambda q, k, v, la, *_: lasp2_chunk_fwd_plain(q, k, v, la)
+    dq = lambda q, k, v, la, o, do, dst: lasp2_chunk_bwd_dq(k, v, la, do)
+    dq_p = lambda q, k, v, la, o, do, dst: lasp2_chunk_bwd_dq_plain(
+        k, v, la, do)
+    dkv = lambda *a: lasp2_chunk_bwd_dkv(*a)
+    for model, dtype, s in SSD_CHUNK_CASES:
+        bh, dk, dv, nh = SSD_SHAPES[model]
+        name = str(dtype).split(".")[-1]
+        route = lc._route(dtype, dk, dv)
+        sets = [_bwd_inputs(gen, bh, s, dk, dtype, "ssd", dv=dv, nh=nh)
+                for _ in range(2)]
+        q, k, v, la, o_in, do, dst = sets[0]
+        before = [fn.route_launches[route] for fn in passes]
+        o, st, ld = lasp2_chunk_fwd(q, k, v, la)
+        got = lasp2_chunk_bwd(q, k, v, la, o_in, do, dst)
+        torch.cuda.synchronize()
+        launched = [fn.route_launches[route] - n
+                    for fn, n in zip(passes, before)]
+        block = pick_block(s, 128)
+        o_p, st_p, ld_p = lasp2_chunk_fwd_plain(q, k, v, la,
+                                                block_size=block)
+        want = lasp2_chunk_bwd_plain(q, k, v, la, o_in, do, dst,
+                                     block_size=block)
+        errs, oks = {}, []
+        for key, g, w, tol in (("o", o, o_p, TOL_O[name]),
+                               ("state", st, st_p, TOL_STATE),
+                               ("log_decay", ld, ld_p, TOL_LD),
+                               ("dq", got[0], want[0], TOL_GRAD[name]),
+                               ("dk", got[1], want[1], TOL_GRAD[name]),
+                               ("dv", got[2], want[2], TOL_GRAD[name])):
+            errs[key], good = max_err_within(g, w, tol)
+            oks.append(good)
+        slack = s * 2.0 ** -24 * float(want[3].abs().max())
+        diff = (got[3] - want[3]).abs()
+        errs["dla"] = float(diff.max())
+        oks.append(bool((diff <= 1e-3 + slack + 1e-3 * want[3].abs()).all())
+                   and bool(torch.isfinite(got[3]).all()))
+        want_route = "sm90" if model == "mamba2" else "simt"
+        ok = all(oks) and route == want_route and launched == [1, 1, 1] \
+            and o.dtype == dtype
+        share_o = limit_share(o, o_p, TOL_O[name])
+        del o, st, ld, got, o_p, st_p, ld_p, want
+        shape = f"BH{bh}xS{s}x{dk}x{dv} {name} ssd"
+        n = 20 if route == "sm90" else 5
+        k1_bound = _chunk_bound(bh, s, dk, dv, dtype)
+        a_bound, b_bound = _bwd_bounds(bh, s, dk, dv, dtype)
+        timed = {}
+        for kname, fn, fn_p, bound in (
+                ("lasp2_chunk_fwd", fwd, fwd_p, k1_bound),
+                ("lasp2_chunk_bwd_dq", dq, dq_p, a_bound),
+                ("lasp2_chunk_bwd_dkv", dkv, lasp2_chunk_bwd_dkv_plain,
+                 b_bound)):
+            timed[kname] = (time_ms(fn, sets, n), time_ms(fn_p, sets, 3),
+                            bound)
+        del sets
+        torch.cuda.empty_cache()
+        log("ssm_kernels", kernel="lasp2_chunk", model=model,
+            shape=repr(shape), route=route, launches_k1_k2a_k2b=launched,
+            **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()},
+            tol_o=TOL_O[name], tol_grads=TOL_GRAD[name],
+            dla_slack=f"{slack:.2e}",
+            share_of_limit_o=f"{share_o:.3f}",
+            **{f"{kn}_ms": f"{t[0]:.4f}" for kn, t in timed.items()},
+            **{f"{kn}_plain_ms": f"{t[1]:.4f}" for kn, t in timed.items()},
+            **{f"{kn}_bound_ms": f"{t[2][0]:.4f}"
+               for kn, t in timed.items()}, ok=ok)
+        if not ok:
+            failures.append(f"lasp2_chunk {model} {name} S={s}")
+        for kname, key_errs in (("lasp2_chunk_fwd", ("o", "state",
+                                                     "log_decay")),
+                                ("lasp2_chunk_bwd_dq", ("dq",)),
+                                ("lasp2_chunk_bwd_dkv", ("dk", "dv",
+                                                         "dla"))):
+            ms, plain, bound = timed[kname]
+            _note(kernels, f"{kname}_{route}",
+                  max(errs[k] for k in key_errs),
+                  _timed_case(shape, ms, plain, bound))
+
+
+def _ssm_decode_cases(kernels, gen, failures) -> None:
+    """K3 at the SSD shapes: 8 steps chained from a K1 prefill state on
+    SSD's log a (a reset at step 3 for half the rows), on each route,
+    against ``recurrent_step``; timed on ``sm90`` over states rotating
+    above the 50 MB L2."""
+    from repro_torch.core.linear_attention import RESET_LOG_A
+    from repro_torch.kernels import lasp2_decode as ldm
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    step, plain = ldm.lasp2_decode_step, ldm.lasp2_decode_step_plain
+    bf16 = torch.bfloat16
+    for model, (bh, dk, dv, nh) in SSD_SHAPES.items():
+        q, k, v, la = _chunk_inputs(gen, bh, 512, dk, bf16, "ssd", dv, nh)
+        _, st0, ld0 = lasp2_chunk_fwd(q, k, v, la)
+        steps = []
+        for i in range(8):
+            qs, ks = ((torch.randn(bh, dk, generator=gen, device="cuda")
+                       * 0.3).to(bf16) for _ in range(2))
+            vs = (torch.randn(bh, dv, generator=gen, device="cuda")
+                  * 0.5).to(bf16)
+            las = _ssd_log_a(gen, bh, 1, nh)[:, 0].contiguous()
+            if i == 3:
+                las[: bh // 2] = RESET_LOG_A
+            steps.append((qs, ks, vs, las))
+        err = {}
+        for route in ldm.ROUTES:
+            st_k, ld_k = st0.clone(), ld0.clone()
+            st_p, ld_p = st0.clone(), ld0.clone()
+            before = dict(step.route_launches)
+            e_o, ok = 0.0, True
+            for qs, ks, vs, las in steps:
+                o_k, st_k, ld_k = step(qs, ks, vs, las, st_k, ld_k,
+                                       route=route)
+                o_p, st_p, ld_p = plain(qs, ks, vs, las, st_p, ld_p)
+                e, good = max_err_within(o_k, o_p, TOL_O["float32"])
+                e_o, ok = max(e_o, e), ok and good
+            torch.cuda.synchronize()
+            e_s, ok_s = max_err_within(st_k, st_p, TOL_STATE)
+            e_l, ok_l = max_err_within(ld_k, ld_p, TOL_LD)
+            launched = {r: step.route_launches[r] - before[r]
+                        for r in before}
+            ok = ok and ok_s and ok_l and launched == {
+                r: 8 * (r == route) for r in before}
+            ok = ok and (route == "simt"
+                         or ldm._route(bf16, dk, dv) == "sm90")
+            err[route] = max(e_o, e_s, e_l)
+            log("ssm_kernels", kernel=f"lasp2_decode_step_{route}",
+                model=model, steps=8, BH=bh, dk=dk, dv=dv, log_a="ssd+reset",
+                err_o=f"{e_o:.3e}", tol_o=TOL_O["float32"],
+                err_state=f"{e_s:.3e}", tol_state=TOL_STATE,
+                err_log_decay=f"{e_l:.3e}", ok=ok)
+            if not ok:
+                failures.append(f"lasp2_decode_step_{route} {model} ssd")
+        # states rotating above the 50 MB L2
+        n_sets = max(16, int(np.ceil(64e6 / (bh * dk * dv * 4))))
+        dec_sets = [(*steps[i % 8][:3], steps[i % 8][3], st0.clone(),
+                     ld0.clone()) for i in range(n_sets)]
+        fn = lambda *a: step(*a, route="sm90")
+        ms, dev = time_ms(fn, dec_sets, 400), device_ms(fn, dec_sets, 100)
+        plain_ms = time_ms(lambda *a: plain(*a), dec_sets, 100)
+        bound = _decode_bound(bh, dk, dv, 2)
+        shape = f"BH{bh}x{dk}x{dv} bf16 ssd"
+        log("ssm_kernels", kernel="lasp2_decode_step_sm90", model=model,
+            shape=repr(shape), ms=f"{ms:.4f}", device_ms=f"{dev:.5f}",
+            plain_ms=f"{plain_ms:.4f}", bound_ms=f"{bound[0]:.5f}",
+            bound_by=bound[1], states=n_sets)
+        case = _timed_case(shape, ms, plain_ms, bound)
+        case["device_ms"] = dev
+        _note(kernels, "lasp2_decode_step_sm90", err["sm90"], case)
+        _note(kernels, "lasp2_decode_step_simt", err["simt"])
+        del dec_sets, steps
+        torch.cuda.empty_cache()
+
+
+def _ssm_flash_times(kernels, gen) -> None:
+    """K4, K5a and K5b at hymba's attention shape in bf16 on ``sm90`` (B 4
+    x Hq 25 x Hkv 5 x S 2048 x dh 64; window 1024, then global), beside the
+    plain versions and bounds, and the SDPA forward and backward on K/V
+    repeated to 25 heads (the library yardstick: ``is_causal`` for the
+    global case, the boolean band mask for the window). Their parity ran
+    in phase 3
+    (``FLASH_CASES`` "hymba", "hymba_global")."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    b, hq, hkv, s, dh, dtype = 4, 25, 5, 2048, 64, torch.bfloat16
+    route = fl._route(dtype, dh)
+    for window in (1024, None):
+        kw = dict(causal=True, window=window)
+        mask = fl._mask(s, s, 0, s, True, window, "cuda")
+        pairs = b * hq * int(mask.sum())
+        sets = []
+        for _ in range(2):
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, s, s, dh, dtype)
+            o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        rep = lambda x: x.repeat_interleave(hq // hkv, dim=1)
+        sdpa_sets = [(q, rep(k), rep(v), do) for q, k, v, do, *_ in sets]
+        sdpa_kw = dict(is_causal=True) if window is None else \
+            dict(attn_mask=mask)
+        sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q, k, v, **sdpa_kw)
+        graphs = []
+        for q, k, v, do in sdpa_sets:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            graphs.append((sdpa(*leaves), leaves, do))
+        lib = (time_ms(sdpa, sdpa_sets, 10),
+               time_ms(lambda o, leaves, do: torch.autograd.grad(
+                   o, leaves, do, retain_graph=True), graphs, 10))
+        del sdpa_sets, graphs
+        bounds = _flash_bounds(b, hq, hkv, s, s, dh, dtype, pairs)
+        shape = f"B{b}xHq{hq}xHkv{hkv}xS{s}x{dh} bf16 causal window {window}"
+        for i, (kname, fn, fn_p) in enumerate((
+                ("flash_attention_fwd",
+                 lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw),
+                 lambda q, k, v, *_: fl.flash_attention_fwd_plain(
+                     q, k, v, **kw)),
+                ("flash_attention_bwd_dq",
+                 lambda *a: fl.flash_attention_bwd_dq(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw)),
+                ("flash_attention_bwd_dkv",
+                 lambda *a: fl.flash_attention_bwd_dkv(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw)))):
+            ms, plain = time_ms(fn, sets, 10), time_ms(fn_p, sets, 2)
+            library = lib[0] if i == 0 else lib[1]
+            log("ssm_kernels", kernel=f"{kname}_{route}", model="hymba",
+                shape=repr(shape), ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                bound_ms=f"{bounds[i][0]:.4f}", bound_by=bounds[i][1],
+                sdpa_ms=f"{library:.4f}", pairs=pairs)
+            _note(kernels, f"{kname}_{route}", 0.0,
+                  _timed_case(shape, ms, plain, bounds[i], library))
+        del sets
+        torch.cuda.empty_cache()
+
+
+def phase_ssm_kernels(kernels: list) -> None:
+    """Phase 13 (a): the kernels at the SSM family's shapes against their
+    plain versions, timed (``_ssm_chunk_cases``, ``_ssm_decode_cases``,
+    ``_ssm_flash_times``); hymba's flash cases are checked in phase 3."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    failures = []
+    _ssm_chunk_cases(kernels, gen, failures)
+    _ssm_decode_cases(kernels, gen, failures)
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+    _ssm_flash_times(kernels, gen)
+
+
+def phase_ssm(kernels: list, mamba2, hymba) -> None:
+    """Phase 13, the SSM family at full width: (a) the kernels at its
+    shapes; (b) mamba2-2.7b (64 layers, bf16) serves phase 4's eight
+    requests by left-padded buckets (K1 64 a prefill batch and K3 64 a
+    decode step, all ``sm90``; cache bytes the reference's) with phase
+    4's decode check; (c) hymba-1.5b (32 layers, globals 0, 8, 16, 24)
+    the same by exact length (K1 32 on ``simt``, K4 32 a prefill batch,
+    K3 32 a decode step), and the decode check again on a 1100-token
+    prompt, past the 1024 window, with rings 1280 long; (d)
+    both train 5 steps as phase 7 (mamba2 under full remat, hymba under
+    ``HYMBA_REMAT``), at ``SSM_TRAIN_LR``; (e) fp32 grad checks of 2
+    layers of each against
+    the host CPU (hymba: its global and a windowed layer, 1280 tokens)."""
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name):
+        walls[name] = round(time.perf_counter() - t0 - sum(walls.values()),
+                            1)
+
+    phase_ssm_kernels(kernels)
+    part("a")
+    _free()
+    params = phase_serve(kernels, mamba2, "mamba2_serve",
+                         want_cache=MAMBA2_CACHE)
+    phase_profile(mamba2, params, "mamba2_serve", 4, 512, [0, 40, 100, 200])
+    del params
+    _free()
+    part("b")
+    flags = M.hymba_global_flags(hymba)
+    global_layers = [i for i, f in enumerate(flags) if f]
+    check(global_layers == [0, 8, 16, 24],
+          f"hymba global layers {global_layers}")
+    log("hymba_serve", global_layers=global_layers,
+        window=hymba.pattern[1].sliding_window)
+    params = phase_serve(kernels, hymba, "hymba_serve",
+                         want_cache=HYMBA_CACHE)
+    phase_profile(hymba, params, "hymba_serve", 1, 300, None)
+    # past the 1024 window: the windowed layers trim, the global ones not
+    rng = np.random.default_rng(1)
+    phase_decode_check(params, hymba, "hymba_long_decode",
+                           rng.integers(0, hymba.vocab_size, size=1100),
+                           rng.integers(0, hymba.vocab_size, size=8), 1280)
+    del params
+    _free()
+    part("c")
+    phase_train(kernels, mamba2, "mamba2_train", steps=SSM_TRAIN_STEPS,
+                lr=SSM_TRAIN_LR, remat="full")
+    _free()
+    phase_train(kernels, hymba, "hymba_train", steps=SSM_TRAIN_STEPS,
+                lr=SSM_TRAIN_LR, remat=HYMBA_REMAT)
+    _free()
+    part("d")
+    phase_grad_check(kernels, dataclasses.replace(
+        mamba2, n_layers=2, dtype="float32"), "mamba2_gradcheck")
+    _free()
+    phase_grad_check(kernels, dataclasses.replace(
+        hymba, pattern=hymba.pattern[:2], n_layers=2, dtype="float32"),
+        "hymba_gradcheck", tokens=1280)
+    _free()
+    part("e")
+    log("ssm", wall_s=f"{time.perf_counter() - t0:.1f}",
+        part_walls_s=repr(walls))
 
 
 def main() -> int:
@@ -2259,6 +2765,8 @@ def main() -> int:
     phase_strategies(kernels, linear, hybrid, sp_ranks)
     _free()
     phase_variants(kernels, gla, elu1, dense)
+    _free()
+    phase_ssm(kernels, get_config("mamba2-2.7b"), get_config("hymba-1.5b"))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

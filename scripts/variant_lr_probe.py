@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
-"""GLA at full width on the card at phase 7's learning rate, 3e-4, which
-``chip_smoke.py`` phase 12 does not use for it.
+"""A model at full width on the card at phase 7's learning rate, 3e-4,
+which ``chip_smoke.py`` does not train it at (by default GLA).
 
     python3 scripts/variant_lr_probe.py
+    python3 scripts/variant_lr_probe.py --arch mamba2-2.7b
 
-GLA (``CONFIG`` with ``LinearAttnConfig("silu", "data", "autodiff")``)
-trains 5 steps through ``train()`` on phase 7's run and data
-(``chip_smoke.train_setup``) in bf16 (``sm90`` kernels) and in fp32
-(``simt`` kernels, ``remat="full"`` to fit). Prints one line per run: the
-loss, grad norm and learning rate of each step. Exits non-zero without a
-card.
+``--arch gla`` is ``linear-llama3-1b``'s ``CONFIG`` with
+``LinearAttnConfig("silu", "data", "autodiff")``; ``mamba2-2.7b`` and
+``hymba-1.5b`` are their ``CONFIG``s. Each trains 5 steps through
+``train()`` on phase 7's run and data (``chip_smoke.train_setup``) in
+bf16 (``sm90`` kernels, but for hymba's chunk kernels; no remat for GLA,
+full remat for the SSM family, as phase 13) and in fp32 (``simt``
+kernels, ``remat="full"`` to fit). Prints one line per
+run: the loss, grad norm and learning rate of each step. Exits non-zero
+without a card.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import sys
 from pathlib import Path
@@ -24,7 +29,11 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gla",
+                    choices=["gla", "mamba2-2.7b", "hymba-1.5b"])
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("variant_lr_probe: no CUDA device", file=sys.stderr)
         return 1
@@ -32,12 +41,17 @@ def main() -> int:
     from repro_torch.configs import LinearAttnConfig, get_config
     from repro_torch.train.loop import train
     torch.backends.cuda.matmul.allow_tf32 = False
-    linear = get_config("linear-llama3-1b")
-    gla = dataclasses.replace(linear, name=linear.name + "-gla",
-                              linear_attn=LinearAttnConfig("silu", "data",
-                                                           "autodiff"))
-    for dtype, remat in (("bfloat16", "none"), ("float32", "full")):
-        cfg = dataclasses.replace(gla, dtype=dtype)
+    if args.arch == "gla":
+        linear = get_config("linear-llama3-1b")
+        base = dataclasses.replace(
+            linear, name=linear.name + "-gla",
+            linear_attn=LinearAttnConfig("silu", "data", "autodiff"))
+    else:
+        base = get_config(args.arch)
+    for dtype in ("bfloat16", "float32"):
+        remat = "none" if args.arch == "gla" and dtype == "bfloat16" \
+            else "full"
+        cfg = dataclasses.replace(base, dtype=dtype)
         run, data = C.train_setup(cfg, 5, 3e-4, remat)
         state, hist = train(cfg, run, data, log_every=10 ** 9,
                             log_fn=lambda *_: None)

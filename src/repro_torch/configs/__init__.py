@@ -1,18 +1,20 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke`` /
 ``get_variant``.
 
-The port runs ``linear-llama3-1b`` only (its ``CONFIG`` and its named
-variants, ``HYBRID`` among them); every other architecture of
-``repro.configs`` is ported in a later slice and raises ``KeyError`` here.
+The port runs ``linear-llama3-1b`` (its ``CONFIG`` and its named
+variants, ``HYBRID`` among them), ``mamba2-2.7b`` and ``hymba-1.5b``;
+every other architecture of ``repro.configs`` is ported in a later slice
+and raises ``KeyError`` here.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import linear_llama3_1b
+from repro_torch.configs import hymba_1_5b, linear_llama3_1b, mamba2_2_7b
 from repro_torch.configs.base import (LayerSpec, LinearAttnConfig,  # noqa: F401
-                                      ModelConfig)
+                                      MambaConfig, ModelConfig)
 
-_MODULES = {"linear-llama3-1b": linear_llama3_1b}
+_MODULES = {"hymba-1.5b": hymba_1_5b, "mamba2-2.7b": mamba2_2_7b,
+            "linear-llama3-1b": linear_llama3_1b}
 
 
 def _module(arch_id: str):

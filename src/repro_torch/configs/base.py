@@ -1,8 +1,8 @@
 """Config dataclasses for the port: model architecture and its layer pattern.
 
-Own copy of the parts of ``repro.configs.base`` the serving, one-device
-training and hybrid slices need (``LinearAttnConfig``, ``LayerSpec``,
-``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``. Field names,
+Own copy of the parts of ``repro.configs.base`` the ported slices need
+(``LinearAttnConfig``, ``MambaConfig``, ``LayerSpec``, ``ModelConfig``,
+``RunConfig``); the port imports nothing of ``repro``. Field names,
 defaults and derived properties match the reference so configs compare one
 to one in the tests.
 """
@@ -29,16 +29,27 @@ class LinearAttnConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    headdim: int = 64
+    ngroups: int = 1
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One layer of the repeating pattern.
 
-    mixer: softmax | linear (the mixers the port runs so far)
-    mlp:   dense | moe | none (the port runs ``dense`` so far)
+    mixer: softmax | linear | mamba2 | hymba (the mixers the port runs so
+           far; cross comes later)
+    mlp:   dense | none (moe comes later)
     """
 
     mixer: str = "softmax"
     mlp: str = "dense"
-    sliding_window: Optional[int] = None   # softmax attention window
+    sliding_window: Optional[int] = None   # softmax/hymba attention window
+    is_global: bool = True                 # hymba: full-attention layer?
 
 
 @dataclass(frozen=True)
@@ -61,6 +72,7 @@ class ModelConfig:
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
 
     linear_attn: LinearAttnConfig = field(default_factory=LinearAttnConfig)
+    mamba: Optional[MambaConfig] = None
 
     dtype: str = "bfloat16"         # activations (compute)
     param_dtype: str = "float32"    # training master weights
@@ -122,8 +134,9 @@ class ModelConfig:
                                    pattern=tuple(new))
 
     def param_count(self) -> int:
-        """Parameter count (embeddings + blocks) for softmax/linear mixers
-        with dense MLPs."""
+        """Approximate parameter count (embeddings + blocks; the final norm
+        is left out, as in the reference) for the mixers and MLPs the port
+        runs."""
         d, dh = self.d_model, self.head_dim
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
@@ -133,6 +146,17 @@ class ModelConfig:
             if spec.mixer in ("softmax", "linear"):
                 per += d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh)
                 per += (self.n_heads * dh) * d
+            elif spec.mixer in ("mamba2", "hymba"):
+                mb = self.mamba or MambaConfig()
+                d_in = mb.expand * d if spec.mixer == "mamba2" else d
+                nh = d_in // mb.headdim
+                conv_ch = d_in + 2 * mb.ngroups * mb.d_state
+                per += d * (2 * d_in + 2 * mb.ngroups * mb.d_state + nh)
+                per += conv_ch * mb.d_conv + d_in * d + 2 * nh + d_in
+                if spec.mixer == "hymba":
+                    per += d * (self.n_heads * dh) \
+                        + 2 * d * (self.n_kv_heads * dh) \
+                        + (self.n_heads * dh) * d
             else:
                 raise NotImplementedError(
                     f"mixer {spec.mixer!r} is ported in a later slice")

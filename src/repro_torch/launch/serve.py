@@ -3,6 +3,8 @@ requests through the continuous-batching engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch linear-llama3-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --variant HYBRID
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
@@ -93,6 +95,7 @@ def main(argv=None):
           f"(prompts {lens.min()}..{lens.max()}) on {args.max_batch} slots "
           f"in {dt:.2f}s ({total_new / dt:.1f} tok/s incl. prefill)")
     print(f"[serve] cache bytes: linear_state={stats['linear_state']} "
+          f"kv_ring={stats['kv_ring']} conv={stats['conv']} "
           f"total={stats['total']}")
     s = engine.stats()
     if "ttft_s_p50" in s:

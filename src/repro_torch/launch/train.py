@@ -6,6 +6,10 @@
       --steps 10 --batch 8 --seq 2048 --microbatches 2
   PYTHONPATH=src python -m repro_torch.launch.train --variant HYBRID \
       --steps 10 --batch 8 --seq 2048 --microbatches 2   # LASP-2H hybrid
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+      --steps 10 --batch 8 --seq 2048 --microbatches 2 --remat full
+  PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+      --smoke --device cpu --steps 5
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
       -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
       --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks

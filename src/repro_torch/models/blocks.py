@@ -1,27 +1,30 @@
-"""Transformer-layer bodies: the softmax (GQA) and linear-attention mixers
-and the layer glue, with full-sequence (forward, prefill) and single-token
-(decode) entry points. The linear mixer runs the paper's variants (§4):
-any feature map, the fixed decays and GLA's data-dependent gate (``wdt``),
-causal or bidirectional.
+"""Transformer-layer bodies: the softmax (GQA), linear-attention, mamba2
+(SSD) and hymba mixers and the layer glue, with full-sequence (forward,
+prefill) and single-token (decode) entry points. The linear mixer runs the
+paper's variants (§4): any feature map, the fixed decays and GLA's
+data-dependent gate (``wdt``), causal or bidirectional.
 
-Twin of the softmax, linear and dense parts of ``repro/models/blocks.py``.
-Mixers consume and produce ``(B, S, d)``; inside, activations are ``(B, H,
-S, dh)``. Under sequence parallelism (``Ctx.sp``) ``S`` is this rank's
-chunk: linear layers run LASP-2 (``core.lasp2``, the exchange of
-``sp.comm``), softmax layers the K/V all-gather of LASP-2H or, under the
-"ulysses" strategy, its two all-to-alls (``core.lasp2h``). Mamba2, hymba, cross-attention
-and MoE layers are ported in later slices and raise
-``NotImplementedError`` here.
+Twin of the softmax, linear, mamba2, hymba and dense parts of
+``repro/models/blocks.py``. Mixers consume and produce ``(B, S, d)``;
+inside, activations are ``(B, H, S, dh)``. Under sequence parallelism
+(``Ctx.sp``) ``S`` is this rank's chunk: linear and mamba2 layers run
+LASP-2 (``core.lasp2``, the exchange of ``sp.comm``), softmax layers the
+K/V all-gather of LASP-2H or, under the "ulysses" strategy, its two
+all-to-alls (``core.lasp2h``); hymba layers do both. Cross-attention and
+MoE layers are ported in later slices and raise ``NotImplementedError``
+here.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import LayerSpec, MambaConfig, ModelConfig
 from repro_torch.core import linear_attention as la_core
 from repro_torch.core.lasp2 import lasp2
 from repro_torch.core.lasp2h import (allgather_context_attention,
@@ -29,7 +32,7 @@ from repro_torch.core.lasp2h import (allgather_context_attention,
                                      ulysses_context_attention)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
-                                       rmsnorm, rmsnorm_init, rope)
+                                       normal, rmsnorm, rmsnorm_init, rope)
 
 
 @dataclass
@@ -40,14 +43,20 @@ class Ctx:
     decode_pos: Any = None         # (B,) int positions during decode
     resets: Any = None             # (B, S) bool: state resets (doc starts)
     sp: Any = None                 # core.lasp2.SPConfig: S is a chunk
+    is_global: Any = None          # hymba: this layer attends unwindowed
+
+
+# The decode caches' K/V rings and SSD conv inputs are bf16 whatever
+# ``cfg.dtype``, as the reference's; recurrent states stay fp32.
+CACHE_DTYPE = torch.bfloat16
 
 
 def _unported(spec: LayerSpec):
-    if spec.mixer not in ("linear", "softmax") or spec.mlp != "dense":
+    if spec.mixer not in _MIXERS or spec.mlp not in ("dense", "none"):
         raise NotImplementedError(
             f"layer mixer={spec.mixer!r} mlp={spec.mlp!r} is ported in a "
-            f"later slice; the port runs mixer='linear' or 'softmax', "
-            f"mlp='dense'")
+            f"later slice; the port runs mixer in {sorted(_MIXERS)}, "
+            f"mlp='dense' or 'none'")
 
 
 def _heads_split(x, n_heads, head_dim):
@@ -116,13 +125,15 @@ def softmax_ring_len(spec: LayerSpec, max_len: int) -> int:
     return max_len
 
 
-def softmax_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
-    """Empty ring cache: bf16 K/V (B, Hkv, R, dh) whatever ``cfg.dtype``,
-    and the absolute position of each slot (-1 = never written)."""
-    r = softmax_ring_len(spec, max_len)
+def softmax_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device,
+                  ring=None):
+    """Empty ring cache: K/V (B, Hkv, R, dh) in ``CACHE_DTYPE``,
+    and the absolute position of each slot (-1 = never written). ``R`` is
+    ``ring``, by default ``softmax_ring_len(spec, max_len)``."""
+    r = ring if ring is not None else softmax_ring_len(spec, max_len)
     shape = (batch, cfg.n_kv_heads, r, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+    return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
             "kpos": torch.full((batch, r), -1, dtype=torch.int32,
                                device=device)}
 
@@ -134,7 +145,7 @@ def softmax_prefill_cache(k, v, positions, ring: int):
     Slot ``i`` receives the prompt token at the highest position ``p <=
     last`` with ``p % ring == i`` (the ``slot = pos % ring`` rule decode
     uses), tagged with its absolute position in ``kpos``; slots no token
-    reached hold -1. K/V are stored in bf16, as the reference's cache.
+    reached hold -1. K/V are stored in ``CACHE_DTYPE``.
     """
     b, hkv, s, dh = k.shape
     pos2d = torch.broadcast_to(torch.atleast_2d(positions),
@@ -144,8 +155,8 @@ def softmax_prefill_cache(k, v, positions, ring: int):
     p_i = last - torch.remainder(last - i, ring)              # (B, R)
     col = torch.clamp(p_i - pos2d[:, :1], 0, s - 1)
     idx = col[:, None, :, None].expand(b, hkv, ring, dh)
-    return {"k": torch.gather(k, 2, idx).to(torch.bfloat16),
-            "v": torch.gather(v, 2, idx).to(torch.bfloat16),
+    return {"k": torch.gather(k, 2, idx).to(CACHE_DTYPE),
+            "v": torch.gather(v, 2, idx).to(CACHE_DTYPE),
             "kpos": torch.where(p_i >= 0, p_i,
                                 torch.full_like(p_i, -1)).to(torch.int32)}
 
@@ -153,7 +164,7 @@ def softmax_prefill_cache(k, v, positions, ring: int):
 def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
     """One token per row at position ``ctx.decode_pos`` (B,): write its K/V
     in place into slot ``pos % R`` of the ring (rounded to the cache's
-    bf16), then attend to the ring."""
+    dtype), then attend to the ring."""
     cfg = ctx.cfg
     posv = ctx.decode_pos.to(device=x.device, dtype=torch.int32)
     q, k, v = _qkv(params, x, cfg, None)
@@ -284,20 +295,260 @@ def _linear_prefill(params, x, ctx: Ctx):
 
 
 # ===========================================================================
+# Mamba-2 (SSD) mixer: chunked decayed linear attention under the hood
+# ===========================================================================
+
+def _mamba_dims(cfg: ModelConfig, spec: LayerSpec):
+    """(MambaConfig, inner width, SSD heads): the inner width is
+    ``expand·d_model`` for mamba2, ``d_model`` for hymba's SSM heads."""
+    mb = cfg.mamba or MambaConfig()
+    d_in = mb.expand * cfg.d_model if spec.mixer == "mamba2" \
+        else cfg.d_model
+    return mb, d_in, d_in // mb.headdim
+
+
+def mamba2_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
+    """The reference's shapes and scales. ``dt_bias`` is softplus⁻¹ of a
+    step drawn log-uniform in [1e-3, 0.1], ``a_log`` = log(1..nh): head h
+    decays by −h·dt a token. The 1-D leaves (``dt_bias``, ``a_log``,
+    ``d_skip``) and the norm scale are fp32 whatever ``dtype``."""
+    mb, d_in, nh = _mamba_dims(cfg, spec)
+    d, gd = cfg.d_model, mb.ngroups * mb.d_state
+    f32 = torch.float32
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(
+        (nh,), generator=generator, dtype=f32, device=device))
+    return {
+        "wx": dense_init(generator, d, d_in, dtype, device),
+        "wz": dense_init(generator, d, d_in, dtype, device),
+        "wb": dense_init(generator, d, gd, dtype, device),
+        "wc": dense_init(generator, d, gd, dtype, device),
+        "wdt": dense_init(generator, d, nh, dtype, device, scale=0.01),
+        "dt_bias": torch.log(torch.expm1(dt)),
+        "a_log": torch.log(torch.arange(1, nh + 1, dtype=f32,
+                                        device=device)),
+        "d_skip": torch.ones((nh,), dtype=f32, device=device),
+        "conv_x": normal(generator, (mb.d_conv, d_in), 0.2, dtype, device),
+        "conv_b": normal(generator, (mb.d_conv, gd), 0.2, dtype, device),
+        "conv_c": normal(generator, (mb.d_conv, gd), 0.2, dtype, device),
+        "gnorm": rmsnorm_init(d_in, device),
+        "wo": dense_init(generator, d_in, d, dtype, device),
+    }
+
+
+def _causal_conv(x, w, cache=None):
+    """Depthwise causal conv then silu. x: (B, S, C); w: (K, C); ``cache``
+    (B, K−1, C): the K−1 inputs before ``x`` (zeros when None, as at a
+    sequence start, and under sequence parallelism at every chunk start,
+    as in the reference). Returns (y (B, S, C), the last K−1 inputs)."""
+    k, s = w.shape[0], x.shape[1]
+    pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                      device=x.device) if cache is None else cache.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    w = w.to(x.dtype)
+    y = sum(xp[:, i:i + s, :] * w[i] for i in range(k))
+    return F.silu(y), (xp[:, -(k - 1):, :] if k > 1 else None)
+
+
+def _mamba_core(p, x, ctx: Ctx, spec: LayerSpec, conv_caches=None):
+    """The SSD projections as linear attention: q = C, k = B (both
+    (B, nh, S, d_state), the groups repeated over heads), v = x·dt
+    (B, nh, S, headdim), log a = −exp(a_log)·dt (B, nh, S) fp32 with the
+    resets; also the skip input xh and the conv caches. dt = softplus(x
+    @ wdt + dt_bias) is fp32, as in the reference."""
+    mb, _, nh = _mamba_dims(ctx.cfg, spec)
+    dt_ = x.dtype
+    cc = conv_caches or {"x": None, "b": None, "c": None}
+    xs, ccx = _causal_conv(x @ p["wx"].to(dt_), p["conv_x"], cc["x"])
+    bs, ccb = _causal_conv(x @ p["wb"].to(dt_), p["conv_b"], cc["b"])
+    cs, ccc = _causal_conv(x @ p["wc"].to(dt_), p["conv_c"], cc["c"])
+    dt = F.softplus((x @ p["wdt"].to(dt_)).float() + p["dt_bias"])
+    log_a = (-torch.exp(p["a_log"]) * dt).transpose(1, 2)      # (B, nh, S)
+    if ctx.resets is not None:
+        log_a = torch.where(ctx.resets[:, None, :],
+                            torch.full((), la_core.RESET_LOG_A,
+                                       device=x.device), log_a)
+    xh = _heads_split(xs, nh, mb.headdim)                      # (B,nh,S,hd)
+    v = xh * dt.transpose(1, 2)[..., None].to(dt_)
+    rep = nh // mb.ngroups
+    k = torch.repeat_interleave(_heads_split(bs, mb.ngroups, mb.d_state),
+                                rep, dim=1)
+    q = torch.repeat_interleave(_heads_split(cs, mb.ngroups, mb.d_state),
+                                rep, dim=1)
+    return q, k, v, log_a, xh, {"x": ccx, "b": ccb, "c": ccc}
+
+
+def _mamba_out(params, x, y, xh, cfg: ModelConfig):
+    """y + D·x, gated by silu(x @ wz), group-normed, projected out."""
+    y = y + params["d_skip"][None, :, None, None].to(y.dtype) * xh
+    y = _heads_merge(y.to(x.dtype))
+    y = y * F.silu(x @ params["wz"].to(x.dtype))
+    y = rmsnorm(params["gnorm"], y, cfg.norm_eps)
+    return y @ params["wo"].to(x.dtype)
+
+
+def mamba2_apply(params, x, ctx: Ctx, spec: LayerSpec):
+    """SSD through the chunk kernels (``ops.linear_attention_op``), or
+    under sequence parallelism LASP-2 with the autodiff backward, as the
+    reference: SSD is decayed linear attention, so LASP-2 applies as it
+    is. The causal conv runs on this rank's chunk alone."""
+    q, k, v, log_a, xh, _ = _mamba_core(params, x, ctx, spec)
+    bs = ctx.cfg.linear_attn.block_size
+    if ctx.sp is None:
+        y, _, _ = ops.linear_attention_op(q, k, v, log_a, block_size=bs)
+    else:
+        y = lasp2(q, k, v, log_a, sp=ctx.sp, block_size=bs,
+                  backward="autodiff")
+    return _mamba_out(params, x, y, xh, ctx.cfg)
+
+
+def mamba2_cache(cfg: ModelConfig, spec: LayerSpec, batch, device):
+    """The SSD state (B, nh, d_state, headdim) and its cumulative log decay
+    in fp32, and the last d_conv − 1 conv inputs of x, B and C in
+    ``CACHE_DTYPE``: constant in context length."""
+    mb, d_in, nh = _mamba_dims(cfg, spec)
+    gd = mb.ngroups * mb.d_state
+    conv = lambda c: torch.zeros((batch, mb.d_conv - 1, c),
+                                 dtype=CACHE_DTYPE, device=device)
+    return {"m": torch.zeros((batch, nh, mb.d_state, mb.headdim),
+                             dtype=torch.float32, device=device),
+            "log_decay": torch.zeros((batch, nh), dtype=torch.float32,
+                                     device=device),
+            "conv_x": conv(d_in), "conv_b": conv(gd), "conv_c": conv(gd)}
+
+
+def _conv_cache(cc):
+    return {f"conv_{n}": t.to(CACHE_DTYPE) for n, t in cc.items()}
+
+
+def mamba2_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
+    """One token: the conv continues from the cached inputs, the state
+    takes one recurrent step (K3 on the card, in place)."""
+    conv = {n: cache[f"conv_{n}"] for n in "xbc"}
+    q, k, v, log_a, xh, cc = _mamba_core(params, x, ctx, spec, conv)
+    y, m, ld = ops.linear_decode_op(
+        q[..., 0, :], k[..., 0, :], v[..., 0, :], log_a[..., 0],
+        cache["m"], cache["log_decay"])
+    # the reference rounds o to the activations' dtype before the skip
+    y = y[:, :, None, :].to(x.dtype)
+    return _mamba_out(params, x, y, xh, ctx.cfg), \
+        {"m": m, "log_decay": ld, **_conv_cache(cc)}
+
+
+def _mamba2_prefill(params, x, ctx: Ctx, spec: LayerSpec):
+    """The prompt through K1; the cache is its end state, the sum of every
+    log a (resets included) and the last d_conv − 1 conv inputs (the real
+    ones: left-padding sits before them)."""
+    q, k, v, log_a, xh, cc = _mamba_core(params, x, ctx, spec)
+    y, m, _ = ops.linear_attention_op(
+        q, k, v, log_a, block_size=ctx.cfg.linear_attn.block_size)
+    return _mamba_out(params, x, y, xh, ctx.cfg), \
+        {"m": m, "log_decay": log_a.float().sum(-1), **_conv_cache(cc)}
+
+
+# ===========================================================================
+# Hymba: parallel softmax-attention + SSM heads in one mixer
+# ===========================================================================
+
+def hymba_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
+    return {"attn": softmax_init(generator, cfg, dtype, device),
+            "ssm": mamba2_init(generator, cfg, spec, dtype, device)}
+
+
+def hymba_window(spec: LayerSpec, ctx: Ctx):
+    """The attention window of a hymba layer: none on global layers
+    (``ctx.is_global``, from ``model.hymba_global_flags``; the reference's
+    traced ``1 << 30`` means the same), else ``spec.sliding_window`` or
+    2048."""
+    return None if ctx.is_global else (spec.sliding_window or 2048)
+
+
+def hymba_apply(params, x, ctx: Ctx, spec: LayerSpec):
+    a = softmax_apply(params["attn"], x, ctx, window=hymba_window(spec, ctx))
+    s = mamba2_apply(params["ssm"], x, ctx, spec)
+    return 0.5 * (a + s)
+
+
+def hymba_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
+    """The attention ring is ``max_len`` long on every layer, windowed ones
+    included, as in the reference (its global flag may be traced); the
+    window is applied by the mask."""
+    return {"attn": softmax_cache(cfg, spec, batch, max_len, device,
+                                  ring=max_len),
+            "ssm": mamba2_cache(cfg, spec, batch, device)}
+
+
+def _hymba_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
+    q, k, v = _qkv(params["attn"], x, ctx.cfg, ctx.positions)
+    a = _softmax_out(params["attn"], x, q, k, v, ctx,
+                     hymba_window(spec, ctx))
+    ca = softmax_prefill_cache(k, v, ctx.positions, max_len)
+    s, cs = _mamba2_prefill(params["ssm"], x, ctx, spec)
+    return 0.5 * (a + s), {"attn": ca, "ssm": cs}
+
+
+def hymba_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
+    a, ca = softmax_decode(params["attn"], x, cache["attn"], ctx,
+                           window=hymba_window(spec, ctx))
+    s, cs = mamba2_decode(params["ssm"], x, cache["ssm"], ctx, spec)
+    return 0.5 * (a + s), {"attn": ca, "ssm": cs}
+
+
+# ===========================================================================
 # Layer glue
 # ===========================================================================
 
+class _Mixer(NamedTuple):
+    """One mixer's entry points, each under one signature for all mixers."""
+    init: Callable      # (generator, cfg, spec, dtype, device) -> params
+    apply: Callable     # (params, h, ctx, spec) -> y
+    prefill: Callable   # (params, h, ctx, spec, max_len) -> (y, cache)
+    decode: Callable    # (params, h, cache, ctx, spec) -> (y, cache)
+    cache: Callable     # (cfg, spec, batch, max_len, device) -> cache
+
+
+_MIXERS = {
+    "softmax": _Mixer(
+        lambda g, cfg, spec, dt, dev: softmax_init(g, cfg, dt, dev),
+        lambda p, h, ctx, spec: softmax_apply(p, h, ctx,
+                                              window=spec.sliding_window),
+        _softmax_prefill,
+        lambda p, h, c, ctx, spec: softmax_decode(
+            p, h, c, ctx, window=spec.sliding_window),
+        softmax_cache),
+    "linear": _Mixer(
+        lambda g, cfg, spec, dt, dev: linear_init(g, cfg, dt, dev),
+        lambda p, h, ctx, spec: linear_apply(p, h, ctx),
+        lambda p, h, ctx, spec, max_len: _linear_prefill(p, h, ctx),
+        lambda p, h, c, ctx, spec: linear_decode(p, h, c, ctx),
+        lambda cfg, spec, b, max_len, dev: linear_cache(cfg, b, dev)),
+    "mamba2": _Mixer(
+        mamba2_init, mamba2_apply,
+        lambda p, h, ctx, spec, max_len: _mamba2_prefill(p, h, ctx, spec),
+        mamba2_decode,
+        lambda cfg, spec, b, max_len, dev: mamba2_cache(cfg, spec, b, dev)),
+    "hymba": _Mixer(hymba_init, hymba_apply, _hymba_prefill, hymba_decode,
+                    hymba_cache),
+}
+
+
 def layer_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
+    """``ln1`` and the mixer; ``ln2`` and the MLP unless ``mlp="none"``
+    (mamba2)."""
     _unported(spec)
-    mix_init = {"softmax": softmax_init, "linear": linear_init}[spec.mixer]
-    return {"ln1": rmsnorm_init(cfg.d_model, device),
-            "mixer": mix_init(generator, cfg, dtype, device),
-            "ln2": rmsnorm_init(cfg.d_model, device),
-            "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device,
-                            act=cfg.mlp_act)}
+    p = {"ln1": rmsnorm_init(cfg.d_model, device),
+         "mixer": _MIXERS[spec.mixer].init(generator, cfg, spec, dtype,
+                                           device)}
+    if spec.mlp == "dense":
+        p["ln2"] = rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device,
+                            act=cfg.mlp_act)
+    return p
 
 
 def _mlp_residual(params, x, cfg: ModelConfig):
+    if "mlp" not in params:                  # mlp="none"
+        return x
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act)
 
@@ -305,36 +556,27 @@ def _mlp_residual(params, x, cfg: ModelConfig):
 def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    if spec.mixer == "softmax":
-        y = softmax_apply(params["mixer"], h, ctx, window=spec.sliding_window)
-    else:
-        y = linear_apply(params["mixer"], h, ctx)
+    y = _MIXERS[spec.mixer].apply(params["mixer"], h, ctx, spec)
     return _mlp_residual(params, x + y, ctx.cfg)
 
 
 def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
     _unported(spec)
-    if spec.mixer == "softmax":
-        return {"mixer": softmax_cache(cfg, spec, batch, max_len, device)}
-    return {"mixer": linear_cache(cfg, batch, device)}
+    return {"mixer": _MIXERS[spec.mixer].cache(cfg, spec, batch, max_len,
+                                               device)}
 
 
 def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    if spec.mixer == "softmax":
-        y, mc = _softmax_prefill(params["mixer"], h, ctx, spec, max_len)
-    else:
-        y, mc = _linear_prefill(params["mixer"], h, ctx)
+    y, mc = _MIXERS[spec.mixer].prefill(params["mixer"], h, ctx, spec,
+                                        max_len)
     return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}
 
 
 def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    if spec.mixer == "softmax":
-        y, mc = softmax_decode(params["mixer"], h, cache["mixer"], ctx,
-                               window=spec.sliding_window)
-    else:
-        y, mc = linear_decode(params["mixer"], h, cache["mixer"], ctx)
+    y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, cache["mixer"],
+                                       ctx, spec)
     return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}

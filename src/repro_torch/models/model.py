@@ -1,8 +1,7 @@
 """Model builder: init / forward / loss / prefill / decode over the layer
 stack.
 
-Twin of ``repro/models/model.py`` for the serving, training and hybrid
-slices.
+Twin of ``repro/models/model.py`` for the ported slices.
 The reference stacks each pattern position's params over groups and runs
 the stack with ``lax.scan``; here the stack is a Python list of layers,
 layer ``g·len(pattern) + p`` built from ``pattern[p]``, walked in a loop.
@@ -15,10 +14,15 @@ Params are a plain dict::
 The decode cache is ``{"layers": [{"mixer": {...}}, ...], "pos": (B,)
 int32}``: a linear layer holds ``m`` (B, H, dk, dv) fp32 and ``log_decay``
 (B, H) fp32; a softmax layer a ring of ``k``, ``v`` (B, Hkv, R, dh) bf16
-and ``kpos`` (B, R) int32.
+and ``kpos`` (B, R) int32; a mamba2 layer ``m`` (B, nh, d_state,
+headdim) and ``log_decay`` (B, nh) fp32 and ``conv_x``, ``conv_b``,
+``conv_c`` (B, d_conv − 1, C) bf16; a hymba layer both, nested under
+``attn`` and ``ssm``.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.utils.checkpoint
@@ -40,7 +44,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     ``device="cpu"``). Matrices and embeddings are stored in
     ``param_dtype`` (a config dtype name): by default ``cfg.dtype`` (bf16
     serving params); training passes ``cfg.param_dtype`` for fp32
-    masters. Norm scales are fp32 either way.
+    masters. Norm scales and the SSD heads' 1-D leaves (``dt_bias``,
+    ``a_log``, ``d_skip``) are fp32 either way.
     """
     device = resolve_device(device)
     if generator.device.type != device.type:
@@ -58,6 +63,31 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 
 def _device(params) -> torch.device:
     return params["embed"]["table"].device
+
+
+def hymba_global_flags(cfg: ModelConfig):
+    """Per layer, whether a hymba layer attends unwindowed; None without
+    hymba layers. Hymba keeps full attention in its first, middle and last
+    layers: a single-position pattern (SMOKE) marks layers 0, n // 2 and
+    n − 1, as the reference's traced flags; a multi-position pattern
+    (``CONFIG``) marks them statically by ``LayerSpec.is_global``."""
+    specs = cfg.layer_specs()
+    if not any(spec.mixer == "hymba" for spec in specs):
+        return None
+    if len(cfg.pattern) == 1:
+        n = cfg.n_layers
+        return [i in (0, n // 2, n - 1) for i in range(n)]
+    return [spec.is_global for spec in specs]
+
+
+def _layer_ctxs(ctx: Ctx, cfg: ModelConfig):
+    """One ``Ctx`` per layer: ``ctx`` itself, or a copy carrying the
+    layer's hymba flag (a copy, so a layer recomputed under remat reads
+    its own)."""
+    flags = hymba_global_flags(cfg)
+    if flags is None:
+        return [ctx] * cfg.n_layers
+    return [dataclasses.replace(ctx, is_global=f) for f in flags]
 
 
 def forward(params, tokens, cfg: ModelConfig, *, resets=None,
@@ -88,12 +118,13 @@ def forward(params, tokens, cfg: ModelConfig, *, resets=None,
         positions = sp.chunk_index * s + positions
     ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
               resets=None if resets is None else resets.to(device))
-    for p, spec in zip(params["layers"], cfg.layer_specs()):
+    for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
+                             cfg.layer_specs()):
         if remat == "full":
             x = torch.utils.checkpoint.checkpoint(
-                blocks.layer_apply, p, x, ctx, spec, use_reentrant=False)
+                blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
         else:
-            x = blocks.layer_apply(p, x, ctx, spec)
+            x = blocks.layer_apply(p, x, lctx, spec)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_out(params["embed"], x, cfg.vocab_size)
 
@@ -136,11 +167,13 @@ def pad_safe(cfg: ModelConfig) -> bool:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
-    """Decode cache: per linear layer a constant-size fp32 state plus its
-    cumulative log decay (``max_len`` does not change its size), per
-    softmax layer a ring-buffer KV cache (ring = the sliding window of the
-    hybrids' softmax layers, capped at ``max_len``); ``pos`` is per row,
-    since rows of a continuous batch sit at different offsets."""
+    """Decode cache: per linear or mamba2 layer a constant-size fp32 state
+    plus its cumulative log decay (``max_len`` does not change its size;
+    mamba2 also keeps its last d_conv − 1 conv inputs), per softmax layer a
+    ring-buffer KV cache (ring = the sliding window of the hybrids'
+    softmax layers, capped at ``max_len``; every hymba layer's ring is
+    ``max_len`` long); ``pos`` is per row, since rows of a continuous
+    batch sit at different offsets."""
     device = resolve_device(device)
     return {"layers": [blocks.layer_cache(cfg, spec, batch, max_len, device)
                        for spec in cfg.layer_specs()],
@@ -150,19 +183,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
 def decode_step(params, token, cache, cfg: ModelConfig):
     """One decode step. token: (B,) int → (logits (B, V), new cache).
 
-    No prefix re-scan: every linear layer advances its recurrent state by
-    one step (on CUDA in place, so the returned cache holds the caller's
-    state tensors); every softmax layer writes one ring slot in place (on
-    every device) and attends to the ring.
+    No prefix re-scan: every linear or SSD layer advances its recurrent
+    state by one step (on CUDA in place, so the returned cache holds the
+    caller's state tensors; SSD layers return new conv caches); every
+    softmax layer writes one ring slot in place (on every device) and
+    attends to the ring.
     """
     dtype = torch_dtype(cfg.dtype)
     pos = cache["pos"]
     x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
     ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos)
     new_layers = []
-    for p, c, spec in zip(params["layers"], cache["layers"],
-                          cfg.layer_specs()):
-        x, nc = blocks.layer_decode(p, x, c, ctx, spec)
+    for p, c, lctx, spec in zip(params["layers"], cache["layers"],
+                                _layer_ctxs(ctx, cfg), cfg.layer_specs()):
+        x, nc = blocks.layer_decode(p, x, c, lctx, spec)
         new_layers.append(nc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], x, cfg.vocab_size)
@@ -183,8 +217,11 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
     tokens, its positions start at ``-pad_lens[b]`` so real tokens sit at
     0..L-1, filler embeddings are zeroed, and a state reset
     (``RESET_LOG_A``) at the first real token erases the filler's
-    contribution to the state. Softmax layers build their ring caches for
-    ``max_len`` (default: the prompt length).
+    contribution to the state. The zeroed filler rows stay exactly zero
+    through every layer (norms, projections, mamba2's conv, gate and
+    ``wo`` all map 0 to 0), so mamba2's conv sees at the first real token
+    the zeros of a sequence start. Softmax layers build their ring caches
+    for ``max_len`` (default: the prompt length).
     """
     device = _device(params)
     dtype = torch_dtype(cfg.dtype)
@@ -208,8 +245,9 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
         positions = torch.arange(s, device=device)
     ctx = Ctx(cfg=cfg, positions=positions, resets=resets)
     caches = []
-    for p, spec in zip(params["layers"], cfg.layer_specs()):
-        x, c = blocks.layer_prefill(p, x, ctx, spec, max_len)
+    for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
+                             cfg.layer_specs()):
+        x, c = blocks.layer_prefill(p, x, lctx, spec, max_len)
         caches.append(c)
     x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     logits = logits_out(params["embed"], x, cfg.vocab_size)

@@ -31,19 +31,60 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, np.ndarray]:
     return {prefix: np.asarray(tree)}
 
 
+_ATTN = (("wq",), ("wk",), ("wv",), ("wo",))
+_SSM = (("wx",), ("wz",), ("wb",), ("wc",), ("wdt",), ("dt_bias",),
+        ("a_log",), ("d_skip",), ("conv_x",), ("conv_b",), ("conv_c",),
+        ("gnorm", "scale"), ("wo",))
+
+
+def _layer_paths(spec, cfg: ModelConfig):
+    """The leaf paths of one layer's params, by mixer and MLP. ``wdt`` is
+    GLA's gate in a linear mixer with ``decay="data"`` and the SSD step
+    projection in a mamba2 mixer (and hymba's ``ssm``): picked by mixer."""
+    if spec.mixer not in ("linear", "softmax", "mamba2", "hymba") \
+            or spec.mlp not in ("dense", "none"):
+        raise NotImplementedError(
+            f"params_from_jax: mixer={spec.mixer!r} mlp={spec.mlp!r} is "
+            f"ported in a later slice")
+    mixer = {"softmax": _ATTN,
+             "linear": _ATTN + ((("wdt",),) if cfg.linear_attn.decay
+                                == "data" else ()),
+             "mamba2": _SSM,
+             "hymba": tuple(("attn",) + p for p in _ATTN)
+             + tuple(("ssm",) + p for p in _SSM)}[spec.mixer]
+    paths = [("ln1", "scale")] + [("mixer",) + p for p in mixer]
+    if spec.mlp == "dense":
+        paths += [("ln2", "scale"), ("mlp", "w1"), ("mlp", "w2"),
+                  ("mlp", "w3")]
+    return paths
+
+
+def _nest(items):
+    """``[(path, leaf), ...]`` → the nested dict those paths name."""
+    out = {}
+    for path, leaf in items:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     """Port params from the reference's ``init_params`` tree, with numpy
     leaves (``jax.tree.map(np.asarray, params)``).
 
-    Matrices and embeddings are cast to ``dtype`` (default ``cfg.dtype``),
-    norm scales kept fp32. Raises on any leaf it does not map and on any
-    leaf the port needs that the tree lacks.
+    Matrices and embeddings are cast to ``dtype`` (default ``cfg.dtype``);
+    1-D leaves (norm scales, and the SSD heads' ``dt_bias``, ``a_log`` and
+    ``d_skip``) stay fp32, since a bf16 ``a_log`` would move every head's
+    decay. Raises on any leaf it does not map and on any leaf the port
+    needs that the tree lacks.
     """
     dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
     flat = _flatten(params_np)
 
-    def tensor(arr, name):
-        want = torch.float32 if name == "scale" else dtype
+    def tensor(arr):
+        want = torch.float32 if arr.ndim == 1 else dtype
         return torch.from_numpy(np.array(arr, np.float32)).to(
             device=device, dtype=want)
 
@@ -56,9 +97,9 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     def take(*path):
         arr = leaf(*path)
         del flat[path]
-        return tensor(arr, path[-1])
+        return tensor(arr)
 
-    def unstacked(p, g, *path):
+    def unstacked(p, g, path):
         """Group ``g`` of pattern position ``p``'s stacked leaf ``path``."""
         key = ("groups", str(p)) + path
         arr = leaf(*key)
@@ -66,28 +107,15 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
             raise ValueError(f"params_from_jax: {'.'.join(key)} stacks "
                              f"{arr.shape[0]} groups, config has "
                              f"{cfg.n_groups}")
-        return tensor(arr[g], path[-1])
+        return tensor(arr[g])
 
-    def layer_leaves(spec):
-        mixer = ("wq", "wk", "wv", "wo")
-        if spec.mixer == "linear" and cfg.linear_attn.decay == "data":
-            mixer += ("wdt",)          # GLA's gate
-        return {"ln1": ("scale",), "ln2": ("scale",), "mixer": mixer,
-                "mlp": ("w1", "w2", "w3")}
-
-    for spec in cfg.pattern:
-        if spec.mixer not in ("linear", "softmax") or spec.mlp != "dense":
-            raise NotImplementedError(
-                f"params_from_jax: mixer={spec.mixer!r} "
-                f"mlp={spec.mlp!r} is ported in a later slice")
-    layers = [{mod: {name: unstacked(p, g, mod, name) for name in names}
-               for mod, names in layer_leaves(spec).items()}
+    paths = [_layer_paths(spec, cfg) for spec in cfg.pattern]
+    layers = [_nest((path, unstacked(p, g, path)) for path in paths[p])
               for g in range(cfg.n_groups)
-              for p, spec in enumerate(cfg.pattern)]
-    for p, spec in enumerate(cfg.pattern):
-        for mod, names in layer_leaves(spec).items():
-            for name in names:
-                del flat[("groups", str(p), mod, name)]
+              for p in range(len(cfg.pattern))]
+    for p, layer_paths in enumerate(paths):
+        for path in layer_paths:
+            del flat[("groups", str(p)) + path]
     embed = {"table": take("embed", "table")}
     if not cfg.tie_embeddings:
         embed["lm_head"] = take("embed", "lm_head")

@@ -1,9 +1,10 @@
 """Constant-memory serving engine with continuous batching.
 
 Twin of ``repro/serve/engine.py`` (continuous path). The decode cache holds,
-per linear layer, only the fp32 ``dk × dv`` recurrent state plus its
-cumulative log decay: O(1) in context length; per softmax layer of a
-LASP-2H hybrid, a ring of bf16 K/V as long as the layer's window. Prefill
+per linear or mamba2 layer, only the fp32 ``dk × dv`` recurrent state plus
+its cumulative log decay (mamba2 also its last d_conv − 1 conv inputs):
+O(1) in context length; per softmax layer of a LASP-2H hybrid, a ring of
+bf16 K/V as long as the layer's window (hymba: ``max_len``). Prefill
 runs the chunked scan (the ``lasp2_chunk_fwd`` kernel on the card) and
 flash attention (``flash_attention_fwd``) and lands the final per-layer
 states and rings in the cache; decode advances every slot by one
@@ -37,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device, synchronize
+from repro_torch.core.tree import leaves_with_paths
 from repro_torch.models import model as M
 from repro_torch.obs.metrics import Metrics, as_sink
 from repro_torch.serve.scheduler import (ContinuousScheduler, PrefillBatch,
@@ -58,6 +60,20 @@ def _mix_seed(seed: int, stream: int, step: int) -> int:
         x = x * 0x94D049BB133111EB & _MASK64
         x ^= x >> 31
     return x >> 1
+
+
+def _place(big, small, slots) -> None:
+    """Write a prefill's cache tree ``small`` (rows in ``slots`` order)
+    into the engine's cache tree ``big``, leaf by leaf, at rows
+    ``slots``; nested mixer dicts (hymba's ``attn``/``ssm``) included."""
+    if isinstance(big, dict):
+        for name, sub in small.items():
+            _place(big[name], sub, slots)
+    elif isinstance(big, list):
+        for b, s in zip(big, small):
+            _place(b, s, slots)
+    else:
+        big[slots] = small.to(big.dtype)
 
 
 class ServeEngine:
@@ -177,10 +193,7 @@ class ServeEngine:
                                   max_len=self.max_len, pad_lens=pad_lens)
         slots = torch.as_tensor(batch.slots, dtype=torch.long,
                                 device=self.device)
-        for big, new in zip(self._cache["layers"], small["layers"]):
-            for name, t in new["mixer"].items():
-                big["mixer"][name][slots] = t.to(big["mixer"][name].dtype)
-        self._cache["pos"][slots] = small["pos"]
+        _place(self._cache, small, slots)
         temps = np.array([r.temperature for r in batch.requests], np.float32)
         seeds = np.array([[r.seed, r.stream] for r in batch.requests],
                          np.int64)
@@ -257,20 +270,24 @@ class ServeEngine:
 
     def cache_stats(self) -> Dict[str, int]:
         """Decode-cache footprint by kind (bytes) plus the tensor count per
-        kind (``<kind>_arrays``). ``linear_state`` is per linear layer
-        ``B·H·(dk·dv + 1)·4`` bytes, constant in context length and in
-        ``max_len``; ``kv_ring`` per softmax layer
+        kind (``<kind>_arrays``), by leaf name as the reference counts
+        them. ``linear_state`` is per linear or SSD layer
+        ``B·H·(dk·dv + 1)·4`` bytes (fp32 state + log decay; for SSD H =
+        nh, dk = d_state, dv = headdim), constant in context length and in
+        ``max_len``; ``kv_ring`` per softmax or hymba layer
         ``2·B·n_kv·ring·head_dim·2`` (bf16 K/V) ``+ B·ring·4`` (int32
-        positions), with ring = min(window, ``max_len``)."""
-        stats = {"linear_state": 0, "kv_ring": 0, "other": 0}
+        positions), with ring = min(window, ``max_len``), or ``max_len``
+        on every hymba layer; ``conv`` per SSD layer ``B·(d_conv −
+        1)·(d_in + 2·ngroups·d_state)·2`` (bf16 conv inputs)."""
+        stats = {"linear_state": 0, "kv_ring": 0, "conv": 0, "other": 0}
         arrays = dict.fromkeys(stats, 0)
-        for layer in self._cache["layers"]:
-            for name, t in layer["mixer"].items():
-                kind = ("linear_state" if name in ("m", "log_decay")
-                        else "kv_ring" if name in ("k", "v", "kpos")
-                        else "other")
-                stats[kind] += t.numel() * t.element_size()
-                arrays[kind] += 1
+        for path, t in leaves_with_paths(self._cache["layers"]):
+            name = path[-1]
+            kind = ("linear_state" if name in ("m", "log_decay")
+                    else "kv_ring" if name in ("k", "v", "kpos")
+                    else "conv" if name.startswith("conv_") else "other")
+            stats[kind] += t.numel() * t.element_size()
+            arrays[kind] += 1
         stats["total"] = sum(stats.values())
         stats.update({f"{k}_arrays": n for k, n in arrays.items()})
         return stats

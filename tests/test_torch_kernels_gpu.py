@@ -20,6 +20,8 @@ products, 2^-8 times those products over absolute values
 (``fl.sm90_rounding_bound``).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -271,6 +273,78 @@ def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
                                atol=1e-3 + slack)
 
 
+def _ssd_log_a(gen, bh, s, nh):
+    """SSD's log a at init (``mamba2_init``): −h·softplus(dt_bias + noise)
+    for head h = 1..nh of each row, dt_bias the softplus⁻¹ of a step
+    drawn log-uniform in [1e-3, 0.1]; down to about −8 a token at nh 80."""
+    head = (torch.arange(bh, device="cuda") % nh + 1).float()[:, None]
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    dt0 = torch.exp(lo + (hi - lo) * torch.rand(bh, 1, generator=gen,
+                                                device="cuda"))
+    return -head * torch.nn.functional.softplus(
+        torch.log(torch.expm1(dt0))
+        + 0.1 * torch.randn(bh, s, generator=gen, device="cuda"))
+
+
+@pytest.mark.parametrize("s", [37, 512])
+@pytest.mark.parametrize("dk,dv,nh", [(128, 64, 80), (16, 64, 25)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_kernels_on_the_ssd_log_a(gen, s, dk, dv, nh, dtype):
+    """K1, K2a and K2b at mamba2's (128, 64) and hymba's (16, 64) heads on
+    SSD's log a (a reset mid-chunk), each on its route (bf16 at (128,
+    64): ``sm90``), under the limits of ``test_chunk_kernel_matches_plain``
+    and ``test_chunk_bwd_kernels_match_plain``."""
+    bh = 2 * nh
+    q = (torch.randn(bh, s, dk, generator=gen, device="cuda") * 0.3)
+    k = (torch.randn(bh, s, dk, generator=gen, device="cuda") * 0.3)
+    v = (torch.randn(bh, s, dv, generator=gen, device="cuda") * 0.5)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    la = _ssd_log_a(gen, bh, s, nh)
+    la[:, s // 2] = RESET_LOG_A
+    o, st, ld = lasp2_chunk_fwd(q, k, v, la)
+    torch.cuda.synchronize()
+    o_p, st_p, ld_p = lasp2_chunk_fwd_plain(q, k, v, la,
+                                            block_size=pick_block(s, 128))
+    _close(o, o_p, TOL[dtype])
+    _close(st, st_p, 1e-4)
+    _close(ld, ld_p, 1e-5)
+    do = torch.randn(bh, s, dv, generator=gen, device="cuda").to(dtype)
+    dst = torch.randn(bh, dk, dv, generator=gen, device="cuda")
+    got = lasp2_chunk_bwd(q, k, v, la, o_p.to(dtype), do, dst)
+    want = lasp2_chunk_bwd_plain(q, k, v, la, o_p.to(dtype), do, dst,
+                                 block_size=pick_block(s, 128))
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w, tol)
+    slack = s * 2.0 ** -24 * float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3,
+                               atol=1e-3 + slack)
+
+
+@pytest.mark.parametrize("route", lasp2_decode_mod.ROUTES)
+@pytest.mark.parametrize("dk,dv,nh", [(128, 64, 80), (16, 64, 25)])
+def test_decode_kernel_on_the_ssd_log_a(gen, dk, dv, nh, route):
+    """K3 at the SSD heads' shapes, 8 chained steps on SSD's log a (a reset
+    at step 3 for half the rows), bf16 q/k/v, in place, against the plain
+    step."""
+    bh = 2 * nh
+    st0 = torch.randn(bh, dk, dv, generator=gen, device="cuda")
+    ld0 = -torch.rand(bh, generator=gen, device="cuda")
+    st, ld = st0.clone(), ld0.clone()
+    st_p, ld_p = st0.clone(), ld0.clone()
+    for i in range(8):
+        q, k, v, _ = _decode_inputs(gen, bh, dk, dv, torch.bfloat16)
+        la = _ssd_log_a(gen, bh, 1, nh)[:, 0].contiguous()
+        if i == 3:
+            la[: bh // 2] = RESET_LOG_A
+        o, _, _ = lasp2_decode_step(q, k, v, la, st, ld, route=route)
+        o_p, st_p, ld_p = lasp2_decode_step_plain(q, k, v, la, st_p, ld_p)
+        _close(o, o_p, TOL[torch.float32])
+    torch.cuda.synchronize()
+    _close(st, st_p, 1e-4)
+    _close(ld, ld_p, 1e-5)
+
+
 def test_chunk_autograd_launches_both_passes(gen):
     """Autograd through ops.linear_attention_op on the card launches K1
     once and K2a, K2b once each, and pulling only on the state gives
@@ -402,14 +476,15 @@ def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
 
 @pytest.mark.parametrize("sq,sk,hq,hkv", [(64, 64, 4, 4), (100, 100, 4, 2),
                                           (37, 200, 8, 1), (256, 256, 8, 2),
-                                          (128, 300, 4, 4)])
+                                          (128, 300, 4, 4), (200, 200, 25, 5)])
 @pytest.mark.parametrize("dh", [16, 64, 128])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 48), (False, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
                                    dtype):
-    """K4 (o, lse), K5a (dq) and K5b (dk, dv) over GQA ratios 1-8, ragged
+    """K4 (o, lse), K5a (dq) and K5b (dk, dv) over GQA ratios 1-8 and
+    hymba's 25:5 (an odd head count), ragged
     lengths, sq != sk (q_offset = sk - sq), windows, fp32 (3e-4 for o, the
     reference's 1e-3 for gradients) and bf16 (``_close_bf16``), on both
     routes: bf16 at dh 64 and 128 through ``sm90`` (o, dk and dv with its

@@ -198,6 +198,76 @@ def test_remat_full_replays_the_forward_gathers(sp4):
         assert r["remat_counts"] == {"none": n, "full": 2 * n}
 
 
+@pytest.fixture(scope="module")
+def ssm(ref):
+    """The SSM family's SMOKE models at (1, 2) on two gloo ranks, and on
+    one device (the one-device step), from the reference's params."""
+    ranks = run_ranks(R.ssm_rank, 2, args=(str(ref),), timeout_s=300)
+    local = {arch: R.ssm_steps(str(ref), "cpu", arch, None)
+             for arch in R.SSM_ARCHS}
+    with np.load(ref) as npz:
+        want = {k: npz[k] for k in npz.files if k.startswith("ssm/")}
+    return ranks, local, want
+
+
+@pytest.mark.parametrize("arch", R.SSM_ARCHS)
+def test_ssm_steps_match_reference_at_1x2(ssm, arch):
+    """3 steps of packed rows at (1, 2): mamba2's layers take LASP-2 with
+    the autodiff backward, hymba's the same for its SSD heads and the K/V
+    all-gather with its window for its attention heads; every rank's
+    losses and grad norms within 1e-3 of the reference's manual step at
+    (1, 2)."""
+    ranks, _, want = ssm
+    for r in ranks:
+        np.testing.assert_allclose(r[arch]["losses"],
+                                   want[f"ssm/{arch}/sp/loss"], rtol=TOL,
+                                   atol=TOL)
+        np.testing.assert_allclose(r[arch]["gnorms"],
+                                   want[f"ssm/{arch}/sp/gnorm"], rtol=TOL,
+                                   atol=TOL)
+
+
+@pytest.mark.parametrize("arch", R.SSM_ARCHS)
+def test_ssm_step_tape(ssm, arch):
+    """One step's collectives at (1, 2), with the reference's payloads: per
+    mamba2 (or hymba SSD) layer and microbatch one forward state
+    all-gather, ``lasp2.states``, and its reduce-scatter backward; per
+    hymba layer and microbatch the K/V all-gathers too; ONE gradient
+    all-reduce."""
+    ranks, _, want = ssm
+    cfg = R.ssm_step_cfg(arch)
+    per_step = cfg.n_layers * R.RUN["num_microbatches"]
+    for r in ranks:
+        tape = r[arch]["tape"]
+        fwd = [x for x in tape if not x.split("|")[1].endswith(".bwd")]
+        assert sorted(set(fwd)) == sorted(_rows(want[f"ssm/{arch}/tape"]))
+        tags = [x.split("|")[1] for x in fwd]
+        assert tags.count("lasp2.states") == per_step
+        assert tags.count("lasp2h.k") == tags.count("lasp2h.v") == \
+            (per_step if arch == "hymba-1.5b" else 0)
+        assert tags.count("train.grads") == 1
+        assert sum(x.startswith("reduce-scatter|lasp2.states.bwd")
+                   for x in tape) == per_step
+
+
+@pytest.mark.parametrize("arch", R.SSM_ARCHS)
+def test_ssm_sp_misses_the_conv_halo_as_the_reference_does(ssm, arch):
+    """A reference finding the port keeps: under the manual DP×SP step each
+    rank's causal conv starts its chunk from zeros, not from rank r−1's
+    last d_conv − 1 inputs (no halo), so (1, 2) departs from one device
+    by more than 1e-3 here (the reference's linear-llama3 SMOKE, with no
+    conv, stays within 1e-6: ROADMAP Queue 3). The port's gap between
+    (1, 2) and one device is the reference's, step by step, within
+    1e-5."""
+    ranks, local, want = ssm
+    ref_gap = want[f"ssm/{arch}/sp/loss"] - want[f"ssm/{arch}/local/loss"]
+    assert np.abs(ref_gap).max() > 1e-3, ref_gap
+    for r in ranks:
+        gap = np.asarray(r[arch]["losses"]) - np.asarray(
+            local[arch]["losses"])
+        np.testing.assert_allclose(gap, ref_gap, rtol=0, atol=1e-5)
+
+
 def test_zero1_equals_replicated_adamw(dp2sp2):
     """ZeRO-1 over the data ranks against replicated AdamW at (2, 2), 2
     steps: losses within 1e-6, every param within 1e-6 relative and 1e-7
@@ -399,7 +469,57 @@ def _jax_reference(path):
                     R.tape_rows(rec))
             losses.append(float(m["loss"]))
         out[f"dp{dp}sp{sp}/{kind}loss"] = np.array(losses)
+    _jax_ssm_reference(out)
     np.savez(path, **out)
+
+
+def _jax_ssm_reference(out):
+    """The SSM family's SMOKE models at (1, 2) under the manual DP×SP step
+    and on one device (``local_plan``): N_STEPS losses and grad norms
+    each, the tape of the first (1, 2) step, the initial params."""
+    import jax
+
+    from repro.comm import primitives as jprim
+    from repro.comm.spec import CommSpec
+    from repro.configs import get_smoke
+    from repro.configs.base import RunConfig as JRunConfig
+    from repro.data.pipeline import SyntheticLM
+    from repro.launch.mesh import make_training_mesh
+    from repro.sharding.rules import local_plan, make_plan
+    from repro.train.step import init_state, make_train_step
+
+    run = JRunConfig(**R.RUN)
+    for arch in R.SSM_ARCHS:
+        cfg = R.ssm_step_cfg(arch, get_smoke)
+        data = SyntheticLM(cfg.vocab_size, R.DATA["seq_len"],
+                           R.DATA["global_batch"], seed=R.DATA["seed"])
+        mesh = make_training_mesh(1, 2, devices=jax.devices()[:2])
+        plans = {"sp": make_plan(mesh, "train",
+                                 global_batch=R.DATA["global_batch"],
+                                 n_kv_heads=cfg.n_kv_heads,
+                                 n_heads=cfg.n_heads, zero1=True,
+                                 comm=CommSpec(dtype="fp32")),
+                 "local": local_plan()}
+        for where, plan in plans.items():
+            state = init_state(jax.random.PRNGKey(0), cfg, run, plan)
+            if where == "local":
+                for p, leaf in jax.tree_util.tree_flatten_with_path(
+                        state["params"])[0]:
+                    key = "/".join(str(getattr(k, "key", getattr(
+                        k, "idx", k))) for k in p)
+                    out[f"{R.SSM_PREFIX[arch]}{key}"] = np.asarray(leaf)
+            step = jax.jit(make_train_step(cfg, run, plan))
+            losses, gnorms = [], []
+            for i in range(R.N_STEPS):
+                with jprim.tape() as rec:       # records while jit traces
+                    state, m = step(state, data.microbatched(
+                        i, run.num_microbatches))
+                if i == 0 and where == "sp":
+                    out[f"ssm/{arch}/tape"] = np.array(R.tape_rows(rec))
+                losses.append(float(m["loss"]))
+                gnorms.append(float(m["grad_norm"]))
+            out[f"ssm/{arch}/{where}/loss"] = np.array(losses)
+            out[f"ssm/{arch}/{where}/gnorm"] = np.array(gnorms)
 
 
 if __name__ == "__main__":

@@ -77,13 +77,15 @@ def _jax_layout(tree, cfg):
     params stacked over groups per pattern position), as numpy."""
     n = len(cfg.pattern)
     num = lambda t: t.detach().float().numpy()
-    groups = []
-    for p in range(n):
-        layers = tree["layers"][p::n]
-        groups.append({mod: {name: np.stack([num(l[mod][name])
-                                             for l in layers])
-                             for name in layers[0][mod]}
-                       for mod in layers[0]})
+
+    def stacked(layers):
+        """One pattern position's layers, leaf by leaf (nested dicts such
+        as hymba's ``attn``/``ssm`` included), stacked over groups."""
+        if isinstance(layers[0], dict):
+            return {k: stacked([l[k] for l in layers]) for k in layers[0]}
+        return np.stack([num(l) for l in layers])
+
+    groups = [stacked(tree["layers"][p::n]) for p in range(n)]
     return {"embed": {k: num(v) for k, v in tree["embed"].items()},
             "groups": groups,
             "final_norm": {"scale": num(tree["final_norm"]["scale"])}}

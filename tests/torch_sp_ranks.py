@@ -533,3 +533,58 @@ def _nonfinite(npz_path, device, layout):
         for a, b in zip(tensors(new), before))
     return {"skipped": m["skipped"], "step": new["step"],
             "count": new["opt"].count, "frozen": same}
+
+
+# ---------------------------------------------------------------------------
+# Step level: the SSM family (mamba2, hymba) at (1, 2).
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
+SSM_PREFIX = {"mamba2-2.7b": "mparam/", "hymba-1.5b": "yparam/"}
+
+
+def ssm_step_cfg(arch, get_smoke=None):
+    """The arch's SMOKE in fp32: the port's, or the reference's from its
+    ``get_smoke``."""
+    if get_smoke is None:
+        from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke(arch), dtype="float32")
+
+
+def ssm_steps(npz_path, device, arch, layout):
+    """N_STEPS steps of ``arch``'s SMOKE from the reference's params, on
+    packed rows (the autodiff backward under SP), on ``layout`` (None: the
+    one-device step): losses, grad norms and the first step's tape."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.weights import params_from_jax
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    cfg = ssm_step_cfg(arch)
+    with np.load(npz_path) as npz:
+        tree = params_tree(npz, SSM_PREFIX[arch])
+    run = RunConfig(**RUN)
+    state = state_from_params(
+        params_from_jax(tree, cfg, device=device, dtype=torch.float32),
+        zero1_degree(run, layout))
+    step = make_train_step(cfg, run, layout)
+    data = SyntheticLM(cfg.vocab_size, DATA["seq_len"],
+                       DATA["global_batch"], seed=DATA["seed"])
+    res = {"losses": [], "gnorms": [], "tape": None}
+    for i in range(N_STEPS):
+        with primitives.tape() as rec:
+            state, m = step(state, data.microbatched(
+                i, RUN["num_microbatches"]))
+        if res["tape"] is None:
+            res["tape"] = tape_rows(rec)
+        res["losses"].append(m["loss"])
+        res["gnorms"].append(m["grad_norm"])
+    return res
+
+
+def ssm_rank(rank, world, device, npz_path):
+    """Both SSM SMOKE models at (dp, sp) = (1, ``world``) on this rank."""
+    from repro_torch.launch.mesh import make_training_groups
+    layout = make_training_groups(1, world)
+    return {arch: ssm_steps(npz_path, device, arch, layout)
+            for arch in SSM_ARCHS}
