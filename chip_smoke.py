@@ -18,7 +18,8 @@ line:
    training shape; K4, K5a and K5b, flash attention's forward and two
    backward passes, at the hybrid's training shape, a prefill shape, a
    trimmed band, GQA 4:1, an explicit offset, a non-causal window and
-   the bidirectional model's unmasked 2048 keys (phase 12); K1, K2a, K2b
+   the bidirectional model's unmasked 2048 keys (phase 12), the zoo's
+   head layouts 48:1, 48:4, 64:8 and 32:8 at dh 128 (phase 14); K1, K2a, K2b
    and K3 also on GLA's log a (logsigmoid of N(0, 0.5²) a token, a reset
    mid-chunk; phase 12), on both routes;
    and K1, K2a, K2b, K4, K5a and K5b at the shapes phase 10 gives them:
@@ -126,13 +127,30 @@ line:
    same by exact length (K1 32 on ``simt``, K4 32, K3 32), globals 0, 8,
    16, 24, the gap on a 1100-token prompt past the 1024 window; (d) both
    train 5 steps as phase 7 under full remat at lr 1e-4; (e) fp32 grad
-   checks of 2 layers of each against the host CPU.
+   checks of 2 layers of each against the host CPU;
+14. zoo, the decoder-only zoo and MoE, each ``CONFIG`` cut to 2 layers at
+   full width (random weights from a seed): codeqwen1.5-7b and
+   qwen1.5-110b (QKV biases; GQA 32:32 and 64:8), granite-34b (MQA 48:1,
+   GELU), starcoder2-15b (48:4, GELU), moonshot-v1-16b-a3b (64 experts,
+   top 6, 2 shared; 16:16) and phi3.5-moe-42b-a6.6b (16 experts, top 2;
+   32:8). K4, K5a and K5b timed at the new head layouts; (a) each serves
+   phase 4's requests by exact length (K4 2 a prefill batch, ``sm90``)
+   with phase 4's decode check (the MoE pair on a drop-free copy, its
+   routes held to the prefill's: logits held up to a step whose routes
+   differ), and the MoE pair at ``CONFIG`` capacity greedy-equal to the
+   host CPU in fp32; (b) each trains 3 steps of phase 7's schedule at
+   phase 13's lr (qwen1.5-110b at 1 layer, 2 x 2048, full remat), losses
+   finite, K4, K5a, K5b 2 a microbatch; (c) Linear-MoE (moonshot,
+   ``linearize=0``) serves through K1 and K3 and trains through K1, K2a,
+   K2b; (d) fp32 grad checks of codeqwen (biases) and moonshot (router,
+   experts, shared) against the host CPU.
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
 the paths that ran each, listed in ``launches_by_path``, phases 10's
-and 11's per cell and rank, phase 12's and 13's per path; phase 13's
-timings at the SSM shapes under ``ssm_cases``); the last line is
+and 11's per cell and rank, phase 12's to 14's per path; phase 13's
+timings at the SSM shapes under ``ssm_cases``, phase 14's at the zoo's
+head layouts under ``zoo_cases``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -175,7 +193,12 @@ TOL_LD = 1e-5
 # step 2^-8), and the chunked and recurrent forms round o, the residual
 # stream and every projection at different points, through 16 layers
 # (``TOL_LOGITS``) or the SSM family's 32 and 64 (``TOL_LOGITS_DEEP``, set
-# from its readings 0.1709–0.2422, PERF.md §6). With the params in fp32 the
+# from its readings 0.1709–0.2422, PERF.md §6); MoE stacks take
+# ``TOL_LOGITS_DEEP`` at any depth: at 2 layers, with the prefill on the
+# decode's routes, phi3.5-moe's decode gap read 0.1216 (bf16 moves its
+# prefill logits by 0.1467); a planted wrong expert read reads 2.6 and
+# 7.4 on the two MoE models but 0.08 on Linear-MoE, which only the
+# fp32-caches limit sees (PERF.md §6, PR 23). With the params in fp32 the
 # decode caches' bf16 K/V and conv inputs are the only bf16 roundings
 # (``TOL_LOGITS_FP32``, readings 0.0401–0.0671); with those caches in fp32
 # too, only fp32 roundings are left (``TOL_LOGITS_EXACT``).
@@ -822,9 +845,12 @@ def phase_bwd_kernels(kernels: list) -> list:
 # 1024 queries over both chunks' 2048 gathered keys, q_offset 1024), and
 # the bidirectional softmax model's train shape (phase 12: no mask, no
 # window, 2048 keys; bf16 and fp32), and hymba's attention heads (phase 13:
-# GQA 25:5 at dh 64, S 2048, window 1024 and global; bf16 and fp32). bf16 at
-# dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the rest on
-# ``simt``.
+# GQA 25:5 at dh 64, S 2048, window 1024 and global; bf16 and fp32), and
+# the zoo's new head layouts at dh 128 (phase 14: granite's MQA 48:1,
+# starcoder2's 48:4, qwen1.5-110b's 64:8, phi3.5-moe's 32:8) in fp32; in
+# bf16 phase 14 holds them at their training shape (``_zoo_flash_times``).
+# bf16 at dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the
+# rest on ``simt``.
 FLASH_CASES = [
     ("train", 4, 16, 16, 2048, 2048, 128, torch.bfloat16, True, 2048, None),
     ("train", 4, 16, 16, 2048, 2048, 128, torch.float32, True, 2048, None),
@@ -846,6 +872,11 @@ FLASH_CASES = [
     ("hymba_global", 4, 25, 5, 2048, 2048, 64, torch.bfloat16, True, None,
      None),
     ("hymba_global", 4, 25, 5, 2048, 2048, 64, torch.float32, True, None,
+     None),
+    ("mqa48", 2, 48, 1, 1024, 1024, 128, torch.float32, True, None, None),
+    ("gqa12", 2, 48, 4, 1024, 1024, 128, torch.float32, True, None, None),
+    ("gqa8", 1, 64, 8, 1024, 1024, 128, torch.float32, True, None, None),
+    ("gqa4x32", 2, 32, 8, 1024, 1024, 128, torch.float32, True, None,
      None),
 ]
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
@@ -882,6 +913,50 @@ def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
     return tuple(x.to(dtype) for x in (q, k, v, do))
 
 
+def _flash_check(q, k, v, do, dh, dtype, kw):
+    """K4, K5a and K5b on one input set against their plain versions on
+    the route the inputs take: o and lse, then dq, dk and dv from the plain
+    forward's lse and delta; fp32 within ``TOL_O`` / ``TOL_GRAD`` and
+    ``TOL_LSE``, bf16 within the data-scaled ``max_err_bf16`` (plus
+    ``sm90_rounding_bound`` on ``sm90``). Returns (route, max |error| by
+    result, the limits, ok)."""
+    from repro_torch.kernels import flash_attention as fl
+    route = fl._route(dtype, dh)
+    o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
+    delta = (do.float() * o_p.float()).sum(-1)
+    name = str(dtype).split(".")[-1]
+    bf16 = dtype == torch.bfloat16
+    extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw) \
+        if route == "sm90" else (None, None, None, None)
+    if bf16:
+        close_o = close_g = max_err_bf16
+    else:
+        close_o = lambda g, w, _: max_err_within(g, w, TOL_O[name])
+        close_g = lambda g, w, _: max_err_within(g, w, TOL_GRAD[name])
+    e_o, ok_o = close_o(o, o_p, extra[0])
+    e_l, ok_l = max_err_within(lse, lse_p, TOL_LSE)
+    del o_p
+    dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
+    dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
+    torch.cuda.synchronize()
+    dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta, **kw)
+    e_dq, ok_dq = close_g(dq, dq_p, extra[1])
+    del dq_p
+    dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p,
+                                                  delta, **kw)
+    e_dk, ok_dk = close_g(dk, dk_p, extra[2])
+    e_dv, ok_dv = close_g(dv, dv_p, extra[3])
+    ok = ok_o and ok_l and ok_dq and ok_dk and ok_dv and \
+        all(t.dtype == dtype for t in (o, dq, dk, dv))
+    tol = (SM90_LIMIT if route == "sm90" else BF16_LIMIT) if bf16 \
+        else TOL_O[name]
+    errs = {"o": e_o, "lse": e_l, "dq": e_dq, "dk": e_dk, "dv": e_dv}
+    return route, errs, {"tol_o": tol, "tol_grads": tol if bf16
+                         else TOL_GRAD[name]}, ok
+
+
 def phase_flash_kernels() -> list:
     """K4, K5a and K5b against their plain versions over ``FLASH_CASES``,
     each on the route its inputs take; then times at the train shape: bf16
@@ -901,51 +976,19 @@ def phase_flash_kernels() -> list:
     for what, b, hq, hkv, sq, sk, dh, dtype, causal, window, off in \
             FLASH_CASES:
         q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
-        route = fl._route(dtype, dh)
         kw = dict(causal=causal, window=window, q_offset=off)
-        o, lse = fl.flash_attention_fwd(q, k, v, **kw)
-        torch.cuda.synchronize()
-        o_p, lse_p = fl.flash_attention_fwd_plain(q, k, v, **kw)
-        delta = (do.float() * o_p.float()).sum(-1)
+        route, e, tols, ok = _flash_check(q, k, v, do, dh, dtype, kw)
+        worst(f"flash_attention_fwd_{route}", e["o"], e["lse"])
+        worst(f"flash_attention_bwd_dq_{route}", e["dq"])
+        worst(f"flash_attention_bwd_dkv_{route}", e["dk"], e["dv"])
         name = str(dtype).split(".")[-1]
-        bf16 = dtype == torch.bfloat16
-        extra = fl.sm90_rounding_bound(q, k, v, do, lse_p, delta, **kw) \
-            if route == "sm90" else (None, None, None, None)
-        if bf16:
-            close_o = close_g = max_err_bf16
-        else:
-            close_o = lambda g, w, _: max_err_within(g, w, TOL_O[name])
-            close_g = lambda g, w, _: max_err_within(g, w, TOL_GRAD[name])
-        e_o, ok_o = close_o(o, o_p, extra[0])
-        e_l, ok_l = max_err_within(lse, lse_p, TOL_LSE)
-        dq = fl.flash_attention_bwd_dq(q, k, v, do, lse_p, delta, **kw)
-        dk, dv = fl.flash_attention_bwd_dkv(q, k, v, do, lse_p, delta, **kw)
-        torch.cuda.synchronize()
-        dq_p = fl.flash_attention_bwd_dq_plain(q, k, v, do, lse_p, delta,
-                                               **kw)
-        e_dq, ok_dq = close_g(dq, dq_p, extra[1])
-        del dq_p
-        dk_p, dv_p = fl.flash_attention_bwd_dkv_plain(q, k, v, do, lse_p,
-                                                      delta, **kw)
-        e_dk, ok_dk = close_g(dk, dk_p, extra[2])
-        e_dv, ok_dv = close_g(dv, dv_p, extra[3])
-        ok = ok_o and ok_l and ok_dq and ok_dk and ok_dv and \
-            all(t.dtype == dtype for t in (o, dq, dk, dv))
-        worst(f"flash_attention_fwd_{route}", e_o, e_l)
-        worst(f"flash_attention_bwd_dq_{route}", e_dq)
-        worst(f"flash_attention_bwd_dkv_{route}", e_dk, e_dv)
-        tol = (SM90_LIMIT if route == "sm90" else BF16_LIMIT) if bf16 \
-            else TOL_O[name]
         log("kernels", kernel="flash_attention", case=what,
             shape=f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh}", dtype=name,
             route=route, causal=causal, window=window, q_offset=off,
-            err_o=f"{e_o:.3e}", err_lse=f"{e_l:.3e}", err_dq=f"{e_dq:.3e}",
-            err_dk=f"{e_dk:.3e}", err_dv=f"{e_dv:.3e}", tol_o=tol,
-            tol_grads=tol if bf16 else TOL_GRAD[name], ok=ok)
+            **{f"err_{t}": f"{x:.3e}" for t, x in e.items()}, **tols, ok=ok)
         if not ok:
             failures.append(f"flash {what} {name} dh{dh}")
-        del q, k, v, do, o, lse, o_p, lse_p, delta, dq, dk, dv, dk_p, dv_p, \
-            extra
+        del q, k, v, do
     torch.cuda.empty_cache()
 
     # Times at the train shape, bf16 then fp32: two input sets (4 x 33.5 MB
@@ -1113,30 +1156,74 @@ def _count_routed(kernels, counters, routed, launched, path) -> None:
             _count(kernels, name, path, n)
 
 
-def _decode_logits(params, cfg, prompt, gen_toks, max_len, cache_dtype):
+class _Routes:
+    """Within the block, wrap ``blocks.moe_route`` (``moe_apply`` looks it
+    up at each call, so this sees every MoE layer): record each call's own
+    top-k experts in ``idx`` (one (tokens, k) tensor a call, in layer
+    order) and its last token's, as a sorted tuple, in ``calls``. With
+    ``force`` (one (tokens, k) index tensor a call) each call routes by
+    the forced experts instead, its gates its own probabilities at them.
+    With ``plant`` each call sends its last token's first choice to the
+    next expert under the right gate: a planted wrong expert read, which
+    the decode check must see."""
+
+    def __init__(self, force=None, plant=False):
+        self.force, self.plant = force, plant
+
+    def __enter__(self):
+        from repro_torch.models import blocks as B
+        self.blocks, self.route = B, B.moe_route
+        self.idx, self.calls = [], []
+
+        def spy(probs, k):
+            gate, idx = self.route(probs, k)
+            self.idx.append(idx)
+            self.calls.append(tuple(sorted(idx[-1].tolist())))
+            if self.force is not None:
+                idx = self.force[len(self.idx) - 1]
+                gate = probs.gather(-1, idx)
+            if self.plant:
+                idx = idx.clone()
+                idx[-1, 0] = (idx[-1, 0] + 1) % probs.shape[-1]
+            return gate, idx
+
+        B.moe_route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.moe_route = self.route
+
+
+def _decode_logits(params, cfg, prompt, gen_toks, max_len, cache_dtype,
+                   plant=False):
     """Prefill ``prompt`` (rings ``max_len`` long), then 8 decode steps
     feeding ``gen_toks``, with the K/V rings and conv inputs cached in
-    ``cache_dtype``: (each step's logits over the vocab, whether each
-    layer's cumulative log decay fell over the steps)."""
+    ``cache_dtype`` (and, with ``plant``, each MoE layer's decoded token
+    sent to a wrong expert): (each step's logits over the vocab, whether
+    each layer's cumulative log decay fell over the steps, the MoE routes:
+    the prefill's ``_Routes`` and each decode step's)."""
     from repro_torch.models import blocks as B
     from repro_torch.models import model as M
     B.CACHE_DTYPE = cache_dtype
     try:
         tokens = torch.as_tensor(prompt, dtype=torch.int32,
                                  device="cuda")[None]
-        _, cache = M.prefill(params, tokens, cfg, max_len=max_len)
+        with _Routes() as first:
+            _, cache = M.prefill(params, tokens, cfg, max_len=max_len)
         ld_prefill = _log_decays(cache)
-        out = []
+        out, steps = [], []
         for n in range(8):
             step_tok = torch.as_tensor(gen_toks[n:n + 1], dtype=torch.int32,
                                        device="cuda")
-            logits, cache = M.decode_step(params, step_tok, cache, cfg)
+            with _Routes(plant=plant) as seen:
+                logits, cache = M.decode_step(params, step_tok, cache, cfg)
             out.append(logits[0, :cfg.vocab_size].float())
+            steps.append(seen)
     finally:
         B.CACHE_DTYPE = torch.bfloat16
     fell = [bool((b < a).all()) for a, b in zip(ld_prefill,
                                                  _log_decays(cache))]
-    return out, fell
+    return out, fell, (first, steps)
 
 
 def phase_decode_check(params, cfg, path, prompt, gen_toks,
@@ -1148,25 +1235,45 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
     ``TOL_LOGITS_DEEP`` past 16 layers); the same params cast to fp32,
     with the caches bf16 as the reference keeps them (``TOL_LOGITS_FP32``);
     and fp32 with the caches fp32 too (``TOL_LOGITS_EXACT``), which shows
-    the fp32 gap is the bf16 caches'. Logs max |prefill bf16 − prefill
+    the fp32 gap is the bf16 caches'. An MoE stack's bf16 run takes
+    ``TOL_LOGITS_DEEP``. Logs max |prefill bf16 − prefill
     fp32|, how far bf16 moves a prefill's logits, beside them. Also checks
     K3 took a log a where the model has one: every such layer's cumulative
-    log decay fell over the steps (and none did without one)."""
+    log decay fell over the steps (and none did without one).
+
+    MoE stacks (on a drop-free copy, so capacity drops nothing): routing
+    is discontinuous, so a rounding that differs between the two forms
+    (the bf16 K/V cache against the prefill's fp32 K/V) can send a token
+    to another expert, after which the two forms compute different
+    functions. So each run's fresh prefill routes every token by the
+    experts that run's prefill and decode steps chose (``_Routes(force=)``)
+    and every step's logits are compared; the steps whose own routes the
+    prefill would have chosen otherwise (flips) are logged, and with fp32
+    caches none may flip. A planted wrong expert read in decode
+    (``_Routes(plant=)``) must fail the fp32-caches limit; its bf16 gap,
+    the largest fault-free gap's upper yardstick, is logged."""
     from repro_torch.core.tree import tree_map
     from repro_torch.models import model as M
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     bf16, fp32 = torch.bfloat16, torch.float32
-    runs = {"bf16": (_decode_logits(params, cfg, prompt, gen_toks, max_len,
-                                    bf16),
-                     TOL_LOGITS if cfg.n_layers <= 16 else TOL_LOGITS_DEEP),
-            "fp32": (_decode_logits(p32, cfg32, prompt, gen_toks, max_len,
-                                    bf16), TOL_LOGITS_FP32),
-            "fp32_caches_fp32": (_decode_logits(p32, cfg32, prompt, gen_toks,
-                                                max_len, fp32),
-                                 TOL_LOGITS_EXACT)}
+    moe = cfg.moe is not None
+    tol_b = TOL_LOGITS if cfg.n_layers <= 16 and not moe else TOL_LOGITS_DEEP
+    # name -> (params, cfg, cache dtype, planted fault, tolerance)
+    setups = {"bf16": (params, cfg, bf16, False, tol_b),
+              "fp32": (p32, cfg32, bf16, False, TOL_LOGITS_FP32),
+              "fp32_caches_fp32": (p32, cfg32, fp32, False,
+                                   TOL_LOGITS_EXACT)}
+    if moe:
+        setups.update(planted_bf16=(params, cfg, bf16, True, tol_b),
+                      planted_fp32_caches_fp32=(p32, cfg32, fp32, True,
+                                                TOL_LOGITS_EXACT))
+    runs = {name: _decode_logits(p, c, prompt, gen_toks, max_len, cdt,
+                                 plant)
+            for name, (p, c, cdt, plant, _) in setups.items()}
     worst = dict.fromkeys(runs, 0.0)
     ok = dict.fromkeys(runs, True)
+    flips = {name: [] for name in runs}    # steps whose routes differ
     yard = scale = 0.0
     for n in range(8):
         full = torch.as_tensor(np.concatenate([prompt, gen_toks[:n + 1]]),
@@ -1175,27 +1282,54 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
             0, :cfg.vocab_size].float()
         ref_f = M.prefill(p32, full, cfg32, max_len=max_len)[0][
             0, :cfg.vocab_size].float()
-        for name, ((logits, _), tol) in runs.items():
-            err, within = max_err_within(logits[n], ref_b if name == "bf16"
-                                         else ref_f, tol)
+        for name, (logits, _, (first, steps)) in runs.items():
+            p, c, _, _, tol = setups[name]
+            want = ref_b if p is params else ref_f
+            if moe:
+                force = [torch.cat([pre] + [steps[j].idx[layer]
+                                            for j in range(n + 1)])
+                         for layer, pre in enumerate(first.idx)]
+                with _Routes(force=force) as seen:
+                    want = M.prefill(p, full, c, max_len=max_len)[0][
+                        0, :c.vocab_size].float()
+                if seen.calls != steps[n].calls:
+                    flips[name].append(n)
+            err, within = max_err_within(logits[n], want, tol)
             worst[name] = max(worst[name], err)
             ok[name] = ok[name] and within
         yard = max(yard, float((ref_b - ref_f).abs().max()))
         scale = max(scale, float(ref_f.abs().max()))
     del p32
     _free()
-    fell = [f for (_, layers), _ in runs.values() for f in layers]
+    planted = [name for name in runs if name.startswith("planted")]
+    fell = [f for name, (_, layers, _) in runs.items() if name not in planted
+            for f in layers]
     decays = _ssm(cfg) or cfg.linear_attn.decay != "none"
     took = all(fell) if decays else not any(fell)
+    exact = not flips["fp32_caches_fp32"]
+    caught = not planted or not ok["planted_fp32_caches_fp32"]
+    passed = all(ok[name] for name in runs if name not in planted)
+    extra = {}
+    if moe:
+        extra = {f"{name}_route_flip_steps":
+                 repr(flips[name]) if flips[name] else "none"
+                 for name in runs if name not in planted}
+        extra["planted_caught"] = caught
     log(path, check="decode logits vs fresh prefill", steps=8,
         prompt=len(prompt), max_len=max_len,
         **{f"{name}_max_abs_err": f"{worst[name]:.4e}" for name in runs},
-        **{f"{name}_tol": tol for name, (_, tol) in runs.items()},
+        **{f"{name}_tol": setups[name][4] for name in runs}, **extra,
         bf16_vs_fp32_prefill=f"{yard:.4f}", max_abs_logit=f"{scale:.3f}",
-        k3_took_log_a=decays and took, ok=all(ok.values()) and took)
-    check(all(ok.values()), f"{path}: decode vs prefill off: max |error| "
+        k3_took_log_a=decays and took,
+        ok=passed and took and exact and caught)
+    check(passed, f"{path}: decode vs prefill off: max |error| "
           f"{worst} against tolerances "
-          f"{ {name: tol for name, (_, tol) in runs.items()} }")
+          f"{ {name: s[4] for name, s in setups.items()} }")
+    check(exact, f"{path}: with fp32 caches the decoded token's routes "
+          f"left the prefill's at steps {flips['fp32_caches_fp32']}")
+    if planted:
+        check(caught, f"{path}: a planted wrong expert read passed the "
+              f"fp32 limit: {worst['planted_fp32_caches_fp32']:.4e}")
     check(took, f"{path}: log decay fell over decode in layers {fell} "
           f"(decay {decays})")
 
@@ -1228,15 +1362,18 @@ def _cache_formula(cfg, batch, max_len):
     return out
 
 
-def phase_serve(kernels: list, cfg, path: str, want_cache=None):
+def phase_serve(kernels: list, cfg, path: str, want_cache=None,
+                decode_cfg=None):
     """8 ragged greedy requests through ``ServeEngine`` (4 slots, max_len
     544). Pure recurrent stacks (linear, mamba2) prefill left-padded
-    buckets; hybrids (LASP-2H, hymba) prefill by exact length. Checks the
-    launches of K1 and K4 per prefill batch and K3 per decode step (K3
-    and K4 all on ``sm90``, K1 on its shapes' route: ``simt`` for
-    hymba's 16 x 64 heads), the cache footprint against its formula
-    (and ``want_cache``, bytes by kind, where given), and decode logits
-    against a fresh prefill."""
+    buckets; hybrids (LASP-2H, hymba) and stacks with softmax layers or
+    MoE MLPs prefill by exact length. Checks the launches of K1 and K4 per
+    prefill batch and K3 per decode step (K3 and K4 all on ``sm90``, K1 on
+    its shapes' route: ``simt`` for hymba's 16 x 64 heads; none of them
+    where the stack has no such layer), the cache footprint against its
+    formula (and ``want_cache``, bytes by kind, where given), and decode
+    logits against a fresh prefill, on the same params under
+    ``decode_cfg`` where given (an MoE stack's drop-free copy)."""
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
@@ -1281,12 +1418,12 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None):
         check(len(toks) == new_tokens, f"request {uid}: {len(toks)} tokens")
         check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
               f"request {uid}: token out of vocab")
-    check(k1 == n_lin * batches and k1 > 0,
+    check(k1 == n_lin * batches and (k1 > 0) == (n_lin > 0),
           f"K1 launches {k1} != {n_lin} x {batches} prefill batches")
     check(k1_on[k1_route] == k1,
           f"K1 took sm90 {k1_sm90}, simt {k1_simt} times; want "
           f"{k1_route} only")
-    check(k3 == n_lin * steps and k3 > 0,
+    check(k3 == n_lin * steps and (k3 > 0) == (n_lin > 0),
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
     check(k3_sm90 == k3 and k3_simt == 0,
           f"K3 took sm90 {k3_sm90}, simt {k3_simt} times; want sm90 only")
@@ -1294,8 +1431,9 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None):
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
     check(k4_sm90 == k4 and k4_simt == 0,
           f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
-    _count(kernels, f"lasp2_chunk_fwd_{k1_route}", path, k1)
-    _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
+    if n_lin:
+        _count(kernels, f"lasp2_chunk_fwd_{k1_route}", path, k1)
+        _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
     if n_soft:
         _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
     total_new = sum(len(t) for t in results.values())
@@ -1317,6 +1455,7 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None):
         slots=max_batch, prefill_batches=batches, decode_steps=steps,
         k1_launches=k1, k1_sm90_launches=k1_sm90, k3_launches=k3,
         k3_sm90_launches=k3_sm90, k3_per_decode_step=k3 / steps,
+        k4_per_prefill_batch=k4 / batches,
         k4_launches=k4, k4_sm90_launches=k4_sm90, k1_route=k1_route,
         wall_s=f"{wall:.3f}", tokens_per_s=f"{total_new / wall:.1f}",
         decode_tokens_per_s=f"{stats['decode_tokens_per_s']:.1f}",
@@ -1327,8 +1466,8 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None):
         cache_kv_ring_bytes=cache["kv_ring"], cache_conv_bytes=cache["conv"],
         cache_total_bytes=cache["total"])
 
-    phase_decode_check(params, cfg, path, prompts[0], results[uids[0]],
-                       max_len)
+    phase_decode_check(params, decode_cfg or cfg, path, prompts[0],
+                       results[uids[0]], max_len)
     return params
 
 
@@ -1415,28 +1554,35 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 2048, 8, 2
 
 
-def train_setup(cfg, steps: int, lr: float, remat: str = "none"):
+def train_setup(cfg, steps: int, lr: float, remat: str = "none",
+                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO):
     """Phase 7's ``RunConfig`` and data: 2 microbatches of 4 x 2048 from
     ``SyntheticLM`` (4 documents per row, so resets fall mid-row), peak
-    learning rate ``lr`` after 2 warm-up steps, cosine over ``steps``."""
+    learning rate ``lr`` after 2 warm-up steps, cosine over ``steps``;
+    ``batch`` rows in ``micro`` microbatches where a model needs fewer
+    tokens a microbatch."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import SyntheticLM
-    run = RunConfig(num_microbatches=TRAIN_MICRO, remat=remat,
+    run = RunConfig(num_microbatches=micro, remat=remat,
                     learning_rate=lr, warmup_steps=2, total_steps=steps,
                     seed=0)
-    return run, SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    return run, SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
 
 
 def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
-                lr: float = 3e-4, remat: str = "none") -> list:
+                lr: float = 3e-4, remat: str = "none",
+                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
+                require_fall: bool = True) -> list:
     """``steps`` steps through ``train()``: fp32 masters drawn on the card
     from seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token
     row, so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
     kernels for linear-llama3), ``remat`` (under "full" each layer's
     forward, its K1 and K4 among it, runs again in the backward), no
     checkpoints (16 GB of state a save), peak learning rate ``lr`` after 2
-    warm-up steps, cosine over ``steps``. Returns the history (one metrics
-    dict a step)."""
+    warm-up steps, cosine over ``steps``; ``batch`` and ``micro`` cut the
+    tokens a step where the model needs it (never the width). The loss
+    must fall unless ``require_fall`` is False (3 steps, 2 of them
+    warm-up). Returns the history (one metrics dict a step)."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
@@ -1444,7 +1590,7 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_step
 
-    run, data = train_setup(cfg, steps, lr, remat)
+    run, data = train_setup(cfg, steps, lr, remat, batch, micro)
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
@@ -1473,7 +1619,7 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     # K1, K2a, K2b, K4, K5a, K5b, then each on sm90 and on simt: the bf16
     # train path takes sm90 only, but for the chunk kernels at hymba's
     # 16 x 64 heads (simt); remat="full" runs each forward kernel twice
-    lin, soft = n_lin * TRAIN_MICRO, n_soft * TRAIN_MICRO
+    lin, soft = n_lin * micro, n_soft * micro
     fwd = 2 if remat == "full" else 1
     on = (lambda n: [n, 0]) if _chunk_route(cfg) == "sm90" \
         else (lambda n: [0, n])
@@ -1482,7 +1628,7 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     check(len(hist) == steps, f"{len(hist)} steps ran")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(not any(h["skipped"] for h in hist), "a step was skipped")
-    check(np.mean(losses[-3:]) < losses[0],
+    check(not require_fall or np.mean(losses[-3:]) < losses[0],
           f"loss did not fall: {losses[0]:.4f} -> {losses[-3:]}")
     check(len(per_step) == steps and all(n == want for n in per_step),
           f"launches of K1, K2a, K2b, K4, K5a, K5b, then each sm90/simt, "
@@ -1490,10 +1636,10 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     _count_routed(kernels, counters, routed, totals, path)
     dts = [h["dt"] for h in hist[1:]]      # step 0 carries the warm-up
     p50 = float(np.median(dts))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * TRAIN_SEQ
     log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
         softmax=n_soft, decay=cfg.linear_attn.decay, steps=steps, lr=lr,
-        batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", microbatches=TRAIN_MICRO,
+        batch=f"{batch}x{TRAIN_SEQ}", microbatches=micro,
         remat=run.remat, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
         loss_first=f"{losses[0]:.4f}",
         loss_last3=f"{np.mean(losses[-3:]):.4f}",
@@ -1507,16 +1653,16 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
 
     step_fn = make_train_step(cfg, run)
-    batch = data.microbatched(steps, TRAIN_MICRO)
+    step_batch = data.microbatched(steps, micro)
 
     def one_step():
         nonlocal state
-        state, _ = step_fn(state, batch)
+        state, _ = step_fn(state, step_batch)
 
     wall_ms, device, n_kernels, top, _ = _profile(one_step, 1)
     idle = f"{1 - device / wall_ms:.3f}" if device else "not measured"
-    log("profile", what=repr(f"{path} step {TRAIN_BATCH}x{TRAIN_SEQ} "
-                             f"({TRAIN_MICRO} microbatches)"),
+    log("profile", what=repr(f"{path} step {batch}x{TRAIN_SEQ} "
+                             f"({micro} microbatches)"),
         wall_ms=f"{wall_ms:.3f}",
         device_kernel_ms=f"{device:.3f}" if device else "not measured",
         device_idle_share=idle, kernels_per_call=f"{n_kernels:.0f}",
@@ -1540,10 +1686,14 @@ def phase_grad_check(kernels: list, cfg, path: str,
     one row of ``tokens`` tokens (256) with a reset mid-row. TF32 is off
     (phase 1). The loss and every gradient agree within 1e-3
     relative-plus-absolute; SSD layers' ``a_log``, ``dt_bias`` and conv
-    kernels are among the leaves.
+    kernels are among the leaves, and so are the qkv biases (drawn from
+    N(0, 0.5²), as they start at zero) and an MoE layer's router, expert
+    stacks and shared experts (phase 14).
     ``causal=False``: the bidirectional model, whose linear layers run no
     kernel (paper Alg. 1 is two products) and whose softmax layers run
-    K4, K5a and K5b unmasked."""
+    K4, K5a and K5b unmasked. The params are drawn on the card and copied
+    to the host (drawing the zoo's 1.2–1.9 B parameters on the host takes
+    tens of seconds)."""
     from repro_torch.core.tree import leaves_with_paths, tree_map
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
@@ -1551,8 +1701,15 @@ def phase_grad_check(kernels: list, cfg, path: str,
                                                  lasp2_chunk_fwd)
     from repro_torch.models import model as M
 
-    host = M.init_params(torch.Generator().manual_seed(1), cfg,
-                         device="cpu", param_dtype="float32")
+    host = tree_map(lambda t: t.cpu(), M.init_params(
+        torch.Generator(device="cuda").manual_seed(1), cfg,
+        param_dtype="float32"))
+    _free()
+    if cfg.qkv_bias:       # zeros at init: draw them so they carry weight
+        gen = torch.Generator().manual_seed(2)
+        for layer in host["layers"]:
+            for name in ("bq", "bk", "bv"):
+                layer["mixer"][name].normal_(0.0, 0.5, generator=gen)
     card = tree_map(lambda t: t.to("cuda"), host)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(1, tokens + 1))
@@ -1588,10 +1745,19 @@ def phase_grad_check(kernels: list, cfg, path: str,
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""
     names = ["/".join(p) for p, _ in leaves_with_paths(host)]
+    leaf_names = {name.rsplit("/", 1)[-1] for name in names}
+    need = set()
     if _ssm(cfg):
-        leaf_names = {name.rsplit("/", 1)[-1] for name in names}
-        check({"a_log", "dt_bias", "conv_x", "conv_b", "conv_c"}
-              <= leaf_names, f"SSD leaves missing: {sorted(leaf_names)}")
+        need |= {"a_log", "dt_bias", "conv_x", "conv_b", "conv_c"}
+    if cfg.qkv_bias:
+        need |= {"bq", "bk", "bv"}
+    if cfg.moe is not None:
+        need |= {"router"}
+        check(any("/experts/" in n for n in names)
+              and (any("/shared/" in n for n in names)
+                   == bool(cfg.moe.n_shared_experts)),
+              f"MoE leaves missing: {names}")
+    check(need <= leaf_names, f"leaves {sorted(need - leaf_names)} missing")
     bad = []
     for name, gc_, gh in zip(names, grads_c, grads_h):
         err, good = max_err_within(gc_.cpu(), gh, TOL_CHECK)
@@ -2719,6 +2885,237 @@ def phase_ssm(kernels: list, mamba2, hymba) -> None:
         part_walls_s=repr(walls))
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the decoder-only zoo and MoE.
+# ---------------------------------------------------------------------------
+
+ZOO_ARCHS = {"codeqwen1.5-7b": "codeqwen", "qwen1.5-110b": "qwen110b",
+             "granite-34b": "granite", "starcoder2-15b": "starcoder2",
+             "moonshot-v1-16b-a3b": "moonshot",
+             "phi3.5-moe-42b-a6.6b": "phi_moe"}
+ZOO_LAYERS = 2
+ZOO_TRAIN_STEPS = 3
+# Phase 13's rate: at phase 7's 3e-4 codeqwen's third loss jumped from
+# 12.24 to 36.26 (d_model·lr 1.23, above the 0.77 at which phase 13's
+# models already spiked; PERF.md §6, PR 23).
+ZOO_TRAIN_LR = SSM_TRAIN_LR
+# qwen1.5-110b's two embeddings alone hold 2.49 B parameters: at 2 layers
+# its fp32 masters, gradients and two moments (16 B a parameter) would be
+# 83 GB, above the card's 80. It trains at 1 layer (3.85 B parameters,
+# 61.6 GB of state) under full remat on one microbatch of 2 x 2048 (the
+# microbatch is cut, never the width).
+ZOO_TRAIN_CUT = {"qwen1.5-110b": dict(layers=1, batch=2, micro=1,
+                                      remat="full")}
+# At ``CONFIG`` capacity: phase 4's first 4 prompts on 4 slots, 8 new
+# tokens, in fp32 on the card and on the host CPU.
+MOE_CAP_REQUESTS, MOE_CAP_NEW = 4, 8
+
+
+def _zoo_cut(cfg, layers=ZOO_LAYERS):
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def _drop_free(cfg):
+    """An MoE config's copy at capacity factor E/k, where every expert has
+    room for every token (the reference's SMOKEs' setting); other configs
+    as they are."""
+    if cfg.moe is None:
+        return cfg
+    moe = cfg.moe
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        moe, capacity_factor=moe.num_experts / moe.top_k))
+
+
+def _zoo_flash_times(kernels, gen) -> None:
+    """K4, K5a and K5b at the zoo's new head layouts (each ``ZOO_ARCHS``
+    config's Hq:Hkv with a group above 1, from its ``CONFIG``) in bf16 on
+    ``sm90``, causal, at the training microbatch's B 4 x S 2048: held to
+    their plain versions on the first input set within phase 3's limits
+    (``_flash_check``; the worst error joins each entry's
+    ``max_abs_err``), then timed beside the plain versions and bounds, and
+    the SDPA forward and backward with K/V repeated to Hq heads (the
+    library yardstick)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fl
+    b, s, dtype = 4, 2048, torch.bfloat16
+    kw = dict(causal=True)
+    mask = fl._mask(s, s, 0, s, True, None, "cuda")
+    failures = []
+    for arch, model in ZOO_ARCHS.items():
+        cfg = get_config(arch)
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if hkv == hq:
+            continue
+        route = fl._route(dtype, dh)
+        pairs = b * hq * int(mask.sum())
+        sets = []
+        for _ in range(2):
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, s, s, dh, dtype)
+            o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        shape = f"B{b}xHq{hq}xHkv{hkv}xS{s}x{dh} bf16 causal"
+        _, e, tols, ok = _flash_check(*sets[0][:4], dh, dtype, kw)
+        torch.cuda.empty_cache()
+        log("zoo_kernels", kernel="flash_attention", model=model,
+            shape=repr(shape), route=route,
+            **{f"err_{t}": f"{x:.3e}" for t, x in e.items()}, **tols, ok=ok)
+        if not ok:
+            failures.append(f"flash {model} {shape}")
+        rep = lambda x: x.repeat_interleave(hq // hkv, dim=1)
+        sdpa_sets = [(q, rep(k), rep(v), do) for q, k, v, do, *_ in sets]
+        sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+        graphs = []
+        for q, k, v, do in sdpa_sets:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            graphs.append((sdpa(*leaves), leaves, do))
+        lib = (time_ms(sdpa, sdpa_sets, 10),
+               time_ms(lambda o, leaves, do: torch.autograd.grad(
+                   o, leaves, do, retain_graph=True), graphs, 10))
+        del sdpa_sets, graphs
+        bounds = _flash_bounds(b, hq, hkv, s, s, dh, dtype, pairs)
+        for i, (kname, fn, fn_p, err) in enumerate((
+                ("flash_attention_fwd",
+                 lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw),
+                 lambda q, k, v, *_: fl.flash_attention_fwd_plain(
+                     q, k, v, **kw), max(e["o"], e["lse"])),
+                ("flash_attention_bwd_dq",
+                 lambda *a: fl.flash_attention_bwd_dq(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw),
+                 e["dq"]),
+                ("flash_attention_bwd_dkv",
+                 lambda *a: fl.flash_attention_bwd_dkv(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw),
+                 max(e["dk"], e["dv"])))):
+            ms, plain = time_ms(fn, sets, 10), time_ms(fn_p, sets, 2)
+            library = lib[0] if i == 0 else lib[1]
+            log("zoo_kernels", kernel=f"{kname}_{route}", model=model,
+                shape=repr(shape), ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                bound_ms=f"{bounds[i][0]:.4f}", bound_by=bounds[i][1],
+                sdpa_ms=f"{library:.4f}", pairs=pairs)
+            entry = next(k for k in kernels
+                         if k["name"] == f"{kname}_{route}")
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+            entry.setdefault("zoo_cases", []).append(
+                dict(_timed_case(shape, ms, plain, bounds[i], library),
+                     model=model))
+        del sets
+        torch.cuda.empty_cache()
+    check(not failures, "zoo flash parity failed: " + ", ".join(failures))
+
+
+def phase_moe_capacity(cfg, params, path: str) -> None:
+    """An MoE stack at its ``CONFIG`` capacity, where items drop (the
+    capacity counts each call's tokens: a decode step routes the 4 slots'
+    tokens): phase 4's first ``MOE_CAP_REQUESTS`` prompts, greedy, through
+    ``ServeEngine`` on the card and on the host CPU, both in fp32 on the
+    same weights (the serving params cast up); the greedy tokens equal."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.blocks import moe_capacity
+    from repro_torch.serve.engine import ServeEngine
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 513, size=8)     # phase 4's draws
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n))
+               for n in lens][:MOE_CAP_REQUESTS]
+
+    def serve(p, device):
+        eng = ServeEngine(cfg32, p, max_len=544, max_batch=4, device=device)
+        uids = [eng.submit(pr, MOE_CAP_NEW, seed=0, stream=i)
+                for i, pr in enumerate(prompts)]
+        res = eng.run()
+        return [res[u] for u in uids]
+
+    t0 = time.perf_counter()
+    p32 = tree_map(lambda t: t.float(), params)
+    card = serve(p32, "cuda")
+    t_card = time.perf_counter() - t0
+    host_params = tree_map(lambda t: t.cpu(), p32)
+    del p32
+    _free()
+    host = serve(host_params, "cpu")
+    del host_params
+    same = [bool(np.array_equal(a, b)) for a, b in zip(card, host)]
+    moe = cfg.moe
+    log(path, check="greedy tokens at CONFIG capacity, card vs host CPU "
+        "(fp32)", capacity_factor=moe.capacity_factor,
+        decode_capacity=moe_capacity(moe, 4),
+        prefill_capacities=repr([moe_capacity(moe, len(pr))
+                                 for pr in prompts]),
+        requests=len(prompts), new_tokens=MOE_CAP_NEW,
+        card_s=f"{t_card:.1f}",
+        host_s=f"{time.perf_counter() - t0 - t_card:.1f}",
+        equal=repr(same), ok=all(same))
+    check(all(same), f"{path}: greedy tokens differ from the host's: "
+          f"{[(list(a), list(b)) for a, b in zip(card, host)]}")
+
+
+def phase_zoo(kernels: list) -> None:
+    """Phase 14, the decoder-only zoo and MoE at full width, each
+    ``CONFIG`` cut to ``ZOO_LAYERS`` layers (random weights from a seed):
+    (a) each serves phase 4's eight requests by exact length through K4
+    (``sm90``) with phase 4's decode check (the MoE pair on its drop-free
+    copy, ``_drop_free``), and the MoE pair also at ``CONFIG`` capacity
+    against the host CPU (``phase_moe_capacity``); (b) each trains
+    ``ZOO_TRAIN_STEPS`` steps of phase 7's schedule (qwen1.5-110b as
+    ``ZOO_TRAIN_CUT``), losses finite, K4, K5a, K5b counted a step; (c)
+    Linear-MoE, ``moonshot-v1-16b-a3b`` linearized (every layer linear
+    attention + MoE) serves (K1 a prefill batch, K3 a decode step,
+    ``sm90``) and trains (K1, K2a, K2b); (d) fp32 grad checks of codeqwen
+    (qkv biases) and moonshot (router, experts, shared experts) against
+    the host CPU; K4, K5a and K5b held to their plain versions and timed
+    at the zoo's head layouts (``_zoo_flash_times``)."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name):
+        walls[name] = round(time.perf_counter() - t0 - sum(walls.values()),
+                            1)
+
+    _zoo_flash_times(kernels, torch.Generator(device="cuda").manual_seed(14))
+    part("times")
+    for arch, short in ZOO_ARCHS.items():
+        cfg = _zoo_cut(get_config(arch))
+        params = phase_serve(kernels, cfg, f"zoo_{short}_serve",
+                             decode_cfg=_drop_free(cfg))
+        if cfg.moe is not None:
+            phase_moe_capacity(cfg, params, f"zoo_{short}_capacity")
+        del params
+        _free()
+    part("a")
+    for arch, short in ZOO_ARCHS.items():
+        cut = {"layers": ZOO_LAYERS, "batch": TRAIN_BATCH,
+               "micro": TRAIN_MICRO, "remat": "none",
+               **ZOO_TRAIN_CUT.get(arch, {})}
+        layers = cut.pop("layers")
+        phase_train(kernels, _zoo_cut(get_config(arch), layers),
+                    f"zoo_{short}_train", steps=ZOO_TRAIN_STEPS,
+                    lr=ZOO_TRAIN_LR, require_fall=False, **cut)
+        _free()
+    part("b")
+    lmoe = _zoo_cut(get_config("moonshot-v1-16b-a3b", linearize=0))
+    check({spec.mixer for spec in lmoe.pattern} == {"linear"}
+          and lmoe.moe is not None, f"Linear-MoE pattern {lmoe.pattern}")
+    params = phase_serve(kernels, lmoe, "zoo_linear_moe_serve",
+                         decode_cfg=_drop_free(lmoe))
+    del params
+    _free()
+    phase_train(kernels, lmoe, "zoo_linear_moe_train",
+                steps=ZOO_TRAIN_STEPS, lr=ZOO_TRAIN_LR, require_fall=False)
+    _free()
+    part("c")
+    for arch in ("codeqwen1.5-7b", "moonshot-v1-16b-a3b"):
+        phase_grad_check(kernels, dataclasses.replace(
+            _zoo_cut(get_config(arch)), dtype="float32"),
+            f"zoo_{ZOO_ARCHS[arch]}_gradcheck")
+        _free()
+    part("d")
+    log("zoo", wall_s=f"{time.perf_counter() - t0:.1f}",
+        part_walls_s=repr(walls))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2767,6 +3164,8 @@ def main() -> int:
     phase_variants(kernels, gla, elu1, dense)
     _free()
     phase_ssm(kernels, get_config("mamba2-2.7b"), get_config("hymba-1.5b"))
+    _free()
+    phase_zoo(kernels)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,18 +2,28 @@
 ``get_variant``.
 
 The port runs ``linear-llama3-1b`` (its ``CONFIG`` and its named
-variants, ``HYBRID`` among them), ``mamba2-2.7b`` and ``hymba-1.5b``;
-every other architecture of ``repro.configs`` is ported in a later slice
-and raises ``KeyError`` here.
+variants, ``HYBRID`` among them), ``mamba2-2.7b``, ``hymba-1.5b``, the
+dense decoders ``codeqwen1.5-7b``, ``qwen1.5-110b``, ``granite-34b``,
+``starcoder2-15b`` and the MoE pair ``moonshot-v1-16b-a3b``,
+``phi3.5-moe-42b-a6.6b``; ``llama-3.2-vision-90b`` and ``whisper-base``
+(cross-attention) are ported in a later slice and raise ``KeyError``
+here.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import hymba_1_5b, linear_llama3_1b, mamba2_2_7b
+from repro_torch.configs import (codeqwen1_5_7b, granite_34b, hymba_1_5b,
+                                 linear_llama3_1b, mamba2_2_7b,
+                                 moonshot_v1_16b_a3b, phi3_5_moe_42b_a6_6b,
+                                 qwen1_5_110b, starcoder2_15b)
 from repro_torch.configs.base import (LayerSpec, LinearAttnConfig,  # noqa: F401
-                                      MambaConfig, ModelConfig)
+                                      MambaConfig, ModelConfig, MoEConfig)
 
-_MODULES = {"hymba-1.5b": hymba_1_5b, "mamba2-2.7b": mamba2_2_7b,
+_MODULES = {"codeqwen1.5-7b": codeqwen1_5_7b, "qwen1.5-110b": qwen1_5_110b,
+            "granite-34b": granite_34b, "starcoder2-15b": starcoder2_15b,
+            "hymba-1.5b": hymba_1_5b, "mamba2-2.7b": mamba2_2_7b,
+            "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
+            "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b,
             "linear-llama3-1b": linear_llama3_1b}
 
 

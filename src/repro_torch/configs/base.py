@@ -1,10 +1,10 @@
 """Config dataclasses for the port: model architecture and its layer pattern.
 
 Own copy of the parts of ``repro.configs.base`` the ported slices need
-(``LinearAttnConfig``, ``MambaConfig``, ``LayerSpec``, ``ModelConfig``,
-``RunConfig``); the port imports nothing of ``repro``. Field names,
-defaults and derived properties match the reference so configs compare one
-to one in the tests.
+(``LinearAttnConfig``, ``MoEConfig``, ``MambaConfig``, ``LayerSpec``,
+``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``.
+Field names, defaults and derived properties match the reference so
+configs compare one to one in the tests.
 """
 
 from __future__ import annotations
@@ -29,6 +29,15 @@ class LinearAttnConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0       # dense "shared" experts (Moonlight-style)
+    router_z_coef: float = 1e-3
+
+
+@dataclass(frozen=True)
 class MambaConfig:
     d_state: int = 128
     d_conv: int = 4
@@ -43,7 +52,7 @@ class LayerSpec:
 
     mixer: softmax | linear | mamba2 | hymba (the mixers the port runs so
            far; cross comes later)
-    mlp:   dense | none (moe comes later)
+    mlp:   dense | moe | none
     """
 
     mixer: str = "softmax"
@@ -72,11 +81,12 @@ class ModelConfig:
     pattern: Tuple[LayerSpec, ...] = (LayerSpec(),)
 
     linear_attn: LinearAttnConfig = field(default_factory=LinearAttnConfig)
+    moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
 
     dtype: str = "bfloat16"         # activations (compute)
     param_dtype: str = "float32"    # training master weights
-    mlp_act: str = "swiglu"
+    mlp_act: str = "swiglu"         # swiglu | gelu (tanh form)
 
     # padded so the vocab projection tiles evenly
     vocab_pad_multiple: int = 128
@@ -160,13 +170,29 @@ class ModelConfig:
             else:
                 raise NotImplementedError(
                     f"mixer {spec.mixer!r} is ported in a later slice")
+            n_mats = 2 if self.mlp_act == "gelu" else 3
             if spec.mlp == "dense":
-                per += (2 if self.mlp_act == "gelu" else 3) * d * self.d_ff
-            elif spec.mlp != "none":
-                raise NotImplementedError(
-                    f"mlp {spec.mlp!r} is ported in a later slice")
+                per += n_mats * d * self.d_ff
+            elif spec.mlp == "moe":
+                moe = self.moe
+                per += d * moe.num_experts  # router
+                per += moe.num_experts * 3 * d * self.d_ff
+                if moe.n_shared_experts:
+                    per += n_mats * d * self.d_ff * moe.n_shared_experts
             n += per * self.n_groups
         return n
+
+    def active_param_count(self) -> int:
+        """Active (per-token) parameters: an MoE layer counts its top_k
+        routed experts and its shared ones."""
+        if self.moe is None:
+            return self.param_count()
+        moe = self.moe
+        n_moe_layers = sum(1 for s in self.pattern if s.mlp == "moe") \
+            * self.n_groups
+        inactive = (moe.num_experts - moe.top_k) * 3 * self.d_model \
+            * self.d_ff * n_moe_layers
+        return self.param_count() - inactive
 
 
 @dataclass(frozen=True)

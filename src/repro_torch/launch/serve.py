@@ -5,10 +5,14 @@ requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --variant HYBRID
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-110b
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --linearize 0      # Linear-MoE
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
-are random, drawn from ``--seed``.
+are random, drawn from ``--seed``. ``--linearize K`` applies the paper's
+Linear-X recipe to the chosen config (``--smoke`` included).
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--variant", default=None,
                     help="config-module variant (e.g. HYBRID, DENSE)")
+    ap.add_argument("--linearize", type=int, default=None,
+                    help="the paper's Linear-X recipe on the arch: 0 = "
+                         "every softmax layer linear, k > 0 = a 1/k hybrid "
+                         "(every k-th softmax layer kept, windowed 2048)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     ap.add_argument("--seed", type=int, default=0,
@@ -60,6 +68,8 @@ def main(argv=None):
         cfg = get_variant(args.arch, args.variant)
     else:
         cfg = get_config(args.arch)
+    if args.linearize is not None:
+        cfg = cfg.linearize(hybrid_every=args.linearize)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = M.init_params(gen, cfg, device=device)
     max_len = args.prompt_len + args.new_tokens

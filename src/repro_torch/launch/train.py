@@ -10,6 +10,9 @@
       --steps 10 --batch 8 --seq 2048 --microbatches 2 --remat full
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --smoke --device cpu --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch moonshot-v1-16b-a3b --linearize 0 --smoke --device cpu \
+      --steps 5                              # Linear-MoE (one device)
   PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
       -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
       --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks
@@ -21,7 +24,9 @@ documents with state resets). Under ``torchrun`` (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and the store address in the environment)
 each rank runs the DP×SP step of a ``--dp-degree`` × ``--sp-degree``
 layout: NCCL with rank r on card ``LOCAL_RANK``, gloo with ``--device
-cpu``; only rank 0 logs. The guard and chaos flags of
+cpu``; only rank 0 logs; MoE configs train on one device only.
+``--linearize K`` applies the paper's recipe to the chosen config
+(``--smoke`` included). The guard and chaos flags of
 ``repro.launch.train`` come with the slices that port them.
 """
 
@@ -36,6 +41,10 @@ def main(argv=None):
     ap.add_argument("--arch", default="linear-llama3-1b")
     ap.add_argument("--variant", default=None,
                     help="config-module variant (e.g. HYBRID, DENSE)")
+    ap.add_argument("--linearize", type=int, default=None,
+                    help="the paper's Linear-X recipe on the arch: 0 = "
+                         "every softmax layer linear, k > 0 = a 1/k hybrid "
+                         "(every k-th softmax layer kept, windowed 2048)")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config")
     ap.add_argument("--device", default=None,
@@ -87,6 +96,8 @@ def main(argv=None):
         cfg = get_variant(args.arch, args.variant)
     else:
         cfg = get_config(args.arch)
+    if args.linearize is not None:
+        cfg = cfg.linearize(hybrid_every=args.linearize)
     run = RunConfig(num_microbatches=args.microbatches,
                     learning_rate=args.lr, total_steps=args.steps,
                     warmup_steps=max(args.steps // 20, 5),

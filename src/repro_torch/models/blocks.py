@@ -1,18 +1,20 @@
 """Transformer-layer bodies: the softmax (GQA), linear-attention, mamba2
-(SSD) and hymba mixers and the layer glue, with full-sequence (forward,
-prefill) and single-token (decode) entry points. The linear mixer runs the
-paper's variants (§4): any feature map, the fixed decays and GLA's
-data-dependent gate (``wdt``), causal or bidirectional.
+(SSD) and hymba mixers, the dense and MoE MLPs and the layer glue, with
+full-sequence (forward, prefill) and single-token (decode) entry points.
+The linear mixer runs the paper's variants (§4): any feature map, the
+fixed decays and GLA's data-dependent gate (``wdt``), causal or
+bidirectional.
 
-Twin of the softmax, linear, mamba2, hymba and dense parts of
+Twin of the softmax, linear, mamba2, hymba, dense and MoE parts of
 ``repro/models/blocks.py``. Mixers consume and produce ``(B, S, d)``;
 inside, activations are ``(B, H, S, dh)``. Under sequence parallelism
 (``Ctx.sp``) ``S`` is this rank's chunk: linear and mamba2 layers run
 LASP-2 (``core.lasp2``, the exchange of ``sp.comm``), softmax layers the
 K/V all-gather of LASP-2H or, under the "ulysses" strategy, its two
-all-to-alls (``core.lasp2h``); hymba layers do both. Cross-attention and
-MoE layers are ported in later slices and raise ``NotImplementedError``
-here.
+all-to-alls (``core.lasp2h``); hymba layers do both. MoE layers run on
+one device only (the reference's manual DP×SP step refuses them too;
+``train.step.ShardedStep``). Cross-attention layers are ported in a later
+slice and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -52,11 +54,11 @@ CACHE_DTYPE = torch.bfloat16
 
 
 def _unported(spec: LayerSpec):
-    if spec.mixer not in _MIXERS or spec.mlp not in ("dense", "none"):
+    if spec.mixer not in _MIXERS or spec.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"layer mixer={spec.mixer!r} mlp={spec.mlp!r} is ported in a "
             f"later slice; the port runs mixer in {sorted(_MIXERS)}, "
-            f"mlp='dense' or 'none'")
+            f"mlp='dense', 'moe' or 'none'")
 
 
 def _heads_split(x, n_heads, head_dim):
@@ -70,10 +72,15 @@ def _heads_merge(x):
 
 
 def _qkv(p, x, cfg: ModelConfig, positions=None):
+    """q (B, H, S, dh), k, v (B, Hkv, S, dh): the projections plus, with
+    ``qkv_bias``, the biases added in the compute dtype, then RoPE."""
     dt = x.dtype
-    q = _heads_split(x @ p["wq"].to(dt), cfg.n_heads, cfg.head_dim)
-    k = _heads_split(x @ p["wk"].to(dt), cfg.n_kv_heads, cfg.head_dim)
-    v = _heads_split(x @ p["wv"].to(dt), cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
+    if "bq" in p:
+        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
+    q = _heads_split(q, cfg.n_heads, cfg.head_dim)
+    k = _heads_split(k, cfg.n_kv_heads, cfg.head_dim)
+    v = _heads_split(v, cfg.n_kv_heads, cfg.head_dim)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -85,15 +92,19 @@ def _qkv(p, x, cfg: ModelConfig, positions=None):
 # ===========================================================================
 
 def softmax_init(generator, cfg: ModelConfig, dtype, device):
-    if cfg.qkv_bias:
-        raise NotImplementedError("qkv biases are ported in a later slice")
+    """wq, wk, wv, wo; with ``qkv_bias`` also ``bq``, ``bk``, ``bv``, fp32
+    zeros whatever ``dtype`` (1-D leaves, as the norm scales)."""
     d, dh = cfg.d_model, cfg.head_dim
-    return {"wq": dense_init(generator, d, cfg.n_heads * dh, dtype, device),
-            "wk": dense_init(generator, d, cfg.n_kv_heads * dh, dtype,
-                             device),
-            "wv": dense_init(generator, d, cfg.n_kv_heads * dh, dtype,
-                             device),
-            "wo": dense_init(generator, cfg.n_heads * dh, d, dtype, device)}
+    p = {"wq": dense_init(generator, d, cfg.n_heads * dh, dtype, device),
+         "wk": dense_init(generator, d, cfg.n_kv_heads * dh, dtype, device),
+         "wv": dense_init(generator, d, cfg.n_kv_heads * dh, dtype, device),
+         "wo": dense_init(generator, cfg.n_heads * dh, d, dtype, device)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads),
+                            ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((width * dh,), dtype=torch.float32,
+                                  device=device)
+    return p
 
 
 def _softmax_out(params, x, q, k, v, ctx: Ctx, window):
@@ -495,6 +506,89 @@ def hymba_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
 
 
 # ===========================================================================
+# MoE MLP: token-choice top-k routing with capacity (drop on overflow)
+# ===========================================================================
+
+def moe_init(generator, cfg: ModelConfig, dtype, device):
+    """The router (d, E), the experts' SwiGLU weights ``w1``, ``w3`` (E, d,
+    d_ff) and ``w2`` (E, d_ff, d), and with ``n_shared_experts`` a dense
+    SwiGLU ``shared`` MLP of width ``d_ff · n_shared_experts`` (SwiGLU
+    whatever ``cfg.mlp_act``, as the reference's)."""
+    moe = cfg.moe
+    d, ff, e = cfg.d_model, cfg.d_ff, moe.num_experts
+    p = {"router": dense_init(generator, d, e, dtype, device, scale=0.02),
+         "experts": {
+             "w1": normal(generator, (e, d, ff), d ** -0.5, dtype, device),
+             "w3": normal(generator, (e, d, ff), d ** -0.5, dtype, device),
+             "w2": normal(generator, (e, ff, d), ff ** -0.5, dtype, device)}}
+    if moe.n_shared_experts:
+        p["shared"] = mlp_init(generator, d, ff * moe.n_shared_experts,
+                               dtype, device)
+    return p
+
+
+def moe_capacity(moe, tokens: int) -> int:
+    """Slots per expert for a call of ``tokens`` tokens (the whole batch):
+    ``max(int(capacity_factor · tokens · top_k / E), top_k)``."""
+    return max(int(moe.capacity_factor * tokens * moe.top_k
+                   / moe.num_experts), moe.top_k)
+
+
+def moe_route(probs, k: int):
+    """The top ``k`` experts of each token, (gates, indices), highest
+    first; among equal probabilities the lower expert index first, as
+    ``jax.lax.top_k`` orders them (``torch.topk`` does not promise it)."""
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return gate[:, :k], idx[:, :k]
+
+
+def moe_apply(params, x, cfg: ModelConfig):
+    """``(y, aux)`` of the reference's one-device dispatch
+    (``_moe_dispatch``). Items (token, choice) run token-major; each takes
+    the next free slot of its expert and items past the capacity
+    (``moe_capacity`` of the whole call's tokens) go to a sink row and
+    contribute nothing. The experts run as batched products over (E, cap,
+    d); each kept item's output is scaled by its renormalised gate and the
+    ``k`` contributions summed in the compute dtype. ``aux`` (fp32) is the
+    load-balance term E·Σ me·ce (``me`` counts every top-k pick, dropped
+    ones too) plus ``router_z_coef`` times the mean squared logsumexp of
+    the router logits."""
+    moe = cfg.moe
+    b, s, d = x.shape
+    t, e, k = b * s, moe.num_experts, moe.top_k
+    cap = moe_capacity(moe, t)
+    dt = x.dtype
+    xf = x.reshape(t, d)
+    logits = (xf @ params["router"].to(dt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = moe_route(probs, k)                        # (t, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    flat_e = idx.reshape(-1)                               # (t·k,)
+    onehot = F.one_hot(flat_e, e)                          # (t·k, e)
+    slot = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    keep = slot < cap
+    dest = torch.where(keep, flat_e * cap + slot,
+                       torch.full_like(slot, e * cap))
+    items = torch.repeat_interleave(xf, k, dim=0)          # (t·k, d)
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_add(0, dest, items)[:e * cap].reshape(e, cap, d)
+    ex = params["experts"]
+    h = F.silu(torch.bmm(buf, ex["w1"].to(dt))) * torch.bmm(buf,
+                                                            ex["w3"].to(dt))
+    out = torch.bmm(h, ex["w2"].to(dt)).reshape(e * cap, d)
+    out = torch.cat([out, torch.zeros((1, d), dtype=dt, device=x.device)])
+    y = out[dest] * (gate.reshape(-1, 1).to(dt) * keep[:, None].to(dt))
+    y = y.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+    me = F.one_hot(idx, e).float().mean(dim=(0, 1))
+    ce = probs.mean(dim=0)
+    aux = e * torch.sum(me * ce) + moe.router_z_coef * torch.mean(
+        torch.logsumexp(logits, dim=-1) ** 2)
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], x)
+    return y, aux
+
+
+# ===========================================================================
 # Layer glue
 # ===========================================================================
 
@@ -533,8 +627,8 @@ _MIXERS = {
 
 
 def layer_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
-    """``ln1`` and the mixer; ``ln2`` and the MLP unless ``mlp="none"``
-    (mamba2)."""
+    """``ln1`` and the mixer; ``ln2`` and the dense or MoE MLP unless
+    ``mlp="none"`` (mamba2)."""
     _unported(spec)
     p = {"ln1": rmsnorm_init(cfg.d_model, device),
          "mixer": _MIXERS[spec.mixer].init(generator, cfg, spec, dtype,
@@ -543,21 +637,30 @@ def layer_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
         p["ln2"] = rmsnorm_init(cfg.d_model, device)
         p["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff, dtype, device,
                             act=cfg.mlp_act)
+    elif spec.mlp == "moe":
+        p["ln2"] = rmsnorm_init(cfg.d_model, device)
+        p["mlp"] = moe_init(generator, cfg, dtype, device)
     return p
 
 
-def _mlp_residual(params, x, cfg: ModelConfig):
+def _mlp_residual(params, x, cfg: ModelConfig, spec: LayerSpec):
+    """``(x + MLP(norm(x)), aux)``: aux is the MoE layer's router loss, 0.0
+    for a dense MLP or none."""
     if "mlp" not in params:                  # mlp="none"
-        return x
+        return x, 0.0
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act)
+    if spec.mlp == "moe":
+        y, aux = moe_apply(params["mlp"], h, cfg)
+        return x + y, aux
+    return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act), 0.0
 
 
 def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
+    """One layer over the full sequence: ``(x, aux)``."""
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y = _MIXERS[spec.mixer].apply(params["mixer"], h, ctx, spec)
-    return _mlp_residual(params, x + y, ctx.cfg)
+    return _mlp_residual(params, x + y, ctx.cfg, spec)
 
 
 def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
@@ -571,7 +674,7 @@ def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y, mc = _MIXERS[spec.mixer].prefill(params["mixer"], h, ctx, spec,
                                         max_len)
-    return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}
+    return _mlp_residual(params, x + y, ctx.cfg, spec)[0], {"mixer": mc}
 
 
 def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
@@ -579,4 +682,4 @@ def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, cache["mixer"],
                                        ctx, spec)
-    return _mlp_residual(params, x + y, ctx.cfg), {"mixer": mc}
+    return _mlp_residual(params, x + y, ctx.cfg, spec)[0], {"mixer": mc}

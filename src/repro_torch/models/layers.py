@@ -75,7 +75,7 @@ def mlp_apply(params, x, act="swiglu"):
     if act == "swiglu":
         h = F.silu(h) * (x @ params["w3"].to(dt))
     else:
-        h = F.gelu(h)
+        h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default form
     return h @ params["w2"].to(dt)
 
 

@@ -92,12 +92,23 @@ def _layer_ctxs(ctx: Ctx, cfg: ModelConfig):
 
 def forward(params, tokens, cfg: ModelConfig, *, resets=None,
             remat: str = "none", sp=None, causal: bool = True):
-    """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``.
+    """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``
+    (``forward_with_aux`` without the MoE layers' router loss)."""
+    return forward_with_aux(params, tokens, cfg, resets=resets, remat=remat,
+                            sp=sp, causal=causal)[0]
+
+
+def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
+                     remat: str = "none", sp=None, causal: bool = True):
+    """Full-sequence forward → ``(logits (B, S, padded_vocab) in
+    ``cfg.dtype``, aux)``; ``aux`` is the MoE layers' router loss summed
+    over layers (a 0-d fp32 tensor; dense layers add 0).
 
     tokens: (B, S) int; ``resets`` (B, S) bool marks document starts of
     packed rows (the linear state is zeroed there). ``remat="full"``
-    recomputes each layer in the backward pass (``torch.utils.checkpoint``)
-    instead of keeping its activations; ``"none"`` keeps them.
+    recomputes each layer in the backward pass (``torch.utils.checkpoint``
+    of the layer's ``(x, aux)``) instead of keeping its activations;
+    ``"none"`` keeps them.
     ``causal=False`` is the bidirectional model (paper Table 3): softmax
     layers attend to every key, linear layers read the whole sequence's
     state (no decay, resets ignored). ``sp``
@@ -118,15 +129,17 @@ def forward(params, tokens, cfg: ModelConfig, *, resets=None,
         positions = sp.chunk_index * s + positions
     ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
               resets=None if resets is None else resets.to(device))
+    aux = torch.zeros((), dtype=torch.float32, device=device)
     for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
                              cfg.layer_specs()):
         if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
         else:
-            x = blocks.layer_apply(p, x, lctx, spec)
+            x, a = blocks.layer_apply(p, x, lctx, spec)
+        aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x, cfg.vocab_size)
+    return logits_out(params["embed"], x, cfg.vocab_size), aux
 
 
 # ---------------------------------------------------------------------------

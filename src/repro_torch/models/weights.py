@@ -32,6 +32,9 @@ def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, np.ndarray]:
 
 
 _ATTN = (("wq",), ("wk",), ("wv",), ("wo",))
+_BIAS = (("bq",), ("bk",), ("bv",))
+_MOE = (("router",), ("experts", "w1"), ("experts", "w3"), ("experts", "w2"))
+_SHARED = (("shared", "w1"), ("shared", "w2"), ("shared", "w3"))
 _SSM = (("wx",), ("wz",), ("wb",), ("wc",), ("wdt",), ("dt_bias",),
         ("a_log",), ("d_skip",), ("conv_x",), ("conv_b",), ("conv_c",),
         ("gnorm", "scale"), ("wo",))
@@ -40,22 +43,32 @@ _SSM = (("wx",), ("wz",), ("wb",), ("wc",), ("wdt",), ("dt_bias",),
 def _layer_paths(spec, cfg: ModelConfig):
     """The leaf paths of one layer's params, by mixer and MLP. ``wdt`` is
     GLA's gate in a linear mixer with ``decay="data"`` and the SSD step
-    projection in a mamba2 mixer (and hymba's ``ssm``): picked by mixer."""
+    projection in a mamba2 mixer (and hymba's ``ssm``): picked by mixer.
+    Attention projections carry ``bq``, ``bk``, ``bv`` under ``qkv_bias``;
+    a gelu MLP has no ``w3``; an MoE MLP holds the router, the experts'
+    weights (stacked over experts) and, with shared experts, their SwiGLU
+    MLP."""
     if spec.mixer not in ("linear", "softmax", "mamba2", "hymba") \
-            or spec.mlp not in ("dense", "none"):
+            or spec.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(
             f"params_from_jax: mixer={spec.mixer!r} mlp={spec.mlp!r} is "
             f"ported in a later slice")
-    mixer = {"softmax": _ATTN,
-             "linear": _ATTN + ((("wdt",),) if cfg.linear_attn.decay
-                                == "data" else ()),
+    attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
+    mixer = {"softmax": attn,
+             "linear": attn + ((("wdt",),) if cfg.linear_attn.decay
+                               == "data" else ()),
              "mamba2": _SSM,
-             "hymba": tuple(("attn",) + p for p in _ATTN)
+             "hymba": tuple(("attn",) + p for p in attn)
              + tuple(("ssm",) + p for p in _SSM)}[spec.mixer]
     paths = [("ln1", "scale")] + [("mixer",) + p for p in mixer]
     if spec.mlp == "dense":
-        paths += [("ln2", "scale"), ("mlp", "w1"), ("mlp", "w2"),
-                  ("mlp", "w3")]
+        paths += [("ln2", "scale"), ("mlp", "w1"), ("mlp", "w2")]
+        if cfg.mlp_act == "swiglu":
+            paths.append(("mlp", "w3"))
+    elif spec.mlp == "moe":
+        paths += [("ln2", "scale")] + [("mlp",) + p for p in _MOE]
+        if cfg.moe.n_shared_experts:
+            paths += [("mlp",) + p for p in _SHARED]
     return paths
 
 
@@ -74,10 +87,10 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     """Port params from the reference's ``init_params`` tree, with numpy
     leaves (``jax.tree.map(np.asarray, params)``).
 
-    Matrices and embeddings are cast to ``dtype`` (default ``cfg.dtype``);
-    1-D leaves (norm scales, and the SSD heads' ``dt_bias``, ``a_log`` and
-    ``d_skip``) stay fp32, since a bf16 ``a_log`` would move every head's
-    decay. Raises on any leaf it does not map and on any leaf the port
+    Matrices, expert stacks and embeddings are cast to ``dtype`` (default
+    ``cfg.dtype``); 1-D leaves (norm scales, the qkv biases, and the SSD
+    heads' ``dt_bias``, ``a_log`` and ``d_skip``) stay fp32, since a bf16
+    ``a_log`` would move every head's decay. Raises on any leaf it does not map and on any leaf the port
     needs that the tree lacks.
     """
     dtype = torch_dtype(cfg.dtype) if dtype is None else dtype

@@ -72,26 +72,38 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+# Elements per piece of a leaf in ``update``: its temporaries are a few
+# pieces, not a few leaves (a 152064 x 8192 embedding is 5 GB in fp32).
+UPDATE_PIECE = 1 << 26
+
+
 @torch.no_grad()
 def update(grads, state: AdamState, params, *, lr, b1=0.9, b2=0.95,
            eps=1e-8, weight_decay=0.1) -> AdamState:
     """One AdamW step, in place on ``params`` and on the moments of
-    ``state``. Returns the new state (the same moment tensors, ``count``
-    advanced by one)."""
+    ``state``, each leaf in pieces of ``UPDATE_PIECE`` elements (the same
+    elementwise math, so the same bits). Returns the new state (the same
+    moment tensors, ``count`` advanced by one)."""
     count = state.count + 1
     bc1 = float(_f32(1.0) - _f32(b1) ** _f32(count))
     bc2 = float(_f32(1.0) - _f32(b2) ** _f32(count))
     lr = float(_f32(lr))
     flat = zip(leaves_with_paths(params), leaves_with_paths(grads),
                leaves_with_paths(state.m), leaves_with_paths(state.v))
-    for (path, p), (_, g), (_, m), (_, v) in flat:
-        gf = g.float()
-        m.mul_(b1).add_((1 - b1) * gf)
-        v.mul_(b2).add_((1 - b2) * gf * gf)
-        step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-        if weight_decay and _decayable(path):
-            step = step + weight_decay * p.float()
-        p.copy_(p.float() - lr * step)
+    for (path, p_leaf), (_, g_leaf), (_, m_leaf), (_, v_leaf) in flat:
+        decay = weight_decay and _decayable(path)
+        # params and moments in place (views); the gradient is only read
+        pieces = zip(*(t.view(-1).split(UPDATE_PIECE)
+                       for t in (p_leaf, m_leaf, v_leaf)),
+                     g_leaf.reshape(-1).split(UPDATE_PIECE))
+        for p, m, v, g in pieces:
+            gf = g.float()
+            m.mul_(b1).add_((1 - b1) * gf)
+            v.mul_(b2).add_((1 - b2) * gf * gf)
+            step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            if decay:
+                step = step + weight_decay * p.float()
+            p.copy_(p.float() - lr * step)
     return AdamState(state.m, state.v, count)
 
 

@@ -14,6 +14,12 @@ matrix is cast at its use, and the gradients land on the fp32 masters.
 The step runs on the params' device: on the card every linear layer
 launches the chunk kernels (K1 forward, K2a and K2b backward) through
 ``ops.linear_attention_op``.
+
+MoE layers add their router loss to the one-device objective
+(``MOE_AUX_COEF`` times the summed aux); the reported ``loss`` stays the
+cross-entropy alone, as the reference's. The DP×SP step refuses MoE
+layers: the reference's manual step cannot run them either (its
+``moe_apply`` opens a ``shard_map`` of its own inside the step's).
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from repro_torch.core.lasp2h import check_ulysses_heads
 from repro_torch.core.tree import leaves_with_paths, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+
+MOE_AUX_COEF = 0.01
 
 
 def zero1_degree(run: RunConfig, layout=None) -> int:
@@ -58,29 +66,34 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None,
 
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig):
+    """``loss_fn(params, micro) → (objective, cross-entropy)``: the
+    objective adds ``MOE_AUX_COEF`` times the MoE layers' router loss."""
     def loss_fn(params, micro):
-        logits = M.forward(params, micro["tokens"], cfg, remat=run.remat,
-                           resets=micro.get("resets"))
-        return M.lm_loss(logits, micro["labels"])
+        logits, aux = M.forward_with_aux(params, micro["tokens"], cfg,
+                                         remat=run.remat,
+                                         resets=micro.get("resets"))
+        loss = M.lm_loss(logits, micro["labels"])
+        return loss + MOE_AUX_COEF * aux, loss
     return loss_fn
 
 
 def _accum_grads(loss_fn, params, batch):
-    """Loop over the leading microbatch dim, summing gradients in fp32,
-    then average. Returns ``(grads tree, mean loss)``."""
+    """Loop over the leading microbatch dim, summing the objective's
+    gradients in fp32, then average. Returns ``(grads tree, mean
+    cross-entropy)``."""
     leaves = [p for _, p in leaves_with_paths(params)]
     n_micro = batch["tokens"].shape[0]
     acc, losses = None, []
     for i in range(n_micro):
-        loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, leaves)
+        total, loss = loss_fn(params, {k: v[i] for k, v in batch.items()})
+        grads = torch.autograd.grad(total, leaves)
         if acc is None:
             acc = [g.float() for g in grads]
         else:
             for a, g in zip(acc, grads):
                 a.add_(g.float())
         losses.append(loss.detach())
-        del loss, grads
+        del total, loss, grads
     for a in acc:
         a.div_(n_micro)
     it = iter(acc)
@@ -179,6 +192,12 @@ class ShardedStep:
     """
 
     def __init__(self, cfg: ModelConfig, run: RunConfig, layout):
+        if any(spec.mlp == "moe" for spec in cfg.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE layers do not run under the DP×SP step; "
+                f"the reference's manual step refuses them too (its "
+                f"moe_apply opens its own shard_map inside the step's "
+                f"manual one). Train MoE configs on one device.")
         self.cfg, self.run, self.layout = cfg, run, layout
         self.sp = SPConfig(layout.sp_group, comm=run.comm_spec()) \
             if layout.sp > 1 else None

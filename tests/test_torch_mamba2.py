@@ -32,7 +32,7 @@ from repro.train.step import init_state as j_init_state
 from repro.train.step import make_train_step as j_make_train_step
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config, get_smoke
-from repro_torch.configs.base import LayerSpec, RunConfig
+from repro_torch.configs.base import LayerSpec, MoEConfig, RunConfig
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import blocks as TB
@@ -165,7 +165,7 @@ def test_params_from_jax_keeps_1d_leaves_fp32_and_raises_on_strays(jparams):
     """bf16 serving params: the matrices and conv kernels are bf16, the
     1-D leaves (``dt_bias``, ``a_log``, ``d_skip``, norm scales) fp32 and
     bitwise the reference's; a leaf the port does not map raises, and so
-    does an unported mixer."""
+    does an unported mixer (cross-attention)."""
     tcfg = get_smoke(ARCH)
     tp = _port(jparams, tcfg)
     mixer = tp["layers"][1]["mixer"]
@@ -186,17 +186,20 @@ def test_params_from_jax_keeps_1d_leaves_fp32_and_raises_on_strays(jparams):
     del missing["groups"][0]["mixer"]["a_log"]
     with pytest.raises(KeyError, match="a_log"):
         params_from_jax(missing, tcfg, device="cpu")
-    moe = dataclasses.replace(tcfg, pattern=(LayerSpec("softmax", "moe"),))
+    cross = dataclasses.replace(tcfg, pattern=(LayerSpec("cross", "dense"),))
     with pytest.raises(NotImplementedError, match="later slice"):
-        params_from_jax(missing, moe, device="cpu")
+        params_from_jax(missing, cross, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
+                                  "codeqwen1.5-7b", "moonshot-v1-16b-a3b"])
 def test_decay_mask_and_zero1_pieces_cover_the_ssm_leaves(arch):
     """The flat decay mask leaves ``dt_bias``, ``a_log``, ``d_skip`` and
     the norm scales (``gnorm`` among them) undecayed, as the reference's
     (equal counts); ZeRO-1's padded size is the reference's; its shards
-    cover the raveled params, SSD leaves included, exactly once."""
+    cover the raveled params, SSD leaves included, exactly once. The same
+    for the zoo's new leaves: codeqwen's ``bq``, ``bk``, ``bv`` (undecayed)
+    and moonshot's router, expert stacks and shared experts (decayed)."""
     from repro.optim import adamw as jadamw
     from repro_torch.optim import adamw
     jcfg = dataclasses.replace(j_get_smoke(arch), dtype="float32")
@@ -206,7 +209,8 @@ def test_decay_mask_and_zero1_pieces_cover_the_ssm_leaves(arch):
     assert float(mask.sum()) == float(jadamw.decay_mask(jp).sum())
     off = 0
     for path, t in leaves_with_paths(tp):
-        undecayed = path[-1] in ("dt_bias", "a_log", "d_skip", "scale")
+        undecayed = path[-1] in ("dt_bias", "a_log", "d_skip", "scale",
+                                 "bq", "bk", "bv")
         assert bool((mask[off:off + t.numel()] == 0).all()) == undecayed, \
             path
         off += t.numel()
@@ -224,9 +228,10 @@ def test_decay_mask_and_zero1_pieces_cover_the_ssm_leaves(arch):
 @pytest.mark.parametrize("spec,ok", [
     (LayerSpec("mamba2", "none"), True), (LayerSpec("hymba", "dense"), True),
     (LayerSpec("linear", "none"), True), (LayerSpec("cross", "dense"), False),
-    (LayerSpec("softmax", "moe"), False)])
-def test_only_cross_and_moe_stay_unported(spec, ok):
-    cfg = dataclasses.replace(get_smoke(ARCH), pattern=(spec,), d_ff=32)
+    (LayerSpec("softmax", "moe"), True)])
+def test_only_cross_stays_unported(spec, ok):
+    cfg = dataclasses.replace(get_smoke(ARCH), pattern=(spec,), d_ff=32,
+                              moe=MoEConfig(num_experts=4))
     gen = torch.Generator().manual_seed(0)
     if ok:
         TB.layer_init(gen, cfg, spec, torch.float32, "cpu")

@@ -204,7 +204,7 @@ def ssm(ref):
     one device (the one-device step), from the reference's params."""
     ranks = run_ranks(R.ssm_rank, 2, args=(str(ref),), timeout_s=300)
     local = {arch: R.ssm_steps(str(ref), "cpu", arch, None)
-             for arch in R.SSM_ARCHS}
+             for arch in R.SSM_ARCHS + R.ZOO_ARCHS}
     with np.load(ref) as npz:
         want = {k: npz[k] for k in npz.files if k.startswith("ssm/")}
     return ranks, local, want
@@ -266,6 +266,43 @@ def test_ssm_sp_misses_the_conv_halo_as_the_reference_does(ssm, arch):
         gap = np.asarray(r[arch]["losses"]) - np.asarray(
             local[arch]["losses"])
         np.testing.assert_allclose(gap, ref_gap, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", R.ZOO_ARCHS)
+def test_dense_zoo_steps_match_reference_at_1x2(ssm, arch):
+    """starcoder2-15b SMOKE (GQA 4:2) at (1, 2): every rank's 3 losses and
+    grad norms within 1e-3 of the reference's manual step at (1, 2), and
+    of its own one-device step (no conv, so no halo gap)."""
+    ranks, local, want = ssm
+    for r in ranks:
+        for key, got in (("loss", r[arch]["losses"]),
+                         ("gnorm", r[arch]["gnorms"])):
+            np.testing.assert_allclose(got, want[f"ssm/{arch}/sp/{key}"],
+                                       rtol=TOL, atol=TOL, err_msg=key)
+        np.testing.assert_allclose(r[arch]["losses"],
+                                   local[arch]["losses"], rtol=TOL,
+                                   atol=TOL)
+    tags = [x.split("|")[1] for x in ranks[0][arch]["tape"]]
+    per_step = R.ssm_step_cfg(arch).n_layers * R.RUN["num_microbatches"]
+    assert tags.count("lasp2h.k") == tags.count("lasp2h.v") == per_step
+
+
+def test_moe_is_refused_under_the_dp_sp_step_by_both_packages(ref):
+    """A reference finding the port keeps: moonshot-v1-16b-a3b SMOKE under
+    the manual DP×SP step at (1, 2). The reference's step raises while it
+    traces (its ``moe_apply`` opens a ``shard_map`` of its own inside the
+    step's manual one; recorded by the subprocess); the port's
+    ``ShardedStep`` raises ``NotImplementedError`` before any rank
+    work."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.train.step import make_train_step
+    with np.load(ref) as npz:
+        err = str(npz["moe/ref_error"])
+    assert err.startswith("ValueError") and "shard_map" in err, err
+    cfg = get_smoke("moonshot-v1-16b-a3b")
+    layout = TrainingGroups(1, 2, 0, 0, None, None, None)
+    with pytest.raises(NotImplementedError, match="MoE layers"):
+        make_train_step(cfg, RunConfig(), layout)
 
 
 def test_zero1_equals_replicated_adamw(dp2sp2):
@@ -489,7 +526,7 @@ def _jax_ssm_reference(out):
     from repro.train.step import init_state, make_train_step
 
     run = JRunConfig(**R.RUN)
-    for arch in R.SSM_ARCHS:
+    for arch in R.SSM_ARCHS + R.ZOO_ARCHS:
         cfg = R.ssm_step_cfg(arch, get_smoke)
         data = SyntheticLM(cfg.vocab_size, R.DATA["seq_len"],
                            R.DATA["global_batch"], seed=R.DATA["seed"])
@@ -520,6 +557,21 @@ def _jax_ssm_reference(out):
                 gnorms.append(float(m["grad_norm"]))
             out[f"ssm/{arch}/{where}/loss"] = np.array(losses)
             out[f"ssm/{arch}/{where}/gnorm"] = np.array(gnorms)
+    # MoE under the manual step: the reference refuses it while tracing
+    cfg = R.ssm_step_cfg("moonshot-v1-16b-a3b", get_smoke)
+    mesh = make_training_mesh(1, 2, devices=jax.devices()[:2])
+    plan = make_plan(mesh, "train", global_batch=R.DATA["global_batch"],
+                     n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                     zero1=True, comm=CommSpec(dtype="fp32"))
+    state = init_state(jax.random.PRNGKey(0), cfg, run, plan)
+    data = SyntheticLM(cfg.vocab_size, R.DATA["seq_len"],
+                       R.DATA["global_batch"], seed=R.DATA["seed"])
+    try:
+        jax.jit(make_train_step(cfg, run, plan))(
+            state, data.microbatched(0, run.num_microbatches))
+        out["moe/ref_error"] = np.array("none: the step ran")
+    except Exception as e:            # noqa: BLE001 — recorded, then held
+        out["moe/ref_error"] = np.array(f"{type(e).__name__}: {e}"[:400])
 
 
 if __name__ == "__main__":

@@ -540,7 +540,11 @@ def _nonfinite(npz_path, device, layout):
 # ---------------------------------------------------------------------------
 
 SSM_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
-SSM_PREFIX = {"mamba2-2.7b": "mparam/", "hymba-1.5b": "yparam/"}
+# a dense decoder of the zoo (GQA 4:2, GELU-free SMOKE) through the same
+# cells: its softmax layers take LASP-2H's K/V all-gather
+ZOO_ARCHS = ("starcoder2-15b",)
+SSM_PREFIX = {"mamba2-2.7b": "mparam/", "hymba-1.5b": "yparam/",
+              "starcoder2-15b": "sparam/"}
 
 
 def ssm_step_cfg(arch, get_smoke=None):
@@ -583,8 +587,9 @@ def ssm_steps(npz_path, device, arch, layout):
 
 
 def ssm_rank(rank, world, device, npz_path):
-    """Both SSM SMOKE models at (dp, sp) = (1, ``world``) on this rank."""
+    """Both SSM SMOKE models and the zoo's at (dp, sp) = (1, ``world``) on
+    this rank."""
     from repro_torch.launch.mesh import make_training_groups
     layout = make_training_groups(1, world)
     return {arch: ssm_steps(npz_path, device, arch, layout)
-            for arch in SSM_ARCHS}
+            for arch in SSM_ARCHS + ZOO_ARCHS}
