@@ -19,7 +19,9 @@ line:
    backward passes, at the hybrid's training shape, a prefill shape, a
    trimmed band, GQA 4:1, an explicit offset, a non-causal window and
    the bidirectional model's unmasked 2048 keys (phase 12), the zoo's
-   head layouts 48:1, 48:4, 64:8 and 32:8 at dh 128 (phase 14); K1, K2a, K2b
+   head layouts 48:1, 48:4, 64:8 and 32:8 at dh 128 (phase 14), the
+   cross family's unmasked Sq ≠ Sk shapes with ragged keys (phase 15);
+   K1, K2a, K2b
    and K3 also on GLA's log a (logsigmoid of N(0, 0.5²) a token, a reset
    mid-chunk; phase 12), on both routes;
    and K1, K2a, K2b, K4, K5a and K5b at the shapes phase 10 gives them:
@@ -143,14 +145,36 @@ line:
    finite, K4, K5a, K5b 2 a microbatch; (c) Linear-MoE (moonshot,
    ``linearize=0``) serves through K1 and K3 and trains through K1, K2a,
    K2b; (d) fp32 grad checks of codeqwen (biases) and moonshot (router,
-   experts, shared) against the host CPU.
+   experts, shared) against the host CPU;
+15. cross, the cross family at full width, every cross layer's gate set
+   to 1.0 after init (at its init value 0 a cross layer outputs 0, and
+   no check would see its attention): (a) K4, K5a and K5b held to their
+   plain versions and timed at every flash shape of this phase's paths
+   (unmasked cross and encoder layers with Sq ≠ Sk and ragged key tiles,
+   and the decoders' self-attention); (b) ``whisper-base`` whole (6
+   encoder layers, 6 decoder layers of self + cross attention over 1500
+   frames) serves 4 rows x 512 tokens, 32 new, through the engine's
+   static-batch path (K4 18 a prefill) with phase 4's decode check, the
+   cross layers' own decode outputs held to their prefill rows and a
+   planted zeroed cross V it must catch in bf16 and fp32, trains 3 steps on phase 7's tokens with
+   4 x 1500 frames a microbatch (K4, K5a, K5b counted a step), and its
+   fp32 grad check covers the encoder and the gates; (c)
+   ``llama-3.2-vision-90b`` serves at 5 layers (4 self + 1 cross over
+   1601 image tokens) the same way, trains its 2-layer cut (a self and
+   the cross layer) on 2 x 2048 under full remat, peak memory logged,
+   and that cut's fp32 grad check runs at 1 x 512 tokens; (d) the
+   Linear-X recipe: vision ``linearize=4`` at 5 layers serves (K1, K3,
+   K4; the planted fault too), whisper ``linearize=0`` serves (the same)
+   and trains (K1, K2a, K2b, K3 in
+   the decoder, K4, K5a, K5b in the encoder and cross layers).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
 the paths that ran each, listed in ``launches_by_path``, phases 10's
 and 11's per cell and rank, phase 12's to 14's per path; phase 13's
 timings at the SSM shapes under ``ssm_cases``, phase 14's at the zoo's
-head layouts under ``zoo_cases``); the last line is
+head layouts under ``zoo_cases``, phase 15's at the cross shapes under
+``cross_cases``); the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -198,7 +222,14 @@ TOL_LD = 1e-5
 # decode's routes, phi3.5-moe's decode gap read 0.1216 (bf16 moves its
 # prefill logits by 0.1467); a planted wrong expert read reads 2.6 and
 # 7.4 on the two MoE models but 0.08 on Linear-MoE, which only the
-# fp32-caches limit sees (PERF.md §6, PR 23). With the params in fp32 the
+# fp32-caches limit sees (PERF.md §6). The vision model (d 8192,
+# logits up to 9.1 at random init) takes ``TOL_LOGITS_DEEP`` at 5 layers:
+# its bf16 decode gap read 0.125 where bf16 moves its prefill logits by
+# 0.1242, while the fp32-caches gap read 4.9e-5; a zeroed cross V read
+# 0.125 in bf16 too (1.31e-2 with fp32 caches): the logits barely see an
+# image cross layer, which the decode check holds layer by layer
+# instead (PERF.md §6). With
+# the params in fp32 the
 # decode caches' bf16 K/V and conv inputs are the only bf16 roundings
 # (``TOL_LOGITS_FP32``, readings 0.0401–0.0671); with those caches in fp32
 # too, only fp32 roundings are left (``TOL_LOGITS_EXACT``).
@@ -848,7 +879,29 @@ def phase_bwd_kernels(kernels: list) -> list:
 # GQA 25:5 at dh 64, S 2048, window 1024 and global; bf16 and fp32), and
 # the zoo's new head layouts at dh 128 (phase 14: granite's MQA 48:1,
 # starcoder2's 48:4, qwen1.5-110b's 64:8, phi3.5-moe's 32:8) in fp32; in
-# bf16 phase 14 holds them at their training shape (``_zoo_flash_times``).
+# bf16 phase 14 holds them at their training shape (``_flash_times``),
+# and the cross family's unmasked shapes (Sq ≠ Sk, ragged key tiles) in
+# fp32.
+#
+# Every flash shape of phase 15's paths, held and timed in bf16 there
+# (``_flash_times``): (what, B, Hq, Hkv, Sq, Sk, dh, causal). The vision
+# model's cross layer at its training shape (2 x 2048 text queries over
+# 1601 image tokens: the default offset Sk − Sq is −447), with a 300-token
+# prompt, and at the serving prefill (4 x 512) beside that prefill's
+# self-attention; Whisper's cross layer (2048 text queries over 1500
+# encoder frames, 1500 = 11·128 + 92) at training and serving, its encoder
+# (1500 frames attending each other) and its decoder's self-attention at
+# both. The vision cut's self-attention in training (64:8, 2048) is
+# qwen1.5-110b's layout, held in phase 14.
+CROSS_FLASH = [("x_vision", 2, 64, 8, 2048, 1601, 128, False),
+               ("x_vision_prompt", 2, 64, 8, 300, 1601, 128, False),
+               ("x_vision_prefill", 4, 64, 8, 512, 1601, 128, False),
+               ("x_vision_self_prefill", 4, 64, 8, 512, 512, 128, True),
+               ("x_whisper", 4, 8, 8, 2048, 1500, 64, False),
+               ("x_whisper_prefill", 4, 8, 8, 512, 1500, 64, False),
+               ("x_whisper_enc", 4, 8, 8, 1500, 1500, 64, False),
+               ("x_whisper_self", 4, 8, 8, 2048, 2048, 64, True),
+               ("x_whisper_self_prefill", 4, 8, 8, 512, 512, 64, True)]
 # bf16 at dh 64 and 128 runs K4, K5a and K5b on their ``sm90`` route, the
 # rest on ``simt``.
 FLASH_CASES = [
@@ -878,7 +931,8 @@ FLASH_CASES = [
     ("gqa8", 1, 64, 8, 1024, 1024, 128, torch.float32, True, None, None),
     ("gqa4x32", 2, 32, 8, 1024, 1024, 128, torch.float32, True, None,
      None),
-]
+] + [(what, b, hq, hkv, sq, sk, dh, torch.float32, False, None, None)
+     for what, b, hq, hkv, sq, sk, dh, causal in CROSS_FLASH if not causal]
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
 # o, dq, dk and dv: fp32 at TOL_O / TOL_GRAD, bf16 at the data-scaled
 # max_err_bf16 limit.
@@ -1092,11 +1146,17 @@ def _numel(tree) -> int:
 
 def _mixer_counts(cfg):
     """(layers that run the chunk kernels and K3: linear, mamba2 and hymba;
-    layers that run flash attention: softmax and hymba) of ``cfg``."""
+    layers that run flash attention: softmax, hymba and cross, and the
+    encoder's) of ``cfg``."""
     mixers = [spec.mixer for spec in cfg.layer_specs()]
     ssm = mixers.count("mamba2") + mixers.count("hymba")
-    return mixers.count("linear") + ssm, \
-        mixers.count("softmax") + mixers.count("hymba")
+    enc = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    return mixers.count("linear") + ssm, mixers.count("softmax") \
+        + mixers.count("hymba") + mixers.count("cross") + enc
+
+
+def _cross(cfg) -> bool:
+    return any(spec.mixer == "cross" for spec in cfg.pattern)
 
 
 def _ssm(cfg) -> bool:
@@ -1194,14 +1254,48 @@ class _Routes:
         self.blocks.moe_route = self.route
 
 
+class _CrossRows:
+    """Within the block, wrap the cross mixer's prefill and decode entries
+    in ``blocks._MIXERS`` and record, in layer order, each call's output
+    at row 0's last position (a prefill's last query, a decoded token) in
+    fp32 in ``rows``: the cross layers' own outputs, which the decode
+    check holds layer by layer, however little they move the logits."""
+
+    def __enter__(self):
+        from repro_torch.models import blocks as B
+        self.blocks, self.mixer = B, B._MIXERS["cross"]
+        self.rows = []
+
+        def last(out):
+            self.rows.append(out[0][0, -1].float())
+            return out
+
+        B._MIXERS["cross"] = self.mixer._replace(
+            prefill=lambda *a: last(self.mixer.prefill(*a)),
+            decode=lambda *a: last(self.mixer.decode(*a)))
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks._MIXERS["cross"] = self.mixer
+
+
+def _rel_rows(got, want) -> float:
+    """The worst layer's max |got − want| over max |want|."""
+    return max((float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for g, w in zip(got, want)), default=0.0)
+
+
 def _decode_logits(params, cfg, prompt, gen_toks, max_len, cache_dtype,
-                   plant=False):
-    """Prefill ``prompt`` (rings ``max_len`` long), then 8 decode steps
-    feeding ``gen_toks``, with the K/V rings and conv inputs cached in
-    ``cache_dtype`` (and, with ``plant``, each MoE layer's decoded token
-    sent to a wrong expert): (each step's logits over the vocab, whether
+                   plant=False, memory=None):
+    """Prefill ``prompt`` (rings ``max_len`` long; with the cross family's
+    ``memory``), then 8 decode steps feeding ``gen_toks``, with the K/V
+    rings, the memory's K/V and the conv inputs cached in ``cache_dtype``
+    (and, with ``plant``, each MoE layer's decoded token sent to a wrong
+    expert, each cross layer's cached V zeroed after the prefill): (each
+    step's logits over the vocab, whether
     each layer's cumulative log decay fell over the steps, the MoE routes:
-    the prefill's ``_Routes`` and each decode step's)."""
+    the prefill's ``_Routes`` and each decode step's, each step's cross
+    layer outputs: ``_CrossRows.rows``)."""
     from repro_torch.models import blocks as B
     from repro_torch.models import model as M
     B.CACHE_DTYPE = cache_dtype
@@ -1209,25 +1303,31 @@ def _decode_logits(params, cfg, prompt, gen_toks, max_len, cache_dtype,
         tokens = torch.as_tensor(prompt, dtype=torch.int32,
                                  device="cuda")[None]
         with _Routes() as first:
-            _, cache = M.prefill(params, tokens, cfg, max_len=max_len)
+            _, cache = M.prefill(params, tokens, cfg, max_len=max_len,
+                                 **(memory or {}))
+        if plant:
+            for layer, spec in zip(cache["layers"], cfg.layer_specs()):
+                if spec.mixer == "cross":
+                    layer["mixer"]["v"].zero_()
         ld_prefill = _log_decays(cache)
-        out, steps = [], []
+        out, steps, cross = [], [], []
         for n in range(8):
             step_tok = torch.as_tensor(gen_toks[n:n + 1], dtype=torch.int32,
                                        device="cuda")
-            with _Routes(plant=plant) as seen:
+            with _Routes(plant=plant) as seen, _CrossRows() as rows:
                 logits, cache = M.decode_step(params, step_tok, cache, cfg)
             out.append(logits[0, :cfg.vocab_size].float())
             steps.append(seen)
+            cross.append(rows.rows)
     finally:
         B.CACHE_DTYPE = torch.bfloat16
     fell = [bool((b < a).all()) for a, b in zip(ld_prefill,
                                                  _log_decays(cache))]
-    return out, fell, (first, steps)
+    return out, fell, (first, steps), cross
 
 
 def phase_decode_check(params, cfg, path, prompt, gen_toks,
-                       max_len) -> None:
+                       max_len, memory=None, plant=False) -> None:
     """Decode against a fresh prefill, for every serving path. Each of 8
     steps' logits after a prefill of ``prompt`` and the tokens so far, held
     to a fresh prefill of the same, entry by entry within tol + tol·|want|,
@@ -1235,8 +1335,8 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
     ``TOL_LOGITS_DEEP`` past 16 layers); the same params cast to fp32,
     with the caches bf16 as the reference keeps them (``TOL_LOGITS_FP32``);
     and fp32 with the caches fp32 too (``TOL_LOGITS_EXACT``), which shows
-    the fp32 gap is the bf16 caches'. An MoE stack's bf16 run takes
-    ``TOL_LOGITS_DEEP``. Logs max |prefill bf16 − prefill
+    the fp32 gap is the bf16 caches'. An MoE or image stack's bf16 run
+    takes ``TOL_LOGITS_DEEP``. Logs max |prefill bf16 − prefill
     fp32|, how far bf16 moves a prefill's logits, beside them. Also checks
     K3 took a log a where the model has one: every such layer's cumulative
     log decay fell over the steps (and none did without one).
@@ -1251,46 +1351,68 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
     prefill would have chosen otherwise (flips) are logged, and with fp32
     caches none may flip. A planted wrong expert read in decode
     (``_Routes(plant=)``) must fail the fp32-caches limit; its bf16 gap,
-    the largest fault-free gap's upper yardstick, is logged."""
+    the largest fault-free gap's upper yardstick, is logged.
+
+    The cross family: every prefill (the decoded run's and the fresh ones)
+    takes the row's ``memory``, and each cross layer's own output at the
+    decoded token (``_CrossRows``) is held to the fresh prefill's last row
+    of that layer, max |error| over max |want| within the run's limit: the
+    cross layers move the logits little (a memory of N(0, 0.1²) attended
+    almost evenly), so the logits alone barely see them. With ``plant``,
+    the cross layers' cached V zeroed after the prefill (a planted fault)
+    runs in bf16 and in fp32 with fp32 caches, and both must fail that
+    layer check; their logits' gaps are logged beside the limits."""
     from repro_torch.core.tree import tree_map
     from repro_torch.models import model as M
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = tree_map(lambda t: t.float(), params)
     bf16, fp32 = torch.bfloat16, torch.float32
     moe = cfg.moe is not None
-    tol_b = TOL_LOGITS if cfg.n_layers <= 16 and not moe else TOL_LOGITS_DEEP
+    tol_b = TOL_LOGITS if cfg.n_layers <= 16 and not moe \
+        and not cfg.n_image_tokens else TOL_LOGITS_DEEP
     # name -> (params, cfg, cache dtype, planted fault, tolerance)
     setups = {"bf16": (params, cfg, bf16, False, tol_b),
               "fp32": (p32, cfg32, bf16, False, TOL_LOGITS_FP32),
               "fp32_caches_fp32": (p32, cfg32, fp32, False,
                                    TOL_LOGITS_EXACT)}
-    if moe:
+    if moe or plant:
         setups.update(planted_bf16=(params, cfg, bf16, True, tol_b),
                       planted_fp32_caches_fp32=(p32, cfg32, fp32, True,
                                                 TOL_LOGITS_EXACT))
+    cross = any(spec.mixer == "cross" for spec in cfg.layer_specs())
+    mem = memory or {}
     runs = {name: _decode_logits(p, c, prompt, gen_toks, max_len, cdt,
-                                 plant)
+                                 plant, mem)
             for name, (p, c, cdt, plant, _) in setups.items()}
     worst = dict.fromkeys(runs, 0.0)
     ok = dict.fromkeys(runs, True)
+    c_worst = dict.fromkeys(runs, 0.0)      # the cross layers' own outputs
+    c_ok = dict.fromkeys(runs, True)
     flips = {name: [] for name in runs}    # steps whose routes differ
     yard = scale = 0.0
     for n in range(8):
         full = torch.as_tensor(np.concatenate([prompt, gen_toks[:n + 1]]),
                                dtype=torch.int32, device="cuda")[None]
-        ref_b = M.prefill(params, full, cfg, max_len=max_len)[0][
-            0, :cfg.vocab_size].float()
-        ref_f = M.prefill(p32, full, cfg32, max_len=max_len)[0][
-            0, :cfg.vocab_size].float()
-        for name, (logits, _, (first, steps)) in runs.items():
+        with _CrossRows() as rows_b:
+            ref_b = M.prefill(params, full, cfg, max_len=max_len, **mem)[0][
+                0, :cfg.vocab_size].float()
+        with _CrossRows() as rows_f:
+            ref_f = M.prefill(p32, full, cfg32, max_len=max_len, **mem)[0][
+                0, :cfg.vocab_size].float()
+        for name, (logits, _, (first, steps), rows) in runs.items():
             p, c, _, _, tol = setups[name]
             want = ref_b if p is params else ref_f
+            if cross:
+                rel = _rel_rows(rows[n], (rows_b if p is params
+                                          else rows_f).rows)
+                c_worst[name] = max(c_worst[name], rel)
+                c_ok[name] = c_ok[name] and rel <= tol
             if moe:
                 force = [torch.cat([pre] + [steps[j].idx[layer]
                                             for j in range(n + 1)])
                          for layer, pre in enumerate(first.idx)]
                 with _Routes(force=force) as seen:
-                    want = M.prefill(p, full, c, max_len=max_len)[0][
+                    want = M.prefill(p, full, c, max_len=max_len, **mem)[0][
                         0, :c.vocab_size].float()
                 if seen.calls != steps[n].calls:
                     flips[name].append(n)
@@ -1302,18 +1424,26 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
     del p32
     _free()
     planted = [name for name in runs if name.startswith("planted")]
-    fell = [f for name, (_, layers, _) in runs.items() if name not in planted
-            for f in layers]
+    fell = [f for name, (_, layers, *_) in runs.items()
+            if name not in planted for f in layers]
     decays = _ssm(cfg) or cfg.linear_attn.decay != "none"
     took = all(fell) if decays else not any(fell)
     exact = not flips["fp32_caches_fp32"]
-    caught = not planted or not ok["planted_fp32_caches_fp32"]
-    passed = all(ok[name] for name in runs if name not in planted)
+    if cross:
+        caught = not any(c_ok[name] for name in planted)
+    else:
+        caught = not planted or not ok["planted_fp32_caches_fp32"]
+    passed = all(ok[name] and c_ok[name] for name in runs
+                 if name not in planted)
     extra = {}
     if moe:
         extra = {f"{name}_route_flip_steps":
                  repr(flips[name]) if flips[name] else "none"
                  for name in runs if name not in planted}
+    if cross:
+        extra.update({f"{name}_cross_layer_rel_err": f"{c_worst[name]:.4e}"
+                      for name in runs})
+    if planted:
         extra["planted_caught"] = caught
     log(path, check="decode logits vs fresh prefill", steps=8,
         prompt=len(prompt), max_len=max_len,
@@ -1323,13 +1453,15 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
         k3_took_log_a=decays and took,
         ok=passed and took and exact and caught)
     check(passed, f"{path}: decode vs prefill off: max |error| "
-          f"{worst} against tolerances "
-          f"{ {name: s[4] for name, s in setups.items()} }")
+          f"{worst} (cross layers, relative: {c_worst}) against "
+          f"tolerances { {name: s[4] for name, s in setups.items()} }")
     check(exact, f"{path}: with fp32 caches the decoded token's routes "
           f"left the prefill's at steps {flips['fp32_caches_fp32']}")
     if planted:
-        check(caught, f"{path}: a planted wrong expert read passed the "
-              f"fp32 limit: {worst['planted_fp32_caches_fp32']:.4e}")
+        check(caught, f"{path}: a planted fault (a wrong expert read, a "
+              f"zeroed cross V) passed: logits "
+              f"{worst['planted_fp32_caches_fp32']:.4e}, cross layers "
+              f"{ {name: c_worst[name] for name in planted} }")
     check(took, f"{path}: log decay fell over decode in layers {fell} "
           f"(decay {decays})")
 
@@ -1340,7 +1472,8 @@ def _cache_formula(cfg, batch, max_len):
     B·nh·(d_state·headdim + 1)·4 (``linear_state``); per softmax layer
     2·B·n_kv·ring·dh·2 + B·ring·4, ring = min(window, ``max_len``), and
     ``max_len`` on every hymba layer (``kv_ring``); per SSD layer
-    B·(d_conv − 1)·(d_in + 2·ngroups·d_state)·2 (``conv``)."""
+    B·(d_conv − 1)·(d_in + 2·ngroups·d_state)·2 (``conv``); per cross
+    layer the memory's K/V, 2·B·n_kv·n_mem·dh·2 (``kv_ring``)."""
     out = {"linear_state": 0, "kv_ring": 0, "conv": 0}
     for spec in cfg.layer_specs():
         if spec.mixer == "linear":
@@ -1359,6 +1492,10 @@ def _cache_formula(cfg, batch, max_len):
                 min(spec.sliding_window or max_len, max_len)
             out["kv_ring"] += 2 * batch * cfg.n_kv_heads * ring \
                 * cfg.head_dim * 2 + batch * ring * 4
+        if spec.mixer == "cross":
+            n_mem = cfg.n_image_tokens or cfg.encoder.n_frames
+            out["kv_ring"] += 2 * batch * cfg.n_kv_heads * n_mem \
+                * cfg.head_dim * 2
     return out
 
 
@@ -1688,7 +1825,9 @@ def phase_grad_check(kernels: list, cfg, path: str,
     relative-plus-absolute; SSD layers' ``a_log``, ``dt_bias`` and conv
     kernels are among the leaves, and so are the qkv biases (drawn from
     N(0, 0.5²), as they start at zero) and an MoE layer's router, expert
-    stacks and shared experts (phase 14).
+    stacks and shared experts (phase 14), and the cross family's gates
+    (set to ``CROSS_GATE``) and encoder layers, on a memory (N(0, 0.1²)
+    frames or image tokens, one row) drawn on the host (phase 15).
     ``causal=False``: the bidirectional model, whose linear layers run no
     kernel (paper Alg. 1 is two products) and whose softmax layers run
     K4, K5a and K5b unmasked. The params are drawn on the card and copied
@@ -1710,18 +1849,23 @@ def phase_grad_check(kernels: list, cfg, path: str,
         for layer in host["layers"]:
             for name in ("bq", "bk", "bv"):
                 layer["mixer"][name].normal_(0.0, 0.5, generator=gen)
+    mem_h = {}
+    if _cross(cfg):
+        _set_gates(host, CROSS_GATE)
+        mem_h = _memory(cfg, 1, torch.Generator().manual_seed(3), "cpu")
+    mem_c = {k: v.to("cuda") for k, v in mem_h.items()}
     card = tree_map(lambda t: t.to("cuda"), host)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab_size, size=(1, tokens + 1))
     resets = np.zeros((1, tokens), bool)
     resets[0, [0, 100]] = True
 
-    def loss_and_grads(params):
+    def loss_and_grads(params, mem):
         leaves = [p.requires_grad_(True) for _, p in
                   leaves_with_paths(params)]
         loss = M.lm_loss(M.forward(params, torch.as_tensor(toks[:, :-1]),
                                    cfg, resets=torch.as_tensor(resets),
-                                   causal=causal),
+                                   causal=causal, **mem),
                          torch.as_tensor(toks[:, 1:]))
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
@@ -1730,7 +1874,7 @@ def phase_grad_check(kernels: list, cfg, path: str,
                 fl.flash_attention_bwd_dkv)
     routed = counters
     _zero(*counters)
-    loss_c, grads_c = loss_and_grads(card)
+    loss_c, grads_c = loss_and_grads(card, mem_c)
     torch.cuda.synchronize()
     launched = _read(counters, routed)
     n_lin, n_soft = _mixer_counts(cfg)
@@ -1741,7 +1885,7 @@ def phase_grad_check(kernels: list, cfg, path: str,
           f"card path launched K1, K2a, K2b, K4, K5a, K5b, then each "
           f"sm90/simt {launched} times")
     _count_routed(kernels, counters, routed, launched, path)
-    loss_h, grads_h = loss_and_grads(host)
+    loss_h, grads_h = loss_and_grads(host, mem_h)
     e_loss, ok = max_err_within(loss_c.cpu(), loss_h, TOL_CHECK)
     worst, worst_at = 0.0, ""
     names = ["/".join(p) for p, _ in leaves_with_paths(host)]
@@ -1757,7 +1901,12 @@ def phase_grad_check(kernels: list, cfg, path: str,
               and (any("/shared/" in n for n in names)
                    == bool(cfg.moe.n_shared_experts)),
               f"MoE leaves missing: {names}")
+    if _cross(cfg):
+        need |= {"gate"}
     check(need <= leaf_names, f"leaves {sorted(need - leaf_names)} missing")
+    check(cfg.encoder is None or {
+        f"encoder/layers/{cfg.encoder.n_layers - 1}/mlp/w2",
+        "encoder/final_norm/scale"} <= set(names), f"encoder leaves: {names}")
     bad = []
     for name, gc_, gh in zip(names, grads_c, grads_h):
         err, good = max_err_within(gc_.cpu(), gh, TOL_CHECK)
@@ -2926,46 +3075,42 @@ def _drop_free(cfg):
         moe, capacity_factor=moe.num_experts / moe.top_k))
 
 
-def _zoo_flash_times(kernels, gen) -> None:
-    """K4, K5a and K5b at the zoo's new head layouts (each ``ZOO_ARCHS``
-    config's Hq:Hkv with a group above 1, from its ``CONFIG``) in bf16 on
-    ``sm90``, causal, at the training microbatch's B 4 x S 2048: held to
-    their plain versions on the first input set within phase 3's limits
-    (``_flash_check``; the worst error joins each entry's
-    ``max_abs_err``), then timed beside the plain versions and bounds, and
+def _flash_times(kernels, gen, cases, path: str, key: str) -> None:
+    """K4, K5a and K5b in bf16 on ``sm90`` at each of ``cases`` ((case,
+    B, Hq, Hkv, Sq, Sk, dh, causal): shapes a main path runs), with the
+    default query offset Sk − Sq: held to their plain versions on the
+    first input set within phase 3's limits (``_flash_check``; the worst
+    error joins each entry's ``max_abs_err``), then timed beside the plain
+    versions, the bounds (over this mask's valid (query, key) pairs) and
     the SDPA forward and backward with K/V repeated to Hq heads (the
-    library yardstick)."""
+    library yardstick). Each timing joins its entry's ``key`` list."""
     import torch.nn.functional as F
-    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fl
-    b, s, dtype = 4, 2048, torch.bfloat16
-    kw = dict(causal=True)
-    mask = fl._mask(s, s, 0, s, True, None, "cuda")
+    dtype = torch.bfloat16
     failures = []
-    for arch, model in ZOO_ARCHS.items():
-        cfg = get_config(arch)
-        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        if hkv == hq:
-            continue
+    for what, b, hq, hkv, sq, sk, dh, causal in cases:
+        kw = dict(causal=causal)
         route = fl._route(dtype, dh)
-        pairs = b * hq * int(mask.sum())
+        pairs = b * hq * int(fl._mask(sq, sk, sk - sq, sk, causal, None,
+                                      "cuda").expand(sq, sk).sum())
         sets = []
         for _ in range(2):
-            q, k, v, do = _flash_inputs(gen, b, hq, hkv, s, s, dh, dtype)
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
             o, lse = fl.flash_attention_fwd(q, k, v, **kw)
             sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
-        shape = f"B{b}xHq{hq}xHkv{hkv}xS{s}x{dh} bf16 causal"
+        shape = (f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh} bf16 "
+                 f"{'causal' if causal else 'unmasked'}")
         _, e, tols, ok = _flash_check(*sets[0][:4], dh, dtype, kw)
         torch.cuda.empty_cache()
-        log("zoo_kernels", kernel="flash_attention", model=model,
-            shape=repr(shape), route=route,
-            **{f"err_{t}": f"{x:.3e}" for t, x in e.items()}, **tols, ok=ok)
+        log(path, kernel="flash_attention", case=what, shape=repr(shape),
+            route=route, **{f"err_{t}": f"{x:.3e}" for t, x in e.items()},
+            **tols, ok=ok)
         if not ok:
-            failures.append(f"flash {model} {shape}")
+            failures.append(f"flash {what} {shape}")
         rep = lambda x: x.repeat_interleave(hq // hkv, dim=1)
         sdpa_sets = [(q, rep(k), rep(v), do) for q, k, v, do, *_ in sets]
         sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
+            q, k, v, is_causal=causal)
         graphs = []
         for q, k, v, do in sdpa_sets:
             leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
@@ -2974,7 +3119,7 @@ def _zoo_flash_times(kernels, gen) -> None:
                time_ms(lambda o, leaves, do: torch.autograd.grad(
                    o, leaves, do, retain_graph=True), graphs, 10))
         del sdpa_sets, graphs
-        bounds = _flash_bounds(b, hq, hkv, s, s, dh, dtype, pairs)
+        bounds = _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs)
         for i, (kname, fn, fn_p, err) in enumerate((
                 ("flash_attention_fwd",
                  lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw),
@@ -2990,19 +3135,19 @@ def _zoo_flash_times(kernels, gen) -> None:
                  max(e["dk"], e["dv"])))):
             ms, plain = time_ms(fn, sets, 10), time_ms(fn_p, sets, 2)
             library = lib[0] if i == 0 else lib[1]
-            log("zoo_kernels", kernel=f"{kname}_{route}", model=model,
+            log(path, kernel=f"{kname}_{route}", case=what,
                 shape=repr(shape), ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
                 bound_ms=f"{bounds[i][0]:.4f}", bound_by=bounds[i][1],
                 sdpa_ms=f"{library:.4f}", pairs=pairs)
             entry = next(k for k in kernels
                          if k["name"] == f"{kname}_{route}")
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-            entry.setdefault("zoo_cases", []).append(
+            entry.setdefault(key, []).append(
                 dict(_timed_case(shape, ms, plain, bounds[i], library),
-                     model=model))
+                     case=what))
         del sets
         torch.cuda.empty_cache()
-    check(not failures, "zoo flash parity failed: " + ", ".join(failures))
+    check(not failures, f"{path} parity failed: " + ", ".join(failures))
 
 
 def phase_moe_capacity(cfg, params, path: str) -> None:
@@ -3065,7 +3210,9 @@ def phase_zoo(kernels: list) -> None:
     ``sm90``) and trains (K1, K2a, K2b); (d) fp32 grad checks of codeqwen
     (qkv biases) and moonshot (router, experts, shared experts) against
     the host CPU; K4, K5a and K5b held to their plain versions and timed
-    at the zoo's head layouts (``_zoo_flash_times``)."""
+    at the zoo's head layouts (each ``ZOO_ARCHS`` config's Hq:Hkv with a
+    group above 1, causal at the training microbatch's B 4 x S 2048:
+    ``_flash_times``)."""
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
     walls = {}
@@ -3074,7 +3221,12 @@ def phase_zoo(kernels: list) -> None:
         walls[name] = round(time.perf_counter() - t0 - sum(walls.values()),
                             1)
 
-    _zoo_flash_times(kernels, torch.Generator(device="cuda").manual_seed(14))
+    layouts = [(model, 4, c.n_heads, c.n_kv_heads, 2048, 2048, c.head_dim,
+                True) for c, model in ((get_config(arch), model)
+                                       for arch, model in ZOO_ARCHS.items())
+               if c.n_kv_heads != c.n_heads]
+    _flash_times(kernels, torch.Generator(device="cuda").manual_seed(14),
+                 layouts, "zoo_kernels", "zoo_cases")
     part("times")
     for arch, short in ZOO_ARCHS.items():
         cfg = _zoo_cut(get_config(arch))
@@ -3113,6 +3265,272 @@ def phase_zoo(kernels: list) -> None:
         _free()
     part("d")
     log("zoo", wall_s=f"{time.perf_counter() - t0:.1f}",
+        part_walls_s=repr(walls))
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the cross family, llama-3.2-vision-90b and whisper-base.
+# ---------------------------------------------------------------------------
+
+# Every cross layer starts with gate 0 and outputs tanh(0)·y = 0: no check
+# would see its attention, and no gradient reaches its K4/K5 at step 0.
+# Every part of phase 15 sets the gates to 1.0 after init (tanh 0.76).
+CROSS_GATE = 1.0
+CROSS_ROWS, CROSS_PROMPT, CROSS_NEW = 4, 512, 32
+CROSS_TRAIN_STEPS = 3
+
+
+def _set_gates(params, value) -> None:
+    with torch.no_grad():
+        for layer in params["layers"]:
+            if "gate" in layer["mixer"]:
+                layer["mixer"]["gate"].fill_(value)
+
+
+def _memory(cfg, rows, gen, device="cuda", lead=()):
+    """The model's memory, N(0, 0.1²) as the serve launcher draws it:
+    ``{"enc_frames": (*lead, rows, n_frames, d)}`` for an encoder,
+    ``{"img_emb": (*lead, rows, n_img, d)}`` for image tokens."""
+    name, n = ("enc_frames", cfg.encoder.n_frames) if cfg.encoder \
+        else ("img_emb", cfg.n_image_tokens)
+    return {name: torch.randn((*lead, rows, n, cfg.d_model), generator=gen,
+                              device=device) * 0.1}
+
+
+def phase_cross_serve(kernels: list, cfg, path: str):
+    """``CROSS_ROWS`` rows of ``CROSS_PROMPT`` random tokens, with a
+    memory per row, through ``ServeEngine.generate`` (the static-batch
+    path): one prefill (the encoder runs in it, once), then ``CROSS_NEW``
+    − 1 decode steps. Gates at ``CROSS_GATE``. Checks K4 (every softmax,
+    cross and encoder layer once, ``sm90``), K1 (every linear layer once)
+    and K3 (every linear layer a decode step) launches, the cache bytes
+    against their formula (the memory's K/V under ``kv_ring``), and
+    phase 4's decode check on the first row with its memory, the cross
+    layers' own outputs held layer by layer, and a zeroed cross V it must
+    catch in bf16 and in fp32 with fp32 caches."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+
+    n_lin, n_flash = _mixer_counts(cfg)
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _set_gates(params, CROSS_GATE)
+    torch.cuda.synchronize()
+    log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        flash_layers=n_flash, cross=sum(s.mixer == "cross"
+                                        for s in cfg.layer_specs()),
+        encoder_layers=cfg.encoder.n_layers if cfg.encoder else 0,
+        d_model=cfg.d_model, params=_numel(params), dtype=cfg.dtype,
+        gate=CROSS_GATE, init_s=f"{time.perf_counter() - t0:.2f}")
+    mem = _memory(cfg, CROSS_ROWS,
+                  torch.Generator(device="cuda").manual_seed(15))
+    max_len = CROSS_PROMPT + CROSS_NEW
+    engine = ServeEngine(cfg, params, max_len=max_len, max_batch=CROSS_ROWS)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(CROSS_ROWS, CROSS_PROMPT))
+    counters = (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
+    _zero(*counters)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, CROSS_NEW, **mem)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k3, k4, k1_sm90, _, k3_sm90, _, k4_sm90, _ = \
+        _read(counters, counters)
+    stats = engine.stats()
+    steps = int(stats["decode_steps"])
+    k1_route = _chunk_route(cfg)
+    check(out.shape == (CROSS_ROWS, CROSS_NEW)
+          and ((out >= 0) & (out < cfg.vocab_size)).all(),
+          f"{path}: tokens {out.shape} out of shape or vocab")
+    check(steps == CROSS_NEW - 1, f"{path}: {steps} decode steps")
+    check(k1 == n_lin and (k1_route == "simt" or k1_sm90 == k1),
+          f"{path}: K1 launches {k1} (sm90 {k1_sm90}) != {n_lin} layers")
+    check(k3 == n_lin * steps and k3_sm90 == k3,
+          f"{path}: K3 launches {k3} (sm90 {k3_sm90}) != {n_lin} x {steps}")
+    check(k4 == n_flash and k4_sm90 == k4,
+          f"{path}: K4 launches {k4} (sm90 {k4_sm90}) != {n_flash} layers")
+    if n_lin:
+        _count(kernels, f"lasp2_chunk_fwd_{k1_route}", path, k1)
+        _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
+    _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
+    cache = engine.cache_stats()
+    formula = _cache_formula(cfg, CROSS_ROWS, max_len)
+    check(all(cache[k] == n for k, n in formula.items()),
+          f"{path}: cache bytes {cache} != formula {formula}")
+    log(path, rows=CROSS_ROWS, prompt=CROSS_PROMPT, new_tokens=CROSS_NEW,
+        memory=repr({k: tuple(v.shape) for k, v in mem.items()}),
+        decode_steps=steps, k1_launches=k1, k3_launches=k3, k4_launches=k4,
+        k4_sm90_launches=k4_sm90, wall_s=f"{wall:.3f}",
+        tokens_per_s=f"{CROSS_ROWS * CROSS_NEW / wall:.1f}",
+        prefill_ms=f"{stats['prefill_s_p50'] * 1e3:.2f}",
+        decode_step_p50_ms=f"{stats['decode_step_s_p50'] * 1e3:.3f}",
+        decode_tokens_per_s=f"{stats['decode_tokens_per_s']:.1f}",
+        cache_kv_ring_bytes=cache["kv_ring"],
+        cache_linear_state_bytes=cache["linear_state"],
+        cache_total_bytes=cache["total"])
+    phase_decode_check(params, cfg, path, prompts[0], out[0], max_len,
+                       memory={k: v[:1] for k, v in mem.items()},
+                       plant=True)
+    return params
+
+
+def phase_cross_train(kernels: list, cfg, path: str, batch: int,
+                      micro: int, remat: str) -> list:
+    """``CROSS_TRAIN_STEPS`` steps of the one-device step
+    (``make_train_step``; ``train()`` refuses the family, whose data
+    carries no memory) on phase 7's ``SyntheticLM`` rows of 2048 tokens,
+    ``batch`` rows in ``micro`` microbatches, each microbatch with its
+    own memory (``frames`` or ``img``), at ``ZOO_TRAIN_LR``, fp32 masters
+    drawn on the card, gates at ``CROSS_GATE``. Losses finite, none
+    skipped; K1, K2a, K2b, K4, K5a, K5b counted a step (under remat
+    "full" each forward kernel twice, the encoder's too); peak memory;
+    then the profile of one step."""
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_fwd)
+    from repro_torch.train.step import init_state, make_train_step
+
+    run, data = train_setup(cfg, CROSS_TRAIN_STEPS, ZOO_TRAIN_LR, remat,
+                            batch, micro)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(torch.Generator(device="cuda").manual_seed(0), cfg)
+    _set_gates(state["params"], CROSS_GATE)
+    key = "frames" if cfg.encoder is not None else "img"
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    batches = [dict(data.microbatched(i, micro), **{key: next(iter(
+        _memory(cfg, batch // micro, gen, lead=(micro,)).values()))})
+        for i in range(CROSS_TRAIN_STEPS + 1)]
+    step_fn = make_train_step(cfg, run)
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
+                fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+                fl.flash_attention_bwd_dkv)
+    _zero(*counters)
+    hist, per_step, prev = [], [], _read(counters, counters)
+    t0 = time.perf_counter()
+    for i in range(CROSS_TRAIN_STEPS):
+        ts = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        hist.append(dict(m, dt=time.perf_counter() - ts))
+        cur = _read(counters, counters)
+        per_step.append([b - a for a, b in zip(prev, cur)])
+        prev = cur
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_lin, n_flash = _mixer_counts(cfg)
+    lin, soft = n_lin * micro, n_flash * micro
+    fwd = 2 if remat == "full" else 1
+    want = [fwd * lin, lin, lin, fwd * soft, soft, soft] \
+        + [fwd * lin, 0, lin, 0, lin, 0] \
+        + [fwd * soft, 0, soft, 0, soft, 0]
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)), f"{path}: non-finite loss {losses}")
+    check(not any(h["skipped"] for h in hist), f"{path}: a step skipped")
+    check(all(n == want for n in per_step),
+          f"{path}: launches of K1, K2a, K2b, K4, K5a, K5b, then each "
+          f"sm90/simt, per step {per_step}; want {want}")
+    _count_routed(kernels, counters, counters, prev, path)
+    p50 = float(np.median([h["dt"] for h in hist[1:]]))
+    log(path, arch=cfg.name, layers=cfg.n_layers, linear=n_lin,
+        flash_layers=n_flash, steps=CROSS_TRAIN_STEPS, lr=ZOO_TRAIN_LR,
+        batch=f"{batch}x{TRAIN_SEQ}", microbatches=micro, remat=remat,
+        memory=repr(tuple(batches[0][key].shape)), gate=CROSS_GATE,
+        losses=repr([round(x, 4) for x in losses]),
+        grad_norms=repr([round(h["grad_norm"], 3) for h in hist]),
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routed=repr(per_step[0]),
+        wall_s=f"{wall:.2f}", step0_ms=f"{hist[0]['dt'] * 1e3:.1f}",
+        step_p50_ms=f"{p50 * 1e3:.1f}",
+        tokens_per_s=f"{batch * TRAIN_SEQ / p50:.0f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+
+    def one_step():
+        nonlocal state
+        state, _ = step_fn(state, batches[-1])
+
+    wall_ms, device, n_kernels, top, _ = _profile(one_step, 1)
+    idle = f"{1 - device / wall_ms:.3f}" if device else "not measured"
+    log("profile", what=repr(f"{path} step {batch}x{TRAIN_SEQ} "
+                             f"({micro} microbatches)"),
+        wall_ms=f"{wall_ms:.3f}",
+        device_kernel_ms=f"{device:.3f}" if device else "not measured",
+        device_idle_share=idle, kernels_per_call=f"{n_kernels:.0f}",
+        top=repr(top))
+    del state
+    return hist
+
+
+def phase_cross(kernels: list) -> None:
+    """Phase 15, the cross family at full width, gates at ``CROSS_GATE``
+    (random weights from a seed): (a) K4, K5a, K5b held to their plain
+    versions and timed at every flash shape of this phase's serving and
+    training paths (``CROSS_FLASH``, ``_flash_times``); (b) whisper-base whole
+    (6 encoder layers, 6 decoder layers of self + cross) serves
+    (``phase_cross_serve``), trains ``CROSS_TRAIN_STEPS`` steps on phase
+    7's 2 x 4 x 2048 tokens with 4 x 1500 frames a microbatch, and its
+    fp32 grad check against the host CPU covers every leaf (the encoder's
+    and the gates' among them); (c) llama-3.2-vision-90b serves at 5
+    layers (one whole pattern: 4 self-attention + 1 cross over 1601 image
+    tokens), trains its 2-layer cut ``pattern[3:5]`` (a self-attention
+    and the cross layer: 3.81 B parameters, 61 GB of fp32 state) on one
+    microbatch of 2 x 2048 under full remat, and the cut's fp32 grad check
+    runs at 1 x 512 tokens; (d) the Linear-X recipe: vision
+    ``linearize=4`` at 5 layers (3 linear, 1 softmax windowed 2048, 1
+    cross) serves, whisper ``linearize=0`` (decoder self-attention
+    linear) serves and trains."""
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    walls = {}
+
+    def part(name):
+        walls[name] = round(time.perf_counter() - t0 - sum(walls.values()),
+                            1)
+
+    _flash_times(kernels, torch.Generator(device="cuda").manual_seed(15),
+                 CROSS_FLASH, "cross_kernels", "cross_cases")
+    part("a")
+    whisper = get_config("whisper-base")
+    params = phase_cross_serve(kernels, whisper, "cross_whisper_serve")
+    del params
+    _free()
+    phase_cross_train(kernels, whisper, "cross_whisper_train",
+                      batch=TRAIN_BATCH, micro=TRAIN_MICRO, remat="none")
+    _free()
+    phase_grad_check(kernels, dataclasses.replace(whisper, dtype="float32"),
+                     "cross_whisper_gradcheck")
+    _free()
+    part("b")
+    vision = get_config("llama-3.2-vision-90b")
+    params = phase_cross_serve(kernels, dataclasses.replace(vision,
+                                                            n_layers=5),
+                               "cross_vision_serve")
+    del params
+    _free()
+    cut = dataclasses.replace(vision, n_layers=2, pattern=vision.pattern[3:5])
+    phase_cross_train(kernels, cut, "cross_vision_train", batch=2, micro=1,
+                      remat="full")
+    _free()
+    phase_grad_check(kernels, dataclasses.replace(cut, dtype="float32"),
+                     "cross_vision_gradcheck", tokens=512)
+    _free()
+    part("c")
+    vlin = dataclasses.replace(
+        get_config("llama-3.2-vision-90b", linearize=4), n_layers=5)
+    params = phase_cross_serve(kernels, vlin, "cross_vision_hybrid4_serve")
+    del params
+    _free()
+    wlin = get_config("whisper-base", linearize=0)
+    params = phase_cross_serve(kernels, wlin, "cross_whisper_linear_serve")
+    del params
+    _free()
+    phase_cross_train(kernels, wlin, "cross_whisper_linear_train",
+                      batch=TRAIN_BATCH, micro=TRAIN_MICRO, remat="none")
+    _free()
+    part("d")
+    log("cross", wall_s=f"{time.perf_counter() - t0:.1f}",
         part_walls_s=repr(walls))
 
 
@@ -3166,6 +3584,8 @@ def main() -> int:
     phase_ssm(kernels, get_config("mamba2-2.7b"), get_config("hymba-1.5b"))
     _free()
     phase_zoo(kernels)
+    _free()
+    phase_cross(kernels)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,37 +1,39 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke`` /
 ``get_variant``.
 
-The port runs ``linear-llama3-1b`` (its ``CONFIG`` and its named
-variants, ``HYBRID`` among them), ``mamba2-2.7b``, ``hymba-1.5b``, the
-dense decoders ``codeqwen1.5-7b``, ``qwen1.5-110b``, ``granite-34b``,
-``starcoder2-15b`` and the MoE pair ``moonshot-v1-16b-a3b``,
-``phi3.5-moe-42b-a6.6b``; ``llama-3.2-vision-90b`` and ``whisper-base``
-(cross-attention) are ported in a later slice and raise ``KeyError``
-here.
+The port runs every architecture of the reference's registry:
+``linear-llama3-1b`` (its ``CONFIG`` and its named variants, ``HYBRID``
+among them), ``mamba2-2.7b``, ``hymba-1.5b``, the dense decoders
+``codeqwen1.5-7b``, ``qwen1.5-110b``, ``granite-34b``, ``starcoder2-15b``,
+the MoE pair ``moonshot-v1-16b-a3b``, ``phi3.5-moe-42b-a6.6b``, and the
+cross-attention pair ``llama-3.2-vision-90b`` (image tokens) and
+``whisper-base`` (an encoder over audio frames).
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, granite_34b, hymba_1_5b,
-                                 linear_llama3_1b, mamba2_2_7b,
-                                 moonshot_v1_16b_a3b, phi3_5_moe_42b_a6_6b,
-                                 qwen1_5_110b, starcoder2_15b)
-from repro_torch.configs.base import (LayerSpec, LinearAttnConfig,  # noqa: F401
+                                 linear_llama3_1b, llama3_2_vision_90b,
+                                 mamba2_2_7b, moonshot_v1_16b_a3b,
+                                 phi3_5_moe_42b_a6_6b, qwen1_5_110b,
+                                 starcoder2_15b, whisper_base)
+from repro_torch.configs.base import (EncoderConfig,  # noqa: F401
+                                      LayerSpec, LinearAttnConfig,
                                       MambaConfig, ModelConfig, MoEConfig)
 
 _MODULES = {"codeqwen1.5-7b": codeqwen1_5_7b, "qwen1.5-110b": qwen1_5_110b,
             "granite-34b": granite_34b, "starcoder2-15b": starcoder2_15b,
             "hymba-1.5b": hymba_1_5b, "mamba2-2.7b": mamba2_2_7b,
+            "llama-3.2-vision-90b": llama3_2_vision_90b,
             "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b,
             "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b,
+            "whisper-base": whisper_base,
             "linear-llama3-1b": linear_llama3_1b}
 
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (later slice); the port "
-            f"serves {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     return _MODULES[arch_id]
 
 

@@ -2,7 +2,7 @@
 
 Own copy of the parts of ``repro.configs.base`` the ported slices need
 (``LinearAttnConfig``, ``MoEConfig``, ``MambaConfig``, ``LayerSpec``,
-``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``.
+``EncoderConfig``, ``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``.
 Field names, defaults and derived properties match the reference so
 configs compare one to one in the tests.
 """
@@ -50,8 +50,7 @@ class MambaConfig:
 class LayerSpec:
     """One layer of the repeating pattern.
 
-    mixer: softmax | linear | mamba2 | hymba (the mixers the port runs so
-           far; cross comes later)
+    mixer: softmax | linear | mamba2 | hymba | cross
     mlp:   dense | moe | none
     """
 
@@ -59,6 +58,15 @@ class LayerSpec:
     mlp: str = "dense"
     sliding_window: Optional[int] = None   # softmax/hymba attention window
     is_global: bool = True                 # hymba: full-attention layer?
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """Auxiliary encoder stack (Whisper). Frontend is a stub: the model
+    consumes precomputed frame embeddings of shape (B, n_frames, d_model)."""
+
+    n_layers: int = 6
+    n_frames: int = 1500
 
 
 @dataclass(frozen=True)
@@ -83,6 +91,9 @@ class ModelConfig:
     linear_attn: LinearAttnConfig = field(default_factory=LinearAttnConfig)
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    # VLM: number of (stub) image tokens cross-attended by "cross" layers.
+    n_image_tokens: int = 0
 
     dtype: str = "bfloat16"         # activations (compute)
     param_dtype: str = "float32"    # training master weights
@@ -144,16 +155,16 @@ class ModelConfig:
                                    pattern=tuple(new))
 
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks; the final norm
-        is left out, as in the reference) for the mixers and MLPs the port
-        runs."""
+        """Approximate parameter count (embeddings + blocks + the encoder;
+        the final norms and the cross gates are left out, as in the
+        reference)."""
         d, dh = self.d_model, self.head_dim
         n = self.padded_vocab * d  # embed
         if not self.tie_embeddings:
             n += self.padded_vocab * d
         for spec in self.pattern:
             per = 2 * d  # two norms
-            if spec.mixer in ("softmax", "linear"):
+            if spec.mixer in ("softmax", "linear", "cross"):
                 per += d * (self.n_heads * dh) + 2 * d * (self.n_kv_heads * dh)
                 per += (self.n_heads * dh) * d
             elif spec.mixer in ("mamba2", "hymba"):
@@ -167,9 +178,6 @@ class ModelConfig:
                     per += d * (self.n_heads * dh) \
                         + 2 * d * (self.n_kv_heads * dh) \
                         + (self.n_heads * dh) * d
-            else:
-                raise NotImplementedError(
-                    f"mixer {spec.mixer!r} is ported in a later slice")
             n_mats = 2 if self.mlp_act == "gelu" else 3
             if spec.mlp == "dense":
                 per += n_mats * d * self.d_ff
@@ -180,6 +188,11 @@ class ModelConfig:
                 if moe.n_shared_experts:
                     per += n_mats * d * self.d_ff * moe.n_shared_experts
             n += per * self.n_groups
+        if self.encoder is not None:
+            enc_per = 2 * d + d * (self.n_heads * dh) \
+                + 2 * d * (self.n_kv_heads * dh) + (self.n_heads * dh) * d \
+                + (2 if self.mlp_act == "gelu" else 3) * d * self.d_ff
+            n += enc_per * self.encoder.n_layers
         return n
 
     def active_param_count(self) -> int:

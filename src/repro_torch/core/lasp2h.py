@@ -6,8 +6,10 @@ cache (both plain tensor code, as the reference computes them in XLA),
 the AllGather context attention of paper Alg. 7, the softmax layers'
 sequence parallelism, and its DeepSpeed-Ulysses alternative (two
 all-to-alls around full-sequence attention on a subset of the heads).
-The 3D (USP) form of Ulysses, the windowed halo exchange and the sharded
-decode merge come with later slices (M8, serving under SP).
+Also the one-device form of the sharded decode attention the
+cross-attention layers read their memory cache with. The 3D (USP) form
+of Ulysses, the windowed halo exchange and the sharded decode merge are
+not ported (ROADMAP M8, M10: serving under SP).
 """
 
 from __future__ import annotations
@@ -190,3 +192,27 @@ def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,
     o = torch.einsum("bht,bhtd->bhd", p, vf)
     o = o / p.sum(dim=-1).clamp(min=1e-30)[..., None]
     return o[:, :, None, :].to(q.dtype)
+
+
+def sharded_decode_attention(q, k_cache, v_cache, cache_len, *, sp=None,
+                             scale: Optional[float] = None,
+                             sliding_window=None):
+    """One-token attention against a KV cache of ``cache_len`` valid
+    positions (the first ones), as the reference's ``sp=None`` branch:
+    ``ring_decode_attention`` with slot ``i`` holding position ``i`` and
+    the query at ``cache_len - 1``.
+
+    q: (B, Hq, 1, dh); k_cache, v_cache: (B, Hkv, S, dh); ``cache_len``
+    an int or 0-d tensor. Returns (B, Hq, 1, dh) in q's dtype. A cache
+    whose sequence is sharded over ranks (``sp`` of degree > 1) is served
+    under sequence parallelism, ROADMAP item 7 (M10), and raises here.
+    """
+    if sp is not None and sp.degree > 1:
+        raise NotImplementedError(
+            "sharded_decode_attention over a sequence-sharded cache is "
+            "serving under sequence parallelism (ROADMAP item 7, M10)")
+    b, s_tot = q.shape[0], k_cache.shape[2]
+    key_pos = torch.arange(s_tot, device=q.device).expand(b, s_tot)
+    q_pos = torch.as_tensor(cache_len, device=q.device).expand(b) - 1
+    return ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos,
+                                 sliding_window=sliding_window, scale=scale)

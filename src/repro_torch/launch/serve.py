@@ -1,5 +1,6 @@
 """Serving launcher of the port: initialise a model and serve batched
-requests through the continuous-batching engine.
+requests through the continuous-batching engine, or, for encoder and
+image models, one static batch through ``ServeEngine.generate``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch linear-llama3-1b
   PYTHONPATH=src python -m repro_torch.launch.serve --variant HYBRID
@@ -8,11 +9,18 @@ requests through the continuous-batching engine.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-110b
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --linearize 0      # Linear-MoE
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+      --smoke --device cpu --max-batch 2 --prompt-len 16 --new-tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``. ``--linearize K`` applies the paper's
-Linear-X recipe to the chosen config (``--smoke`` included).
+Linear-X recipe to the chosen config (``--smoke`` included). For an
+encoder or image model (``whisper-base``, ``llama-3.2-vision-90b``)
+``--max-batch`` rows of ``--prompt-len`` random tokens are served with
+random frames or image embeddings (N(0, 0.1²), drawn on the device),
+``--new-tokens`` each; ``--requests`` is not read there.
 """
 
 from __future__ import annotations
@@ -77,6 +85,9 @@ def main(argv=None):
                          max_batch=args.max_batch,
                          max_queue=args.max_queue or None, device=device)
 
+    if cfg.encoder is not None or cfg.n_image_tokens:
+        return _serve_static(args, cfg, engine, gen, device)
+
     # continuous batching: ragged prompts, more requests than slots
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1,
@@ -117,6 +128,37 @@ def main(argv=None):
     if uids and uids[0] in results:
         print("[serve] first result:", results[uids[0]][:16], "...")
     return results
+
+
+def _serve_static(args, cfg, engine, gen, device):
+    """The static-batch path of encoder and image models: one rectangular
+    batch with its memories, as the reference's launcher serves them.
+    Returns the (max_batch, new_tokens) int32 tokens."""
+    import torch
+
+    from repro_torch.core.device import synchronize
+
+    kw = {}
+    if cfg.encoder is not None:
+        kw["enc_frames"] = torch.randn(
+            (args.max_batch, cfg.encoder.n_frames, cfg.d_model),
+            generator=gen, device=device) * 0.1
+    if cfg.n_image_tokens:
+        kw["img_emb"] = torch.randn(
+            (args.max_batch, cfg.n_image_tokens, cfg.d_model),
+            generator=gen, device=device) * 0.1
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (args.max_batch, args.prompt_len),
+                            generator=gen, device=device)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts.cpu().numpy(), args.new_tokens,
+                          temperature=args.temperature, seed=args.seed, **kw)
+    synchronize(device)
+    dt = time.perf_counter() - t0
+    total_new = out.shape[0] * args.new_tokens
+    print(f"[serve] {cfg.name}: static batch {out.shape} in {dt:.2f}s "
+          f"({total_new / dt:.1f} tok/s incl. prefill)")
+    return out
 
 
 if __name__ == "__main__":

@@ -1,20 +1,21 @@
 """Transformer-layer bodies: the softmax (GQA), linear-attention, mamba2
-(SSD) and hymba mixers, the dense and MoE MLPs and the layer glue, with
-full-sequence (forward, prefill) and single-token (decode) entry points.
+(SSD), hymba and cross-attention mixers, the dense and MoE MLPs and the
+layer glue, with full-sequence (forward, prefill) and single-token
+(decode) entry points.
 The linear mixer runs the paper's variants (§4): any feature map, the
 fixed decays and GLA's data-dependent gate (``wdt``), causal or
 bidirectional.
 
-Twin of the softmax, linear, mamba2, hymba, dense and MoE parts of
-``repro/models/blocks.py``. Mixers consume and produce ``(B, S, d)``;
+Twin of ``repro/models/blocks.py``. Mixers consume and produce ``(B, S, d)``;
 inside, activations are ``(B, H, S, dh)``. Under sequence parallelism
 (``Ctx.sp``) ``S`` is this rank's chunk: linear and mamba2 layers run
 LASP-2 (``core.lasp2``, the exchange of ``sp.comm``), softmax layers the
 K/V all-gather of LASP-2H or, under the "ulysses" strategy, its two
 all-to-alls (``core.lasp2h``); hymba layers do both. MoE layers run on
 one device only (the reference's manual DP×SP step refuses them too;
-``train.step.ShardedStep``). Cross-attention layers are ported in a later
-slice and raise ``NotImplementedError`` here.
+``train.step.ShardedStep``). Cross-attention layers (the VLM's image
+layers, Whisper's decoder cross) attend a memory (``Ctx.img_emb`` or
+``Ctx.enc_out``) with no RoPE and no SP path, as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from repro_torch.core import linear_attention as la_core
 from repro_torch.core.lasp2 import lasp2
 from repro_torch.core.lasp2h import (allgather_context_attention,
                                      ring_decode_attention,
+                                     sharded_decode_attention,
                                      ulysses_context_attention)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
@@ -46,6 +48,8 @@ class Ctx:
     resets: Any = None             # (B, S) bool: state resets (doc starts)
     sp: Any = None                 # core.lasp2.SPConfig: S is a chunk
     is_global: Any = None          # hymba: this layer attends unwindowed
+    img_emb: Any = None            # (B, n_img, d) stub patch embeddings
+    enc_out: Any = None            # (B, n_frames, d) encoder output
 
 
 # The decode caches' K/V rings and SSD conv inputs are bf16 whatever
@@ -56,9 +60,8 @@ CACHE_DTYPE = torch.bfloat16
 def _unported(spec: LayerSpec):
     if spec.mixer not in _MIXERS or spec.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(
-            f"layer mixer={spec.mixer!r} mlp={spec.mlp!r} is ported in a "
-            f"later slice; the port runs mixer in {sorted(_MIXERS)}, "
-            f"mlp='dense', 'moe' or 'none'")
+            f"unknown layer mixer={spec.mixer!r} mlp={spec.mlp!r}; the port "
+            f"runs mixer in {sorted(_MIXERS)}, mlp='dense', 'moe' or 'none'")
 
 
 def _heads_split(x, n_heads, head_dim):
@@ -506,6 +509,83 @@ def hymba_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
 
 
 # ===========================================================================
+# Cross-attention mixer (VLM image layers, Whisper decoder cross)
+# ===========================================================================
+
+def cross_init(generator, cfg: ModelConfig, dtype, device):
+    """Softmax's projections plus ``gate``, a 0-d fp32 zero: at init every
+    cross layer outputs tanh(0)·y = 0, as in the reference."""
+    p = softmax_init(generator, cfg, dtype, device)
+    p["gate"] = torch.zeros((), dtype=torch.float32, device=device)
+    return p
+
+
+def _cross_kv(params, memory, cfg: ModelConfig):
+    """k, v (B, Hkv, n_mem, dh) of the memory, in its dtype."""
+    dt = memory.dtype
+    k = _heads_split(memory @ params["wk"].to(dt), cfg.n_kv_heads,
+                     cfg.head_dim)
+    v = _heads_split(memory @ params["wv"].to(dt), cfg.n_kv_heads,
+                     cfg.head_dim)
+    return k, v
+
+
+def _cross_q(params, x, cfg: ModelConfig):
+    return _heads_split(x @ params["wq"].to(x.dtype), cfg.n_heads,
+                        cfg.head_dim)
+
+
+def _cross_y(params, o, dt):
+    """tanh(gate) · the attention output projected out, in ``dt``."""
+    y = _heads_merge(o.to(dt)) @ params["wo"].to(dt)
+    return torch.tanh(params["gate"]).to(dt) * y
+
+
+def _cross_attend(params, x, ctx: Ctx):
+    """``(y, k, v)``: x's queries over the memory (``ctx.img_emb``, else
+    ``ctx.enc_out``) cast to the compute dtype, through
+    ``ops.flash_attention_op(causal=False)`` (K4/K5 on the card) with
+    Sq ≠ Sk; the default query offset Sk − Sq may be negative, which the
+    unmasked form never reads. Each rank of a sequence split would attend
+    its own query chunk to the whole memory, with no exchange."""
+    memory = ctx.img_emb if ctx.img_emb is not None else ctx.enc_out
+    k, v = _cross_kv(params, memory.to(x.dtype), ctx.cfg)
+    o = ops.flash_attention_op(_cross_q(params, x, ctx.cfg), k, v,
+                               causal=False)
+    return _cross_y(params, o, x.dtype), k, v
+
+
+def cross_apply(params, x, ctx: Ctx):
+    return _cross_attend(params, x, ctx)[0]
+
+
+def cross_cache(cfg: ModelConfig, batch, device):
+    """The memory's K/V (B, Hkv, max(n_mem, 1), dh) in ``CACHE_DTYPE``;
+    n_mem is ``n_image_tokens`` or the encoder's ``n_frames``."""
+    n_mem = cfg.n_image_tokens or (cfg.encoder.n_frames if cfg.encoder
+                                   else 0)
+    shape = (batch, cfg.n_kv_heads, max(n_mem, 1), cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device)}
+
+
+def _cross_prefill(params, x, ctx: Ctx):
+    """The prompt's cross attention and the memory's K/V cache, from one
+    projection of the memory."""
+    y, k, v = _cross_attend(params, x, ctx)
+    return y, {"k": k.to(CACHE_DTYPE), "v": v.to(CACHE_DTYPE)}
+
+
+def cross_decode(params, x, cache, ctx: Ctx):
+    """One token's query against the whole memory cache (plain fp32
+    scores, ``sharded_decode_attention``); the cache does not change."""
+    q = _cross_q(params, x, ctx.cfg)
+    o = sharded_decode_attention(q, cache["k"], cache["v"],
+                                 cache["k"].shape[2])
+    return _cross_y(params, o, x.dtype), cache
+
+
+# ===========================================================================
 # MoE MLP: token-choice top-k routing with capacity (drop on overflow)
 # ===========================================================================
 
@@ -623,6 +703,12 @@ _MIXERS = {
         lambda cfg, spec, b, max_len, dev: mamba2_cache(cfg, spec, b, dev)),
     "hymba": _Mixer(hymba_init, hymba_apply, _hymba_prefill, hymba_decode,
                     hymba_cache),
+    "cross": _Mixer(
+        lambda g, cfg, spec, dt, dev: cross_init(g, cfg, dt, dev),
+        lambda p, h, ctx, spec: cross_apply(p, h, ctx),
+        lambda p, h, ctx, spec, max_len: _cross_prefill(p, h, ctx),
+        lambda p, h, c, ctx, spec: cross_decode(p, h, c, ctx),
+        lambda cfg, spec, b, max_len, dev: cross_cache(cfg, b, dev)),
 }
 
 

@@ -100,3 +100,15 @@ def logits_out(params, x, vocab_size):
     if logits.shape[-1] > vocab_size:
         logits[..., vocab_size:] = -1e30
     return logits
+
+
+def sinusoidal_positions(n, d, device=None):
+    """(n, d) fp32 sinusoid table: sin at even columns, cos at odd ones,
+    angle ``pos / 10000^(2i/d)``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, : d // 2])
+    return pe

@@ -11,13 +11,20 @@ Params are a plain dict::
     {"embed": {"table", "lm_head"}, "layers": [layer params, ...],
      "final_norm": {"scale"}}
 
+plus, for a config with an encoder (Whisper), ``"encoder": {"layers":
+[softmax + dense layer params, ...], "final_norm": {"scale"}}``. Image
+embeddings (``img_emb``) and encoder frames (``enc_frames``) are stub
+frontends, as in the reference: the caller gives (B, n_mem, d_model)
+embeddings.
+
 The decode cache is ``{"layers": [{"mixer": {...}}, ...], "pos": (B,)
 int32}``: a linear layer holds ``m`` (B, H, dk, dv) fp32 and ``log_decay``
 (B, H) fp32; a softmax layer a ring of ``k``, ``v`` (B, Hkv, R, dh) bf16
 and ``kpos`` (B, R) int32; a mamba2 layer ``m`` (B, nh, d_state,
 headdim) and ``log_decay`` (B, nh) fp32 and ``conv_x``, ``conv_b``,
 ``conv_c`` (B, d_conv − 1, C) bf16; a hymba layer both, nested under
-``attn`` and ``ssm``.
+``attn`` and ``ssm``; a cross layer the memory's ``k``, ``v`` (B, Hkv,
+n_mem, dh) bf16, written at prefill and only read by decode.
 """
 
 from __future__ import annotations
@@ -27,12 +34,16 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.device import resolve_device, torch_dtype
 from repro_torch.models import blocks
 from repro_torch.models.blocks import Ctx
 from repro_torch.models.layers import (embed_init, embed_lookup, logits_out,
-                                       rmsnorm, rmsnorm_init)
+                                       rmsnorm, rmsnorm_init,
+                                       sinusoidal_positions)
+
+# The encoder's layers: bidirectional softmax attention and a dense MLP.
+ENCODER_SPEC = LayerSpec(mixer="softmax", mlp="dense")
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
@@ -44,21 +55,30 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     ``device="cpu"``). Matrices and embeddings are stored in
     ``param_dtype`` (a config dtype name): by default ``cfg.dtype`` (bf16
     serving params); training passes ``cfg.param_dtype`` for fp32
-    masters. Norm scales and the SSD heads' 1-D leaves (``dt_bias``,
-    ``a_log``, ``d_skip``) are fp32 either way.
+    masters. Norm scales, the SSD heads' 1-D leaves (``dt_bias``,
+    ``a_log``, ``d_skip``) and the cross layers' 0-d ``gate`` are fp32
+    either way. With ``cfg.encoder`` the encoder's layers are drawn after
+    the decoder's.
     """
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}: create the generator on the device")
     dtype = torch_dtype(param_dtype or cfg.dtype)
-    return {
+    params = {
         "embed": embed_init(generator, cfg.padded_vocab, cfg.d_model, dtype,
                             device, tie=cfg.tie_embeddings),
         "layers": [blocks.layer_init(generator, cfg, spec, dtype, device)
                    for spec in cfg.layer_specs()],
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [blocks.layer_init(generator, cfg, ENCODER_SPEC, dtype,
+                                         device)
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": rmsnorm_init(cfg.d_model, device)}
+    return params
 
 
 def _device(params) -> torch.device:
@@ -90,16 +110,67 @@ def _layer_ctxs(ctx: Ctx, cfg: ModelConfig):
     return [dataclasses.replace(ctx, is_global=f) for f in flags]
 
 
+def _run_layers(layers, x, ctxs, specs, remat):
+    """``(x, summed aux)`` through ``layers``, each recomputed in the
+    backward under ``remat="full"``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, lctx, spec in zip(layers, ctxs, specs):
+        if remat == "full":
+            x, a = torch.utils.checkpoint.checkpoint(
+                blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
+        else:
+            x, a = blocks.layer_apply(p, x, lctx, spec)
+        aux = aux + a
+    return x, aux
+
+
+def encode(params, frames, cfg: ModelConfig, *, remat: str = "none"):
+    """Whisper-style bidirectional encoder over (stub) frame embeddings
+    (B, n_frames, d_model): the sinusoid added in ``cfg.dtype``, softmax
+    layers without RoPE and unmasked, then the encoder's final norm."""
+    dtype = torch_dtype(cfg.dtype)
+    device = _device(params)
+    x = torch.as_tensor(frames, device=device).to(dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 device=device).to(dtype)[None]
+    enc = params["encoder"]
+    n = len(enc["layers"])
+    ctx = Ctx(cfg=cfg, positions=None, causal=False)
+    x, _ = _run_layers(enc["layers"], x, [ctx] * n, [ENCODER_SPEC] * n,
+                       remat)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
+
+
+def _memories(params, cfg: ModelConfig, img_emb, enc_frames, remat):
+    """``(img_emb, enc_out)`` for the cross layers, on the params' device:
+    an encoder config encodes ``enc_frames``; an image config takes
+    ``img_emb`` as it is. Each raises when its memory is missing."""
+    enc_out = None
+    if cfg.encoder is not None:
+        if enc_frames is None:
+            raise ValueError("whisper-style model needs enc_frames")
+        enc_out = encode(params, enc_frames, cfg, remat=remat)
+    if img_emb is not None:
+        img_emb = torch.as_tensor(img_emb, device=_device(params))
+    elif cfg.n_image_tokens and any(spec.mixer == "cross"
+                                    for spec in cfg.pattern):
+        raise ValueError("image model needs img_emb")
+    return img_emb, enc_out
+
+
 def forward(params, tokens, cfg: ModelConfig, *, resets=None,
-            remat: str = "none", sp=None, causal: bool = True):
+            remat: str = "none", sp=None, causal: bool = True, img_emb=None,
+            enc_frames=None):
     """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``
     (``forward_with_aux`` without the MoE layers' router loss)."""
     return forward_with_aux(params, tokens, cfg, resets=resets, remat=remat,
-                            sp=sp, causal=causal)[0]
+                            sp=sp, causal=causal, img_emb=img_emb,
+                            enc_frames=enc_frames)[0]
 
 
 def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
-                     remat: str = "none", sp=None, causal: bool = True):
+                     remat: str = "none", sp=None, causal: bool = True,
+                     img_emb=None, enc_frames=None):
     """Full-sequence forward → ``(logits (B, S, padded_vocab) in
     ``cfg.dtype``, aux)``; ``aux`` is the MoE layers' router loss summed
     over layers (a 0-d fp32 tensor; dense layers add 0).
@@ -116,6 +187,9 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
     chunk ``t`` of a sequence split over ``sp.degree`` ranks; its RoPE
     positions are ``t·S + arange(S)``. Under ``remat="full"`` a layer's
     recompute issues its forward exchanges again inside the backward.
+    Cross layers attend ``img_emb`` (B, n_img, d) or the encoder's output
+    over ``enc_frames`` (B, n_frames, d); the encoder runs under the same
+    ``remat``.
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
@@ -127,17 +201,12 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
     positions = torch.arange(s, device=device)
     if sp is not None:
         positions = sp.chunk_index * s + positions
+    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, remat)
     ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
-              resets=None if resets is None else resets.to(device))
-    aux = torch.zeros((), dtype=torch.float32, device=device)
-    for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
-                             cfg.layer_specs()):
-        if remat == "full":
-            x, a = torch.utils.checkpoint.checkpoint(
-                blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
-        else:
-            x, a = blocks.layer_apply(p, x, lctx, spec)
-        aux = aux + a
+              resets=None if resets is None else resets.to(device),
+              img_emb=img_emb, enc_out=enc_out)
+    x, aux = _run_layers(params["layers"], x, _layer_ctxs(ctx, cfg),
+                         cfg.layer_specs(), remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return logits_out(params["embed"], x, cfg.vocab_size), aux
 
@@ -193,19 +262,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def decode_step(params, token, cache, cfg: ModelConfig):
+def decode_step(params, token, cache, cfg: ModelConfig, *, img_emb=None,
+                enc_out=None):
     """One decode step. token: (B,) int → (logits (B, V), new cache).
 
     No prefix re-scan: every linear or SSD layer advances its recurrent
     state by one step (on CUDA in place, so the returned cache holds the
     caller's state tensors; SSD layers return new conv caches); every
     softmax layer writes one ring slot in place (on every device) and
-    attends to the ring.
+    attends to the ring; every cross layer reads the memory's K/V that
+    prefill cached (``img_emb`` and ``enc_out`` are the reference's
+    arguments; no layer reads them).
     """
     dtype = torch_dtype(cfg.dtype)
     pos = cache["pos"]
     x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
-    ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos)
+    ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos,
+              img_emb=img_emb, enc_out=enc_out)
     new_layers = []
     for p, c, lctx, spec in zip(params["layers"], cache["layers"],
                                 _layer_ctxs(ctx, cfg), cfg.layer_specs()):
@@ -221,7 +294,7 @@ def decode_step(params, token, cache, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 
 def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
-            pad_lens=None):
+            pad_lens=None, img_emb=None, enc_frames=None):
     """Run the prompt, returning (logits of the last position (B, V),
     decode cache).
 
@@ -234,7 +307,9 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
     through every layer (norms, projections, mamba2's conv, gate and
     ``wo`` all map 0 to 0), so mamba2's conv sees at the first real token
     the zeros of a sequence start. Softmax layers build their ring caches
-    for ``max_len`` (default: the prompt length).
+    for ``max_len`` (default: the prompt length); cross layers cache the
+    K/V of ``img_emb`` or of the encoder's output over ``enc_frames``
+    (encoded here, once).
     """
     device = _device(params)
     dtype = torch_dtype(cfg.dtype)
@@ -256,7 +331,9 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
                         torch.zeros((), dtype=x.dtype, device=device))
     else:
         positions = torch.arange(s, device=device)
-    ctx = Ctx(cfg=cfg, positions=positions, resets=resets)
+    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, "none")
+    ctx = Ctx(cfg=cfg, positions=positions, resets=resets, img_emb=img_emb,
+              enc_out=enc_out)
     caches = []
     for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
                              cfg.layer_specs()):

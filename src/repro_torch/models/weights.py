@@ -2,8 +2,10 @@
 
 The reference stacks each pattern position's layer params over groups
 (``params["groups"][p][...][g]``); the port keeps one dict per layer, with
-layer ``g·len(pattern) + p`` taken from group ``g`` of position ``p``. Leaf
-names are the same on both sides.
+layer ``g·len(pattern) + p`` taken from group ``g`` of position ``p``. A
+Whisper encoder's layers are stacked the same way under ``encoder/groups/0``
+(one pattern position, one group per encoder layer). Leaf names are the
+same on both sides.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import torch_dtype
+from repro_torch.models.model import ENCODER_SPEC
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, np.ndarray]:
@@ -47,14 +50,15 @@ def _layer_paths(spec, cfg: ModelConfig):
     Attention projections carry ``bq``, ``bk``, ``bv`` under ``qkv_bias``;
     a gelu MLP has no ``w3``; an MoE MLP holds the router, the experts'
     weights (stacked over experts) and, with shared experts, their SwiGLU
-    MLP."""
-    if spec.mixer not in ("linear", "softmax", "mamba2", "hymba") \
+    MLP. A cross mixer holds softmax's projections and its 0-d ``gate``."""
+    if spec.mixer not in ("linear", "softmax", "mamba2", "hymba", "cross") \
             or spec.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(
-            f"params_from_jax: mixer={spec.mixer!r} mlp={spec.mlp!r} is "
-            f"ported in a later slice")
+            f"params_from_jax: unknown mixer={spec.mixer!r} "
+            f"mlp={spec.mlp!r}")
     attn = _ATTN + (_BIAS if cfg.qkv_bias else ())
     mixer = {"softmax": attn,
+             "cross": attn + (("gate",),),
              "linear": attn + ((("wdt",),) if cfg.linear_attn.decay
                                == "data" else ()),
              "mamba2": _SSM,
@@ -88,16 +92,18 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     leaves (``jax.tree.map(np.asarray, params)``).
 
     Matrices, expert stacks and embeddings are cast to ``dtype`` (default
-    ``cfg.dtype``); 1-D leaves (norm scales, the qkv biases, and the SSD
-    heads' ``dt_bias``, ``a_log`` and ``d_skip``) stay fp32, since a bf16
-    ``a_log`` would move every head's decay. Raises on any leaf it does not map and on any leaf the port
-    needs that the tree lacks.
+    ``cfg.dtype``); leaves of at most one dimension (norm scales, the qkv
+    biases, the SSD heads' ``dt_bias``, ``a_log`` and ``d_skip``, the
+    cross layers' 0-d ``gate``) stay fp32, as the reference keeps them,
+    since a bf16 ``a_log`` would move every head's decay. Raises on any
+    leaf it does not map and on any leaf the port needs that the tree
+    lacks.
     """
     dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
     flat = _flatten(params_np)
 
     def tensor(arr):
-        want = torch.float32 if arr.ndim == 1 else dtype
+        want = torch.float32 if arr.ndim <= 1 else dtype
         return torch.from_numpy(np.array(arr, np.float32)).to(
             device=device, dtype=want)
 
@@ -112,28 +118,40 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
         del flat[path]
         return tensor(arr)
 
-    def unstacked(p, g, path):
-        """Group ``g`` of pattern position ``p``'s stacked leaf ``path``."""
-        key = ("groups", str(p)) + path
-        arr = leaf(*key)
-        if arr.shape[0] != cfg.n_groups:
-            raise ValueError(f"params_from_jax: {'.'.join(key)} stacks "
-                             f"{arr.shape[0]} groups, config has "
-                             f"{cfg.n_groups}")
-        return tensor(arr[g])
+    def stack(prefix, pattern, n_groups):
+        """The layers of a stack whose pattern position ``p`` holds its
+        leaves under ``prefix + ("groups", p)``, stacked over groups:
+        layer ``g·len(pattern) + p`` is group ``g`` of position ``p``."""
+        paths = [_layer_paths(spec, cfg) for spec in pattern]
+        layers = [{} for _ in range(n_groups * len(pattern))]
+        for p, layer_paths in enumerate(paths):
+            items = [[] for _ in range(n_groups)]
+            for path in layer_paths:
+                key = prefix + ("groups", str(p)) + path
+                arr = leaf(*key)
+                if arr.shape[0] != n_groups:
+                    raise ValueError(f"params_from_jax: {'.'.join(key)} "
+                                     f"stacks {arr.shape[0]} groups, config "
+                                     f"has {n_groups}")
+                for g in range(n_groups):
+                    items[g].append((path, tensor(arr[g])))
+                del flat[key]
+            for g in range(n_groups):
+                layers[g * len(pattern) + p] = _nest(items[g])
+        return layers
 
-    paths = [_layer_paths(spec, cfg) for spec in cfg.pattern]
-    layers = [_nest((path, unstacked(p, g, path)) for path in paths[p])
-              for g in range(cfg.n_groups)
-              for p in range(len(cfg.pattern))]
-    for p, layer_paths in enumerate(paths):
-        for path in layer_paths:
-            del flat[("groups", str(p)) + path]
+    layers = stack((), cfg.pattern, cfg.n_groups)
     embed = {"table": take("embed", "table")}
     if not cfg.tie_embeddings:
         embed["lm_head"] = take("embed", "lm_head")
     out = {"embed": embed, "layers": layers,
            "final_norm": {"scale": take("final_norm", "scale")}}
+    if cfg.encoder is not None:
+        out["encoder"] = {
+            "layers": stack(("encoder",), (ENCODER_SPEC,),
+                            cfg.encoder.n_layers),
+            "final_norm": {"scale": take("encoder", "final_norm",
+                                         "scale")}}
     if flat:
         raise ValueError("params_from_jax: unmapped leaves "
                          + ", ".join(".".join(k) for k in sorted(flat)))

@@ -1,6 +1,6 @@
 """Constant-memory serving engine with continuous batching.
 
-Twin of ``repro/serve/engine.py`` (continuous path). The decode cache holds,
+Twin of ``repro/serve/engine.py``. The decode cache holds,
 per linear or mamba2 layer, only the fp32 ``dk × dv`` recurrent state plus
 its cumulative log decay (mamba2 also its last d_conv − 1 conv inputs):
 O(1) in context length; per softmax layer of a LASP-2H hybrid, a ring of
@@ -18,6 +18,12 @@ would attend left-padding) and per-step eviction of finished ones
 (:mod:`repro_torch.serve.scheduler`). Each request samples from its own
 ``(seed, stream)`` generator, so its tokens do not depend on what it was
 batched with.
+
+Encoder and image models (the cross family) serve through ``generate``
+alone, as a static batch: their per-request memories (encoder frames,
+image embeddings) do not batch continuously. Rectangular prompts are
+prefilled by exact length with the memory (encoded once), then decoded
+together; each cross layer's cache holds the memory's K/V.
 
 API::
 
@@ -105,8 +111,11 @@ class ServeEngine:
                                          metrics=self.metrics,
                                          max_queue=max_queue,
                                          finished_timeout=finished_timeout)
+        # the slot grid is allocated for the cross family too, so its
+        # cache_stats() are the reference's
         self._cache = M.init_cache(cfg, max_batch, max_len,
                                    device=self.device)
+        self._static = cfg.encoder is not None or bool(cfg.n_image_tokens)
         self._tok = np.zeros((max_batch,), np.int32)
         self._temps = np.zeros((max_batch,), np.float32)
         self._seeds = np.zeros((max_batch, 2), np.int64)   # (seed, stream)
@@ -124,7 +133,13 @@ class ServeEngine:
 
         ``(seed, stream)`` names the request's random stream. Raises
         :class:`repro_torch.serve.scheduler.QueueFullError` when the
-        bounded admission queue is full."""
+        bounded admission queue is full, and ``ValueError`` for an encoder
+        or image model (those serve through ``generate``)."""
+        if self._static:
+            raise ValueError(
+                f"{self.cfg.name} needs encoder frames or image embeddings "
+                f"per request: serve it with generate(..., enc_frames= or "
+                f"img_emb=), the static-batch path")
         uid = self.sched.submit(prompt, max_new_tokens,
                                 temperature=temperature, eos_id=eos_id,
                                 seed=seed, stream=stream,
@@ -234,11 +249,15 @@ class ServeEngine:
                  eos_id: Optional[int] = None):
         """prompts: (B, S) int (or a ragged list of 1-D prompts).
         Returns (B, max_new_tokens) int32; rows that stop early at EOS are
-        padded by repeating their final token."""
+        padded by repeating their final token. With ``img_emb`` (B, n_img,
+        d) or ``enc_frames`` (B, n_frames, d) the static-batch path runs
+        (``_generate_static``)."""
         if img_emb is not None or enc_frames is not None:
-            raise NotImplementedError(
-                "static-batch generation for encoder / image models is "
-                "ported in a later slice")
+            return self._generate_static(prompts, max_new_tokens,
+                                         temperature=temperature, seed=seed,
+                                         img_emb=img_emb,
+                                         enc_frames=enc_frames,
+                                         eos_id=eos_id)
         if self.sched.has_work():
             raise RuntimeError("generate() needs an idle engine; use "
                                "submit()/run() to mix")
@@ -254,6 +273,56 @@ class ServeEngine:
             if len(t) < max_new_tokens:      # early EOS: repeat last token
                 out[i, len(t):] = t[-1]
         return out
+
+    @torch.no_grad()
+    def _generate_static(self, prompts, max_new_tokens, *, temperature,
+                         seed, img_emb, enc_frames, eos_id):
+        """The reference's static-batch path: rectangular (B, S) prompts
+        with ``S + max_new_tokens <= max_len``, one prefill by exact length
+        with the memory (the encoder runs once, inside it: the
+        reference's second encode feeds nothing decode reads), then a
+        decode loop over the whole batch, sampled by ``_sample``: greedy is
+        argmax; a positive ``temperature`` draws row ``i``'s step ``t``
+        from its own ``(seed, i, t)`` generator, as the continuous path
+        does (JAX's key stream cannot be reproduced). At
+        EOS a row keeps decoding; once every row has emitted ``eos_id``
+        the last tokens repeat to the end, as in the reference."""
+        prompts = torch.as_tensor(np.asarray(prompts, np.int32),
+                                  device=self.device)
+        b, s = prompts.shape
+        if s + max_new_tokens > self.max_len:
+            raise ValueError("max_len too small")
+        t0 = time.perf_counter()
+        logits, cache = M.prefill(self.params, prompts, self.cfg,
+                                  max_len=self.max_len, img_emb=img_emb,
+                                  enc_frames=enc_frames)
+        temps = np.full((b,), float(temperature))
+        seeds = np.stack([np.full((b,), seed), np.arange(b)], axis=1)
+        tok = self._sample(logits, temps, seeds, np.zeros((b,), np.int64))
+        self.metrics.observe("prefill_s", time.perf_counter() - t0)
+        self.metrics.inc("prefill_batches")
+        self.metrics.inc("prefill_tokens", b * s)
+        out = []
+        done = np.zeros((b,), bool)
+        for i in range(max_new_tokens):
+            out.append(tok)
+            if eos_id is not None:
+                done |= out[-1] == eos_id
+                if done.all():
+                    out.extend([out[-1]] * (max_new_tokens - i - 1))
+                    break
+            if i == max_new_tokens - 1:
+                break
+            t0 = time.perf_counter()
+            logits, cache = M.decode_step(
+                self.params, torch.as_tensor(tok, device=self.device), cache,
+                self.cfg)
+            tok = self._sample(logits, temps, seeds,
+                               np.full((b,), i + 1, np.int64))
+            self.metrics.observe("decode_step_s", time.perf_counter() - t0)
+            self.metrics.inc("decode_steps")
+            self.metrics.inc("decode_tokens", b)
+        return np.stack(out[:max_new_tokens], axis=1).astype(np.int32)
 
     # -- introspection ------------------------------------------------------
 
@@ -278,7 +347,9 @@ class ServeEngine:
         ``2·B·n_kv·ring·head_dim·2`` (bf16 K/V) ``+ B·ring·4`` (int32
         positions), with ring = min(window, ``max_len``), or ``max_len``
         on every hymba layer; ``conv`` per SSD layer ``B·(d_conv −
-        1)·(d_in + 2·ngroups·d_state)·2`` (bf16 conv inputs)."""
+        1)·(d_in + 2·ngroups·d_state)·2`` (bf16 conv inputs). A cross
+        layer's memory K/V (``2·B·n_kv·n_mem·head_dim·2``) counts under
+        ``kv_ring``, as the reference's leaf-name rule counts it."""
         stats = {"linear_state": 0, "kv_ring": 0, "conv": 0, "other": 0}
         arrays = dict.fromkeys(stats, 0)
         for path, t in leaves_with_paths(self._cache["layers"]):

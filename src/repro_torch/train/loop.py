@@ -74,6 +74,13 @@ def train(cfg: ModelConfig, run: RunConfig, data: SyntheticLM, *,
     are drawn by ``init_params`` from a generator seeded with
     ``run.seed`` (the same params on every rank).
     """
+    if cfg.encoder is not None or cfg.n_image_tokens:
+        raise ValueError(
+            f"{cfg.name}: train() feeds SyntheticLM batches, which carry no "
+            f"encoder frames or image embeddings, and this model needs them "
+            f"(the reference's loop fails on it too); train the cross family "
+            f"with train.step.make_train_step and 'frames' / 'img' in each "
+            f"microbatch")
     device = resolve_device(device)
     if ckpt_dir and layout is not None and layout.world > 1:
         raise NotImplementedError(

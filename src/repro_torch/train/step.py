@@ -5,7 +5,10 @@ device, or across the ranks of a DP×SP layout (:class:`ShardedStep`).
 
 ``train_step(state, batch)``:
   state = {"params": fp32 master params, "opt": AdamState, "step": int}
-  batch = {"tokens", "labels", "resets"}: numpy or tensors, (A, B/A, S)
+  batch = {"tokens", "labels", "resets"}: numpy or tensors, (A, B/A, S);
+          for the cross family also ``"frames"`` (A, B/A, n_frames, d),
+          the encoder's input, or ``"img"`` (A, B/A, n_img, d), the image
+          embeddings
 Returns ``(new_state, metrics)``. The params and moments are updated in
 place (``repro_torch.optim.adamw``); the returned state holds the same
 tensors. The forward runs in ``cfg.dtype`` (bf16 on the card): every
@@ -19,7 +22,8 @@ MoE layers add their router loss to the one-device objective
 (``MOE_AUX_COEF`` times the summed aux); the reported ``loss`` stays the
 cross-entropy alone, as the reference's. The DP×SP step refuses MoE
 layers: the reference's manual step cannot run them either (its
-``moe_apply`` opens a ``shard_map`` of its own inside the step's).
+``moe_apply`` opens a ``shard_map`` of its own inside the step's), and
+it refuses the cross family's frames and images, as the reference's.
 """
 
 from __future__ import annotations
@@ -67,11 +71,15 @@ def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None,
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig):
     """``loss_fn(params, micro) → (objective, cross-entropy)``: the
-    objective adds ``MOE_AUX_COEF`` times the MoE layers' router loss."""
+    objective adds ``MOE_AUX_COEF`` times the MoE layers' router loss. A
+    microbatch's ``"frames"`` go to the encoder, its ``"img"`` to the
+    cross layers."""
     def loss_fn(params, micro):
         logits, aux = M.forward_with_aux(params, micro["tokens"], cfg,
                                          remat=run.remat,
-                                         resets=micro.get("resets"))
+                                         resets=micro.get("resets"),
+                                         enc_frames=micro.get("frames"),
+                                         img_emb=micro.get("img"))
         loss = M.lm_loss(logits, micro["labels"])
         return loss + MOE_AUX_COEF * aux, loss
     return loss_fn
@@ -198,6 +206,11 @@ class ShardedStep:
                 f"the reference's manual step refuses them too (its "
                 f"moe_apply opens its own shard_map inside the step's "
                 f"manual one). Train MoE configs on one device.")
+        if cfg.encoder is not None or cfg.n_image_tokens:
+            raise NotImplementedError(
+                f"{cfg.name}: encoder/VLM aux inputs are not supported on "
+                f"the 2D DP×SP training plan yet (as in the reference); "
+                f"train the cross family on one device")
         self.cfg, self.run, self.layout = cfg, run, layout
         self.sp = SPConfig(layout.sp_group, comm=run.comm_spec()) \
             if layout.sp > 1 else None
@@ -222,6 +235,10 @@ class ShardedStep:
         """Gradients of the global mean CE over this step's global batch,
         reduced over every rank: ``(flat grads (a view of the buffer),
         ce_tot, n_tot)``, both 0-d fp32 tensors."""
+        if "frames" in batch or "img" in batch:
+            raise NotImplementedError(
+                "encoder/VLM aux inputs are not supported on the 2D DP×SP "
+                "training plan yet")
         leaves = [p for _, p in leaves_with_paths(params)]
         device = leaves[0].device
         buf, n = self._buffer(params)

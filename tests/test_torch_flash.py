@@ -215,6 +215,25 @@ def test_grads_awkward_lengths(sq, sk):
         _close(t, j, GRAD_TOL, f"d{name}")
 
 
+@pytest.mark.parametrize("sq,sk", [(80, 50), (30, 100), (75, 75)])
+def test_cross_shapes_noncausal_fwd_and_grads(sq, sk):
+    """The cross-attention and encoder shapes at dh 16, GQA 2:1, fp32:
+    ``causal=False`` with Sq > Sk (the default offset Sk − Sq is
+    negative), Sq < Sk, and a square ragged length (the encoder's), every
+    length off the 64-block. The port's op against the reference's
+    interpret-mode op: o, then dq, dk, dv."""
+    q, k, v, co = _case(8, 2, 4, 2, sq, sk, 16)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want = jops.flash_attention_op(jq, jk, jv, causal=False, block_q=64,
+                                   block_k=64, backend="interpret")
+    got = tops.flash_attention_op(*(torch.from_numpy(x) for x in (q, k, v)),
+                                  causal=False)
+    _close(got, want, TOL["float32"], "o")
+    jg, tg = _grads(q, k, v, co, "float32", causal=False, window=None)
+    for name, t, j in zip("qkv", tg, jg):
+        _close(t, j, GRAD_TOL, f"d{name}")
+
+
 def test_grads_bf16_inputs():
     """bf16 q/k/v: gradients come back in bf16 from fp32 math."""
     q, k, v, co = _case(7, 2, 4, 2, 128, 128, 64)

@@ -489,9 +489,29 @@ def test_flash_kernels_match_plain(gen, sq, sk, hq, hkv, dh, causal, window,
     reference's 1e-3 for gradients) and bf16 (``_close_bf16``), on both
     routes: bf16 at dh 64 and 128 through ``sm90`` (o, dk and dv with its
     rounding bound), the rest through ``simt``."""
+    _check_flash(gen, 2, hq, hkv, sq, sk, dh, dtype,
+                 dict(causal=causal, window=window))
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
+    (2, 64, 8, 2048, 1601, 128), (2, 64, 8, 300, 1601, 128),
+    (4, 64, 8, 512, 1601, 128), (4, 8, 8, 2048, 1500, 64),
+    (4, 8, 8, 512, 1500, 64), (4, 8, 8, 1500, 1500, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_the_cross_shapes(gen, b, hq, hkv, sq, sk, dh,
+                                           dtype):
+    """The cross family's unmasked shapes (``chip_smoke.py``'s
+    ``CROSS_FLASH``): the vision model's cross layer over 1601 image
+    tokens at 2048, 300 and the serving prefill's 4 x 512 text queries
+    (the default offset Sk − Sq negative, then positive), Whisper's cross
+    layer over 1500 frames at 2048 and 4 x 512 queries and its encoder's
+    1500 x 1500; ragged key tiles hold the only rows of their dk, dv."""
+    _check_flash(gen, b, hq, hkv, sq, sk, dh, dtype, dict(causal=False))
+
+
+def _check_flash(gen, b, hq, hkv, sq, sk, dh, dtype, kw):
     route = fl._route(dtype, dh)
-    q, k, v, do = _flash_inputs(gen, 2, hq, hkv, sq, sk, dh, dtype)
-    kw = dict(causal=causal, window=window)
+    q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
     counters = (fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
     before = [c.route_launches[route] for c in counters]

@@ -165,7 +165,7 @@ def test_params_from_jax_keeps_1d_leaves_fp32_and_raises_on_strays(jparams):
     """bf16 serving params: the matrices and conv kernels are bf16, the
     1-D leaves (``dt_bias``, ``a_log``, ``d_skip``, norm scales) fp32 and
     bitwise the reference's; a leaf the port does not map raises, and so
-    does an unported mixer (cross-attention)."""
+    does an unknown mixer."""
     tcfg = get_smoke(ARCH)
     tp = _port(jparams, tcfg)
     mixer = tp["layers"][1]["mixer"]
@@ -186,9 +186,9 @@ def test_params_from_jax_keeps_1d_leaves_fp32_and_raises_on_strays(jparams):
     del missing["groups"][0]["mixer"]["a_log"]
     with pytest.raises(KeyError, match="a_log"):
         params_from_jax(missing, tcfg, device="cpu")
-    cross = dataclasses.replace(tcfg, pattern=(LayerSpec("cross", "dense"),))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        params_from_jax(missing, cross, device="cpu")
+    bogus = dataclasses.replace(tcfg, pattern=(LayerSpec("bogus", "dense"),))
+    with pytest.raises(NotImplementedError, match="unknown mixer"):
+        params_from_jax(missing, bogus, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b",
@@ -227,16 +227,16 @@ def test_decay_mask_and_zero1_pieces_cover_the_ssm_leaves(arch):
 
 @pytest.mark.parametrize("spec,ok", [
     (LayerSpec("mamba2", "none"), True), (LayerSpec("hymba", "dense"), True),
-    (LayerSpec("linear", "none"), True), (LayerSpec("cross", "dense"), False),
-    (LayerSpec("softmax", "moe"), True)])
-def test_only_cross_stays_unported(spec, ok):
+    (LayerSpec("linear", "none"), True), (LayerSpec("cross", "dense"), True),
+    (LayerSpec("softmax", "moe"), True), (LayerSpec("bogus", "dense"), False)])
+def test_layer_init_takes_every_mixer_and_rejects_unknown_ones(spec, ok):
     cfg = dataclasses.replace(get_smoke(ARCH), pattern=(spec,), d_ff=32,
                               moe=MoEConfig(num_experts=4))
     gen = torch.Generator().manual_seed(0)
     if ok:
         TB.layer_init(gen, cfg, spec, torch.float32, "cpu")
     else:
-        with pytest.raises(NotImplementedError, match="later slice"):
+        with pytest.raises(NotImplementedError, match="unknown layer"):
             TB.layer_init(gen, cfg, spec, torch.float32, "cpu")
 
 

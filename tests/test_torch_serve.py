@@ -111,12 +111,20 @@ def test_bounded_queue_raises_queue_full(setup):
 
 
 def test_generate_and_static_path(setup):
-    _, tcfg, _, tp = setup
+    """Ragged prompts through the continuous path; with ``enc_frames`` the
+    static-batch path, whose greedy tokens equal the reference's (the
+    linear SMOKE has no encoder, so both packages ignore the frames)."""
+    jcfg, tcfg, jp, tp = setup
     eng = ServeEngine(tcfg, tp, max_len=64, max_batch=2, device="cpu")
     out = eng.generate(_prompts([3, 8, 5]), 4)
     assert out.shape == (3, 4) and out.dtype == np.int32
-    with pytest.raises(NotImplementedError, match="later slice"):
-        eng.generate(_prompts([3]), 4, enc_frames=np.zeros((1, 2, 64)))
+    prompts = np.stack(_prompts([6, 6], seed=4))
+    frames = np.zeros((2, 2, 64), np.float32)
+    want = JServeEngine(jcfg, jp, max_len=64, max_batch=2).generate(
+        prompts, 4, enc_frames=frames)
+    got = eng.generate(prompts, 4, enc_frames=frames)
+    assert got.shape == (2, 4) and got.dtype == np.int32
+    np.testing.assert_array_equal(got, np.asarray(want))
 
 
 def test_engine_rejects_params_on_another_device(setup):

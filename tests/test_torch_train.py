@@ -74,7 +74,8 @@ def _masters(jparams, tcfg):
 
 def _jax_layout(tree, cfg):
     """A port tree (one dict per layer) in the reference's layout (layer
-    params stacked over groups per pattern position), as numpy."""
+    params stacked over groups per pattern position; an encoder's layers
+    stacked likewise), as numpy."""
     n = len(cfg.pattern)
     num = lambda t: t.detach().float().numpy()
 
@@ -86,9 +87,15 @@ def _jax_layout(tree, cfg):
         return np.stack([num(l) for l in layers])
 
     groups = [stacked(tree["layers"][p::n]) for p in range(n)]
-    return {"embed": {k: num(v) for k, v in tree["embed"].items()},
-            "groups": groups,
-            "final_norm": {"scale": num(tree["final_norm"]["scale"])}}
+    out = {"embed": {k: num(v) for k, v in tree["embed"].items()},
+           "groups": groups,
+           "final_norm": {"scale": num(tree["final_norm"]["scale"])}}
+    if "encoder" in tree:        # one pattern position, a group a layer
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "groups": [stacked(enc["layers"])],
+            "final_norm": {"scale": num(enc["final_norm"]["scale"])}}
+    return out
 
 
 def _close_trees(port_tree, jax_tree, cfg, tol, what):

@@ -101,12 +101,14 @@ def tokens(b, s, seed=0):
 # Configs, weights and the GELU
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ("llama-3.2-vision-90b",
+                                          "whisper-base"))
 @pytest.mark.parametrize("which", ["config", "smoke"])
 def test_configs_equal_the_reference_field_for_field(arch, which):
-    """Every field of the port's ``ModelConfig`` (``moe`` and the
-    pattern's specs among them) equals the reference's, and so do
-    ``param_count`` and ``active_param_count``."""
+    """Every field of the port's ``ModelConfig`` (``moe``, ``encoder``
+    and the pattern's specs among them) equals the reference's, and so
+    do ``param_count`` and ``active_param_count``; the cross family's
+    counts also under the Linear-X recipe (``linearize`` 0 and 4)."""
     got = (get_config if which == "config" else get_smoke)(arch)
     want = (j_get_config if which == "config" else j_get_smoke)(arch)
     for f in dataclasses.fields(got):
@@ -119,12 +121,10 @@ def test_configs_equal_the_reference_field_for_field(arch, which):
         assert a == b, f.name
     assert got.param_count() == want.param_count()
     assert got.active_param_count() == want.active_param_count()
-
-
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-base"])
-def test_cross_family_stays_unported(arch):
-    with pytest.raises(KeyError, match="later slice"):
-        get_config(arch)
+    if arch not in ARCHS:
+        for k in (0, 4):
+            assert got.linearize(k).param_count() \
+                == want.linearize(k).param_count()
 
 
 def test_gelu_is_the_reference_tanh_form():
