@@ -166,7 +166,33 @@ line:
    Linear-X recipe: vision ``linearize=4`` at 5 layers serves (K1, K3,
    K4; the planted fault too), whisper ``linearize=0`` serves (the same)
    and trains (K1, K2a, K2b, K3 in
-   the decoder, K4, K5a, K5b in the encoder and cross layers).
+   the decoder, K4, K5a, K5b in the encoder and cross layers);
+16. runtime, the runtime subsystems on the full-width train path
+   (``CONFIG``, full depth, phase 7's ``RunConfig``, data and lr, 5 steps
+   through ``train()`` a run): (a) the guard: a run with NaN gradients
+   at step 2 (it must skip step 2 only; the per-leaf fingerprint of the
+   params and moments, taken on the card, must not move across it), a
+   forced skip at step 2 (the same losses, rtol 1e-6), steps 0–1 equal
+   to phase 7's, ``GuardAbort`` at step 2 with two consecutive NaN
+   steps, then the clean guarded run, its step p50 beside phase 7's; K1,
+   K2a, K2b 32 a step each on ``sm90``; (b) that run's JSONL: compile,
+   step × 5, summary, each step's MFU = model FLOPs / (wall × 989e12)
+   within 1%; (c) that run's final state (16 GB) saved, saved again by
+   ``save_async`` + ``wait``, restored with verification into that state
+   overwritten with NaN (0 for integer leaves): the restored
+   fingerprint equal, the disk's free bytes, the bytes on disk and each
+   step's wall and GB/s printed; (e) the serve CLI on that checkpoint
+   (``--ckpt-dir``, ``--metrics-out``): the restored step printed, its
+   greedy tokens equal to an engine's on the params in memory, K1 and K3
+   on ``sm90``, request records and a summary in the JSONL; (d) the
+   2-layer cut: 4 steps with a checkpoint every 2, the newest corrupted,
+   a resume to step 6: the fallback event names steps 4 and 2, the
+   recomputed losses equal an uninterrupted run's (rtol 1e-6); (f), in
+   phase 10's spawn of two gloo ranks, the 2-layer cut at (1, 2) without
+   and with the guard: the same losses bit for bit, the same tape counts,
+   ``train.grads`` 4 bytes larger, no drift between the tape and the
+   issued collectives; the guarded run's checkpoint resumed by the
+   one-device loop, its next loss within phase 10's layout limit.
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
@@ -194,9 +220,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
-              "float32": 67e12}    # fp32 outside the tensor cores
+# the H100 SXM's data-sheet peaks: HBM bytes/s, FLOP/s by dtype
+from repro_torch.obs.flops import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
 CHUNK_ROWS = 64                    # rows per chunk of the K1 CUDA kernel
 
 # Tolerances. o: the reference's kernel tests (tests/test_kernels.py:14).
@@ -2203,8 +2228,45 @@ def _sp_payload(rank, layout):
           f"state payload moved with the chunk: {out}")
 
 
-def _sp_rank(rank, world, device, linear_cut, hybrid_cut, gla_cut):
-    """Phase 10 (b) on one of two ranks sharing the card over gloo."""
+def _sp_guard_cell(rank, device, cut, layout, ckpt_dir):
+    """Phase 16 (f) on this rank: ``train()`` of ``cut`` at (1, 2) for
+    RT_F_STEPS + 1 steps without the guard, then RT_F_STEPS steps with it
+    and a checkpoint (each with a sink on rank 0). Returns each run's
+    losses, launches and rank 0's records."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.obs import InMemorySink
+    from repro_torch.train.loop import train
+    counters = _sp_counters()
+    run = _sp_run()
+    data = SyntheticLM(cut.vocab_size, SP_SEQ, SP_ROWS, seed=0)
+    out = {}
+    for name, r, steps, ckpt in (
+            ("plain", run, RT_F_STEPS + 1, None),
+            ("guard", dataclasses.replace(run, guard=True), RT_F_STEPS,
+             ckpt_dir)):
+        sink = InMemorySink() if rank == 0 else None
+        _zero(*counters)
+        t0 = time.perf_counter()
+        _, hist = train(cut, r, data, device=device, params=_sp_params(cut),
+                        layout=layout, sink=sink, ckpt_dir=ckpt,
+                        ckpt_every=10 ** 9, max_steps=steps,
+                        log_every=10 ** 9, log_fn=lambda *_: None)
+        torch.cuda.synchronize()
+        log("sp_f_run", rank=rank, run=name, steps=steps,
+            checkpoint=ckpt is not None,
+            step_wall_ms=repr([round(h["dt"] * 1e3, 1) for h in hist]),
+            wall_s=f"{time.perf_counter() - t0:.2f}")
+        out[name] = {"losses": [h["loss"] for h in hist],
+                     "launched": _read(counters, counters),
+                     "records": sink.records if sink is not None else None}
+        _free()
+    return out
+
+
+def _sp_rank(rank, world, device, linear_cut, hybrid_cut, gla_cut,
+             guard_cut=None, guard_ckpt=None):
+    """Phase 10 (b) on one of two ranks sharing the card over gloo, and
+    phase 16 (f)."""
     from repro_torch.launch.mesh import make_training_groups
     torch.backends.cuda.matmul.allow_tf32 = False
     sp_layout = make_training_groups(1, 2)
@@ -2218,7 +2280,65 @@ def _sp_rank(rank, world, device, linear_cut, hybrid_cut, gla_cut):
     out["b4"] = _sp_cell(rank, "sp_b4", gla_cut, sp_layout, True, False)
     _free()
     _sp_payload(rank, sp_layout)
+    if guard_cut is not None:
+        out["f"] = _sp_guard_cell(rank, device, guard_cut, sp_layout,
+                                  guard_ckpt)
     return out
+
+
+def _sp_guard_check(kernels, ranks, cut, ckpt_dir) -> None:
+    """Phase 16 (f): the guarded cell at (1, 2) against the unguarded one
+    (losses bitwise, the first step's tape: the same ops and counts,
+    ``train.grads`` 4 bytes larger; no drift between tape and issued
+    view), then the (1, 2) checkpoint resumed by the one-device loop: its
+    next step's loss within phase 10's layout limit of the (1, 2) run's."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.loop import train
+    for rank, res in enumerate(ranks):
+        f = res["f"]
+        for name in ("plain", "guard"):
+            _count_routed(kernels, _sp_counters(), _sp_counters(),
+                          f[name]["launched"], f"sp_f_{name}_rank{rank}")
+        check(f["guard"]["losses"] == f["plain"]["losses"][:RT_F_STEPS],
+              f"sp_f rank {rank}: guarded {f['guard']['losses']} vs "
+              f"unguarded {f['plain']['losses']}")
+    comp = {n: ranks[0]["f"][n]["records"][0] for n in ("plain", "guard")}
+    ops = {n: {k.split("/", 1)[1]: v for k, v in c.items()
+               if k.startswith("tape/") and k.endswith("_count")}
+           for n, c in comp.items()}
+    extra = comp["guard"]["tape/all-reduce_bytes"] - \
+        comp["plain"]["tape/all-reduce_bytes"]
+    run = dataclasses.replace(_sp_run(), guard=True)
+    data = SyntheticLM(cut.vocab_size, SP_SEQ, SP_ROWS, seed=0)
+    t0 = time.perf_counter()
+    _, hist = train(cut, run, data, params=_sp_params(cut),
+                    ckpt_dir=ckpt_dir, ckpt_every=10 ** 9,
+                    max_steps=RT_F_STEPS + 1, log_every=10 ** 9,
+                    log_fn=lambda *_: None)
+    resume_s = time.perf_counter() - t0
+    want = ranks[0]["f"]["plain"]["losses"][RT_F_STEPS]
+    e_loss = abs(hist[0]["loss"] - want) / abs(want) if hist else None
+    log("sp_f", arch=cut.name, layers=cut.n_layers, dp=1, sp=2,
+        losses_guard=repr(ranks[0]["f"]["guard"]["losses"]),
+        losses_plain=repr(ranks[0]["f"]["plain"]["losses"]),
+        tape_counts_guard=repr(ops["guard"]).replace(" ", ""),
+        tape_counts_plain=repr(ops["plain"]).replace(" ", ""),
+        train_grads_extra_bytes=extra,
+        drift_guard=comp["guard"]["drift"], drift_plain=comp["plain"]["drift"],
+        resumed_one_device_step=hist[0]["step"] if hist else None,
+        resumed_loss=hist[0]["loss"] if hist else None,
+        loss_dp1sp2_same_step=want,
+        rel_err=f"{e_loss:.3e}" if hist else None, tol=TOL_SP_LAYOUT,
+        resume_wall_s=f"{resume_s:.2f}")
+    check(ops["guard"] == ops["plain"], f"sp_f tape counts {ops}")
+    check(extra == 4, f"sp_f: train.grads grew by {extra} bytes")
+    check(comp["guard"]["drift"] == [] == comp["plain"]["drift"],
+          f"sp_f drift {comp}")
+    check(len(hist) == 1 and hist[0]["step"] == RT_F_STEPS,
+          f"sp_f resume ran steps {[h['step'] for h in hist]}")
+    check(e_loss <= TOL_SP_LAYOUT, f"sp_f resumed loss {hist[0]['loss']} "
+          f"vs (1, 2)'s {want}")
+    _free()
 
 
 def phase_sp(kernels: list, linear, hybrid, gla, train_hist) -> list:
@@ -2294,8 +2414,16 @@ def phase_sp(kernels: list, linear, hybrid, gla, train_hist) -> list:
                 _free()
         finally:
             dist.destroy_process_group()
-    ranks = run_ranks(_sp_rank, 2, backend="gloo", device="cuda",
-                      args=(linear_cut, hybrid_cut, gla_cut), timeout_s=900)
+    guard_cut = dataclasses.replace(linear, n_layers=RT_CUT_LAYERS)
+    guard_ckpt = tempfile.mkdtemp(prefix="sp-guard-")
+    try:
+        ranks = run_ranks(_sp_rank, 2, backend="gloo", device="cuda",
+                          args=(linear_cut, hybrid_cut, gla_cut, guard_cut,
+                                guard_ckpt), timeout_s=900)
+        _sp_guard_check(kernels, ranks, guard_cut, guard_ckpt)
+    finally:
+        import shutil
+        shutil.rmtree(guard_ckpt, ignore_errors=True)
     for rank, res in enumerate(ranks):
         for cell in ("b1", "b2", "b3", "b4"):
             _count_routed(kernels, _sp_counters(), _sp_counters(),
@@ -3534,6 +3662,412 @@ def phase_cross(kernels: list) -> None:
         part_walls_s=repr(walls))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the runtime subsystems on the full-width train path.
+# ---------------------------------------------------------------------------
+
+RT_STEPS = 5          # steps of each guarded run
+RT_NAN_STEP = 2       # chaos: NaN gradients / a forced skip at this step
+RT_RTOL = 1e-6        # the chaos drill's loss parity
+RT_MFU_RTOL = 1e-2
+RT_CUT_LAYERS = 2     # (d): the zoo's depth cut
+RT_CUT_STEPS, RT_CUT_TOTAL, RT_CUT_EVERY = 4, 6, 2
+RT_F_STEPS = 2        # (f): guarded steps at (1, 2) before the checkpoint
+
+
+def _fingerprint(tree) -> list:
+    """Per-leaf fingerprint of a tree of tensors, computed on the card:
+    the int64 sum of each leaf's raw 32-bit words and the fp64 sum of its
+    values (in pieces of 2^26 elements, so no leaf is copied whole)."""
+    from repro_torch.core.tree import leaves_with_paths
+    out = []
+    for _, t in leaves_with_paths(tree):
+        if not isinstance(t, torch.Tensor):
+            out.append(t)
+            continue
+        flat = t.detach().reshape(-1)
+        bits = torch.zeros((), dtype=torch.int64, device=t.device)
+        vals = torch.zeros((), dtype=torch.float64, device=t.device)
+        for piece in flat.split(1 << 26):
+            bits += piece.view(torch.int32).sum(dtype=torch.int64)
+            vals += piece.double().sum()
+        out.append(torch.stack([bits.double(), vals]))
+    return [x.tolist() if isinstance(x, torch.Tensor) else x for x in out]
+
+
+class _OptCapture:
+    """Holds the Adam state ``adamw.init`` makes inside ``train()`` while
+    the block runs (the phase fingerprints the moments between steps)."""
+
+    def __enter__(self):
+        from repro_torch.optim import adamw
+        self._adamw, self._init = adamw, adamw.init
+        self.opt = None
+
+        def init(params):
+            self.opt = self._init(params)
+            return self.opt
+
+        adamw.init = init
+        return self
+
+    def __exit__(self, *exc):
+        self._adamw.init = self._init
+
+
+class _FingerprintAt:
+    """Data wrapper: at the fetch of each step's batch (the state is then
+    the previous step's result) it fingerprints the params and moments."""
+
+    def __init__(self, data, params, capture):
+        self._data, self._params, self._capture = data, params, capture
+        self.prints = {}
+
+    def microbatched(self, step, a):
+        opt = self._capture.opt
+        self.prints[step] = _fingerprint({"p": self._params, "m": opt.m,
+                                          "v": opt.v})
+        return self._data.microbatched(step, a)
+
+    def __getattr__(self, name):
+        return getattr(self._data, name)
+
+
+def _rt_train(cfg, run, data, *, params=None, sink=None, ckpt_dir=None,
+              ckpt_every=50, max_steps=RT_STEPS):
+    """``train()`` on the card with per-step launch marks of K1, K2a, K2b
+    (totals, then each per route). Returns ``(state, history, per_step
+    launches, totals, wall_s)``."""
+    from repro_torch.train.loop import train
+    counters = _sp_counters()[:3]       # K1, K2a, K2b
+    marks = []
+
+    def log_fn(msg):
+        if msg.startswith("step"):
+            marks.append(_read(counters, counters))
+
+    _zero(*counters)
+    t0 = time.perf_counter()
+    state, hist = train(cfg, run, data, params=params, sink=sink,
+                        ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                        log_every=1, log_fn=log_fn, max_steps=max_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    totals = _read(counters, counters)
+    per_step = [[b - a for a, b in zip(prev, cur)]
+                for prev, cur in zip([[0] * len(totals)] + marks, marks)]
+    return state, hist, per_step, totals, wall
+
+
+def _rt_guard(kernels, cfg, run, data, train_hist, jsonl):
+    """(a) and (b): the guard at full width and the train telemetry.
+    Returns the clean guarded run's final state."""
+    from repro_torch.models import model as M
+    from repro_torch.obs import JsonlSink, read_jsonl
+    from repro_torch.obs.flops import model_flops, peak_flops
+    from repro_torch.resilience.guard import GuardAbort
+    guard = dataclasses.replace(run, guard=True)
+    n_lin, _ = _mixer_counts(cfg)
+    lin = n_lin * TRAIN_MICRO
+    want = [lin] * 3 + [lin, 0] * 3        # K1, K2a, K2b; each on sm90
+
+    # the NaN run, fingerprinted between steps (params and moments)
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(
+        run.seed), cfg, param_dtype=cfg.param_dtype)
+    with _OptCapture() as capture:
+        fdata = _FingerprintAt(data, params, capture)
+        _, nan_hist, nan_steps, nan_tot, _ = _rt_train(
+            cfg, dataclasses.replace(guard, chaos_nan_steps=(RT_NAN_STEP,)),
+            fdata, params=params)
+    # the prints are all that is kept: the wrapper holds the NaN run's
+    # params and moments, which must not sit beside the clean run's
+    prints = fdata.prints
+    del fdata, params, capture
+    _free()
+    _, skip_hist, _, _, _ = _rt_train(
+        cfg, dataclasses.replace(guard, chaos_skip_steps=(RT_NAN_STEP,)),
+        data)
+    _free()
+    abort_at = None
+    try:
+        _rt_train(cfg, dataclasses.replace(
+            guard, chaos_nan_steps=(1, RT_NAN_STEP),
+            guard_max_consecutive_skips=2), data)
+    except GuardAbort as e:
+        abort_at = str(e).split(" at step ")[1].split(" ")[0]
+    _free()
+    # the clean guarded run last, with a JsonlSink: its state goes on
+    torch.cuda.reset_peak_memory_stats()
+    with JsonlSink(jsonl) as sink:
+        state, hist, per_step, totals, wall = _rt_train(cfg, guard, data,
+                                                        sink=sink)
+    peak = torch.cuda.max_memory_allocated()
+    chunk = _sp_counters()[:3]
+    _count_routed(kernels, chunk, chunk, nan_tot, "runtime_guard")
+    _count_routed(kernels, chunk, chunk, totals, "runtime_train")
+
+    skipped = [h["step"] for h in nan_hist if h["skipped"]]
+    nan_l = [h["loss"] for h in nan_hist]
+    skip_l = [h["loss"] for h in skip_hist]
+    ref_l = [h["loss"] for h in train_hist[:RT_NAN_STEP]]
+    e_skip = max(_rel_errs(nan_l, skip_l))
+    e_ref = max(_rel_errs(nan_l[:RT_NAN_STEP], ref_l))
+    same = prints[RT_NAN_STEP] == prints[RT_NAN_STEP + 1]
+    moved = prints[RT_NAN_STEP] != prints[RT_NAN_STEP - 1]
+    p50 = float(np.median([h["dt"] for h in hist[1:]]))
+    p50_7 = float(np.median([h["dt"] for h in train_hist[1:]]))
+    log("runtime_guard", arch=cfg.name, layers=cfg.n_layers,
+        steps=RT_STEPS, lr=run.learning_rate, total_steps=run.total_steps,
+        nan_losses=repr([round(x, 6) for x in nan_l]),
+        forced_skip_losses=repr([round(x, 6) for x in skip_l]),
+        skipped_steps=skipped, max_rel_err_vs_forced_skip=f"{e_skip:.3e}",
+        max_rel_err_steps_0_1_vs_phase7=f"{e_ref:.3e}", rtol=RT_RTOL,
+        params_moments_unchanged_across_skip=same,
+        fingerprint_moved_on_clean_step=moved,
+        guard_metrics_at_skip=repr({k: nan_hist[RT_NAN_STEP][k] for k in (
+            "skipped_steps", "consecutive_skips", "guard_spike",
+            "guard_median")}),
+        abort_raised_at_step=abort_at,
+        launches_per_step_k1_k2a_k2b_routed=repr(per_step[0]),
+        guarded_step_p50_ms=f"{p50 * 1e3:.1f}",
+        phase7_step_p50_ms=f"{p50_7 * 1e3:.1f}",
+        guard_overhead=f"{p50 / p50_7 - 1:+.4f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+    check(skipped == [RT_NAN_STEP], f"NaN run skipped {skipped}")
+    check(not any(h["skipped"] for h in hist), "the clean run skipped")
+    check(e_skip <= RT_RTOL, f"NaN run {nan_l} vs forced skip {skip_l}")
+    check(e_ref <= RT_RTOL, f"steps 0-1 {nan_l} vs phase 7 {ref_l}")
+    check(same, "params or moments moved across the skipped step")
+    check(moved, "the fingerprint did not move on a clean step")
+    check(abort_at == str(RT_NAN_STEP), f"GuardAbort at {abort_at}")
+    check(all(n == want for n in per_step + nan_steps),
+          f"launches per step {per_step} / {nan_steps}; want {want}")
+
+    # (b) the JSONL
+    recs = read_jsonl(jsonl)
+    kinds = [r["kind"] for r in recs]
+    check(kinds == ["compile"] + ["step"] * RT_STEPS + ["summary"],
+          f"record kinds {kinds}")
+    from repro_torch.configs.base import ShapeConfig
+    flops = model_flops(cfg, ShapeConfig("train", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"))
+    steps = recs[1:-1]
+    errs = [abs(r["mfu"] / (flops / (r["wall_s"] * 989e12)) - 1)
+            for r in steps]
+    mfu = [r["mfu"] for r in steps]
+    tps = [r["tokens_per_s"] for r in steps]
+    log("runtime_telemetry", records=len(recs), kinds=repr(sorted(set(kinds))),
+        model_flops_per_step=f"{flops:.4e}", peak_flops=peak_flops(cfg.dtype),
+        step_p50_tokens_per_s=f"{float(np.median(tps[1:])):.0f}",
+        step_p50_mfu=f"{float(np.median(mfu[1:])):.4f}",
+        mfu_per_step=repr([round(x, 4) for x in mfu]),
+        max_rel_err_mfu_formula=f"{max(errs):.2e}",
+        drift=recs[0]["drift"], phase_step_s_p50=recs[-1].get(
+            "phase_step_s_p50"), phase_data_s_p50=recs[-1].get(
+            "phase_data_s_p50"))
+    check(max(errs) <= RT_MFU_RTOL, f"mfu off its formula by {max(errs)}")
+    check(all(0 < m < 1 for m in mfu), f"mfu {mfu}")
+    check(recs[0]["drift"] == [], f"drift {recs[0]['drift']}")
+    return state, hist
+
+
+def _du(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file())
+
+
+def _rt_ckpt_io(state, ckpt_dir):
+    """(c) A full-width, full-depth state: one synchronous save, one
+    ``save_async`` + ``wait``, one verified restore into the state itself,
+    every leaf of which is first overwritten (NaN, or 0 for integer
+    leaves); the restored state's fingerprint equals the saved one's."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import leaves_with_paths
+    mgr = CheckpointManager(ckpt_dir, keep=1)
+    free = shutil.disk_usage(ckpt_dir).free
+    want = _fingerprint(state)
+    step = int(state["step"])
+    t0 = time.perf_counter()
+    mgr.save(step, state)
+    save_s = time.perf_counter() - t0
+    nbytes = _du(ckpt_dir)
+    shutil.rmtree(Path(ckpt_dir) / f"step_{step:08d}")
+    t0 = time.perf_counter()
+    mgr.save_async(step + 1, state)
+    copy_s = time.perf_counter() - t0
+    mgr.wait()
+    async_s = time.perf_counter() - t0
+    with torch.no_grad():
+        for _, t in leaves_with_paths(state):
+            if isinstance(t, torch.Tensor):
+                t.fill_(float("nan") if t.is_floating_point() else 0)
+    clobbered = _fingerprint(state) != want
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = mgr.restore(step + 1, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = _fingerprint(state) == want
+    gbs = lambda s: f"{nbytes / s / 1e9:.3f}"
+    log("runtime_ckpt_io", state_leaves=len(want),
+        disk_free_before_gb=f"{free / 1e9:.1f}",
+        bytes_on_disk=nbytes, save_s=f"{save_s:.2f}", save_gb_per_s=gbs(save_s),
+        save_async_host_copy_s=f"{copy_s:.2f}",
+        save_async_wait_total_s=f"{async_s:.2f}",
+        save_async_gb_per_s=gbs(async_s), restore_verified_s=f"{restore_s:.2f}",
+        restore_gb_per_s=gbs(restore_s),
+        overwritten_before_restore=clobbered, restored_equals_saved=same,
+        ckpt_dir_fs=repr(str(ckpt_dir)))
+    check(clobbered, "overwriting the state left its fingerprint as saved")
+    check(same, "the restored state's fingerprint differs from the saved")
+    check(mgr.all_steps() == [step + 1], f"steps {mgr.all_steps()}")
+    return state, step + 1
+
+
+def _rt_serve(kernels, cfg, params, ckpt_dir, step, jsonl):
+    """(e) The serve CLI on (c)'s checkpoint: its greedy tokens equal those
+    of an engine on (a)'s final params in memory, K1 and K3 on sm90, and
+    its JSONL holds the request records and the summary."""
+    import contextlib
+    import io
+
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    from repro_torch.launch import serve
+    from repro_torch.obs import read_jsonl
+    from repro_torch.serve.engine import ServeEngine
+    counters = (lasp2_chunk_fwd, lasp2_decode_step)
+    _zero(*counters)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        results = serve.main(["--arch", cfg.name, "--ckpt-dir", ckpt_dir,
+                              "--metrics-out", jsonl])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read(counters, counters)
+    k1, k3, k1_sm90, _, k3_sm90, _ = launched
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    _free()
+    # the same requests, as launch/serve.py draws them, on the params in
+    # memory
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 65, size=8)
+    from repro_torch.core.tree import tree_map
+    engine = ServeEngine(cfg, tree_map(lambda p: p.detach(), params),
+                         max_len=64 + 32, max_batch=4)
+    uids = [engine.submit(rng.integers(0, cfg.vocab_size, size=int(n)), 32,
+                          seed=0, stream=i) for i, n in enumerate(lens)]
+    want = engine.run()
+    same = sorted(results) == sorted(uids) and all(
+        np.array_equal(results[u], want[u]) for u in uids)
+    recs = read_jsonl(jsonl)
+    kinds = [r["kind"] for r in recs]
+    _count_routed(kernels, counters, counters, launched, "runtime_serve")
+    log("runtime_serve", restored=repr(
+        [ln for ln in text.splitlines() if "restored" in ln]),
+        requests=len(results), tokens_equal_engine_on_memory_params=same,
+        k1=k1, k1_sm90=k1_sm90, k3=k3, k3_sm90=k3_sm90,
+        jsonl_kinds=repr({k: kinds.count(k) for k in set(kinds)}),
+        wall_s=f"{wall:.2f}")
+    check(f"[serve] restored params from step {step}" in text,
+          f"the CLI did not restore step {step}: {text}")
+    check(same, "the CLI's tokens differ from the engine on (a)'s params")
+    check(k1 > 0 and k1 == k1_sm90 and k3 > 0 and k3 == k3_sm90,
+          f"K1 {k1} (sm90 {k1_sm90}), K3 {k3} (sm90 {k3_sm90})")
+    check(kinds == ["request"] * 8 + ["summary"], f"serve JSONL {kinds}")
+    check(recs[-1].get("component") == "serve", f"summary {recs[-1]}")
+
+
+def _rt_resume(cfg, run, data, ckpt_dir, jsonl):
+    """(d) 2 layers at full width: 4 steps with a checkpoint every 2, the
+    newest corrupted, a resume to step 6 with a sink (writing only its
+    final checkpoint): the fallback event names the bad and the restored
+    step, the recomputed losses equal an uninterrupted run's."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.obs import JsonlSink, read_jsonl
+    from repro_torch.resilience import chaos
+    _, full, _, _, _ = _rt_train(cfg, run, data, max_steps=RT_CUT_TOTAL)
+    _free()
+    _rt_train(cfg, run, data, ckpt_dir=ckpt_dir, ckpt_every=RT_CUT_EVERY,
+              max_steps=RT_CUT_STEPS)
+    _free()
+    steps_before = CheckpointManager(ckpt_dir).all_steps()
+    chaos.corrupt_checkpoint(ckpt_dir)
+    t0 = time.perf_counter()
+    with JsonlSink(jsonl) as sink:        # its one write: the final save
+        state, hist, _, _, _ = _rt_train(
+            cfg, run, data, sink=sink, ckpt_dir=ckpt_dir,
+            ckpt_every=10 ** 9, max_steps=RT_CUT_TOTAL)
+    wall = time.perf_counter() - t0
+    del state
+    _free()
+    recs = read_jsonl(jsonl)
+    fallback = [r for r in recs if r.get("event") == "ckpt_fallback"]
+    got = {h["step"]: h["loss"] for h in hist}
+    want = {h["step"]: h["loss"] for h in full}
+    steps = sorted(got)
+    err = max(_rel_errs([got[s] for s in steps], [want[s] for s in steps]))
+    log("runtime_resume", arch=cfg.name, layers=cfg.n_layers,
+        params=cfg.param_count(), ckpt_steps_before_corruption=steps_before,
+        fallback=repr([{k: r[k] for k in ("bad_step", "restored_step",
+                                          "error")} for r in fallback]),
+        recomputed_steps=steps, max_rel_err_vs_uninterrupted=f"{err:.3e}",
+        rtol=RT_RTOL, ckpt_bytes_on_disk=_du(ckpt_dir),
+        resume_run_wall_s=f"{wall:.2f}")
+    check(len(fallback) == 1 and fallback[0]["bad_step"] == RT_CUT_STEPS
+          and fallback[0]["restored_step"] == RT_CUT_EVERY,
+          f"fallback events {fallback}")
+    check(steps == list(range(RT_CUT_EVERY, RT_CUT_TOTAL)),
+          f"recomputed steps {steps}")
+    check(err <= RT_RTOL, f"resumed losses {got} vs {want}")
+
+
+def phase_runtime(kernels: list, cfg, train_hist) -> None:
+    """Phase 16: (a) the guard at full width and depth through ``train()``
+    (phase 7's ``RunConfig`` and data, 5 steps): a NaN run, a forced-skip
+    run, a consecutive-skip abort, then the clean guarded run; (b) its
+    JSONL; (c) checkpoint I/O of its final state; (e) the serve CLI on
+    that checkpoint; (d) resume and fallback on the 2-layer cut. (f), the
+    guarded cell at (1, 2), runs in phase 10's spawn."""
+    import shutil
+    import tempfile
+    run, data = train_setup(cfg, TRAIN_STEPS, 3e-4)
+    tmp = Path(tempfile.mkdtemp(prefix="runtime-"))
+    walls, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        walls[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    try:
+        state, _ = _rt_guard(kernels, cfg, run, data, train_hist,
+                             str(tmp / "train.jsonl"))
+        lap("ab")
+        state, step = _rt_ckpt_io(state, str(tmp / "ckpt"))
+        params = state["params"]
+        del state
+        _free()
+        lap("c")
+        _rt_serve(kernels, cfg, params, str(tmp / "ckpt"), step,
+                  str(tmp / "serve.jsonl"))
+        del params
+        _free()
+        shutil.rmtree(tmp / "ckpt")
+        lap("e")
+        _rt_resume(dataclasses.replace(cfg, n_layers=RT_CUT_LAYERS), run,
+                   data, str(tmp / "cut"), str(tmp / "resume.jsonl"))
+        lap("d")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("runtime", wall_s=f"{sum(walls.values()):.1f}",
+        part_walls_s=repr(walls))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -3586,6 +4120,8 @@ def main() -> int:
     phase_zoo(kernels)
     _free()
     phase_cross(kernels)
+    _free()
+    phase_runtime(kernels, linear, train_hist)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

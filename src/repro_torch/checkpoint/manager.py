@@ -1,5 +1,5 @@
-"""Checkpointing: atomic, async, verified, keep-k (twin of
-``repro/checkpoint/manager.py``).
+"""Checkpointing: atomic, async, verified, keep-k, layout-independent
+(twin of ``repro/checkpoint/manager.py``).
 
 Layout: ``<dir>/step_<n>/`` holding ``manifest.json`` (leaf paths, shapes,
 dtypes, per-array SHA-256 checksums) and ``arrays.npz``. Leaves are
@@ -12,6 +12,10 @@ step and the Adam count).
 * A transient ``OSError`` during a write is retried with backoff.
 * ``save_async`` copies to the host synchronously and writes on a thread;
   a failure there re-raises on ``wait()`` or the next ``save_async``.
+* The SHA-256 checksums are taken on a pool of threads, one array each
+  (``hashlib`` releases the GIL), over the arrays' own buffers; on save
+  they run while the archive is written. A restore reads its arrays on
+  such a pool too.
 * ``restore`` verifies the checksums (``verify=True``), raises
   :class:`CheckpointCorruptError` on a mismatch or an unreadable file,
   and :meth:`restore_latest_valid` walks back to the newest checkpoint
@@ -23,6 +27,20 @@ step and the Adam count).
 * ``restore`` copies into the target's tensors in place (on their device,
   keeping ``requires_grad``) and returns the target's structure with its
   scalar leaves replaced.
+
+Layouts. A checkpoint holds the state as one device would: the params
+(replicated on every rank of a DP×SP layout) and, under ZeRO-1, the full
+padded flat moments, which :func:`gather_zero1` assembles from the data
+ranks' slices (one all-gather each of ``m`` and ``v``, tag
+``ckpt.zero1_gather``, on save steps only) before rank 0 writes. On
+restore every rank reads the files and copies out its own slice
+(``restore(..., shards=zero1_shards(state, layout))``). So a checkpoint
+written at (dp, sp) restores at any (dp, sp′), and one written at (1, sp)
+or without ZeRO-1 restores on one device and the other way round; a
+ZeRO-1 degree change that alters the padded length raises ``ValueError``
+(a shape), one that alters the state's tree (flat moments against a
+tree of moments) raises :class:`CheckpointError` (missing paths), as the
+reference raises in the same cases.
 """
 
 from __future__ import annotations
@@ -34,12 +52,15 @@ import shutil
 import threading
 import time
 import zipfile
-from typing import Any, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.comm import primitives
 from repro_torch.core.tree import leaves_with_paths, tree_map
+from repro_torch.optim.adamw import Zero1AdamState
 
 MANIFEST_VERSION = 2
 _SCALARS = (int, float, bool)
@@ -79,7 +100,27 @@ def _host_tree(tree):
 
 
 def _sha256(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """The digest of the array's C-order bytes (no copy of a contiguous
+    array)."""
+    raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    return hashlib.sha256(memoryview(raw)).hexdigest()
+
+
+_IO_THREADS = min(8, os.cpu_count() or 1)
+
+
+def _checksums_async(arrays):
+    """Start the arrays' SHA-256 digests on a thread pool; returns a
+    function that waits for them (in order) and shuts the pool down."""
+    pool = ThreadPoolExecutor(max_workers=_IO_THREADS)
+    futures = [pool.submit(_sha256, a) for a in arrays]
+
+    def result():
+        try:
+            return [f.result() for f in futures]
+        finally:
+            pool.shutdown()
+    return result
 
 
 def _fsync_dir(path: str) -> None:
@@ -150,10 +191,14 @@ class CheckpointManager:
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
-            self._savez(f, **{f"a{i}": a for i, a in enumerate(arrays)})
-            f.flush()
-            os.fsync(f.fileno())
+        checksums = _checksums_async(arrays)
+        try:
+            with open(os.path.join(tmp, "arrays.npz"), "wb") as f:
+                self._savez(f, **{f"a{i}": a for i, a in enumerate(arrays)})
+                f.flush()
+                os.fsync(f.fileno())
+        finally:
+            digests = checksums()
         manifest = {
             "format_version": MANIFEST_VERSION,
             "step": step,
@@ -161,7 +206,7 @@ class CheckpointManager:
             "paths": list(paths),
             "shapes": [list(a.shape) for a in arrays],
             "dtypes": list(dtypes),
-            "checksums": [_sha256(a) for a in arrays],
+            "checksums": digests,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -210,15 +255,22 @@ class CheckpointManager:
                 f"{path}: manifest.json is unreadable ({e}); restore an "
                 "older step or delete this directory") from e
 
-    def _load_arrays(self, path: str, n: int) -> list:
+    def _load_arrays(self, path: str, indices) -> dict:
+        """``{i: array a<i>}`` of the archive, for the given indices only
+        (a subtree restore reads only its own leaves), read on a pool of
+        threads, each through its own handle on the archive."""
         apath = os.path.join(path, "arrays.npz")
         if not os.path.exists(apath):
             raise CheckpointCorruptError(
                 f"{path}: arrays.npz is missing (interrupted write); "
                 "restore an older step or delete this directory")
-        try:
+        def load(i):
             with np.load(apath) as data:
-                return [np.asarray(data[f"a{i}"]) for i in range(n)]
+                return np.asarray(data[f"a{i}"])
+
+        try:
+            with ThreadPoolExecutor(max_workers=_IO_THREADS) as pool:
+                return dict(zip(indices, pool.map(load, indices)))
         except (zipfile.BadZipFile, KeyError, ValueError, EOFError,
                 OSError) as e:
             raise CheckpointCorruptError(
@@ -227,10 +279,17 @@ class CheckpointManager:
             ) from e
 
     def restore(self, step: int, target_tree: Any, *,
-                verify: Optional[bool] = None):
+                verify: Optional[bool] = None,
+                shards: Optional[Dict[str, Tuple[int, int]]] = None):
         """Restore into the structure of ``target_tree`` (a subtree of the
         saved state is fine: leaves are matched by path). Every check
-        (paths, shapes, dtypes, checksums) runs before the first copy."""
+        (paths, shapes, dtypes, checksums) runs before the first copy.
+
+        ``shards``: leaf path (``"opt/m"``) → ``(index, n_shards)`` for a
+        target leaf that holds one slice of a stored 1-d array: the stored
+        length must be ``n_shards`` times the target's, and slice
+        ``index`` is copied (:func:`zero1_shards`)."""
+        shards = shards or {}
         verify = self.verify if verify is None else verify
         path = os.path.join(self.dir, f"step_{step:08d}")
         if not os.path.isdir(path):
@@ -238,7 +297,6 @@ class CheckpointManager:
                 f"no checkpoint for step {step} under {self.dir} "
                 f"(available steps: {self.all_steps() or 'none'})")
         manifest = self._read_manifest(path)
-        arrays = self._load_arrays(path, int(manifest["n_leaves"]))
         index = {p: i for i, p in enumerate(manifest["paths"])}
         flat = leaves_with_paths(target_tree)
         names = ["/".join(p) for p, _ in flat]
@@ -249,9 +307,11 @@ class CheckpointManager:
                 f"(it holds {len(index)} leaves) — the target tree does not "
                 "match what was saved")
         order = [index[n] for n in names]
+        arrays = self._load_arrays(path, order)
         if verify:
-            bad = [n for n, i in zip(names, order)
-                   if _sha256(arrays[i]) != manifest["checksums"][i]]
+            digests = _checksums_async([arrays[i] for i in order])()
+            bad = [n for n, i, d in zip(names, order, digests)
+                   if d != manifest["checksums"][i]]
             if bad:
                 raise CheckpointCorruptError(
                     f"{path}: SHA-256 checksum mismatch for {len(bad)} "
@@ -261,6 +321,8 @@ class CheckpointManager:
             got = tuple(arrays[i].shape)
             shape = tuple(want.shape) if isinstance(want, torch.Tensor) \
                 else ()
+            if n in shards:
+                shape = (shape[0] * shards[n][1],)
             if got != shape:
                 raise ValueError(f"checkpoint shape {got} != target {shape} "
                                  f"at {n}")
@@ -271,10 +333,15 @@ class CheckpointManager:
                     "converted on restore")
         loaded = []
         with torch.no_grad():
-            for i, (_, want) in zip(order, flat):
+            for n, i, (_, want) in zip(names, order, flat):
                 arr = arrays[i]
+                if n in shards:
+                    size = want.shape[0]
+                    arr = arr[shards[n][0] * size:(shards[n][0] + 1) * size]
                 if isinstance(want, torch.Tensor):
-                    src = torch.from_numpy(np.ascontiguousarray(arr))
+                    # (ascontiguousarray makes a 0-d array 1-d)
+                    src = torch.from_numpy(
+                        np.ascontiguousarray(arr).reshape(arr.shape))
                     if want.dtype == torch.bfloat16:
                         src = src.view(torch.bfloat16)
                     want.copy_(src)
@@ -284,7 +351,7 @@ class CheckpointManager:
         it = iter(loaded)
         return tree_map(lambda _: next(it), target_tree)
 
-    def restore_latest_valid(self, target_tree: Any):
+    def restore_latest_valid(self, target_tree: Any, *, shards=None):
         """Walk checkpoints newest-first and restore the first valid one
         (checksums verified). Returns ``(step, tree, rejected)`` with
         ``rejected = [(step, reason), ...]`` for every newer one that
@@ -293,7 +360,8 @@ class CheckpointManager:
         rejected = []
         for step in reversed(steps):
             try:
-                tree = self.restore(step, target_tree, verify=True)
+                tree = self.restore(step, target_tree, verify=True,
+                                    shards=shards)
                 return step, tree, rejected
             except (CheckpointError, ValueError) as e:
                 rejected.append((step, f"{type(e).__name__}: {e}"))
@@ -301,3 +369,37 @@ class CheckpointManager:
             f"no valid checkpoint under {self.dir} "
             f"(tried {list(reversed(steps)) or 'none'}; "
             f"rejections: {[r[0] for r in rejected]})")
+
+
+# ---------------------------------------------------------------------------
+# Layouts: ZeRO-1's moment slices in and out of a checkpoint.
+# ---------------------------------------------------------------------------
+
+def _sharded_opt(state, layout) -> bool:
+    return (layout is not None and layout.dp > 1
+            and isinstance(state.get("opt"), Zero1AdamState))
+
+
+def gather_zero1(state, layout):
+    """The train state as a checkpoint holds it: under a layout with ZeRO-1
+    the data ranks' moment slices are gathered into the full padded flat
+    ``m`` and ``v`` (one all-gather each over the data group, tag
+    ``ckpt.zero1_gather``; every rank must call this); otherwise
+    ``state`` itself."""
+    if not _sharded_opt(state, layout):
+        return state
+    opt = state["opt"]
+    with torch.no_grad():
+        full = [primitives.allgather_states(
+            x, layout.dp_group, gather_axis=0, tiled=True,
+            tag="ckpt.zero1_gather") for x in (opt.m, opt.v)]
+    return {**state, "opt": Zero1AdamState(full[0], full[1], opt.count)}
+
+
+def zero1_shards(state, layout) -> Dict[str, Tuple[int, int]]:
+    """``restore``'s ``shards`` for this rank under ``layout``: its data
+    index's slice of the stored flat moments under ZeRO-1, else none."""
+    if not _sharded_opt(state, layout):
+        return {}
+    return {path: (layout.data_index, layout.dp)
+            for path in ("opt/m", "opt/v")}

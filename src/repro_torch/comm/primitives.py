@@ -15,12 +15,27 @@ collectives, which record themselves).
         step(state, batch)
     bytes_on_wire = sum(r.traffic_bytes for r in records)
 
+Beside the tape, the **issued** view (:func:`issued`) counts what reaches
+``torch.distributed`` itself: while it is open, the data-moving entry
+points of the module (``all_reduce``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``all_to_all_single``, ``batch_isend_irecv``
+and the list forms, ``broadcast``, ``reduce``, ``send``, ``recv``) are
+wrapped, and each call is counted with its op, the bytes this rank hands
+over and the tag of the primitive that recorded it last ("" for a call
+no primitive recorded). So a collective that bypasses the primitives, or
+a primitive whose record and call disagree, shows as drift when the
+flight recorder (``obs/flight_recorder.py``) compares the two views.
+Both are host-side bookkeeping and add no device work.
+
 Transport. An NCCL group takes device tensors as they are. gloo is a host
 transport: on a gloo group every primitive copies its operand to host
 memory and its result back to the operand's device itself (a no-op for
 CPU tensors). The rule follows the group's backend; it does not wait for
-an error. Two ranks that share one card cannot use NCCL (it refuses two
-ranks on one device), so they run gloo through the host.
+an error. The host copies of device tensors are pinned (a non-blocking
+device-to-host copy, waited for before the transport reads it), so both
+directions run at the link's rate rather than pageable memory's. Two
+ranks that share one card cannot use NCCL (it refuses two ranks on one
+device), so they run gloo through the host.
 """
 
 from __future__ import annotations
@@ -96,10 +111,92 @@ def tape():
             _TAPES.remove(records)
 
 
+_LAST_TAG = [""]      # the tag of the newest record, for the issued view
+
+
 def _record(rec: CommRecord) -> None:
     with _LOCK:
+        _LAST_TAG[0] = rec.tag
         for records in _TAPES:
             records.append(rec)
+
+
+@dataclass(frozen=True)
+class IssuedRecord:
+    """One call into ``torch.distributed``, as this rank issued it."""
+
+    op: str              # the tape's op names
+    nbytes: int          # bytes this rank handed to the transport
+    tag: str = ""        # the tag of the primitive that recorded it
+
+
+def _sent(*tensors) -> int:
+    return sum(_nbytes(t) for t in tensors)
+
+
+def _p2p_sent(ops) -> int:
+    return sum(_nbytes(o.tensor) for o in ops if o.op is dist.isend)
+
+
+# entry point of torch.distributed -> (the tape's op name, the argument it
+# sends and that argument's keyword, bytes of that argument)
+_ENTRY_POINTS = {
+    "all_reduce": ("all-reduce", 0, "tensor", _sent),
+    "all_gather_into_tensor": ("all-gather", 1, "input_tensor", _sent),
+    "all_gather": ("all-gather", 1, "tensor", _sent),
+    "reduce_scatter_tensor": ("reduce-scatter", 1, "input", _sent),
+    "reduce_scatter": ("reduce-scatter", 1, "input_list",
+                       lambda ts: _sent(*ts)),
+    "all_to_all_single": ("all-to-all", 1, "input", _sent),
+    "all_to_all": ("all-to-all", 1, "input_tensor_list",
+                   lambda ts: _sent(*ts)),
+    "batch_isend_irecv": ("collective-permute", 0, "p2p_op_list", _p2p_sent),
+    "broadcast": ("broadcast", 0, "tensor", _sent),
+    "reduce": ("reduce", 0, "tensor", _sent),
+    "send": ("send", 0, "tensor", _sent),
+    "recv": ("recv", 0, "tensor", lambda t: 0),
+}
+_ISSUED: List[List[IssuedRecord]] = []
+_ORIGINALS: Dict[str, object] = {}
+
+
+def _counted(name, fn):
+    op, pos, key, nbytes = _ENTRY_POINTS[name]
+
+    def call(*args, **kwargs):
+        arg = args[pos] if len(args) > pos else kwargs[key]
+        with _LOCK:
+            rec = IssuedRecord(op, nbytes(arg), _LAST_TAG[0])
+            _LAST_TAG[0] = ""
+            for records in _ISSUED:
+                records.append(rec)
+        return fn(*args, **kwargs)
+    return call
+
+
+@contextmanager
+def issued():
+    """Collect an :class:`IssuedRecord` for every call into
+    ``torch.distributed``'s data-moving entry points made inside the
+    block, by anyone (shaped like :func:`tape`; the entry points are
+    wrapped while at least one such block is open)."""
+    records: List[IssuedRecord] = []
+    with _LOCK:
+        _LAST_TAG[0] = ""
+        if not _ISSUED:
+            for name in _ENTRY_POINTS:
+                _ORIGINALS[name] = getattr(dist, name)
+                setattr(dist, name, _counted(name, _ORIGINALS[name]))
+        _ISSUED.append(records)
+    try:
+        yield records
+    finally:
+        with _LOCK:
+            _ISSUED.remove(records)
+            if not _ISSUED:
+                for name, fn in _ORIGINALS.items():
+                    setattr(dist, name, fn)
+                _ORIGINALS.clear()
 
 
 def tape_summary(records: List[CommRecord]) -> Dict[str, float]:
@@ -136,6 +233,17 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == dist.Backend.GLOO
 
 
+def _to_host(x):
+    """``x`` in host memory for a gloo collective: a CPU tensor as it is;
+    a device tensor copied without blocking (PyTorch pins the destination
+    of a non-blocking device-to-host copy), the copy waited for."""
+    if x.device.type == "cpu":
+        return x
+    host = x.to("cpu", non_blocking=True)
+    torch.cuda.current_stream(x.device).synchronize()
+    return host
+
+
 class Pending:
     """A collective in flight: ``wait()`` waits for its ``works`` and
     returns its result, passed through ``finish``."""
@@ -160,8 +268,9 @@ def _start(op, out_shape, x, group, async_op) -> Pending:
     back on ``x``'s device."""
     device = x.device
     if _staged(group):
-        x = x.cpu()
-    out = torch.empty(out_shape, dtype=x.dtype, device=x.device)
+        x = _to_host(x)
+    out = torch.empty(out_shape, dtype=x.dtype, device=x.device,
+                      pin_memory=x.device != device)     # staged: pinned
     work = op(out, x.contiguous(), group=group, async_op=async_op)
     return Pending([work] if async_op else [], out, lambda o: o.to(device))
 
@@ -257,7 +366,7 @@ def psum_packed(x, group, *, tag: str = ""):
     _record(CommRecord("all-reduce", pb, 2 * (w - 1) * pb // max(w, 1),
                        steps=1, group=w, tag=tag))
     if _staged(group) and x.device.type != "cpu":
-        host = x.cpu()
+        host = _to_host(x)
         dist.all_reduce(host, group=group)
         x.copy_(host)
     else:

@@ -2,7 +2,8 @@
 
 Own copy of the parts of ``repro.configs.base`` the ported slices need
 (``LinearAttnConfig``, ``MoEConfig``, ``MambaConfig``, ``LayerSpec``,
-``EncoderConfig``, ``ModelConfig``, ``RunConfig``); the port imports nothing of ``repro``.
+``EncoderConfig``, ``ModelConfig``, ``ShapeConfig``, ``RunConfig``); the
+port imports nothing of ``repro``.
 Field names, defaults and derived properties match the reference so
 configs compare one to one in the tests.
 """
@@ -209,10 +210,25 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """A run's token shape: ``seq_len`` × ``global_batch`` of one kind
+    (train | prefill | decode); ``obs.flops.model_flops`` reads it."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                       # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Per-run knobs of the train step (the fields of the reference's
-    ``RunConfig`` the port's steps read; its guard, chaos, compression and
-    compiled-step fields come with the slices that use them)."""
+    ``RunConfig`` the port's steps read; its compression and
+    compiled-step fields are not ported)."""
 
     num_microbatches: int = 1        # gradient accumulation steps
     remat: str = "full"              # full | none
@@ -234,12 +250,41 @@ class RunConfig:
     comm_strategy: str = "allgather"   # allgather | ring | pipelined | ulysses
     comm_overlap: str = "overlap"    # overlap | none (A/B baseline)
     comm_dtype: str = "fp32"         # fp32 | bf16
+    # The numerical health guard (``repro_torch.resilience.guard``): a
+    # skip verdict on a non-finite loss or gradient (under a layout from
+    # the one gradient all-reduce, which carries each rank's loss-health
+    # scalar), rolling-median spike clipping, skip counters, and a
+    # ``GuardAbort`` from the loop after this many consecutive skips.
+    guard: bool = False
+    guard_window: int = 32           # rolling grad-norm window (steps)
+    guard_spike_factor: float = 4.0  # clip to factor × median on a spike
+    guard_max_consecutive_skips: int = 8
     # Verify per-array SHA-256 checksums on restore; on a corrupt latest
     # checkpoint the loop falls back to the newest valid one.
     ckpt_verify: bool = True
+    # Deterministic fault injection (drill and tests): NaN gradients at
+    # these steps (guard on or off), a forced skip verdict at these steps
+    # (read by the guard's verdict, as in the reference).
+    chaos_nan_steps: Tuple[int, ...] = ()
+    chaos_skip_steps: Tuple[int, ...] = ()
 
     def __post_init__(self):
         self.comm_spec()                 # bad comm knobs fail on any layout
+        if self.guard_window < 1:
+            raise ValueError(f"guard_window must be >= 1, got "
+                             f"{self.guard_window}")
+        if not self.guard_spike_factor > 0:
+            raise ValueError(f"guard_spike_factor must be > 0, got "
+                             f"{self.guard_spike_factor}")
+        if self.guard_max_consecutive_skips < 1:
+            raise ValueError(f"guard_max_consecutive_skips must be >= 1, "
+                             f"got {self.guard_max_consecutive_skips}")
+        for name in ("chaos_nan_steps", "chaos_skip_steps"):
+            steps = getattr(self, name)
+            if not isinstance(steps, tuple) or not all(
+                    isinstance(s, int) and s >= 0 for s in steps):
+                raise ValueError(f"{name} must be a tuple of step indices "
+                                 f">= 0, got {steps!r}")
 
     def comm_spec(self):
         """The validated ``comm.spec.CommSpec`` of this run."""

@@ -13,9 +13,18 @@ image models, one static batch through ``ServeEngine.generate``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
       --smoke --device cpu --max-batch 2 --prompt-len 16 --new-tokens 4
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --ckpt-dir ckpt --metrics-out serve.jsonl   # serve what was trained
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
-are random, drawn from ``--seed``. ``--linearize K`` applies the paper's
+are random, drawn from ``--seed``, or with ``--ckpt-dir`` the params of
+the newest checkpoint the port's train loop wrote there (its fp32
+masters, restored as stored; the forward casts them to ``cfg.dtype`` at
+use, as in training); a directory without a checkpoint raises. The
+config flags must name the trained config (checkpoints hold no config,
+and those of the reference's package have other leaf paths).
+``--metrics-out`` writes one ``request`` record a finished request and
+the engine's ``summary`` as JSONL. ``--linearize K`` applies the paper's
 Linear-X recipe to the chosen config (``--smoke`` included). For an
 encoder or image model (``whisper-base``, ``llama-3.2-vision-90b``)
 ``--max-batch`` rows of ``--prompt-len`` random tokens are served with
@@ -58,16 +67,19 @@ def main(argv=None):
     ap.add_argument("--deadline-s", type=float, default=0.0,
                     help="per-request deadline: unfinished requests are "
                          "evicted this many seconds after submit (0 = none)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest checkpoint here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write serve telemetry (request records and the "
+                         "summary) as JSONL here")
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config, get_smoke, get_variant
-    from repro_torch.core.device import resolve_device, synchronize
+    from repro_torch.core.device import resolve_device
     from repro_torch.models import model as M
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.scheduler import QueueFullError
 
     device = resolve_device(args.device)
     if args.smoke:
@@ -79,16 +91,62 @@ def main(argv=None):
     if args.linearize is not None:
         cfg = cfg.linearize(hybrid_every=args.linearize)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = M.init_params(gen, cfg, device=device)
+    if args.ckpt_dir:
+        params = _restore_params(args.ckpt_dir, cfg, gen, device)
+    else:
+        params = M.init_params(gen, cfg, device=device)
+    sink = None
+    if args.metrics_out:
+        from repro_torch.obs import JsonlSink
+        sink = JsonlSink(args.metrics_out)
     max_len = args.prompt_len + args.new_tokens
     engine = ServeEngine(cfg, params, max_len=max_len,
-                         max_batch=args.max_batch,
+                         max_batch=args.max_batch, sink=sink,
                          max_queue=args.max_queue or None, device=device)
+    try:
+        if cfg.encoder is not None or cfg.n_image_tokens:
+            out = _serve_static(args, cfg, engine, gen, device)
+            n_done = out.shape[0]
+        else:
+            out = _serve_requests(args, cfg, engine, device)
+            n_done = len(out)
+        if sink is not None:
+            engine.emit_summary(requests=n_done)
+    finally:
+        if sink is not None:
+            sink.close()
+    if sink is not None:
+        print(f"[serve] telemetry -> {args.metrics_out}")
+    return out
 
-    if cfg.encoder is not None or cfg.n_image_tokens:
-        return _serve_static(args, cfg, engine, gen, device)
 
-    # continuous batching: ragged prompts, more requests than slots
+def _restore_params(ckpt_dir, cfg, gen, device):
+    """The ``{"params": ...}`` subtree of the newest checkpoint under
+    ``ckpt_dir``, restored (checksums verified) into fp32 master params of
+    ``cfg``'s shapes."""
+    from repro_torch.checkpoint.manager import CheckpointError, \
+        CheckpointManager
+    from repro_torch.models import model as M
+
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.latest_step()
+    if step is None:
+        raise CheckpointError(f"no checkpoint under {ckpt_dir}")
+    target = {"params": M.init_params(gen, cfg, device=device,
+                                      param_dtype=cfg.param_dtype)}
+    params = mgr.restore(step, target)["params"]
+    print(f"[serve] restored params from step {step}")
+    return params
+
+
+def _serve_requests(args, cfg, engine, device):
+    """Continuous batching: ragged prompts, more requests than slots.
+    Returns ``{uid: new tokens}``."""
+    import numpy as np
+
+    from repro_torch.core.device import synchronize
+    from repro_torch.serve.scheduler import QueueFullError
+
     rng = np.random.default_rng(args.seed)
     lens = rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1,
                         size=args.requests)

@@ -17,6 +17,8 @@
       -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
       --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks
       # --comm-strategy ring | pipelined | ulysses: the other exchanges
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+      --steps 5 --guard --metrics-out run.jsonl --ckpt-dir ckpt
 
 Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``; data is ``SyntheticLM`` (packed
@@ -26,8 +28,11 @@ each rank runs the DP×SP step of a ``--dp-degree`` × ``--sp-degree``
 layout: NCCL with rank r on card ``LOCAL_RANK``, gloo with ``--device
 cpu``; only rank 0 logs; MoE configs train on one device only.
 ``--linearize K`` applies the paper's recipe to the chosen config
-(``--smoke`` included). The guard and chaos flags of
-``repro.launch.train`` come with the slices that port them.
+(``--smoke`` included). ``--guard`` turns on the numerical health guard
+(skip a non-finite step, clip a spike, abort after ``--guard-max-skips``
+consecutive skips); ``--metrics-out`` writes the run's telemetry as JSONL
+(rank 0's under torchrun; the reference's ``scripts/report.py`` renders
+it). A ``--ckpt-dir`` written under one layout resumes under another.
 """
 
 from __future__ import annotations
@@ -62,6 +67,20 @@ def main(argv=None):
                     help="verify per-array SHA-256 checksums on restore; "
                          "a corrupt latest checkpoint falls back to the "
                          "newest valid one (--no-ckpt-verify to disable)")
+    ap.add_argument("--guard", action="store_true",
+                    help="the numerical health guard: skip a step with a "
+                         "non-finite loss or gradient (the health scalar "
+                         "rides the one gradient all-reduce), clip a "
+                         "grad-norm spike to a rolling median, abort "
+                         "after --guard-max-skips consecutive skips")
+    ap.add_argument("--guard-max-skips", type=int, default=8,
+                    help="consecutive skipped steps before the loop "
+                         "aborts with GuardAbort")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write run telemetry (per-step phase walls, "
+                         "tokens/s, MFU against the card's peak, the "
+                         "first step's tape against its issued "
+                         "collectives) as JSONL here")
     ap.add_argument("--remat", default="none", choices=["none", "full"])
     ap.add_argument("--dp-degree", type=int, default=1)
     ap.add_argument("--sp-degree", type=int, default=1)
@@ -105,7 +124,8 @@ def main(argv=None):
                     ckpt_verify=args.ckpt_verify, zero1=args.zero1,
                     comm_strategy=args.comm_strategy,
                     comm_dtype=args.comm_dtype,
-                    comm_overlap=args.comm_overlap)
+                    comm_overlap=args.comm_overlap, guard=args.guard,
+                    guard_max_consecutive_skips=args.guard_max_skips)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     layout, log_fn = None, print
     if world > 1:
@@ -120,13 +140,20 @@ def main(argv=None):
         layout = make_training_groups(args.dp_degree, args.sp_degree)
         if dist.get_rank():
             log_fn = lambda *_: None
+    sink = None
+    if args.metrics_out and (layout is None or dist.get_rank() == 0):
+        from repro_torch.obs import JsonlSink
+        sink = JsonlSink(args.metrics_out)
     try:
         _, history = train(cfg, run, data, device=device,
                            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                           layout=layout, log_fn=log_fn)
+                           layout=layout, log_fn=log_fn, sink=sink)
     finally:
         if layout is not None:
             dist.destroy_process_group()
+        if sink is not None:
+            sink.close()
+            log_fn(f"[train] telemetry -> {args.metrics_out}")
     first = sum(h["loss"] for h in history[:10]) / max(len(history[:10]), 1)
     last = sum(h["loss"] for h in history[-10:]) / max(len(history[-10:]), 1)
     log_fn(f"[train] {cfg.name} on {device}: loss {first:.4f} -> "

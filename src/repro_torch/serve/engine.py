@@ -337,6 +337,24 @@ class ServeEngine:
                 self.metrics.counters.get("decode_tokens", 0) / dec.total
         return out
 
+    def reset_metrics(self) -> None:
+        """Drop the accumulated telemetry (e.g. after a warm-up pass, so
+        the percentiles reflect the warm path): a fresh registry, shared
+        with the scheduler, with the cache gauges seeded again."""
+        self.metrics = self.sched.metrics = Metrics()
+        for kind, nbytes in self.cache_stats().items():
+            if not kind.endswith("_arrays"):
+                self.metrics.gauge(f"cache_bytes_{kind}", nbytes)
+
+    def emit_summary(self, **extra) -> Dict[str, Any]:
+        """Emit (and return) the run's ``summary`` record through the
+        sink: ``stats()`` and the caller's extras, ``component`` "serve"."""
+        rec: Dict[str, Any] = {"kind": "summary", "component": "serve"}
+        rec.update(self.stats())
+        rec.update(extra)
+        self.sink.emit(rec)
+        return rec
+
     def cache_stats(self) -> Dict[str, int]:
         """Decode-cache footprint by kind (bytes) plus the tensor count per
         kind (``<kind>_arrays``), by leaf name as the reference counts

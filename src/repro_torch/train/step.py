@@ -3,8 +3,19 @@ accumulation over microbatches in fp32, global-norm clipping, the cosine
 learning rate, skip-on-nonfinite, AdamW on fp32 master weights; on one
 device, or across the ranks of a DP×SP layout (:class:`ShardedStep`).
 
+With ``run.guard`` the numerical health guard
+(``repro_torch.resilience.guard``) replaces the plain clip in both steps:
+a skip verdict on a non-finite loss or gradient, rolling-median spike
+clipping, and the ``GUARD_METRICS`` in the metrics; ``state["guard"]``
+carries its window and counters. ``run.chaos_nan_steps`` fills the
+gradients with NaN at those steps, guard on or off; ``run.chaos_skip_steps``
+forces a skip verdict at those steps under the guard (the reference's
+steps read it in the guard's verdict only). A skipped step leaves params,
+moments and Adam's count bit for bit as they were, and the step advances.
+
 ``train_step(state, batch)``:
-  state = {"params": fp32 master params, "opt": AdamState, "step": int}
+  state = {"params": fp32 master params, "opt": AdamState, "step": int,
+           ["guard": guard state]}
   batch = {"tokens", "labels", "resets"}: numpy or tensors, (A, B/A, S);
           for the cross family also ``"frames"`` (A, B/A, n_frames, d),
           the encoder's input, or ``"img"`` (A, B/A, n_img, d), the image
@@ -37,6 +48,7 @@ from repro_torch.core.lasp2h import check_ulysses_heads
 from repro_torch.core.tree import leaves_with_paths, tree_map
 from repro_torch.models import model as M
 from repro_torch.optim import adamw
+from repro_torch.resilience import guard as health
 
 MOE_AUX_COEF = 0.01
 
@@ -49,24 +61,29 @@ def zero1_degree(run: RunConfig, layout=None) -> int:
     return 1
 
 
-def state_from_params(params, zero1: int = 1):
+def state_from_params(params, zero1: int = 1, run: RunConfig = None):
     """A fresh train state around ``params`` (fp32 masters): they are made
     to require gradients, the moments start at zero (one rank's flat
-    slice of ``zero1`` when above 1), step 0."""
+    slice of ``zero1`` when above 1), step 0; with ``run.guard`` also the
+    guard's state."""
     for _, p in leaves_with_paths(params):
         p.requires_grad_(True)
     opt = adamw.zero1_init(params, zero1) if zero1 > 1 \
         else adamw.init(params)
-    return {"params": params, "opt": opt, "step": 0}
+    state = {"params": params, "opt": opt, "step": 0}
+    if run is not None and run.guard:
+        device = leaves_with_paths(params)[0][1].device
+        state["guard"] = health.guard_init(run.guard_window, device)
+    return state
 
 
 def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None,
-               zero1: int = 1):
+               zero1: int = 1, run: RunConfig = None):
     """Random fp32 master params (``cfg.param_dtype``) on ``device`` (the
     card unless another device is named) and a fresh train state."""
     params = M.init_params(generator, cfg, device=device,
                            param_dtype=cfg.param_dtype)
-    return state_from_params(params, zero1)
+    return state_from_params(params, zero1, run)
 
 
 def make_loss_fn(cfg: ModelConfig, run: RunConfig):
@@ -108,22 +125,47 @@ def _accum_grads(loss_fn, params, batch):
     return tree_map(lambda _: next(it), params), torch.stack(losses).mean()
 
 
-def _finish_step(run: RunConfig, state, gnorm, update):
+@torch.no_grad()
+def _clip(run: RunConfig, state, grads, loss_bad):
+    """Scale the gradients (a tree, or the flat vector) in place: the plain
+    global-norm clip, or with ``run.guard`` by the guard's verdict,
+    ``loss_bad`` (a 0-d bool tensor) joining its non-finite test. Returns
+    ``(norm before clipping, ok, new guard state or None, guard
+    metrics)``; ``ok`` is False for a step to skip."""
+    if not run.guard:
+        _, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
+        return gnorm, bool(torch.isfinite(gnorm)), None, {}
+    gnorm = adamw.global_norm(grads)
+    nonfinite = torch.logical_not(torch.isfinite(gnorm)) | loss_bad
+    if health.chaos_hit(state["step"], run.chaos_skip_steps):
+        nonfinite = torch.ones_like(nonfinite)
+    scale, ok, new_guard, info = health.guard_verdict(
+        state["guard"], gnorm, nonfinite, grad_clip=run.grad_clip,
+        spike_factor=run.guard_spike_factor)
+    ok = bool(ok)
+    if ok:
+        for _, g in leaves_with_paths(grads):
+            g.mul_(scale)
+    return gnorm, ok, new_guard, {k: float(v) for k, v in info.items()}
+
+
+def _finish_step(run: RunConfig, state, gnorm, update, ok, new_guard):
     """The tail both steps share, after the gradients are clipped: the
-    cosine learning rate and skip-on-nonfinite. ``update(lr)`` applies
-    AdamW and returns the new optimizer state; a non-finite step does not
+    cosine learning rate and the skip. ``update(lr)`` applies AdamW and
+    returns the new optimizer state; a step that is not ``ok`` does not
     call it, so params, moments and the Adam count stay, and the step
     advances. Returns ``(new_state, metrics without the loss)``."""
-    finite = bool(torch.isfinite(gnorm))
     lr = adamw.cosine_schedule(
         state["step"], base_lr=run.learning_rate,
         warmup_steps=run.warmup_steps, total_steps=run.total_steps,
         min_lr=run.min_lr)
-    opt = update(lr) if finite else state["opt"]
+    opt = update(lr) if ok else state["opt"]
     new_state = {"params": state["params"], "opt": opt,
                  "step": state["step"] + 1}
+    if new_guard is not None:
+        new_state["guard"] = new_guard
     return new_state, {"grad_norm": float(gnorm), "lr": lr,
-                       "skipped": 0.0 if finite else 1.0}
+                       "skipped": 0.0 if ok else 1.0}
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
@@ -138,13 +180,17 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
         device = leaves_with_paths(params)[0][1].device
         batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
         grads, loss = _accum_grads(loss_fn, params, batch)
-        grads, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
+        for _, g in leaves_with_paths(grads):
+            health.chaos_poison_nan(g, state["step"], run.chaos_nan_steps)
+        gnorm, ok, new_guard, ginfo = _clip(
+            run, state, grads, torch.logical_not(torch.isfinite(loss)))
         new_state, metrics = _finish_step(
             run, state, gnorm,
             lambda lr: adamw.update(grads, state["opt"], params, lr=lr,
                                     b1=run.adam_b1, b2=run.adam_b2,
-                                    weight_decay=run.weight_decay))
-        return new_state, {"loss": float(loss), **metrics}
+                                    weight_decay=run.weight_decay),
+            ok, new_guard)
+        return new_state, {"loss": float(loss), **metrics, **ginfo}
 
     return train_step
 
@@ -185,11 +231,14 @@ class ShardedStep:
       (``ulysses.in``, ``ulysses.out``), their backwards;
     - exactly ONE gradient reduction: the flat gradients ‖ [ce_sum, n]
       all-reduced over every rank (``train.grads``), then normalised by
-      the global token count;
-    - clipping, the learning rate and skip-on-nonfinite as the one-device
-      step (``_finish_step``); only the loss differs: the global token
-      mean here, the mean of the microbatch means there (the reference's
-      two steps differ the same way);
+      the global token count; with ``run.guard`` a third tail scalar, this
+      rank's loss-health indicator, rides in the same buffer (4 bytes, no
+      collective), so every rank reaches the guard's verdict from the
+      same reduced values;
+    - clipping (or the guard), the learning rate and skip-on-nonfinite as
+      the one-device step (``_clip``, ``_finish_step``); only the loss
+      differs: the global token mean here, the mean of the microbatch
+      means there (the reference's two steps differ the same way);
     - ZeRO-1 over the data group (``zero1_degree`` > 1): each rank Adam-
       updates its slice of the raveled params and ONE all-gather
       (``zero1.param_gather``) re-forms them.
@@ -221,20 +270,24 @@ class ShardedStep:
         self._decay = None
 
     def _buffer(self, params):
-        """The flat fp32 buffer (gradients ‖ [ce, n]) and the number of
-        gradient entries."""
+        """The flat fp32 buffer (gradients ‖ [ce, n] ‖ [loss health] under
+        the guard) and the number of gradient entries."""
         n = sum(p.numel() for _, p in leaves_with_paths(params))
-        size = n + 2
+        size = n + (3 if self.run.guard else 2)
         if self._buf is None or self._buf.numel() != size:
             device = leaves_with_paths(params)[0][1].device
             self._buf = torch.empty((size,), dtype=torch.float32,
                                     device=device)
         return self._buf, n
 
-    def grads(self, params, batch):
+    def grads(self, params, batch, step: int = 0):
         """Gradients of the global mean CE over this step's global batch,
         reduced over every rank: ``(flat grads (a view of the buffer),
-        ce_tot, n_tot)``, both 0-d fp32 tensors."""
+        ce_tot, n_tot)``, both 0-d fp32 tensors. ``step`` is the train
+        step's index (``run.chaos_nan_steps`` poisons this rank's
+        gradients before the reduction). Under the guard the reduced
+        loss-health sum is ``self.loss_bad`` (> 0: a rank saw a non-finite
+        loss)."""
         if "frames" in batch or "img" in batch:
             raise NotImplementedError(
                 "encoder/VLM aux inputs are not supported on the 2D DP×SP "
@@ -251,6 +304,7 @@ class ShardedStep:
                              batch.items()}, self.layout)
         ce = torch.zeros((), dtype=torch.float32, device=device)
         cnt = torch.zeros((), dtype=torch.float32, device=device)
+        bad = torch.zeros((), dtype=torch.bool, device=device)
         try:
             for i in range(batch["tokens"].shape[0]):
                 micro = {k: v[i].to(device) for k, v in batch.items()}
@@ -262,13 +316,19 @@ class ShardedStep:
                 ce_sum.backward()
                 ce += ce_sum.detach()
                 cnt += n_valid
+                bad |= torch.logical_not(torch.isfinite(ce_sum.detach()))
         finally:
             for p in leaves:
                 p.grad = None
+        health.chaos_poison_nan(buf[:n], step, self.run.chaos_nan_steps)
         buf[n] = ce
         buf[n + 1] = cnt
-        primitives.psum_packed(buf[:n + 2], self.layout.world_group,
+        if self.run.guard:
+            buf[n + 2] = bad.float()
+        primitives.psum_packed(buf, self.layout.world_group,
                                tag="train.grads")
+        if self.run.guard:
+            self.loss_bad = buf[n + 2] > 0
         n_tot = torch.clamp(buf[n + 1], min=1.0)   # all masked → loss 0
         gflat = buf[:n]
         gflat.div_(n_tot)
@@ -314,11 +374,16 @@ class ShardedStep:
 
     def __call__(self, state, batch):
         params = state["params"]
-        gflat, ce_tot, n_tot = self.grads(params, batch)
-        # the norm is the same on every rank after the one reduction, so a
-        # non-finite step is skipped on every rank
-        gflat, gnorm = adamw.clip_by_global_norm(gflat, self.run.grad_clip)
+        gflat, ce_tot, n_tot = self.grads(params, batch, state["step"])
+        # the norm, the loss and the health sum are the same on every rank
+        # after the one reduction, so every rank reaches the same verdict
+        loss_bad = torch.logical_not(torch.isfinite(ce_tot))
+        if self.run.guard:
+            loss_bad = loss_bad | self.loss_bad
+        gnorm, ok, new_guard, ginfo = _clip(self.run, state, gflat, loss_bad)
         new_state, metrics = _finish_step(
             self.run, state, gnorm,
-            lambda lr: self._update(params, state["opt"], gflat, lr))
-        return new_state, {"loss": float(ce_tot / n_tot), **metrics}
+            lambda lr: self._update(params, state["opt"], gflat, lr),
+            ok, new_guard)
+        return new_state, {"loss": float(ce_tot / n_tot), **metrics,
+                           **ginfo}

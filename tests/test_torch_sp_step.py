@@ -14,6 +14,13 @@ round bf16 at other points). Tolerances: losses 1e-3, as the one-device
 step's (``tests/test_torch_train.py``); ZeRO-1 against replicated AdamW
 1e-6, and the bf16 wire against fp32 2e-2
 (``tests/distributed_checks.py:513-549``).
+
+The guard and checkpoints across layouts ride the same spawns: the
+guarded step at (2, 2) against the reference's guarded manual step
+(NaN gradients at step 1), and ``train()`` checkpoints written at
+(2, 2) with ZeRO-1, at (1, 2) and on one device, resumed at (2, 1), on
+one device and at (1, 2); resumed losses within 1e-5 of the
+uninterrupted runs'.
 """
 
 import dataclasses
@@ -32,6 +39,7 @@ from repro_torch.launch.mesh import TrainingGroups, run_ranks
 HERE = Path(__file__).resolve()
 ROOT = HERE.parent.parent
 TOL = 1e-3
+TOL_RESUME = 1e-5
 
 
 @pytest.fixture(scope="module")
@@ -48,8 +56,16 @@ def ref(tmp_path_factory):
     return out
 
 
-def _port(ref, dp, sp):
-    ranks = run_ranks(R.step_rank, dp * sp, args=(dp, sp, str(ref)),
+@pytest.fixture(scope="module")
+def ckpt_root(tmp_path_factory):
+    """Checkpoint directories of the layout cells, by the layout that
+    wrote them."""
+    return tmp_path_factory.mktemp("ckpt")
+
+
+def _port(ref, dp, sp, ckpt_root):
+    ranks = run_ranks(R.step_rank, dp * sp,
+                      args=(dp, sp, str(ref), str(ckpt_root)),
                       timeout_s=300)
     with np.load(ref) as npz:
         want = {k: npz[k] for k in npz.files
@@ -58,15 +74,15 @@ def _port(ref, dp, sp):
 
 
 @pytest.fixture(scope="module")
-def sp4(ref):
+def sp4(ref, ckpt_root):
     """The port at (dp, sp) = (1, 4): pure sequence parallelism."""
-    return _port(ref, 1, 4)
+    return _port(ref, 1, 4, ckpt_root)
 
 
 @pytest.fixture(scope="module")
-def dp2sp2(ref):
+def dp2sp2(ref, ckpt_root):
     """The port at (2, 2), ZeRO-1 over the data pairs."""
-    return _port(ref, 2, 2)
+    return _port(ref, 2, 2, ckpt_root)
 
 
 @pytest.fixture(params=["sp4", "dp2sp2"])
@@ -199,12 +215,23 @@ def test_remat_full_replays_the_forward_gathers(sp4):
 
 
 @pytest.fixture(scope="module")
-def ssm(ref):
+def ssm(ref, dp2sp2, ckpt_root):
     """The SSM family's SMOKE models at (1, 2) on two gloo ranks, and on
-    one device (the one-device step), from the reference's params."""
-    ranks = run_ranks(R.ssm_rank, 2, args=(str(ref),), timeout_s=300)
-    local = {arch: R.ssm_steps(str(ref), "cpu", arch, None)
-             for arch in R.SSM_ARCHS + R.ZOO_ARCHS}
+    one device (the one-device step), from the reference's params; with
+    the checkpoint cells (after (2, 2) wrote its checkpoint): one device
+    saves before the spawn and resumes (1, 2)'s after it."""
+    import shutil
+    local = {"ckpt_full": R.ckpt_train(str(ref), "cpu", None, R.CKPT_TOTAL)}
+    R.ckpt_train(str(ref), "cpu", None, R.CKPT_STEPS,
+                 str(ckpt_root / "dev1"))
+    ranks = run_ranks(R.ssm_rank, 2, args=(str(ref), str(ckpt_root)),
+                      timeout_s=300)
+    shutil.copytree(ckpt_root / "dp1sp2", ckpt_root / "dp1sp2_to_dev1")
+    local["resume_dp1sp2_on_dev1"] = R.ckpt_train(
+        str(ref), "cpu", None, R.CKPT_TOTAL,
+        str(ckpt_root / "dp1sp2_to_dev1"))
+    local.update({arch: R.ssm_steps(str(ref), "cpu", arch, None)
+                  for arch in R.SSM_ARCHS + R.ZOO_ARCHS})
     with np.load(ref) as npz:
         want = {k: npz[k] for k in npz.files if k.startswith("ssm/")}
     return ranks, local, want
@@ -327,6 +354,172 @@ def test_nonfinite_step_is_skipped_on_every_rank(dp2sp2):
                                   "frozen": True}
 
 
+def test_guarded_sharded_step_matches_reference(dp2sp2):
+    """The guarded ``ShardedStep`` at (2, 2) with ZeRO-1 and NaN gradients
+    at step 1: every rank's losses within 1e-3 of the reference's guarded
+    manual step, ``skipped`` and the ``GUARD_METRICS`` equal, step 1 the
+    only skip."""
+    _, _, ranks, want = dp2sp2
+    for r in ranks:
+        got = r["guard_nan"]
+        np.testing.assert_allclose(got["losses"], want["guard/loss"],
+                                   rtol=TOL, atol=TOL)
+        np.testing.assert_array_equal(np.array(got["metrics"]),
+                                      want["guard/metrics"])
+        assert [m[0] for m in got["metrics"]] == [
+            float(i == R.GUARD_NAN_STEP) for i in range(R.N_STEPS)]
+
+
+def test_guard_adds_no_collective(dp2sp2):
+    """The guarded step's tape holds the unguarded step's collectives, op
+    for op and tag for tag; only ``train.grads`` grows, by the 4 bytes of
+    the loss-health scalar; its forward rows are the reference's guarded
+    step's; on clean steps the guarded losses are the unguarded ones, bit
+    for bit."""
+    _, _, ranks, want = dp2sp2
+    for r in ranks:
+        plain, guarded = r["tape"], r["guard_clean"]["tape"]
+        assert len(plain) == len(guarded)
+        for a, b in zip(plain, guarded):
+            op_a, tag_a, n_a = a.split("|")
+            op_b, tag_b, n_b = b.split("|")
+            assert (op_a, tag_a) == (op_b, tag_b)
+            assert int(n_b) - int(n_a) == (4 if tag_a == "train.grads"
+                                           else 0), (a, b)
+        fwd = [x for x in guarded if not x.split("|")[1].endswith(".bwd")]
+        assert sorted(set(fwd)) == sorted(_rows(want["guard/tape"]))
+        assert r["guard_clean"]["losses"] == r["losses"]
+
+
+def test_flight_recorder_sees_no_drift_under_a_layout(dp2sp2):
+    """``train(sink=)`` at (2, 2): only rank 0 emits; its ``compile``
+    record holds the first step's tape and issued view, op by op the same
+    counts and payload bytes, and no drift."""
+    _, _, ranks, _ = dp2sp2
+    assert all(r["records"] is None for r in ranks[1:])
+    records = ranks[0]["records"]
+    assert [r["kind"] for r in records] == ["compile"] + \
+        ["step"] * R.CKPT_STEPS + ["summary"]
+    comp = records[0]
+    assert comp["drift"] == []
+    ops = {k.split("/", 1)[1].rsplit("_", 1)[0] for k in comp
+           if k.startswith("tape/")}
+    assert ops == {"all-gather", "reduce-scatter", "all-reduce"}
+    for op in ops:
+        for what in ("count", "bytes"):
+            assert comp[f"tape/{op}_{what}"] == comp[f"issued/{op}_{what}"]
+    assert comp["tape/all-reduce_count"] == 1
+    assert all(r["mfu"] > 0 for r in records[1:-1])
+
+
+def test_issued_view_flags_a_collective_that_bypasses_the_primitives(
+        dp2sp2):
+    """At (2, 2), an all-reduce made straight to ``torch.distributed``
+    beside a primitive's: the issued view counts both, with their bytes,
+    the primitive's tag on its own and none on the other, and the flight
+    recorder reports the drift; the entry point is unwrapped after."""
+    _, _, ranks, _ = dp2sp2
+    for r in ranks:
+        got = r["bypass"]
+        assert got["tags"] == ["probe", ""]
+        assert got["bytes"] == [16, 8]
+        assert got["drift"] == ["all-reduce: 2 issued, the tape records 1"]
+        assert got["restored"]
+
+
+def test_sigterm_on_one_rank_stops_every_rank_at_the_same_step(dp2sp2):
+    """At (2, 2) with ZeRO-1, SIGTERM reaches rank 1 alone during step 0:
+    every rank stops after step 0 and joins the final save (ZeRO-1's
+    gather), which writes step 1; the resumed run's losses are the
+    uninterrupted run's within 1e-5."""
+    _, _, ranks, _ = dp2sp2
+    full = ranks[0]["ckpt_full"]
+    steps = list(range(1, R.CKPT_TOTAL))
+    for r in ranks:
+        assert r["sigterm_steps"] == [0]
+        assert r["sigterm_ckpts"] == [1]
+        assert sorted(r["sigterm_resumed"]) == steps
+        np.testing.assert_allclose([r["sigterm_resumed"][s] for s in steps],
+                                   [full[s] for s in steps],
+                                   rtol=TOL_RESUME, atol=TOL_RESUME)
+
+
+def test_failed_write_on_rank_0_raises_on_every_rank(dp2sp2):
+    """At (2, 2) with ZeRO-1, every checkpoint write of rank 0 fails:
+    rank 0 raises its OSError and the other ranks a RuntimeError at the
+    same step, so no rank waits in a gather the others never reach (the
+    spawn ends within its time limit)."""
+    _, _, ranks, _ = dp2sp2
+    assert [r["write_failure"] for r in ranks] == \
+        ["OSError"] + ["RuntimeError"] * (len(ranks) - 1)
+
+
+@pytest.mark.parametrize("cell", ["dp2sp2_at_dp2sp1", "dp1sp2_on_dev1",
+                                  "dev1_at_dp1sp2"])
+def test_checkpoint_resumes_on_another_layout(ssm, dp2sp2, cell):
+    """``train()`` checkpoints at step 2 of a guarded run, resumed to step
+    4 on another layout: written at (2, 2) with ZeRO-1 (the data ranks'
+    moment slices gathered) and resumed at (2, 1); written at (1, 2) and
+    resumed on one device; written on one device and resumed at (1, 2).
+    The resumed steps' losses are within 1e-5 of the uninterrupted runs'
+    of both layouts."""
+    ranks, local, _ = ssm
+    dp2sp2_full = dp2sp2[2][0]["ckpt_full"]
+    if cell == "dp2sp2_at_dp2sp1":
+        resumed = [r["resume_dp2sp2_at_dp2sp1"] for r in ranks]
+        wants = [dp2sp2_full]
+    elif cell == "dp1sp2_on_dev1":
+        resumed = [local["resume_dp1sp2_on_dev1"]]
+        wants = [ranks[0]["ckpt_full"], local["ckpt_full"]]
+    else:
+        resumed = [r["resume_dev1_at_dp1sp2"] for r in ranks]
+        wants = [local["ckpt_full"], ranks[0]["ckpt_full"]]
+    steps = list(range(R.CKPT_STEPS, R.CKPT_TOTAL))
+    for got in resumed:
+        assert sorted(got) == steps, "must resume from the checkpoint"
+        for want in wants:
+            np.testing.assert_allclose([got[s] for s in steps],
+                                       [want[s] for s in steps],
+                                       rtol=TOL_RESUME, atol=TOL_RESUME)
+
+
+def test_zero1_degree_change_raises_in_both_packages(ref, dp2sp2,
+                                                     ckpt_root):
+    """A checkpoint written at (2, 2) with ZeRO-1 onto another ZeRO-1
+    degree: with no ZeRO-1 (the moments a tree, not flat) both packages
+    raise ``CheckpointError`` (missing paths); at degree 3 (another padded
+    length) both raise ``ValueError`` (a shape); at degree 4 (the same
+    padded length) both restore, each rank its slice."""
+    import torch
+    from repro_torch.checkpoint.manager import (CheckpointManager,
+                                                zero1_shards)
+    from repro_torch.train.step import state_from_params
+    with np.load(ref) as npz:
+        want = {k: str(npz[f"zero1/{k}"]) for k in ("tree", "padded",
+                                                    "same")}
+    assert want == {"tree": "CheckpointError", "padded": "ValueError",
+                    "same": "restored"}
+    mgr = CheckpointManager(str(ckpt_root / "dp2sp2"))
+    step = mgr.latest_step()
+    run = RunConfig(**R.RUN, guard=True)
+    full = mgr.restore(step, {"opt": {"m": torch.zeros(
+        2 * state_from_params(R._params(str(ref), "cpu"), 2)["opt"].m
+        .numel())}})["opt"]["m"]
+    for name, dp in (("tree", 1), ("padded", 3), ("same", 4)):
+        state = state_from_params(R._params(str(ref), "cpu"), dp, run)
+        shards = zero1_shards(state, TrainingGroups(dp, 1, dp - 1, 0, None,
+                                                    None, None))
+        try:
+            mgr.restore(step, state, shards=shards)
+            got = "restored"
+        except Exception as e:      # noqa: BLE001 — the type is the check
+            got = type(e).__name__
+        assert got == want[name], name
+        if got == "restored":       # this rank's slice of the stored m
+            n = state["opt"].m.numel()
+            assert torch.equal(state["opt"].m, full[(dp - 1) * n:dp * n])
+
+
 def test_run_config_fields_carry_the_reference_defaults():
     """Every field of the port's RunConfig, the SP and ZeRO-1 knobs among
     them, exists in the reference's with the same default."""
@@ -405,17 +598,28 @@ def test_sp_config_refuses_unknown_knob_values():
 
 
 def test_checkpoints_of_a_sharded_run_wait_for_m9(tmp_path):
-    """Restoring onto another layout is M9: a multi-rank run with a
-    checkpoint directory refuses before any collective."""
+    """Checkpoints under a layout arrived with M9, and a multi-rank run no
+    longer refuses a checkpoint directory; what it cannot restore it
+    refuses before any collective: a one-device checkpoint (a tree of
+    moments) restoring onto a ZeRO-1 layout (flat moment slices) raises
+    ``CheckpointError`` for the missing paths, in the first try and in
+    the fallback."""
+    from repro_torch.checkpoint.manager import CheckpointError
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train.loop import train
     cfg = R.step_cfg()
+    run = RunConfig(total_steps=1, num_microbatches=1, remat="none")
+    data = SyntheticLM(cfg.vocab_size, 8, 2)
+    train(cfg, run, data, device="cpu", ckpt_dir=str(tmp_path),
+          log_fn=lambda *_: None)
     layout = TrainingGroups(dp=2, sp=1, data_index=0, chunk_index=0,
                             sp_group=None, dp_group=None, world_group=None)
-    with pytest.raises(NotImplementedError, match="M9"):
-        train(cfg, RunConfig(total_steps=1), SyntheticLM(cfg.vocab_size, 8, 2),
-              device="cpu", ckpt_dir=str(tmp_path), layout=layout,
-              log_fn=lambda *_: None)
+    logs = []
+    with pytest.raises(CheckpointError, match="no valid checkpoint"):
+        train(cfg, run, data, device="cpu", ckpt_dir=str(tmp_path),
+              layout=layout, log_fn=logs.append)
+    assert logs == ["[resume] checkpoint step 1 invalid (CheckpointError); "
+                    "falling back"]
 
 
 def test_train_cli_under_torchrun_with_sp_degree_2():
@@ -506,8 +710,61 @@ def _jax_reference(path):
                     R.tape_rows(rec))
             losses.append(float(m["loss"]))
         out[f"dp{dp}sp{sp}/{kind}loss"] = np.array(losses)
+    _jax_guard_reference(out, smoke, data)
     _jax_ssm_reference(out)
     np.savez(path, **out)
+
+
+def _jax_guard_reference(out, cfg, data):
+    """The guarded manual step at (2, 2) with NaN gradients at step
+    ``R.GUARD_NAN_STEP``: losses, the guard's metrics and the first
+    step's tape; then its state saved and restored onto ZeRO-1 degree 1
+    (1, 4), 3 (3, 1) and 4 (4, 1): the error type or "restored"."""
+    import tempfile
+
+    import jax
+
+    from repro.checkpoint.manager import CheckpointManager
+    from repro.comm import primitives as jprim
+    from repro.comm.spec import CommSpec
+    from repro.configs.base import RunConfig as JRunConfig
+    from repro.launch.mesh import make_training_mesh
+    from repro.sharding.rules import make_plan
+    from repro.train.step import init_state, make_train_step
+
+    run = JRunConfig(**R.RUN, guard=True,
+                     chaos_nan_steps=(R.GUARD_NAN_STEP,))
+
+    def plan(dp, sp):
+        mesh = make_training_mesh(dp, sp, devices=jax.devices()[:dp * sp])
+        return make_plan(mesh, "train", global_batch=R.DATA["global_batch"],
+                         n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                         zero1=True, comm=CommSpec(dtype="fp32"))
+
+    state = init_state(jax.random.PRNGKey(0), cfg, run, plan(2, 2))
+    step = jax.jit(make_train_step(cfg, run, plan(2, 2)))
+    losses, metrics = [], []
+    for i in range(R.N_STEPS):
+        with jprim.tape() as rec:       # records while jit traces
+            state, m = step(state, data.microbatched(
+                i, run.num_microbatches))
+        if i == 0:
+            out["guard/tape"] = np.array(R.tape_rows(rec))
+        losses.append(float(m["loss"]))
+        metrics.append([float(m[k]) for k in R.GUARD_KEYS])
+    out["guard/loss"] = np.array(losses)
+    out["guard/metrics"] = np.array(metrics)
+    with tempfile.TemporaryDirectory() as td:
+        mgr = CheckpointManager(td)
+        mgr.save(1, state)
+        for name, (dp, sp) in (("tree", (1, 4)), ("padded", (3, 1)),
+                               ("same", (4, 1))):
+            target = init_state(jax.random.PRNGKey(0), cfg, run, plan(dp, sp))
+            try:
+                mgr.restore(1, target)
+                out[f"zero1/{name}"] = np.array("restored")
+            except Exception as e:    # noqa: BLE001 — the type is recorded
+                out[f"zero1/{name}"] = np.array(type(e).__name__)
 
 
 def _jax_ssm_reference(out):

@@ -455,7 +455,126 @@ def _flat(tree):
                       for _, t in leaves_with_paths(tree)])
 
 
-def step_rank(rank, world, device, dp, sp, npz_path):
+# The guarded cells: NaN gradients at step GUARD_NAN_STEP of N_STEPS.
+GUARD_NAN_STEP = 1
+GUARD_KEYS = ("skipped", "skipped_steps", "consecutive_skips", "guard_spike",
+              "guard_median")
+# Checkpoints across layouts: CKPT_STEPS steps saved, then resumed to
+# CKPT_TOTAL, against an uninterrupted CKPT_TOTAL-step run; guard on, so
+# the guard's state travels in the checkpoint too.
+CKPT_STEPS, CKPT_TOTAL = 2, 4
+
+
+def _guarded_steps(npz_path, device, layout, **run_kw):
+    """N_STEPS guarded steps: losses, the guard's metrics per step and the
+    first step's tape."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    run = RunConfig(**{**RUN, "guard": True, **run_kw})
+    state = state_from_params(_params(npz_path, device),
+                              zero1_degree(run, layout), run)
+    step = make_train_step(step_cfg(), run, layout)
+    out = {"losses": [], "metrics": [], "tape": None}
+    for batch in _batches()[:N_STEPS]:
+        with primitives.tape() as rec:
+            state, m = step(state, batch)
+        out["tape"] = out["tape"] or tape_rows(rec)
+        out["losses"].append(m["loss"])
+        out["metrics"].append([m[k] for k in GUARD_KEYS])
+    return out
+
+
+def ckpt_train(npz_path, device, layout, steps, ckpt_dir=None, sink=None,
+               wrap=None):
+    """``train()`` of the step config from the reference's params, guard
+    on, checkpoints every CKPT_STEPS steps into ``ckpt_dir``, up to step
+    ``steps`` (a run resumes from ``ckpt_dir``'s newest checkpoint), on
+    the data ``wrap`` returns when it is given. Returns ``{step: loss}``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.loop import train
+    cfg = step_cfg()
+    data = SyntheticLM(cfg.vocab_size, DATA["seq_len"], DATA["global_batch"],
+                       seed=DATA["seed"])
+    if wrap is not None:
+        data = wrap(data)
+    _, hist = train(cfg, RunConfig(**RUN, guard=True), data, device=device,
+                    params=_params(npz_path, device), layout=layout,
+                    ckpt_dir=ckpt_dir, ckpt_every=CKPT_STEPS,
+                    max_steps=steps, sink=sink, log_every=10 ** 9,
+                    log_fn=lambda *_: None)
+    return {h["step"]: h["loss"] for h in hist}
+
+
+def _copy_ckpt(root, src, dst):
+    """Rank 0 copies checkpoint directory ``src`` to ``dst`` (a resume
+    writes its own checkpoints); every rank waits for the copy."""
+    import os
+    import shutil
+    if dist.get_rank() == 0:
+        shutil.copytree(os.path.join(root, src), os.path.join(root, dst))
+    dist.barrier()
+    return os.path.join(root, dst)
+
+
+def ckpt_faults(npz_path, device, layout, root):
+    """Faults of a multi-rank run with checkpoints, at (2, 2) with ZeRO-1:
+    SIGTERM on rank 1 alone while step 0's batch is fetched (every rank
+    must stop after step 0 and join the final save of step 1; the run
+    then resumes to CKPT_TOTAL), and every write of rank 0 failing (every
+    rank must raise at the step whose save surfaces the error, not hang
+    in the final save's gather). Returns what each saw."""
+    import os
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.resilience import chaos
+    out = {}
+    d = os.path.join(root, "dp2sp2_sigterm")
+    wrap = (lambda data: chaos.InterruptData(data, at_step=0)) \
+        if dist.get_rank() == 1 else None
+    out["sigterm_steps"] = sorted(ckpt_train(npz_path, device, layout,
+                                             CKPT_TOTAL, d, wrap=wrap))
+    dist.barrier()
+    out["sigterm_ckpts"] = CheckpointManager(d).all_steps()
+    out["sigterm_resumed"] = ckpt_train(npz_path, device, layout,
+                                        CKPT_TOTAL, d)
+
+    def fail(*_a, **_k):
+        raise OSError("injected write failure")
+    original = CheckpointManager._write_with_retry
+    if dist.get_rank() == 0:
+        CheckpointManager._write_with_retry = fail
+    try:
+        ckpt_train(npz_path, device, layout, CKPT_TOTAL,
+                   os.path.join(root, "dp2sp2_failed"))
+        out["write_failure"] = None
+    except (OSError, RuntimeError) as e:
+        out["write_failure"] = type(e).__name__
+    finally:
+        CheckpointManager._write_with_retry = original
+    return out
+
+
+def bypass_drift(layout):
+    """A primitive's all-reduce and one made straight to
+    ``torch.distributed``, under the tape and the issued view: the issued
+    view counts both (the second with no tag), and the flight recorder
+    flags the one the tape never recorded; after the block the entry
+    point is ``torch.distributed``'s own again."""
+    from repro_torch.obs import FlightRecorder
+    before = dist.all_reduce
+    with primitives.tape() as taped, primitives.issued() as sent:
+        primitives.psum_packed(torch.ones(4), layout.world_group,
+                               tag="probe")
+        dist.all_reduce(torch.ones(2), group=layout.world_group)
+    snap = FlightRecorder(None).on_compile(records=taped, issued=sent)
+    return {"drift": snap.drift, "tags": [r.tag for r in sent],
+            "bytes": [r.nbytes for r in sent],
+            "restored": dist.all_reduce is before}
+
+
+def step_rank(rank, world, device, dp, sp, npz_path, ckpt_root=None):
     """The step-level cases of one (dp, sp) layout on this rank."""
     from repro_torch.launch.mesh import make_training_groups
     from repro_torch.models import model as M
@@ -505,6 +624,20 @@ def step_rank(rank, world, device, dp, sp, npz_path):
         _, res["ulysses_losses"], res["ulysses_tape"] = _steps(
             npz_path, device, layout, N_STEPS, hybrid=True,
             comm_strategy="ulysses")
+        res["guard_nan"] = _guarded_steps(npz_path, device, layout,
+                                          chaos_nan_steps=(GUARD_NAN_STEP,))
+        res["guard_clean"] = _guarded_steps(npz_path, device, layout)
+        # checkpoints at (2, 2) with ZeRO-1, with the flight recorder on
+        # rank 0
+        from repro_torch.obs import InMemorySink
+        import os
+        sink = InMemorySink() if rank == 0 else None
+        res["ckpt_full"] = ckpt_train(npz_path, device, layout, CKPT_TOTAL)
+        ckpt_train(npz_path, device, layout, CKPT_STEPS,
+                   os.path.join(ckpt_root, "dp2sp2"), sink=sink)
+        res["records"] = sink.records if sink is not None else None
+        res.update(ckpt_faults(npz_path, device, layout, ckpt_root))
+        res["bypass"] = bypass_drift(layout)
     return res
 
 
@@ -586,10 +719,23 @@ def ssm_steps(npz_path, device, arch, layout):
     return res
 
 
-def ssm_rank(rank, world, device, npz_path):
+def ssm_rank(rank, world, device, npz_path, ckpt_root=None):
     """Both SSM SMOKE models and the zoo's at (dp, sp) = (1, ``world``) on
-    this rank."""
+    this rank; then the checkpoints across layouts: save at (1, 2), resume
+    at (1, 2) a one-device checkpoint and at (2, 1) the (2, 2) run's."""
+    import os
     from repro_torch.launch.mesh import make_training_groups
     layout = make_training_groups(1, world)
-    return {arch: ssm_steps(npz_path, device, arch, layout)
-            for arch in SSM_ARCHS + ZOO_ARCHS}
+    out = {arch: ssm_steps(npz_path, device, arch, layout)
+           for arch in SSM_ARCHS + ZOO_ARCHS}
+    dp_layout = make_training_groups(world, 1)
+    out["ckpt_full"] = ckpt_train(npz_path, device, layout, CKPT_TOTAL)
+    ckpt_train(npz_path, device, layout, CKPT_STEPS,
+               os.path.join(ckpt_root, "dp1sp2"))
+    out["resume_dev1_at_dp1sp2"] = ckpt_train(
+        npz_path, device, layout, CKPT_TOTAL,
+        _copy_ckpt(ckpt_root, "dev1", "dev1_to_dp1sp2"))
+    out["resume_dp2sp2_at_dp2sp1"] = ckpt_train(
+        npz_path, device, dp_layout, CKPT_TOTAL,
+        _copy_ckpt(ckpt_root, "dp2sp2", "dp2sp2_to_dp2sp1"))
+    return out
