@@ -123,11 +123,13 @@ line:
    token), each against its plain version and timed (K1, K2a, K2b:
    (128, 64) on ``sm90``, (16, 64) on ``simt`` in bf16 and fp32), and
    K4, K5a, K5b timed at hymba's shape (their parity runs in phase 3);
-   (b) mamba2 serves phase 4's requests by left-padded buckets (K1 and
-   K3 64 a call, ``sm90``; the reference's cache bytes) with phase 4's
-   decode check and a profile; (c) hymba the
-   same by exact length (K1 32 on ``simt``, K4 32, K3 32), globals 0, 8,
-   16, 24, the gap on a 1100-token prompt past the 1024 window; (d) both
+   (b) mamba2, cut to 32 of its 64 layers (``MAMBA2_LAYERS``), serves
+   phase 4's requests by left-padded buckets (K1 and K3 32 a call,
+   ``sm90``; the reference's cache bytes per layer) with phase 4's
+   decode check and a profile; (c) hymba, cut to 24 of its 32 layers
+   (``HYMBA_LAYERS``), the same by exact length (K1 24 on ``simt``, K4
+   24, K3 24), globals 0, 8, 16, the gap on a 1100-token prompt past the
+   1024 window; (d) both
    train 5 steps as phase 7 under full remat at lr 1e-4; (e) fp32 grad
    checks of 2 layers of each against the host CPU;
 14. zoo, the decoder-only zoo and MoE, each ``CONFIG`` cut to 2 layers at
@@ -177,22 +179,44 @@ line:
    steps, then the clean guarded run, its step p50 beside phase 7's; K1,
    K2a, K2b 32 a step each on ``sm90``; (b) that run's JSONL: compile,
    step × 5, summary, each step's MFU = model FLOPs / (wall × 989e12)
-   within 1%; (c) that run's final state (16 GB) saved, saved again by
-   ``save_async`` + ``wait``, restored with verification into that state
-   overwritten with NaN (0 for integer leaves): the restored
-   fingerprint equal, the disk's free bytes, the bytes on disk and each
-   step's wall and GB/s printed; (e) the serve CLI on that checkpoint
-   (``--ckpt-dir``, ``--metrics-out``): the restored step printed, its
-   greedy tokens equal to an engine's on the params in memory, K1 and K3
-   on ``sm90``, request records and a summary in the JSONL; (d) the
-   2-layer cut: 4 steps with a checkpoint every 2, the newest corrupted,
-   a resume to step 6: the fallback event names steps 4 and 2, the
-   recomputed losses equal an uninterrupted run's (rtol 1e-6); (f), in
+   within 1%; (e) the serve CLI (``--ckpt-dir``, ``--metrics-out``) on a
+   checkpoint of that run's final params (the subtree the CLI restores,
+   5.3 GB): the restored step printed, its greedy tokens equal to an
+   engine's on the params in memory, K1 and K3 on ``sm90``, request
+   records and a summary in the JSONL; on the 2-layer cut (full width,
+   0.63 B params, 7.5 GB a checkpoint): (c) 4 steps with a checkpoint
+   every 2 (the loop's ``save_async``: each one's host copy and disk
+   write timed), that run's final state overwritten with NaN (0 for
+   integer leaves) and restored with verification from its newest
+   checkpoint: the restored fingerprint equal, the disk's free bytes,
+   the bytes on disk and each wall and GB/s printed; (d) that checkpoint
+   corrupted, a resume to step 6 (its final save synchronous, timed):
+   the fallback event names steps 4 and 2, the recomputed losses equal
+   an uninterrupted 6-step run's (rtol 1e-6); (f), in
    phase 10's spawn of two gloo ranks, the 2-layer cut at (1, 2) without
    and with the guard: the same losses bit for bit, the same tape counts,
    ``train.grads`` 4 bytes larger, no drift between the tape and the
    issued collectives; the guarded run's checkpoint resumed by the
    one-device loop, its next loss within phase 10's layout limit.
+17. usp, the 3D DP×SP×TP layout on four ranks sharing the card over gloo,
+   as 10 (b): (a) the ``HYBRID`` cut of 10 (b) (3 linear + 1 softmax
+   layer, full width) at (dp, sp, tp) = (1, 2, 2) under "ulysses", ZeRO-1
+   over the model pair, 3 steps on b1's params and packed rows: losses
+   within 2e-4 and grad norms within 2^-8 of b1's (1, 2) allgather run;
+   per step the 3D tape budget (the state gathers over the 4 token
+   ranks, Ulysses' 4 all-to-alls over tp, its K/V gathers over sp, one
+   gradient all-reduce, one ZeRO-1 param gather) with no drift between
+   the tape and the collectives issued, K1, K2a, K2b 3 and K4, K5a, K5b
+   1 a step on ``sm90``; step walls, peak memory, the ZeRO-1 group size
+   per rank; (b) ``ulysses_context_attention`` at (1, 2, 2) on
+   starcoder2-15b's softmax heads (48:4 x 128, bf16, causal, B 1, S
+   4096: the GQA packing) and (c) ``windowed_context_attention`` at W 4
+   on ``HYBRID``'s (16 x 128, window 2048, B 1, S 16384) in both halo
+   modes; o, dq, dk, dv of (b) and (c) against ``flash_attention_op``
+   on one device over the whole sequence, each rank its chunk, within
+   the flash bf16 limit plus the ``sm90`` rounding bound (from the plain
+   versions, in query blocks). Every phase's wall is printed
+   (``phase_walls_s``).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
@@ -2024,29 +2048,38 @@ def _tape_counts(records):
     return out
 
 
-def _sp_steps(cfg, run, layout, state, batches):
+def _sp_steps(cfg, run, layout, state, batches, drift=False):
     """The DP×SP step over ``batches``, counters zeroed just before and
     read just after. Returns a dict: the final ``state``, the ``losses``
     and ``gnorms``, each step's ``tapes`` (tape counts), ``launched`` (as
     ``_read`` gives them), ``per_step`` launch lists, step ``walls`` and
-    ``peak`` bytes."""
+    ``peak`` bytes; with ``drift`` also each step's flight-recorder
+    ``drifts``: its tape against the collectives issued to
+    ``torch.distributed``."""
+    from contextlib import nullcontext
+
     from repro_torch.comm import primitives
+    from repro_torch.obs import FlightRecorder
     from repro_torch.train.step import make_train_step
     step = make_train_step(cfg, run, layout)
     counters = _sp_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(*counters)
-    out = {k: [] for k in ("losses", "gnorms", "tapes", "walls")}
+    out = {k: [] for k in ("losses", "gnorms", "tapes", "walls", "drifts")}
     marks = []
     for b in batches:
         t0 = time.perf_counter()
-        with primitives.tape() as rec:
+        with primitives.tape() as rec, \
+                (primitives.issued() if drift else nullcontext()) as sent:
             state, m = step(state, b)
         torch.cuda.synchronize()
         out["walls"].append(time.perf_counter() - t0)
         marks.append(_read(counters, counters))
         out["tapes"].append(_tape_counts(rec))
+        if drift:
+            out["drifts"].append(FlightRecorder(None).on_compile(
+                records=rec, issued=sent).drift)
         out["losses"].append(m["loss"])
         out["gnorms"].append(m["grad_norm"])
         check(not m["skipped"] and np.isfinite(m["loss"]),
@@ -2820,10 +2853,16 @@ SSD_CHUNK_CASES = [("mamba2", torch.bfloat16, 512),
                    ("hymba", torch.bfloat16, 2048),
                    ("hymba", torch.float32, 2048)]
 # The reference's init_cache sizes at 4 slots (max_len 544; mamba2's the
-# same at 4096).
+# same at 4096), for mamba2 at its 64 layers; each layer holds 1/64.
 MAMBA2_CACHE = {"linear_state": 671_170_560, "conv": 8_257_536}
+# Phase 13 serves and trains mamba2 cut to 32 of its 64 layers and hymba
+# to 24 of its 32, at full width, to keep the script inside its time
+# limit (at full depth their serving and training took 75 and 71 s;
+# PERF.md §6). Every layer holds the same cache bytes. Both stay deeper
+# than 16 layers, where the decode check's deep limit starts.
+MAMBA2_LAYERS, HYMBA_LAYERS = 32, 24
 HYMBA_CACHE = {"kv_ring": 89_407_488, "linear_state": 13_120_000,
-               "conv": 1_253_376}
+               "conv": 1_253_376}         # at hymba's 32 layers
 SSM_TRAIN_STEPS = 5
 # At phase 7's 3e-4 both models' fourth step throws the loss up (mamba2
 # 16.18, hymba 20.03), in bf16 and in fp32 on simt alike
@@ -3098,17 +3137,18 @@ def phase_ssm_kernels(kernels: list) -> None:
 
 def phase_ssm(kernels: list, mamba2, hymba) -> None:
     """Phase 13, the SSM family at full width: (a) the kernels at its
-    shapes; (b) mamba2-2.7b (64 layers, bf16) serves phase 4's eight
-    requests by left-padded buckets (K1 64 a prefill batch and K3 64 a
-    decode step, all ``sm90``; cache bytes the reference's) with phase
-    4's decode check; (c) hymba-1.5b (32 layers, globals 0, 8, 16, 24)
-    the same by exact length (K1 32 on ``simt``, K4 32 a prefill batch,
-    K3 32 a decode step), and the decode check again on a 1100-token
-    prompt, past the 1024 window, with rings 1280 long; (d)
-    both train 5 steps as phase 7 (mamba2 under full remat, hymba under
-    ``HYMBA_REMAT``), at ``SSM_TRAIN_LR``; (e) fp32 grad checks of 2
-    layers of each against
-    the host CPU (hymba: its global and a windowed layer, 1280 tokens)."""
+    shapes; (b) mamba2-2.7b (``MAMBA2_LAYERS`` of its 64 layers, bf16)
+    serves phase 4's eight requests by left-padded buckets (K1 and K3 a
+    layer a prefill batch and a decode step, all ``sm90``; cache bytes
+    the reference's, per layer) with phase 4's decode check; (c)
+    hymba-1.5b (``HYMBA_LAYERS`` of its 32 layers, globals 0, 8, 16) the
+    same by exact length (K1 on ``simt``, K4 and K3 a layer a call), and
+    the decode check again on a 1100-token prompt, past the 1024 window,
+    with rings 1280 long; (d) both train 5 steps as phase 7
+    (mamba2 under full remat, hymba under ``HYMBA_REMAT``), at
+    ``SSM_TRAIN_LR``; (e) fp32 grad checks of 2 layers of each against
+    the host CPU (hymba: its global and a windowed layer, 1280
+    tokens)."""
     from repro_torch.models import model as M
     t0 = time.perf_counter()
     walls = {}
@@ -3120,20 +3160,22 @@ def phase_ssm(kernels: list, mamba2, hymba) -> None:
     phase_ssm_kernels(kernels)
     part("a")
     _free()
-    params = phase_serve(kernels, mamba2, "mamba2_serve",
-                         want_cache=MAMBA2_CACHE)
+    mamba2 = dataclasses.replace(mamba2, n_layers=MAMBA2_LAYERS)
+    params = phase_serve(kernels, mamba2, "mamba2_serve", want_cache={
+        k: v * MAMBA2_LAYERS // 64 for k, v in MAMBA2_CACHE.items()})
     phase_profile(mamba2, params, "mamba2_serve", 4, 512, [0, 40, 100, 200])
     del params
     _free()
     part("b")
+    hymba = dataclasses.replace(hymba, n_layers=HYMBA_LAYERS)
     flags = M.hymba_global_flags(hymba)
     global_layers = [i for i, f in enumerate(flags) if f]
-    check(global_layers == [0, 8, 16, 24],
+    check(global_layers == [0, 8, 16],
           f"hymba global layers {global_layers}")
     log("hymba_serve", global_layers=global_layers,
         window=hymba.pattern[1].sliding_window)
-    params = phase_serve(kernels, hymba, "hymba_serve",
-                         want_cache=HYMBA_CACHE)
+    params = phase_serve(kernels, hymba, "hymba_serve", want_cache={
+        k: v * HYMBA_LAYERS // 32 for k, v in HYMBA_CACHE.items()})
     phase_profile(hymba, params, "hymba_serve", 1, 300, None)
     # past the 1024 window: the windowed layers trim, the global ones not
     rng = np.random.default_rng(1)
@@ -3876,29 +3918,55 @@ def _du(path) -> int:
                if f.is_file())
 
 
-def _rt_ckpt_io(state, ckpt_dir):
-    """(c) A full-width, full-depth state: one synchronous save, one
-    ``save_async`` + ``wait``, one verified restore into the state itself,
-    every leaf of which is first overwritten (NaN, or 0 for integer
-    leaves); the restored state's fingerprint equals the saved one's."""
+class _CkptTimes:
+    """Within the block, time every checkpoint write
+    (``CheckpointManager._write``: the arrays to disk with their
+    checksums, on whichever thread runs it) and every device-to-host copy
+    of a tree to save (``manager._host_tree``): ``calls`` holds
+    ``(what, step or None, wall s)`` in the order they end."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager
+        self.manager, self.calls = manager, []
+        self.write, self.host = manager.CheckpointManager._write, \
+            manager._host_tree
+
+        def write(mgr, step, *args):
+            t0 = time.perf_counter()
+            out = self.write(mgr, step, *args)
+            self.calls.append(("write", step, time.perf_counter() - t0))
+            return out
+
+        def host(tree):
+            t0 = time.perf_counter()
+            out = self.host(tree)
+            self.calls.append(("host_copy", None, time.perf_counter() - t0))
+            return out
+
+        manager.CheckpointManager._write, manager._host_tree = write, host
+        return self
+
+    def __exit__(self, *exc):
+        self.manager.CheckpointManager._write = self.write
+        self.manager._host_tree = self.host
+
+
+def _rt_ckpt_io(state, ckpt_dir, calls):
+    """(c) A train state (the 2-layer cut's, full width) and the
+    checkpoint of it that ``train()`` wrote with ``save_async`` (the
+    loop's periodic save; ``calls``: ``_CkptTimes``' record of that run):
+    each asynchronous save's host copy and disk write, then one verified
+    restore into the state itself, every leaf of which is first
+    overwritten (NaN, or 0 for integer leaves); the restored state's
+    fingerprint equals the one the state had."""
     import shutil
 
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.core.tree import leaves_with_paths
-    mgr = CheckpointManager(ckpt_dir, keep=1)
-    free = shutil.disk_usage(ckpt_dir).free
-    want = _fingerprint(state)
+    mgr = CheckpointManager(ckpt_dir)
     step = int(state["step"])
-    t0 = time.perf_counter()
-    mgr.save(step, state)
-    save_s = time.perf_counter() - t0
-    nbytes = _du(ckpt_dir)
-    shutil.rmtree(Path(ckpt_dir) / f"step_{step:08d}")
-    t0 = time.perf_counter()
-    mgr.save_async(step + 1, state)
-    copy_s = time.perf_counter() - t0
-    mgr.wait()
-    async_s = time.perf_counter() - t0
+    nbytes = _du(Path(ckpt_dir) / f"step_{step:08d}")
+    want = _fingerprint(state)
     with torch.no_grad():
         for _, t in leaves_with_paths(state):
             if isinstance(t, torch.Tensor):
@@ -3906,38 +3974,48 @@ def _rt_ckpt_io(state, ckpt_dir):
     clobbered = _fingerprint(state) != want
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = mgr.restore(step + 1, state)
+    state = mgr.restore(step, state)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     same = _fingerprint(state) == want
-    gbs = lambda s: f"{nbytes / s / 1e9:.3f}"
-    log("runtime_ckpt_io", state_leaves=len(want),
-        disk_free_before_gb=f"{free / 1e9:.1f}",
-        bytes_on_disk=nbytes, save_s=f"{save_s:.2f}", save_gb_per_s=gbs(save_s),
-        save_async_host_copy_s=f"{copy_s:.2f}",
-        save_async_wait_total_s=f"{async_s:.2f}",
-        save_async_gb_per_s=gbs(async_s), restore_verified_s=f"{restore_s:.2f}",
+    writes = [(st, w) for what, st, w in calls if what == "write"]
+    copies = [w for what, _, w in calls if what == "host_copy"]
+    gbs = lambda sec: f"{nbytes / sec / 1e9:.3f}"
+    log("runtime_ckpt_io", state_leaves=len(want), step=step,
+        disk_free_gb=f"{shutil.disk_usage(ckpt_dir).free / 1e9:.1f}",
+        bytes_on_disk=nbytes,
+        save_async_host_copy_s=repr([round(w, 2) for w in copies]),
+        save_async_write_s_by_step=repr({st: round(w, 2)
+                                         for st, w in writes}),
+        save_async_write_gb_per_s=repr([gbs(w) for _, w in writes]),
+        restore_verified_s=f"{restore_s:.2f}",
         restore_gb_per_s=gbs(restore_s),
         overwritten_before_restore=clobbered, restored_equals_saved=same,
         ckpt_dir_fs=repr(str(ckpt_dir)))
     check(clobbered, "overwriting the state left its fingerprint as saved")
     check(same, "the restored state's fingerprint differs from the saved")
-    check(mgr.all_steps() == [step + 1], f"steps {mgr.all_steps()}")
-    return state, step + 1
+    check([st for st, _ in writes] == list(range(
+        RT_CUT_EVERY, step + 1, RT_CUT_EVERY)),
+        f"the loop wrote steps {writes}")
 
 
 def _rt_serve(kernels, cfg, params, ckpt_dir, step, jsonl):
-    """(e) The serve CLI on (c)'s checkpoint: its greedy tokens equal those
-    of an engine on (a)'s final params in memory, K1 and K3 on sm90, and
-    its JSONL holds the request records and the summary."""
+    """(e) The serve CLI on a checkpoint of (a)'s final params (the
+    ``{"params": ...}`` subtree the CLI restores, saved here): its greedy
+    tokens equal those of an engine on those params in memory, K1 and K3
+    on sm90, and its JSONL holds the request records and the summary."""
     import contextlib
     import io
 
+    from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
     from repro_torch.launch import serve
     from repro_torch.obs import read_jsonl
     from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    CheckpointManager(ckpt_dir, keep=1).save(step, {"params": params})
+    save_s = time.perf_counter() - t0
     counters = (lasp2_chunk_fwd, lasp2_decode_step)
     _zero(*counters)
     out = io.StringIO()
@@ -3972,6 +4050,7 @@ def _rt_serve(kernels, cfg, params, ckpt_dir, step, jsonl):
         requests=len(results), tokens_equal_engine_on_memory_params=same,
         k1=k1, k1_sm90=k1_sm90, k3=k3, k3_sm90=k3_sm90,
         jsonl_kinds=repr({k: kinds.count(k) for k in set(kinds)}),
+        params_ckpt_bytes=_du(ckpt_dir), params_save_s=f"{save_s:.2f}",
         wall_s=f"{wall:.2f}")
     check(f"[serve] restored params from step {step}" in text,
           f"the CLI did not restore step {step}: {text}")
@@ -3983,22 +4062,28 @@ def _rt_serve(kernels, cfg, params, ckpt_dir, step, jsonl):
 
 
 def _rt_resume(cfg, run, data, ckpt_dir, jsonl):
-    """(d) 2 layers at full width: 4 steps with a checkpoint every 2, the
-    newest corrupted, a resume to step 6 with a sink (writing only its
-    final checkpoint): the fallback event names the bad and the restored
-    step, the recomputed losses equal an uninterrupted run's."""
+    """(c) and (d), 2 layers at full width: 4 steps with a checkpoint
+    every 2 (the loop's asynchronous saves), (c) on that run's final state
+    and newest checkpoint, then (d): the newest checkpoint corrupted, a
+    resume to step 6 with a sink (its one write: the final, synchronous
+    save): the fallback event names the bad and the restored step, the
+    recomputed losses equal an uninterrupted run's."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.obs import JsonlSink, read_jsonl
     from repro_torch.resilience import chaos
     _, full, _, _, _ = _rt_train(cfg, run, data, max_steps=RT_CUT_TOTAL)
     _free()
-    _rt_train(cfg, run, data, ckpt_dir=ckpt_dir, ckpt_every=RT_CUT_EVERY,
-              max_steps=RT_CUT_STEPS)
-    _free()
+    with _CkptTimes() as io:
+        state, _, _, _, _ = _rt_train(cfg, run, data, ckpt_dir=ckpt_dir,
+                                      ckpt_every=RT_CUT_EVERY,
+                                      max_steps=RT_CUT_STEPS)
     steps_before = CheckpointManager(ckpt_dir).all_steps()
+    _rt_ckpt_io(state, ckpt_dir, io.calls)
+    del state
+    _free()
     chaos.corrupt_checkpoint(ckpt_dir)
     t0 = time.perf_counter()
-    with JsonlSink(jsonl) as sink:        # its one write: the final save
+    with _CkptTimes() as io, JsonlSink(jsonl) as sink:
         state, hist, _, _, _ = _rt_train(
             cfg, run, data, sink=sink, ckpt_dir=ckpt_dir,
             ckpt_every=10 ** 9, max_steps=RT_CUT_TOTAL)
@@ -4011,12 +4096,17 @@ def _rt_resume(cfg, run, data, ckpt_dir, jsonl):
     want = {h["step"]: h["loss"] for h in full}
     steps = sorted(got)
     err = max(_rel_errs([got[s] for s in steps], [want[s] for s in steps]))
+    writes = [(st, w) for what, st, w in io.calls if what == "write"]
+    nbytes = _du(Path(ckpt_dir) / f"step_{RT_CUT_TOTAL:08d}")
     log("runtime_resume", arch=cfg.name, layers=cfg.n_layers,
         params=cfg.param_count(), ckpt_steps_before_corruption=steps_before,
         fallback=repr([{k: r[k] for k in ("bad_step", "restored_step",
                                           "error")} for r in fallback]),
         recomputed_steps=steps, max_rel_err_vs_uninterrupted=f"{err:.3e}",
         rtol=RT_RTOL, ckpt_bytes_on_disk=_du(ckpt_dir),
+        final_save_sync_write_s=repr({st: round(w, 2) for st, w in writes}),
+        final_save_gb_per_s=repr([f"{nbytes / w / 1e9:.3f}"
+                                  for _, w in writes]),
         resume_run_wall_s=f"{wall:.2f}")
     check(len(fallback) == 1 and fallback[0]["bad_step"] == RT_CUT_STEPS
           and fallback[0]["restored_step"] == RT_CUT_EVERY,
@@ -4024,15 +4114,18 @@ def _rt_resume(cfg, run, data, ckpt_dir, jsonl):
     check(steps == list(range(RT_CUT_EVERY, RT_CUT_TOTAL)),
           f"recomputed steps {steps}")
     check(err <= RT_RTOL, f"resumed losses {got} vs {want}")
+    check([st for st, _ in writes] == [RT_CUT_TOTAL],
+          f"the resume wrote steps {writes}")
 
 
 def phase_runtime(kernels: list, cfg, train_hist) -> None:
     """Phase 16: (a) the guard at full width and depth through ``train()``
     (phase 7's ``RunConfig`` and data, 5 steps): a NaN run, a forced-skip
     run, a consecutive-skip abort, then the clean guarded run; (b) its
-    JSONL; (c) checkpoint I/O of its final state; (e) the serve CLI on
-    that checkpoint; (d) resume and fallback on the 2-layer cut. (f), the
-    guarded cell at (1, 2), runs in phase 10's spawn."""
+    JSONL; (e) the serve CLI on a checkpoint of its final params; (c)
+    checkpoint I/O and (d) resume and fallback, both on the 2-layer cut
+    and its checkpoints. (f), the guarded cell at (1, 2), runs in phase
+    10's spawn."""
     import shutil
     import tempfile
     run, data = train_setup(cfg, TRAIN_STEPS, 3e-4)
@@ -4047,12 +4140,10 @@ def phase_runtime(kernels: list, cfg, train_hist) -> None:
     try:
         state, _ = _rt_guard(kernels, cfg, run, data, train_hist,
                              str(tmp / "train.jsonl"))
-        lap("ab")
-        state, step = _rt_ckpt_io(state, str(tmp / "ckpt"))
-        params = state["params"]
+        params, step = state["params"], int(state["step"])
         del state
         _free()
-        lap("c")
+        lap("ab")
         _rt_serve(kernels, cfg, params, str(tmp / "ckpt"), step,
                   str(tmp / "serve.jsonl"))
         del params
@@ -4061,11 +4152,237 @@ def phase_runtime(kernels: list, cfg, train_hist) -> None:
         lap("e")
         _rt_resume(dataclasses.replace(cfg, n_layers=RT_CUT_LAYERS), run,
                    data, str(tmp / "cut"), str(tmp / "resume.jsonl"))
-        lap("d")
+        lap("cd")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("runtime", wall_s=f"{sum(walls.values()):.1f}",
         part_walls_s=repr(walls))
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the 3D DP×SP×TP layout on four ranks sharing the card.
+# ---------------------------------------------------------------------------
+
+USP_DIMS = (1, 2, 2)          # (dp, sp, tp): 4 gloo ranks on the one card
+USP_GQA = (48, 4, 4096)       # (b) starcoder2-15b's softmax heads: hq, hkv, S
+USP_HALO = (16, 16384, 2048)  # (c) HYBRID's softmax heads: h, S, window
+USP_BLOCK = 512               # query rows a block of the plain references
+
+
+def _flash_bound_blocked(q, k, v, do, window=None):
+    """The ``sm90`` route's rounding bound of o, dq, dk and dv
+    (``sm90_rounding_bound``, from the plain forward's lse and delta in
+    fp32) over the whole sequence, causal (with ``window``), a block of
+    USP_BLOCK queries at a time against only the keys the block can attend
+    (a block's scores stay small); a key's bound is summed over the
+    blocks, as its gradient is."""
+    from repro_torch.kernels import flash_attention as fl
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    bound = [torch.zeros_like(q), torch.zeros_like(q), torch.zeros_like(k),
+             torch.zeros_like(v)]
+    for a in range(0, q.shape[2], USP_BLOCK):
+        b = min(a + USP_BLOCK, q.shape[2])
+        lo = 0 if window is None else max(a - window + 1, 0)
+        kw = dict(causal=True, window=window, q_offset=a - lo)
+        qb, dob, kb, vb = q[:, :, a:b], do[:, :, a:b], k[:, :, lo:b], \
+            v[:, :, lo:b]
+        ob, lse = fl.flash_attention_fwd_plain(qb, kb, vb, **kw)
+        ext = fl.sm90_rounding_bound(qb, kb, vb, dob, lse,
+                                     (dob * ob).sum(-1), **kw)
+        for i, e in enumerate(ext):
+            bound[i][:, :, slice(a, b) if i < 2 else slice(lo, b)] += e
+    return bound
+
+
+def _usp_flash_case(rank, name, fn, xs, dout, chunk, window=None):
+    """``fn`` (the sharded attention) on this rank's chunks of ``xs``
+    forward and backward against ``flash_attention_op`` on one device over
+    the whole sequence (each rank its own chunk of o, dq, dk, dv): the
+    same kernels, so they part only where the split sums a key's
+    gradient in another order (in bf16 across ranks); within the flash
+    bf16 limit plus the ``sm90`` rounding bound. (Both take delta from
+    the kernel's bf16 o, as the reference's backward does; fp32 plain
+    versions with their own delta are not the reference for that path:
+    PERF.md §7.) Returns the sharded call's launches."""
+    from repro_torch.kernels import ops
+    counters = _sp_counters()
+    _zero(*counters)
+    t0 = time.perf_counter()
+    got = _fwd_bwd(fn, [chunk(x) for x in xs], chunk(dout).float())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read(counters, counters)
+    want = _fwd_bwd(lambda a, b, c: ops.flash_attention_op(
+        a, b, c, causal=True, sliding_window=window), xs, dout.float())
+    bound = _flash_bound_blocked(*xs, dout, window)
+    errs, oks = [], []
+    for g, w, e in zip(got, want, bound):
+        err, ok = max_err_bf16(g, chunk(w), chunk(e))
+        errs.append(err)
+        oks.append(ok)
+    n = len(counters)
+    log("usp", rank=rank, case=name, max_abs_err_o_dq_dk_dv=repr(
+        [f"{e:.3e}" for e in errs]), tol=SM90_LIMIT,
+        vs="flash_attention_op on one device, the whole sequence",
+        launches_k1_k2a_k2b_k4_k5a_k5b_routed=repr(launched),
+        fwd_bwd_wall_ms_gloo_host_transport=f"{wall * 1e3:.1f}")
+    check(all(oks), f"phase 17 rank {rank}: {name} off the flash limit: "
+          f"{errs}")
+    check(all(launched[n + 2 * i] == launched[i] > 0 for i in (3, 4, 5))
+          and not any(launched[n + 1::2]),
+          f"phase 17 rank {rank}: {name} launches {launched}; want K4, "
+          f"K5a, K5b on sm90 only")
+    return launched
+
+
+def _usp_step(rank, cfg, layout, base):
+    """(a) SP_STEPS steps of ``cfg`` at (1, 2, 2) under "ulysses" on phase
+    10 b1's params and packed rows: losses and grad norms against b1's
+    (1, 2) allgather run; the tape per step the 3D budget with no drift;
+    K1, K2a, K2b per linear and K4, K5a, K5b per softmax layer a step on
+    sm90."""
+    from repro_torch.train.step import state_from_params, zero1_degree
+    run = _sp_run(comm_strategy="ulysses")
+    zero1 = zero1_degree(run, layout)
+    res = _sp_steps(cfg, run, layout,
+                    state_from_params(_sp_params(cfg), zero1),
+                    _sp_batches(cfg, True), drift=True)
+    del res["state"]
+    n_lin, n_soft = _mixer_counts(cfg)
+    want = _want_launches(n_lin, n_lin, n_soft)      # autodiff backwards
+    check(all(n == want for n in res["per_step"]),
+          f"usp_a rank {rank}: launches per step {res['per_step']}; want "
+          f"{want}")
+    want_tape = {"all-gather lasp2.states": n_lin,
+                 "reduce-scatter lasp2.states.bwd": n_lin,
+                 "all-reduce train.grads": 1,
+                 "all-gather zero1.param_gather": 1}
+    for t in ("in", "out", "in.bwd", "out.bwd"):
+        want_tape[f"all-to-all ulysses.{t}"] = n_soft
+    for t in ("k", "v"):
+        want_tape[f"all-gather ulysses.{t}"] = n_soft
+        want_tape[f"reduce-scatter ulysses.{t}.bwd"] = n_soft
+    for tape in res["tapes"]:
+        check({k: v[0] for k, v in tape.items()} == want_tape,
+              f"usp_a rank {rank}: tape {tape}; want counts {want_tape}")
+    check(all(d == [] for d in res["drifts"]),
+          f"usp_a rank {rank}: drift {res['drifts']}")
+    e_loss = max(_rel_errs(res["losses"], base["losses"]))
+    e_gnorm = max(_rel_errs(res["gnorms"], base["gnorms"]))
+    c = SP_SEQ // layout.tokens
+    log("usp_a", rank=rank, arch=cfg.name, layers=cfg.n_layers,
+        linear=n_lin, softmax=n_soft, dp_sp_tp=repr(USP_DIMS),
+        strategy="ulysses", rows_x_chunk=f"{SP_ROWS}x{c}",
+        zero1_group_size=zero1,
+        losses=repr([round(x, 6) for x in res["losses"]]),
+        b1_dp1sp2_allgather_losses=repr([round(x, 6)
+                                         for x in base["losses"]]),
+        max_rel_err_loss=f"{e_loss:.3e}", tol_loss=TOL_SP_LAYOUT,
+        grad_norms=repr([round(x, 6) for x in res["gnorms"]]),
+        max_rel_err_grad_norm=f"{e_gnorm:.3e}", tol_grad_norm=TOL_SP_GNORM,
+        launches_per_step_k1_k2a_k2b_k4_k5a_k5b_routed=repr(
+            res["per_step"][0]),
+        tape_per_step=repr(res["tapes"][0]).replace(" ", ""),
+        tape_bytes_per_step=sum(n * b for n, b in res["tapes"][0].values()),
+        drift=res["drifts"][0], transport="gloo (host-staged)",
+        step_wall_ms=repr([round(w * 1e3, 1) for w in res["walls"]]),
+        max_memory_allocated_gb=f"{res['peak'] / 1e9:.2f}")
+    check(e_loss <= TOL_SP_LAYOUT, f"usp_a rank {rank}: losses "
+          f"{res['losses']} vs b1 {base['losses']}")
+    check(e_gnorm <= TOL_SP_GNORM, f"usp_a rank {rank}: grad norms "
+          f"{res['gnorms']} vs b1 {base['gnorms']}")
+    return res["launched"]
+
+
+def _usp_rank(rank, world, device, hybrid_cut, base):
+    """Phase 17 on one of four ranks sharing the card over gloo: (a) the
+    3D step, (b) Ulysses' GQA packing at 48:4, (c) the halo attention in
+    both modes."""
+    import torch.distributed as dist
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.core.lasp2h import (ulysses_context_attention,
+                                         windowed_context_attention)
+    from repro_torch.launch.mesh import make_training_groups
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layout = make_training_groups(*USP_DIMS)
+    walls, out = {}, {}
+    t0 = time.perf_counter()
+    out["a"] = _usp_step(rank, hybrid_cut, layout, base)
+    _free()
+    walls["a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    hq, hkv, s = USP_GQA
+    xs = _flash_inputs(gen, 1, hq, hkv, s, s, 128, torch.bfloat16)
+    sp = SPConfig(layout.sp_group, comm=CommSpec("ulysses"),
+                  tp_group=layout.tp_group, seq_group=layout.seq_group)
+    c = s // layout.tokens
+    t = layout.chunk_index
+    out["b"] = _usp_flash_case(
+        rank, "b_gqa_48_4", lambda a, b_, v: ulysses_context_attention(
+            a, b_, v, sp=sp), xs[:3], xs[3],
+        lambda x: x[:, :, t * c:(t + 1) * c])
+    del xs
+    _free()
+    walls["b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    h, s, window = USP_HALO
+    xs = _flash_inputs(gen, 1, h, h, s, s, 128, torch.bfloat16)
+    spw = SPConfig(dist.group.WORLD)
+    c = s // world
+    for mode in ("ppermute", "gather"):
+        out[f"c_{mode}"] = _usp_flash_case(
+            rank, f"c_halo_{mode}", lambda a, b_, v, m=mode:
+            windowed_context_attention(a, b_, v, window, sp=spw,
+                                       halo_mode=m), xs[:3], xs[3],
+            lambda x: x[:, :, rank * c:(rank + 1) * c], window)
+    del xs
+    _free()
+    walls["c"] = round(time.perf_counter() - t0, 1)
+    log("usp_rank", rank=rank, part_walls_s=repr(walls))
+    return out
+
+
+def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
+    """Phase 17 on four ranks sharing the card over gloo (NCCL refuses two
+    ranks on one device): (a) the ``HYBRID`` cut of phase 10 at (dp, sp,
+    tp) = (1, 2, 2) under "ulysses", 3 steps on b1's params and packed
+    rows, against b1's (1, 2) allgather run; (b)
+    ``ulysses_context_attention`` at (1, 2, 2) on starcoder2-15b's softmax
+    heads (48:4 x 128, bf16, causal, B 1, S 4096): the GQA packing; (c)
+    ``windowed_context_attention`` at W 4 on ``HYBRID``'s softmax heads
+    (16 x 128, window 2048, B 1, S 16384) in both halo modes; (b) and (c)
+    against ``flash_attention_op`` on one device over the whole
+    sequence."""
+    import os
+
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    base = {k: sp_ranks[0]["b1"][k] for k in ("losses", "gnorms")}
+    # Four caching allocators share the card's 80 GB (about 15 GB a rank
+    # in use at the backward's peak): expandable segments keep what each
+    # holds reserved but free small. The ranks read it when they start.
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(
+            _usp_rank, USP_DIMS[0] * USP_DIMS[1] * USP_DIMS[2],
+            backend="gloo", device="cuda",
+            args=(dataclasses.replace(hybrid, n_layers=SP_LAYERS), base),
+            timeout_s=600)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    for rank, res in enumerate(ranks):
+        for cell, launched in res.items():
+            _count_routed(kernels, _sp_counters(), _sp_counters(), launched,
+                          f"usp_{cell}_rank{rank}")
+    log("usp", ranks=len(ranks), dp_sp_tp=repr(USP_DIMS),
+        transport="gloo (host-staged)",
+        wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:
@@ -4084,44 +4401,51 @@ def main() -> int:
     elu1 = dataclasses.replace(linear, name=linear.name + "-elu1",
                                linear_attn=LinearAttnConfig("elu1", "none",
                                                             "faithful"))
-    smi = phase_facts()
-    phase_build()
-    kernels = phase_kernels()
-    kernels += phase_decode()
-    kernels += phase_bwd_kernels(kernels)
-    kernels += phase_flash_kernels()
-    params = phase_serve(kernels, linear, "serve")
-    phase_profile(linear, params, "serve", 4, 512, [0, 40, 100, 200])
-    del params
-    _free()
-    params = phase_serve(kernels, hybrid, "hybrid_serve")
-    phase_profile(hybrid, params, "hybrid_serve", 1, 300, None)
-    del params
-    _free()
-    train_hist = phase_train(kernels, linear, "train")
-    _free()
-    phase_train(kernels, hybrid, "hybrid_train")
-    _free()
-    phase_grad_check(kernels, dataclasses.replace(linear, n_layers=2,
-                                                  dtype="float32"),
-                     "gradcheck")
-    phase_grad_check(kernels, dataclasses.replace(hybrid, n_layers=4,
-                                                  dtype="float32"),
-                     "hybrid_gradcheck")
-    _free()
-    sp_ranks = phase_sp(kernels, linear, hybrid, gla, train_hist)
-    _free()
-    phase_strategies(kernels, linear, hybrid, sp_ranks)
-    _free()
-    phase_variants(kernels, gla, elu1, dense)
-    _free()
-    phase_ssm(kernels, get_config("mamba2-2.7b"), get_config("hymba-1.5b"))
-    _free()
-    phase_zoo(kernels)
-    _free()
-    phase_cross(kernels)
-    _free()
-    phase_runtime(kernels, linear, train_hist)
+    walls, start = {}, time.perf_counter()
+
+    def timed(n, fn, *args):
+        """Phase ``n``: ``fn(*args)``, its wall kept, the device freed."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[n] = round(time.perf_counter() - t0, 1)
+        _free()
+        return out
+
+    smi = timed(1, phase_facts)
+    timed(2, phase_build)
+
+    def kernel_phases():
+        kernels = phase_kernels()
+        kernels += phase_decode()
+        kernels += phase_bwd_kernels(kernels)
+        return kernels + phase_flash_kernels()
+
+    kernels = timed(3, kernel_phases)
+
+    def serve(cfg, path, rows, length, steps):
+        params = phase_serve(kernels, cfg, path)
+        phase_profile(cfg, params, path, rows, length, steps)
+
+    timed(4, serve, linear, "serve", 4, 512, [0, 40, 100, 200])
+    timed(6, serve, hybrid, "hybrid_serve", 1, 300, None)
+    train_hist = timed(7, phase_train, kernels, linear, "train")
+    timed(8, phase_train, kernels, hybrid, "hybrid_train")
+    timed(9, lambda: (
+        phase_grad_check(kernels, dataclasses.replace(
+            linear, n_layers=2, dtype="float32"), "gradcheck"),
+        phase_grad_check(kernels, dataclasses.replace(
+            hybrid, n_layers=4, dtype="float32"), "hybrid_gradcheck")))
+    sp_ranks = timed(10, phase_sp, kernels, linear, hybrid, gla, train_hist)
+    timed(11, phase_strategies, kernels, linear, hybrid, sp_ranks)
+    timed(12, phase_variants, kernels, gla, elu1, dense)
+    timed(13, phase_ssm, kernels, get_config("mamba2-2.7b"),
+          get_config("hymba-1.5b"))
+    timed(14, phase_zoo, kernels)
+    timed(15, phase_cross, kernels)
+    timed(16, phase_runtime, kernels, linear, train_hist)
+    timed(17, phase_usp, kernels, hybrid, sp_ranks)
+    log("walls", phase_walls_s=repr(walls).replace(" ", ""),
+        total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -376,14 +376,15 @@ class CheckpointManager:
 # ---------------------------------------------------------------------------
 
 def _sharded_opt(state, layout) -> bool:
-    return (layout is not None and layout.dp > 1
+    return (layout is not None and layout.zero_degree > 1
             and isinstance(state.get("opt"), Zero1AdamState))
 
 
 def gather_zero1(state, layout):
     """The train state as a checkpoint holds it: under a layout with ZeRO-1
-    the data ranks' moment slices are gathered into the full padded flat
-    ``m`` and ``v`` (one all-gather each over the data group, tag
+    the zero group's moment slices (the dp·tp ranks of this sequence
+    index, the data group at tp 1) are gathered into the full padded flat
+    ``m`` and ``v`` (one all-gather each over the zero group, tag
     ``ckpt.zero1_gather``; every rank must call this); otherwise
     ``state`` itself."""
     if not _sharded_opt(state, layout):
@@ -391,15 +392,16 @@ def gather_zero1(state, layout):
     opt = state["opt"]
     with torch.no_grad():
         full = [primitives.allgather_states(
-            x, layout.dp_group, gather_axis=0, tiled=True,
+            x, layout.zero_group, gather_axis=0, tiled=True,
             tag="ckpt.zero1_gather") for x in (opt.m, opt.v)]
     return {**state, "opt": Zero1AdamState(full[0], full[1], opt.count)}
 
 
 def zero1_shards(state, layout) -> Dict[str, Tuple[int, int]]:
-    """``restore``'s ``shards`` for this rank under ``layout``: its data
-    index's slice of the stored flat moments under ZeRO-1, else none."""
+    """``restore``'s ``shards`` for this rank under ``layout``: its zero
+    index's slice (``d·tp + m`` of dp·tp) of the stored flat moments under
+    ZeRO-1, else none."""
     if not _sharded_opt(state, layout):
         return {}
-    return {path: (layout.data_index, layout.dp)
+    return {path: (layout.zero_index, layout.zero_degree)
             for path in ("opt/m", "opt/v")}

@@ -227,8 +227,8 @@ class ShapeConfig:
 @dataclass(frozen=True)
 class RunConfig:
     """Per-run knobs of the train step (the fields of the reference's
-    ``RunConfig`` the port's steps read; its compression and
-    compiled-step fields are not ported)."""
+    ``RunConfig`` the port's steps read; its compiled-step fields are not
+    ported)."""
 
     num_microbatches: int = 1        # gradient accumulation steps
     remat: str = "full"              # full | none
@@ -246,7 +246,7 @@ class RunConfig:
     # overlap with the intra-chunk kernel, and the wire dtype of the state
     # and K/V exchanges (bf16 halves their bytes; combines stay fp32);
     # ``comm_spec()`` folds them into one validated ``CommSpec``. The
-    # DP×SP layout itself is ``launch.mesh.TrainingGroups``.
+    # layout the step runs is ``launch.mesh.TrainingGroups``.
     comm_strategy: str = "allgather"   # allgather | ring | pipelined | ulysses
     comm_overlap: str = "overlap"    # overlap | none (A/B baseline)
     comm_dtype: str = "fp32"         # fp32 | bf16
@@ -267,6 +267,17 @@ class RunConfig:
     # (read by the guard's verdict, as in the reference).
     chaos_nan_steps: Tuple[int, ...] = ()
     chaos_skip_steps: Tuple[int, ...] = ()
+    # The reference's cross-pod int8 error-feedback gradient sync. It acts
+    # only on a mesh with a "pod" axis, which the port has no twin of: on
+    # one device the flag is accepted and inert, and the DP×SP(×TP) step
+    # refuses it, as the reference's manual step does.
+    grad_compression: bool = False
+    # The DP×SP×TP degrees the train CLI was given (0 = unset; tp_degree 0
+    # means 1). The step reads the layout (``TrainingGroups``), which the
+    # CLI builds from these.
+    dp_degree: int = 0
+    sp_degree: int = 0
+    tp_degree: int = 0
 
     def __post_init__(self):
         self.comm_spec()                 # bad comm knobs fail on any layout
@@ -279,6 +290,10 @@ class RunConfig:
         if self.guard_max_consecutive_skips < 1:
             raise ValueError(f"guard_max_consecutive_skips must be >= 1, "
                              f"got {self.guard_max_consecutive_skips}")
+        for name in ("dp_degree", "sp_degree", "tp_degree"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0 (0 = unset), got "
+                                 f"{getattr(self, name)}")
         for name in ("chaos_nan_steps", "chaos_skip_steps"):
             steps = getattr(self, name)
             if not isinstance(steps, tuple) or not all(

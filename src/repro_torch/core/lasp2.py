@@ -55,10 +55,20 @@ class SPConfig:
     process group of the ranks that share one row's sequence, in chunk
     order. ``comm`` is the exchange strategy, the order of the exchange
     and the intra-chunk kernel, and the wire dtype, validated as one
-    value (``comm.spec.CommSpec``)."""
+    value (``comm.spec.CommSpec``).
+
+    On a 3D layout (``launch.mesh.TrainingGroups`` with tp > 1) ``group``
+    is the token group, the sp·tp ranks over which tokens split
+    sequence-major (rank ``s·tp + m`` holds chunk ``s·tp + m``): every
+    linear layer's state exchange and the K/V all-gather span it.
+    ``tp_group`` is Ulysses' head-parallel group (the tp ranks of this
+    sequence index) and ``seq_group`` the residual sequence group (the sp
+    ranks of this model index); both are None on 2D layouts."""
 
     group: Any
     comm: CommSpec = field(default_factory=CommSpec)
+    tp_group: Any = None
+    seq_group: Any = None
 
     @property
     def degree(self) -> int:
@@ -248,7 +258,8 @@ def lasp2(q, k, v, log_a=None, *, sp: SPConfig = None, causal: bool = True,
     (its all-to-alls are the softmax layers'); the faithful backward is
     the all-gather's Alg. 4, so any other strategy differentiates by
     autodiff (each hop's backward is a hop); "ring" and "pipelined" are
-    causal only.
+    causal only, and span one sequence group: on a 3D split (``sp.tp_group``
+    set) they raise, as the reference's do.
     """
     if backward not in ("faithful", "autodiff"):
         raise ValueError(f"backward must be 'faithful' or 'autodiff', got "
@@ -262,6 +273,11 @@ def lasp2(q, k, v, log_a=None, *, sp: SPConfig = None, causal: bool = True,
             k, v, None, block_size=pick_block(q.shape[-2], block_size))
         return (q.float() @ m_tot).to(q.dtype)
     if sp.comm.strategy not in ("allgather", "ulysses"):
+        if sp.tp_group is not None:
+            raise ValueError(
+                f"comm_strategy={sp.comm.strategy!r} does not support the "
+                f"combined (sequence, model) exchange of a 3D mesh — use "
+                f"'allgather' or 'ulysses'")
         if not causal:
             raise ValueError(
                 f"comm strategy {sp.comm.strategy!r} is causal-only; the "

@@ -5,11 +5,13 @@ mask, the decode-time attention of one token against a ring-buffer KV
 cache (both plain tensor code, as the reference computes them in XLA),
 the AllGather context attention of paper Alg. 7, the softmax layers'
 sequence parallelism, and its DeepSpeed-Ulysses alternative (two
-all-to-alls around full-sequence attention on a subset of the heads).
-Also the one-device form of the sharded decode attention the
-cross-attention layers read their memory cache with. The 3D (USP) form
-of Ulysses, the windowed halo exchange and the sharded decode merge are
-not ported (ROADMAP M8, M10: serving under SP).
+all-to-alls around full-sequence attention on a subset of the heads),
+in its 2D form and in the 3D (USP) form of a DP×SP×TP layout; the
+sliding-window attention whose sequence is split over ranks by a halo
+exchange (``windowed_context_attention``). Also the one-device form of
+the sharded decode attention the cross-attention layers read their
+memory cache with. The sharded decode merge is not ported (ROADMAP item
+7, M10: serving under SP).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.comm import primitives
 from repro_torch.kernels import ops
@@ -62,6 +65,15 @@ def _narrow(x, comm_dtype):
     return x.to(wire) if wire.itemsize < x.element_size() else x
 
 
+def _gather_seq(x, group, tag, comm_dtype):
+    """All-gather ``x`` (B, H, C, dh) along the sequence over ``group``
+    (tag ``tag``), narrowed to ``comm_dtype`` on the wire and upcast back
+    on arrival; the backward is the mirrored reduce-scatter."""
+    return primitives.upcast_gathered(primitives.allgather_states(
+        _narrow(x, comm_dtype), group, gather_axis=2, tiled=True, tag=tag),
+        x.dtype)
+
+
 def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
                                 sliding_window: Optional[int] = None,
                                 scale: Optional[float] = None):
@@ -80,9 +92,8 @@ def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
                                       sliding_window=sliding_window,
                                       scale=scale)
     c = q.shape[-2]
-    kg, vg = (primitives.upcast_gathered(primitives.allgather_states(
-        _narrow(x, sp.comm.dtype), sp.group, gather_axis=2, tiled=True,
-        tag=tag), x.dtype) for x, tag in ((k, "lasp2h.k"), (v, "lasp2h.v")))
+    kg, vg = (_gather_seq(x, sp.group, tag, sp.comm.dtype)
+              for x, tag in ((k, "lasp2h.k"), (v, "lasp2h.v")))
     return ops.flash_attention_op(q, kg, vg, causal=causal,
                                   sliding_window=sliding_window, scale=scale,
                                   q_offset=sp.chunk_index * c)
@@ -92,15 +103,20 @@ def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
 # Ulysses head-parallel context attention (DeepSpeed-Ulysses).
 # ---------------------------------------------------------------------------
 
-def check_ulysses_heads(hq: int, hkv: int, degree: int) -> None:
-    """Raise unless both head counts split over the ``degree`` ranks
-    (under GQA the kv heads are the binding constraint)."""
+def check_ulysses_heads(hq: int, hkv: int, degree: int,
+                        group: str = "?") -> None:
+    """Raise unless both head counts split over the ``degree`` ranks of
+    the head-parallel group (``group``: "sp", the SP group of a 2D
+    layout, or "tp", the tp group of a 3D one; the port's twin of the
+    reference's mesh axis; under GQA the kv heads are the binding
+    constraint)."""
     if hq % degree or hkv % degree:
         raise ValueError(
             f"ulysses head-parallelism needs n_heads and n_kv_heads "
-            f"divisible by the sequence-parallel degree: n_heads={hq}, "
-            f"n_kv_heads={hkv}, degree {degree}. Pick a degree dividing "
-            f"both or use comm strategy 'allgather'.")
+            f"divisible by the head-parallel group size: n_heads={hq}, "
+            f"n_kv_heads={hkv}, {group} group size {degree}. Pick a "
+            f"degree dividing both (GQA: kv heads are the binding "
+            f"constraint) or use comm_strategy='allgather'.")
 
 
 def pack_ulysses(q, k, v, degree: int):
@@ -128,33 +144,111 @@ def ulysses_context_attention(q, k, v, *, sp=None, causal: bool = True,
                               sliding_window: Optional[int] = None,
                               scale: Optional[float] = None):
     """DeepSpeed-Ulysses context attention for LASP-2H softmax layers
-    (comm strategy "ulysses"), the 2D form: the head-parallel group is the
-    SP group itself.
+    (comm strategy "ulysses").
 
     q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk (``sp``
     None or degree 1 → local attention). One all-to-all of the packed
-    q‖k‖v takes the sequence-sharded layout to a head-sharded one
-    (``ulysses.in``, narrowed to ``sp.comm.dtype``); the flash op attends
-    this rank's 1/W of the heads over the whole sequence (``q_offset``
-    0); a second all-to-all takes the output back (``ulysses.out``).
-    Backward: the mirrored pair.
+    q‖k‖v over the head-parallel group takes the sequence-sharded layout
+    to a head-sharded one (``ulysses.in``, narrowed to ``sp.comm.dtype``);
+    the flash op attends this rank's heads; a second all-to-all takes the
+    output back (``ulysses.out``). Backward: the mirrored pair.
+
+    2D (``sp.tp_group`` None): the head-parallel group is the SP group
+    itself, and each head subset sees the whole sequence (``q_offset``
+    0). 3D (the USP form): the all-to-alls run over ``sp.tp_group``; the
+    received chunks ``s·tp … s·tp + tp − 1`` are contiguous, this
+    sequence index's S/sp tokens; K and V then all-gather over the
+    residual ``sp.seq_group`` when sp > 1 (``ulysses.k``, ``ulysses.v``:
+    heads ÷ tp cancels tokens × tp, the bytes of a width-sp 2D gather),
+    and the flash op runs at ``q_offset = s · C · tp``.
     """
     if sp is None or sp.degree == 1:
         return ops.flash_attention_op(q, k, v, causal=causal,
                                       sliding_window=sliding_window,
                                       scale=scale)
-    g = sp.degree
+    group = sp.group if sp.tp_group is None else sp.tp_group
+    g = dist.get_world_size(group)
     hq, hkv = q.shape[1], k.shape[1]
+    check_ulysses_heads(hq, hkv, g, "sp" if sp.tp_group is None else "tp")
     blk = primitives.alltoall(
-        _narrow(pack_ulysses(q, k, v, g), sp.comm.dtype), sp.group,
+        _narrow(pack_ulysses(q, k, v, g), sp.comm.dtype), group,
         split_axis=1, concat_axis=2, tag="ulysses.in")
     ql, kl, vl = unpack_ulysses(primitives.upcast_gathered(blk, q.dtype),
                                 hq, hkv, g)
+    q_offset = 0            # 2D: every head subset sees the whole sequence
+    if sp.seq_group is not None and dist.get_world_size(sp.seq_group) > 1:
+        kl, vl = (_gather_seq(x, sp.seq_group, tag, sp.comm.dtype)
+                  for x, tag in ((kl, "ulysses.k"), (vl, "ulysses.v")))
+        q_offset = primitives.group_index(sp.seq_group) * q.shape[-2] * g
     o = ops.flash_attention_op(ql, kl, vl, causal=causal,
                                sliding_window=sliding_window, scale=scale,
-                               q_offset=0)
-    return primitives.alltoall(o, sp.group, split_axis=2, concat_axis=1,
+                               q_offset=q_offset)
+    return primitives.alltoall(o, group, split_axis=2, concat_axis=1,
                                tag="ulysses.out")
+
+
+# ---------------------------------------------------------------------------
+# Sliding-window attention under SP: the halo exchange.
+# ---------------------------------------------------------------------------
+
+HALO_MODES = ("ppermute", "gather")
+
+
+def windowed_context_attention(q, k, v, window: int, *, sp=None,
+                               scale: Optional[float] = None,
+                               halo_mode: Optional[str] = None):
+    """Causal sliding-window attention whose sequence is split over the
+    ranks of ``sp.group``: each rank receives the previous rank's last
+    ``window`` K/V tokens (the halo) instead of gathering the whole K/V,
+    so the traffic is O(window · dh) a rank, not O(S · dh).
+
+    q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk (``sp``
+    None or degree 1 → local windowed attention). Needs ``window <= C``:
+    the halo comes from one neighbour. ``halo_mode``:
+
+    * "ppermute" (the default): one ring hop each of K's and V's last
+      ``window`` tokens to the next rank (``halo.k``, ``halo.v``); the
+      backward is the hop back;
+    * "gather": an all-gather of every rank's halo (``halo.k``,
+      ``halo.v``), of which rank t keeps rank t − 1's: W× the halo
+      traffic; the backward is the reduce-scatter.
+
+    The local step is one flash call over ``halo ‖ k`` at ``q_offset =
+    window``, the kernels' band mask doing the windowing (the reference
+    computes it with its XLA banded attention, which needs ``C % window
+    == 0``; this needs only ``window <= C``). Rank 0 has no halo: it
+    drops what it received (the ring's wrap-around from the last rank)
+    from the keys and attends at ``q_offset`` 0. Its received halo stays
+    in the autograd graph, so every rank runs every collective's backward
+    in the same order.
+    """
+    if halo_mode is None:
+        halo_mode = "ppermute"
+    if halo_mode not in HALO_MODES:
+        raise ValueError(f"halo_mode must be one of {HALO_MODES}, got "
+                         f"{halo_mode!r}")
+    if sp is None or sp.degree == 1:
+        return ops.flash_attention_op(q, k, v, causal=True,
+                                      sliding_window=window, scale=scale)
+    c = q.shape[-2]
+    if not 0 < window <= c:
+        raise ValueError(f"window {window} must be in (0, C = {c}]: the "
+                         f"halo comes from the previous rank alone")
+    t = sp.chunk_index
+
+    def halo(x, tag):
+        edge = x[:, :, -window:]
+        if halo_mode == "ppermute":
+            return primitives.ring_sendrecv(edge, sp.group, tag=tag)
+        return primitives.allgather_states(edge, sp.group,
+                                           tag=tag)[max(t - 1, 0)]
+
+    kx = torch.cat([halo(k, "halo.k"), k], dim=2)
+    vx = torch.cat([halo(v, "halo.v"), v], dim=2)
+    lo = window if t == 0 else 0
+    return ops.flash_attention_op(q, kx[:, :, lo:], vx[:, :, lo:],
+                                  causal=True, sliding_window=window,
+                                  scale=scale, q_offset=window - lo)
 
 
 def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,

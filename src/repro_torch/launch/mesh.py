@@ -1,11 +1,30 @@
-"""Rank layouts and process groups of the DP×SP step, and a rank launcher
-(twin of ``repro/launch/mesh.py``).
+"""Rank layouts and process groups of the DP×SP(×TP) step, and a rank
+launcher (twin of ``repro/launch/mesh.py``).
 
-A rank is a process. A (dp, sp) layout puts global rank ``r`` at data
-index ``r // sp`` and sequence-chunk index ``r % sp``: the reference's
-(data, sequence) mesh order, sequence minor. The SP group of a rank holds
-the ``sp`` ranks of its data index (the ranks that share its rows), its
-data group the ``dp`` ranks of its chunk index.
+A rank is a process. A (dp, sp, tp) layout puts global rank
+``r = (d·sp + s)·tp + m`` at data index ``d``, sequence index ``s`` and
+model index ``m``: the reference's ``reshape(dp, sp, tp)`` of its devices
+into the (data, sequence, model) mesh. Tokens shard over the combined
+(sequence, model) axes, sequence-major, so the rank's token chunk is
+``s·tp + m``; at tp 1 the layout is the paper's 2D (data, sequence) mesh
+and rank ``r`` sits at data index ``r // sp``, chunk ``r % sp``.
+
+Groups, each listing its ranks in global order (so a rank's index in a
+group is its place in that group's gathers):
+
+* the SP group (``sp_group``): the ``sp·tp`` ranks of this data index, in
+  chunk order: the token group every LASP-2 state exchange and the K/V
+  all-gather span;
+* the data group (``dp_group``): the ``dp`` ranks of this token chunk;
+* on 3D layouts (tp > 1): the ``tp`` ranks of this (data, sequence)
+  index, Ulysses' head-parallel group (``tp_group``); the ``sp`` ranks of
+  this (data, model) index, the residual sequence group its K/V gathers
+  span (``seq_group``); and the ``dp·tp`` ranks of this sequence index,
+  index ``d·tp + m`` (``zero_group``), over which ZeRO-1 shards the
+  optimizer. At tp 1 the zero group is the data group.
+
+The reference's "model" axis does not shard weights on the training
+mesh: params stay replicated on every rank.
 """
 
 from __future__ import annotations
@@ -25,40 +44,79 @@ import torch.distributed as dist
 
 @dataclass(frozen=True)
 class TrainingGroups:
-    """This rank's place in a (dp, sp) layout and its process groups."""
+    """This rank's place in a (dp, sp, tp) layout and its process groups.
+    ``chunk_index`` is the token chunk ``s·tp + m``."""
 
     dp: int
     sp: int
     data_index: int
     chunk_index: int
-    sp_group: Any       # the sp ranks of this data index, chunk order
+    sp_group: Any       # the sp·tp ranks of this data index, chunk order
     dp_group: Any       # the dp ranks of this chunk index, data order
     world_group: Any    # every rank
+    tp: int = 1
+    tp_group: Any = None     # 3D: the tp ranks of this (data, sequence)
+    seq_group: Any = None    # 3D: the sp ranks of this (data, model)
+    zero_group: Any = None   # the dp·tp ranks of this sequence index
 
     @property
     def world(self) -> int:
-        return self.dp * self.sp
+        return self.dp * self.sp * self.tp
+
+    @property
+    def tokens(self) -> int:
+        """Token chunks a row splits into: sp·tp."""
+        return self.sp * self.tp
+
+    @property
+    def seq_index(self) -> int:
+        return self.chunk_index // self.tp
+
+    @property
+    def zero_degree(self) -> int:
+        """Ranks of the zero group: dp·tp."""
+        return self.dp * self.tp
+
+    @property
+    def zero_index(self) -> int:
+        """This rank's index in the zero group: ``d·tp + m``."""
+        return self.data_index * self.tp + self.chunk_index % self.tp
 
 
-def make_training_groups(dp_degree: int, sp_degree: int) -> TrainingGroups:
-    """The groups of a (dp, sp) layout over the initialised world. Every
-    rank creates every group, in the same order (``new_group`` is
-    collective)."""
+def make_training_groups(dp_degree: int, sp_degree: int,
+                         tp_degree: int = 1) -> TrainingGroups:
+    """The groups of a (dp, sp, tp) layout over the initialised world.
+    Every rank creates every group, in the same order (``new_group`` is
+    collective); at tp 1 exactly the groups of the 2D layout."""
     world = dist.get_world_size()
-    if dp_degree < 1 or sp_degree < 1 or dp_degree * sp_degree != world:
-        raise ValueError(f"dp_degree×sp_degree = {dp_degree}×{sp_degree} "
-                         f"must equal the world size {world}")
-    rank = dist.get_rank()
-    d, t = divmod(rank, sp_degree)
-    sp_groups = [dist.new_group([i * sp_degree + j
-                                 for j in range(sp_degree)])
-                 for i in range(dp_degree)]
-    dp_groups = [dist.new_group([i * sp_degree + j
-                                 for i in range(dp_degree)])
-                 for j in range(sp_degree)]
-    return TrainingGroups(dp=dp_degree, sp=sp_degree, data_index=d,
-                          chunk_index=t, sp_group=sp_groups[d],
-                          dp_group=dp_groups[t], world_group=dist.group.WORLD)
+    if min(dp_degree, sp_degree, tp_degree) < 1 or \
+            dp_degree * sp_degree * tp_degree != world:
+        raise ValueError(f"dp_degree×sp_degree×tp_degree = {dp_degree}×"
+                         f"{sp_degree}×{tp_degree} must equal the world "
+                         f"size {world}")
+    dp, sp, tp = dp_degree, sp_degree, tp_degree
+    rank = lambda d, s, m: (d * sp + s) * tp + m
+    d, rest = divmod(dist.get_rank(), sp * tp)
+    s, m = divmod(rest, tp)
+    sp_groups = [dist.new_group([rank(i, j, n) for j in range(sp)
+                                 for n in range(tp)]) for i in range(dp)]
+    dp_groups = [dist.new_group([rank(i, j, n) for i in range(dp)])
+                 for j in range(sp) for n in range(tp)]
+    groups = {"zero_group": dp_groups[rest]}
+    if tp > 1:
+        tp_groups = [dist.new_group([rank(i, j, n) for n in range(tp)])
+                     for i in range(dp) for j in range(sp)]
+        seq_groups = [dist.new_group([rank(i, j, n) for j in range(sp)])
+                      for i in range(dp) for n in range(tp)]
+        zero_groups = [dist.new_group([rank(i, j, n) for i in range(dp)
+                                       for n in range(tp)])
+                       for j in range(sp)]
+        groups = dict(tp_group=tp_groups[d * sp + s],
+                      seq_group=seq_groups[d * tp + m],
+                      zero_group=zero_groups[s])
+    return TrainingGroups(dp=dp, sp=sp, data_index=d, chunk_index=rest,
+                          sp_group=sp_groups[d], dp_group=dp_groups[rest],
+                          world_group=dist.group.WORLD, tp=tp, **groups)
 
 
 # ---------------------------------------------------------------------------

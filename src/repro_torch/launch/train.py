@@ -17,6 +17,10 @@
       -m repro_torch.launch.train --smoke --device cpu --sp-degree 2 \
       --steps 20 --seq 64 --batch 4          # DP×SP over gloo ranks
       # --comm-strategy ring | pipelined | ulysses: the other exchanges
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 8 \
+      -m repro_torch.launch.train --smoke --device cpu --steps 20 \
+      --seq 256 --dp-degree 2 --sp-degree 2 --tp-degree 2 \
+      --comm-strategy ulysses                # 3D DP×SP×TP (USP Ulysses)
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
       --steps 5 --guard --metrics-out run.jsonl --ckpt-dir ckpt
 
@@ -24,9 +28,15 @@ Runs on the CUDA card unless ``--device`` names another device. Weights
 are random, drawn from ``--seed``; data is ``SyntheticLM`` (packed
 documents with state resets). Under ``torchrun`` (``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and the store address in the environment)
-each rank runs the DP×SP step of a ``--dp-degree`` × ``--sp-degree``
-layout: NCCL with rank r on card ``LOCAL_RANK``, gloo with ``--device
-cpu``; only rank 0 logs; MoE configs train on one device only.
+each rank runs the DP×SP(×TP) step of a ``--dp-degree`` ×
+``--sp-degree`` × ``--tp-degree`` layout: NCCL with rank r on card
+``LOCAL_RANK``, gloo with ``--device cpu``; only rank 0 logs; MoE configs
+train on one device only. With ``--tp-degree`` above 1 the tokens split
+over sp×tp ranks, and under ``--comm-strategy ulysses`` the softmax
+layers' all-to-alls run over the tp ranks (the heads must divide by tp);
+the ring and pipelined exchanges are refused there. ``--grad-compression``
+is the reference's pod-mesh flag: inert on one device, refused under a
+layout, as in the reference.
 ``--linearize K`` applies the paper's recipe to the chosen config
 (``--smoke`` included). ``--guard`` turns on the numerical health guard
 (skip a non-finite step, clip a spike, abort after ``--guard-max-skips``
@@ -84,6 +94,13 @@ def main(argv=None):
     ap.add_argument("--remat", default="none", choices=["none", "full"])
     ap.add_argument("--dp-degree", type=int, default=1)
     ap.add_argument("--sp-degree", type=int, default=1)
+    ap.add_argument("--tp-degree", type=int, default=1,
+                    help="head-parallel degree of the 3D DP×SP×TP layout: "
+                         "tokens split over sp×tp ranks, Ulysses' "
+                         "all-to-alls run over the tp ranks")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="the reference's cross-pod gradient compression: "
+                         "inert on one device, refused under a layout")
     ap.add_argument("--zero1", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="shard the Adam moments over the data ranks "
@@ -103,12 +120,20 @@ def main(argv=None):
     from repro_torch.core.device import resolve_device
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.train.loop import train
+    from repro_torch.train.step import check_layout_strategy
 
     device = resolve_device(args.device)
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.dp_degree * args.sp_degree != world:
-        raise ValueError(f"--dp-degree × --sp-degree = {args.dp_degree} × "
-                         f"{args.sp_degree} must equal the {world} ranks")
+    dp, sp, tp = args.dp_degree, args.sp_degree, args.tp_degree
+    if dp * sp * tp != world:
+        raise ValueError(f"--dp-degree × --sp-degree × --tp-degree = {dp} × "
+                         f"{sp} × {tp} must equal the {world} ranks")
+    mb = args.batch // args.microbatches
+    if mb % dp or args.seq % (sp * tp):
+        raise ValueError(f"--batch/microbatches ({mb}) must divide by dp "
+                         f"({dp}) and --seq ({args.seq}) by sp×tp ({sp}×"
+                         f"{tp})")
+    check_layout_strategy(args.comm_strategy, tp)
     if args.smoke:
         cfg = get_smoke(args.arch)
     elif args.variant:
@@ -125,7 +150,9 @@ def main(argv=None):
                     comm_strategy=args.comm_strategy,
                     comm_dtype=args.comm_dtype,
                     comm_overlap=args.comm_overlap, guard=args.guard,
-                    guard_max_consecutive_skips=args.guard_max_skips)
+                    guard_max_consecutive_skips=args.guard_max_skips,
+                    grad_compression=args.grad_compression,
+                    dp_degree=dp, sp_degree=sp, tp_degree=tp)
     data = SyntheticLM(cfg.vocab_size, args.seq, args.batch, seed=args.seed)
     layout, log_fn = None, print
     if world > 1:
@@ -137,7 +164,7 @@ def main(argv=None):
             device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
             torch.cuda.set_device(device)
         dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
-        layout = make_training_groups(args.dp_degree, args.sp_degree)
+        layout = make_training_groups(dp, sp, tp)
         if dist.get_rank():
             log_fn = lambda *_: None
     sink = None

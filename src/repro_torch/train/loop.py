@@ -19,10 +19,12 @@
 
 Runs on the CUDA card unless ``device`` names another one; without a card
 it raises. With a ``layout`` (``launch.mesh.TrainingGroups``) this rank
-runs the DP×SP step on its rows and chunk of the same seeded global batch
-every rank draws; checkpoints are layout-independent
-(``checkpoint.manager``: under ZeRO-1 the moments are gathered on save
-steps, rank 0 writes, every rank restores its slice), and only rank 0
+runs the DP×SP(×TP) step on its rows and chunk of the same seeded
+global batch every rank draws; checkpoints are layout-independent
+(``checkpoint.manager``: under ZeRO-1 the moments are gathered over the
+zero group on save steps, rank 0 writes, every rank restores its slice),
+so a run written at (1, 2, 2) resumes at (2, 2) or on one device and the
+other way round; only rank 0
 emits telemetry. The final save is a collective, so every rank must
 reach it at the same step: after each step the ranks agree, in one
 all-reduce of two flags, on whether any of them was sent SIGTERM or

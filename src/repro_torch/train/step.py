@@ -1,7 +1,8 @@
 """The train steps (twin of ``repro/train/step.py``): gradient
 accumulation over microbatches in fp32, global-norm clipping, the cosine
 learning rate, skip-on-nonfinite, AdamW on fp32 master weights; on one
-device, or across the ranks of a DP×SP layout (:class:`ShardedStep`).
+device, or across the ranks of a DP×SP(×TP) layout
+(:class:`ShardedStep`).
 
 With ``run.guard`` the numerical health guard
 (``repro_torch.resilience.guard``) replaces the plain clip in both steps:
@@ -54,11 +55,26 @@ MOE_AUX_COEF = 0.01
 
 
 def zero1_degree(run: RunConfig, layout=None) -> int:
-    """Ranks the optimizer state is sharded over: the data degree under
-    ZeRO-1 (``run.zero1`` and dp > 1, as the reference's plan), else 1."""
-    if layout is not None and run.zero1 and layout.dp > 1:
-        return layout.dp
+    """Ranks the optimizer state is sharded over under ZeRO-1
+    (``run.zero1``): the zero group's dp·tp, over the (data, model) axes
+    whose size is above 1, as the reference's plan; 1 without ZeRO-1 or
+    when that product is 1 (so at (1, sp, 2) the moments shard over the
+    model axis though dp is 1)."""
+    if layout is not None and run.zero1 and layout.zero_degree > 1:
+        return layout.zero_degree
     return 1
+
+
+def check_layout_strategy(strategy: str, tp: int) -> None:
+    """Refuse an exchange that a 3D layout (tp > 1) cannot run: the ring
+    and pipelined exchanges span one sequence group, and the 3D layout's
+    tokens split over (sequence, model). The reference's plan refuses
+    them with this message."""
+    if tp > 1 and strategy not in ("allgather", "ulysses"):
+        raise ValueError(
+            f"comm strategy {strategy!r} does not support the 3D DP×SP×TP "
+            f"mesh (the ring/pipelined exchanges are wired for a single "
+            f"sequence axis); use 'allgather' or 'ulysses'")
 
 
 def state_from_params(params, zero1: int = 1, run: RunConfig = None):
@@ -202,33 +218,40 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
 def shard_batch(batch, layout):
     """This rank's rows and sequence chunk of a global (A, B/A, S) batch:
     rows ``[d·R, (d+1)·R)`` and positions ``[t·C, (t+1)·C)`` for data index
-    d and chunk index t. Labels were shifted over the whole row, so a
-    chunk's last label is the next chunk's first token; a chunk's resets
-    start False unless a document starts there."""
+    d and token chunk index t (``s·tp + m`` on a 3D layout: the sequence
+    splits over sp·tp chunks, sequence-major). Labels were shifted over
+    the whole row, so a chunk's last label is the next chunk's first
+    token; a chunk's resets start False unless a document starts
+    there."""
     rows, seq = batch["tokens"].shape[1], batch["tokens"].shape[2]
-    if rows % layout.dp or seq % layout.sp:
+    if rows % layout.dp or seq % layout.tokens:
         raise ValueError(
             f"DP×SP step needs microbatch rows ({rows}) divisible by dp "
-            f"({layout.dp}) and seq len ({seq}) by sp ({layout.sp})")
-    r, c = rows // layout.dp, seq // layout.sp
+            f"({layout.dp}) and seq len ({seq}) by sp×tp ({layout.sp}×"
+            f"{layout.tp})")
+    r, c = rows // layout.dp, seq // layout.tokens
     d, t = layout.data_index, layout.chunk_index
     return {k: v[:, d * r:(d + 1) * r, t * c:(t + 1) * c]
             for k, v in batch.items()}
 
 
 class ShardedStep:
-    """The DP×SP step of one rank (``repro/train/step.py``'s manual step):
+    """The DP×SP(×TP) step of one rank (``repro/train/step.py``'s manual
+    step) on a ``launch.mesh.TrainingGroups`` layout:
 
     - the unnormalised local objective (the CE sum of this rank's rows and
       chunk), its gradients accumulated by autograd over the microbatches
       into per-leaf views of ONE flat fp32 buffer (a second full-width
       copy is what a full-width step on one card could not hold);
-    - every collective of the model on its SP group, by
-      ``run.comm_strategy``: per linear layer one state all-gather forward
-      (``lasp2.states``) or the ring's hops (``lasp2.ring``,
-      ``lasp2.pipelined[i]``), per softmax layer the K/V all-gathers
-      (``lasp2h.k``, ``lasp2h.v``) or Ulysses' two all-to-alls
-      (``ulysses.in``, ``ulysses.out``), their backwards;
+    - every collective of the model on its SP group (the sp·tp token
+      group), by ``run.comm_strategy``: per linear layer one state
+      all-gather forward (``lasp2.states``) or the ring's hops
+      (``lasp2.ring``, ``lasp2.pipelined[i]``; 2D layouts only), per
+      softmax layer the K/V all-gathers (``lasp2h.k``, ``lasp2h.v``) or
+      Ulysses' two all-to-alls (``ulysses.in``, ``ulysses.out``; on a 3D
+      layout over the tp group, with the K/V all-gathers ``ulysses.k``,
+      ``ulysses.v`` over the sequence group when sp > 1), their
+      backwards;
     - exactly ONE gradient reduction: the flat gradients ‖ [ce_sum, n]
       all-reduced over every rank (``train.grads``), then normalised by
       the global token count; with ``run.guard`` a third tail scalar, this
@@ -239,9 +262,13 @@ class ShardedStep:
       the one-device step (``_clip``, ``_finish_step``); only the loss
       differs: the global token mean here, the mean of the microbatch
       means there (the reference's two steps differ the same way);
-    - ZeRO-1 over the data group (``zero1_degree`` > 1): each rank Adam-
-      updates its slice of the raveled params and ONE all-gather
-      (``zero1.param_gather``) re-forms them.
+    - ZeRO-1 over the zero group, the dp·tp ranks of this sequence index
+      (``zero1_degree`` > 1): each rank Adam-updates its slice of the
+      raveled params (slice ``d·tp + m``) and ONE all-gather
+      (``zero1.param_gather``) re-forms them. Params stay replicated:
+      the "model" axis does not shard weights.
+
+    ``run.grad_compression`` raises, as the reference's manual step.
 
     Every rank must issue the same collectives in the same order, so a
     rank whose rows are all masked still joins the reduction
@@ -260,11 +287,21 @@ class ShardedStep:
                 f"{cfg.name}: encoder/VLM aux inputs are not supported on "
                 f"the 2D DP×SP training plan yet (as in the reference); "
                 f"train the cross family on one device")
+        if run.grad_compression:
+            raise NotImplementedError(
+                "grad_compression targets pod meshes; not supported on the "
+                "2D DP×SP plan")
+        check_layout_strategy(run.comm_strategy, layout.tp)
         self.cfg, self.run, self.layout = cfg, run, layout
-        self.sp = SPConfig(layout.sp_group, comm=run.comm_spec()) \
-            if layout.sp > 1 else None
-        if self.sp is not None and run.comm_strategy == "ulysses":
-            check_ulysses_heads(cfg.n_heads, cfg.n_kv_heads, layout.sp)
+        self.sp = None
+        if layout.tokens > 1:
+            self.sp = SPConfig(layout.sp_group, comm=run.comm_spec(),
+                               tp_group=layout.tp_group,
+                               seq_group=layout.seq_group)
+            if run.comm_strategy == "ulysses":
+                check_ulysses_heads(cfg.n_heads, cfg.n_kv_heads,
+                                    *((layout.sp, "sp") if layout.tp == 1
+                                      else (layout.tp, "tp")))
         self.zero1 = zero1_degree(run, layout)
         self._buf = None
         self._decay = None
@@ -339,7 +376,7 @@ class ShardedStep:
         run, layout = self.run, self.layout
         padded = adamw.zero1_padded_size(params, self.zero1)
         shard = padded // self.zero1
-        lo = layout.data_index * shard
+        lo = layout.zero_index * shard
         if self._decay is None:
             self._decay = adamw.decay_mask(params, lo, lo + shard)
         count = opt.count + 1
@@ -352,7 +389,7 @@ class ShardedStep:
             weight_decay=run.weight_decay)
         # ZeRO-1's all-gather-on-update
         gathered = primitives.allgather_states(
-            new_p, layout.dp_group, gather_axis=0, tiled=True,
+            new_p, layout.zero_group, gather_axis=0, tiled=True,
             tag="zero1.param_gather")
         off = 0
         for _, p in leaves_with_paths(params):

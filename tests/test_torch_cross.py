@@ -47,6 +47,7 @@ from repro_torch.core import lasp2h as tlasp2h
 from repro_torch.core.tree import leaves_with_paths, tree_map
 from repro_torch.launch import serve as serve_cli
 from repro_torch.launch import train as train_cli
+from repro_torch.launch.mesh import TrainingGroups
 from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
@@ -365,7 +366,8 @@ def test_sharded_step_refuses_the_cross_family():
     """The DP×SP step refuses an encoder or image config, and frames or
     images in a batch, as the reference's manual step does."""
     run = RunConfig()
-    layout = types.SimpleNamespace(sp=1, dp=1)
+    layout = TrainingGroups(dp=1, sp=1, data_index=0, chunk_index=0,
+                            sp_group=None, dp_group=None, world_group=None)
     for arch in ARCHS:
         with pytest.raises(NotImplementedError, match="encoder/VLM"):
             ShardedStep(get_smoke(arch), run, layout)

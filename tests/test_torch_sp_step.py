@@ -597,7 +597,7 @@ def test_sp_config_refuses_unknown_knob_values():
         RunConfig(comm_dtype="fp8")
 
 
-def test_checkpoints_of_a_sharded_run_wait_for_m9(tmp_path):
+def test_one_device_checkpoint_onto_a_zero1_layout_raises(tmp_path):
     """Checkpoints under a layout arrived with M9, and a multi-rank run no
     longer refuses a checkpoint directory; what it cannot restore it
     refuses before any collective: a one-device checkpoint (a tree of

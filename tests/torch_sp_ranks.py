@@ -1,5 +1,6 @@
 """Rank bodies and shared inputs of the port's sequence-parallel tests
-(``tests/test_torch_lasp2_sp.py``, ``tests/test_torch_sp_step.py``).
+(``tests/test_torch_lasp2_sp.py``, ``tests/test_torch_sp_step.py``,
+``tests/test_torch_usp.py``).
 
 Spawned ranks import this module by name, so it imports only numpy, torch
 and ``repro_torch``: the JAX side of those tests runs in their own
@@ -738,4 +739,239 @@ def ssm_rank(rank, world, device, npz_path, ckpt_root=None):
     out["resume_dp2sp2_at_dp2sp1"] = ckpt_train(
         npz_path, device, dp_layout, CKPT_TOTAL,
         _copy_ckpt(ckpt_root, "dp2sp2", "dp2sp2_to_dp2sp1"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The 3D DP×SP×TP layout (USP Ulysses, ZeRO-1 over (data, model)) and the
+# windowed halo attention.
+# ---------------------------------------------------------------------------
+
+# tests/distributed_checks.py's _cfg3d: a linear and a softmax layer, GQA
+# 4:2, fp32 here; 8 rows of 64 tokens, seed 5; 1 microbatch, lr 1e-3.
+RUN3D = dict(num_microbatches=1, remat="none", total_steps=10,
+             warmup_steps=2, learning_rate=1e-3)
+DATA3D = dict(seq_len=64, global_batch=8, seed=5)
+N3D = 3
+# each cell: (name, (dp, sp, tp), strategy); the 4-rank ones run in one
+# spawn, (2, 2, 2) in an 8-rank one
+CELLS3D = (("dp1sp2tp2_ulysses", (1, 2, 2), "ulysses"),
+           ("dp1sp2tp2_allgather", (1, 2, 2), "allgather"),
+           ("dp2sp1tp2_ulysses", (2, 1, 2), "ulysses"),
+           ("dp1sp4tp1_allgather", (1, 4, 1), "allgather"),
+           ("dp2sp2tp2_ulysses", (2, 2, 2), "ulysses"))
+ZERO1_CELLS = ("dp1sp2tp2_ulysses", "dp2sp1tp2_ulysses")
+# the halo cases: (window, halo mode) at W 2 and 4 over S 256
+HALO_WINDOWS = (32, 64)
+HALO_MODES = ("ppermute", "gather")
+
+
+def cfg3d(base=None):
+    """The 3D battery's hybrid SMOKE, fp32: from the port's config module
+    or the reference's (``base``)."""
+    if base is None:
+        from repro_torch.configs import base
+    return base.ModelConfig(
+        name="hybrid-smoke", family="hybrid", n_layers=2, d_model=64,
+        n_heads=4, n_kv_heads=2, d_ff=160, vocab_size=512,
+        pattern=(base.LayerSpec(mixer="linear"),
+                 base.LayerSpec(mixer="softmax")),
+        linear_attn=base.LinearAttnConfig(feature_map="identity",
+                                          decay="none"),
+        dtype="float32")
+
+
+def data3d(pkg_data=None):
+    if pkg_data is None:
+        from repro_torch.data import pipeline as pkg_data
+    return pkg_data.SyntheticLM(512, DATA3D["seq_len"],
+                                DATA3D["global_batch"], seed=DATA3D["seed"])
+
+
+def group_rows(records):
+    """A tape as ``op|tag|group size`` strings."""
+    return [f"{r.op}|{r.tag}|{r.group}" for r in records]
+
+
+def params3d(npz_path, device):
+    from repro_torch.models.weights import params_from_jax
+    with np.load(npz_path) as npz:
+        tree = params_tree(npz, "p3d/")
+    return params_from_jax(tree, cfg3d(), device=device, dtype=torch.float32)
+
+
+def steps3d(npz_path, device, layout, n=N3D, **run_kw):
+    """``n`` steps of the 3D battery's hybrid from the reference's params
+    on ``layout`` (None: one device): losses, grad norms, the first step's
+    tape (``op|tag|payload`` and ``op|tag|group size`` rows), the state."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    run = RunConfig(**{**RUN3D, **run_kw})
+    state = state_from_params(params3d(npz_path, device),
+                              zero1_degree(run, layout))
+    step = make_train_step(cfg3d(), run, layout)
+    data = data3d()
+    out = {"losses": [], "gnorms": [], "tape": None, "groups": None}
+    for i in range(n):
+        with primitives.tape() as rec:
+            state, m = step(state, data.microbatched(
+                i, RUN3D["num_microbatches"]))
+        if out["tape"] is None:
+            out["tape"], out["groups"] = tape_rows(rec), group_rows(rec)
+        out["losses"].append(m["loss"])
+        out["gnorms"].append(m["grad_norm"])
+    return out, state
+
+
+def ckpt3d(npz_path, device, layout, steps, ckpt_dir=None, zero1=True):
+    """``train()`` of the 3D battery under "ulysses" with the guard, a
+    checkpoint every 2 steps into ``ckpt_dir``, up to step ``steps`` (a
+    run resumes from ``ckpt_dir``'s newest). Returns ``{step: loss}``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.loop import train
+    run = RunConfig(**RUN3D, guard=True, comm_strategy="ulysses",
+                    zero1=zero1)
+    _, hist = train(cfg3d(), run, data3d(), device=device,
+                    params=params3d(npz_path, device), layout=layout,
+                    ckpt_dir=ckpt_dir, ckpt_every=2, max_steps=steps,
+                    log_every=10 ** 9, log_fn=lambda *_: None)
+    return {h["step"]: h["loss"] for h in hist}
+
+
+def halo_cases(rank, group):
+    """``windowed_context_attention`` on this rank's chunk of S over
+    ``group`` at every window and halo mode: o, the gradients of
+    ``sum(sin(o))`` and the tape."""
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.core.lasp2h import windowed_context_attention
+    sp = SPConfig(group)
+    w, t = sp.degree, sp.chunk_index
+    ins = layer_inputs()
+    res = {}
+    for window in HALO_WINDOWS:
+        for mode in HALO_MODES:
+            xs = [_chunk(ins[n], t, w, 2).requires_grad_(True)
+                  for n in ("qs", "ks", "vs")]
+            with primitives.tape() as rec:
+                o = windowed_context_attention(*xs, window, sp=sp,
+                                               halo_mode=mode)
+                grads = torch.autograd.grad(torch.sin(o).sum(), xs)
+            res[f"w{window}_{mode}"] = {"o": o.detach().numpy(),
+                                        "grads": _num(grads),
+                                        "tape": tape_rows(rec)}
+    return res
+
+
+def _zero1_pair(npz_path, device, layout):
+    """2 steps under "ulysses" with ZeRO-1 and with replicated AdamW."""
+    (z, s_z), (r, s_r) = (steps3d(npz_path, device, layout, 2,
+                                  comm_strategy="ulysses", zero1=zero1)
+                          for zero1 in (True, False))
+    a, b = _flat(s_z["params"]), _flat(s_r["params"])
+    return {"zero1_losses": z["losses"], "replicated_losses": r["losses"],
+            "opt_numel": s_z["opt"].m.numel(), "param_numel": a.numel(),
+            "param_diff": float((a - b).abs().max()),
+            "params_close": bool(torch.allclose(a, b, rtol=1e-6,
+                                                atol=1e-7))}
+
+
+def usp_rank(rank, world, device, npz_path, ckpt_root):
+    """Every 3D case of the ``world``-rank layouts on this rank: at world 4
+    the (1, 2, 2), (2, 1, 2), (1, 4, 1) and (2, 2) layouts (steps, ZeRO-1,
+    checkpoints crossing 3D and 2D, the refusal of the ring on 3D, the
+    halo cases at W 4 over the world and W 2 over (2, 2)'s SP pairs); at
+    world 8 the (2, 2, 2) layout (steps, the forward's wire bytes under
+    "ulysses" and "allgather")."""
+    import os
+
+    from repro_torch.launch.mesh import make_training_groups
+    cells = [c for c in CELLS3D
+             if c[1][0] * c[1][1] * c[1][2] == world]
+    layouts = {dims: make_training_groups(*dims) for _, dims, _ in cells}
+    res = {"place": {dims: (lay.data_index, lay.seq_index,
+                            lay.chunk_index % lay.tp, lay.zero_index)
+                     for dims, lay in layouts.items()}}
+    for name, dims, strategy in cells:
+        res[name], _ = steps3d(npz_path, device, layouts[dims],
+                               comm_strategy=strategy)
+    if world == 8:
+        res["wire"] = wire_bytes(npz_path, device, layouts[(2, 2, 2)])
+        return res
+    for name, dims, _ in CELLS3D:
+        if name in ZERO1_CELLS:
+            res[f"{name}_zero1"] = _zero1_pair(npz_path, device,
+                                               layouts[dims])
+    res["ring_refusal"] = _ring_refusal(layouts[(1, 2, 2)])
+    # checkpoints: (1, 2, 2) <-> (2, 2) with ZeRO-1 of degree 2 on both
+    # sides; one device <-> (1, 2, 2) with replicated moments (a ZeRO-1
+    # checkpoint holds flat moments, one device's a tree: each refuses the
+    # other, in both packages)
+    l3, l2 = layouts[(1, 2, 2)], make_training_groups(2, 2)
+    res["full_122"] = ckpt3d(npz_path, device, l3, 4)
+    res["full_22"] = ckpt3d(npz_path, device, l2, 4)
+    ckpt3d(npz_path, device, l3, 2, os.path.join(ckpt_root, "d122"))
+    ckpt3d(npz_path, device, l3, 2, os.path.join(ckpt_root, "d122rep"),
+           zero1=False)
+    ckpt3d(npz_path, device, l2, 2, os.path.join(ckpt_root, "d22"))
+    res["d122_at_22"] = ckpt3d(npz_path, device, l2, 4, _copy_ckpt(
+        ckpt_root, "d122", "d122_at_22"))
+    res["d22_at_122"] = ckpt3d(npz_path, device, l3, 4, _copy_ckpt(
+        ckpt_root, "d22", "d22_at_122"))
+    res["dev1_at_122"] = ckpt3d(npz_path, device, l3, 4, _copy_ckpt(
+        ckpt_root, "dev1", "dev1_at_122"), zero1=False)
+    res["dev1_at_122_zero1"] = _refused_resume(
+        npz_path, device, l3, _copy_ckpt(ckpt_root, "dev1",
+                                         "dev1_at_122_zero1"))
+    res["halo4"] = halo_cases(rank, dist.group.WORLD)
+    res["halo2"] = halo_cases(rank, l2.sp_group)
+    return res
+
+
+def _refused_resume(npz_path, device, layout, ckpt_dir):
+    """A resume that must fail: the error's type, or "resumed"."""
+    from repro_torch.checkpoint.manager import CheckpointError
+    try:
+        ckpt3d(npz_path, device, layout, 4, ckpt_dir)
+    except CheckpointError as e:
+        return type(e).__name__
+    return "resumed"
+
+
+def _ring_refusal(layout):
+    """``lasp2`` under "ring" on the 3D layout's split: the message."""
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core.lasp2 import SPConfig, lasp2
+    sp = SPConfig(layout.sp_group, comm=CommSpec(strategy="ring"),
+                  tp_group=layout.tp_group, seq_group=layout.seq_group)
+    x = torch.ones((1, 2, 16, 16))
+    try:
+        lasp2(x, x, x, sp=sp)
+    except ValueError as e:
+        return str(e)
+    return "no error"
+
+
+def wire_bytes(npz_path, device, layout):
+    """The hybrid's forward on this rank's rows and chunk under "ulysses"
+    (the 3D split) and "allgather" (the token group alone): the tape's
+    rows of the softmax layer's exchange (``ulysses.*``, ``lasp2h.*``)
+    and their traffic bytes."""
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.models import model as M
+    from repro_torch.train.step import shard_batch
+    batch = shard_batch({k: torch.as_tensor(v) for k, v in
+                         data3d().microbatched(0, 1).items()}, layout)
+    params = params3d(npz_path, device)
+    out = {}
+    for strategy, prefix in (("ulysses", "ulysses."),
+                             ("allgather", "lasp2h.")):
+        sp = SPConfig(layout.sp_group, comm=CommSpec(strategy=strategy),
+                      tp_group=layout.tp_group, seq_group=layout.seq_group)
+        with torch.no_grad(), primitives.tape() as rec:
+            M.forward(params, batch["tokens"][0], cfg3d(), sp=sp)
+        mine = [r for r in rec if r.tag.startswith(prefix)]
+        out[strategy] = {"rows": tape_rows(mine),
+                         "bytes": sum(r.traffic_bytes for r in mine)}
     return out
