@@ -215,8 +215,21 @@ line:
    modes; o, dq, dk, dv of (b) and (c) against ``flash_attention_op``
    on one device over the whole sequence, each rank its chunk, within
    the flash bf16 limit plus the ``sm90`` rounding bound (from the plain
-   versions, in query blocks). Every phase's wall is printed
-   (``phase_walls_s``).
+   versions, in query blocks).
+18. serve_sp, serving under a plan on four ranks sharing the card over
+   gloo, every rank running ``ServeEngine(plan=)`` on the same requests
+   with weights from one seed: (a) the prefill plan of the (4, 1)
+   (data, model) layout serving ``CONFIG`` and ``HYBRID`` at full width
+   and depth (prompts 4096, 1024 and 1023 split 4 ways where 4 divides
+   them, ``CONFIG`` bucketing 1023 to 1024 with left padding; 32 greedy
+   tokens; the hybrid's window rings sliced 4 ways and merged at
+   decode); (b) the decode plan of the (1, 4) layout serving
+   granite-34b's 2-layer cut (prompts 1024 and 300 prefilled whole, its
+   rings sliced over the model group). Every rank's tape equals
+   ``comm.budget``'s serving budgets; K1, K3, K4 launches per path, all
+   ``sm90``; rank 0's sampled logits within ``TOL_LOGITS`` of the
+   one-device engine forced onto the same tokens; walls and peaks per
+   rank. Every phase's wall is printed (``phase_walls_s``).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
@@ -4385,6 +4398,220 @@ def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
         wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: serving under a plan (M10, first half), four gloo ranks.
+# ---------------------------------------------------------------------------
+
+SERVE_SP_W = 4
+SERVE_SP_PROMPTS = (4096, 1024, 1023)   # 1023: bucketed, or prefilled whole
+SERVE_SP_NEW = 32
+SERVE_SP_MAX_LEN = 4608
+SERVE_SP_DECODE_PROMPTS = (1024, 300)   # (b): granite, exact length
+SERVE_SP_DECODE_MAX_LEN = 2048          # the ring: 4 slices of 512 slots
+SERVE_SP_SEED = 18
+
+
+def _serve_sp_engine():
+    """A ``ServeEngine`` that records each sampling call (each prefill
+    batch's, each decode step's): its rows' request uids and their logits
+    (the vocab's columns, on the host), the tokens it returned, and each
+    prefill batch's (rows, length). With ``forced`` (a recorded run's
+    tokens) it returns those instead of sampling: the same requests then
+    follow the same tokens through the same batches and slots."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recording(ServeEngine):
+        def __init__(self, *a, forced=None, **kw):
+            super().__init__(*a, **kw)
+            self.forced, self.calls, self.tokens = forced, [], []
+            self.batches, self._rows = [], None
+
+        def _admit(self, batch):
+            self._rows = [r.uid for r in batch.requests]
+            self.batches.append(tuple(batch.prompts.shape))
+            try:
+                return super()._admit(batch)
+            finally:
+                self._rows = None
+
+        def _sample(self, logits, temps, seeds, steps):
+            rows = self._rows if self._rows is not None else [
+                r.uid if r is not None else None for r in self.sched.slots]
+            self.calls.append((rows, logits[:, :self.cfg.vocab_size]
+                               .float().cpu()))
+            if self.forced is not None:
+                tok = self.forced[len(self.calls) - 1]
+            else:
+                tok = super()._sample(logits, temps, seeds, steps)
+            self.tokens.append(tok)
+            return tok
+
+    return Recording
+
+
+def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
+    """One engine under ``plan`` on this rank: greedy requests, its tape
+    against ``comm.budget`` (every prefill batch's and decode step's
+    budget), its K1/K3/K4 launches, its wall and peak; on rank 0 every
+    sampled row's logits held to the one-device engine's on the same
+    tokens (forced onto this run's, so batches and slots match), within
+    phase 6's bf16 limit."""
+    from repro_torch.comm import budget as B
+    from repro_torch.comm import primitives
+    from repro_torch.models import model as M
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(
+        SERVE_SP_SEED), cfg)
+    engines = _serve_sp_engine()
+    engine = engines(cfg, params, plan=plan, max_len=max_len,
+                     max_batch=len(prompts))
+    rng = np.random.default_rng(SERVE_SP_SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in prompts]
+    for i, p in enumerate(prompts):
+        engine.submit(p, SERVE_SP_NEW, seed=0, stream=i)
+    counters = _serve_sp_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(*counters)
+    t0 = time.perf_counter()
+    with primitives.tape() as records:
+        engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read(counters, counters)
+    peak = torch.cuda.max_memory_allocated()
+    steps = int(engine.stats()["decode_steps"])
+    budget = B.combine(
+        [B.serve_prefill_budget(cfg, plan, b=b, s=s)
+         for b, s in engine.batches]
+        + [B.serve_decode_budget(cfg, plan, b=len(prompts),
+                                 max_len=max_len)] * steps)
+    violations = B.check_budget(records, budget)
+    tags = {}
+    for r in records:
+        tags[r.tag] = tags.get(r.tag, 0) + 1
+    n_lin, n_soft = _mixer_counts(cfg)
+    worst, ok = 0.0, True
+    tol = TOL_LOGITS if cfg.n_layers <= 16 else TOL_LOGITS_DEEP
+    if rank == 0:
+        # the one-device engine on the same requests, forced onto this
+        # run's tokens: the same batches, slots and steps, no plan
+        one = engines(cfg, params, max_len=max_len, max_batch=len(prompts),
+                      forced=engine.tokens)
+        for i, p in enumerate(prompts):
+            one.submit(p, SERVE_SP_NEW, seed=0, stream=i)
+        one.run()
+        check([r for r, _ in one.calls] == [r for r, _ in engine.calls],
+              f"phase 18 {name}: the one-device replay took other batches")
+        for (rows, got), (_, want) in zip(engine.calls, one.calls):
+            for i, uid in enumerate(rows):
+                if uid is not None:
+                    err, within = max_err_within(got[i], want[i], tol)
+                    worst, ok = max(worst, err), ok and within
+        del one
+    log("serve_sp", rank=rank, case=name, arch=cfg.name,
+        layers=cfg.n_layers, linear=n_lin, softmax=n_soft,
+        plan_rules_seq_cache=repr((plan.rules.get("seq"),
+                                   plan.rules.get("cache_seq"))),
+        sp_degree=plan.sp_degree, prompts=repr([len(p) for p in prompts]),
+        prefill_batches=repr(engine.batches), decode_steps=steps,
+        sampled_calls=len(engine.calls), new_tokens=SERVE_SP_NEW,
+        tape_by_tag=repr(dict(sorted(tags.items()))).replace(" ", ""),
+        tape_bytes=sum(r.traffic_bytes for r in records),
+        budget_violations=violations or "none",
+        launches_k1_k3_k4_routed=repr(launched),
+        kv_ring_bytes=engine.cache_stats()["kv_ring"],
+        max_abs_err_vs_one_device_engine=f"{worst:.4e}" if rank == 0
+        else "checked on rank 0", tol=tol, transport="gloo (host-staged)",
+        wall_s=f"{wall:.2f}", max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+    check(not violations, f"phase 18 rank {rank} {name}: tape off its "
+          f"budget: {violations}")
+    check(ok, f"phase 18 {name}: logits off the one-device engine by "
+          f"{worst:.4e}")
+    want = [n_lin * len(engine.batches), n_lin * steps,
+            n_soft * len(engine.batches)]
+    check(launched[:3] == want and launched[3::2] == want,
+          f"phase 18 rank {rank} {name}: launches K1/K3/K4 (total, then "
+          f"per route) {launched}; want {want}, all on sm90")
+    del engine, params
+    _free()
+    return launched
+
+
+def _serve_sp_rank(rank, world, device, linear, hybrid, granite):
+    """Phase 18 on one of four ranks sharing the card over gloo: (a) the
+    prefill plan of the (4, 1) layout serving ``CONFIG`` and ``HYBRID``,
+    (b) the decode plan of the (1, 4) layout serving granite-34b's 2-layer
+    cut with its ring sliced over the model group."""
+    from repro_torch.launch.mesh import (Axis, make_serving_groups,
+                                         make_test_mesh)
+    from repro_torch.sharding.rules import make_plan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    axes = (Axis.DATA, Axis.MODEL)
+    pre = make_serving_groups(make_test_mesh((SERVE_SP_W, 1), axes))
+    dec = make_serving_groups(make_test_mesh((1, SERVE_SP_W), axes))
+    out = {}
+    for name, cfg in (("a_linear", linear), ("a_hybrid", hybrid)):
+        plan = make_plan(pre, "prefill", n_kv_heads=cfg.n_kv_heads,
+                         n_heads=cfg.n_heads)
+        out[name] = _serve_sp_case(rank, name, cfg, plan, SERVE_SP_PROMPTS,
+                                   SERVE_SP_MAX_LEN)
+    plan = make_plan(dec, "decode", n_kv_heads=granite.n_kv_heads,
+                     n_heads=granite.n_heads)
+    check(plan.decode_cache_axis == Axis.MODEL,
+          f"phase 18: granite's decode plan {plan.rules}")
+    out["b_granite"] = _serve_sp_case(rank, "b_granite", granite, plan,
+                                      SERVE_SP_DECODE_PROMPTS,
+                                      SERVE_SP_DECODE_MAX_LEN)
+    return out
+
+
+def phase_serve_sp(kernels: list, linear, hybrid) -> None:
+    """Phase 18 on four ranks sharing the card over gloo (NCCL refuses two
+    ranks on one device): ``ServeEngine(plan=)`` with every rank running
+    the same engine on the same requests. (a) ``make_plan((4, 1),
+    "prefill")``: Linear-Llama3-1B ``CONFIG`` and ``HYBRID`` at full width
+    and depth, prompts of 4096, 1024 and 1023 tokens split 4 ways (K1 on
+    each rank's chunk and one state all-gather a linear layer; K4 on the
+    gathered K/V; 1023 is bucketed and left-padded by ``CONFIG`` and
+    prefilled whole by ``HYBRID``, whose 2048-slot window rings are sliced
+    4 ways and merged at decode), 32 greedy tokens; (b) ``make_plan((1,
+    4), "decode", n_kv_heads=1)``: granite-34b's 2-layer cut, prompts of
+    1024 and 300 prefilled whole, its 2048-slot rings sliced over the
+    model group, 32 greedy tokens. Every rank's tape against
+    ``comm.budget``; rank 0's logits against the one-device path."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    t0 = time.perf_counter()
+    granite = _zoo_cut(get_config("granite-34b"))
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(_serve_sp_rank, SERVE_SP_W, backend="gloo",
+                          device="cuda", args=(linear, hybrid, granite),
+                          timeout_s=600)
+    finally:
+        if conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    counters = _serve_sp_counters()
+    for rank, res in enumerate(ranks):
+        for case, launched in res.items():
+            _count_routed(kernels, counters, counters, launched,
+                          f"serve_sp_{case}_rank{rank}")
+    log("serve_sp", ranks=len(ranks), transport="gloo (host-staged)",
+        wall_s=f"{time.perf_counter() - t0:.1f}")
+
+
+def _serve_sp_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    return (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -4444,6 +4671,7 @@ def main() -> int:
     timed(15, phase_cross, kernels)
     timed(16, phase_runtime, kernels, linear, train_hist)
     timed(17, phase_usp, kernels, hybrid, sp_ranks)
+    timed(18, phase_serve_sp, kernels, linear, hybrid)
     log("walls", phase_walls_s=repr(walls).replace(" ", ""),
         total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)

@@ -30,6 +30,11 @@ _MODULES = {"codeqwen1.5-7b": codeqwen1_5_7b, "qwen1.5-110b": qwen1_5_110b,
             "whisper-base": whisper_base,
             "linear-llama3-1b": linear_llama3_1b}
 
+# The reference's registry lists: the ten assigned architectures (the dry
+# run's ``--all``), and those plus the paper's Linear-Llama3.
+ARCH_IDS = [k for k in _MODULES if k != "linear-llama3-1b"]
+ALL_IDS = list(_MODULES)
+
 
 def _module(arch_id: str):
     if arch_id not in _MODULES:

@@ -128,6 +128,15 @@ class ModelConfig:
         ``pattern[p]``."""
         return self.pattern * self.n_groups
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if no layer does full (unwindowed) softmax attention over
+        the text sequence: the ``long_500k`` rule. Hymba's three global
+        layers decode linearly a step, so hymba counts as sub-quadratic
+        for the decode-only long shape."""
+        return not any(s.mixer == "softmax" and s.sliding_window is None
+                       for s in self.pattern)
+
     def linearize(self, hybrid_every: int = 0) -> "ModelConfig":
         """Paper's Linear-X recipe: replace softmax mixers with linear
         attention; ``hybrid_every=4`` keeps every 4th softmax layer as
@@ -224,6 +233,15 @@ class ShapeConfig:
         return self.kind == "train"
 
 
+# The reference's cell shapes (the dry run's, ``launch.cells``).
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 @dataclass(frozen=True)
 class RunConfig:
     """Per-run knobs of the train step (the fields of the reference's
@@ -278,6 +296,12 @@ class RunConfig:
     dp_degree: int = 0
     sp_degree: int = 0
     tp_degree: int = 0
+    # Cell building (``launch.cells``, the dry run): the per-rank tokens a
+    # microbatch aims at; inference cells hold bf16 weights; prefill drops
+    # FSDP when the weights over the model axis fit this many GiB.
+    microbatch_tokens: int = 4096
+    infer_bf16: bool = True
+    infer_fsdp_budget_gb: float = 6.0
 
     def __post_init__(self):
         self.comm_spec()                 # bad comm knobs fail on any layout

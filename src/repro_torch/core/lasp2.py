@@ -225,18 +225,27 @@ def lasp2_with_state(q, k, v, log_a=None, *, sp: SPConfig = None,
     custom backward). The end state needs every chunk's contribution,
     which the gather provides: the exchange is "allgather" whatever
     ``sp.comm.strategy`` is."""
+    return lasp2_prefill(q, k, v, log_a, sp=sp, block_size=block_size)[:2]
+
+
+def lasp2_prefill(q, k, v, log_a=None, *, sp: SPConfig = None,
+                  block_size: int = 128):
+    """:func:`lasp2_with_state` and the whole sequence's summed log decay
+    (B..., fp32): ``(o, end state, log decay)``, what a prefill caches.
+    Under SP the log decay is the sum of the gathered chunk decays, so no
+    rank needs another exchange for it."""
     if log_a is None:
         log_a = _zero_log_a(q)
     if sp is None or sp.degree == 1:
         o, state, _ = _intra_chunk(q, k, v, log_a, block_size)
-        return o, state
+        return o, state, log_a.float().sum(-1)
     m_prev, intra, cum, states = _exchange(q, k, v, log_a, sp, block_size,
                                            prefix_allgather)
     o = intra[0].float() + _inter_chunk(q, log_a, m_prev)
     # global end state: decayed combine of all chunks (same on all ranks)
     logw = torch.clamp(cum[-1][None] - cum, max=0.0)
     m_end = torch.einsum("w...,w...kv->...kv", torch.exp(logw), states)
-    return o.to(q.dtype), m_end
+    return o.to(q.dtype), m_end, cum[-1]
 
 
 def lasp2(q, k, v, log_a=None, *, sp: SPConfig = None, causal: bool = True,

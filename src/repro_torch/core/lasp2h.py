@@ -8,10 +8,10 @@ sequence parallelism, and its DeepSpeed-Ulysses alternative (two
 all-to-alls around full-sequence attention on a subset of the heads),
 in its 2D form and in the 3D (USP) form of a DP×SP×TP layout; the
 sliding-window attention whose sequence is split over ranks by a halo
-exchange (``windowed_context_attention``). Also the one-device form of
-the sharded decode attention the cross-attention layers read their
-memory cache with. The sharded decode merge is not ported (ROADMAP item
-7, M10: serving under SP).
+exchange (``windowed_context_attention``); and the decode attention of
+one token against a cache whose slots are sharded over ranks, merged as
+flash decoding merges (``sharded_decode_attention``,
+``ring_decode_attention``; serving under a plan, ``sharding.rules``).
 """
 
 from __future__ import annotations
@@ -76,7 +76,8 @@ def _gather_seq(x, group, tag, comm_dtype):
 
 def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
                                 sliding_window: Optional[int] = None,
-                                scale: Optional[float] = None):
+                                scale: Optional[float] = None,
+                                return_kv: bool = False):
     """Paper Algorithm 7: AllGather-based context parallelism.
 
     q: (B, Hq, C, dh), k, v: (B, Hkv, C, dh): this rank's chunk of the
@@ -85,18 +86,21 @@ def allgather_context_attention(q, k, v, *, sp=None, causal: bool = True,
     along the sequence (``lasp2h.k``, ``lasp2h.v``; in ``sp.comm.dtype``,
     upcast back on arrival), whose backward is the mirrored reduce-scatter
     of dK and dV; then the flash op for this rank's queries at global
-    positions ``t·C + i`` over the ``W·C`` gathered keys.
+    positions ``t·C + i`` over the ``W·C`` gathered keys. ``return_kv``:
+    return ``(o, K, V)`` with the whole sequence's K and V (what a prefill
+    builds its ring cache from).
     """
     if sp is None or sp.degree == 1:
-        return ops.flash_attention_op(q, k, v, causal=causal,
-                                      sliding_window=sliding_window,
-                                      scale=scale)
+        o = ops.flash_attention_op(q, k, v, causal=causal,
+                                   sliding_window=sliding_window, scale=scale)
+        return (o, k, v) if return_kv else o
     c = q.shape[-2]
     kg, vg = (_gather_seq(x, sp.group, tag, sp.comm.dtype)
               for x, tag in ((k, "lasp2h.k"), (v, "lasp2h.v")))
-    return ops.flash_attention_op(q, kg, vg, causal=causal,
-                                  sliding_window=sliding_window, scale=scale,
-                                  q_offset=sp.chunk_index * c)
+    o = ops.flash_attention_op(q, kg, vg, causal=causal,
+                               sliding_window=sliding_window, scale=scale,
+                               q_offset=sp.chunk_index * c)
+    return (o, kg, vg) if return_kv else o
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +255,43 @@ def windowed_context_attention(q, k, v, window: int, *, sp=None,
                                   scale=scale, q_offset=window - lo)
 
 
+def _partial_attend(q, k, v, valid, scale):
+    """One shard's online-softmax partials of a one-token query: ``(o
+    (B, Hq, dh), m (B, Hq), l (B, Hq))`` in fp32, o unnormalised. A fully
+    masked shard has zero weight: m is the mask fill, l and o are 0."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = torch.repeat_interleave(k, rep, dim=1)
+        v = torch.repeat_interleave(v, rep, dim=1)
+    s = torch.einsum("bhd,bhtd->bht", q[:, :, 0].float(), k.float()) * scale
+    s = torch.where(valid[:, None, :], s,
+                    torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=-1)
+    p = torch.where(valid[:, None, :], torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    return torch.einsum("bht,bhtd->bhd", p, v.float()), m, p.sum(dim=-1)
+
+
+def _merged(q, o, m, l, sp, tag):
+    """Normalise one shard's partials, or with ``sp`` of degree > 1 merge
+    every shard's: three all-gathers (``<tag>.o``, ``.m``, ``.l``) of
+    O(B·Hq·dh) bytes whatever the cache length, then the max-corrected
+    combine. Returns (B, Hq, 1, dh) in q's dtype."""
+    if sp is not None and sp.degree > 1:
+        og, mg, lg = (primitives.allgather_states(x, sp.group,
+                                                  tag=f"{tag}.{name}")
+                      for x, name in ((o, "o"), (m, "m"), (l, "l")))
+        m = mg.amax(dim=0)
+        corr = torch.exp(mg - m[None])
+        l = (lg * corr).sum(dim=0)
+        o = (og * corr[..., None]).sum(dim=0)
+    o = o / l.clamp(min=1e-30)[..., None]
+    return o[:, :, None, :].to(q.dtype)
+
+
 def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,
-                          sliding_window=None, scale: Optional[float] = None):
+                          sliding_window=None, scale: Optional[float] = None,
+                          sp=None):
     """One-token attention against a ring-buffer KV cache.
 
     Slot ``i`` of the ring holds the key/value written at absolute position
@@ -265,48 +304,45 @@ def ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos, *,
 
     q: (B, Hq, 1, dh); k_cache, v_cache: (B, Hkv, R, dh); key_pos: (B, R)
     int; q_pos: (B,) int per-row query positions (continuous batching).
-    Returns (B, Hq, 1, dh) in q's dtype.
+    With ``sp`` (a ``core.lasp2.SPConfig``) of degree > 1 the ring's slots
+    are sharded over ``sp.group``: ``k_cache``, ``v_cache`` and
+    ``key_pos`` are this rank's slots, q and q_pos every rank's, and the
+    shards' partials merge as flash decoding does (tags
+    ``ring_decode.o``, ``.m``, ``.l``). Returns (B, Hq, 1, dh) in q's
+    dtype, the same on every rank.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    rep = q.shape[1] // k_cache.shape[1]
-    if rep > 1:
-        k_cache = torch.repeat_interleave(k_cache, rep, dim=1)
-        v_cache = torch.repeat_interleave(v_cache, rep, dim=1)
-    kf, vf = k_cache.float(), v_cache.float()
     valid = (key_pos >= 0) & (key_pos <= q_pos[:, None])
     if sliding_window is not None:
         valid = valid & ((q_pos[:, None] - key_pos) < sliding_window)
-    s = torch.einsum("bhd,bhtd->bht", q[:, :, 0].float(), kf) * scale
-    s = torch.where(valid[:, None, :], s,
-                    torch.full((), NEG_INF, device=q.device))
-    m = s.amax(dim=-1)
-    p = torch.where(valid[:, None, :], torch.exp(s - m[..., None]),
-                    torch.zeros((), device=q.device))
-    o = torch.einsum("bht,bhtd->bhd", p, vf)
-    o = o / p.sum(dim=-1).clamp(min=1e-30)[..., None]
-    return o[:, :, None, :].to(q.dtype)
+    return _merged(q, *_partial_attend(q, k_cache, v_cache, valid, scale),
+                   sp, "ring_decode")
 
 
 def sharded_decode_attention(q, k_cache, v_cache, cache_len, *, sp=None,
                              scale: Optional[float] = None,
                              sliding_window=None):
     """One-token attention against a KV cache of ``cache_len`` valid
-    positions (the first ones), as the reference's ``sp=None`` branch:
-    ``ring_decode_attention`` with slot ``i`` holding position ``i`` and
-    the query at ``cache_len - 1``.
+    positions (the first ones), the query at ``cache_len - 1``.
 
     q: (B, Hq, 1, dh); k_cache, v_cache: (B, Hkv, S, dh); ``cache_len``
-    an int or 0-d tensor. Returns (B, Hq, 1, dh) in q's dtype. A cache
-    whose sequence is sharded over ranks (``sp`` of degree > 1) is served
-    under sequence parallelism, ROADMAP item 7 (M10), and raises here.
+    an int or 0-d tensor. With ``sp`` of degree > 1 the cache's sequence
+    is sharded over ``sp.group``: this rank holds positions ``t·c + i``
+    (``t = sp.chunk_index``, ``c`` its slots), each shard computes its
+    online-softmax partials and the shards merge (tags ``decode.o``,
+    ``.m``, ``.l``: O(B·Hq·dh)·W bytes, independent of S). Returns (B,
+    Hq, 1, dh) in q's dtype, the same on every rank.
     """
-    if sp is not None and sp.degree > 1:
-        raise NotImplementedError(
-            "sharded_decode_attention over a sequence-sharded cache is "
-            "serving under sequence parallelism (ROADMAP item 7, M10)")
-    b, s_tot = q.shape[0], k_cache.shape[2]
-    key_pos = torch.arange(s_tot, device=q.device).expand(b, s_tot)
-    q_pos = torch.as_tensor(cache_len, device=q.device).expand(b) - 1
-    return ring_decode_attention(q, k_cache, v_cache, key_pos, q_pos,
-                                 sliding_window=sliding_window, scale=scale)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    b, c = q.shape[0], k_cache.shape[2]
+    t = sp.chunk_index if sp is not None and sp.degree > 1 else 0
+    pos = t * c + torch.arange(c, device=q.device)
+    cache_len = torch.as_tensor(cache_len, device=q.device)
+    valid = pos < cache_len
+    if sliding_window is not None:
+        valid = valid & ((cache_len - 1 - pos) < sliding_window)
+    valid = valid[None].expand(b, c)
+    return _merged(q, *_partial_attend(q, k_cache, v_cache, valid, scale),
+                   sp, "decode")

@@ -25,18 +25,32 @@ group is its place in that group's gathers):
 
 The reference's "model" axis does not shard weights on the training
 mesh: params stay replicated on every rank.
+
+Serving layouts (the reference's production and test meshes) are
+:class:`Layout` values: axes named by :class:`Axis` and their sizes, pure
+shapes with no ranks (``make_production_mesh``, ``make_test_mesh``), from
+which ``sharding.rules`` computes a plan. ``make_serving_groups`` joins a
+layout to an initialised world: one process group per axis, rank order the
+reference's ``reshape`` of its devices into the mesh.
+
+The axes are enum members, never spelled as the reference's axis strings:
+the reference's repo lint (JL101) refuses those literals in every file
+but its own ``launch/mesh.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import enum
+import math
 import multiprocessing
 import tempfile
 import time
 import traceback
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any, Callable, List
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -117,6 +131,146 @@ def make_training_groups(dp_degree: int, sp_degree: int,
     return TrainingGroups(dp=dp, sp=sp, data_index=d, chunk_index=rest,
                           sp_group=sp_groups[d], dp_group=dp_groups[rest],
                           world_group=dist.group.WORLD, tp=tp, **groups)
+
+
+# ---------------------------------------------------------------------------
+# Serving layouts: the reference's meshes as shapes, and their groups.
+# ---------------------------------------------------------------------------
+
+class Axis(enum.Enum):
+    """The reference's mesh axes (``repro.launch.mesh``'s ``POD_AXIS``,
+    ``DATA_AXIS``, ``SEQ_AXIS``, ``MODEL_AXIS``), as identifiers."""
+
+    POD = 0         # cross-pod data parallelism
+    DATA = 1        # batch, FSDP; the SP axis of the inference meshes
+    SEQUENCE = 2    # LASP-2's sequence axis on the training meshes
+    MODEL = 3       # tensor parallelism; the decode cache's slot axis
+
+
+@dataclass(frozen=True)
+class Layout:
+    """A mesh as a shape: ``axes`` in mesh order and their ``sizes``. With
+    ``groups`` (set by :func:`make_serving_groups`) this rank's process
+    group and index along each axis; ``training`` then holds the
+    ``TrainingGroups`` of a (data, sequence[, model]) layout."""
+
+    axes: Tuple[Axis, ...]
+    sizes: Tuple[int, ...]
+    groups: Optional[Dict[Axis, Any]] = None
+    index: Optional[Dict[Axis, int]] = None
+    training: Optional[TrainingGroups] = None
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.sizes) or \
+                len(set(self.axes)) != len(self.axes):
+            raise ValueError(f"layout axes {self.axes} and sizes "
+                             f"{self.sizes} must pair one to one")
+
+    @property
+    def shape(self) -> Dict[Axis, int]:
+        """Axis → size, as the reference's ``mesh.shape``."""
+        return dict(zip(self.axes, self.sizes))
+
+    @property
+    def size(self) -> int:
+        """Ranks of the layout: the product of its sizes."""
+        return math.prod(self.sizes)
+
+    def axis_size(self, axis) -> int:
+        """The size of ``axis`` (an ``Axis``, a tuple of them, or None: 1);
+        an axis the layout lacks raises ``KeyError``."""
+        if axis is None:
+            return 1
+        if isinstance(axis, tuple):
+            return math.prod(self.shape[a] for a in axis)
+        return self.shape[axis]
+
+    @property
+    def name(self) -> str:
+        """``"16x16"``, ``"2x16x16"``: the dry run's mesh label."""
+        return "x".join(str(n) for n in self.sizes)
+
+    def group(self, axis: Axis):
+        """This rank's process group along ``axis`` (needs ranks)."""
+        if self.groups is None:
+            raise ValueError("a layout without ranks has no groups: "
+                             "make_serving_groups(layout) joins it to the "
+                             "world")
+        return self.groups[axis]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Layout:
+    """Single pod: 16×16 (data, model). Multi-pod: 2×16×16 (pod, data,
+    model). Pure shapes: the dry run and the plan tests read them."""
+    if multi_pod:
+        return Layout((Axis.POD, Axis.DATA, Axis.MODEL), (2, 16, 16))
+    return Layout((Axis.DATA, Axis.MODEL), (16, 16))
+
+
+def make_test_mesh(shape=(2, 4), axes=(Axis.DATA, Axis.SEQUENCE)) -> Layout:
+    """A small layout; by default the 2D DP×SP training layout (2, 4)."""
+    return Layout(tuple(axes), tuple(int(n) for n in shape))
+
+
+def _training_axes(layout: Layout) -> bool:
+    return layout.axes in ((Axis.DATA, Axis.SEQUENCE),
+                           (Axis.DATA, Axis.SEQUENCE, Axis.MODEL))
+
+
+def make_serving_groups(layout: Layout) -> Layout:
+    """``layout`` joined to the initialised world (its size must be the
+    world's): one process group per axis, each listing its ranks in global
+    order, and this rank's index along each axis. Rank ``r`` sits at the
+    multi-index of ``r`` in row-major order over ``layout.sizes``, the
+    reference's ``reshape`` of its devices into the mesh. A (data,
+    sequence[, model]) training layout takes its groups from
+    :func:`make_training_groups` (data: ``dp_group``; sequence: the SP
+    group at tp 1, ``seq_group`` on 3D; model: ``tp_group``). Every rank
+    must call this, in the same order as every other group creation."""
+    world = dist.get_world_size()
+    if layout.size != world:
+        raise ValueError(f"layout {layout.name} needs {layout.size} ranks, "
+                         f"the world has {world}")
+    rank = dist.get_rank()
+    index = dict(zip(layout.axes, _unravel(rank, layout.sizes)))
+    if _training_axes(layout):
+        tg = make_training_groups(*layout.sizes)
+        groups = {Axis.DATA: tg.dp_group,
+                  Axis.SEQUENCE: tg.sp_group if tg.tp == 1
+                  else tg.seq_group}
+        if tg.tp > 1:
+            groups[Axis.MODEL] = tg.tp_group
+        return dataclasses.replace(layout, groups=groups, index=index,
+                                   training=tg)
+    groups = {}
+    for i, axis in enumerate(layout.axes):
+        others = [n for j, n in enumerate(layout.sizes) if j != i]
+        for rest in range(math.prod(others)):
+            fixed = _unravel(rest, others)
+            members = []
+            for k in range(layout.sizes[i]):
+                idx = list(fixed)
+                idx.insert(i, k)
+                members.append(_ravel(idx, layout.sizes))
+            g = dist.new_group(members)
+            if rank in members:
+                groups[axis] = g
+    return dataclasses.replace(layout, groups=groups, index=index)
+
+
+def _unravel(n: int, sizes) -> List[int]:
+    out = []
+    for size in reversed(tuple(sizes)):
+        n, i = divmod(n, size)
+        out.append(i)
+    return out[::-1]
+
+
+def _ravel(idx, sizes) -> int:
+    n = 0
+    for i, size in zip(idx, sizes):
+        n = n * size + i
+    return n
 
 
 # ---------------------------------------------------------------------------

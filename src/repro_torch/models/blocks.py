@@ -11,7 +11,13 @@ inside, activations are ``(B, H, S, dh)``. Under sequence parallelism
 (``Ctx.sp``) ``S`` is this rank's chunk: linear and mamba2 layers run
 LASP-2 (``core.lasp2``, the exchange of ``sp.comm``), softmax layers the
 K/V all-gather of LASP-2H or, under the "ulysses" strategy, its two
-all-to-alls (``core.lasp2h``); hymba layers do both. MoE layers run on
+all-to-alls (``core.lasp2h``); hymba layers do both. Under a serving
+plan (``Ctx.plan``, ``sharding.rules``) prefill runs the same exchanges
+(LASP-2's through ``core.lasp2.lasp2_prefill``), mamba2's causal conv
+takes the previous chunk's inputs (GSPMD computes the reference's conv
+over the whole sequence), and a softmax ring whose slot dim the plan
+places over an axis is sliced over that axis's group and read back
+through ``ring_decode_attention(sp=)``. MoE layers run on
 one device only (the reference's manual DP×SP step refuses them too;
 ``train.step.ShardedStep``). Cross-attention layers (the VLM's image
 layers, Whisper's decoder cross) attend a memory (``Ctx.img_emb`` or
@@ -27,10 +33,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import primitives
 from repro_torch.configs.base import LayerSpec, MambaConfig, ModelConfig
 from repro_torch.core import linear_attention as la_core
-from repro_torch.core.lasp2 import lasp2
-from repro_torch.core.lasp2h import (allgather_context_attention,
+from repro_torch.core.lasp2 import lasp2, lasp2_prefill
+from repro_torch.core.lasp2h import (_gather_seq,
+                                     allgather_context_attention,
                                      ring_decode_attention,
                                      sharded_decode_attention,
                                      ulysses_context_attention)
@@ -50,6 +58,7 @@ class Ctx:
     is_global: Any = None          # hymba: this layer attends unwindowed
     img_emb: Any = None            # (B, n_img, d) stub patch embeddings
     enc_out: Any = None            # (B, n_frames, d) encoder output
+    plan: Any = None               # sharding.rules.Parallelism (serving)
 
 
 # The decode caches' K/V rings and SSD conv inputs are bf16 whatever
@@ -175,32 +184,86 @@ def softmax_prefill_cache(k, v, positions, ring: int):
                                 torch.full_like(p_i, -1)).to(torch.int32)}
 
 
+def _ring_sp(ctx: Ctx):
+    """The ``SPConfig`` over the axis the plan places ring slots on, or
+    None (no plan, no such axis, or no ranks)."""
+    return ctx.plan.cache_sp() if ctx.plan is not None else None
+
+
+def shard_ring(cache, ctx: Ctx):
+    """Slice a ring cache's K/V slot dim over the plan's ``cache_seq``
+    group: rank ``t`` keeps slots ``t·c … t·c + c − 1`` (``c = R / W``);
+    ``kpos`` stays whole on every rank, as the reference places it (batch
+    only). A ring whose length ``W`` does not divide stays whole
+    (``fit_spec``'s rule)."""
+    sp = _ring_sp(ctx)
+    r = cache["k"].shape[2]
+    if sp is None or r % sp.degree:
+        return cache
+    c, t = r // sp.degree, sp.chunk_index
+    return {"k": cache["k"][:, :, t * c:(t + 1) * c].contiguous(),
+            "v": cache["v"][:, :, t * c:(t + 1) * c].contiguous(),
+            "kpos": cache["kpos"]}
+
+
 def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
     """One token per row at position ``ctx.decode_pos`` (B,): write its K/V
     in place into slot ``pos % R`` of the ring (rounded to the cache's
-    dtype), then attend to the ring."""
+    dtype), then attend to the ring. A ring sliced over the plan's group
+    (K/V hold ``c`` of ``kpos``'s ``R`` slots) is written by the rank that
+    owns the slot, its ``kpos`` by every rank, and attended through the
+    flash-decoding merge over that group."""
     cfg = ctx.cfg
     posv = ctx.decode_pos.to(device=x.device, dtype=torch.int32)
     q, k, v = _qkv(params, x, cfg, None)
     q = rope(q, posv[:, None], cfg.rope_theta)
     k = rope(k, posv[:, None], cfg.rope_theta)
     rows = torch.arange(x.shape[0], device=x.device)
-    slot = torch.remainder(posv, cache["k"].shape[2]).long()
+    r, c = cache["kpos"].shape[1], cache["k"].shape[2]
+    slot = torch.remainder(posv, r).long()
+    cache["kpos"][rows, slot] = posv.to(cache["kpos"].dtype)
+    sp, lo = None, 0
+    if c != r:
+        sp = _ring_sp(ctx)
+        lo = sp.chunk_index * c
+        own = (slot >= lo) & (slot < lo + c)
+        rows, slot, k, v = rows[own], slot[own] - lo, k[own], v[own]
     cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
     cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
-    cache["kpos"][rows, slot] = posv.to(cache["kpos"].dtype)
-    o = ring_decode_attention(q, cache["k"], cache["v"], cache["kpos"], posv,
-                              sliding_window=window)
+    o = ring_decode_attention(q, cache["k"], cache["v"],
+                              cache["kpos"][:, lo:lo + c], posv,
+                              sliding_window=window, sp=sp)
     y = _heads_merge(o) @ params["wo"].to(x.dtype)
     return y, cache
 
 
+def _attn_prefill(params, x, ctx: Ctx, window, ring):
+    """Prompt attention and its ring cache of ``ring`` slots from one K/V
+    projection. Under SP the ring comes from the whole sequence's K/V:
+    the K/V all-gather's (or, under "ulysses", a gather of its own, tags
+    ``ring.k``, ``ring.v``), at positions ``0 … S − 1``; then it is
+    sliced per the plan (``shard_ring``)."""
+    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
+    positions = ctx.positions
+    if ctx.sp is None or ctx.sp.comm.strategy != "ulysses":
+        o, k, v = allgather_context_attention(
+            q, k, v, sp=ctx.sp, causal=ctx.causal, sliding_window=window,
+            return_kv=True)
+    else:
+        o = ulysses_context_attention(q, k, v, sp=ctx.sp, causal=ctx.causal,
+                                      sliding_window=window)
+        k, v = (_gather_seq(t, ctx.sp.group, tag, ctx.sp.comm.dtype)
+                for t, tag in ((k, "ring.k"), (v, "ring.v")))
+    if ctx.sp is not None:
+        positions = torch.arange(k.shape[2], device=x.device)
+    y = _heads_merge(o) @ params["wo"].to(x.dtype)
+    return y, shard_ring(softmax_prefill_cache(k, v, positions, ring), ctx)
+
+
 def _softmax_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
     """Prompt attention and its ring cache from one K/V projection."""
-    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
-    y = _softmax_out(params, x, q, k, v, ctx, spec.sliding_window)
-    return y, softmax_prefill_cache(k, v, ctx.positions,
-                                    softmax_ring_len(spec, max_len))
+    return _attn_prefill(params, x, ctx, spec.sliding_window,
+                         softmax_ring_len(spec, max_len))
 
 
 # ===========================================================================
@@ -296,15 +359,21 @@ def linear_decode(params, x, cache, ctx: Ctx):
 
 
 def _linear_prefill(params, x, ctx: Ctx):
+    """The prompt through K1, or under SP through LASP-2's prefill (one
+    state all-gather, whose chunk decays also sum to the whole prompt's
+    log decay on every rank)."""
     cfg = ctx.cfg
     q, k, v, log_a = _linear_qkv(params, x, ctx)
     b, h = q.shape[0], q.shape[1]
-    o, m, _ = ops.linear_attention_op(q, k, v, log_a,
-                                      block_size=cfg.linear_attn.block_size)
+    bs = cfg.linear_attn.block_size
+    if ctx.sp is not None:
+        o, m, ld = lasp2_prefill(q, k, v, log_a, sp=ctx.sp, block_size=bs)
+    else:
+        o, m, _ = ops.linear_attention_op(q, k, v, log_a, block_size=bs)
+        # The cache's log decay is the sum of every log a, resets included.
+        ld = (log_a.float().sum(-1) if log_a is not None
+              else torch.zeros((b, h), dtype=torch.float32, device=x.device))
     y = _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
-    # The cache's log decay is the sum of every log a, resets included.
-    ld = (log_a.float().sum(-1) if log_a is not None
-          else torch.zeros((b, h), dtype=torch.float32, device=x.device))
     return y, {"m": m, "log_decay": ld}
 
 
@@ -364,18 +433,45 @@ def _causal_conv(x, w, cache=None):
     return F.silu(y), (xp[:, -(k - 1):, :] if k > 1 else None)
 
 
+def _conv_halo(pre, k, sp):
+    """Under a serving plan's SP: one all-gather (tag ``mamba2.conv``) of
+    every rank's last K−1 inputs of the three convs. Returns the conv
+    caches this chunk starts from (the previous rank's tails, zeros on
+    rank 0) and the whole sequence's last K−1 inputs (the last rank's
+    tails), each as ``{"x", "b", "c"}``."""
+    widths = [t.shape[-1] for t in pre]
+    tails = primitives.allgather_states(
+        torch.cat([t[:, -(k - 1):] for t in pre], dim=-1), sp.group,
+        tag="mamba2.conv")
+    t = sp.chunk_index
+    halo = tails[t - 1] if t > 0 else torch.zeros_like(tails[0])
+    split = lambda z: dict(zip("xbc", torch.split(z, widths, dim=-1)))
+    return split(halo), split(tails[-1])
+
+
 def _mamba_core(p, x, ctx: Ctx, spec: LayerSpec, conv_caches=None):
     """The SSD projections as linear attention: q = C, k = B (both
     (B, nh, S, d_state), the groups repeated over heads), v = x·dt
     (B, nh, S, headdim), log a = −exp(a_log)·dt (B, nh, S) fp32 with the
     resets; also the skip input xh and the conv caches. dt = softplus(x
-    @ wdt + dt_bias) is fp32, as in the reference."""
+    @ wdt + dt_bias) is fp32, as in the reference. Under a serving plan's
+    SP the convs start from the previous chunk's inputs and the conv
+    caches are the whole sequence's (``_conv_halo``); under the train
+    step's SP (no plan) each chunk starts from zeros, as the reference's
+    manual step does."""
     mb, _, nh = _mamba_dims(ctx.cfg, spec)
     dt_ = x.dtype
+    pre = [x @ p[w].to(dt_) for w in ("wx", "wb", "wc")]
+    last = None
+    if conv_caches is None and ctx.sp is not None and \
+            ctx.plan is not None and not ctx.plan.sp_manual:
+        conv_caches, last = _conv_halo(pre, p["conv_x"].shape[0], ctx.sp)
     cc = conv_caches or {"x": None, "b": None, "c": None}
-    xs, ccx = _causal_conv(x @ p["wx"].to(dt_), p["conv_x"], cc["x"])
-    bs, ccb = _causal_conv(x @ p["wb"].to(dt_), p["conv_b"], cc["b"])
-    cs, ccc = _causal_conv(x @ p["wc"].to(dt_), p["conv_c"], cc["c"])
+    xs, ccx = _causal_conv(pre[0], p["conv_x"], cc["x"])
+    bs, ccb = _causal_conv(pre[1], p["conv_b"], cc["b"])
+    cs, ccc = _causal_conv(pre[2], p["conv_c"], cc["c"])
+    if last is not None:
+        ccx, ccb, ccc = last["x"], last["b"], last["c"]
     dt = F.softplus((x @ p["wdt"].to(dt_)).float() + p["dt_bias"])
     log_a = (-torch.exp(p["a_log"]) * dt).transpose(1, 2)      # (B, nh, S)
     if ctx.resets is not None:
@@ -450,14 +546,15 @@ def mamba2_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
 
 
 def _mamba2_prefill(params, x, ctx: Ctx, spec: LayerSpec):
-    """The prompt through K1; the cache is its end state, the sum of every
-    log a (resets included) and the last d_conv − 1 conv inputs (the real
-    ones: left-padding sits before them)."""
+    """The prompt through K1 (under SP LASP-2's prefill); the cache is its
+    end state, the sum of every log a (resets included) and the last
+    d_conv − 1 conv inputs (the real ones: left-padding sits before
+    them)."""
     q, k, v, log_a, xh, cc = _mamba_core(params, x, ctx, spec)
-    y, m, _ = ops.linear_attention_op(
-        q, k, v, log_a, block_size=ctx.cfg.linear_attn.block_size)
+    y, m, ld = lasp2_prefill(q, k, v, log_a, sp=ctx.sp,
+                             block_size=ctx.cfg.linear_attn.block_size)
     return _mamba_out(params, x, y, xh, ctx.cfg), \
-        {"m": m, "log_decay": log_a.float().sum(-1), **_conv_cache(cc)}
+        {"m": m, "log_decay": ld, **_conv_cache(cc)}
 
 
 # ===========================================================================
@@ -493,10 +590,8 @@ def hymba_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
 
 
 def _hymba_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
-    q, k, v = _qkv(params["attn"], x, ctx.cfg, ctx.positions)
-    a = _softmax_out(params["attn"], x, q, k, v, ctx,
-                     hymba_window(spec, ctx))
-    ca = softmax_prefill_cache(k, v, ctx.positions, max_len)
+    a, ca = _attn_prefill(params["attn"], x, ctx, hymba_window(spec, ctx),
+                          max_len)
     s, cs = _mamba2_prefill(params["ssm"], x, ctx, spec)
     return 0.5 * (a + s), {"attn": ca, "ssm": cs}
 

@@ -25,6 +25,14 @@ headdim) and ``log_decay`` (B, nh) fp32 and ``conv_x``, ``conv_b``,
 ``conv_c`` (B, d_conv − 1, C) bf16; a hymba layer both, nested under
 ``attn`` and ``ssm``; a cross layer the memory's ``k``, ``v`` (B, Hkv,
 n_mem, dh) bf16, written at prefill and only read by decode.
+
+Serving under a plan (``plan``, a ``sharding.rules.Parallelism`` whose
+layout has ranks, ``launch.mesh.make_serving_groups``): every rank gets
+the whole prompt and the same weights; ``plan.sp_for(S)`` decides whether
+the prompt splits over the SP group, and each rank then runs its chunk
+(RoPE and pad positions absolute) through the layers' exchanges. A ring
+cache whose slots the plan places over an axis holds this rank's slice
+of them (``blocks.shard_ring``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import dataclasses
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.comm import primitives
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.device import resolve_device, torch_dtype
 from repro_torch.models import blocks
@@ -58,10 +67,13 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     masters. Norm scales, the SSD heads' 1-D leaves (``dt_bias``,
     ``a_log``, ``d_skip``) and the cross layers' 0-d ``gate`` are fp32
     either way. With ``cfg.encoder`` the encoder's layers are drawn after
-    the decoder's.
+    the decoder's. ``generator`` None with ``device="meta"`` gives the
+    shapes alone (``launch.cells``, the dry run).
     """
     device = resolve_device(device)
-    if generator.device.type != device.type:
+    if generator is None and device.type == "meta":
+        generator = torch.Generator(device="cpu")
+    elif generator is None or generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on "
                          f"{device}: create the generator on the device")
     dtype = torch_dtype(param_dtype or cfg.dtype)
@@ -124,10 +136,15 @@ def _run_layers(layers, x, ctxs, specs, remat):
     return x, aux
 
 
-def encode(params, frames, cfg: ModelConfig, *, remat: str = "none"):
+def encode(params, frames, cfg: ModelConfig, plan=None, *,
+           remat: str = "none"):
     """Whisper-style bidirectional encoder over (stub) frame embeddings
     (B, n_frames, d_model): the sinusoid added in ``cfg.dtype``, softmax
-    layers without RoPE and unmasked, then the encoder's final norm."""
+    layers without RoPE and unmasked, then the encoder's final norm. Under
+    a ``plan`` the encoder runs whole on every rank: its output is the
+    memory every rank's cross layers read whole (the reference's GSPMD
+    may split its frames; the function is the same)."""
+    del plan
     dtype = torch_dtype(cfg.dtype)
     device = _device(params)
     x = torch.as_tensor(frames, device=device).to(dtype)
@@ -158,19 +175,35 @@ def _memories(params, cfg: ModelConfig, img_emb, enc_frames, remat):
     return img_emb, enc_out
 
 
-def forward(params, tokens, cfg: ModelConfig, *, resets=None,
+def forward(params, tokens, cfg: ModelConfig, plan=None, *, resets=None,
             remat: str = "none", sp=None, causal: bool = True, img_emb=None,
             enc_frames=None):
     """Full-sequence forward → logits (B, S, padded_vocab) in ``cfg.dtype``
     (``forward_with_aux`` without the MoE layers' router loss)."""
-    return forward_with_aux(params, tokens, cfg, resets=resets, remat=remat,
-                            sp=sp, causal=causal, img_emb=img_emb,
-                            enc_frames=enc_frames)[0]
+    return forward_with_aux(params, tokens, cfg, plan, resets=resets,
+                            remat=remat, sp=sp, causal=causal,
+                            img_emb=img_emb, enc_frames=enc_frames)[0]
 
 
-def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
-                     remat: str = "none", sp=None, causal: bool = True,
-                     img_emb=None, enc_frames=None):
+def _plan_split(plan, s: int):
+    """``(sp, t, c)``: the SP config a serving ``plan`` gives a sequence
+    of ``s`` tokens (None when it stays whole), this rank's chunk index
+    and the chunk length. The manual train plan is not a serving plan:
+    its caller passes chunks (``sp=``)."""
+    if plan is None:
+        return None, 0, s
+    if plan.sp_manual:
+        raise ValueError("the manual train plan runs inside the DP×SP step "
+                         "(train.step.ShardedStep), which passes sp=")
+    sp = plan.sp_for(s)
+    if sp is None:
+        return None, 0, s
+    return sp, sp.chunk_index, s // sp.degree
+
+
+def forward_with_aux(params, tokens, cfg: ModelConfig, plan=None, *,
+                     resets=None, remat: str = "none", sp=None,
+                     causal: bool = True, img_emb=None, enc_frames=None):
     """Full-sequence forward → ``(logits (B, S, padded_vocab) in
     ``cfg.dtype``, aux)``; ``aux`` is the MoE layers' router loss summed
     over layers (a 0-d fp32 tensor; dense layers add 0).
@@ -189,13 +222,23 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
     recompute issues its forward exchanges again inside the backward.
     Cross layers attend ``img_emb`` (B, n_img, d) or the encoder's output
     over ``enc_frames`` (B, n_frames, d); the encoder runs under the same
-    ``remat``.
+    ``remat``. A serving ``plan`` takes the whole ``tokens`` (and
+    ``resets``) and, when it splits them (``plan.sp_for(S)``), returns
+    this rank's chunk ``t`` of the logits, (B, S / W, padded_vocab), as
+    the reference's GSPMD leaves them sharded.
     """
     if remat not in ("none", "full"):
         raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     dtype = torch_dtype(cfg.dtype)
     device = _device(params)
     tokens = tokens.to(device)
+    if plan is not None:
+        if sp is not None:
+            raise ValueError("pass a plan or sp, not both")
+        sp, t, c = _plan_split(plan, tokens.shape[1])
+        tokens = tokens[:, t * c:(t + 1) * c]
+        if resets is not None:
+            resets = resets[:, t * c:(t + 1) * c]
     _, s = tokens.shape
     x = embed_lookup(params["embed"], tokens, dtype)
     positions = torch.arange(s, device=device)
@@ -204,7 +247,7 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, *, resets=None,
     img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, remat)
     ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
               resets=None if resets is None else resets.to(device),
-              img_emb=img_emb, enc_out=enc_out)
+              img_emb=img_emb, enc_out=enc_out, plan=plan)
     x, aux = _run_layers(params["layers"], x, _layer_ctxs(ctx, cfg),
                          cfg.layer_specs(), remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -248,22 +291,38 @@ def pad_safe(cfg: ModelConfig) -> bool:
     return not (cfg.qkv_bias and "mamba2" in mixers)
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
+               plan=None):
     """Decode cache: per linear or mamba2 layer a constant-size fp32 state
     plus its cumulative log decay (``max_len`` does not change its size;
     mamba2 also keeps its last d_conv − 1 conv inputs), per softmax layer a
     ring-buffer KV cache (ring = the sliding window of the hybrids'
     softmax layers, capped at ``max_len``; every hymba layer's ring is
     ``max_len`` long); ``pos`` is per row, since rows of a continuous
-    batch sit at different offsets."""
+    batch sit at different offsets. Under a serving ``plan`` each ring's
+    K/V hold this rank's slice of the slots (``blocks.shard_ring``)."""
     device = resolve_device(device)
-    return {"layers": [blocks.layer_cache(cfg, spec, batch, max_len, device)
-                       for spec in cfg.layer_specs()],
+    layers = [blocks.layer_cache(cfg, spec, batch, max_len, device)
+              for spec in cfg.layer_specs()]
+    if plan is not None:
+        ctx = Ctx(cfg=cfg, plan=plan)
+        layers = [_shard_rings(c, ctx) for c in layers]
+    return {"layers": layers,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
-def decode_step(params, token, cache, cfg: ModelConfig, *, img_emb=None,
-                enc_out=None):
+def _shard_rings(tree, ctx: Ctx):
+    """Every ring cache (a dict with ``kpos``) in ``tree`` through
+    ``blocks.shard_ring``."""
+    if isinstance(tree, dict):
+        if "kpos" in tree:
+            return blocks.shard_ring(tree, ctx)
+        return {k: _shard_rings(v, ctx) for k, v in tree.items()}
+    return tree
+
+
+def decode_step(params, token, cache, cfg: ModelConfig, plan=None, *,
+                img_emb=None, enc_out=None):
     """One decode step. token: (B,) int → (logits (B, V), new cache).
 
     No prefix re-scan: every linear or SSD layer advances its recurrent
@@ -272,13 +331,15 @@ def decode_step(params, token, cache, cfg: ModelConfig, *, img_emb=None,
     softmax layer writes one ring slot in place (on every device) and
     attends to the ring; every cross layer reads the memory's K/V that
     prefill cached (``img_emb`` and ``enc_out`` are the reference's
-    arguments; no layer reads them).
+    arguments; no layer reads them). Under a serving ``plan`` every rank
+    decodes every row; a sliced ring is written by its slot's owner and
+    read through the flash-decoding merge over the plan's group.
     """
     dtype = torch_dtype(cfg.dtype)
     pos = cache["pos"]
     x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
     ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos,
-              img_emb=img_emb, enc_out=enc_out)
+              img_emb=img_emb, enc_out=enc_out, plan=plan)
     new_layers = []
     for p, c, lctx, spec in zip(params["layers"], cache["layers"],
                                 _layer_ctxs(ctx, cfg), cfg.layer_specs()):
@@ -293,7 +354,7 @@ def decode_step(params, token, cache, cfg: ModelConfig, *, img_emb=None,
 # Prefill (full prompt → cache)
 # ---------------------------------------------------------------------------
 
-def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
+def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
             pad_lens=None, img_emb=None, enc_frames=None):
     """Run the prompt, returning (logits of the last position (B, V),
     decode cache).
@@ -310,13 +371,23 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
     for ``max_len`` (default: the prompt length); cross layers cache the
     K/V of ``img_emb`` or of the encoder's output over ``enc_frames``
     (encoded here, once).
+
+    Under a serving ``plan`` that splits the prompt (``plan.sp_for(S)``),
+    rank ``t`` runs columns ``t·C … t·C + C − 1``: positions, the filler
+    mask and the reset at the first real token are those columns' own,
+    so a left-padded row's reset may fall in any chunk. Only the last
+    rank holds the last position: its final hidden state reaches every
+    rank through one all-gather (tag ``prefill.last``), so every rank
+    returns the same logits and cache (rings sliced per the plan).
     """
     device = _device(params)
     dtype = torch_dtype(cfg.dtype)
     tokens = tokens.to(device)
     b, s = tokens.shape
     max_len = max_len or s
-    x = embed_lookup(params["embed"], tokens, dtype)
+    sp, t, c = _plan_split(plan, s)
+    x = embed_lookup(params["embed"], tokens[:, t * c:(t + 1) * c], dtype)
+    cols = torch.arange(t * c, (t + 1) * c, device=device)[None, :]
     resets = None
     if pad_lens is not None:
         if not pad_safe(cfg):
@@ -324,22 +395,24 @@ def prefill(params, tokens, cfg: ModelConfig, *, max_len=None,
                 "pad_lens prefill requires a pure linear/SSM stack with "
                 "dense MLPs")
         pad_lens = torch.as_tensor(pad_lens, device=device).long()
-        cols = torch.arange(s, device=device)[None, :]
-        positions = cols - pad_lens[:, None]                    # (B, S)
+        positions = cols - pad_lens[:, None]                    # (B, C)
         resets = cols == pad_lens[:, None]
         x = torch.where((cols >= pad_lens[:, None])[..., None], x,
                         torch.zeros((), dtype=x.dtype, device=device))
     else:
-        positions = torch.arange(s, device=device)
+        positions = cols[0]
     img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, "none")
     ctx = Ctx(cfg=cfg, positions=positions, resets=resets, img_emb=img_emb,
-              enc_out=enc_out)
+              enc_out=enc_out, sp=sp, plan=plan)
     caches = []
     for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
                              cfg.layer_specs()):
-        x, c = blocks.layer_prefill(p, x, lctx, spec, max_len)
-        caches.append(c)
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+        x, c_ = blocks.layer_prefill(p, x, lctx, spec, max_len)
+        caches.append(c_)
+    x = x[:, -1:, :]
+    if sp is not None:
+        x = primitives.allgather_states(x, sp.group, tag="prefill.last")[-1]
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_out(params["embed"], x, cfg.vocab_size)
     pos = torch.full((b,), s, dtype=torch.int32, device=device)
     if pad_lens is not None:

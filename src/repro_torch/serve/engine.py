@@ -19,6 +19,15 @@ would attend left-padding) and per-step eviction of finished ones
 ``(seed, stream)`` generator, so its tokens do not depend on what it was
 batched with.
 
+Under a serving plan (``plan``: ``sharding.rules.make_plan`` on a layout
+with ranks, ``launch.mesh.make_serving_groups``) every rank of the plan's
+world runs the same engine on the same requests: the scheduler is
+deterministic, so their slot decisions agree, and prefill and decode
+(``M.prefill``, ``M.decode_step`` with the plan) return the same logits
+on every rank. The prompt splits over the SP group (LASP-2 and LASP-2H),
+and each softmax ring holds this rank's slice of its slots where the plan
+places them.
+
 Encoder and image models (the cross family) serve through ``generate``
 alone, as a static batch: their per-request memories (encoder frames,
 image embeddings) do not batch continuously. Rectangular prompts are
@@ -83,12 +92,14 @@ def _place(big, small, slots) -> None:
 
 
 class ServeEngine:
-    def __init__(self, cfg: ModelConfig, params, *, max_len: int = 2048,
-                 max_batch: int = 8, bucket_lengths: Optional[bool] = None,
-                 sink=None, max_queue: Optional[int] = None,
+    def __init__(self, cfg: ModelConfig, params, *, plan=None,
+                 max_len: int = 2048, max_batch: int = 8,
+                 bucket_lengths: Optional[bool] = None, sink=None,
+                 max_queue: Optional[int] = None,
                  finished_timeout: Optional[float] = None, device=None):
         """``device``: the CUDA card unless the caller names another one
-        (``"cpu"`` in the tests); ``params`` must already live there."""
+        (``"cpu"`` in the tests); ``params`` must already live there.
+        ``plan``: a serving plan (None: one device)."""
         self.device = resolve_device(device)
         param_dev = params["embed"]["table"].device
         if param_dev.type != self.device.type:
@@ -96,6 +107,7 @@ class ServeEngine:
                              f"{self.device}")
         self.cfg = cfg
         self.params = params
+        self.plan = plan
         self.max_len = max_len
         self.max_batch = max_batch
         self.sink = as_sink(sink)
@@ -114,7 +126,7 @@ class ServeEngine:
         # the slot grid is allocated for the cross family too, so its
         # cache_stats() are the reference's
         self._cache = M.init_cache(cfg, max_batch, max_len,
-                                   device=self.device)
+                                   device=self.device, plan=plan)
         self._static = cfg.encoder is not None or bool(cfg.n_image_tokens)
         self._tok = np.zeros((max_batch,), np.int32)
         self._temps = np.zeros((max_batch,), np.float32)
@@ -158,7 +170,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, self._cache = M.decode_step(
                 self.params, torch.as_tensor(self._tok, device=self.device),
-                self._cache, self.cfg)
+                self._cache, self.cfg, self.plan)
             steps = [len(r.tokens) if r is not None else 0
                      for r in self.sched.slots]
             tok = self._sample(logits, self._temps, self._seeds, steps)
@@ -204,7 +216,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(batch.prompts, device=self.device)
         pad_lens = batch.pad_lens if self.bucket_lengths else None
-        logits, small = M.prefill(self.params, tokens, self.cfg,
+        logits, small = M.prefill(self.params, tokens, self.cfg, self.plan,
                                   max_len=self.max_len, pad_lens=pad_lens)
         slots = torch.as_tensor(batch.slots, dtype=torch.long,
                                 device=self.device)
@@ -293,7 +305,7 @@ class ServeEngine:
         if s + max_new_tokens > self.max_len:
             raise ValueError("max_len too small")
         t0 = time.perf_counter()
-        logits, cache = M.prefill(self.params, prompts, self.cfg,
+        logits, cache = M.prefill(self.params, prompts, self.cfg, self.plan,
                                   max_len=self.max_len, img_emb=img_emb,
                                   enc_frames=enc_frames)
         temps = np.full((b,), float(temperature))
@@ -316,7 +328,7 @@ class ServeEngine:
             t0 = time.perf_counter()
             logits, cache = M.decode_step(
                 self.params, torch.as_tensor(tok, device=self.device), cache,
-                self.cfg)
+                self.cfg, self.plan)
             tok = self._sample(logits, temps, seeds,
                                np.full((b,), i + 1, np.int64))
             self.metrics.observe("decode_step_s", time.perf_counter() - t0)

@@ -156,7 +156,9 @@ def test_sharded_decode_attention_matches_reference(hq, hkv, cache_len,
                                                     window):
     """The one-device branch (``sp=None``): a query against the first
     ``cache_len`` slots of a 24-slot cache, optionally windowed; fp32
-    3e-4. A sequence-sharded cache raises (serving under SP, M10)."""
+    3e-4; an ``sp`` of degree 1 is that branch too. The sharded merge
+    (degree > 1) is held to the reference's on gloo ranks in
+    ``test_torch_serve_sp.py``."""
     rng = np.random.default_rng(1)
     q = rng.standard_normal((2, hq, 1, 16)).astype(np.float32)
     k, v = (rng.standard_normal((2, hkv, 24, 16)).astype(np.float32)
@@ -169,10 +171,11 @@ def test_sharded_decode_attention_matches_reference(hq, hkv, cache_len,
         cache_len, sliding_window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=3e-4,
                                atol=3e-4)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tlasp2h.sharded_decode_attention(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            cache_len, sp=types.SimpleNamespace(degree=2))
+    one = tlasp2h.sharded_decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        cache_len, sliding_window=window,
+        sp=types.SimpleNamespace(degree=1))
+    assert torch.equal(one, got)
 
 
 @pytest.mark.parametrize("memory", ["img_emb", "enc_out"])

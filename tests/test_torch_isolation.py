@@ -59,7 +59,9 @@ def test_port_imports_without_loading_jax():
             "repro_torch.train.loop, repro_torch.checkpoint.manager, "
             "repro_torch.comm.primitives, repro_torch.comm.strategy, "
             "repro_torch.comm.spec, repro_torch.core.baselines, "
-            "repro_torch.core.lasp2, repro_torch.launch.mesh; "
+            "repro_torch.core.lasp2, repro_torch.launch.mesh, "
+            "repro_torch.sharding.rules, repro_torch.comm.budget, "
+            "repro_torch.launch.cells, repro_torch.launch.dryrun; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -1,0 +1,445 @@
+"""Port vs reference: serving under a plan, on gloo ranks, at SMOKE size.
+
+The reference runs in one subprocess started from this file (``python
+tests/test_torch_serve_sp.py --jax-reference out.npz``) on 8 virtual CPU
+devices: ``sharded_decode_attention`` and ``ring_decode_attention`` with
+``sp`` over a 4-device sequence mesh (the first as
+``tests/distributed_checks.py:325-335`` checks it), the dense + SP forward
+of starcoder2-15b SMOKE under the prefill plan of the (4, 2) (data,
+model) mesh (``distributed_checks.py:339-361``), ``M.prefill`` and
+``M.decode_step`` under ``make_plan(mesh (4, 1), "prefill")`` for
+linear-llama3-1b SMOKE (fp32 and bf16), its 1/4 hybrid and its GLA
+variant, mamba2-2.7b and hymba-1.5b SMOKE, granite-34b SMOKE under ``make_plan(mesh (1, 4), "decode",
+n_kv_heads=1)``, and ``ServeEngine(plan=)`` under both plans; it writes
+every result, its tapes and its initial params into one npz.
+
+The port runs the same inputs and params (``torch_serve_ranks``) on one
+spawn of 4 gloo ranks and one of 8 (the (4, 2) forward). Tolerances:
+the decode attentions 2e-4 (the reference check's), the bf16 forward
+2e-2 (its check's), prefill and decode fp32 3e-4 and bf16 4e-2
+(``tests/test_kernels.py:14-15``; rings are stored in bf16 in both
+packages and take 4e-2; a bf16 model's states take
+``tests/test_torch_models.py``'s 5e-2 relative plus 1e-2 of the tensor's
+largest magnitude, an entry near zero being a sum of rounded products of
+large terms), greedy tokens exact. Tapes: every rank's equals
+the ``comm.budget`` of what it ran, and its rows (op, tag, payload) the
+reference's, apart from the port's own (``PORT_ONLY_TAGS``: what GSPMD
+moves without a named primitive).
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import torch_serve_ranks as R
+from repro_torch.launch.mesh import run_ranks
+
+HERE = Path(__file__).resolve()
+TOL_DECODE = 2e-4
+TOL_FWD_BF16 = 2e-2
+TOL = {"float32": 3e-4, "bfloat16": 4e-2}
+TOL_RING = 4e-2
+STATE_SCALE_TOL_BF16 = (5e-2, 1e-2)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "ref.npz"
+        env = dict(os.environ,
+                   XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   JAX_PLATFORMS="cpu")
+        proc = subprocess.run([sys.executable, str(HERE), "--jax-reference",
+                               str(out)], env=env, capture_output=True,
+                              text=True, timeout=900)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        ranks = {4: run_ranks(R.serve_rank, 4, args=(str(out),),
+                              timeout_s=600),
+                 8: run_ranks(R.forward_rank, 8, args=(str(out),),
+                              timeout_s=600)}
+        with np.load(out) as npz:
+            want = {k: npz[k] for k in npz.files
+                    if not k.startswith("param/")}
+    return want, ranks
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, list):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flat(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _rows(want, key):
+    return sorted(str(x) for x in want[key])
+
+
+def _fwd(rows, port_only=R.PORT_ONLY_TAGS):
+    return sorted(r for r in rows if r.split("|")[1] not in port_only)
+
+
+@pytest.mark.parametrize("cache_len", R.CACHE_LENS)
+def test_sharded_decode_attention_matches_reference(ref, cache_len):
+    """A 512-slot cache sharded 4 ways at cache_len 512, 300 and 37 (the
+    last leaves three shards fully masked): every rank's merged output
+    within 2e-4 of the reference's ``sp=`` run and of its one-device run;
+    the tape is the three ``decode.*`` gathers of the merge's budget."""
+    want, ranks = ref
+    for res in ranks[4]:
+        got = res[f"decode/{cache_len}"]
+        for key in ("sp", "local"):
+            np.testing.assert_allclose(got, want[f"decode/{cache_len}/{key}"],
+                                       rtol=TOL_DECODE, atol=TOL_DECODE)
+        assert res[f"decode/{cache_len}/budget"] == []
+        assert res[f"decode/{cache_len}/tape"] == _rows(
+            want, f"decode/{cache_len}/tape")
+
+
+def test_ring_decode_attention_matches_reference(ref):
+    """A ragged 64-slot ring (wrapped rows, a row never filled past 20)
+    with per-row query positions and a window of 40, its slots sharded 4
+    ways: within 2e-4 of the reference's ``sp=`` run; tape rows
+    ``ring_decode.o``, ``.m``, ``.l``, the reference's."""
+    want, ranks = ref
+    for res in ranks[4]:
+        np.testing.assert_allclose(res["ring"], want["ring/sp"],
+                                   rtol=TOL_DECODE, atol=TOL_DECODE)
+        np.testing.assert_allclose(res["ring"], want["ring/local"],
+                                   rtol=TOL_DECODE, atol=TOL_DECODE)
+        assert res["ring/tape"] == _rows(want, "ring/tape")
+
+
+def test_dense_sp_forward_under_prefill_plan_matches_reference(ref):
+    """starcoder2-15b SMOKE (bf16) under the prefill plan of the (4, 2)
+    layout: each rank's chunk of the logits, put back in sequence order,
+    within 2e-2 of the reference's forward under the same plan (and of
+    its one-device forward); the model axis's two ranks agree exactly."""
+    want, ranks = ref
+    chunks = {}
+    for r, res in enumerate(ranks[8]):
+        d, m = divmod(r, 2)
+        assert res["places"] == {"DATA": (d, [m, 2 + m, 4 + m, 6 + m]),
+                                 "MODEL": (m, [2 * d, 2 * d + 1])}
+        _, t = res["index"]
+        if t in chunks:
+            np.testing.assert_array_equal(res["logits"], chunks[t])
+        chunks[t] = res["logits"]
+    got = np.concatenate([chunks[t] for t in range(4)], axis=1)
+    v = want["starcoder/logits_sp"].shape[-1]
+    for key in ("logits_sp", "logits_local"):
+        np.testing.assert_allclose(got[..., :v], want[f"starcoder/{key}"],
+                                   rtol=TOL_FWD_BF16, atol=TOL_FWD_BF16)
+    assert ranks[8][0]["tape"] == _rows(want, "starcoder/tape")
+
+
+def _check_cache(got, want_prefix, want, tol):
+    flat = _flat(got)
+    keys = [k[len(want_prefix):] for k in want if k.startswith(want_prefix)]
+    assert sorted(keys) == sorted(flat), (sorted(keys), sorted(flat))
+    for key, arr in flat.items():
+        w = want[want_prefix + key]
+        if key.endswith("kpos") or key == "pos":
+            np.testing.assert_array_equal(arr, w, err_msg=key)
+        elif key.split("/")[-1] in ("k", "v"):
+            np.testing.assert_allclose(arr, w, rtol=TOL_RING, atol=TOL_RING,
+                                       err_msg=key)
+        elif tol == TOL["bfloat16"]:
+            rel, scale = STATE_SCALE_TOL_BF16
+            np.testing.assert_allclose(
+                arr, w, rtol=rel,
+                atol=max(rel, scale * float(np.abs(w).max())), err_msg=key)
+        else:
+            np.testing.assert_allclose(arr, w, rtol=tol, atol=tol,
+                                       err_msg=key)
+
+
+def test_serving_groups_follow_the_reference_reshape(ref):
+    """Rank r sits at the row-major multi-index of r over the layout's
+    sizes (the reference's ``reshape`` of its devices); each axis's group
+    lists its ranks in global order. A (data, sequence) layout takes its
+    groups from ``make_training_groups``, and its train plan's SP config
+    is the training layout's (chunk r % 2)."""
+    _, ranks = ref
+    for r, res in enumerate(ranks[4]):
+        d, s = divmod(r, 2)
+        assert res["places"] == {
+            "prefill": {"DATA": (r, [0, 1, 2, 3]), "MODEL": (0, [r])},
+            "decode": {"DATA": (0, [r]), "MODEL": (r, [0, 1, 2, 3])},
+            "train": {"DATA": (d, [s, 2 + s]),
+                      "SEQUENCE": (s, [2 * d, 2 * d + 1])}}
+        assert res["train_plan"] == (2, s, s, d)
+
+
+@pytest.mark.parametrize("name", R.PREFILL_CFGS)
+def test_prefill_under_plan_matches_reference(ref, name):
+    """``M.prefill(plan=)`` of 2 × 64 tokens split 4 ways, then 3 decode
+    steps: every rank's last logits, every cache leaf (states, log decay,
+    the rings gathered back from their 4 slices) and each step's logits
+    against the reference's under its prefill plan. GLA's and SSD's log
+    decays sum the gathered chunk decays (nonzero); the hybrid's 24-slot
+    window ring and hymba's 128-slot rings are sliced 4 ways and merged
+    at decode (under "ulysses" the hybrid's softmax layers take the two
+    all-to-alls and its ring its own K/V gathers, ``ring.k``,
+    ``ring.v``); mamba2's and hymba's convs start from the previous chunk's
+    inputs (``mamba2.conv``), whose last rank's tails are the conv
+    caches, as the reference's conv over the whole sequence gives."""
+    want, ranks = ref
+    tol = TOL["bfloat16" if name.endswith("bf16") else "float32"]
+    for res in ranks[4]:
+        np.testing.assert_allclose(res[f"prefill/{name}/logits"],
+                                   want[f"prefill/{name}/logits"],
+                                   rtol=tol, atol=tol)
+        _check_cache(res[f"prefill/{name}/cache"],
+                     f"prefill/{name}/cache/", want, tol)
+        np.testing.assert_allclose(res[f"prefill/{name}/steps"],
+                                   want[f"prefill/{name}/steps"],
+                                   rtol=tol, atol=tol)
+    if name == "gla":
+        assert np.abs(want["prefill/gla/cache/layers/0/mixer/log_decay"]
+                      ).min() > 0
+
+
+def test_left_padded_prefill_splits_across_chunks(ref):
+    """Two rows bucketed to 64 with 1 and 37 filler tokens: the reset at
+    the first real token falls in chunk 0 and in chunk 2; logits, states
+    and log decays match the reference's ``pad_lens`` prefill under its
+    plan within 3e-4."""
+    want, ranks = ref
+    for res in ranks[4]:
+        np.testing.assert_allclose(res["pad/logits"], want["pad/logits"],
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        _check_cache(res["pad/cache"], "pad/cache/", want, TOL["float32"])
+
+
+def test_decode_plan_slices_the_ring_over_model(ref):
+    """granite-34b SMOKE (MQA, 1 KV head) under the decode plan of the
+    (1, 4) layout: the prompt prefills locally (no SP, an empty tape), the
+    128-slot ring is sliced 4 ways over the model group, and 3 decode
+    steps merge it: logits and the gathered ring within the reference's;
+    the decode tape is the merge's budget and the reference's rows."""
+    want, ranks = ref
+    for res in ranks[4]:
+        assert res["dprefill/tape"] == []
+        np.testing.assert_allclose(res["dprefill/logits"],
+                                   want["dprefill/logits"],
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        _check_cache(res["dprefill/cache"], "dprefill/cache/", want,
+                     TOL["float32"])
+        np.testing.assert_allclose(res["dprefill/steps"],
+                                   want["dprefill/steps"],
+                                   rtol=TOL["float32"], atol=TOL["float32"])
+        assert res["dprefill/decode_budget"] == []
+        assert res["dprefill/decode_tape"] == _rows(want,
+                                                    "dprefill/decode_tape")
+
+
+@pytest.mark.parametrize("name", ["linear", "hybrid", "granite"])
+def test_engine_under_plan_matches_reference(ref, name):
+    """``ServeEngine(plan=)``: three requests of 64, 32 and 31 tokens, 6
+    greedy tokens each, equal to the reference's ``ServeEngine(plan=)``
+    on every rank. Under the prefill plan the linear stack buckets 31 to
+    32 and left-pads it across chunks, the hybrid prefills it locally (31
+    does not divide 4); under the decode plan granite's ring is sliced.
+    A rank holds a quarter of every sliced ring's K/V bytes."""
+    want, ranks = ref
+    for res in ranks[4]:
+        np.testing.assert_array_equal(res[f"engine/{name}"],
+                                      want[f"engine/{name}"])
+    kv = ranks[4][0][f"engine/{name}/kv_bytes"]
+    if name == "linear":
+        assert kv == 0
+    else:
+        assert kv < int(want[f"engine/{name}/kv_bytes"])
+
+
+@pytest.mark.parametrize("name", R.PREFILL_CFGS)
+def test_prefill_tape_is_the_budget_and_the_reference_rows(ref, name):
+    """Each rank's prefill tape is ``comm.budget.serve_prefill_budget``
+    (one ``lasp2.states`` gather a linear layer, ``lasp2h.k`` and
+    ``lasp2h.v`` a softmax layer, one ``prefill.last``), its decode
+    steps' tapes ``serve_decode_budget`` (three ``ring_decode.*`` gathers
+    a sliced ring and step), and the prefill's rows without the port's own
+    are the reference's; so are the engines' rows."""
+    want, ranks = ref
+    for res in ranks[4]:
+        assert res[f"prefill/{name}/budget"] == []
+        assert res[f"prefill/{name}/decode_budget"] == []
+        assert _fwd(res[f"prefill/{name}/tape"]) == _rows(
+            want, f"prefill/{name}/tape")
+        assert any(r.split("|")[1] == "prefill.last"
+                   for r in res[f"prefill/{name}/tape"])
+        for eng in ("linear", "hybrid"):
+            assert _fwd(res[f"engine/{eng}/tape"]) == _rows(
+                want, f"engine/{eng}/tape")
+        assert res["engine/granite/tape"] == _rows(want,
+                                                   "engine/granite/tape")
+
+
+# ---------------------------------------------------------------------------
+# The reference's side (runs in its own subprocess).
+# ---------------------------------------------------------------------------
+
+def _jax_reference(out_path):
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from repro.comm.primitives import tape
+    from repro.comm.spec import CommSpec
+    from repro.configs import LayerSpec, LinearAttnConfig, get_smoke
+    from repro.core.lasp2 import SPConfig
+    from repro.core.lasp2h import (ring_decode_attention,
+                                   sharded_decode_attention)
+    from repro.launch.mesh import DATA_AXIS, MODEL_AXIS, make_sp_mesh
+    from repro.models import model as M
+    from repro.serve.engine import ServeEngine
+    from repro.sharding.rules import make_plan
+
+    out = {}
+    rows = lambda recs: np.array(sorted({f"{r.op}|{r.tag}|{r.payload_bytes}"
+                                         for r in recs}))
+    cfg_of = lambda name: R.make_cfg(name, get_smoke, LayerSpec,
+                                     LinearAttnConfig)
+    devs = np.asarray(jax.devices())
+
+    def save_params(name, params):
+        def walk(node, prefix):
+            if isinstance(node, dict):
+                for k, v in node.items():
+                    walk(v, f"{prefix}/{k}")
+            elif isinstance(node, (list, tuple)):
+                for i, v in enumerate(node):
+                    walk(v, f"{prefix}/{i}")
+            else:
+                out[f"param{prefix}"] = np.asarray(node, np.float32)
+        walk(params, f"/{name}")
+
+    def save_cache(prefix, cache, cfg):
+        """Per layer, as the port's one dict a layer: layer g·P + p is
+        group g of pattern position p."""
+        n_pat = len(cfg.pattern)
+        for p, c in enumerate(cache["layers"]):
+            flat = jax.tree_util.tree_flatten_with_path(c)[0]
+            for path, leaf in flat:
+                keys = "/".join(k.key for k in path)
+                for g in range(leaf.shape[0]):
+                    out[f"{prefix}layers/{g * n_pat + p}/{keys}"] = \
+                        np.asarray(leaf[g], np.float32) \
+                        if jnp.issubdtype(leaf.dtype, jnp.floating) \
+                        else np.asarray(leaf[g])
+        out[f"{prefix}pos"] = np.asarray(cache["pos"])
+
+    # the decode attentions over a 4-device sequence mesh
+    ins = {k: jnp.asarray(v) for k, v in R.decode_inputs().items()}
+    sp = SPConfig(mesh=make_sp_mesh(4))
+    for n in R.CACHE_LENS:
+        with tape() as recs:
+            o = jax.jit(lambda a, b, c, cl=n: sharded_decode_attention(
+                a, b, c, cl, sp=sp))(ins["q"], ins["k"], ins["v"])
+        out[f"decode/{n}/sp"] = np.asarray(o)
+        out[f"decode/{n}/tape"] = rows(recs)
+        out[f"decode/{n}/local"] = np.asarray(sharded_decode_attention(
+            ins["q"], ins["k"], ins["v"], n))
+    ring_args = (ins["rq"], ins["rk"], ins["rv"], ins["kpos"], ins["qpos"])
+    with tape() as recs:
+        out["ring/sp"] = np.asarray(jax.jit(
+            lambda *a: ring_decode_attention(
+                *a, sliding_window=R.RING_WINDOW, sp=sp))(*ring_args))
+    out["ring/tape"] = rows(recs)
+    out["ring/local"] = np.asarray(ring_decode_attention(
+        *ring_args, sliding_window=R.RING_WINDOW))
+
+    # the dense + SP forward on (4, 2)
+    cfg = cfg_of("starcoder")
+    mesh42 = Mesh(devs[:8].reshape(4, 2), (DATA_AXIS, MODEL_AXIS))
+    params = M.init_params(jax.random.PRNGKey(0), cfg)
+    save_params("starcoder", params)
+    toks = jax.random.randint(jax.random.PRNGKey(1), (2, 64), 0,
+                              cfg.vocab_size)
+    out["starcoder/tokens"] = np.asarray(toks, np.int32)
+    plan = make_plan(mesh42, "prefill", global_batch=2,
+                     n_kv_heads=cfg.n_kv_heads)
+    with tape() as recs:
+        got, _ = jax.jit(lambda p, t: M.forward(p, t, cfg, plan,
+                                                remat="none"))(params, toks)
+    out["starcoder/tape"] = rows(recs)
+    out["starcoder/logits_sp"] = np.asarray(got, np.float32)[
+        ..., :cfg.vocab_size]
+    local, _ = jax.jit(lambda p, t: M.forward(p, t, cfg, remat="none"))(
+        params, toks)
+    out["starcoder/logits_local"] = np.asarray(local, np.float32)[
+        ..., :cfg.vocab_size]
+
+    # prefill and decode under the prefill plan of (4, 1)
+    pplan = make_plan(Mesh(devs[:4].reshape(4, 1), (DATA_AXIS, MODEL_AXIS)),
+                      "prefill", n_kv_heads=4)
+    dplan = make_plan(Mesh(devs[:4].reshape(1, 4), (DATA_AXIS, MODEL_AXIS)),
+                      "decode", n_kv_heads=1)
+    toks = jnp.asarray(R.prefill_tokens())
+    params_of = {}
+    for name in R.PREFILL_CFGS + ("granite",):
+        cfg = cfg_of(name)
+        params_of[name] = M.init_params(jax.random.PRNGKey(0), cfg)
+        save_params(name, params_of[name])
+
+    def prefill_and_steps(prefix, name, plan, **kw):
+        cfg = cfg_of(name)
+        params = params_of[name]
+        with tape() as recs:
+            logits, cache = jax.jit(lambda p, t: M.prefill(
+                p, t, cfg, plan, max_len=R.MAX_LEN, **kw))(params, toks)
+        out[f"{prefix}/tape"] = rows(recs)
+        out[f"{prefix}/logits"] = np.asarray(logits, np.float32)
+        save_cache(f"{prefix}/cache/", cache, cfg)
+        steps = []
+        decode = jax.jit(lambda p, t, c: M.decode_step(p, t, c, cfg, plan))
+        with tape() as recs:
+            for tok in R.decode_tokens():
+                lg, cache = decode(params, jnp.asarray(tok), cache)
+                steps.append(np.asarray(lg, np.float32))
+        out[f"{prefix}/decode_tape"] = rows(recs)
+        out[f"{prefix}/steps"] = np.stack(steps)
+
+    for name in R.PREFILL_CFGS:
+        plan = make_plan(Mesh(devs[:4].reshape(4, 1),
+                              (DATA_AXIS, MODEL_AXIS)), "prefill",
+                         n_kv_heads=4, comm=CommSpec(R.strategy(name)))
+        prefill_and_steps(f"prefill/{name}", name, plan)
+    prefill_and_steps("dprefill", "granite", dplan)
+    cfg = cfg_of("linear")
+    logits, cache = jax.jit(lambda p, t: M.prefill(
+        p, t, cfg, pplan, max_len=R.MAX_LEN,
+        pad_lens=jnp.asarray(R.PAD_LENS)))(params_of["linear"], toks)
+    out["pad/logits"] = np.asarray(logits, np.float32)
+    save_cache("pad/cache/", cache, cfg)
+
+    # the engines
+    for name, plan in (("linear", pplan), ("hybrid", pplan),
+                       ("granite", dplan)):
+        eng = ServeEngine(cfg_of(name), params_of[name], plan=plan,
+                          max_len=R.MAX_LEN, max_batch=4)
+        with tape() as recs:
+            out[f"engine/{name}"] = eng.generate(R.prompts(), R.NEW_TOKENS)
+        out[f"engine/{name}/tape"] = rows(recs)
+        out[f"engine/{name}/kv_bytes"] = np.int64(
+            eng.cache_stats()["kv_ring"])
+    np.savez(out_path, **out)
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--jax-reference":
+        _jax_reference(sys.argv[2])
+    else:
+        sys.exit("usage: test_torch_serve_sp.py --jax-reference OUT.npz")

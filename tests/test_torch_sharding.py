@@ -1,0 +1,245 @@
+"""Port vs reference: the sharding plans (``repro_torch.sharding.rules``).
+
+The reference's ``make_plan``, ``fit_spec`` and ``param_specs`` read a
+mesh's ``axis_names`` and ``shape`` only, so they run here on a stand-in
+mesh of any size (the production 16×16 and 2×16×16 included) with no
+devices. Its axis names come from ``repro.launch.mesh`` and map to the
+port's ``Axis`` members (``AXES``); nothing here spells them. Plans must
+agree rule for rule: the logical rules, the SP axes, the decode cache
+axis, the ZeRO-1 axis, the manual axes, the FSDP, TP and DP axes, for
+every id of ``ALL_IDS`` and every kind; ``param_specs`` leaf by leaf
+through the weight-carrying map (``models/weights.py``: layer ``g·P + p``
+is group ``g`` of pattern position ``p``, whose stacked group dim the
+reference's spec leads with); and both refuse the same plans.
+"""
+
+import types
+
+import jax
+import numpy as np
+import pytest
+from jax.sharding import PartitionSpec as P
+
+from repro.comm.spec import CommSpec as JCommSpec
+from repro.configs import get_config as j_get_config
+from repro.launch.mesh import DATA_AXIS, MODEL_AXIS, POD_AXIS, SEQ_AXIS
+from repro.models import model as JM
+from repro.sharding import rules as J
+from repro_torch.comm.spec import CommSpec
+from repro_torch.configs import ALL_IDS, get_config
+from repro_torch.launch.mesh import Axis, Layout, make_production_mesh
+from repro_torch.models import model as TM
+from repro_torch.sharding import rules as T
+
+AXES = {DATA_AXIS: Axis.DATA, MODEL_AXIS: Axis.MODEL, POD_AXIS: Axis.POD,
+        SEQ_AXIS: Axis.SEQUENCE}
+D, M, PD, S = DATA_AXIS, MODEL_AXIS, POD_AXIS, SEQ_AXIS
+
+LAYOUTS = {"16x16": ((D, M), (16, 16)), "2x16x16": ((PD, D, M), (2, 16, 16)),
+           "4x2": ((D, M), (4, 2)), "dp2sp4": ((D, S), (2, 4)),
+           "dp2sp2tp2": ((D, S, M), (2, 2, 2)),
+           "dp1sp2tp2": ((D, S, M), (1, 2, 2))}
+
+
+def _mesh(name):
+    axes, sizes = LAYOUTS[name]
+    return types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes,
+                                                                 sizes)))
+
+
+def _layout(name):
+    axes, sizes = LAYOUTS[name]
+    return Layout(tuple(AXES[a] for a in axes), sizes)
+
+
+def _ax(v):
+    """A reference rule value in the port's terms."""
+    if v is None:
+        return None
+    if isinstance(v, (tuple, list)):
+        return tuple(_ax(a) for a in v)
+    return AXES[v]
+
+
+def _spec(p):
+    return T.Spec(*(_ax(e) for e in p))
+
+
+@pytest.mark.parametrize("shape,spec", [
+    ((32, 48), (D, M)), ((30, 48), (D, M)), ((32, 40), (D, M)),
+    ((64, 7), ((PD, D), None)), ((48, 7), ((PD, D), None)),
+    ((6, 7), ((PD, D), None)), ((2, 7), ((PD, D, M), None)),
+    ((32, 32), ((PD, D, M),)), ((4, 8, 2), (None, M)),
+    ((512,), ((D, M),))])
+def test_fit_spec_matches_reference(shape, spec):
+    """Entries whose axis size does not divide the dim drop; a compound
+    entry keeps its longest dividing prefix (on 2×16×16)."""
+    want = J.fit_spec(_mesh("2x16x16"), shape, P(*spec))
+    got = T.fit_spec(_layout("2x16x16"), shape, T.Spec(*(_ax(e)
+                                                         for e in spec)))
+    assert got == _spec(want)
+
+
+def _check_plan(got, want, layout):
+    assert {k: _ax(v) for k, v in want.rules.items()} == got.rules
+    sp_axes = () if want.sp is None else tuple(
+        _ax(a) for a in want.sp.exchange_axes)
+    assert got.sp_axes == sp_axes
+    degree = 1 if want.sp is None else int(np.prod(
+        [layout.axis_size(AXES[a]) for a in want.sp.exchange_axes]))
+    assert got.sp_degree == degree
+    assert got.sp_manual == bool(want.sp is not None and want.sp.manual)
+    assert got.decode_cache_axis == _ax(want.decode_cache_axis)
+    assert got.zero1_axis == _ax(want.zero1_axis)
+    assert got.manual_axes == _ax(tuple(want.manual_axes))
+    assert got.fsdp_axis == _ax(want.fsdp_axis)
+    assert got.tp_axis == _ax(want.tp_axis)
+    assert got.dp_axes == _ax(tuple(want.dp_axes))
+    assert got.sp is None          # a layout without ranks
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_make_plan_matches_reference(layout, kind):
+    """Every ``ALL_IDS`` config's plan at each layout and kind, at the
+    batch that divides (32) and one that does not (1, the train SP
+    fallback), with the params small and large (the hymba / whisper
+    prefill branch that puts the batch over model needs both heads that
+    do not divide and weights under 6 GiB)."""
+    mesh, lay = _mesh(layout), _layout(layout)
+    for arch in ALL_IDS:
+        cfg = get_config(arch)
+        for batch in (32, 1):
+            for pbytes in (cfg.param_count() * 2, 2 ** 30):
+                kw = dict(global_batch=batch, n_kv_heads=cfg.n_kv_heads,
+                          n_heads=cfg.n_heads, params_bytes=pbytes)
+                try:
+                    want = J.make_plan(mesh, kind,
+                                       comm=JCommSpec("allgather"), **kw)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        T.make_plan(lay, kind, **kw)
+                    continue
+                _check_plan(T.make_plan(lay, kind, **kw), want, lay)
+
+
+def test_prefill_batch_over_model_branch_is_taken():
+    """hymba-1.5b's 25 heads do not divide 16: its prefill plan at 16×16
+    puts the batch over model and replicates weights on it, in both."""
+    cfg = get_config("hymba-1.5b")
+    kw = dict(global_batch=32, n_kv_heads=cfg.n_kv_heads,
+              n_heads=cfg.n_heads, params_bytes=cfg.param_count() * 2)
+    got = T.make_plan(make_production_mesh(), "prefill", **kw)
+    assert got.rules["batch"] == Axis.MODEL and got.tp_axis is None
+    assert got.rules["heads"] is None and got.sp_axes == (Axis.DATA,)
+
+
+@pytest.mark.parametrize("strategy,heads", [
+    ("ring", (8, 8)), ("pipelined", (8, 8)), ("ulysses", (6, 3)),
+    ("ulysses", (8, 8))])
+def test_train_plan_refusals_match_reference(strategy, heads):
+    """The 3D train plan refuses ring and pipelined, and Ulysses when the
+    heads do not divide the model axis: in both packages alike."""
+    hq, hkv = heads
+    kw = dict(global_batch=8, n_heads=hq, n_kv_heads=hkv)
+    try:
+        J.make_plan(_mesh("dp2sp2tp2"), "train",
+                    comm=JCommSpec(strategy), **kw)
+        refused = False
+    except ValueError:
+        refused = True
+    if refused:
+        with pytest.raises(ValueError):
+            T.make_plan(_layout("dp2sp2tp2"), "train",
+                        comm=CommSpec(strategy), **kw)
+    else:
+        T.make_plan(_layout("dp2sp2tp2"), "train", comm=CommSpec(strategy),
+                    **kw)
+    assert refused == (strategy != "ulysses" or hq % 2 or hkv % 2)
+
+
+def test_unknown_kind_refused_in_both():
+    with pytest.raises(ValueError):
+        J.make_plan(_mesh("16x16"), "serve")
+    with pytest.raises(ValueError):
+        T.make_plan(_layout("16x16"), "serve")
+
+
+def test_sp_for_rule():
+    """SP only when the length divides the degree; the manual plan's
+    length is already a chunk. Checked on plans carrying a stand-in SP
+    config (a layout without ranks carries none)."""
+    sp = types.SimpleNamespace(degree=4)
+    plan = T.make_plan(_layout("4x2"), "prefill", n_kv_heads=2)
+    plan.sp = sp
+    assert plan.sp_for(64) is sp and plan.sp_for(63) is None
+    manual = T.make_plan(_layout("dp1sp2tp2"), "train", n_kv_heads=2)
+    manual.sp = sp
+    assert manual.sp_for(63) is sp
+    assert T.local_plan().sp_for(64) is None
+    assert manual.act("x", "batch") == "x"
+
+
+def _ref_leaves(specs):
+    flat = jax.tree_util.tree_flatten_with_path(
+        specs, is_leaf=lambda x: isinstance(x, P))[0]
+    out = {}
+    for path, spec in flat:
+        out[tuple(str(k.key) if hasattr(k, "key") else str(k.idx)
+                  for k in path)] = spec
+    return out
+
+
+def _port_leaves(specs, prefix=()):
+    if isinstance(specs, dict):
+        out = {}
+        for k, v in specs.items():
+            out.update(_port_leaves(v, prefix + (k,)))
+        return out
+    if isinstance(specs, list):
+        out = {}
+        for i, v in enumerate(specs):
+            out.update(_port_leaves(v, prefix + (str(i),)))
+        return out
+    return {prefix: specs}
+
+
+def _mapped(ref, cfg):
+    """The reference's specs keyed by the port's leaf paths: a stacked
+    leaf ``groups/p/...`` (its spec led by the group dim) becomes layer
+    ``g·P + p``'s, for every group g."""
+    out = {}
+    for path, spec in ref.items():
+        if "groups" not in path:
+            out[path] = _spec(spec)
+            continue
+        i = path.index("groups")
+        p, rest = int(path[i + 1]), path[i + 2:]
+        n_pat, n_groups = ((len(cfg.pattern), cfg.n_groups)
+                           if i == 0 else (1, cfg.encoder.n_layers))
+        assert spec[0] is None
+        for g in range(n_groups):
+            out[path[:i] + ("layers", str(g * n_pat + p)) + rest] = \
+                T.Spec(*(_ax(e) for e in tuple(spec)[1:]))
+    return out
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_param_specs_match_reference(arch):
+    """Every leaf's spec under the train, prefill and decode plans of
+    16×16 and 2×16×16, on shapes only (``jax.eval_shape``; the port's
+    params on ``meta``)."""
+    jcfg, cfg = j_get_config(arch), get_config(arch)
+    jshapes = jax.eval_shape(lambda: JM.init_params(jax.random.PRNGKey(0),
+                                                    jcfg))
+    params = TM.init_params(None, cfg, device="meta")
+    for layout in ("16x16", "2x16x16"):
+        for kind in ("train", "prefill", "decode"):
+            kw = dict(global_batch=32, n_kv_heads=cfg.n_kv_heads,
+                      n_heads=cfg.n_heads,
+                      params_bytes=cfg.param_count() * 2)
+            want = _mapped(_ref_leaves(J.param_specs(
+                jshapes, J.make_plan(_mesh(layout), kind, **kw))), cfg)
+            got = _port_leaves(T.param_specs(
+                params, T.make_plan(_layout(layout), kind, **kw)))
+            assert got == want, (layout, kind)

@@ -30,8 +30,10 @@ import numpy as np
 import pytest
 
 import torch_sp_ranks as R
+from repro_torch.comm.budget import check_axis_budget, train_step_axis_budget
+from repro_torch.comm.primitives import CommRecord
 from repro_torch.configs.base import RunConfig
-from repro_torch.launch.mesh import TrainingGroups, run_ranks
+from repro_torch.launch.mesh import Axis, Layout, TrainingGroups, run_ranks
 
 HERE = Path(__file__).resolve()
 ROOT = HERE.parent.parent
@@ -130,36 +132,30 @@ def test_ulysses_matches_allgather_at_the_same_token_split(port, name):
 
 
 def _budget(dims, strategy):
-    """``docs/parallelism.md:126-139``'s collectives of one step (one
-    microbatch, one linear and one softmax layer, packed rows: the
-    autodiff backward), as sorted ``op|tag|group size`` rows."""
-    dp, sp, tp = dims
-    tokens, world = sp * tp, dp * sp * tp
-    rows = ["all-gather|lasp2.states|%d" % tokens,
-            "reduce-scatter|lasp2.states.bwd|%d" % tokens,
-            "all-reduce|train.grads|%d" % world]
-    if strategy == "ulysses" and tp > 1:
-        rows += ["all-to-all|ulysses.%s|%d" % (t, tp)
-                 for t in ("in", "out", "in.bwd", "out.bwd")]
-        if sp > 1:
-            rows += ["all-gather|ulysses.k|%d" % sp,
-                     "all-gather|ulysses.v|%d" % sp,
-                     "reduce-scatter|ulysses.k.bwd|%d" % sp,
-                     "reduce-scatter|ulysses.v.bwd|%d" % sp]
-    else:
-        rows += ["all-gather|lasp2h.k|%d" % tokens,
-                 "all-gather|lasp2h.v|%d" % tokens,
-                 "reduce-scatter|lasp2h.k.bwd|%d" % tokens,
-                 "reduce-scatter|lasp2h.v.bwd|%d" % tokens]
-    if dp * tp > 1:
-        rows.append("all-gather|zero1.param_gather|%d" % (dp * tp))
-    return sorted(rows)
+    """``comm.budget.train_step_axis_budget`` of one step (one microbatch,
+    one linear and one softmax layer, packed rows: the autodiff backward)
+    at ``dims``, and its (data, sequence, model) layout."""
+    layout = Layout((Axis.DATA, Axis.SEQUENCE, Axis.MODEL), dims)
+    return layout, train_step_axis_budget(
+        layout, n_sp_layers=1, n_hybrid_layers=1, comm_strategy=strategy,
+        backward="autodiff")
+
+
+def _records(rows):
+    """``op|tag|group size`` rows back into records the budget reads."""
+    out = []
+    for row in rows:
+        op, tag, group = row.split("|")
+        out.append(CommRecord(op, 0, 0, 1, int(group), tag))
+    return out
 
 
 @pytest.mark.parametrize("name", list(CELLS))
 def test_step_tape_is_the_per_axis_budget(ref, port, name):
-    """One step's collectives at each layout are exactly the budget of
-    ``docs/parallelism.md``: per hybrid layer 4 all-to-alls on groups of
+    """One step's collectives at each layout are exactly
+    ``comm.budget.train_step_axis_budget`` (the budget of
+    ``docs/parallelism.md``), each record's group the size of its axes:
+    per hybrid layer 4 all-to-alls on groups of
     tp (``ulysses.in``, ``ulysses.out`` and their mirrors), the residual
     K/V gathers and their reduce-scatters on groups of sp when sp > 1,
     the linear layer's state gather on the sp·tp token group, ONE
@@ -171,7 +167,9 @@ def test_step_tape_is_the_per_axis_budget(ref, port, name):
     ref_rows = {str(x) for x in want[f"{name}/tape"]}
     for r in _cell(port, name):
         got = r[name]
-        assert sorted(got["groups"]) == _budget(dims, strategy)
+        layout, budget = _budget(dims, strategy)
+        assert check_axis_budget(_records(got["groups"]), layout,
+                                 budget) == []
         fwd = {x for x in got["tape"] if not x.split("|")[1].endswith(".bwd")}
         # the reference records the all-to-alls' mirrors, not the
         # reduce-scatters of its gathers

@@ -1,0 +1,322 @@
+"""Rank bodies and shared inputs of ``tests/test_torch_serve_sp.py``:
+serving under a plan on gloo ranks.
+
+Spawned ranks import this module by name, so it imports only numpy, torch
+and ``repro_torch`` (the JAX side runs in the test's reference
+subprocess, which builds its configs and inputs from here too). Configs
+are built by functions that take a package's ``get_smoke``, ``LayerSpec``
+and ``LinearAttnConfig``, so both packages get the same ones.
+"""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.comm import primitives
+
+W = 4                                   # ranks of the serving layouts
+MAX_LEN = 128                           # engine and prefill ring length
+NEW_TOKENS = 6
+PROMPT_LENS = (64, 32, 31)              # 31 does not divide W
+PREFILL_B, PREFILL_S = 2, 64
+PAD_LENS = (1, 37)                      # resets in chunk 0 and chunk 2
+DECODE_STEPS = 3
+
+# sharded_decode_attention (the reference's distributed check) and
+# ring_decode_attention inputs
+DEC_B, DEC_HQ, DEC_HKV, DEC_S, DEC_DH = 2, 4, 2, 512, 16
+CACHE_LENS = (512, 300, 37)
+RING_B, RING_R, RING_WINDOW = 3, 64, 40
+
+SSM_IDS = {"mamba2": "mamba2-2.7b", "hymba": "hymba-1.5b"}
+PREFILL_CFGS = ("linear", "linear_bf16", "hybrid", "hybrid_ulysses", "gla",
+                "mamba2", "hymba")
+# collectives of the port's own: what the reference's GSPMD moves
+# without a named primitive (``comm.budget``)
+PORT_ONLY_TAGS = ("prefill.last", "mamba2.conv", "ring.k", "ring.v",
+                  "ring_decode.o", "ring_decode.m", "ring_decode.l")
+
+
+def strategy(name):
+    """The comm strategy of a prefill case: "ulysses" for the cases so
+    named, else the paper's all-gather."""
+    return "ulysses" if name.endswith("_ulysses") else "allgather"
+
+
+def make_cfg(name, get_smoke, layer_spec, linear_attn_config):
+    """A SMOKE config of either package by name."""
+    base = get_smoke("linear-llama3-1b")
+    if name == "linear":
+        return dataclasses.replace(base, dtype="float32")
+    if name == "linear_bf16":
+        return base
+    if name == "gla":
+        return dataclasses.replace(
+            base, dtype="float32",
+            linear_attn=linear_attn_config(feature_map="silu", decay="data",
+                                           backward="autodiff"))
+    if name in ("hybrid", "hybrid_ulysses"):
+        dense = dataclasses.replace(base, pattern=(layer_spec(),),
+                                    n_layers=4, name="smoke-dense",
+                                    dtype="float32")
+        cfg = dense.linearize(hybrid_every=4)
+        # a window no prompt length divides: the reference then takes the
+        # K/V all-gather (its banded form, which shifts a halo without a
+        # named collective, needs S % window == 0)
+        pattern = tuple(dataclasses.replace(sp, sliding_window=24)
+                        if sp.mixer == "softmax" else sp
+                        for sp in cfg.pattern)
+        return dataclasses.replace(cfg, pattern=pattern, name="smoke-hybrid")
+    if name in SSM_IDS:
+        return dataclasses.replace(get_smoke(SSM_IDS[name]), dtype="float32")
+    if name == "granite":
+        return dataclasses.replace(get_smoke("granite-34b"), dtype="float32")
+    if name == "starcoder":
+        return get_smoke("starcoder2-15b")
+    raise KeyError(name)
+
+
+def port_cfg(name):
+    from repro_torch.configs import LayerSpec, LinearAttnConfig, get_smoke
+    return make_cfg(name, get_smoke, LayerSpec, LinearAttnConfig)
+
+
+def decode_inputs():
+    rng = np.random.default_rng(3)
+    f32 = lambda *s: (rng.standard_normal(s) * 0.5).astype(np.float32)
+    ins = {"q": f32(DEC_B, DEC_HQ, 1, DEC_DH),
+           "k": f32(DEC_B, DEC_HKV, DEC_S, DEC_DH),
+           "v": f32(DEC_B, DEC_HKV, DEC_S, DEC_DH),
+           "rq": f32(RING_B, DEC_HQ, 1, DEC_DH),
+           "rk": f32(RING_B, DEC_HKV, RING_R, DEC_DH),
+           "rv": f32(RING_B, DEC_HKV, RING_R, DEC_DH)}
+    # ragged rings: row 0 wrapped past R (positions 36..99), row 1 filled
+    # to 20 (the rest never written), row 2 wrapped once (30..93)
+    kpos = np.full((RING_B, RING_R), -1, np.int32)
+    for row, last in ((0, 99), (1, 19), (2, 93)):
+        for p in range(max(0, last - RING_R + 1), last + 1):
+            kpos[row, p % RING_R] = p
+    ins["kpos"] = kpos
+    ins["qpos"] = np.array([99, 19, 93], np.int32)
+    return ins
+
+
+def prompts():
+    rng = np.random.default_rng(7)
+    return [rng.integers(0, 512, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def prefill_tokens():
+    rng = np.random.default_rng(11)
+    return rng.integers(0, 512, (PREFILL_B, PREFILL_S)).astype(np.int32)
+
+
+def decode_tokens():
+    rng = np.random.default_rng(13)
+    return rng.integers(0, 512, (DECODE_STEPS, PREFILL_B)).astype(np.int32)
+
+
+def tape_rows(records):
+    return sorted({f"{r.op}|{r.tag}|{r.payload_bytes}" for r in records})
+
+
+def _params(npz, name, cfg):
+    from repro_torch.models.weights import params_from_jax
+    prefix = f"param/{name}/"
+    flat = {k[len(prefix):]: npz[k] for k in npz.files
+            if k.startswith(prefix)}
+    tree = {}
+    for key, arr in flat.items():
+        node = tree
+        parts = key.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = arr
+    tree = _lists(tree)
+    return params_from_jax(tree, cfg, device="cpu",
+                           dtype=torch.float32 if cfg.dtype == "float32"
+                           else None)
+
+
+def _lists(node):
+    """Dicts keyed "0", "1", … back into lists (the reference's stacks)."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _gathered_cache(cache, group):
+    """A cache with every sliced ring's K/V gathered back to R slots (in
+    rank order along the slot dim), as numpy."""
+    def walk(node):
+        if isinstance(node, dict):
+            if "kpos" in node and node["k"].shape[2] != node["kpos"].shape[1]:
+                k, v = (primitives.allgather_states(
+                    node[n].contiguous(), group, gather_axis=2, tiled=True,
+                    tag="test.ring") for n in ("k", "v"))
+                return {"k": k.float().numpy(), "v": v.float().numpy(),
+                        "kpos": node["kpos"].numpy().copy()}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return np.array(node.float() if node.is_floating_point() else node)
+    return walk(cache)
+
+
+def _layout(dims, axes=None):
+    from repro_torch.launch.mesh import (Axis, make_serving_groups,
+                                         make_test_mesh)
+    return make_serving_groups(make_test_mesh(
+        dims, axes or (Axis.DATA, Axis.MODEL)))
+
+
+def _places(layout):
+    """This rank's index along each axis and each axis group's ranks."""
+    import torch.distributed as dist
+    return {a.name: (layout.index[a],
+                     dist.get_process_group_ranks(layout.group(a)))
+            for a in layout.axes}
+
+
+def serve_rank(rank, world, device, npz_path):
+    """Every W-4 case on this rank: the two decode attentions, prefill
+    under the (4, 1) prefill plan, prefill and decode steps under the
+    (1, 4) decode plan, both plans' engines; with tapes and budgets."""
+    from repro_torch.comm import budget as B
+    from repro_torch.comm.spec import CommSpec
+    from repro_torch.core.lasp2 import SPConfig
+    from repro_torch.launch.mesh import Axis
+    from repro_torch.core.lasp2h import (ring_decode_attention,
+                                         sharded_decode_attention)
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding.rules import make_plan
+    import torch.distributed as dist
+
+    res = {}
+    ins = {k: torch.from_numpy(v) for k, v in decode_inputs().items()}
+    sp = SPConfig(dist.group.WORLD)
+    c = DEC_S // W
+    shard = lambda x: x[:, :, rank * c:(rank + 1) * c]
+    for n in CACHE_LENS:
+        with primitives.tape() as rec:
+            o = sharded_decode_attention(ins["q"], shard(ins["k"]),
+                                         shard(ins["v"]), n, sp=sp)
+        res[f"decode/{n}"] = o.numpy()
+        res[f"decode/{n}/tape"] = tape_rows(rec)
+        res[f"decode/{n}/budget"] = B.check_budget(rec, B.decode_merge_budget(
+            W, b=DEC_B, hq=DEC_HQ, dh=DEC_DH))
+    r = RING_R // W
+    rs = lambda x: x[..., rank * r:(rank + 1) * r]
+    with primitives.tape() as rec:
+        o = ring_decode_attention(
+            ins["rq"], ins["rk"][:, :, rank * r:(rank + 1) * r],
+            ins["rv"][:, :, rank * r:(rank + 1) * r], rs(ins["kpos"]),
+            ins["qpos"], sliding_window=RING_WINDOW, sp=sp)
+    res["ring"] = o.numpy()
+    res["ring/tape"] = tape_rows(rec)
+
+    with np.load(npz_path) as npz:
+        prefill_lay = _layout((W, 1))
+        decode_lay = _layout((1, W))
+        train_lay = _layout((2, 2), (Axis.DATA, Axis.SEQUENCE))
+        tplan = make_plan(train_lay, "train", global_batch=4, n_kv_heads=4)
+        res["places"] = {"prefill": _places(prefill_lay),
+                         "decode": _places(decode_lay),
+                         "train": _places(train_lay)}
+        res["train_plan"] = (tplan.sp.degree, tplan.sp.chunk_index,
+                             train_lay.training.chunk_index,
+                             train_lay.training.data_index)
+        toks = torch.from_numpy(prefill_tokens())
+        for name in PREFILL_CFGS:
+            cfg = port_cfg(name)
+            params = _params(npz, name, cfg)
+            pplan = make_plan(prefill_lay, "prefill", n_kv_heads=4,
+                              comm=CommSpec(strategy(name)))
+            with primitives.tape() as rec:
+                logits, cache = M.prefill(params, toks, cfg, pplan,
+                                          max_len=MAX_LEN)
+            res[f"prefill/{name}/logits"] = logits.float().numpy()
+            res[f"prefill/{name}/cache"] = _gathered_cache(
+                cache, pplan.cache_sp().group)
+            res[f"prefill/{name}/tape"] = tape_rows(rec)
+            res[f"prefill/{name}/budget"] = B.check_budget(
+                rec, B.serve_prefill_budget(cfg, pplan, b=PREFILL_B,
+                                            s=PREFILL_S))
+            steps = []
+            with primitives.tape() as rec:
+                for tok in decode_tokens():
+                    lg, cache = M.decode_step(params, torch.from_numpy(tok),
+                                              cache, cfg, pplan)
+                    steps.append(lg.float().numpy())
+            res[f"prefill/{name}/steps"] = np.stack(steps)
+            res[f"prefill/{name}/decode_budget"] = B.check_budget(
+                rec, B.combine([B.serve_decode_budget(
+                    cfg, pplan, b=PREFILL_B, max_len=MAX_LEN)]
+                    * DECODE_STEPS))
+        # left padding across chunks (CONFIG is pad-safe)
+        pplan = make_plan(prefill_lay, "prefill", n_kv_heads=4)
+        cfg = port_cfg("linear")
+        params = _params(npz, "linear", cfg)
+        logits, cache = M.prefill(params, toks, cfg, pplan, max_len=MAX_LEN,
+                                  pad_lens=torch.tensor(PAD_LENS))
+        res["pad/logits"] = logits.numpy()
+        res["pad/cache"] = _gathered_cache(cache, None)
+        # the decode plan: granite (MQA) prefills locally, its ring sliced
+        dplan = make_plan(decode_lay, "decode", n_kv_heads=1)
+        cfg = port_cfg("granite")
+        params = _params(npz, "granite", cfg)
+        with primitives.tape() as rec:
+            logits, cache = M.prefill(params, toks, cfg, dplan,
+                                      max_len=MAX_LEN)
+        res["dprefill/tape"] = tape_rows(rec)
+        res["dprefill/logits"] = logits.numpy()
+        res["dprefill/cache"] = _gathered_cache(cache,
+                                                dplan.cache_sp().group)
+        steps = []
+        with primitives.tape() as rec:
+            for tok in decode_tokens():
+                lg, cache = M.decode_step(params, torch.from_numpy(tok),
+                                          cache, cfg, dplan)
+                steps.append(lg.numpy())
+        res["dprefill/steps"] = np.stack(steps)
+        res["dprefill/decode_tape"] = tape_rows(rec)
+        res["dprefill/decode_budget"] = B.check_budget(
+            rec, B.combine([B.serve_decode_budget(cfg, dplan, b=PREFILL_B,
+                                                  max_len=MAX_LEN)]
+                           * DECODE_STEPS))
+        # the engines: both plans against the reference's engines
+        for name, plan in (("linear", pplan), ("hybrid", pplan),
+                           ("granite", dplan)):
+            cfg = port_cfg(name)
+            params = _params(npz, name, cfg)
+            eng = ServeEngine(cfg, params, plan=plan, max_len=MAX_LEN,
+                              max_batch=4, device="cpu")
+            with primitives.tape() as rec:
+                res[f"engine/{name}"] = eng.generate(prompts(), NEW_TOKENS)
+            res[f"engine/{name}/tape"] = tape_rows(rec)
+            res[f"engine/{name}/kv_bytes"] = eng.cache_stats()["kv_ring"]
+    return res
+
+
+def forward_rank(rank, world, device, npz_path):
+    """The dense + SP forward of starcoder2-15b SMOKE under the prefill
+    plan of the (4, 2) layout: this rank's chunk of the logits."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import make_plan
+    cfg = port_cfg("starcoder")
+    lay = _layout((4, 2))
+    plan = make_plan(lay, "prefill", global_batch=2,
+                     n_kv_heads=cfg.n_kv_heads)
+    with np.load(npz_path) as npz:
+        params = _params(npz, "starcoder", cfg)
+        toks = torch.from_numpy(npz["starcoder/tokens"])
+    with primitives.tape() as rec:
+        out = M.forward(params, toks, cfg, plan)
+    return {"logits": out.float().numpy(), "tape": tape_rows(rec),
+            "index": (lay.index, plan.sp.chunk_index),
+            "places": _places(lay)}
