@@ -229,7 +229,22 @@ line:
    ``comm.budget``'s serving budgets; K1, K3, K4 launches per path, all
    ``sm90``; rank 0's sampled logits within ``TOL_LOGITS`` of the
    one-device engine forced onto the same tokens; walls and peaks per
-   rank. Every phase's wall is printed (``phase_walls_s``).
+   rank;
+19. analysis, the port's checks on the card: (a) the PAL301 guard-band
+   battery (``analysis.kernel_check``) over every route of all seven
+   kernels, zero findings; (b) the step sanitizer (SAN201, SAN202,
+   SAN204, SAN205) on ``CONFIG``'s one-device train step at phase 7's
+   shape after a warm-up step and on the decode step of 4 slots, both
+   under ``torch.cuda.set_sync_debug_mode("error")``, zero findings;
+   SAN203 and SAN205 over the tapes phases 17 and 18 recorded in their
+   rank runs (every step's collectives alike on a rank, every rank's
+   alike); (c) ``remat="dots"`` against ``none`` and ``full``: 3 steps
+   each from the same state, each step's loss and grad norm within
+   ``TOL_REMAT`` (1e-5) of ``none``'s, step p50 and peak
+   memory of each, K1, K2a, K2b on ``sm90``; (d) the roofline
+   (``launch.roofline``, counted on the meta device) of phase 7's train
+   step and phase 5's decode step beside their measured walls. Every
+   phase's wall is printed (``phase_walls_s``).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
@@ -257,9 +272,14 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# the H100 SXM's data-sheet peaks: HBM bytes/s, FLOP/s by dtype
-from repro_torch.obs.flops import HBM_BYTES_PER_S, PEAK_FLOPS  # noqa: E402
-CHUNK_ROWS = 64                    # rows per chunk of the K1 CUDA kernel
+# the kernels' least times against the H100 SXM's data-sheet peaks (the
+# kernel table's bounds and the roofline's kernel counts are one formula
+# each, in repro_torch.obs.flops)
+from repro_torch.obs.flops import bwd_bounds as _bwd_bounds  # noqa: E402
+from repro_torch.obs.flops import chunk_bound as _chunk_bound  # noqa: E402
+from repro_torch.obs.flops import decode_bound as _decode_bound  # noqa: E402
+from repro_torch.obs.flops import flash_bounds as _flash_bounds  # noqa: E402
+from repro_torch.obs.metrics import to_host  # noqa: E402
 
 # Tolerances. o: the reference's kernel tests (tests/test_kernels.py:14).
 # State and log decay: both sides accumulate in fp32 over up to 512 rows in
@@ -475,23 +495,6 @@ def _chunk_inputs(gen, bh, s, d, dtype, la_kind, dv=None, nh=None):
     return q, k, v, la
 
 
-def _chunk_bound(bh, s, dk, dv, dtype):
-    """Least time for K1's work: every input read once and every output
-    written once at the HBM rate, against the products of the 64-row
-    chunked algorithm (causal half of QK^T and SV, full QM and K^T V) at
-    the peak rate for the input type."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    nbytes = el * bh * s * (2 * dk + 2 * dv) + 4 * bh * s \
-        + 4 * bh * dk * dv + 4 * bh
-    nch = -(-s // CHUNK_ROWS)
-    c = CHUNK_ROWS
-    flops = bh * nch * (c * c * dk + c * c * dv + 4 * c * dk * dv)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]]
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def phase_kernels() -> list:
     from repro_torch.core.linear_attention import pick_block
     from repro_torch.kernels import lasp2_chunk as lc
@@ -562,19 +565,6 @@ def phase_kernels() -> list:
          "device_ms": dev, "plain_ms": plain, "bound_ms": bound,
          "bound_by": by, "library_ms": None, "timed_at": shapes[route]}
         for route, (ms, dev, plain, bound, by) in k1.items()]
-
-
-def _decode_bound(bh, dk, dv, el):
-    """Least time of K3's work: the fp32 state read once and written once,
-    q, k, v (``el`` bytes an element), log a and L read, o and L written,
-    at the HBM rate, against 5 fp32 flops a state element (a·M, k·v, the
-    sum, q·M' and its sum) at the CUDA cores' rate."""
-    nbytes = 2 * 4 * bh * dk * dv + el * bh * (2 * dk + dv) + 4 * bh * dv \
-        + 3 * 4 * bh
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 5 * bh * dk * dv / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def host_us(fn, arg_sets, n=1000):
@@ -742,33 +732,6 @@ def phase_decode() -> list:
              "bound_ms": bound, "bound_by": by, "library_ms": None,
              "copy_floor_device_ms": floor_ms, "timed_at": shape}
             for route, (ms, dev, hus) in timed.items()]
-
-
-def _bwd_bounds(bh, s, dk, dv, dtype):
-    """Least times of K2a's and K2b's work, as ``_chunk_bound``: inputs
-    read once and outputs written once at the HBM rate, against the
-    products of the 64-row chunked algorithm (causal halves of the C x C
-    score products, full products with the carried state) at the peak
-    rate for the input type. Returns ((ms, by), (ms, by))."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
-    c, nch = CHUNK_ROWS, -(-s // CHUNK_ROWS)
-    rows = bh * s
-    # K2a reads k, v, dO, log a; writes dq. Products: dO V^T, dsc K,
-    # dO M^T, the carried M.
-    a_bytes = el * rows * (2 * dk + 2 * dv) + 4 * rows
-    a_flops = bh * nch * (c * c * dv + c * c * dk + 4 * c * dk * dv)
-    # K2b reads q, k, v, o, dO, log a, dM; writes dk, dv, dlog a. Products:
-    # Q K^T, dO V^T, dsc^T Q, sc^T dO, V N^T, K N, the carried N, and r.
-    b_bytes = el * rows * (3 * dk + 4 * dv) + 8 * rows + 4 * bh * dk * dv
-    b_flops = bh * nch * (2 * c * c * dk + 2 * c * c * dv + 6 * c * dk * dv
-                          + 2 * c * (dk + dv))
-    out = []
-    for nbytes, flops in ((a_bytes, a_flops), (b_bytes, b_flops)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-        out.append((max(t_bytes, t_ops) * 1e3,
-                    "bytes" if t_bytes >= t_ops else "operations"))
-    return out
 
 
 def _bwd_inputs(gen, bh, s, d, dtype, la_kind, cot="full", dv=None,
@@ -998,26 +961,6 @@ FLASH_CASES = [
 TOL_LSE = 1e-4      # fp32 on both sides, summed in another order
 # o, dq, dk and dv: fp32 at TOL_O / TOL_GRAD, bf16 at the data-scaled
 # max_err_bf16 limit.
-
-
-def _flash_bounds(b, hq, hkv, sq, sk, dh, dtype, pairs):
-    """Least times of K4's, K5a's and K5b's work: inputs read once and
-    outputs written once at the HBM rate, against 2, 3 and 4 products of
-    2·dh flops over every valid (query, key) pair of this mask at the peak
-    rate for the input type. Returns [(ms, by)] * 3."""
-    el = torch.tensor([], dtype=dtype).element_size()
-    peak = PEAK_FLOPS[str(dtype).split(".")[-1]]
-    nq, nkv, rows = b * hq * sq * dh, b * hkv * sk * dh, b * hq * sq
-    work = ((el * (2 * nq + 2 * nkv) + 4 * rows, 2),      # q, o; k, v; lse
-            (el * (3 * nq + 2 * nkv) + 8 * rows, 3),      # q, dO, dq; lse, delta
-            (el * (2 * nq + 4 * nkv) + 8 * rows, 4))      # q, dO; k, v, dk, dv
-    out = []
-    for nbytes, products in work:
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = products * 2 * dh * pairs / peak
-        out.append((max(t_bytes, t_ops) * 1e3,
-                    "bytes" if t_bytes >= t_ops else "operations"))
-    return out
 
 
 def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
@@ -1712,7 +1655,8 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
                   prefill_len: int, pads) -> None:
     """Profile one decode step of 4 slots and one prefill call:
     ``prefill_rows`` prompts of ``prefill_len`` tokens, left-padded by
-    ``pads`` (pure linear stacks) or of exact length (``pads=None``)."""
+    ``pads`` (pure linear stacks) or of exact length (``pads=None``).
+    Returns the host wall ms per call, ``{"decode": ms, "prefill": ms}``."""
     from repro_torch.models import model as M
     dev = torch.device("cuda")
     cache = M.init_cache(cfg, 4, 544)
@@ -1729,11 +1673,13 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
     def prefill():
         M.prefill(params, prompts, cfg, max_len=544, pad_lens=pad_lens)
 
+    walls = {}
     for name, fn, n in (
             (f"{path} decode_step B4", decode, 10),
             (f"{path} prefill B{prefill_rows}xS{prefill_len}", prefill, 3)):
         wall, device, kernels, top, (k3_ms, k3_n) = _profile(
             fn, n, K3_SM90_KERNEL)
+        walls["decode" if fn is decode else "prefill"] = wall
         idle = f"{1 - device / wall:.3f}" if device else "not measured"
         k3 = {}
         if fn is decode:     # K3's share of the step's device time
@@ -1743,6 +1689,7 @@ def phase_profile(cfg, params, path: str, prefill_rows: int,
             device_kernel_ms=f"{device:.3f}" if device else "not measured",
             **k3, device_idle_share=idle, kernels_per_call=f"{kernels:.0f}",
             top=repr(top))
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -2079,7 +2026,8 @@ def _sp_steps(cfg, run, layout, state, batches, drift=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero(*counters)
-    out = {k: [] for k in ("losses", "gnorms", "tapes", "walls", "drifts")}
+    out = {k: [] for k in ("losses", "gnorms", "tapes", "walls", "drifts",
+                           "records")}
     marks = []
     for b in batches:
         t0 = time.perf_counter()
@@ -2087,9 +2035,11 @@ def _sp_steps(cfg, run, layout, state, batches, drift=False):
                 (primitives.issued() if drift else nullcontext()) as sent:
             state, m = step(state, b)
         torch.cuda.synchronize()
+        m = to_host(m)         # the step returns device scalars
         out["walls"].append(time.perf_counter() - t0)
         marks.append(_read(counters, counters))
         out["tapes"].append(_tape_counts(rec))
+        out["records"].append(list(rec))
         if drift:
             out["drifts"].append(FlightRecorder(None).on_compile(
                 records=rec, issued=sent).drift)
@@ -3598,7 +3548,7 @@ def phase_cross_train(kernels: list, cfg, path: str, batch: int,
         ts = time.perf_counter()
         state, m = step_fn(state, batches[i])
         torch.cuda.synchronize()
-        hist.append(dict(m, dt=time.perf_counter() - ts))
+        hist.append(dict(to_host(m), dt=time.perf_counter() - ts))
         cur = _read(counters, counters)
         per_step.append([b - a for a, b in zip(prev, cur)])
         prev = cur
@@ -4304,7 +4254,8 @@ def _usp_step(rank, cfg, layout, base):
           f"{res['losses']} vs b1 {base['losses']}")
     check(e_gnorm <= TOL_SP_GNORM, f"usp_a rank {rank}: grad norms "
           f"{res['gnorms']} vs b1 {base['gnorms']}")
-    return res["launched"]
+    return res["launched"], _tape_san(f"phase 17 usp_a rank {rank}",
+                                      res["records"], run.comm_dtype)
 
 
 def _usp_rank(rank, world, device, hybrid_cut, base):
@@ -4321,7 +4272,7 @@ def _usp_rank(rank, world, device, hybrid_cut, base):
     layout = make_training_groups(*USP_DIMS)
     walls, out = {}, {}
     t0 = time.perf_counter()
-    out["a"] = _usp_step(rank, hybrid_cut, layout, base)
+    out["a"], san = _usp_step(rank, hybrid_cut, layout, base)
     _free()
     walls["a"] = round(time.perf_counter() - t0, 1)
     t0 = time.perf_counter()
@@ -4354,7 +4305,7 @@ def _usp_rank(rank, world, device, hybrid_cut, base):
     _free()
     walls["c"] = round(time.perf_counter() - t0, 1)
     log("usp_rank", rank=rank, part_walls_s=repr(walls))
-    return out
+    return dict(out, san=san)
 
 
 def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
@@ -4367,7 +4318,8 @@ def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
     ``windowed_context_attention`` at W 4 on ``HYBRID``'s softmax heads
     (16 x 128, window 2048, B 1, S 16384) in both halo modes; (b) and (c)
     against ``flash_attention_op`` on one device over the whole
-    sequence."""
+    sequence. Returns each rank's (a) tapes read by the sanitizer
+    (``_tape_san``), for phase 19."""
     import os
 
     from repro_torch.launch.mesh import run_ranks
@@ -4389,13 +4341,17 @@ def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+    tapes = []
     for rank, res in enumerate(ranks):
+        tapes.append(dict(res.pop("san"), phase=17, case="usp_a",
+                          rank=rank))
         for cell, launched in res.items():
             _count_routed(kernels, _sp_counters(), _sp_counters(), launched,
                           f"usp_{cell}_rank{rank}")
     log("usp", ranks=len(ranks), dp_sp_tp=repr(USP_DIMS),
         transport="gloo (host-staged)",
         wall_s=f"{time.perf_counter() - t0:.1f}")
+    return tapes
 
 
 # ---------------------------------------------------------------------------
@@ -4523,6 +4479,8 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
         max_abs_err_vs_one_device_engine=f"{worst:.4e}" if rank == 0
         else "checked on rank 0", tol=tol, transport="gloo (host-staged)",
         wall_s=f"{wall:.2f}", max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+    san = _tape_san(f"phase 18 {name} rank {rank}", [records], "fp32",
+                    split=plan.sp_degree > 1)
     check(not violations, f"phase 18 rank {rank} {name}: tape off its "
           f"budget: {violations}")
     check(ok, f"phase 18 {name}: logits off the one-device engine by "
@@ -4534,7 +4492,7 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
           f"per route) {launched}; want {want}, all on sm90")
     del engine, params
     _free()
-    return launched
+    return launched, san
 
 
 def _serve_sp_rank(rank, world, device, linear, hybrid, granite):
@@ -4549,20 +4507,20 @@ def _serve_sp_rank(rank, world, device, linear, hybrid, granite):
     axes = (Axis.DATA, Axis.MODEL)
     pre = make_serving_groups(make_test_mesh((SERVE_SP_W, 1), axes))
     dec = make_serving_groups(make_test_mesh((1, SERVE_SP_W), axes))
-    out = {}
+    out, san = {}, {}
     for name, cfg in (("a_linear", linear), ("a_hybrid", hybrid)):
         plan = make_plan(pre, "prefill", n_kv_heads=cfg.n_kv_heads,
                          n_heads=cfg.n_heads)
-        out[name] = _serve_sp_case(rank, name, cfg, plan, SERVE_SP_PROMPTS,
-                                   SERVE_SP_MAX_LEN)
+        out[name], san[name] = _serve_sp_case(
+            rank, name, cfg, plan, SERVE_SP_PROMPTS, SERVE_SP_MAX_LEN)
     plan = make_plan(dec, "decode", n_kv_heads=granite.n_kv_heads,
                      n_heads=granite.n_heads)
     check(plan.decode_cache_axis == Axis.MODEL,
           f"phase 18: granite's decode plan {plan.rules}")
-    out["b_granite"] = _serve_sp_case(rank, "b_granite", granite, plan,
-                                      SERVE_SP_DECODE_PROMPTS,
-                                      SERVE_SP_DECODE_MAX_LEN)
-    return out
+    out["b_granite"], san["b_granite"] = _serve_sp_case(
+        rank, "b_granite", granite, plan, SERVE_SP_DECODE_PROMPTS,
+        SERVE_SP_DECODE_MAX_LEN)
+    return dict(out, san=san)
 
 
 def phase_serve_sp(kernels: list, linear, hybrid) -> None:
@@ -4597,12 +4555,32 @@ def phase_serve_sp(kernels: list, linear, hybrid) -> None:
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     counters = _serve_sp_counters()
+    tapes = []
     for rank, res in enumerate(ranks):
+        tapes += [dict(t, phase=18, case=case, rank=rank)
+                  for case, t in res.pop("san").items()]
         for case, launched in res.items():
             _count_routed(kernels, counters, counters, launched,
                           f"serve_sp_{case}_rank{rank}")
     log("serve_sp", ranks=len(ranks), transport="gloo (host-staged)",
         wall_s=f"{time.perf_counter() - t0:.1f}")
+    return tapes
+
+
+def _tape_san(label, tapes, comm_dtype, split=True) -> dict:
+    """What the sanitizer reads of a rank's tapes (one a step, or one a
+    run): SAN203 on the first (``check_wire``; ``split``: a sequence was
+    split over the ranks, so a sequence exchange must be on it), SAN205
+    between consecutive ones, and the first one's fingerprint, which
+    phase 19 holds alike across ranks."""
+    from repro_torch.analysis.sanitizer import (check_determinism,
+                                                check_wire, fingerprint)
+    fps = [fingerprint(t) for t in tapes]
+    found = check_wire(label, tapes[0], comm_dtype, split=split)
+    for a, b in zip(fps, fps[1:]):
+        found += check_determinism(label, a, b)
+    return {"findings": [f.to_dict() for f in found], "fp": fps[0],
+            "records": len(tapes[0])}
 
 
 def _serve_sp_counters():
@@ -4610,6 +4588,241 @@ def _serve_sp_counters():
     from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
     from repro_torch.kernels.lasp2_decode import lasp2_decode_step
     return (lasp2_chunk_fwd, lasp2_decode_step, flash_attention_fwd)
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: the analysis subsystem on the card.
+# ---------------------------------------------------------------------------
+
+REMAT_STEPS = 3
+# Each step's loss and grad norm under full and dots against none's,
+# relative. Recompute reruns the same kernels on the same inputs, so the
+# modes agree to fp32 rounding (on an H100 they give the same bits), far
+# inside the bf16 limit of 4e-2: at that limit a zeroed, stale or
+# mis-saved gradient would pass, since the warm-up's small learning
+# rates barely move the loss in 3 steps.
+TOL_REMAT = 1e-5
+
+
+def _analysis_battery() -> None:
+    """(a) The PAL301 guard-band battery over every route of the seven
+    kernels."""
+    from repro_torch.analysis.kernel_check import (battery_cases, routes,
+                                                   run_case)
+    t0 = time.perf_counter()
+    cases = battery_cases()
+    found = []
+    for case in cases:
+        found += run_case(case, "cuda")
+    for f in found:
+        log("analysis_finding", finding=repr(str(f)))
+    log("analysis_battery", cases=len(cases), routes=len(routes(cases)),
+        route_list=repr([f"{k}:{r}" for k, r in routes(cases)]).replace(
+            " ", ""), findings=len(found),
+        wall_s=f"{time.perf_counter() - t0:.2f}")
+    check(not found and len(routes(cases)) == 14,
+          f"phase 19 battery: {len(found)} finding(s) over "
+          f"{len(routes(cases))} routes")
+
+
+def _analysis_sanitize(cfg, run, data, rank_tapes, min_tapes=8) -> None:
+    """(b) The sanitizer on the full-width train step (phase 7's shape,
+    after a warm-up step) and the decode step of 4 slots, sync debug mode
+    set to error; SAN203 and SAN205 over phases 17's and 18's tapes."""
+    from repro_torch.analysis.findings import Finding
+    from repro_torch.analysis.sanitizer import (check_determinism,
+                                                sanitize_decode,
+                                                sanitize_train)
+    from repro_torch.models import model as M
+    from repro_torch.train.step import init_state, make_train_step
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device="cuda").manual_seed(0), cfg,
+                       run=run)
+    batch = {k: torch.as_tensor(v).to(dev)
+             for k, v in data.microbatched(0, TRAIN_MICRO).items()}
+    state, _ = make_train_step(cfg, run)(state, batch)        # warm-up
+    torch.cuda.synchronize()
+    found, _, state = sanitize_train(
+        f"train_step[{cfg.name} {TRAIN_BATCH}x{TRAIN_SEQ}]", cfg, run,
+        state, batch, sync_debug=True)
+    torch.cuda.synchronize()
+    del state, batch
+    _free()
+    t_train = time.perf_counter() - t0
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg)
+    cache = M.init_cache(cfg, 4, 544)
+    tok = torch.zeros(4, dtype=torch.int32, device=dev)
+    _, cache = M.decode_step(params, tok, cache, cfg)         # warm-up
+    torch.cuda.synchronize()
+    found_d, _ = sanitize_decode(f"decode_step[{cfg.name} B4]", cfg, params,
+                                 tok, cache, sync_debug=True)
+    found += found_d
+    del params, cache
+    _free()
+    # the ranks' tapes: SAN203 and SAN205 within a rank, SAN205 across
+    # the ranks of one case
+    for t in rank_tapes:
+        found += [Finding(**d) for d in t["findings"]]
+    by_case = {}
+    for t in rank_tapes:
+        by_case.setdefault((t["phase"], t["case"]), []).append(t)
+    for (phase, case), ts in sorted(by_case.items()):
+        for t in ts[1:]:
+            found += check_determinism(
+                f"phase {phase} {case} rank 0 vs rank {t['rank']}",
+                ts[0]["fp"], t["fp"])
+    for f in found:
+        log("analysis_finding", finding=repr(str(f)))
+    log("analysis_sanitizer", train=f"{cfg.name} {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"({TRAIN_MICRO} microbatches)", decode="B4",
+        sync_debug_mode="error", rank_tapes=len(rank_tapes),
+        rank_cases=repr(sorted(f"{p}:{c}" for p, c in by_case)).replace(
+            " ", ""),
+        rank_records=sum(t["records"] for t in rank_tapes),
+        findings=len(found), train_s=f"{t_train:.2f}",
+        wall_s=f"{time.perf_counter() - t0:.2f}")
+    check(not found and len(rank_tapes) >= min_tapes,
+          f"phase 19 sanitizer: {len(found)} finding(s), "
+          f"{len(rank_tapes)} rank tapes")
+
+
+def _analysis_remat(cfg, run, data) -> dict:
+    """(c) ``REMAT_STEPS`` steps under ``none``, ``full`` and ``dots``
+    from the same state (seed 0) on the same batches: losses within
+    ``TOL_REMAT`` of ``none``'s, and each step's grad norm (the
+    gradient the remat mode's backward gave, before the update); step
+    p50 and peak memory of each; K1, K2a and K2b all on ``sm90``.
+    Returns the p50 seconds by mode."""
+    from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
+                                                 lasp2_chunk_bwd_dq,
+                                                 lasp2_chunk_fwd)
+    from repro_torch.train.step import init_state, make_train_step
+    dev = torch.device("cuda")
+    counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    batches = [{k: torch.as_tensor(v).to(dev) for k, v in
+                data.microbatched(i, TRAIN_MICRO).items()}
+               for i in range(REMAT_STEPS)]
+    out = {}
+    for remat in ("none", "full", "dots"):
+        rrun = dataclasses.replace(run, remat=remat)
+        state = init_state(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, run=rrun)
+        step = make_train_step(cfg, rrun)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(*counters)
+        losses, norms, walls = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            m = to_host(m)
+            losses.append(m["loss"])
+            norms.append(m["grad_norm"])
+        launched = _read(counters, counters)
+        out[remat] = {"losses": losses, "norms": norms,
+                      "p50": float(np.median(walls)),
+                      "walls": walls, "launched": launched,
+                      "peak": torch.cuda.max_memory_allocated()}
+        del state, step
+        _free()
+    base = out["none"]
+    n_lin, _ = _mixer_counts(cfg)
+
+    def gap(remat, key):
+        return max(abs(a - b) / abs(b)
+                   for a, b in zip(out[remat][key], base[key]))
+
+    for remat, r in out.items():
+        err, err_n = gap(remat, "losses"), gap(remat, "norms")
+        fwd = 1 if remat == "none" else 2
+        per = n_lin * TRAIN_MICRO * REMAT_STEPS
+        want = [fwd * per, per, per, fwd * per, 0, per, 0, per, 0]
+        log("analysis_remat", remat=remat, steps=REMAT_STEPS,
+            batch=f"{TRAIN_BATCH}x{TRAIN_SEQ}", microbatches=TRAIN_MICRO,
+            losses=repr([round(x, 5) for x in r["losses"]]),
+            grad_norms=repr([round(x, 5) for x in r["norms"]]),
+            max_rel_err_loss_vs_none=f"{err:.3e}",
+            max_rel_err_grad_norm_vs_none=f"{err_n:.3e}", tol=TOL_REMAT,
+            step_ms=repr([round(w * 1e3, 1) for w in r["walls"]]),
+            step_p50_ms=f"{r['p50'] * 1e3:.1f}",
+            max_memory_allocated_gb=f"{r['peak'] / 1e9:.2f}",
+            launches_k1_k2a_k2b_routed=repr(r["launched"]))
+        check(err <= TOL_REMAT and err_n <= TOL_REMAT,
+              f"phase 19 remat {remat}: losses {r['losses']} vs none "
+              f"{base['losses']}, grad norms {r['norms']} vs none "
+              f"{base['norms']}")
+        check(r["launched"] == want, f"phase 19 remat {remat}: launches "
+              f"{r['launched']}; want {want} (K1, K2a, K2b, then each "
+              f"sm90/simt)")
+    return {k: v["p50"] for k, v in out.items()}
+
+
+def _analysis_roofline(cfg, run, train_p50_s, decode_ms) -> None:
+    """(d) The roofline (counted on the meta device) of phase 7's train
+    step and phase 5's decode step of 4 slots beside their walls."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.roofline import record
+    t0 = time.perf_counter()
+    rrun = dataclasses.replace(
+        run, microbatch_tokens=TRAIN_BATCH * TRAIN_SEQ // TRAIN_MICRO)
+    cells = (("train", ShapeConfig("phase7_train", TRAIN_SEQ, TRAIN_BATCH,
+                                   "train"), rrun, train_p50_s * 1e3),
+             ("decode", ShapeConfig("phase5_decode", 544, 4, "decode"),
+              None, decode_ms))
+    for what, shape, r, wall_ms in cells:
+        rec = record(cfg.name, shape.name, cfg=cfg, shape=shape, run=r)
+        t = rec["terms"]
+        bound_ms = t["bound_s"] * 1e3
+        log("analysis_roofline", step=what, shape=shape.name,
+            flops=f"{rec['per_device']['flops']:.6e}",
+            hbm_bytes=f"{rec['per_device']['hbm_bytes']:.6e}",
+            compute_ms=f"{t['compute_s'] * 1e3:.3f}",
+            memory_ms=f"{t['memory_s'] * 1e3:.3f}",
+            collective_ms=f"{t['collective_s'] * 1e3:.3f}",
+            dominant=t["dominant"], bound_ms=f"{bound_ms:.3f}",
+            measured_ms=f"{wall_ms:.3f}",
+            measured_over_bound=f"{wall_ms / bound_ms:.2f}",
+            useful_flops_ratio=f"{rec['useful_flops_ratio']:.4f}",
+            roofline_fraction=f"{rec['roofline_fraction']:.4f}",
+            solve_equals_full_depth=rec["extrapolation"]["equals_full_depth"],
+            kernel_launches=repr(rec["kernel_launches_at_checked_A"]).replace(
+                " ", ""))
+        check(rec["extrapolation"]["equals_full_depth"],
+              f"phase 19 roofline {what}: the solve is not exact")
+    log("analysis_roofline_wall", counted_on="meta (host)",
+        wall_s=f"{time.perf_counter() - t0:.2f}")
+
+
+def phase_analysis(kernels: list, cfg, train_hist, serve_walls,
+                   rank_tapes) -> None:
+    """Phase 19: the battery, the sanitizer, ``remat="dots"`` and the
+    roofline on ``cfg`` (``CONFIG``) at phase 7's shape."""
+    del kernels               # every launch here is a check, not the path
+    t0 = time.perf_counter()
+    run, data = train_setup(cfg, TRAIN_STEPS, 3e-4)
+    walls = {}
+    for part, fn in (("a", _analysis_battery),
+                     ("b", lambda: _analysis_sanitize(cfg, run, data,
+                                                      rank_tapes)),
+                     ("c", lambda: _analysis_remat(cfg, run, data))):
+        ts = time.perf_counter()
+        res = fn()
+        walls[part] = round(time.perf_counter() - ts, 1)
+        _free()
+    remat_p50 = res
+    train_p50 = float(np.median([h["dt"] for h in train_hist[1:]]))
+    ts = time.perf_counter()
+    _analysis_roofline(cfg, run, train_p50, serve_walls["decode"])
+    walls["d"] = round(time.perf_counter() - ts, 1)
+    log("analysis", phase7_step_p50_ms=f"{train_p50 * 1e3:.1f}",
+        remat_p50_ms=repr({k: round(v * 1e3, 1)
+                           for k, v in remat_p50.items()}).replace(" ", ""),
+        part_walls_s=repr(walls).replace(" ", ""),
+        wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
 def main() -> int:
@@ -4651,9 +4864,10 @@ def main() -> int:
 
     def serve(cfg, path, rows, length, steps):
         params = phase_serve(kernels, cfg, path)
-        phase_profile(cfg, params, path, rows, length, steps)
+        return phase_profile(cfg, params, path, rows, length, steps)
 
-    timed(4, serve, linear, "serve", 4, 512, [0, 40, 100, 200])
+    serve_walls = timed(4, serve, linear, "serve", 4, 512,
+                        [0, 40, 100, 200])
     timed(6, serve, hybrid, "hybrid_serve", 1, 300, None)
     train_hist = timed(7, phase_train, kernels, linear, "train")
     timed(8, phase_train, kernels, hybrid, "hybrid_train")
@@ -4670,8 +4884,10 @@ def main() -> int:
     timed(14, phase_zoo, kernels)
     timed(15, phase_cross, kernels)
     timed(16, phase_runtime, kernels, linear, train_hist)
-    timed(17, phase_usp, kernels, hybrid, sp_ranks)
-    timed(18, phase_serve_sp, kernels, linear, hybrid)
+    usp_tapes = timed(17, phase_usp, kernels, hybrid, sp_ranks)
+    serve_sp_tapes = timed(18, phase_serve_sp, kernels, linear, hybrid)
+    timed(19, phase_analysis, kernels, linear, train_hist, serve_walls,
+          usp_tapes + serve_sp_tapes)
     log("walls", phase_walls_s=repr(walls).replace(" ", ""),
         total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)

@@ -506,3 +506,27 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int
             parts.append(decode_merge_budget(w, b=b, hq=cfg.n_heads,
                                              dh=cfg.head_dim))
     return combine(parts, note=f"serve decode B={b}")
+
+
+# Exchanges that stay fp32 (or the compute dtype) whatever ``comm_dtype``:
+# the packed gradient all-reduce and the loop's stop agreement, ZeRO-1's
+# parameter gather and the checkpoint's moment gather (the reference's
+# (data, model) collectives, fp32 by design), Ulysses' head
+# repartition (the reference's model-axis all-to-alls, in the compute
+# dtype), and serving's exchanges: the last hidden state, the conv halo,
+# the ring's K/V gathers and the flash-decoding merge's o, m and l.
+# Every other exchange, the LASP-2 state exchange and the K/V gathers of
+# LASP-2H and Ulysses, carries the wire dtype (the sanitizer's SAN203).
+WIRE_FP32_TAGS = ("train.grads", "train.agree", "zero1.param_gather",
+                  "ckpt.zero1_gather", "ulysses.in", "ulysses.out",
+                  "prefill.last", "mamba2.conv", "ring.k", "ring.v",
+                  "ring_decode.", "decode.")
+
+
+def wire_exempt(tag: str) -> bool:
+    """True for a record's tag (``.bwd`` included) that
+    ``WIRE_FP32_TAGS`` names: an exchange outside the ``comm_dtype``
+    contract."""
+    tag = tag[:-4] if tag.endswith(".bwd") else tag
+    return any(tag == t or (t.endswith(".") and tag.startswith(t))
+               for t in WIRE_FP32_TAGS)

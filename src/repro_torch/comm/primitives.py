@@ -48,6 +48,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.decorators import host_sync_allowed
+
 # Wire-dtype registry of the ``comm_dtype`` knob: exchanges cast their
 # payload to this dtype before the collective and combine in fp32 locally;
 # "bf16" halves every state/KV exchange's bytes.
@@ -88,6 +90,8 @@ class CommRecord:
     steps: int           # sequential exchange steps this call represents
     group: int           # ranks participating
     tag: str = ""        # call-site label, e.g. "lasp2.states"
+    dtype: str = ""      # the payload's dtype on the wire, e.g. "bfloat16"
+    shape: tuple = ()    # the payload's shape entering the collective
 
 
 # The tape is process-wide, not per thread: autograd runs the backward of
@@ -215,6 +219,11 @@ def _nbytes(x) -> int:
     return x.numel() * x.element_size()
 
 
+def _wire(x) -> dict:
+    """A record's ``dtype`` and ``shape`` fields for payload ``x``."""
+    return {"dtype": str(x.dtype).split(".")[-1], "shape": tuple(x.shape)}
+
+
 def group_index(group) -> int:
     """This rank's index in ``group``: its sequence chunk ``t`` on an SP
     group, its shard on a data group (the counterpart of the reference's
@@ -233,10 +242,13 @@ def _staged(group) -> bool:
     return dist.get_backend(group) == dist.Backend.GLOO
 
 
+@host_sync_allowed
 def _to_host(x):
     """``x`` in host memory for a gloo collective: a CPU tensor as it is;
     a device tensor copied without blocking (PyTorch pins the destination
-    of a non-blocking device-to-host copy), the copy waited for."""
+    of a non-blocking device-to-host copy), the copy waited for. gloo
+    reads host memory only, so this wait is the transport's own: the one
+    deliberate host sync of the collectives."""
     if x.device.type == "cpu":
         return x
     host = x.to("cpu", non_blocking=True)
@@ -335,7 +347,7 @@ def allgather_states(x, group, *, gather_axis: int = 0, tiled: bool = False,
     w = dist.get_world_size(group)
     pb = _nbytes(x)
     _record(CommRecord("all-gather", pb, (w - 1) * pb, steps=1, group=w,
-                       tag=tag))
+                       tag=tag, **_wire(x)))
     pend = _gather(x.detach(), group, gather_axis, tiled, async_op).then(
         lambda out: _AttachGather.apply(x, out, group, gather_axis, tiled,
                                         tag))
@@ -351,7 +363,7 @@ def reduce_scatter_grads(x, group, *, scatter_axis: int = 0,
     w = dist.get_world_size(group)
     pb = _nbytes(x)
     _record(CommRecord("reduce-scatter", pb, (w - 1) * pb // w, steps=1,
-                       group=w, tag=tag))
+                       group=w, tag=tag, **_wire(x)))
     return _scatter(x, group, scatter_axis, tiled)
 
 
@@ -364,7 +376,7 @@ def psum_packed(x, group, *, tag: str = ""):
     w = dist.get_world_size(group)
     pb = _nbytes(x)
     _record(CommRecord("all-reduce", pb, 2 * (w - 1) * pb // max(w, 1),
-                       steps=1, group=w, tag=tag))
+                       steps=1, group=w, tag=tag, **_wire(x)))
     if _staged(group) and x.device.type != "cpu":
         host = _to_host(x)
         dist.all_reduce(host, group=group)
@@ -379,10 +391,10 @@ def _hop(x, group, shift, tag) -> Pending:
     w = dist.get_world_size(group)
     pb = _nbytes(x)
     _record(CommRecord("collective-permute", pb, pb, steps=1, group=w,
-                       tag=tag))
+                       tag=tag, **_wire(x)))
     t = group_index(group)
     device = x.device
-    src = (x.cpu() if _staged(group) else x).contiguous()
+    src = (_to_host(x) if _staged(group) else x).contiguous()
     out = torch.empty_like(src)
     peer = lambda i: dist.get_global_rank(group, i % w)
     works = dist.batch_isend_irecv([
@@ -423,13 +435,13 @@ def _a2a(x, group, split_axis, concat_axis, tag):
     w = dist.get_world_size(group)
     pb = _nbytes(x)
     _record(CommRecord("all-to-all", pb, (w - 1) * pb // max(w, 1), steps=1,
-                       group=w, tag=tag))
+                       group=w, tag=tag, **_wire(x)))
     device = x.device
     # all_to_all_single splits dim 0: block j of the split axis to rank j
     src = x.movedim(split_axis, 0)
     src = src.reshape(w, src.shape[0] // w, *src.shape[1:])
     if _staged(group):
-        src = src.cpu()
+        src = _to_host(src)
     src = src.contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)

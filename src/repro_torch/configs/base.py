@@ -249,7 +249,7 @@ class RunConfig:
     ported)."""
 
     num_microbatches: int = 1        # gradient accumulation steps
-    remat: str = "full"              # full | none
+    remat: str = "full"              # full | dots | none
     learning_rate: float = 3e-4
     min_lr: float = 1e-6             # paper §4.1
     warmup_steps: int = 100

@@ -11,6 +11,8 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.analysis.decorators import host_sync_allowed
+
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
@@ -33,6 +35,7 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+@host_sync_allowed
 def synchronize(device: torch.device) -> None:
     """Wait for the card's queued work, so a host clock read after it
     times device work and not its enqueue. No-op on the CPU."""

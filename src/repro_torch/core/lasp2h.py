@@ -339,7 +339,8 @@ def sharded_decode_attention(q, k_cache, v_cache, cache_len, *, sp=None,
     b, c = q.shape[0], k_cache.shape[2]
     t = sp.chunk_index if sp is not None and sp.degree > 1 else 0
     pos = t * c + torch.arange(c, device=q.device)
-    cache_len = torch.as_tensor(cache_len, device=q.device)
+    if isinstance(cache_len, torch.Tensor):    # an int stays on the host:
+        cache_len = cache_len.to(q.device)     # no copy to the card
     valid = pos < cache_len
     if sliding_window is not None:
         valid = valid & ((cache_len - 1 - pos) < sliding_window)

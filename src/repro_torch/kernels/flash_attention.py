@@ -248,16 +248,22 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True,
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if route == "sm90":
         _check_sm90("flash_attention_fwd", (q, k, v, o))
-        fn = _build.entry("flash_attention_fwd_sm90",
-                          "flash_attention_fwd_sm90", 5, 12, 1)
-    else:
-        fn = _build.entry("flash_attention_fwd", "flash_attention_fwd", 5,
-                          12, 1)
-    _launch("flash_attention_fwd", fn, q, k, v, o, lse,
-            *_ints(q, k, q_offset, kv_len, causal, window), scale)
+    fwd_entry(route, q, k, v, o, lse, **kw)
     flash_attention_fwd.launches += 1
     flash_attention_fwd.route_launches[route] += 1
     return o, lse
+
+
+def fwd_entry(route, q, k, v, o, lse, *, causal, window, scale, q_offset,
+              kv_len):
+    """Launch K4's C entry on ``route`` into ``o`` and ``lse`` (checked
+    inputs, resolved ``scale``, ``q_offset`` and ``kv_len``; the wrapper's
+    launch, and the guard-band battery's)."""
+    src = "flash_attention_fwd_sm90" if route == "sm90" \
+        else "flash_attention_fwd"
+    fn = _build.entry(src, src, 5, 12, 1)
+    _launch("flash_attention_fwd", fn, q, k, v, o, lse,
+            *_ints(q, k, q_offset, kv_len, causal, window), scale)
 
 
 # kernel launches (CUDA path only), in all and per route
@@ -292,15 +298,21 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     dq = torch.empty_like(q)
     if route == "sm90":
         _check_sm90(name, (q, k, v, do, dq))
-        fn = _build.entry("flash_attention_bwd_dq_sm90",
-                          "flash_attention_bwd_dq_sm90", 7, 12, 1)
-    else:
-        fn = _build.entry(_SOURCE_BWD, name, 7, 12, 1)
-    _launch(name, fn, q, k, v, do, lse, delta, dq,
-            *_ints(q, k, q_offset, kv_len, causal, window), scale)
+    bwd_dq_entry(route, q, k, v, do, lse, delta, dq, **kw)
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.route_launches[route] += 1
     return dq
+
+
+def bwd_dq_entry(route, q, k, v, do, lse, delta, dq, *, causal, window,
+                 scale, q_offset, kv_len):
+    """Launch K5a's C entry on ``route`` into ``dq``."""
+    name = "flash_attention_bwd_dq"
+    fn = _build.entry("flash_attention_bwd_dq_sm90",
+                      "flash_attention_bwd_dq_sm90", 7, 12, 1) \
+        if route == "sm90" else _build.entry(_SOURCE_BWD, name, 7, 12, 1)
+    _launch(name, fn, q, k, v, do, lse, delta, dq,
+            *_ints(q, k, q_offset, kv_len, causal, window), scale)
 
 
 # kernel launches (CUDA path only), in all and per route
@@ -326,15 +338,21 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if route == "sm90":
         _check_sm90(name, (q, k, v, do))
-        fn = _build.entry("flash_attention_bwd_dkv_sm90",
-                          "flash_attention_bwd_dkv_sm90", 8, 12, 1)
-    else:
-        fn = _build.entry(_SOURCE_BWD, name, 8, 12, 1)
-    _launch(name, fn, q, k, v, do, lse, delta, dk, dv,
-            *_ints(q, k, q_offset, kv_len, causal, window), scale)
+    bwd_dkv_entry(route, q, k, v, do, lse, delta, dk, dv, **kw)
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.route_launches[route] += 1
     return dk, dv
+
+
+def bwd_dkv_entry(route, q, k, v, do, lse, delta, dk, dv, *, causal, window,
+                  scale, q_offset, kv_len):
+    """Launch K5b's C entry on ``route`` into ``dk`` and ``dv``."""
+    name = "flash_attention_bwd_dkv"
+    fn = _build.entry("flash_attention_bwd_dkv_sm90",
+                      "flash_attention_bwd_dkv_sm90", 8, 12, 1) \
+        if route == "sm90" else _build.entry(_SOURCE_BWD, name, 8, 12, 1)
+    _launch(name, fn, q, k, v, do, lse, delta, dk, dv,
+            *_ints(q, k, q_offset, kv_len, causal, window), scale)
 
 
 # kernel launches (CUDA path only), in all and per route

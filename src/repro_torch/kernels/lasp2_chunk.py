@@ -136,16 +136,26 @@ def lasp2_chunk_fwd(q, k, v, log_a, *, block_size: int = DEFAULT_BLOCK):
     ld = torch.empty((bh,), dtype=torch.float32, device=q.device)
     if route == "sm90":
         _check_sm90(name, (q, k, v))
-        fn = _build.entry("lasp2_chunk_fwd_sm90", "lasp2_chunk_fwd_sm90", 7,
-                          4)
-        _launch(name, fn, q, k, v, log_a, o, state, ld, bh, s, dk, dv)
-    else:
-        fn = _build.entry("lasp2_chunk_fwd", name, 7, 5)
-        _launch(name, fn, q, k, v, log_a, o, state, ld, bh, s, dk, dv,
-                int(q.dtype == torch.bfloat16))
+    fwd_entry(route, q, k, v, log_a, o, state, ld)
     lasp2_chunk_fwd.launches += 1
     lasp2_chunk_fwd.route_launches[route] += 1
     return o, state, ld
+
+
+def fwd_entry(route, q, k, v, log_a, o, state, ld):
+    """Launch K1's C entry on ``route`` into the given outputs (checked
+    inputs; the wrapper's launch, and the guard-band battery's)."""
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    if route == "sm90":
+        fn = _build.entry("lasp2_chunk_fwd_sm90", "lasp2_chunk_fwd_sm90", 7,
+                          4)
+        _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, bh, s,
+                dk, dv)
+    else:
+        fn = _build.entry("lasp2_chunk_fwd", "lasp2_chunk_fwd", 7, 5)
+        _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, bh, s,
+                dk, dv, int(q.dtype == torch.bfloat16))
 
 
 # kernel launches (CUDA path only), in all and per route
@@ -280,6 +290,18 @@ def lasp2_chunk_bwd_dq(k, v, log_a, do, *, block_size: int = DEFAULT_BLOCK):
     dq = torch.empty((bh, s, dk), dtype=k.dtype, device=k.device)
     if route == "sm90":
         _check_sm90(name, (k, v, do))
+    bwd_dq_entry(route, k, v, log_a, do, dq)
+    lasp2_chunk_bwd_dq.launches += 1
+    lasp2_chunk_bwd_dq.route_launches[route] += 1
+    return dq
+
+
+def bwd_dq_entry(route, k, v, log_a, do, dq):
+    """Launch K2a's C entry on ``route`` into ``dq``."""
+    name = "lasp2_chunk_bwd_dq"
+    bh, s, dk = k.shape
+    dv = v.shape[-1]
+    if route == "sm90":
         fn = _build.entry("lasp2_chunk_bwd_dq_sm90", "lasp2_chunk_bwd_dq_sm90",
                           5, 4)
         _launch(name, fn, k, v, log_a, do, dq, bh, s, dk, dv)
@@ -289,9 +311,6 @@ def lasp2_chunk_bwd_dq(k, v, log_a, do, *, block_size: int = DEFAULT_BLOCK):
         fn = _build.entry("lasp2_chunk_bwd", name, 6, 5)
         _launch(name, fn, k, v, log_a, do, dq, m_scratch, bh, s, dk, dv,
                 int(k.dtype == torch.bfloat16))
-    lasp2_chunk_bwd_dq.launches += 1
-    lasp2_chunk_bwd_dq.route_launches[route] += 1
-    return dq
 
 
 # kernel launches (CUDA path only), in all and per route
@@ -317,6 +336,19 @@ def lasp2_chunk_bwd_dkv(q, k, v, log_a, o, do, dstate, *,
     dla = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     if route == "sm90":
         _check_sm90(name, (q, k, v, o, do))
+    bwd_dkv_entry(route, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla)
+    lasp2_chunk_bwd_dkv.launches += 1
+    lasp2_chunk_bwd_dkv.route_launches[route] += 1
+    return dk_out, dv_out, dla
+
+
+def bwd_dkv_entry(route, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla):
+    """Launch K2b's C entry on ``route`` into ``dk_out``, ``dv_out`` and
+    ``dla``."""
+    name = "lasp2_chunk_bwd_dkv"
+    bh, s, dk = q.shape
+    dv = v.shape[-1]
+    if route == "sm90":
         fn = _build.entry("lasp2_chunk_bwd_sm90", "lasp2_chunk_bwd_dkv_sm90",
                           10, 4)
         _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
@@ -327,9 +359,6 @@ def lasp2_chunk_bwd_dkv(q, k, v, log_a, o, do, dstate, *,
         fn = _build.entry("lasp2_chunk_bwd", name, 11, 5)
         _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
                 n_scratch, bh, s, dk, dv, int(q.dtype == torch.bfloat16))
-    lasp2_chunk_bwd_dkv.launches += 1
-    lasp2_chunk_bwd_dkv.route_launches[route] += 1
-    return dk_out, dv_out, dla
 
 
 # kernel launches (CUDA path only), in all and per route

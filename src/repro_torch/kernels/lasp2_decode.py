@@ -117,11 +117,25 @@ def lasp2_decode_step(q, k, v, log_a, state, log_decay, *, route=None):
     if log_a is None and route == "simt":
         log_a = torch.zeros((bh,), dtype=torch.float32, device=dev)
     o = torch.empty((bh, dv), dtype=torch.float32, device=dev)
+    entry_launch(route, q, k, v, log_a, state, log_decay, o)
+    lasp2_decode_step.launches += 1
+    lasp2_decode_step.route_launches[route] += 1
+    return o, state, log_decay
+
+
+def entry_launch(route, q, k, v, log_a, state, log_decay, o):
+    """Launch K3's C entry on ``route``: ``state`` and ``log_decay`` in
+    place, ``o`` written (checked inputs; a ``log_a`` of None is a null
+    pointer, which the ``simt`` entry does not take). The wrapper's
+    launch, and the guard-band battery's."""
+    bh, dk = q.shape
+    dv = v.shape[1]
     fn = _build.entry(*_ENTRIES[route])       # typed once, then cached
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if log_a is None else log_a.data_ptr(), state.data_ptr(),
             log_decay.data_ptr(), o.data_ptr(), bh, dk, dv,
-            int(dtype == torch.bfloat16))
+            int(q.dtype == torch.bfloat16))
+    dev = q.device
     if dev.index == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:
@@ -130,9 +144,6 @@ def lasp2_decode_step(q, k, v, log_a, state, log_decay, *, route=None):
     if err:
         raise RuntimeError(f"lasp2_decode_step: kernel launch failed with "
                            f"CUDA error {err}")
-    lasp2_decode_step.launches += 1
-    lasp2_decode_step.route_launches[route] += 1
-    return o, state, log_decay
 
 
 # kernel launches (CUDA path only), in all and per route

@@ -169,8 +169,11 @@ def _nbytes(tree) -> int:
 
 def build_cell(arch: str, shape_name: str, layout: Optional[Layout], *,
                run: Optional[RunConfig] = None,
-               cfg_override: Optional[ModelConfig] = None) -> Cell:
-    shape = SHAPES[shape_name]
+               cfg_override: Optional[ModelConfig] = None,
+               shape: Optional[ShapeConfig] = None) -> Cell:
+    """The cell of ``arch`` × ``SHAPES[shape_name]`` (or ``shape``, a
+    resized one: the roofline's reduced-batch cells) on ``layout``."""
+    shape = shape or SHAPES[shape_name]
     if cfg_override is not None:
         cfg, note = cfg_override, "override"
     else:

@@ -38,9 +38,12 @@ of them (``blocks.shard_ring``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.comm import primitives
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -53,6 +56,24 @@ from repro_torch.models.layers import (embed_init, embed_lookup, logits_out,
 
 # The encoder's layers: bidirectional softmax attention and a dense MLP.
 ENCODER_SPEC = LayerSpec(mixer="softmax", mlp="dense")
+
+REMAT_MODES = ("none", "full", "dots")
+
+# remat="dots" keeps these ops' outputs (jax.checkpoint_policies.
+# checkpoint_dots: the dot products) and recomputes everything else,
+# the kernels' launches included (a Pallas call is not a dot either).
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig, *,
@@ -124,12 +145,17 @@ def _layer_ctxs(ctx: Ctx, cfg: ModelConfig):
 
 def _run_layers(layers, x, ctxs, specs, remat):
     """``(x, summed aux)`` through ``layers``, each recomputed in the
-    backward under ``remat="full"``."""
+    backward under ``remat="full"``, or all but its dot products' outputs
+    under ``remat="dots"``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, lctx, spec in zip(layers, ctxs, specs):
         if remat == "full":
             x, a = torch.utils.checkpoint.checkpoint(
                 blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
+        elif remat == "dots":
+            x, a = torch.utils.checkpoint.checkpoint(
+                blocks.layer_apply, p, x, lctx, spec, use_reentrant=False,
+                context_fn=_DOTS_CONTEXT)
         else:
             x, a = blocks.layer_apply(p, x, lctx, spec)
         aux = aux + a
@@ -212,7 +238,10 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, plan=None, *,
     packed rows (the linear state is zeroed there). ``remat="full"``
     recomputes each layer in the backward pass (``torch.utils.checkpoint``
     of the layer's ``(x, aux)``) instead of keeping its activations;
-    ``"none"`` keeps them.
+    ``"dots"`` keeps the outputs of its matrix products (``mm``, ``bmm``,
+    ``addmm``, ``baddbmm``) and recomputes the rest, the kernels included
+    (selective checkpointing, the reference's ``checkpoint_dots``);
+    ``"none"`` keeps everything.
     ``causal=False`` is the bidirectional model (paper Table 3): softmax
     layers attend to every key, linear layers read the whole sequence's
     state (no decay, resets ignored). ``sp``
@@ -227,8 +256,9 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, plan=None, *,
     this rank's chunk ``t`` of the logits, (B, S / W, padded_vocab), as
     the reference's GSPMD leaves them sharded.
     """
-    if remat not in ("none", "full"):
-        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"remat must be one of {REMAT_MODES}, got "
+                         f"{remat!r}")
     dtype = torch_dtype(cfg.dtype)
     device = _device(params)
     tokens = tokens.to(device)

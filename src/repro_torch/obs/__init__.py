@@ -7,11 +7,11 @@ from repro_torch.obs.metrics import (Fence, Histogram, InMemorySink,
                                      JsonlSink, Metrics, MetricsSink,
                                      NullSink, PhaseTimer, as_sink,
                                      block_until_ready, read_jsonl,
-                                     render_step, scoped_timer)
+                                     render_step, scoped_timer, to_host)
 
 __all__ = [
     "CompileSnapshot", "FlightRecorder", "Fence", "Histogram",
     "InMemorySink", "JsonlSink", "Metrics", "MetricsSink", "NullSink",
     "PhaseTimer", "as_sink", "block_until_ready", "read_jsonl",
-    "render_step", "scoped_timer",
+    "render_step", "scoped_timer", "to_host",
 ]

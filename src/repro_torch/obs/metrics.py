@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Protocol, runtime_checkable
 
 import torch
 
+from repro_torch.analysis.decorators import host_sync_allowed
 from repro_torch.core.tree import leaves_with_paths
 
 
@@ -274,6 +275,7 @@ class Metrics:
 # Phase timing.
 # ---------------------------------------------------------------------------
 
+@host_sync_allowed
 def block_until_ready(x):
     """Wait for the card's queued work on every CUDA device that holds a
     tensor of the tree ``x`` (a no-op for host values). Returns ``x``."""
@@ -295,9 +297,18 @@ class Fence:
         self.value = x
         return x
 
+    @host_sync_allowed
     def block(self):
         if self.value is not None:
             block_until_ready(self.value)
+
+
+@host_sync_allowed
+def to_host(metrics: Dict[str, Any]) -> Dict[str, Any]:
+    """A step's metrics (0-d tensors on the device, host numbers) as host
+    floats: the read a caller makes after its fence, since the steps
+    return device scalars and never wait for the card themselves."""
+    return {k: float(v) for k, v in metrics.items()}
 
 
 @contextmanager

@@ -35,14 +35,19 @@ _NO_DECAY = ("scale", "bias", "bq", "bk", "bv", "gate", "dt_bias", "a_log",
 class AdamState(NamedTuple):
     m: object        # fp32 first moments, the params' tree
     v: object        # fp32 second moments, the params' tree
-    count: int       # updates applied
+    count: object    # updates applied: a 0-d int32 tensor on the params'
+    #                  device (the reference's int32 scalar)
+
+
+def _count0(device) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def init(params) -> AdamState:
     zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device)
     return AdamState(m=tree_map(zeros, params), v=tree_map(zeros, params),
-                     count=0)
+                     count=_count0(leaves_with_paths(params)[0][1].device))
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -72,6 +77,33 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+def _bias_corrections(count, b1, b2):
+    """``(1 - b1^count, 1 - b2^count)`` in fp32, as the reference forms
+    them: 0-d tensors on the count's device (no host round trip)."""
+    c = torch.as_tensor(count, dtype=torch.float32)
+    return 1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)
+
+
+def _gated(ok, b1, b2, lr):
+    """``(b1, b2, lr)`` as the update uses them: host floats when ``ok``
+    is None; with ``ok`` (a 0-d bool tensor) 0-d fp32 tensors that are
+    ``(1, 1, 0)`` where it is False, so that the same in-place update, on
+    gradients zeroed there (:func:`_grad`), leaves the moments and the
+    params at their values: the reference's ``jnp.where(finite, new,
+    old)`` without a second copy of either. ``1 - b1`` and ``1 - b2``
+    stay host floats: they multiply a zeroed gradient."""
+    if ok is None:
+        return b1, b2, lr
+    return tuple(torch.where(ok, c, off)
+                 for c, off in ((b1, 1.0), (b2, 1.0), (lr, 0.0)))
+
+
+def _grad(g, ok):
+    """The gradient in fp32, zeroed where ``ok`` is False (a NaN gradient
+    must not reach the moments as NaN·0)."""
+    return g.float() if ok is None else torch.where(ok, g.float(), 0.0)
+
+
 # Elements per piece of a leaf in ``update``: its temporaries are a few
 # pieces, not a few leaves (a 152064 x 8192 embedding is 5 GB in fp32).
 UPDATE_PIECE = 1 << 26
@@ -79,15 +111,20 @@ UPDATE_PIECE = 1 << 26
 
 @torch.no_grad()
 def update(grads, state: AdamState, params, *, lr, b1=0.9, b2=0.95,
-           eps=1e-8, weight_decay=0.1) -> AdamState:
+           eps=1e-8, weight_decay=0.1, ok=None) -> AdamState:
     """One AdamW step, in place on ``params`` and on the moments of
     ``state``, each leaf in pieces of ``UPDATE_PIECE`` elements (the same
     elementwise math, so the same bits). Returns the new state (the same
-    moment tensors, ``count`` advanced by one)."""
+    moment tensors, ``count`` advanced by one).
+
+    ``ok`` (a 0-d bool tensor) makes the step conditional on the device:
+    where it is False, params, moments and the count keep their values
+    (a NaN gradient included), with no host round trip; where it is True
+    the bits are those of the update without ``ok``."""
     count = state.count + 1
-    bc1 = float(_f32(1.0) - _f32(b1) ** _f32(count))
-    bc2 = float(_f32(1.0) - _f32(b2) ** _f32(count))
-    lr = float(_f32(lr))
+    bc1, bc2 = _bias_corrections(count, b1, b2)
+    c1, c2 = 1 - b1, 1 - b2
+    b1, b2, lr = _gated(ok, b1, b2, float(_f32(lr)))
     flat = zip(leaves_with_paths(params), leaves_with_paths(grads),
                leaves_with_paths(state.m), leaves_with_paths(state.v))
     for (path, p_leaf), (_, g_leaf), (_, m_leaf), (_, v_leaf) in flat:
@@ -97,13 +134,15 @@ def update(grads, state: AdamState, params, *, lr, b1=0.9, b2=0.95,
                        for t in (p_leaf, m_leaf, v_leaf)),
                      g_leaf.reshape(-1).split(UPDATE_PIECE))
         for p, m, v, g in pieces:
-            gf = g.float()
-            m.mul_(b1).add_((1 - b1) * gf)
-            v.mul_(b2).add_((1 - b2) * gf * gf)
+            gf = _grad(g, ok)
+            m.mul_(b1).add_(c1 * gf)
+            v.mul_(b2).add_(c2 * gf * gf)
             step = (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if decay:
                 step = step + weight_decay * p.float()
             p.copy_(p.float() - lr * step)
+    if ok is not None:
+        count = torch.where(ok, count, state.count)
     return AdamState(state.m, state.v, count)
 
 
@@ -117,7 +156,7 @@ class Zero1AdamState(NamedTuple):
 
     m: torch.Tensor
     v: torch.Tensor
-    count: int
+    count: torch.Tensor   # a 0-d int32 tensor, as in AdamState
 
 
 def zero1_padded_size(params, n_shards: int) -> int:
@@ -131,7 +170,7 @@ def zero1_init(params, n_shards: int) -> Zero1AdamState:
     size = zero1_padded_size(params, n_shards) // n_shards
     device = leaves_with_paths(params)[0][1].device
     zeros = lambda: torch.zeros((size,), dtype=torch.float32, device=device)
-    return Zero1AdamState(m=zeros(), v=zeros(), count=0)
+    return Zero1AdamState(m=zeros(), v=zeros(), count=_count0(device))
 
 
 def _raveled(params, lo, hi, piece):
@@ -171,18 +210,20 @@ def decay_mask(params, lo: int = 0, hi=None) -> torch.Tensor:
 @torch.no_grad()
 def zero1_update_shard(grad_shard, m_shard, v_shard, param_shard,
                        decay_shard, count, *, lr, b1=0.9, b2=0.95,
-                       eps=1e-8, weight_decay=0.1):
+                       eps=1e-8, weight_decay=0.1, ok=None):
     """One AdamW step on one rank's flat fp32 slice, the moments in place.
 
-    ``count`` is the post-increment step count. Returns the new param
-    slice: the same elementwise math as :func:`update`, so the gathered
-    result is the replicated optimizer's."""
-    bc1 = float(_f32(1.0) - _f32(b1) ** _f32(count))
-    bc2 = float(_f32(1.0) - _f32(b2) ** _f32(count))
-    lr = float(_f32(lr))
-    gf = grad_shard.float()
-    m_shard.mul_(b1).add_((1 - b1) * gf)
-    v_shard.mul_(b2).add_((1 - b2) * gf * gf)
+    ``count`` is the post-increment step count (a 0-d int32 tensor).
+    Returns the new param slice: the same elementwise math as
+    :func:`update`, so the gathered result is the replicated optimizer's.
+    Where ``ok`` (a 0-d bool tensor) is False the moments stay and the
+    slice returned is ``param_shard``'s values, as in :func:`update`."""
+    bc1, bc2 = _bias_corrections(count, b1, b2)
+    c1, c2 = 1 - b1, 1 - b2
+    b1, b2, lr = _gated(ok, b1, b2, float(_f32(lr)))
+    gf = _grad(grad_shard, ok)
+    m_shard.mul_(b1).add_(c1 * gf)
+    v_shard.mul_(b2).add_(c2 * gf * gf)
     step = (m_shard / bc1) / (torch.sqrt(v_shard / bc2) + eps)
     if weight_decay:
         step = step + weight_decay * decay_shard * param_shard

@@ -53,6 +53,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.tree import leaves_with_paths
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.obs.metrics import to_host
 from repro_torch.resilience.guard import GuardAbort
 from repro_torch.train.step import init_state, make_train_step, \
     state_from_params, zero1_degree
@@ -235,6 +236,7 @@ def train(cfg: ModelConfig, run: RunConfig, data: SyntheticLM, *,
                     fence.set(state["params"])
             synchronize(device)
             dt = time.perf_counter() - t0
+            metrics = to_host(metrics)
             if first:
                 recorder.on_compile(records=taped, issued=sent,
                                     note=f"{cfg.name} train step")

@@ -147,10 +147,12 @@ def _clip(run: RunConfig, state, grads, loss_bad):
     global-norm clip, or with ``run.guard`` by the guard's verdict,
     ``loss_bad`` (a 0-d bool tensor) joining its non-finite test. Returns
     ``(norm before clipping, ok, new guard state or None, guard
-    metrics)``; ``ok`` is False for a step to skip."""
+    metrics)``, all 0-d tensors on the device; ``ok`` is False for a step
+    to skip. Nothing waits for the device: the skip is a select in the
+    update (``adamw.update(ok=)``), as the reference's ``jnp.where``."""
     if not run.guard:
         _, gnorm = adamw.clip_by_global_norm(grads, run.grad_clip)
-        return gnorm, bool(torch.isfinite(gnorm)), None, {}
+        return gnorm, torch.isfinite(gnorm), None, {}
     gnorm = adamw.global_norm(grads)
     nonfinite = torch.logical_not(torch.isfinite(gnorm)) | loss_bad
     if health.chaos_hit(state["step"], run.chaos_skip_steps):
@@ -158,30 +160,30 @@ def _clip(run: RunConfig, state, grads, loss_bad):
     scale, ok, new_guard, info = health.guard_verdict(
         state["guard"], gnorm, nonfinite, grad_clip=run.grad_clip,
         spike_factor=run.guard_spike_factor)
-    ok = bool(ok)
-    if ok:
-        for _, g in leaves_with_paths(grads):
-            g.mul_(scale)
-    return gnorm, ok, new_guard, {k: float(v) for k, v in info.items()}
+    for _, g in leaves_with_paths(grads):
+        g.mul_(scale)
+    return gnorm, ok, new_guard, info
 
 
 def _finish_step(run: RunConfig, state, gnorm, update, ok, new_guard):
     """The tail both steps share, after the gradients are clipped: the
-    cosine learning rate and the skip. ``update(lr)`` applies AdamW and
-    returns the new optimizer state; a step that is not ``ok`` does not
-    call it, so params, moments and the Adam count stay, and the step
-    advances. Returns ``(new_state, metrics without the loss)``."""
+    cosine learning rate and the skip. ``update(lr, ok)`` applies AdamW
+    where ``ok`` holds and returns the new optimizer state; where it does
+    not, params, moments and the Adam count keep their bits, and the step
+    advances. Returns ``(new_state, metrics without the loss)``: the
+    metrics are 0-d tensors on the device (``lr`` a host float), for the
+    caller to read after its fence (``obs.metrics.to_host``)."""
     lr = adamw.cosine_schedule(
         state["step"], base_lr=run.learning_rate,
         warmup_steps=run.warmup_steps, total_steps=run.total_steps,
         min_lr=run.min_lr)
-    opt = update(lr) if ok else state["opt"]
+    opt = update(lr, ok)
     new_state = {"params": state["params"], "opt": opt,
                  "step": state["step"] + 1}
     if new_guard is not None:
         new_state["guard"] = new_guard
-    return new_state, {"grad_norm": float(gnorm), "lr": lr,
-                       "skipped": 0.0 if ok else 1.0}
+    return new_state, {"grad_norm": gnorm, "lr": lr,
+                       "skipped": torch.logical_not(ok).float()}
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
@@ -194,7 +196,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
     def train_step(state, batch):
         params = state["params"]
         device = leaves_with_paths(params)[0][1].device
-        batch = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+        batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
+                 for k, v in batch.items()}
         grads, loss = _accum_grads(loss_fn, params, batch)
         for _, g in leaves_with_paths(grads):
             health.chaos_poison_nan(g, state["step"], run.chaos_nan_steps)
@@ -202,11 +205,12 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
             run, state, grads, torch.logical_not(torch.isfinite(loss)))
         new_state, metrics = _finish_step(
             run, state, gnorm,
-            lambda lr: adamw.update(grads, state["opt"], params, lr=lr,
-                                    b1=run.adam_b1, b2=run.adam_b2,
-                                    weight_decay=run.weight_decay),
+            lambda lr, ok: adamw.update(grads, state["opt"], params, lr=lr,
+                                        b1=run.adam_b1, b2=run.adam_b2,
+                                        weight_decay=run.weight_decay,
+                                        ok=ok),
             ok, new_guard)
-        return new_state, {"loss": float(loss), **metrics, **ginfo}
+        return new_state, {"loss": loss, **metrics, **ginfo}
 
     return train_step
 
@@ -372,7 +376,7 @@ class ShardedStep:
         return gflat, buf[n].clone(), n_tot
 
     @torch.no_grad()
-    def _zero1_update(self, params, opt, gflat, n, lr):
+    def _zero1_update(self, params, opt, gflat, n, lr, ok):
         run, layout = self.run, self.layout
         padded = adamw.zero1_padded_size(params, self.zero1)
         shard = padded // self.zero1
@@ -386,7 +390,7 @@ class ShardedStep:
         new_p = adamw.zero1_update_shard(
             g_sh, opt.m, opt.v, adamw.flat_slice(params, lo, lo + shard),
             self._decay, count, lr=lr, b1=run.adam_b1, b2=run.adam_b2,
-            weight_decay=run.weight_decay)
+            weight_decay=run.weight_decay, ok=ok)
         # ZeRO-1's all-gather-on-update
         gathered = primitives.allgather_states(
             new_p, layout.zero_group, gather_axis=0, tiled=True,
@@ -395,19 +399,22 @@ class ShardedStep:
         for _, p in leaves_with_paths(params):
             p.copy_(gathered[off:off + p.numel()].view_as(p))
             off += p.numel()
-        return adamw.Zero1AdamState(opt.m, opt.v, count)
+        return adamw.Zero1AdamState(opt.m, opt.v,
+                                    torch.where(ok, count, opt.count))
 
-    def _update(self, params, opt, gflat, lr):
-        """AdamW on the clipped flat gradients: this rank's ZeRO-1 slice,
-        or every param (replicated)."""
+    def _update(self, params, opt, gflat, lr, ok):
+        """AdamW on the clipped flat gradients where ``ok`` holds: this
+        rank's ZeRO-1 slice, or every param (replicated)."""
         run = self.run
         if self.zero1 > 1:
-            return self._zero1_update(params, opt, gflat, gflat.numel(), lr)
+            return self._zero1_update(params, opt, gflat, gflat.numel(), lr,
+                                      ok)
         it = iter(torch.split(gflat, [p.numel() for _, p in
                                       leaves_with_paths(params)]))
         grads = tree_map(lambda p: next(it).view_as(p), params)
         return adamw.update(grads, opt, params, lr=lr, b1=run.adam_b1,
-                            b2=run.adam_b2, weight_decay=run.weight_decay)
+                            b2=run.adam_b2, weight_decay=run.weight_decay,
+                            ok=ok)
 
     def __call__(self, state, batch):
         params = state["params"]
@@ -420,7 +427,6 @@ class ShardedStep:
         gnorm, ok, new_guard, ginfo = _clip(self.run, state, gflat, loss_bad)
         new_state, metrics = _finish_step(
             self.run, state, gnorm,
-            lambda lr: self._update(params, state["opt"], gflat, lr),
+            lambda lr, ok: self._update(params, state["opt"], gflat, lr, ok),
             ok, new_guard)
-        return new_state, {"loss": float(ce_tot / n_tot), **metrics,
-                           **ginfo}
+        return new_state, {"loss": ce_tot / n_tot, **metrics, **ginfo}

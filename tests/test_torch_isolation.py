@@ -61,7 +61,11 @@ def test_port_imports_without_loading_jax():
             "repro_torch.comm.spec, repro_torch.core.baselines, "
             "repro_torch.core.lasp2, repro_torch.launch.mesh, "
             "repro_torch.sharding.rules, repro_torch.comm.budget, "
-            "repro_torch.launch.cells, repro_torch.launch.dryrun; "
+            "repro_torch.launch.cells, repro_torch.launch.dryrun, "
+            "repro_torch.launch.roofline, repro_torch.analysis, "
+            "repro_torch.analysis.__main__, repro_torch.analysis.lint, "
+            "repro_torch.analysis.rules, repro_torch.analysis.sanitizer, "
+            "repro_torch.analysis.kernel_check; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -188,6 +188,20 @@ def test_ulysses_step_matches_reference(dp2sp2):
         assert not any(t.startswith("lasp2h.") for t in tags)
 
 
+def test_sanitizer_wire_and_determinism_at_dp2sp2(dp2sp2):
+    """The sanitizer on two bf16-wire steps at (2, 2) on every rank: no
+    finding (SAN201 to SAN205: no host sync, no float64, bf16 on every
+    sequence exchange, params and moments in place, the same collectives
+    in both steps); a planted fp32 state gather is SAN203."""
+    _, _, ranks, _ = dp2sp2
+    for r in ranks:
+        san = r["sanitizer"]
+        assert san["findings"] == [], san["findings"]
+        assert san["planted"] == ["SAN203"]
+        assert san["same"] and san["bf16"] > 0
+        assert san["records"] > san["bf16"]     # the fp32 grads and gather
+
+
 def test_bf16_wire_halves_state_bytes(sp4):
     """comm_dtype="bf16" at (1, 4): the state gathers carry half the bytes,
     the collective counts are unchanged, the losses stay within 2e-2."""

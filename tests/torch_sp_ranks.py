@@ -639,7 +639,34 @@ def step_rank(rank, world, device, dp, sp, npz_path, ckpt_root=None):
         res["records"] = sink.records if sink is not None else None
         res.update(ckpt_faults(npz_path, device, layout, ckpt_root))
         res["bypass"] = bypass_drift(layout)
+        res["sanitizer"] = sanitized_steps(npz_path, device, layout)
     return res
+
+
+def sanitized_steps(npz_path, device, layout):
+    """The sanitizer over two bf16-wire steps at this layout, each with a
+    fresh step (SAN201 to SAN205 as ``analysis.sanitizer.sanitize_train``
+    checks them), and SAN203 on the first tape with a planted fp32 state
+    gather."""
+    from repro_torch.analysis.sanitizer import (check_wire, fingerprint,
+                                                sanitize_train)
+    from repro_torch.comm.primitives import CommRecord
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train.step import state_from_params, zero1_degree
+    run = RunConfig(**{**RUN, "comm_dtype": "bf16"})
+    state = state_from_params(_params(npz_path, device),
+                              zero1_degree(run, layout))
+    found, tapes, _ = sanitize_train("train_step[dp=2,sp=2]", step_cfg(),
+                                     run, state, _batches()[0], layout)
+    planted = tapes[0] + [CommRecord("all-gather", 4, 4, 1, 2,
+                                     tag="lasp2.states", dtype="float32",
+                                     shape=(1,))]
+    return {"findings": [str(f) for f in found],
+            "planted": [f.code for f in check_wire("planted", planted,
+                                                   "bf16")],
+            "records": len(tapes[0]),
+            "bf16": sum(r.dtype == "bfloat16" for r in tapes[0]),
+            "same": fingerprint(tapes[0]) == fingerprint(tapes[1])}
 
 
 def _flat_leaves(tree):
