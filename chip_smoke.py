@@ -79,14 +79,15 @@ line:
    on packed rows (the autodiff backward) and b2 the ``CONFIG`` cut at
    (1, 2) on rows without resets (the faithful backward), each with its
    loss (2e-3) and gradients (3e-2 relative L2 a leaf) against one device,
-   then 3 steps; b3 the ``CONFIG`` cut at (2, 1) with ZeRO-1, 3 losses
-   within 2e-4 and grad norms within 2^-8 of (1, 1), and every param
-   after the 3 steps within 1e-6 relative (1e-7 absolute) of replicated
-   AdamW at (2, 1); b4 the GLA model of phase 12 cut to 4 layers at
-   (1, 2) on packed rows, 3 losses within 2e-4 and grad norms within 2^-8
-   of its (1, 1) run. Each rank prints its launches per step (every
-   kernel on ``sm90``), its tape per step, its step walls and peak
-   memory, and the state all-gather's bytes at C 512 and 1024 (equal);
+   then 2 steps (no warm-up: step 1 follows a full-rate update); b3 the
+   ``CONFIG`` cut at (2, 1) with ZeRO-1, 2 losses within 2e-4 and grad
+   norms within 2^-8 of (1, 1), and every param after the 2 steps within
+   1e-6 relative (1e-7 absolute) of replicated AdamW at (2, 1); b4 the
+   GLA model of phase 12 cut to 4 layers at (1, 2) on packed rows, 2
+   losses within 2e-4 and grad norms within 2^-8 of its (1, 1) run. Each
+   rank prints its launches per step (every kernel on ``sm90``), its tape
+   per step, its step walls and peak memory, each cell's wall, and the
+   state all-gather's bytes at C 512 and 1024 (equal);
 11. strategies, the exchange strategies and the paper's SP baselines on
    two ranks sharing the card over gloo, as 10 (b): (a) one full-width
    layer, B 1 x H 16 x S 2·4096 x dh 128 in bf16, each rank its chunk:
@@ -96,7 +97,7 @@ line:
    2048 window), ``ring_attention`` and ``megatron_sp_attention`` against
    ``allgather_context_attention``; o, dq, dk and dv within phase 10's
    3e-2 relative L2, each case's launches (sm90 only), tape and wall;
-   (b) 3 steps of ``ShardedStep`` at (1, 2) under "ulysses" on b1's cut
+   (b) 2 steps of ``ShardedStep`` at (1, 2) under "ulysses" on b1's cut
    and data and under "ring" on b2's: losses within 2e-4 and grad norms
    within 2^-8 of b1's and b2's, launches and tape per step;
 12. variants, the paper's Linear-Llama3 variants (§4, Tables 2-3) at
@@ -201,7 +202,7 @@ line:
 17. usp, the 3D DP×SP×TP layout on four ranks sharing the card over gloo,
    as 10 (b): (a) the ``HYBRID`` cut of 10 (b) (3 linear + 1 softmax
    layer, full width) at (dp, sp, tp) = (1, 2, 2) under "ulysses", ZeRO-1
-   over the model pair, 3 steps on b1's params and packed rows: losses
+   over the model pair, 2 steps on b1's params and packed rows: losses
    within 2e-4 and grad norms within 2^-8 of b1's (1, 2) allgather run;
    per step the 3D tape budget (the state gathers over the 4 token
    ranks, Ulysses' 4 all-to-alls over tp, its K/V gathers over sp, one
@@ -218,18 +219,30 @@ line:
    versions, in query blocks).
 18. serve_sp, serving under a plan on four ranks sharing the card over
    gloo, every rank running ``ServeEngine(plan=)`` on the same requests
-   with weights from one seed: (a) the prefill plan of the (4, 1)
-   (data, model) layout serving ``CONFIG`` and ``HYBRID`` at full width
-   and depth (prompts 4096, 1024 and 1023 split 4 ways where 4 divides
-   them, ``CONFIG`` bucketing 1023 to 1024 with left padding; 32 greedy
-   tokens; the hybrid's window rings sliced 4 ways and merged at
-   decode); (b) the decode plan of the (1, 4) layout serving
-   granite-34b's 2-layer cut (prompts 1024 and 300 prefilled whole, its
-   rings sliced over the model group). Every rank's tape equals
-   ``comm.budget``'s serving budgets; K1, K3, K4 launches per path, all
-   ``sm90``; rank 0's sampled logits within ``TOL_LOGITS`` of the
-   one-device engine forced onto the same tokens; walls and peaks per
-   rank;
+   with weights from one seed, each rank holding the shard of the
+   weights and of the cache its plan gives it: (a) the prefill plan of
+   the (4, 1) (data, model) layout serving ``CONFIG`` and ``HYBRID`` at
+   full width and depth, weights whole (the prefill cells' FSDP rule)
+   (prompts 4096, 1024 and 1023 split 4 ways where 4 divides them,
+   ``CONFIG`` bucketing 1023 to 1024 with left padding; 32 greedy tokens;
+   the hybrid's window rings sliced 4 ways and merged at decode); (b)
+   the decode plan of the (1, 4) layout serving granite-34b's 2-layer
+   cut (prompts 1024 and 300 prefilled whole, its rings sliced over the
+   model group, its 48 heads 12 a rank); (c) that plan on ``CONFIG`` and
+   ``HYBRID`` whole: TP 4, heads 4 of 16, ff 1376, vocab 32064 a rank;
+   (d) the (2, 2) layout's prefill and decode plans on 2-layer cuts of
+   both (FSDP over data, TP 2, the decode plan's 4 slots 2 a rank), 4
+   requests, 4 greedy tokens. Every rank's tape equals ``comm.budget``'s
+   serving budgets; its held params and slot grid equal the dry run's
+   ``memory_report`` for its plan, byte for byte; K1, K3, K4 launches per
+   path, all ``sm90``; in (a), (b), (d) rank 0's sampled logits within
+   ``TOL_LOGITS`` of the one-device engine forced onto the same tokens,
+   and its greedy tokens that engine's argmax wherever that leads by
+   more than the limit (near ties counted); in (c) those logits reported
+   against the limit, and the same plan in fp32 (``SERVE_SP_FP32_NEW``
+   tokens) within ``TOL_LOGITS_EXACT`` of the one-device fp32 engine,
+   every argmax equal, with the bf16 plan as the control the limit must
+   fail; walls and peaks per rank;
 19. analysis, the port's checks on the card: (a) the PAL301 guard-band
    battery (``analysis.kernel_check``) over every route of all seven
    kernels, zero findings; (b) the step sanitizer (SAN201, SAN202,
@@ -1936,7 +1949,14 @@ def phase_grad_check(kernels: list, cfg, path: str,
 # Phase 10: LASP-2 and LASP-2H sequence parallelism (the DP×SP step).
 # ---------------------------------------------------------------------------
 
-SP_ROWS, SP_SEQ, SP_STEPS, SP_LAYERS = 4, 2048, 3, 4
+SP_ROWS, SP_SEQ, SP_STEPS, SP_LAYERS = 4, 2048, 2, 4
+# (a) runs phase 7's first SP_A_STEPS steps (its warm-up: the learning rate
+# is 0 at step 0, so only step 2 follows an update). The gloo cells (b),
+# phase 11 (b) and phase 17 (a) run SP_STEPS steps with no warm-up
+# (``_sp_run``): step 1 follows a full-rate update, and each step moves
+# the cut's 2.9 GB of fp32 gradients through the host (b3: 4.4 GB with
+# ZeRO-1's gather), so they take one step fewer than (a).
+SP_A_STEPS = 3
 # Losses against one device, relative: the reference's DP×SP-vs-single-
 # device limit (tests/distributed_checks.py:513-519). Between two runs of
 # the same data and params, each step's loss and grad norm, relative:
@@ -1975,10 +1995,11 @@ def _sp_counters():
             fl.flash_attention_bwd_dkv)
 
 
-def _sp_batches(cfg, resets, seq=SP_SEQ, rows=SP_ROWS, micro=1):
+def _sp_batches(cfg, resets, seq=SP_SEQ, rows=SP_ROWS, micro=1,
+                steps=SP_STEPS):
     from repro_torch.data.pipeline import SyntheticLM
     data = SyntheticLM(cfg.vocab_size, seq, rows, seed=0)
-    out = [data.microbatched(i, micro) for i in range(SP_STEPS)]
+    out = [data.microbatched(i, micro) for i in range(steps)]
     if not resets:
         for b in out:
             b.pop("resets")
@@ -1994,7 +2015,7 @@ def _sp_params(cfg):
 def _sp_run(**kw):
     from repro_torch.configs.base import RunConfig
     return RunConfig(**{**dict(num_microbatches=1, remat="none",
-                               learning_rate=3e-4, warmup_steps=2,
+                               learning_rate=3e-4, warmup_steps=0,
                                total_steps=10, seed=0), **kw})
 
 
@@ -2267,18 +2288,28 @@ def _sp_rank(rank, world, device, linear_cut, hybrid_cut, gla_cut,
     torch.backends.cuda.matmul.allow_tf32 = False
     sp_layout = make_training_groups(1, 2)
     dp_layout = make_training_groups(2, 1)
-    out = {"b1": _sp_cell(rank, "sp_b1", hybrid_cut, sp_layout, True, True)}
-    _free()
-    out["b2"] = _sp_cell(rank, "sp_b2", linear_cut, sp_layout, False, True)
-    _free()
-    out["b3"] = _sp_cell(rank, "sp_b3", linear_cut, dp_layout, True, False)
-    _free()
-    out["b4"] = _sp_cell(rank, "sp_b4", gla_cut, sp_layout, True, False)
-    _free()
-    _sp_payload(rank, sp_layout)
+    out, walls = {}, {}
+
+    def timed(key, fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        _free()
+        walls[key] = round(time.perf_counter() - t0, 1)
+        return res
+
+    out["b1"] = timed("b1", _sp_cell, rank, "sp_b1", hybrid_cut, sp_layout,
+                      True, True)
+    out["b2"] = timed("b2", _sp_cell, rank, "sp_b2", linear_cut, sp_layout,
+                      False, True)
+    out["b3"] = timed("b3", _sp_cell, rank, "sp_b3", linear_cut, dp_layout,
+                      True, False)
+    out["b4"] = timed("b4", _sp_cell, rank, "sp_b4", gla_cut, sp_layout,
+                      True, False)
+    timed("payload", _sp_payload, rank, sp_layout)
     if guard_cut is not None:
-        out["f"] = _sp_guard_cell(rank, device, guard_cut, sp_layout,
-                                  guard_ckpt)
+        out["f"] = timed("f", _sp_guard_cell, rank, device, guard_cut,
+                         sp_layout, guard_ckpt)
+    log("sp_walls", rank=rank, wall_s=repr(walls).replace(" ", ""))
     return out
 
 
@@ -2357,20 +2388,20 @@ def phase_sp(kernels: list, linear, hybrid, gla, train_hist) -> list:
     linear_cut = dataclasses.replace(linear, n_layers=SP_LAYERS)
     hybrid_cut = dataclasses.replace(hybrid, n_layers=SP_LAYERS)
     gla_cut = dataclasses.replace(gla, n_layers=SP_LAYERS)
-    want_loss = [h["loss"] for h in train_hist[:SP_STEPS]]
-    want_gnorm = [h["grad_norm"] for h in train_hist[:SP_STEPS]]
+    want_loss = [h["loss"] for h in train_hist[:SP_A_STEPS]]
+    want_gnorm = [h["grad_norm"] for h in train_hist[:SP_A_STEPS]]
     with tempfile.TemporaryDirectory(prefix="sp-") as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
                                 world_size=1, rank=0)
         try:
             layout = make_training_groups(1, 1)
-            run = _sp_run(num_microbatches=TRAIN_MICRO,
+            run = _sp_run(num_microbatches=TRAIN_MICRO, warmup_steps=2,
                           total_steps=TRAIN_STEPS)
             state = init_state(torch.Generator(device="cuda").manual_seed(0),
                                linear, device="cuda")
             n_params = _numel(state["params"])
             batches = _sp_batches(linear, True, TRAIN_SEQ, TRAIN_BATCH,
-                                  TRAIN_MICRO)
+                                  TRAIN_MICRO, steps=SP_A_STEPS)
             res = _sp_steps(linear, run, layout, state, batches)
             del state, res["state"]
             _free()
@@ -2653,7 +2684,7 @@ def _st_rank(rank, world, device, linear_cut, hybrid_cut, bases):
 def phase_strategies(kernels: list, linear, hybrid, sp_ranks) -> None:
     """Phase 11 on two ranks sharing the card over gloo, as phase 10 (b):
     (a) one full-width layer under each exchange and baseline against its
-    one-device or all-gather counterpart, (b) 3 steps of the DP×SP step
+    one-device or all-gather counterpart, (b) 2 steps of the DP×SP step
     at (1, 2) under "ulysses" (``HYBRID`` cut) and "ring" (``CONFIG``
     cut) against phase 10's b1 and b2."""
     from repro_torch.launch.mesh import run_ranks
@@ -4311,7 +4342,7 @@ def _usp_rank(rank, world, device, hybrid_cut, base):
 def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
     """Phase 17 on four ranks sharing the card over gloo (NCCL refuses two
     ranks on one device): (a) the ``HYBRID`` cut of phase 10 at (dp, sp,
-    tp) = (1, 2, 2) under "ulysses", 3 steps on b1's params and packed
+    tp) = (1, 2, 2) under "ulysses", 2 steps on b1's params and packed
     rows, against b1's (1, 2) allgather run; (b)
     ``ulysses_context_attention`` at (1, 2, 2) on starcoder2-15b's softmax
     heads (48:4 x 128, bf16, causal, B 1, S 4096): the GQA packing; (c)
@@ -4362,68 +4393,134 @@ SERVE_SP_W = 4
 SERVE_SP_PROMPTS = (4096, 1024, 1023)   # 1023: bucketed, or prefilled whole
 SERVE_SP_NEW = 32
 SERVE_SP_MAX_LEN = 4608
-SERVE_SP_DECODE_PROMPTS = (1024, 300)   # (b): granite, exact length
+SERVE_SP_DECODE_PROMPTS = (1024, 300)   # (b), (c): exact length
 SERVE_SP_DECODE_MAX_LEN = 2048          # the ring: 4 slices of 512 slots
 SERVE_SP_SEED = 18
+# (d): the (2, 2) layout's plans on a 2-layer cut, 4 slots (2 a rank under
+# the decode plan), 4 greedy tokens: every call gathers the cut's weights
+# (the 128256-row embedding and head, 0.5 GB each) over data through the
+# host, so the cut is shallow and the run short
+SERVE_SP_D_PROMPTS = (1024, 300, 1024, 300)
+SERVE_SP_D_NEW = 4
+# (c) at full depth in bf16 sits off the one-device bf16 engine by more
+# than TOL_LOGITS (1.45-1.49 limits on CONFIG, PERF.md §6): every rounding
+# of the bf16 stack moves with the GEMM shapes that tensor parallelism
+# changes, and 16 random layers amplify it (the one-device bf16 engine is
+# itself 2.15 limits from the fp32 function). So (c) also runs its plan in
+# fp32 on the same weights cast up, forced onto the bf16 run's first
+# SERVE_SP_FP32_NEW tokens, against the one-device fp32 engine on the same
+# tokens: there only fp32 roundings are left, and the logits must agree
+# within TOL_LOGITS_EXACT with every argmax equal. The control: the bf16
+# plan's logits on those calls must read more than that limit from the
+# one-device fp32 engine, so the limit tells bf16 rounding (and any
+# larger fault) from fp32 rounding.
+SERVE_SP_FP32_NEW = 8
 
 
 def _serve_sp_engine():
     """A ``ServeEngine`` that records each sampling call (each prefill
-    batch's, each decode step's): its rows' request uids and their logits
-    (the vocab's columns, on the host), the tokens it returned, and each
-    prefill batch's (rows, length). With ``forced`` (a recorded run's
-    tokens) it returns those instead of sampling: the same requests then
-    follow the same tokens through the same batches and slots."""
+    batch's, each decode step's): the request uids of the rows it sampled
+    (this rank's block of slots where the plan splits them) and their
+    logits (the vocab's columns, on the host), and each call's tokens for
+    every row as the scheduler records them (after the ``serve.tokens``
+    gather); and each prefill batch's (rows, length). With ``forced`` (a
+    recorded run's tokens) it returns those instead of sampling: the same
+    requests then follow the same tokens through the same batches and
+    slots."""
     from repro_torch.serve.engine import ServeEngine
 
     class Recording(ServeEngine):
         def __init__(self, *a, forced=None, **kw):
             super().__init__(*a, **kw)
             self.forced, self.calls, self.tokens = forced, [], []
-            self.batches, self._rows = [], None
+            self.batches, self._uids = [], None
+            for hook in ("record_prefill", "record_step"):
+                orig = getattr(self.sched, hook)
+
+                def rec(*args, _orig=orig):
+                    self.tokens.append(np.asarray(args[-1]).copy())
+                    return _orig(*args)
+                setattr(self.sched, hook, rec)
 
         def _admit(self, batch):
-            self._rows = [r.uid for r in batch.requests]
+            self._uids = [r.uid for r in batch.requests]
             self.batches.append(tuple(batch.prompts.shape))
             try:
                 return super()._admit(batch)
             finally:
-                self._rows = None
+                self._uids = None
 
         def _sample(self, logits, temps, seeds, steps):
-            rows = self._rows if self._rows is not None else [
-                r.uid if r is not None else None for r in self.sched.slots]
-            self.calls.append((rows, logits[:, :self.cfg.vocab_size]
+            uids = self._uids
+            if uids is None:
+                slots = self.sched.slots
+                if self._rows is not None:
+                    first, n = self._rows[1:]
+                    slots = slots[first:first + n]
+                uids = [r.uid if r is not None else None for r in slots]
+            self.calls.append((uids, logits[:, :self.cfg.vocab_size]
                                .float().cpu()))
             if self.forced is not None:
-                tok = self.forced[len(self.calls) - 1]
-            else:
-                tok = super()._sample(logits, temps, seeds, steps)
-            self.tokens.append(tok)
-            return tok
+                return self.forced[len(self.calls) - 1]
+            return super()._sample(logits, temps, seeds, steps)
 
     return Recording
 
 
-def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
-    """One engine under ``plan`` on this rank: greedy requests, its tape
-    against ``comm.budget`` (every prefill batch's and decode step's
-    budget), its K1/K3/K4 launches, its wall and peak; on rank 0 every
-    sampled row's logits held to the one-device engine's on the same
-    tokens (forced onto this run's, so batches and slots match), within
-    phase 6's bf16 limit."""
+def _held(tree) -> int:
+    from repro_torch.core.tree import leaves_with_paths
+    return sum(t.numel() * t.element_size()
+               for _, t in leaves_with_paths(tree))
+
+
+def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
+                   new=SERVE_SP_NEW, fp32_new=0):
+    """One engine under ``plan`` on this rank, holding its shard of the
+    weights (``shard_params``; the whole ones freed before the run):
+    greedy requests, its tape against ``comm.budget`` (every prefill
+    batch's and decode step's), its held params and slot grid against the
+    dry run's ``memory_report`` for the plan, its K1/K3/K4 launches, its
+    wall and peak; on rank 0 every sampled row's logits held to the
+    one-device engine's on the same tokens (forced onto this run's, so
+    batches and slots match) within phase 6's bf16 limit, and each
+    sampled token equal to the one-device argmax wherever that argmax
+    leads the runner-up by more than the limit. With ``fp32_new`` (case
+    (c)) the logits are reported against that limit and held instead in
+    fp32 (``SERVE_SP_FP32_NEW``)."""
     from repro_torch.comm import budget as B
     from repro_torch.comm import primitives
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import memory_report
     from repro_torch.models import model as M
-    params = M.init_params(torch.Generator(device="cuda").manual_seed(
-        SERVE_SP_SEED), cfg)
+    from repro_torch.sharding.rules import shard_params
+
+    def whole():
+        return M.init_params(torch.Generator(device="cuda").manual_seed(
+            SERVE_SP_SEED), cfg)
+
     engines = _serve_sp_engine()
-    engine = engines(cfg, params, plan=plan, max_len=max_len,
-                     max_batch=len(prompts))
     rng = np.random.default_rng(SERVE_SP_SEED)
     prompts = [rng.integers(0, cfg.vocab_size, size=n) for n in prompts]
-    for i, p in enumerate(prompts):
-        engine.submit(p, SERVE_SP_NEW, seed=0, stream=i)
+
+    def submitted(c, p, n_new, forced=None, under=None):
+        """An engine of ``c`` on ``p`` (under the plan ``under``) with the
+        requests submitted, ``n_new`` tokens each."""
+        eng = engines(c, p, plan=under, max_len=max_len,
+                      max_batch=len(prompts), forced=forced)
+        for i, prompt in enumerate(prompts):
+            eng.submit(prompt, n_new, seed=0, stream=i)
+        return eng
+
+    params = shard_params(whole(), plan)
+    _free()
+    engine = submitted(cfg, params, new, under=plan)
+    report = memory_report(build_cell(
+        cfg.name, None, plan.layout, cfg_override=cfg, plan=plan,
+        shape=ShapeConfig("phase18", max_len, len(prompts), "decode"),
+        run=RunConfig()))
+    held = {"params": _held(params), "cache": _held(engine._cache)}
     counters = _serve_sp_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4435,56 +4532,131 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
     wall = time.perf_counter() - t0
     launched = _read(counters, counters)
     peak = torch.cuda.max_memory_allocated()
-    steps = int(engine.stats()["decode_steps"])
+    stats = engine.stats()
+    steps = int(stats["decode_steps"])
+    shapes = M.init_params(None, cfg, device="meta")
     budget = B.combine(
-        [B.serve_prefill_budget(cfg, plan, b=b, s=s)
+        [B.serve_prefill_budget(cfg, plan, b=b, s=s, params=shapes)
          for b, s in engine.batches]
-        + [B.serve_decode_budget(cfg, plan, b=len(prompts),
-                                 max_len=max_len)] * steps)
+        + [B.serve_decode_budget(cfg, plan, b=len(prompts), max_len=max_len,
+                                 engine=True, params=shapes)] * steps)
     violations = B.check_budget(records, budget)
     tags = {}
     for r in records:
-        tags[r.tag] = tags.get(r.tag, 0) + 1
+        key = r.tag.split(".")[0] + ".*" if r.tag.startswith(
+            ("fsdp.", "tp.cols.", "tp.cache.")) else r.tag
+        tags[key] = tags.get(key, 0) + 1
     n_lin, n_soft = _mixer_counts(cfg)
-    worst, ok = 0.0, True
+    worst, ok, flips, ties = 0.0, True, 0, 0
     tol = TOL_LOGITS if cfg.n_layers <= 16 else TOL_LOGITS_DEEP
-    if rank == 0:
-        # the one-device engine on the same requests, forced onto this
-        # run's tokens: the same batches, slots and steps, no plan
-        one = engines(cfg, params, max_len=max_len, max_batch=len(prompts),
-                      forced=engine.tokens)
-        for i, p in enumerate(prompts):
-            one.submit(p, SERVE_SP_NEW, seed=0, stream=i)
+    del engine._cache
+
+    def replay(c, p, run, n_new):
+        """The one-device engine of ``c`` on ``p`` and the requests of
+        ``run`` (``n_new`` tokens each), forced onto ``run``'s tokens: the
+        same batches, slots and steps, no plan; its sampled rows by uid,
+        call by call."""
+        one = submitted(c, p, n_new, forced=run.tokens)
         one.run()
-        check([r for r, _ in one.calls] == [r for r, _ in engine.calls],
-              f"phase 18 {name}: the one-device replay took other batches")
-        for (rows, got), (_, want) in zip(engine.calls, one.calls):
-            for i, uid in enumerate(rows):
-                if uid is not None:
-                    err, within = max_err_within(got[i], want[i], tol)
-                    worst, ok = max(worst, err), ok and within
-        del one
+        check(len(one.calls) == len(run.calls),
+              f"phase 18 {name}: the one-device replay took other calls")
+        return [{u: row for u, row in zip(uids, rows) if u is not None}
+                for uids, rows in one.calls]
+
+    def sampled(run, want):
+        """(``run``'s row, the replay's row) of every sampled row of the
+        calls both made (a replay may stop sooner)."""
+        return [(got[i], w[uid]) for (uids, got), w in zip(run.calls, want)
+                for i, uid in enumerate(uids) if uid is not None]
+
+    if rank == 0:
+        for got, want in sampled(engine, replay(cfg, whole(), engine, new)):
+            err, within = max_err_within(got, want, tol)
+            worst, ok = max(worst, err), ok and within
+            top2 = torch.topk(want, 2).values
+            clear = float(top2[0] - top2[1]) > \
+                tol + tol * float(top2[0].abs())
+            if int(torch.argmax(got)) != int(torch.argmax(want)):
+                flips += clear
+                ties += not clear
+    fp32 = {}
+    if fp32_new:
+        # The same plan in fp32 on the weights cast up, forced onto this
+        # run's first tokens, against the one-device fp32 engine.
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        cast = tree_map(lambda t: t.float(), whole())
+        run32 = submitted(f32, shard_params(cast, plan), fp32_new,
+                          forced=engine.tokens, under=plan)
+        del cast
+        _free()
+        run32.run()
+        if rank == 0:
+            one32 = replay(f32, tree_map(lambda t: t.float(), whole()),
+                           run32, fp32_new)
+            rows32 = sampled(run32, one32)
+            fp32 = {"err": max(float((g - w).abs().max())
+                               for g, w in rows32),
+                    "ok": all(max_err_within(g, w, TOL_LOGITS_EXACT)[1]
+                              for g, w in rows32),
+                    "flips": sum(int(torch.argmax(g)) != int(torch.argmax(w))
+                                 for g, w in rows32),
+                    "control": max(limit_share(g, w, TOL_LOGITS_EXACT)
+                                   for g, w in sampled(engine, one32)),
+                    "calls": len(run32.calls)}
+            del one32
+        del run32
+        _free()
     log("serve_sp", rank=rank, case=name, arch=cfg.name,
         layers=cfg.n_layers, linear=n_lin, softmax=n_soft,
+        layout=plan.layout.name, fsdp=plan.fsdp_place() is not None,
+        tp=plan.tp_size(), rows_per_rank=B.serve_rows(plan, len(prompts)),
         plan_rules_seq_cache=repr((plan.rules.get("seq"),
                                    plan.rules.get("cache_seq"))),
         sp_degree=plan.sp_degree, prompts=repr([len(p) for p in prompts]),
         prefill_batches=repr(engine.batches), decode_steps=steps,
-        sampled_calls=len(engine.calls), new_tokens=SERVE_SP_NEW,
+        sampled_calls=len(engine.calls), new_tokens=new,
         tape_by_tag=repr(dict(sorted(tags.items()))).replace(" ", ""),
         tape_bytes=sum(r.traffic_bytes for r in records),
         budget_violations=violations or "none",
         launches_k1_k3_k4_routed=repr(launched),
-        kv_ring_bytes=engine.cache_stats()["kv_ring"],
+        held_bytes=repr(held).replace(" ", ""),
+        memory_report_bytes=repr({k: report[k] for k in held}).replace(
+            " ", ""),
         max_abs_err_vs_one_device_engine=f"{worst:.4e}" if rank == 0
-        else "checked on rank 0", tol=tol, transport="gloo (host-staged)",
-        wall_s=f"{wall:.2f}", max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+        else "checked on rank 0", tol=tol,
+        within_tol=ok if rank == 0 else "checked on rank 0",
+        argmax_flips_clear=flips if rank == 0 else "checked on rank 0",
+        argmax_flips_near_tie=ties if rank == 0 else "checked on rank 0",
+        fp32_calls=fp32.get("calls", "not run"),
+        fp32_max_abs_err_vs_one_device_fp32=f"{fp32['err']:.4e}"
+        if fp32 else "not run", fp32_tol=TOL_LOGITS_EXACT,
+        fp32_argmax_flips=fp32.get("flips", "not run"),
+        fp32_control_bf16_plan_in_limits=f"{fp32['control']:.1f}"
+        if fp32 else "not run",
+        transport="gloo (host-staged)", wall_s=f"{wall:.2f}",
+        decode_step_p50_s=f"{stats.get('decode_step_s_p50', 0.0):.4f}",
+        max_memory_allocated_gb=f"{peak / 1e9:.2f}")
     san = _tape_san(f"phase 18 {name} rank {rank}", [records], "fp32",
                     split=plan.sp_degree > 1)
     check(not violations, f"phase 18 rank {rank} {name}: tape off its "
           f"budget: {violations}")
-    check(ok, f"phase 18 {name}: logits off the one-device engine by "
-          f"{worst:.4e}")
+    check(held == {k: report[k] for k in held},
+          f"phase 18 rank {rank} {name}: holds {held}, the dry run "
+          f"reports {report}")
+    if fp32:
+        check(fp32["ok"] and fp32["flips"] == 0,
+              f"phase 18 {name}: the fp32 plan off the one-device fp32 "
+              f"engine by {fp32['err']:.4e} (limit {TOL_LOGITS_EXACT}), "
+              f"{fp32['flips']} argmax flips")
+        check(fp32["control"] > 1,
+              f"phase 18 {name}: the bf16 plan reads {fp32['control']} "
+              f"fp32 limits from the fp32 function: the limit would not "
+              f"see bf16 rounding")
+    elif rank == 0:
+        check(ok, f"phase 18 {name}: logits off the one-device engine by "
+              f"{worst:.4e}")
+        check(flips == 0, f"phase 18 {name}: {flips} greedy tokens off "
+              f"the one-device argmax away from a near tie")
     want = [n_lin * len(engine.batches), n_lin * steps,
             n_soft * len(engine.batches)]
     check(launched[:3] == want and launched[3::2] == want,
@@ -4495,11 +4667,18 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len):
     return launched, san
 
 
-def _serve_sp_rank(rank, world, device, linear, hybrid, granite):
+def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts):
     """Phase 18 on one of four ranks sharing the card over gloo: (a) the
-    prefill plan of the (4, 1) layout serving ``CONFIG`` and ``HYBRID``,
+    prefill plan of the (4, 1) layout serving ``CONFIG`` and ``HYBRID``
+    (weights whole: the prefill cells' FSDP rule drops FSDP for 2.6 GB),
     (b) the decode plan of the (1, 4) layout serving granite-34b's 2-layer
-    cut with its ring sliced over the model group."""
+    cut, its ring sliced over the model group and its heads split, (c)
+    that plan on ``CONFIG`` and ``HYBRID`` whole (TP 4: heads, ff and
+    vocab a quarter a rank), (d) the (2, 2) layout's prefill and decode
+    plans on 2-layer cuts (FSDP over data, TP 2; the decode plan's slots
+    over data)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.cells import drop_prefill_fsdp
     from repro_torch.launch.mesh import (Axis, make_serving_groups,
                                          make_test_mesh)
     from repro_torch.sharding.rules import make_plan
@@ -4507,26 +4686,41 @@ def _serve_sp_rank(rank, world, device, linear, hybrid, granite):
     axes = (Axis.DATA, Axis.MODEL)
     pre = make_serving_groups(make_test_mesh((SERVE_SP_W, 1), axes))
     dec = make_serving_groups(make_test_mesh((1, SERVE_SP_W), axes))
+    sq = make_serving_groups(make_test_mesh((2, 2), axes))
     out, san = {}, {}
-    for name, cfg in (("a_linear", linear), ("a_hybrid", hybrid)):
-        plan = make_plan(pre, "prefill", n_kv_heads=cfg.n_kv_heads,
+
+    def case(key, cfg, layout, kind, prompts, max_len, new=SERVE_SP_NEW,
+             fp32_new=0):
+        plan = make_plan(layout, kind, n_kv_heads=cfg.n_kv_heads,
                          n_heads=cfg.n_heads)
-        out[name], san[name] = _serve_sp_case(
-            rank, name, cfg, plan, SERVE_SP_PROMPTS, SERVE_SP_MAX_LEN)
-    plan = make_plan(dec, "decode", n_kv_heads=granite.n_kv_heads,
-                     n_heads=granite.n_heads)
-    check(plan.decode_cache_axis == Axis.MODEL,
-          f"phase 18: granite's decode plan {plan.rules}")
-    out["b_granite"], san["b_granite"] = _serve_sp_case(
-        rank, "b_granite", granite, plan, SERVE_SP_DECODE_PROMPTS,
-        SERVE_SP_DECODE_MAX_LEN)
+        if key.startswith("a_"):
+            drop_prefill_fsdp(plan, cfg.param_count() * 2, RunConfig())
+            check(plan.fsdp_axis is None, f"phase 18 {key}: FSDP kept")
+        if key == "b_granite":
+            check(plan.decode_cache_axis == Axis.MODEL,
+                  f"phase 18: granite's decode plan {plan.rules}")
+        out[key], san[key] = _serve_sp_case(rank, key, cfg, plan, prompts,
+                                            max_len, new, fp32_new)
+
+    for key, cfg in (("a_linear", linear), ("a_hybrid", hybrid)):
+        case(key, cfg, pre, "prefill", SERVE_SP_PROMPTS, SERVE_SP_MAX_LEN)
+    case("b_granite", granite, dec, "decode", SERVE_SP_DECODE_PROMPTS,
+         SERVE_SP_DECODE_MAX_LEN)
+    for key, cfg in (("c_linear", linear), ("c_hybrid", hybrid)):
+        case(key, cfg, dec, "decode", SERVE_SP_DECODE_PROMPTS,
+             SERVE_SP_DECODE_MAX_LEN, fp32_new=SERVE_SP_FP32_NEW)
+    for kind in ("prefill", "decode"):
+        for key, cfg in (("linear", cuts[0]), ("hybrid", cuts[1])):
+            case(f"d_{kind}_{key}", cfg, sq, kind, SERVE_SP_D_PROMPTS,
+                 SERVE_SP_DECODE_MAX_LEN, SERVE_SP_D_NEW)
     return dict(out, san=san)
 
 
 def phase_serve_sp(kernels: list, linear, hybrid) -> None:
     """Phase 18 on four ranks sharing the card over gloo (NCCL refuses two
     ranks on one device): ``ServeEngine(plan=)`` with every rank running
-    the same engine on the same requests. (a) ``make_plan((4, 1),
+    the same engine on the same requests, each holding the shard of the
+    weights and of the cache its plan gives it. (a) ``make_plan((4, 1),
     "prefill")``: Linear-Llama3-1B ``CONFIG`` and ``HYBRID`` at full width
     and depth, prompts of 4096, 1024 and 1023 tokens split 4 ways (K1 on
     each rank's chunk and one state all-gather a linear layer; K4 on the
@@ -4535,20 +4729,30 @@ def phase_serve_sp(kernels: list, linear, hybrid) -> None:
     4 ways and merged at decode), 32 greedy tokens; (b) ``make_plan((1,
     4), "decode", n_kv_heads=1)``: granite-34b's 2-layer cut, prompts of
     1024 and 300 prefilled whole, its 2048-slot rings sliced over the
-    model group, 32 greedy tokens. Every rank's tape against
-    ``comm.budget``; rank 0's logits against the one-device path."""
+    model group (every q head gathered for the merge), its heads, ff and
+    vocab split 4 ways, 32 greedy tokens; (c) the same plan on ``CONFIG``
+    and ``HYBRID`` whole: K1, K3 and K4 on a rank's 4 of 16 heads; (d)
+    the (2, 2) prefill and decode plans on ``CONFIG``'s and ``HYBRID``'s
+    2-layer cuts (``HYBRID``'s: a linear and its softmax layer), 4
+    requests, 4 greedy tokens. Every rank's tape against ``comm.budget``,
+    its held bytes against ``memory_report``; rank 0's logits against the
+    one-device path."""
     import os
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import run_ranks
     t0 = time.perf_counter()
     granite = _zoo_cut(get_config("granite-34b"))
+    cuts = (dataclasses.replace(linear, n_layers=2),
+            dataclasses.replace(hybrid, pattern=hybrid.pattern[2:4],
+                                n_layers=2))
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         ranks = run_ranks(_serve_sp_rank, SERVE_SP_W, backend="gloo",
-                          device="cuda", args=(linear, hybrid, granite),
-                          timeout_s=600)
+                          device="cuda",
+                          args=(linear, hybrid, granite, cuts),
+                          timeout_s=900)
     finally:
         if conf is None:
             del os.environ["PYTORCH_CUDA_ALLOC_CONF"]

@@ -19,14 +19,20 @@ them.
 Serving (``sharding.rules`` plans) has budgets of the port's own
 (:func:`decode_merge_budget`, :func:`serve_prefill_budget`,
 :func:`serve_decode_budget`): the reference's GSPMD moves the last
-position's hidden state, the causal conv's halo and a sliced ring's
-partials without a named primitive, so it has no budget for them.
+position's hidden state, the causal conv's halo, a sliced ring's
+partials and every weight placement's exchange (FSDP gathers, TP
+all-reduces and gathers) without a named primitive, so it has no budget
+for them. Their payloads follow from the plan's specs and the local
+shapes (:func:`placement_budget`).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Iterable, List, Mapping, Optional
+
+import torch
 
 from repro_torch.comm.primitives import wire_dtype
 from repro_torch.configs.base import MambaConfig
@@ -434,27 +440,185 @@ def _ring_degree(plan, ring: int) -> int:
     return w if ring % w == 0 else 1
 
 
-def serve_prefill_budget(cfg, plan, *, b: int, s: int) -> CollectiveBudget:
+def _gathers(shape, itemsize: int, spec, sizes):
+    """``([(axis size, payload)], shape after)`` of gathering a local leaf
+    of ``shape`` whole over each dim whose spec entry ``sizes`` names
+    ({axis: size}), in dim order, as ``models.model.gather_params`` and
+    ``blocks._gather_cache`` issue them."""
+    shape, out = list(shape), []
+    for dim, entry in enumerate(spec):
+        if entry in sizes:
+            out.append((sizes[entry], math.prod(shape) * itemsize))
+            shape[dim] *= sizes[entry]
+    return out, shape
+
+
+def _local_shape(shape, spec, layout) -> tuple:
+    return tuple(n // layout.axis_size(e) if e is not None else n
+                 for n, e in zip(shape, list(spec)
+                                 + [None] * (len(shape) - len(spec))))
+
+
+def _gather_budget(payloads, w: int) -> CollectiveBudget:
+    return CollectiveBudget({"all-gather": len(payloads)}, max_traffic={
+        "all-gather": sum((w - 1) * p for p in payloads)})
+
+
+def _reduce_budget(n: int, payload: int, w: int) -> CollectiveBudget:
+    return CollectiveBudget({"all-reduce": n}, max_traffic={
+        "all-reduce": n * 2 * (w - 1) * payload // w})
+
+
+def _param_gathers(tree, specs, plan, whole, prefix=()) -> list:
+    """``(axis size, payload)`` of every gather ``gather_params`` issues
+    over ``tree`` (meta, whole shapes): fsdp dims first, then the model
+    dims of the leaves ``whole`` passes."""
+    if isinstance(tree, dict):
+        return [g for k, v in tree.items()
+                for g in _param_gathers(v, specs[k], plan, whole,
+                                        prefix + (k,))]
+    shape, out = _local_shape(tree.shape, specs, plan.layout), []
+    for axis, keep in ((plan.fsdp_axis, True),
+                       (plan.tp_axis, whole(prefix))):
+        size = plan.size_of(axis)
+        if size > 1 and keep:
+            items, shape = _gathers(shape, tree.element_size(), specs,
+                                    {axis: size})
+            out += items
+    return out
+
+
+def _layer_splits(cfg, plan, params):
+    """``(param_specs of the whole params or None, each layer's
+    sharding.rules.LayerSplit)`` under ``plan``. A plan that places
+    weights (FSDP or tensor parallelism) needs ``params``: the whole
+    params or their meta twin (``init_params(None, cfg, device="meta")``;
+    shapes and dtypes alone are read)."""
+    from repro_torch.sharding.rules import layer_split, param_specs
+    placed = plan is not None and plan.layout is not None and (
+        plan.size_of(plan.fsdp_axis) > 1 or plan.tp_size() > 1)
+    if not placed:
+        return None, [layer_split(cfg, spec, {}, plan)
+                      for spec in cfg.layer_specs()]
+    if params is None:
+        raise ValueError("a plan that places weights needs params= (the "
+                         "whole params or their meta twin) for its budget")
+    specs = param_specs(params, plan)
+    return specs, [layer_split(cfg, spec, specs["layers"][i], plan)
+                   for i, spec in enumerate(cfg.layer_specs())]
+
+
+def placement_budget(cfg, plan, params=None, *, b: int, t: int,
+                     decode: bool, max_len: int = 1) -> CollectiveBudget:
+    """The weight and vocab placements' exchanges of one prefill (``t``
+    tokens a row on this rank) or decode step (``t`` = 1) of ``b`` rows
+    under ``plan``, ``params`` the whole params (or their meta twin) whose
+    shapes give the payloads: per layer an all-gather over data of every
+    fsdp-split leaf (``fsdp.<leaf>``, this rank's slice each) and over
+    model of every leaf the layer's ``LayerSplit`` gathers
+    (``tp.cols.<leaf>``); the embedding's and ``lm_head``'s fsdp gathers;
+    per layer whose ``wo`` splits over model one fp32 all-reduce of
+    ``b·t·d`` (``tp.mixer``), per dense MLP whose ff splits one more
+    (``tp.mlp``); with the vocab split, the masked lookup's all-reduce
+    (``tp.embed``) and the gather of the last position's logits' slices
+    (``tp.logits``). A decode step also gathers the caches of the
+    gather-at-use mixers over model (``tp.cache.<leaf>``; a cross layer's
+    memory slots over their axis, ``cache_seq.<leaf>``) and, where a
+    softmax ring's slots lie on the model axis, the q heads (``tp.q``)."""
+    specs, splits = _layer_splits(cfg, plan, params)
+    if specs is None:
+        return CollectiveBudget({})
+    from repro_torch.models import blocks
+    from repro_torch.sharding.rules import cache_specs
+    tp = plan.tp_size()
+    d, act = cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
+    parts = []
+
+    def gathers(items, n=1):
+        by_size: Dict[int, list] = {}
+        for size, p in items:
+            by_size.setdefault(size, []).append(p)
+        for size, ps in by_size.items():
+            parts.extend([_gather_budget(ps, size)] * n)
+
+    emb = params["embed"]
+    head = "lm_head" if "lm_head" in emb else "table"
+    for leaf in ("table", head):
+        gathers(_param_gathers(emb[leaf], specs["embed"][leaf], plan,
+                               lambda path: False))
+    if tp > 1 and specs["embed"]["table"][0] == plan.tp_axis:
+        parts.append(_reduce_budget(1, b * t * d * 4, tp))
+        v_l = cfg.padded_vocab // tp
+        parts.append(_gather_budget([b * v_l * act], tp))
+    layer_specs = cfg.layer_specs()
+    for spec in dict.fromkeys(layer_specs):   # each distinct layer once
+        i, n = layer_specs.index(spec), layer_specs.count(spec)
+        split = splits[i]
+        gathers(_param_gathers(params["layers"][i], specs["layers"][i],
+                               plan, split.gathered), n)
+        if tp == 1:
+            continue
+        if split.wo:
+            parts.append(_reduce_budget(n, b * t * d * 4, tp))
+        if split.mlp:
+            parts.append(_reduce_budget(n, b * t * d * 4, tp))
+        if not decode:
+            continue
+        if spec.mixer == "softmax" and split.q and \
+                plan.rules.get("cache_seq") == plan.tp_axis:
+            ring = blocks.softmax_ring_len(spec, max_len)
+            if ring % tp == 0:
+                parts.extend([_gather_budget(
+                    [b * (cfg.n_heads // tp) * cfg.head_dim * act], tp)] * n)
+        if split.whole:
+            whole = blocks.layer_cache(cfg, spec, b, max_len,
+                                       torch.device("meta"))["mixer"]
+            cspecs = cache_specs(whole, plan)
+            axes = {plan.tp_axis: tp}
+            if spec.mixer == "cross":
+                ax = plan.rules.get("cache_seq")
+                if plan.size_of(ax) > 1:
+                    axes[ax] = plan.size_of(ax)
+            gathers(_cache_gathers(whole, cspecs, plan, axes), n)
+    return combine(parts)
+
+
+def _cache_gathers(tree, specs, plan, axes) -> list:
+    if isinstance(tree, dict):
+        return [g for k, v in tree.items()
+                for g in _cache_gathers(v, specs[k], plan, axes)]
+    return _gathers(_local_shape(tree.shape, specs, plan.layout),
+                    tree.element_size(), specs, axes)[0]
+
+
+def serve_prefill_budget(cfg, plan, *, b: int, s: int,
+                         params=None) -> CollectiveBudget:
     """One ``models.model.prefill`` of ``b`` rows of ``s`` tokens under
     ``plan`` (a ``sharding.rules.Parallelism``; read from its layout, so a
-    plan without ranks has one too): nothing when the plan keeps the
-    prompt whole; else per linear or SSD layer the state gather
-    (:func:`lasp2_budget`), per softmax layer the K/V context exchange
-    (:func:`hybrid_context_budget`; under "ulysses" also the ring's K/V
-    gathers, tags ``ring.k``, ``ring.v``), per SSD layer (mamba2, hymba's
-    ``ssm``) one conv-halo gather (``mamba2.conv``), and one gather of the
-    last position's hidden state (``prefill.last``)."""
+    plan without ranks has one too): the placements' exchanges
+    (:func:`placement_budget`, from ``params``' shapes); and where the
+    plan splits the prompt, per linear or SSD layer the state gather
+    (:func:`lasp2_budget`, of the rank's heads), per softmax layer the K/V
+    context exchange (:func:`hybrid_context_budget`, of its q and kv
+    heads; under "ulysses" also the ring's K/V gathers, tags ``ring.k``,
+    ``ring.v``), per SSD layer (mamba2, hymba's ``ssm``) one conv-halo
+    gather (``mamba2.conv``), and one gather of the last position's
+    hidden state (``prefill.last``)."""
     w = _split_degree(plan, s)
-    if w == 1:
-        return CollectiveBudget({})
     c = s // w
+    parts = [placement_budget(cfg, plan, params, b=b, t=c, decode=False,
+                              max_len=s)]
+    if w == 1:
+        return combine(parts, note=f"serve prefill B={b} S={s}")
     strategy, dt = plan.comm.strategy, plan.comm.dtype
     act = 2 if cfg.dtype == "bfloat16" else 4
-    parts = []
-    for spec in cfg.layer_specs():
+    tp = plan.tp_size()
+    _, splits = _layer_splits(cfg, plan, params)
+    for spec, split in zip(cfg.layer_specs(), splits):
         if spec.mixer in ("linear", "mamba2", "hymba"):
             if spec.mixer == "linear":
-                h, dk, dv = cfg.n_heads, cfg.head_dim, cfg.head_dim
+                h = cfg.n_heads // tp if split.q else cfg.n_heads
+                dk = dv = cfg.head_dim
                 if cfg.linear_attn.feature_map == "taylor":
                     dk = 1 + dk + dk * dk
             else:
@@ -475,7 +639,9 @@ def serve_prefill_budget(cfg, plan, *, b: int, s: int) -> CollectiveBudget:
                 {"all-gather": 1},
                 max_traffic={"all-gather": (w - 1) * halo}))
         if spec.mixer in ("softmax", "hymba"):
-            kw = dict(b=b, hq=cfg.n_heads, hkv=cfg.n_kv_heads, c=c,
+            kw = dict(b=b, hq=cfg.n_heads // tp if split.q else cfg.n_heads,
+                      hkv=cfg.n_kv_heads // tp if split.kv
+                      else cfg.n_kv_heads, c=c,
                       dh=cfg.head_dim, comm_dtype=dt, compute_itemsize=act)
             if strategy == "ulysses":
                 parts.append(hybrid_context_budget("ulysses", w, **kw))
@@ -488,23 +654,51 @@ def serve_prefill_budget(cfg, plan, *, b: int, s: int) -> CollectiveBudget:
     return combine(parts, note=f"serve prefill W={w} B={b} S={s}")
 
 
-def serve_decode_budget(cfg, plan, *, b: int, max_len: int
-                        ) -> CollectiveBudget:
-    """One ``models.model.decode_step`` of ``b`` rows under ``plan``: one
-    merge (:func:`decode_merge_budget`) per softmax or hymba layer whose
-    ring the plan slices (a ``cache_seq`` axis whose size divides the
-    ring); linear and SSD layers decode with no exchange."""
+def serve_rows(plan, max_batch: int) -> int:
+    """Decode rows one rank holds of an engine's ``max_batch`` slots: its
+    block where the plan places them over an axis
+    (``Parallelism.rows_axis``), else all of them."""
+    if plan is None:
+        return max_batch
+    return max_batch // plan.size_of(plan.rows_axis(max_batch))
+
+
+def serve_decode_budget(cfg, plan, *, b: int, max_len: int,
+                        engine: bool = False,
+                        params=None) -> CollectiveBudget:
+    """One ``models.model.decode_step`` of ``b`` rows under ``plan``: the
+    placements' exchanges (:func:`placement_budget`, from ``params``'
+    shapes), and one merge (:func:`decode_merge_budget`, of the q heads
+    the rank merges) per softmax or hymba layer whose ring the plan
+    slices (a ``cache_seq`` axis whose size divides the ring); linear and
+    SSD layers decode with no exchange of their own. ``engine``: one step
+    of a ``ServeEngine`` whose slot grid has ``b`` rows: the rank decodes
+    its :func:`serve_rows` of them and, where those split, gathers the
+    sampled int32 tokens (``serve.tokens``)."""
     from repro_torch.models.blocks import softmax_ring_len
-    parts = []
-    for spec in cfg.layer_specs():
+    grid = b
+    if engine:
+        b = serve_rows(plan, grid)
+    parts = [placement_budget(cfg, plan, params, b=b, t=1, decode=True,
+                              max_len=max_len)]
+    on_model = plan is not None and \
+        plan.rules.get("cache_seq") == plan.tp_axis
+    _, splits = _layer_splits(cfg, plan, params)
+    for spec, split in zip(cfg.layer_specs(), splits):
         if spec.mixer not in ("softmax", "hymba"):
             continue
         ring = max_len if spec.mixer == "hymba" \
             else softmax_ring_len(spec, max_len)
         w = _ring_degree(plan, ring)
+        if w > 1 and split.whole and on_model:
+            w = 1                  # gathered whole over model instead
         if w > 1:
-            parts.append(decode_merge_budget(w, b=b, hq=cfg.n_heads,
+            hq = cfg.n_heads // plan.tp_size() if split.q and not on_model \
+                else cfg.n_heads
+            parts.append(decode_merge_budget(w, b=b, hq=hq,
                                              dh=cfg.head_dim))
+    if b != grid:
+        parts.append(_gather_budget([b * 4], grid // b))
     return combine(parts, note=f"serve decode B={b}")
 
 
@@ -514,13 +708,20 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int
 # (data, model) collectives, fp32 by design), Ulysses' head
 # repartition (the reference's model-axis all-to-alls, in the compute
 # dtype), and serving's exchanges: the last hidden state, the conv halo,
-# the ring's K/V gathers and the flash-decoding merge's o, m and l.
+# the ring's K/V gathers and the flash-decoding merge's o, m and l; and
+# a serving plan's placements: weights and caches gathered in their
+# storage dtype (``fsdp.*``, ``tp.cols.*``, ``tp.cache.*``,
+# ``cache_seq.*``), TP partial sums reduced in fp32 (``tp.mixer``,
+# ``tp.mlp``, ``tp.embed``), logits and q heads gathered in the compute
+# dtype (``tp.logits``, ``tp.q``) and sampled tokens in int32
+# (``serve.tokens``): none is a sequence exchange the knob narrows.
 # Every other exchange, the LASP-2 state exchange and the K/V gathers of
 # LASP-2H and Ulysses, carries the wire dtype (the sanitizer's SAN203).
 WIRE_FP32_TAGS = ("train.grads", "train.agree", "zero1.param_gather",
                   "ckpt.zero1_gather", "ulysses.in", "ulysses.out",
                   "prefill.last", "mamba2.conv", "ring.k", "ring.v",
-                  "ring_decode.", "decode.")
+                  "ring_decode.", "decode.", "fsdp.", "tp.", "cache_seq.",
+                  "serve.tokens")
 
 
 def wire_exempt(tag: str) -> bool:

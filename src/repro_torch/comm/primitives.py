@@ -386,6 +386,28 @@ def psum_packed(x, group, *, tag: str = ""):
     return x
 
 
+@torch.no_grad()
+def allreduce_sum(x, group, *, tag: str = ""):
+    """The sum of ``x`` over ``group``'s ranks, in one all-reduce: a
+    serving plan's partial activations (the row-parallel products under
+    tensor parallelism, which arrive in fp32; the vocab-parallel lookup).
+    The sum runs in fp32 whatever ``x``'s dtype (the record carries fp32)
+    and comes back in ``x``'s dtype. Not differentiable: serving runs no backward. Traffic
+    per rank (ring model): ``2(g-1)/g × payload``."""
+    w = dist.get_world_size(group)
+    buf = x.detach().float()
+    pb = _nbytes(buf)
+    _record(CommRecord("all-reduce", pb, 2 * (w - 1) * pb // max(w, 1),
+                       steps=1, group=w, tag=tag, **_wire(buf)))
+    if _staged(group) and buf.device.type != "cpu":
+        host = _to_host(buf)
+        dist.all_reduce(host, group=group)
+        buf.copy_(host)
+    else:
+        dist.all_reduce(buf, group=group)
+    return buf.to(x.dtype)
+
+
 def _hop(x, group, shift, tag) -> Pending:
     """Issue one cyclic hop of ``x`` (recorded under ``tag``)."""
     w = dist.get_world_size(group)

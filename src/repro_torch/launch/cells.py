@@ -9,11 +9,16 @@ functions:
   decode  → ``decode_step(params, token, cache, aux)``
 
 Abstract arguments are tensors on ``torch.device("meta")``: shapes and
-dtypes with no storage. ``long_500k`` on an architecture that is not
-sub-quadratic switches to the paper's linearized 1/4 hybrid (windowed
-softmax layers), and the cell's note says so. The reference's
-``Cell.lower`` (jit and lower for XLA) has no twin: the port compiles
-nothing; ``launch.dryrun`` reads the plan and its specs instead.
+dtypes with no storage, the whole arrays; ``specs`` place them. A rank
+under the cell's plan holds what the specs give it and runs ``fn`` on
+that: its shard of the params (``sharding.rules.shard_params``) and of
+the decode cache (``models.model.init_cache(plan=)``); the plan's
+placements are applied (``sharding.rules``). ``long_500k`` on an
+architecture that is not sub-quadratic switches to the paper's
+linearized 1/4 hybrid (windowed softmax layers), and the cell's note
+says so. The reference's ``Cell.lower`` (jit and lower for XLA) has no
+twin: the port compiles nothing; ``launch.dryrun`` reads the plan and
+its specs instead.
 """
 
 from __future__ import annotations
@@ -29,8 +34,8 @@ from repro_torch.configs.base import (SHAPES, ModelConfig, RunConfig,
                                       ShapeConfig)
 from repro_torch.launch.mesh import Axis, Layout
 from repro_torch.models import model as M
-from repro_torch.sharding.rules import (Parallelism, Spec, fit_spec,
-                                        make_plan, param_specs)
+from repro_torch.sharding.rules import (Parallelism, Spec, cache_specs,
+                                        fit_spec, make_plan, param_specs)
 
 MICROBATCH_TOKEN_TARGET = 4096   # per-rank tokens a microbatch aims at
 META = torch.device("meta")
@@ -64,38 +69,6 @@ def aux_input_specs(cfg: ModelConfig, batch_rows: int, lead=()):
         out["img"] = _meta(lead + (batch_rows, cfg.n_image_tokens,
                                    cfg.d_model), torch.bfloat16)
     return out
-
-
-def cache_specs(cache_tree, plan: Parallelism):
-    """Specs of a decode cache (``models.model.init_cache``'s tree; one
-    dict a layer, so no leading group dim): K/V over (batch, kv_heads,
-    cache_seq), states over (batch, heads), conv inputs over (batch, tp)
-    on their channel dim, ``pos`` replicated, the rest over batch."""
-    layout = plan.layout
-    b_ax = plan.rules.get("batch")
-
-    def spec_for(name, leaf):
-        if name == "pos":
-            return Spec()
-        if name in ("k", "v"):
-            dims = (b_ax, plan.rules.get("kv_heads"),
-                    plan.rules.get("cache_seq"), None)
-        elif name == "m":
-            dims = (b_ax, plan.rules.get("heads"), None, None)
-        elif name.startswith("conv_"):
-            dims = (b_ax, None, plan.tp_axis)
-        else:
-            dims = (b_ax,)
-        return fit_spec(layout, leaf.shape, Spec(*dims))
-
-    def build(tree, name):
-        if isinstance(tree, dict):
-            return {k: build(v, k) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [build(v, name) for v in tree]
-        return spec_for(name, tree)
-
-    return build(cache_tree, "")
 
 
 def _batch_specs(batch, plan: Parallelism):
@@ -170,19 +143,25 @@ def _nbytes(tree) -> int:
 def build_cell(arch: str, shape_name: str, layout: Optional[Layout], *,
                run: Optional[RunConfig] = None,
                cfg_override: Optional[ModelConfig] = None,
-               shape: Optional[ShapeConfig] = None) -> Cell:
+               shape: Optional[ShapeConfig] = None,
+               plan: Optional[Parallelism] = None) -> Cell:
     """The cell of ``arch`` × ``SHAPES[shape_name]`` (or ``shape``, a
-    resized one: the roofline's reduced-batch cells) on ``layout``."""
+    resized one: the roofline's reduced-batch cells) on ``layout``.
+    ``plan``: a serving plan to place the cell by instead of the one
+    ``make_plan`` and the prefill FSDP rule give (a rank's own plan, whose
+    held bytes the dry run's ``memory_report`` then gives)."""
     shape = shape or SHAPES[shape_name]
     if cfg_override is not None:
         cfg, note = cfg_override, "override"
     else:
         cfg, note = resolve_config(arch, shape_name)
     run = run or RunConfig()
-    plan = make_plan(layout, shape.kind, global_batch=shape.global_batch,
-                     n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
-                     params_bytes=cfg.param_count() * 2,
-                     comm=run.comm_spec())
+    fixed = plan is not None
+    if not fixed:
+        plan = make_plan(layout, shape.kind, global_batch=shape.global_batch,
+                         n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                         params_bytes=cfg.param_count() * 2,
+                         comm=run.comm_spec())
 
     if shape.kind == "train":
         from repro_torch.train.step import init_state, make_train_step
@@ -210,11 +189,9 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout], *,
     params = M.init_params(None, cfg, device=META,
                            param_dtype="bfloat16" if run.infer_bf16
                            else cfg.param_dtype)
-    if layout is not None and run.infer_bf16 and shape.kind == "prefill":
-        # prefill drops FSDP when the weights over the model axis fit
-        tp_size = layout.shape.get(Axis.MODEL, 1)
-        if _nbytes(params) / tp_size <= run.infer_fsdp_budget_gb * 2 ** 30:
-            plan.fsdp_axis = None
+    if layout is not None and run.infer_bf16 and shape.kind == "prefill" \
+            and not fixed:
+        drop_prefill_fsdp(plan, _nbytes(params), run)
     pspec = None if layout is None else param_specs(params, plan)
     b = shape.global_batch
 
@@ -249,8 +226,14 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout], *,
         aux["img"] = _meta((b, cfg.n_image_tokens, cfg.d_model),
                            torch.bfloat16)
 
+    # a rank of a layout with ranks holds its block of the rows where the
+    # plan places them (the token and cache specs' batch entry)
+    place = plan.rows_place(b) if layout is not None else None
+    rows = None if place is None else (place.index * (b // place.size),
+                                       b // place.size)
+
     def fn(params_, token_, cache_, aux_in):
-        return M.decode_step(params_, token_, cache_, cfg, plan,
+        return M.decode_step(params_, token_, cache_, cfg, plan, rows=rows,
                              img_emb=aux_in.get("img"),
                              enc_out=aux_in.get("enc_out"))
 
@@ -263,6 +246,16 @@ def build_cell(arch: str, shape_name: str, layout: Optional[Layout], *,
                   for k, v in aux.items()})
     return Cell(arch, shape, cfg, plan, run, fn, (params, token, cache, aux),
                 specs, note)
+
+
+def drop_prefill_fsdp(plan: Parallelism, params_bytes: int,
+                      run: RunConfig) -> None:
+    """The prefill cells' rule: no FSDP when the weights over the model
+    axis fit ``run.infer_fsdp_budget_gb`` (they are then whole over data,
+    sharded over model only)."""
+    tp_size = plan.layout.shape.get(Axis.MODEL, 1)
+    if params_bytes / tp_size <= run.infer_fsdp_budget_gb * 2 ** 30:
+        plan.fsdp_axis = None
 
 
 def reduced_depth_config(cfg: ModelConfig, n_units: int) -> ModelConfig:

@@ -14,14 +14,14 @@ computes instead, per cell, from ``launch.cells.build_cell``:
   where the plan has them), of the decode cache (prefill and decode) and
   of the inputs, each leaf divided over the axes of its spec
   (``sharding.rules.fit_spec``), against the card's 80 GB. Activations
-  are not counted. These are the placements the plan computes; the port
-  applies only the sequence split and the ring slicing
-  (``sharding.rules``).
+  are not counted. A serving rank holds exactly these params and this
+  cache (``sharding.rules.shard_params``, ``models.model.init_cache(
+  plan=)``; the tests hold a rank's Σ ``nbytes`` to them): the port
+  applies the placements (``sharding.rules``).
 * ``collectives``: the cell's budget (``comm.budget``): a serving
-  cell's prefill or decode step, or a train step's sequence-parallel
-  exchanges where the plan splits the sequence; the weight placements'
-  collectives (FSDP gathers, TP reductions) are GSPMD's in the reference
-  and have none here.
+  cell's prefill or decode step with its FSDP gathers and its TP
+  all-reduces and gathers, or a train step's sequence-parallel
+  exchanges where the plan splits the sequence.
 
 Usage::
 
@@ -129,10 +129,12 @@ def collective_report(cell) -> dict:
     cfg, plan, shape = cell.cfg, cell.plan, cell.shape
     if shape.kind == "prefill":
         bud = B.serve_prefill_budget(cfg, plan, b=shape.global_batch,
-                                     s=shape.seq_len)
+                                     s=shape.seq_len,
+                                     params=cell.abstract_args[0])
     elif shape.kind == "decode":
         bud = B.serve_decode_budget(cfg, plan, b=shape.global_batch,
-                                    max_len=shape.seq_len)
+                                    max_len=shape.seq_len,
+                                    params=cell.abstract_args[0])
     elif plan.sp_axes and plan.layout is not None:
         n_lin = sum(s.mixer in ("linear", "mamba2", "hymba")
                     for s in cfg.layer_specs())

@@ -17,8 +17,17 @@ plan (``Ctx.plan``, ``sharding.rules``) prefill runs the same exchanges
 takes the previous chunk's inputs (GSPMD computes the reference's conv
 over the whole sequence), and a softmax ring whose slot dim the plan
 places over an axis is sliced over that axis's group and read back
-through ``ring_decode_attention(sp=)``. MoE layers run on
-one device only (the reference's manual DP×SP step refuses them too;
+through ``ring_decode_attention(sp=)``. Under a plan's tensor
+parallelism (``sharding.rules``; the caller, ``models.model``, hands each
+layer its weights with the fsdp dims gathered) linear and softmax mixers
+run on the rank's heads and close with one all-reduce after the
+row-parallel ``wo`` (``tp.mixer``), dense MLPs on its ff columns
+(``tp.mlp``), as each layer's ``sharding.rules.LayerSplit``
+(``Ctx.split``) says; mamba2, hymba and cross mixers (and MoE MLPs) get
+their weights gathered whole over model and compute every head, their
+caches stored per ``sharding.rules.cache_specs`` and gathered over model
+at use (``tp.cache.<leaf>``). MoE layers run on one device only (the
+reference's manual DP×SP step refuses them too;
 ``train.step.ShardedStep``). Cross-attention layers (the VLM's image
 layers, Whisper's decoder cross) attend a memory (``Ctx.img_emb`` or
 ``Ctx.enc_out``) with no RoPE and no SP path, as in the reference.
@@ -42,9 +51,12 @@ from repro_torch.core.lasp2h import (_gather_seq,
                                      ring_decode_attention,
                                      sharded_decode_attention,
                                      ulysses_context_attention)
+from repro_torch.core.tree import leaves_with_paths
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
-                                       normal, rmsnorm, rmsnorm_init, rope)
+                                       normal, rmsnorm, rmsnorm_init,
+                                       rope, row_parallel)
+from repro_torch.sharding.rules import LayerSplit, cache_specs, shard_tree
 
 
 @dataclass
@@ -59,6 +71,7 @@ class Ctx:
     img_emb: Any = None            # (B, n_img, d) stub patch embeddings
     enc_out: Any = None            # (B, n_frames, d) encoder output
     plan: Any = None               # sharding.rules.Parallelism (serving)
+    split: Any = None              # sharding.rules.LayerSplit (this layer)
 
 
 # The decode caches' K/V rings and SSD conv inputs are bf16 whatever
@@ -83,20 +96,53 @@ def _heads_merge(x):
     return x.transpose(1, 2).reshape(b, s, h * dh)
 
 
-def _qkv(p, x, cfg: ModelConfig, positions=None):
-    """q (B, H, S, dh), k, v (B, Hkv, S, dh): the projections plus, with
-    ``qkv_bias``, the biases added in the compute dtype, then RoPE."""
-    dt = x.dtype
+_NO_SPLIT = LayerSplit()
+
+
+def _split(ctx: Ctx) -> LayerSplit:
+    """The layer's ``LayerSplit`` under a serving plan (``models.model``
+    sets it a layer), else one that splits nothing."""
+    return ctx.split or _NO_SPLIT
+
+
+def _qkv(p, x, ctx: Ctx, positions=None):
+    """q (B, Hq, S, dh), k, v (B, Hkv, S, dh): the projections plus, with
+    ``qkv_bias``, the biases added in the compute dtype, then RoPE. Hq and
+    Hkv are this rank's heads (``LayerSplit.heads``): the weights' columns
+    are then the rank's, and the biases (whole) are sliced to them."""
+    cfg, s = ctx.cfg, _split(ctx)
+    dt, dh = x.dtype, cfg.head_dim
+    hq, q0 = s.heads(cfg.n_heads, s.q)
+    hkv, k0 = s.heads(cfg.n_kv_heads, s.kv)
     q, k, v = (x @ p[w].to(dt) for w in ("wq", "wk", "wv"))
     if "bq" in p:
-        q, k, v = q + p["bq"].to(dt), k + p["bk"].to(dt), v + p["bv"].to(dt)
-    q = _heads_split(q, cfg.n_heads, cfg.head_dim)
-    k = _heads_split(k, cfg.n_kv_heads, cfg.head_dim)
-    v = _heads_split(v, cfg.n_kv_heads, cfg.head_dim)
+        q = q + p["bq"][q0 * dh:(q0 + hq) * dh].to(dt)
+        k = k + p["bk"][k0 * dh:(k0 + hkv) * dh].to(dt)
+        v = v + p["bv"][k0 * dh:(k0 + hkv) * dh].to(dt)
+    q = _heads_split(q, hq, dh)
+    k = _heads_split(k, hkv, dh)
+    v = _heads_split(v, hkv, dh)
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _out(o, w, ctx: Ctx, all_heads=False):
+    """``o`` (B, S, n) through the output projection ``w``. Where ``w``
+    holds this rank's rows (``LayerSplit.wo``: row-parallel over model),
+    the rank multiplies its block of ``o``'s columns (``o`` holds every
+    head where ``all_heads`` or the q heads do not split; else only the
+    rank's) and one all-reduce over the model group sums the fp32
+    partials (``layers.row_parallel``, tag ``tp.mixer``)."""
+    s = _split(ctx)
+    w = w.to(o.dtype)
+    if not s.wo:
+        return o @ w
+    if all_heads or not s.q:
+        n = w.shape[0]
+        o = o[..., s.tp.index * n:(s.tp.index + 1) * n]
+    return row_parallel(o, w, s.tp, "tp.mixer")
 
 
 # ===========================================================================
@@ -123,7 +169,7 @@ def _softmax_out(params, x, q, k, v, ctx: Ctx, window):
     attend = ulysses_context_attention if ctx.sp is not None and \
         ctx.sp.comm.strategy == "ulysses" else allgather_context_attention
     o = attend(q, k, v, sp=ctx.sp, causal=ctx.causal, sliding_window=window)
-    return _heads_merge(o) @ params["wo"].to(x.dtype)
+    return _out(_heads_merge(o), params["wo"], ctx)
 
 
 def softmax_apply(params, x, ctx: Ctx, *, window=None):
@@ -135,7 +181,7 @@ def softmax_apply(params, x, ctx: Ctx, *, window=None):
     step); it computes the same function, and the kernels' run-time band
     skips the same blocks. Softmax layers ignore ``ctx.resets``: on
     packed rows they attend across documents, as in the reference."""
-    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
+    q, k, v = _qkv(params, x, ctx, ctx.positions)
     return _softmax_out(params, x, q, k, v, ctx, window)
 
 
@@ -186,8 +232,13 @@ def softmax_prefill_cache(k, v, positions, ring: int):
 
 def _ring_sp(ctx: Ctx):
     """The ``SPConfig`` over the axis the plan places ring slots on, or
-    None (no plan, no such axis, or no ranks)."""
-    return ctx.plan.cache_sp() if ctx.plan is not None else None
+    None (no plan, no such axis, or no ranks; or a mixer computing every
+    head whose ring slots lie on the model axis: its cache is sliced after
+    the step, ``layer_prefill``)."""
+    if ctx.plan is None or (_split(ctx).whole and ctx.plan.rules.get(
+            "cache_seq") == ctx.plan.tp_axis):
+        return None
+    return ctx.plan.cache_sp()
 
 
 def shard_ring(cache, ctx: Ctx):
@@ -212,29 +263,38 @@ def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
     dtype), then attend to the ring. A ring sliced over the plan's group
     (K/V hold ``c`` of ``kpos``'s ``R`` slots) is written by the rank that
     owns the slot, its ``kpos`` by every rank, and attended through the
-    flash-decoding merge over that group."""
+    flash-decoding merge over that group. Where that group is the model
+    axis (the decode plan's ``cache_seq`` when the kv heads do not divide
+    it) the slots and the heads want the same axis: the rank gathers every
+    q head over model (tag ``tp.q``), merges them all, and its ``wo`` rows
+    take their block of the merged ``o`` (``_out``)."""
     cfg = ctx.cfg
     posv = ctx.decode_pos.to(device=x.device, dtype=torch.int32)
-    q, k, v = _qkv(params, x, cfg, None)
+    q, k, v = _qkv(params, x, ctx, None)
     q = rope(q, posv[:, None], cfg.rope_theta)
     k = rope(k, posv[:, None], cfg.rope_theta)
     rows = torch.arange(x.shape[0], device=x.device)
     r, c = cache["kpos"].shape[1], cache["k"].shape[2]
     slot = torch.remainder(posv, r).long()
     cache["kpos"][rows, slot] = posv.to(cache["kpos"].dtype)
-    sp, lo = None, 0
+    sp, lo, gathered = None, 0, False
     if c != r:
         sp = _ring_sp(ctx)
         lo = sp.chunk_index * c
         own = (slot >= lo) & (slot < lo + c)
         rows, slot, k, v = rows[own], slot[own] - lo, k[own], v[own]
+        s = _split(ctx)
+        if s.q and ctx.plan.rules.get("cache_seq") == ctx.plan.tp_axis:
+            q = primitives.allgather_states(q.contiguous(), s.tp.group,
+                                            gather_axis=1, tiled=True,
+                                            tag="tp.q")
+            gathered = True
     cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
     cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
     o = ring_decode_attention(q, cache["k"], cache["v"],
                               cache["kpos"][:, lo:lo + c], posv,
                               sliding_window=window, sp=sp)
-    y = _heads_merge(o) @ params["wo"].to(x.dtype)
-    return y, cache
+    return _out(_heads_merge(o), params["wo"], ctx, gathered), cache
 
 
 def _attn_prefill(params, x, ctx: Ctx, window, ring):
@@ -243,7 +303,7 @@ def _attn_prefill(params, x, ctx: Ctx, window, ring):
     the K/V all-gather's (or, under "ulysses", a gather of its own, tags
     ``ring.k``, ``ring.v``), at positions ``0 … S − 1``; then it is
     sliced per the plan (``shard_ring``)."""
-    q, k, v = _qkv(params, x, ctx.cfg, ctx.positions)
+    q, k, v = _qkv(params, x, ctx, ctx.positions)
     positions = ctx.positions
     if ctx.sp is None or ctx.sp.comm.strategy != "ulysses":
         o, k, v = allgather_context_attention(
@@ -256,7 +316,7 @@ def _attn_prefill(params, x, ctx: Ctx, window, ring):
                 for t, tag in ((k, "ring.k"), (v, "ring.v")))
     if ctx.sp is not None:
         positions = torch.arange(k.shape[2], device=x.device)
-    y = _heads_merge(o) @ params["wo"].to(x.dtype)
+    y = _out(_heads_merge(o), params["wo"], ctx)
     return y, shard_ring(softmax_prefill_cache(k, v, positions, ring), ctx)
 
 
@@ -280,16 +340,21 @@ def linear_init(generator, cfg: ModelConfig, dtype, device):
 
 
 def _linear_qkv(params, x, ctx: Ctx):
-    """q, k, v (B, H, S, dh) and log_a (B, H, S) fp32 or None."""
-    cfg = ctx.cfg
+    """q, k, v (B, H, S, dh) and log_a (B, H, S) fp32 or None; H this
+    rank's q heads (``LayerSplit.heads``), k and v repeated to them."""
+    cfg, sp = ctx.cfg, _split(ctx)
     lac = cfg.linear_attn
-    q, k, v = _qkv(params, x, cfg,
+    q, k, v = _qkv(params, x, ctx,
                    ctx.positions if lac.feature_map != "taylor" else None)
-    # GQA → full heads for the linear recurrence (state is per q-head)
+    hq, q0 = sp.heads(cfg.n_heads, sp.q)
+    # GQA → full heads for the linear recurrence (state is per q-head);
+    # the rank's kv heads cover its q heads' block, or are all of them
     rep = cfg.n_heads // cfg.n_kv_heads
     if rep > 1:
         k = torch.repeat_interleave(k, rep, dim=1)
         v = torch.repeat_interleave(v, rep, dim=1)
+    if sp.q and not sp.kv:
+        k, v = k[:, q0:q0 + hq], v[:, q0:q0 + hq]
     q = la_core.feature_map(q, lac.feature_map)
     k = la_core.feature_map(k, lac.feature_map)
     q = q * (q.shape[-1] ** -0.5)
@@ -301,13 +366,13 @@ def _linear_qkv(params, x, ctx: Ctx):
         log_a = None
     else:
         log_a = la_core.decay_log_a(lac.decay, heads=cfg.n_heads, s=s,
-                                    device=x.device)[None].expand(
-                                        b, cfg.n_heads, s)
+                                    device=x.device)[q0:q0 + hq][None]\
+            .expand(b, hq, s)
     if ctx.resets is not None:
         # Zero the state at document starts and at the first real token of
         # a left-padded prefill row.
         base = log_a if log_a is not None else torch.zeros(
-            (b, cfg.n_heads, s), dtype=torch.float32, device=x.device)
+            (b, hq, s), dtype=torch.float32, device=x.device)
         log_a = torch.where(ctx.resets[:, None, :],
                             torch.full((), la_core.RESET_LOG_A,
                                        device=x.device), base)
@@ -331,7 +396,7 @@ def linear_apply(params, x, ctx: Ctx):
                   block_size=lac.block_size,
                   backward="autodiff" if lac.decay == "data"
                   or ctx.resets is not None else lac.backward)
-    return _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
+    return _out(_heads_merge(o.to(x.dtype)), params["wo"], ctx)
 
 
 def linear_cache(cfg: ModelConfig, batch, device):
@@ -355,7 +420,7 @@ def linear_decode(params, x, cache, ctx: Ctx):
         log_a[..., 0] if log_a is not None else None,
         cache["m"], cache["log_decay"])
     o = _heads_merge(o[:, :, None, :].to(x.dtype))
-    return o @ params["wo"].to(x.dtype), {"m": m, "log_decay": ld}
+    return _out(o, params["wo"], ctx), {"m": m, "log_decay": ld}
 
 
 def _linear_prefill(params, x, ctx: Ctx):
@@ -373,7 +438,7 @@ def _linear_prefill(params, x, ctx: Ctx):
         # The cache's log decay is the sum of every log a, resets included.
         ld = (log_a.float().sum(-1) if log_a is not None
               else torch.zeros((b, h), dtype=torch.float32, device=x.device))
-    y = _heads_merge(o.to(x.dtype)) @ params["wo"].to(x.dtype)
+    y = _out(_heads_merge(o.to(x.dtype)), params["wo"], ctx)
     return y, {"m": m, "log_decay": ld}
 
 
@@ -824,16 +889,69 @@ def layer_init(generator, cfg: ModelConfig, spec: LayerSpec, dtype, device):
     return p
 
 
-def _mlp_residual(params, x, cfg: ModelConfig, spec: LayerSpec):
+def _mlp_residual(params, x, ctx: Ctx, spec: LayerSpec):
     """``(x + MLP(norm(x)), aux)``: aux is the MoE layer's router loss, 0.0
-    for a dense MLP or none."""
+    for a dense MLP or none. A dense MLP whose ``w1`` holds the rank's ff
+    columns (``LayerSplit.mlp``) runs column- then row-parallel
+    (``layers.mlp_apply(tp=)``)."""
+    cfg = ctx.cfg
     if "mlp" not in params:                  # mlp="none"
         return x, 0.0
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if spec.mlp == "moe":
         y, aux = moe_apply(params["mlp"], h, cfg)
         return x + y, aux
-    return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act), 0.0
+    s = _split(ctx)
+    return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act,
+                         tp=s.tp if s.mlp else None), 0.0
+
+
+def _cache_axes(ctx: Ctx, spec: LayerSpec) -> tuple:
+    """The axes a gather-at-use mixer's cache is gathered over and sliced
+    back on: the model axis, and for a cross layer also its memory slots'
+    (``cache_seq``) axis."""
+    plan = ctx.plan
+    axes = [plan.tp_axis]
+    if spec.mixer == "cross":
+        axes.append(plan.rules.get("cache_seq"))
+    return tuple(a for a in axes if plan.place(a) is not None)
+
+
+def _whole_specs(cache, ctx: Ctx, spec: LayerSpec):
+    """``cache_specs`` of a mixer cache at its whole shapes (its rows and
+    ring length as ``cache`` holds them)."""
+    leaves = leaves_with_paths(cache)
+    ring = next((t.shape[1] for path, t in leaves if path[-1] == "kpos"), 1)
+    whole = _MIXERS[spec.mixer].cache(ctx.cfg, spec, leaves[0][1].shape[0],
+                                      ring, torch.device("meta"))
+    return cache_specs(whole, ctx.plan)
+
+
+def _gather_cache(cache, specs, ctx: Ctx, axes):
+    """A cache gathered whole over ``axes`` (tags ``tp.cache.<leaf>`` over
+    model, ``cache_seq.<leaf>`` over the slots' axis)."""
+    if isinstance(cache, dict):
+        return {k: _gather_cache(v, specs[k], ctx, axes) if isinstance(
+            v, dict) else _gather_leaf(k, v, specs[k], ctx, axes)
+                for k, v in cache.items()}
+    return cache
+
+
+def _gather_leaf(name, t, spec, ctx: Ctx, axes):
+    for dim, entry in enumerate(spec):
+        if entry in axes:
+            tag = ("tp.cache." if entry == ctx.plan.tp_axis
+                   else "cache_seq.") + name
+            t = primitives.allgather_states(
+                t.contiguous(), ctx.plan.place(entry).group,
+                gather_axis=dim, tiled=True, tag=tag)
+    return t
+
+
+def _own_cache(cache, ctx: Ctx, spec: LayerSpec, axes):
+    """This rank's slices, over ``axes``, of a cache computed whole."""
+    return shard_tree(cache, _whole_specs(cache, ctx, spec),
+                      ctx.plan.layout, axes=axes)
 
 
 def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
@@ -841,7 +959,7 @@ def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y = _MIXERS[spec.mixer].apply(params["mixer"], h, ctx, spec)
-    return _mlp_residual(params, x + y, ctx.cfg, spec)
+    return _mlp_residual(params, x + y, ctx, spec)
 
 
 def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
@@ -851,16 +969,31 @@ def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
 
 
 def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
+    """One layer over the prompt: ``(x, its cache)``; a gather-at-use
+    mixer's cache, computed whole over model, keeps this rank's slices."""
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y, mc = _MIXERS[spec.mixer].prefill(params["mixer"], h, ctx, spec,
                                         max_len)
-    return _mlp_residual(params, x + y, ctx.cfg, spec)[0], {"mixer": mc}
+    if _split(ctx).whole:
+        axes = _cache_axes(ctx, spec)
+        if axes:
+            mc = _own_cache(mc, ctx, spec, axes)
+    return _mlp_residual(params, x + y, ctx, spec)[0], {"mixer": mc}
 
 
 def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
+    """One token through one layer: ``(x, its cache)``; a gather-at-use
+    mixer's cache is gathered whole over model for the step and sliced
+    back after it."""
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, cache["mixer"],
-                                       ctx, spec)
-    return _mlp_residual(params, x + y, ctx.cfg, spec)[0], {"mixer": mc}
+    mc, axes = cache["mixer"], ()
+    if _split(ctx).whole:
+        axes = _cache_axes(ctx, spec)
+        if axes:
+            mc = _gather_cache(mc, _whole_specs(mc, ctx, spec), ctx, axes)
+    y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, mc, ctx, spec)
+    if axes:
+        mc = _own_cache(mc, ctx, spec, axes)
+    return _mlp_residual(params, x + y, ctx, spec)[0], {"mixer": mc}

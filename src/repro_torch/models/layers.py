@@ -5,6 +5,12 @@ wv/wo, w1/w2/w3, table/lm_head, scale) so ``models/weights.py`` maps a JAX
 tree one to one. Each matrix is cast to the activation dtype at its use,
 as in the reference: a no-op on the bf16 serving params, the bf16 compute
 copy of the fp32 masters in training. Norm scales stay fp32.
+
+Under a serving plan's tensor parallelism (``tp``, a
+``sharding.rules.Place`` of the model axis, passed where the weights are
+this rank's slices) the MLP is column-parallel in ``w1``/``w3`` and
+row-parallel in ``w2``, the embedding and ``lm_head`` hold this rank's
+vocab rows; each closes with one recorded collective.
 """
 
 from __future__ import annotations
@@ -12,8 +18,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import primitives
+
 
 def normal(generator, shape, scale, dtype, device):
+    if torch.device(device).type == "meta":       # shapes alone, no draw
+        return torch.empty(shape, dtype=dtype, device=device)
     x = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=device)
     return (x * scale).to(dtype)
@@ -69,13 +79,27 @@ def mlp_init(generator, d, d_ff, dtype, device, act="swiglu"):
     return p
 
 
-def mlp_apply(params, x, act="swiglu"):
+def row_parallel(x, w, tp, tag):
+    """``x @ w`` where ``w`` holds this rank's rows of a weight split over
+    the model group (``x`` the matching columns): the partial product in
+    fp32, summed over the group in one all-reduce (``tag``) and rounded
+    to ``x``'s dtype once, as one device's product is."""
+    y = primitives.allreduce_sum(x.float() @ w.float(), tp.group, tag=tag)
+    return y.to(x.dtype)
+
+
+def mlp_apply(params, x, act="swiglu", tp=None):
+    """The MLP; with ``tp`` the weights are this rank's ff columns
+    (``w1``, ``w3``) and rows (``w2``): its partial output is summed over
+    the model group in one all-reduce (tag ``tp.mlp``)."""
     dt = x.dtype
     h = x @ params["w1"].to(dt)
     if act == "swiglu":
         h = F.silu(h) * (x @ params["w3"].to(dt))
     else:
         h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default form
+    if tp is not None:
+        return row_parallel(h, params["w2"].to(dt), tp, "tp.mlp")
     return h @ params["w2"].to(dt)
 
 
@@ -88,17 +112,39 @@ def embed_init(generator, vocab, d, dtype, device, tie=False):
     return p
 
 
-def embed_lookup(params, tokens, dtype):
-    """tokens: int tensor of any shape → (..., d) in ``dtype``."""
-    return F.embedding(tokens.long(), params["table"]).to(dtype)
+def embed_lookup(params, tokens, dtype, tp=None):
+    """tokens: int tensor of any shape → (..., d) in ``dtype``. With
+    ``tp`` the table holds this rank's vocab rows: ids outside them look
+    up zeros, and one all-reduce over the model group (tag ``tp.embed``)
+    sums the ranks' rows, exact, since one rank holds each id."""
+    tokens = tokens.long()
+    table = params["table"]
+    if tp is None:
+        return F.embedding(tokens, table).to(dtype)
+    lo = tp.index * table.shape[0]
+    local = tokens - lo
+    mine = (local >= 0) & (local < table.shape[0])
+    x = F.embedding(torch.where(mine, local, torch.zeros_like(local)),
+                    table).to(dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
+                                                    device=x.device))
+    return primitives.allreduce_sum(x, tp.group, tag="tp.embed")
 
 
-def logits_out(params, x, vocab_size):
-    """x @ table^T over the padded vocab; padded columns are -1e30."""
+def logits_out(params, x, vocab_size, tp=None):
+    """x @ table^T over the padded vocab; padded columns are -1e30. With
+    ``tp`` the head holds this rank's vocab rows (columns ``index·V_l …``
+    of the logits, padding set by their global index), gathered over the
+    model group in vocab order (tag ``tp.logits``)."""
     table = params.get("lm_head", params["table"])
     logits = x @ table.to(x.dtype).T
-    if logits.shape[-1] > vocab_size:
-        logits[..., vocab_size:] = -1e30
+    lo = 0 if tp is None else tp.index * table.shape[0]
+    if lo + logits.shape[-1] > vocab_size:
+        logits[..., max(vocab_size - lo, 0):] = -1e30
+    if tp is not None:
+        logits = primitives.allgather_states(
+            logits.contiguous(), tp.group, gather_axis=logits.dim() - 1,
+            tiled=True, tag="tp.logits")
     return logits
 
 

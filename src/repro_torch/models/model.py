@@ -28,17 +28,28 @@ n_mem, dh) bf16, written at prefill and only read by decode.
 
 Serving under a plan (``plan``, a ``sharding.rules.Parallelism`` whose
 layout has ranks, ``launch.mesh.make_serving_groups``): every rank gets
-the whole prompt and the same weights; ``plan.sp_for(S)`` decides whether
+the whole prompt and holds its shard of the weights
+(``sharding.rules.shard_params``); ``plan.sp_for(S)`` decides whether
 the prompt splits over the SP group, and each rank then runs its chunk
-(RoPE and pad positions absolute) through the layers' exchanges. A ring
-cache whose slots the plan places over an axis holds this rank's slice
-of them (``blocks.shard_ring``).
+(RoPE and pad positions absolute) through the layers' exchanges. Each
+layer's fsdp-split leaves are gathered over data just before it runs
+(tags ``fsdp.<leaf>``) and dropped after it, one layer's whole weights
+at a time, as XLA's FSDP does; the leaves a layer computes whole over
+model are gathered too (``tp.cols.<leaf>``: the gather-at-use mixers and
+MoE MLPs, the q/k/v columns of heads the model axis does not divide).
+The rest stays the rank's slice over model: its heads, ff columns and
+vocab rows (``blocks``, ``layers``). The decode cache holds what
+``sharding.rules.cache_specs`` gives the rank (``init_cache(plan=)``):
+its rows where the plan places decode slots over data (``pos`` stays
+whole), its heads, its ring slots.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from dataclasses import dataclass
+from typing import Any, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -53,6 +64,8 @@ from repro_torch.models.blocks import Ctx
 from repro_torch.models.layers import (embed_init, embed_lookup, logits_out,
                                        rmsnorm, rmsnorm_init,
                                        sinusoidal_positions)
+from repro_torch.sharding.rules import (cache_specs, layer_split,
+                                        param_specs, shard_tree)
 
 # The encoder's layers: bidirectional softmax attention and a dense MLP.
 ENCODER_SPEC = LayerSpec(mixer="softmax", mlp="dense")
@@ -133,22 +146,116 @@ def hymba_global_flags(cfg: ModelConfig):
     return [spec.is_global for spec in specs]
 
 
-def _layer_ctxs(ctx: Ctx, cfg: ModelConfig):
+def _layer_ctxs(ctx: Ctx, cfg: ModelConfig, pl=None):
     """One ``Ctx`` per layer: ``ctx`` itself, or a copy carrying the
     layer's hymba flag (a copy, so a layer recomputed under remat reads
-    its own)."""
+    its own) and, under a serving plan's :class:`Placement` ``pl``, its
+    ``LayerSplit``."""
     flags = hymba_global_flags(cfg)
-    if flags is None:
-        return [ctx] * cfg.n_layers
-    return [dataclasses.replace(ctx, is_global=f) for f in flags]
+    ctxs = [ctx] * cfg.n_layers if flags is None else \
+        [dataclasses.replace(ctx, is_global=f) for f in flags]
+    if pl is None:
+        return ctxs
+    return [dataclasses.replace(c, split=s) for c, s in zip(ctxs, pl.layers)]
 
 
-def _run_layers(layers, x, ctxs, specs, remat):
+# ---------------------------------------------------------------------------
+# Weights under a serving plan: gathered at use, one layer at a time.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Placement:
+    """What a serving plan places on ``cfg``'s params on this rank, decided
+    once a call (:func:`placement`): ``specs``, ``param_specs`` of the
+    whole params; ``layers``, each layer's ``LayerSplit``."""
+
+    specs: Any
+    layers: tuple
+
+
+def placement(cfg: ModelConfig, plan) -> Optional[Placement]:
+    """The :class:`Placement` of ``cfg`` under ``plan``; None without a
+    plan or on a layout without ranks (nothing placed)."""
+    if plan is None or plan.layout is None or plan.layout.groups is None:
+        return None
+    specs = param_specs(init_params(None, cfg, device="meta"), plan)
+    return Placement(specs, tuple(
+        layer_split(cfg, spec, specs["layers"][i], plan)
+        for i, spec in enumerate(cfg.layer_specs())))
+
+
+def gather_params(tree, specs, plan, whole, prefix=()):
+    """``tree`` (this rank's leaves) with every fsdp-split dim gathered
+    over data (tag ``fsdp.<path>``), then, on the leaves ``whole`` passes
+    (a test of the leaf path), every model-split dim over model (tag
+    ``tp.cols.<path>``)."""
+    if isinstance(tree, dict):
+        return {k: gather_params(v, specs[k], plan, whole, prefix + (k,))
+                for k, v in tree.items()}
+    fsdp, tp = plan.fsdp_place(), plan.tp_place()
+    name = ".".join(prefix)
+    for axis, place, tag, keep in (
+            (plan.fsdp_axis, fsdp, "fsdp.", True),
+            (plan.tp_axis, tp, "tp.cols.", whole(prefix))):
+        if place is None or not keep:
+            continue
+        for dim, entry in enumerate(specs):
+            if entry == axis:
+                tree = primitives.allgather_states(
+                    tree.contiguous(), place.group, gather_axis=dim,
+                    tiled=True, tag=tag + name)
+    return tree
+
+
+def _layer_use(pl: Optional[Placement], plan, encoder=False):
+    """``use(i, p)``: layer ``i``'s params ``p`` as the layer computes on
+    them under ``plan`` (None without placements): the leaves its
+    ``LayerSplit`` names gathered whole over model. Encoder layers are
+    gathered whole."""
+    if pl is None or (plan.fsdp_place() is None
+                      and plan.tp_place() is None):
+        return None
+    if encoder:
+        return lambda i, p: gather_params(
+            p, pl.specs["encoder"]["layers"][i], plan, lambda path: True)
+    return lambda i, p: gather_params(p, pl.specs["layers"][i], plan,
+                                      pl.layers[i].gathered)
+
+
+def _embed(params, pl: Optional[Placement], plan, name):
+    """``(embed params holding ``name`` (``lm_head``'s falls back on the
+    tied ``table``) gathered over data, the model ``Place`` when its spec
+    splits the vocab rows over model, else None)``."""
+    emb = params["embed"]
+    if pl is None:
+        return emb, None
+    leaf = name if name in emb else "table"
+    spec = pl.specs["embed"][leaf]
+    w = gather_params(emb[leaf], spec, plan, lambda path: False,
+                      ("embed", leaf))
+    tp = plan.tp_place() if spec[0] == plan.tp_axis else None
+    return {name: w, "table": w}, tp
+
+
+def _lookup(params, tokens, pl, plan, dtype):
+    emb, tp = _embed(params, pl, plan, "table")
+    return embed_lookup(emb, tokens, dtype, tp=tp)
+
+
+def _logits(params, x, cfg: ModelConfig, pl, plan):
+    emb, tp = _embed(params, pl, plan, "lm_head")
+    return logits_out(emb, x, cfg.vocab_size, tp=tp)
+
+
+def _run_layers(layers, x, ctxs, specs, remat, use=None):
     """``(x, summed aux)`` through ``layers``, each recomputed in the
     backward under ``remat="full"``, or all but its dot products' outputs
-    under ``remat="dots"``."""
+    under ``remat="dots"``. ``use(i, p)`` gives layer ``i`` the params
+    it computes on (``_layer_use``), freed after it."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, lctx, spec in zip(layers, ctxs, specs):
+    for i, (p, lctx, spec) in enumerate(zip(layers, ctxs, specs)):
+        if use is not None:
+            p = use(i, p)
         if remat == "full":
             x, a = torch.utils.checkpoint.checkpoint(
                 blocks.layer_apply, p, x, lctx, spec, use_reentrant=False)
@@ -169,8 +276,8 @@ def encode(params, frames, cfg: ModelConfig, plan=None, *,
     layers without RoPE and unmasked, then the encoder's final norm. Under
     a ``plan`` the encoder runs whole on every rank: its output is the
     memory every rank's cross layers read whole (the reference's GSPMD
-    may split its frames; the function is the same)."""
-    del plan
+    may split its frames; the function is the same), each layer's
+    weights gathered whole at use."""
     dtype = torch_dtype(cfg.dtype)
     device = _device(params)
     x = torch.as_tensor(frames, device=device).to(dtype)
@@ -180,11 +287,13 @@ def encode(params, frames, cfg: ModelConfig, plan=None, *,
     n = len(enc["layers"])
     ctx = Ctx(cfg=cfg, positions=None, causal=False)
     x, _ = _run_layers(enc["layers"], x, [ctx] * n, [ENCODER_SPEC] * n,
-                       remat)
+                       remat, _layer_use(placement(cfg, plan), plan,
+                                         encoder=True))
     return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
-def _memories(params, cfg: ModelConfig, img_emb, enc_frames, remat):
+def _memories(params, cfg: ModelConfig, img_emb, enc_frames, remat,
+              plan=None):
     """``(img_emb, enc_out)`` for the cross layers, on the params' device:
     an encoder config encodes ``enc_frames``; an image config takes
     ``img_emb`` as it is. Each raises when its memory is missing."""
@@ -192,7 +301,7 @@ def _memories(params, cfg: ModelConfig, img_emb, enc_frames, remat):
     if cfg.encoder is not None:
         if enc_frames is None:
             raise ValueError("whisper-style model needs enc_frames")
-        enc_out = encode(params, enc_frames, cfg, remat=remat)
+        enc_out = encode(params, enc_frames, cfg, plan, remat=remat)
     if img_emb is not None:
         img_emb = torch.as_tensor(img_emb, device=_device(params))
     elif cfg.n_image_tokens and any(spec.mixer == "cross"
@@ -270,18 +379,20 @@ def forward_with_aux(params, tokens, cfg: ModelConfig, plan=None, *,
         if resets is not None:
             resets = resets[:, t * c:(t + 1) * c]
     _, s = tokens.shape
-    x = embed_lookup(params["embed"], tokens, dtype)
+    pl = placement(cfg, plan)
+    x = _lookup(params, tokens, pl, plan, dtype)
     positions = torch.arange(s, device=device)
     if sp is not None:
         positions = sp.chunk_index * s + positions
-    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, remat)
+    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, remat,
+                                 plan)
     ctx = Ctx(cfg=cfg, positions=positions, sp=sp, causal=causal,
               resets=None if resets is None else resets.to(device),
               img_emb=img_emb, enc_out=enc_out, plan=plan)
-    x, aux = _run_layers(params["layers"], x, _layer_ctxs(ctx, cfg),
-                         cfg.layer_specs(), remat)
+    x, aux = _run_layers(params["layers"], x, _layer_ctxs(ctx, cfg, pl),
+                         cfg.layer_specs(), remat, _layer_use(pl, plan))
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return logits_out(params["embed"], x, cfg.vocab_size), aux
+    return _logits(params, x, cfg, pl, plan), aux
 
 
 # ---------------------------------------------------------------------------
@@ -329,30 +440,34 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
     ring-buffer KV cache (ring = the sliding window of the hybrids'
     softmax layers, capped at ``max_len``; every hymba layer's ring is
     ``max_len`` long); ``pos`` is per row, since rows of a continuous
-    batch sit at different offsets. Under a serving ``plan`` each ring's
-    K/V hold this rank's slice of the slots (``blocks.shard_ring``)."""
+    batch sit at different offsets. Under a serving ``plan`` with ranks
+    every leaf holds this rank's slice per ``sharding.rules.cache_specs``
+    (its rows, heads, ring slots, conv channels), allocated at that size;
+    ``pos`` stays whole."""
     device = resolve_device(device)
-    layers = [blocks.layer_cache(cfg, spec, batch, max_len, device)
-              for spec in cfg.layer_specs()]
-    if plan is not None:
-        ctx = Ctx(cfg=cfg, plan=plan)
-        layers = [_shard_rings(c, ctx) for c in layers]
-    return {"layers": layers,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if plan is None or plan.layout is None or plan.layout.groups is None:
+        layers = [blocks.layer_cache(cfg, spec, batch, max_len, device)
+                  for spec in cfg.layer_specs()]
+        return {"layers": layers, "pos": torch.zeros(
+            (batch,), dtype=torch.int32, device=device)}
+    whole = init_cache(cfg, batch, max_len, device="meta")
+    local = shard_tree(whole, cache_specs(whole, plan), plan.layout)
+    return _materialize(local, device)
 
 
-def _shard_rings(tree, ctx: Ctx):
-    """Every ring cache (a dict with ``kpos``) in ``tree`` through
-    ``blocks.shard_ring``."""
+def _materialize(tree, device, name=""):
+    """Meta leaves as tensors on ``device``: ring positions -1 (never
+    written), everything else zeros."""
     if isinstance(tree, dict):
-        if "kpos" in tree:
-            return blocks.shard_ring(tree, ctx)
-        return {k: _shard_rings(v, ctx) for k, v in tree.items()}
-    return tree
+        return {k: _materialize(v, device, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_materialize(v, device, name) for v in tree]
+    return torch.full(tree.shape, -1 if name == "kpos" else 0,
+                      dtype=tree.dtype, device=device)
 
 
 def decode_step(params, token, cache, cfg: ModelConfig, plan=None, *,
-                img_emb=None, enc_out=None):
+                rows=None, img_emb=None, enc_out=None):
     """One decode step. token: (B,) int → (logits (B, V), new cache).
 
     No prefix re-scan: every linear or SSD layer advances its recurrent
@@ -361,23 +476,34 @@ def decode_step(params, token, cache, cfg: ModelConfig, plan=None, *,
     softmax layer writes one ring slot in place (on every device) and
     attends to the ring; every cross layer reads the memory's K/V that
     prefill cached (``img_emb`` and ``enc_out`` are the reference's
-    arguments; no layer reads them). Under a serving ``plan`` every rank
-    decodes every row; a sliced ring is written by its slot's owner and
-    read through the flash-decoding merge over the plan's group.
+    arguments; no layer reads them). Under a serving ``plan`` a rank
+    decodes the rows its cache holds: every row, or with ``rows`` (first,
+    count) its block of them (a ``ServeEngine``'s slot grid placed over
+    data, ``init_cache(plan=)``), whose tokens ``token`` then holds;
+    ``cache["pos"]`` stays whole and advances for every row. A sliced
+    ring is written by its slot's owner and read through the
+    flash-decoding merge over the plan's group.
     """
     dtype = torch_dtype(cfg.dtype)
-    pos = cache["pos"]
-    x = embed_lookup(params["embed"], token.to(pos.device)[:, None], dtype)
+    pos_all = cache["pos"]
+    token = token.to(pos_all.device)
+    pl = placement(cfg, plan)
+    pos = pos_all if rows is None else pos_all[rows[0]:rows[0] + rows[1]]
+    x = _lookup(params, token[:, None], pl, plan, dtype)
     ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos,
               img_emb=img_emb, enc_out=enc_out, plan=plan)
+    use = _layer_use(pl, plan)
     new_layers = []
-    for p, c, lctx, spec in zip(params["layers"], cache["layers"],
-                                _layer_ctxs(ctx, cfg), cfg.layer_specs()):
+    for i, (p, c, lctx, spec) in enumerate(zip(
+            params["layers"], cache["layers"], _layer_ctxs(ctx, cfg, pl),
+            cfg.layer_specs())):
+        if use is not None:
+            p = use(i, p)
         x, nc = blocks.layer_decode(p, x, c, lctx, spec)
         new_layers.append(nc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_out(params["embed"], x, cfg.vocab_size)
-    return logits[:, 0, :], {"layers": new_layers, "pos": pos + 1}
+    logits = _logits(params, x, cfg, pl, plan)
+    return logits[:, 0, :], {"layers": new_layers, "pos": pos_all + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +542,8 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
     b, s = tokens.shape
     max_len = max_len or s
     sp, t, c = _plan_split(plan, s)
-    x = embed_lookup(params["embed"], tokens[:, t * c:(t + 1) * c], dtype)
+    pl = placement(cfg, plan)
+    x = _lookup(params, tokens[:, t * c:(t + 1) * c], pl, plan, dtype)
     cols = torch.arange(t * c, (t + 1) * c, device=device)[None, :]
     resets = None
     if pad_lens is not None:
@@ -431,19 +558,24 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
                         torch.zeros((), dtype=x.dtype, device=device))
     else:
         positions = cols[0]
-    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, "none")
+    img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, "none",
+                                 plan)
     ctx = Ctx(cfg=cfg, positions=positions, resets=resets, img_emb=img_emb,
               enc_out=enc_out, sp=sp, plan=plan)
+    use = _layer_use(pl, plan)
     caches = []
-    for p, lctx, spec in zip(params["layers"], _layer_ctxs(ctx, cfg),
-                             cfg.layer_specs()):
+    for i, (p, lctx, spec) in enumerate(zip(
+            params["layers"], _layer_ctxs(ctx, cfg, pl),
+            cfg.layer_specs())):
+        if use is not None:
+            p = use(i, p)
         x, c_ = blocks.layer_prefill(p, x, lctx, spec, max_len)
         caches.append(c_)
     x = x[:, -1:, :]
     if sp is not None:
         x = primitives.allgather_states(x, sp.group, tag="prefill.last")[-1]
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_out(params["embed"], x, cfg.vocab_size)
+    logits = _logits(params, x, cfg, pl, plan)
     pos = torch.full((b,), s, dtype=torch.int32, device=device)
     if pad_lens is not None:
         pos = pos - pad_lens.to(torch.int32)      # per-row true lengths

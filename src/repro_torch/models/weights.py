@@ -18,6 +18,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import torch_dtype
 from repro_torch.models.model import ENCODER_SPEC
+from repro_torch.sharding.rules import shard_params
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple, np.ndarray]:
@@ -87,7 +88,8 @@ def _nest(items):
     return out
 
 
-def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
+def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None,
+                    plan=None):
     """Port params from the reference's ``init_params`` tree, with numpy
     leaves (``jax.tree.map(np.asarray, params)``).
 
@@ -97,7 +99,8 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     cross layers' 0-d ``gate``) stay fp32, as the reference keeps them,
     since a bf16 ``a_log`` would move every head's decay. Raises on any
     leaf it does not map and on any leaf the port needs that the tree
-    lacks.
+    lacks. Under a serving ``plan`` with ranks the result is this rank's
+    shard (``sharding.rules.shard_params``).
     """
     dtype = torch_dtype(cfg.dtype) if dtype is None else dtype
     flat = _flatten(params_np)
@@ -155,4 +158,6 @@ def params_from_jax(params_np, cfg: ModelConfig, *, device, dtype=None):
     if flat:
         raise ValueError("params_from_jax: unmapped leaves "
                          + ", ".join(".".join(k) for k in sorted(flat)))
+    if plan is not None and plan.layout is not None:
+        out = shard_params(out, plan)
     return out

@@ -220,7 +220,14 @@ def _train_scenarios(rank, device, dp, sp, tmp, metrics_out):
 
 
 def _train_rank(rank, world, device, dp, sp, tmp, metrics_out):
-    out = _train_scenarios(rank, device, dp, sp, tmp, metrics_out)
+    try:
+        out = _train_scenarios(rank, device, dp, sp, tmp, metrics_out)
+    finally:
+        # Drop the cached groups before the launcher destroys the process
+        # group: a group still referenced then is shut down but freed only
+        # at interpreter exit, where its C++ threads may be torn down
+        # joinable ("terminate called without an active exception").
+        _LAYOUTS.clear()
     return None if out is None else (*out, _launches())
 
 

@@ -22,11 +22,17 @@ batched with.
 Under a serving plan (``plan``: ``sharding.rules.make_plan`` on a layout
 with ranks, ``launch.mesh.make_serving_groups``) every rank of the plan's
 world runs the same engine on the same requests: the scheduler is
-deterministic, so their slot decisions agree, and prefill and decode
-(``M.prefill``, ``M.decode_step`` with the plan) return the same logits
-on every rank. The prompt splits over the SP group (LASP-2 and LASP-2H),
-and each softmax ring holds this rank's slice of its slots where the plan
-places them.
+deterministic, so their slot decisions agree. The rank holds its shard of
+the weights (``sharding.rules.shard_params``) and of the cache
+(``M.init_cache(plan=)``). The prompt splits over the SP group (LASP-2
+and LASP-2H), and each softmax ring holds this rank's slice of its slots
+where the plan places them. Where the plan places decode slots over data
+(``plan.rows_place``) the slot grid's rows split over the data group:
+admission prefill runs the whole batch and keeps the rows this rank owns,
+each step decodes and samples the rank's rows (each request with its own
+generator), and one all-gather over data (tag ``serve.tokens``) hands
+every rank the same tokens, so every rank's scheduler records the same
+step. ``cache_stats`` then reports this rank's bytes.
 
 Encoder and image models (the cross family) serve through ``generate``
 alone, as a static batch: their per-request memories (encoder frames,
@@ -51,6 +57,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.comm import primitives
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.core.tree import leaves_with_paths
@@ -77,18 +84,29 @@ def _mix_seed(seed: int, stream: int, step: int) -> int:
     return x >> 1
 
 
-def _place(big, small, slots) -> None:
-    """Write a prefill's cache tree ``small`` (rows in ``slots`` order)
-    into the engine's cache tree ``big``, leaf by leaf, at rows
-    ``slots``; nested mixer dicts (hymba's ``attn``/``ssm``) included."""
+def _place(big, small, slots, rows=None) -> None:
+    """Write a prefill's cache tree ``small`` (rows in ``slots`` order, a
+    list) into the engine's cache tree ``big``, leaf by leaf, at rows
+    ``slots``; nested mixer dicts (hymba's ``attn``/``ssm``) included.
+    ``rows`` (first slot, slots held): the plan places the grid's rows
+    over an axis, so every leaf but ``pos`` (whole, ``cache_specs``) holds
+    this rank's block of them and takes only the rows of its slots."""
     if isinstance(big, dict):
         for name, sub in small.items():
-            _place(big[name], sub, slots)
+            _place(big[name], sub, slots, None if name == "pos" else rows)
     elif isinstance(big, list):
         for b, s in zip(big, small):
-            _place(b, s, slots)
+            _place(b, s, slots, rows)
+    elif rows is not None:
+        first, n = rows
+        own = [(j, s - first) for j, s in enumerate(slots)
+               if first <= s < first + n]
+        if own:
+            src = torch.as_tensor([j for j, _ in own], device=small.device)
+            dst = torch.as_tensor([s for _, s in own], device=big.device)
+            big[dst] = small[src].to(big.dtype)
     else:
-        big[slots] = small.to(big.dtype)
+        big[torch.as_tensor(slots, device=big.device)] = small.to(big.dtype)
 
 
 class ServeEngine:
@@ -127,6 +145,13 @@ class ServeEngine:
         # cache_stats() are the reference's
         self._cache = M.init_cache(cfg, max_batch, max_len,
                                    device=self.device, plan=plan)
+        # this rank's block of slot rows where the plan places them over
+        # data: (its place, first slot, slots held)
+        self._rows = None
+        place = plan.rows_place(max_batch) if plan is not None else None
+        if place is not None:
+            n = max_batch // place.size
+            self._rows = (place, place.index * n, n)
         self._static = cfg.encoder is not None or bool(cfg.n_image_tokens)
         self._tok = np.zeros((max_batch,), np.int32)
         self._temps = np.zeros((max_batch,), np.float32)
@@ -168,12 +193,23 @@ class ServeEngine:
             finished += self._admit(batch)
         if self.sched.active:
             t0 = time.perf_counter()
+            mine = slice(None)
+            if self._rows is not None:
+                mine = slice(self._rows[1], self._rows[1] + self._rows[2])
             logits, self._cache = M.decode_step(
-                self.params, torch.as_tensor(self._tok, device=self.device),
-                self._cache, self.cfg, self.plan)
-            steps = [len(r.tokens) if r is not None else 0
-                     for r in self.sched.slots]
-            tok = self._sample(logits, self._temps, self._seeds, steps)
+                self.params,
+                torch.as_tensor(self._tok[mine], device=self.device),
+                self._cache, self.cfg, self.plan,
+                rows=None if self._rows is None else self._rows[1:])
+            steps = np.array([len(r.tokens) if r is not None else 0
+                              for r in self.sched.slots])
+            tok = self._sample(logits, self._temps[mine], self._seeds[mine],
+                               steps[mine])
+            if self._rows is not None:
+                tok = primitives.allgather_states(
+                    torch.as_tensor(tok, device=self.device),
+                    self._rows[0].group, tiled=True,
+                    tag="serve.tokens").cpu().numpy()
             synchronize(self.device)
             self.metrics.observe("decode_step_s", time.perf_counter() - t0)
             active = [i for i, r in enumerate(self.sched.slots)
@@ -218,9 +254,8 @@ class ServeEngine:
         pad_lens = batch.pad_lens if self.bucket_lengths else None
         logits, small = M.prefill(self.params, tokens, self.cfg, self.plan,
                                   max_len=self.max_len, pad_lens=pad_lens)
-        slots = torch.as_tensor(batch.slots, dtype=torch.long,
-                                device=self.device)
-        _place(self._cache, small, slots)
+        _place(self._cache, small, [int(s) for s in batch.slots],
+               None if self._rows is None else self._rows[1:])
         temps = np.array([r.temperature for r in batch.requests], np.float32)
         seeds = np.array([[r.seed, r.stream] for r in batch.requests],
                          np.int64)

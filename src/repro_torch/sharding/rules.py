@@ -13,18 +13,37 @@ Every rule degrades as the reference's does: an axis applies to a tensor
 dim only if the axis's size divides the dim (:func:`fit_spec`).
 
 The reference places tensors through GSPMD. The port runs explicit ranks
-(``launch.mesh.make_serving_groups``), so a plan is applied in part:
+(``launch.mesh.make_serving_groups``) and applies a serving plan's
+placements itself. A rank stores exactly what :func:`param_specs`
+(:func:`shard_params`) and :func:`cache_specs` give it, computes on its
+local slice where the math allows, and gathers a dim over its axis only
+where the computation needs it whole, each exchange a recorded collective
+(``comm.primitives``) with its own tag:
 
-* applied: ``plan.sp`` splits a prompt's tokens over the SP axis's group
-  (LASP-2 for linear and SSD layers, LASP-2H for softmax layers), and
-  every ``cache_seq`` placement slices the softmax rings' slot dim over
-  that axis's group (the ring stays whole when its length does not
-  divide), read back through ``ring_decode_attention(sp=)``;
-* computed, not applied: weights over fsdp or tp, batch over data, heads,
-  ff, vocab and experts over model. Every rank holds all weights and the
-  whole slot grid; :func:`param_specs` and ``launch.cells.cache_specs``
-  report what those placements would put on a rank.
+* ``plan.sp`` splits a prompt's tokens over the SP axis's group (LASP-2
+  for linear and SSD layers, LASP-2H for softmax layers); a ``cache_seq``
+  placement slices the softmax rings' slot dim over that axis's group
+  (the ring stays whole when its length does not divide), read back
+  through ``ring_decode_attention(sp=)``;
+* weights over fsdp: each layer's leaves are gathered over data just
+  before the layer runs and dropped after it (``fsdp.<leaf>``), the
+  embedding's and ``lm_head``'s at their use;
+* heads, kv heads and ff over model: linear and softmax mixers run on the
+  rank's heads (:class:`LayerSplit`) and dense MLPs on its ff columns,
+  each closed by one all-reduce after the row-parallel ``wo`` or ``w2``
+  (``tp.mixer``, ``tp.mlp``); vocab over model: the masked lookup's
+  all-reduce (``tp.embed``) and the gather of the logits' vocab slices
+  (``tp.logits``);
+* decode slots (batch) over data: the engine's slot grid and the decode
+  cache hold this rank's rows, the sampled tokens gathered back
+  (``serve.tokens``).
 
+Not split in compute, stored per spec and gathered whole over model at
+use (``tp.cols.<leaf>`` for weights, ``tp.cache.<leaf>`` for caches):
+the SSD heads of mamba2 and hymba layers, MoE experts, cross layers, and
+the q/k/v columns of a head count the model axis does not divide (the
+specs test divisibility on the flattened column dim). Prefill rows over
+pod or model (the batch rule of a prefill plan) stay whole.
 A layout without ranks (``make_production_mesh``) gives a plan whose
 rules, specs and SP axes are the reference's, with ``plan.sp`` None.
 """
@@ -123,10 +142,45 @@ class Parallelism:
 
     def act(self, x, *dims):
         """The identity. The reference constrains ``x``'s sharding by its
-        logical dims for GSPMD; a rank here holds what its plan applies
-        already (its sequence chunk, its ring slice) and replicates the
-        rest, so there is nothing to constrain."""
+        logical dims for GSPMD; a rank here computes on what its plan
+        gives it already (its chunk, its rows, its heads), so there is
+        nothing to constrain."""
         return x
+
+    def place(self, axis) -> Optional["Place"]:
+        """This rank's :class:`Place` along ``axis``: None without ranks,
+        for no axis, or for an axis of size 1 (nothing to exchange)."""
+        if axis is None or self.layout is None or \
+                self.layout.groups is None or axis not in self.layout.axes \
+                or self.layout.axis_size(axis) == 1:
+            return None
+        return Place(self.layout.axis_size(axis), self.layout.index[axis],
+                     self.layout.group(axis))
+
+    def tp_place(self) -> Optional["Place"]:
+        """The model axis's :class:`Place` where the plan places weights
+        on it (``tp_axis``)."""
+        return self.place(self.tp_axis)
+
+    def fsdp_place(self) -> Optional["Place"]:
+        """The data axis's :class:`Place` where the plan shards weights
+        over it (``fsdp_axis``)."""
+        return self.place(self.fsdp_axis)
+
+    def rows_axis(self, rows: int):
+        """The axis ``rows`` decode slots split over: the batch rule's one
+        axis of size > 1, where its size divides ``rows``; else None (the
+        rows stay whole). Read from the layout's sizes."""
+        ax = self.rules.get("batch")
+        axes = [a for a in (ax if isinstance(ax, tuple) else (ax,))
+                if self.size_of(a) > 1]
+        if len(axes) != 1 or rows % self.size_of(axes[0]):
+            return None
+        return axes[0]
+
+    def rows_place(self, rows: int) -> Optional["Place"]:
+        """This rank's :class:`Place` along :meth:`rows_axis`, or None."""
+        return self.place(self.rows_axis(rows))
 
     @property
     def sp_degree(self) -> int:
@@ -153,6 +207,13 @@ class Parallelism:
             return 1
         return self.layout.axis_size(self.tp_axis)
 
+    def size_of(self, axis) -> int:
+        """``axis``'s size (1 for None or an axis the layout lacks)."""
+        if axis is None or self.layout is None or \
+                axis not in self.layout.axes:
+            return 1
+        return self.layout.axis_size(axis)
+
     def divisible(self, n: int) -> bool:
         return n % max(self.tp_size(), 1) == 0
 
@@ -169,6 +230,99 @@ class Parallelism:
         if self.sp is not None and self.sp_axes == (ax,):
             return self.sp
         return SPConfig(self.layout.group(ax), comm=self.comm)
+
+
+@dataclass(frozen=True)
+class Place:
+    """A rank's place along one axis: the axis's size, the rank's index
+    on it and the axis's process group."""
+
+    size: int
+    index: int
+    group: object
+
+
+# Mixers that compute every head under a plan's tensor parallelism: their
+# weights come gathered whole over model at use, their caches are stored
+# per cache_specs and gathered at use.
+GATHER_AT_USE = ("mamba2", "hymba", "cross")
+
+
+@dataclass(frozen=True)
+class LayerSplit:
+    """How one layer computes under a serving plan, decided once from the
+    model axis's size, the config's head counts and the layer's param
+    specs (:func:`layer_split`):
+
+    * ``whole``: the mixer computes every head (``GATHER_AT_USE``): its
+      leaves are gathered over model, its cache is gathered at use;
+    * ``q``, ``kv``: the q (kv) heads split over model; otherwise the rank
+      computes them all, its ``wq`` (``wk``, ``wv``) gathered at use where
+      the specs split the flattened columns anyway;
+    * ``wo``: ``wo`` holds the rank's rows (row-parallel, ``tp.mixer``);
+    * ``mlp``: the dense MLP holds the rank's ff columns (``tp.mlp``);
+    * ``moe``: an MoE MLP, gathered whole over model;
+    * ``size``, ``tp``: the model axis's size and the rank's
+      :class:`Place` on it (None without ranks or for size 1).
+    """
+
+    size: int = 1
+    tp: Optional[Place] = None
+    whole: bool = False
+    q: bool = False
+    kv: bool = False
+    wo: bool = False
+    mlp: bool = False
+    moe: bool = False
+
+    def heads(self, n: int, split: bool):
+        """``(heads, first head)`` of ``n`` heads that the rank computes:
+        its block where ``split``, else all of them."""
+        if not split or self.tp is None:
+            return n, 0
+        k = n // self.size
+        return k, self.tp.index * k
+
+    def gathered(self, path) -> bool:
+        """Whether the layer's leaf at ``path`` (``("mixer", "wq")``) is
+        gathered whole over model at use (tag ``tp.cols.<leaf>``)."""
+        if self.size == 1:
+            return False
+        if path[0] == "mixer":
+            return self.whole or (path[-1] == "wq" and not self.q) or \
+                (path[-1] in ("wk", "wv") and not self.kv)
+        return path[0] == "mlp" and self.moe
+
+
+def _entry(spec, dim: int):
+    return spec[dim] if dim < len(spec) else None
+
+
+def layer_split(cfg, spec, lspecs, plan: Optional[Parallelism]) -> LayerSplit:
+    """The :class:`LayerSplit` of layer ``spec`` (a ``LayerSpec``) of
+    ``cfg`` under ``plan``, ``lspecs`` its :func:`param_specs` (read only
+    under tensor parallelism). A linear mixer splits its q heads where the
+    model axis's size divides them; a softmax mixer where the size also
+    divides the kv heads or there is one kv head (MQA), as the GQA kernels
+    take them; kv heads split where the size divides them. Read from the
+    layout's sizes: the budgets use it without ranks."""
+    if plan is None or plan.layout is None:
+        return LayerSplit()
+    whole = spec.mixer in GATHER_AT_USE
+    size = plan.tp_size()
+    if size == 1:
+        return LayerSplit(whole=whole)
+    h, hkv = cfg.n_heads, cfg.n_kv_heads
+    kv = spec.mixer in ("linear", "softmax") and hkv % size == 0
+    q = h % size == 0 and (spec.mixer == "linear" or (
+        spec.mixer == "softmax" and (kv or hkv == 1)))
+    mixer = lspecs.get("mixer", {})
+    wo = not whole and "wo" in mixer and \
+        _entry(mixer["wo"], 0) == plan.tp_axis
+    mlp = spec.mlp == "dense" and \
+        _entry(lspecs["mlp"]["w1"], 1) == plan.tp_axis
+    return LayerSplit(size, plan.tp_place(), whole, q, kv, wo, mlp,
+                      spec.mlp == "moe")
 
 
 def local_plan() -> Parallelism:
@@ -229,6 +383,89 @@ def param_specs(params_tree, plan: Parallelism):
         return _spec_for("/".join(prefix), tuple(tree.shape), plan)
 
     return build(params_tree, ())
+
+
+def cache_specs(cache_tree, plan: Parallelism):
+    """Specs of a decode cache (``models.model.init_cache``'s tree; one
+    dict a layer, so no leading group dim): K/V over (batch, kv_heads,
+    cache_seq), states and their log decays over (batch, heads), conv
+    inputs over (batch, tp) on their channel dim, ``pos`` replicated, the
+    rest over batch. The reference keeps ``log_decay`` over batch only
+    (replicated over model); here it follows its state's heads, which
+    the rank's decode step advances alone."""
+    layout = plan.layout
+    b_ax = plan.rules.get("batch")
+
+    def spec_for(name, leaf):
+        if name == "pos":
+            return Spec()
+        if name in ("k", "v"):
+            dims = (b_ax, plan.rules.get("kv_heads"),
+                    plan.rules.get("cache_seq"), None)
+        elif name in ("m", "log_decay"):
+            dims = (b_ax, plan.rules.get("heads"), None, None)
+        elif name.startswith("conv_"):
+            dims = (b_ax, None, plan.tp_axis)
+        else:
+            dims = (b_ax,)
+        return fit_spec(layout, leaf.shape, Spec(*dims[:len(leaf.shape)]))
+
+    def build(tree, name):
+        if isinstance(tree, dict):
+            return {k: build(v, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [build(v, name) for v in tree]
+        return spec_for(name, tree)
+
+    return build(cache_tree, "")
+
+
+def _entry_axes(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_leaf(t, spec: Spec, layout: Layout, index=None, axes=None):
+    """This rank's slice of ``t`` along each entry of ``spec``: an entry's
+    axes (major first) index the slice by the rank's ``index`` (default
+    ``layout.index``). ``axes``: slice only entries made of these axes.
+    A view (narrowing keeps the storage)."""
+    index = layout.index if index is None else index
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        ents = _entry_axes(entry)
+        if axes is not None and not set(ents) <= set(axes):
+            continue
+        i = 0
+        for a in ents:
+            i = i * layout.axis_size(a) + index[a]
+        n = t.shape[dim] // layout.axis_size(entry)
+        t = t.narrow(dim, i * n, n)
+    return t
+
+
+def shard_tree(tree, specs, layout: Layout, index=None, axes=None):
+    """:func:`shard_leaf` over a tree and its spec tree, each slice a
+    tensor of its own (``clone``), so the whole leaf can be freed."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], layout, index, axes)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, layout, index, axes)
+                          for v, s in zip(tree, specs))
+    out = shard_leaf(tree, specs, layout, index, axes)
+    return out if out is tree else out.clone()
+
+
+def shard_params(params, plan: Parallelism, index=None):
+    """This rank's slice of every leaf of ``params`` (the whole tree) along
+    its :func:`param_specs` entry: the twin of the reference's
+    ``param_shardings`` on a rank. ``index`` ({Axis: int}; default the
+    layout's own) names a rank of a layout without ranks (the tests, on
+    meta tensors)."""
+    if plan.layout is None:
+        return params
+    return shard_tree(params, param_specs(params, plan), plan.layout, index)
 
 
 # ---------------------------------------------------------------------------

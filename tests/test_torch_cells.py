@@ -286,7 +286,8 @@ def test_dry_run_param_bytes_are_the_reference_specs(arch, tmp_path):
 def test_dry_run_writes_every_cell_with_the_reference_keys(tmp_path):
     """``run_all`` over ``ALL_IDS`` × ``SHAPES`` at 16×16 and 2×16×16:
     one JSON a cell, status ok, the reference's keys; a prefill cell's
-    collectives are its serving budget; the CLI runs one cell."""
+    collectives are its serving budget, its TP exchanges included; the
+    CLI runs one cell."""
     for multi in (False, True):
         res = dryrun.run_all(multi, str(tmp_path), archs=ALL_IDS)
         assert len(res) == len(ALL_IDS) * len(SHAPES)
@@ -298,6 +299,9 @@ def test_dry_run_writes_every_cell_with_the_reference_keys(tmp_path):
         assert all(k in rec for k in REF_KEYS), f.name
     rec = json.loads((tmp_path / "linear-llama3-1b__prefill_32k__16x16.json"
                       ).read_text())
-    assert rec["collectives"]["counts"] == {"all-gather": 17}
+    # 16 state gathers, prefill.last and tp.logits; tp.mixer and tp.mlp
+    # a layer and tp.embed (FSDP dropped: 1B fits the prefill budget)
+    assert rec["collectives"]["counts"] == {"all-gather": 18,
+                                            "all-reduce": 33}
     assert dryrun.main(["--arch", "granite-34b", "--shape", "decode_32k",
                         "--out", str(tmp_path / "cli")]) == 0

@@ -23,8 +23,21 @@ packages and take 4e-2; a bf16 model's states take
 largest magnitude, an entry near zero being a sum of rounded products of
 large terms), greedy tokens exact. Tapes: every rank's equals
 the ``comm.budget`` of what it ran, and its rows (op, tag, payload) the
-reference's, apart from the port's own (``PORT_ONLY_TAGS``: what GSPMD
-moves without a named primitive).
+reference's, apart from the port's own (``PORT_ONLY_TAGS`` and the
+placements' exchanges, ``PLACEMENT_TAGS``: what GSPMD moves without a
+named primitive).
+
+Every plan's placements are applied: a rank holds its shard of the
+weights and of the cache, and its Σ ``nbytes`` of each equals the dry
+run's ``memory_report`` for that plan. The same 4-rank spawn also runs
+the (2, 2) (data, model) prefill and decode plans and the (1, 4) decode
+plan (``torch_serve_ranks.PLACED``: FSDP over data, heads, kv heads, ff
+and vocab over model, decode slots over data) on linear, its hybrid, GLA
+and granite against the reference outputs above for the same params and
+tokens (a plan does not change the function), mamba2 and MoE SMOKE
+(gathered whole over model at use) against the reference's prefill-plan
+output and the port's one-device path, and the engines' greedy tokens
+against the reference's engines.
 """
 
 import os
@@ -87,7 +100,22 @@ def _rows(want, key):
 
 
 def _fwd(rows, port_only=R.PORT_ONLY_TAGS):
-    return sorted(r for r in rows if r.split("|")[1] not in port_only)
+    """Tape rows without the port's own: what the reference records."""
+    return sorted(r for r in rows if r.split("|")[1] not in port_only
+                  and not R.placed(r.split("|")[1]))
+
+
+def _times(rows, factor):
+    """Rows with every payload ``factor`` times as large."""
+    out = []
+    for r in rows:
+        op, tag, nbytes = r.split("|")
+        out.append(f"{op}|{tag}|{int(nbytes) * factor}")
+    return sorted(out)
+
+
+def _unplaced(rows):
+    return sorted(r for r in rows if not R.placed(r.split("|")[1]))
 
 
 @pytest.mark.parametrize("cache_len", R.CACHE_LENS)
@@ -125,7 +153,10 @@ def test_dense_sp_forward_under_prefill_plan_matches_reference(ref):
     """starcoder2-15b SMOKE (bf16) under the prefill plan of the (4, 2)
     layout: each rank's chunk of the logits, put back in sequence order,
     within 2e-2 of the reference's forward under the same plan (and of
-    its one-device forward); the model axis's two ranks agree exactly."""
+    its one-device forward); the model axis's two ranks agree exactly.
+    Each rank holds its shard of the weights (FSDP over 4, heads and
+    vocab over 2), ``memory_report``'s bytes; its K/V gathers move its
+    own kv heads, half the reference's payload."""
     want, ranks = ref
     chunks = {}
     for r, res in enumerate(ranks[8]):
@@ -141,7 +172,13 @@ def test_dense_sp_forward_under_prefill_plan_matches_reference(ref):
     for key in ("logits_sp", "logits_local"):
         np.testing.assert_allclose(got[..., :v], want[f"starcoder/{key}"],
                                    rtol=TOL_FWD_BF16, atol=TOL_FWD_BF16)
-    assert ranks[8][0]["tape"] == _rows(want, "starcoder/tape")
+    # each model rank gathers its own kv heads: the reference's K/V
+    # gathers see every head (its model axis is not manual there)
+    assert _times(_fwd(ranks[8][0]["tape"]), 2) == _rows(want,
+                                                         "starcoder/tape")
+    for res in ranks[8]:
+        held, report = res["held"]
+        assert held == report, (held, report)
 
 
 def _check_cache(got, want_prefix, want, tol):
@@ -225,13 +262,17 @@ def test_left_padded_prefill_splits_across_chunks(ref):
 
 def test_decode_plan_slices_the_ring_over_model(ref):
     """granite-34b SMOKE (MQA, 1 KV head) under the decode plan of the
-    (1, 4) layout: the prompt prefills locally (no SP, an empty tape), the
-    128-slot ring is sliced 4 ways over the model group, and 3 decode
-    steps merge it: logits and the gathered ring within the reference's;
-    the decode tape is the merge's budget and the reference's rows."""
+    (1, 4) layout: the prompt prefills without SP (a tape of the TP
+    placements' exchanges alone, its budget), the 128-slot ring is sliced
+    4 ways over the model group, and 3 decode steps merge it (every q head
+    gathered, ``tp.q``): logits and the gathered ring within the
+    reference's; the decode tape is the budget and, without the
+    placements' rows, the reference's."""
     want, ranks = ref
     for res in ranks[4]:
-        assert res["dprefill/tape"] == []
+        assert res["dprefill/tape"] and all(
+            R.placed(r.split("|")[1]) for r in res["dprefill/tape"])
+        assert res["dprefill/budget"] == []
         np.testing.assert_allclose(res["dprefill/logits"],
                                    want["dprefill/logits"],
                                    rtol=TOL["float32"], atol=TOL["float32"])
@@ -241,8 +282,8 @@ def test_decode_plan_slices_the_ring_over_model(ref):
                                    want["dprefill/steps"],
                                    rtol=TOL["float32"], atol=TOL["float32"])
         assert res["dprefill/decode_budget"] == []
-        assert res["dprefill/decode_tape"] == _rows(want,
-                                                    "dprefill/decode_tape")
+        assert _unplaced(res["dprefill/decode_tape"]) == _rows(
+            want, "dprefill/decode_tape")
 
 
 @pytest.mark.parametrize("name", ["linear", "hybrid", "granite"])
@@ -283,8 +324,89 @@ def test_prefill_tape_is_the_budget_and_the_reference_rows(ref, name):
         for eng in ("linear", "hybrid"):
             assert _fwd(res[f"engine/{eng}/tape"]) == _rows(
                 want, f"engine/{eng}/tape")
-        assert res["engine/granite/tape"] == _rows(want,
-                                                   "engine/granite/tape")
+        assert _unplaced(res["engine/granite/tape"]) == _rows(
+            want, "engine/granite/tape")
+        assert any(r.split("|")[1].startswith("fsdp.")
+                   for r in res[f"prefill/{name}/tape"])
+
+
+def _want(name):
+    """The reference's key prefix holding ``name``'s outputs: its prefill
+    plan's, granite's under its decode plan."""
+    return "dprefill" if name == "granite" else f"prefill/{name}"
+
+
+@pytest.mark.parametrize("key,name", [
+    (key, name) for key, _, _ in R.PLACED for name in R.PLACED_CFGS[key]])
+def test_placed_plan_matches_reference(ref, key, name):
+    """Under the (2, 2) prefill and decode plans and the (1, 4) decode
+    plan every rank holds its shard of the weights (FSDP over data;
+    heads, kv heads, ff and vocab over model) and its cache slice, and
+    ``M.prefill`` + 3 decode steps give the reference's logits, cache
+    (gathered back leaf by leaf over the axes its specs split) and steps
+    for the same params and tokens within 3e-4. mamba2 and MoE, gathered
+    whole over model at use (``tp.cols.*``, ``tp.cache.*``), match the
+    reference's prefill-plan output and the port's one-device path
+    (``test_torch_moe.py`` holds that to the reference). Held params (and
+    under the prefill plan the prefill's cache) equal the dry run's
+    ``memory_report`` byte for byte; every tape is within
+    ``serve_prefill_budget`` / ``serve_decode_budget``, with ``fsdp.*``
+    rows exactly where the plan places weights over data of size > 1 and
+    ``tp.*`` rows where the model axis is > 1."""
+    want, ranks = ref
+    tol = TOL["float32"]
+    dims = dict((k, d) for k, d, _ in R.PLACED)[key]
+    for res in ranks[4]:
+        out = f"{key}/{name}"
+        if name == "moe":
+            w_logits, w_steps = res[f"{out}/want"]
+            np.testing.assert_allclose(res[f"{out}/logits"], w_logits,
+                                       rtol=tol, atol=tol)
+            np.testing.assert_allclose(res[f"{out}/steps"], w_steps,
+                                       rtol=tol, atol=tol)
+            w_cache = {f"moe/{k}": v for k, v in
+                       _flat(res[f"{out}/want_cache"]).items()}
+            _check_cache(res[f"{out}/cache"], "moe/", w_cache, tol)
+            assert any(t.startswith("tp.cols.mlp.experts.")
+                       for t in res[f"{out}/tags"])
+        else:
+            np.testing.assert_allclose(res[f"{out}/logits"],
+                                       want[f"{_want(name)}/logits"],
+                                       rtol=tol, atol=tol)
+            _check_cache(res[f"{out}/cache"], f"{_want(name)}/cache/", want,
+                         tol)
+            np.testing.assert_allclose(res[f"{out}/steps"],
+                                       want[f"{_want(name)}/steps"],
+                                       rtol=tol, atol=tol)
+        assert res[f"{out}/budget"] == [[], []]
+        held, report = res[f"{out}/held"]
+        assert held == report, (held, report)
+        tags = res[f"{out}/tags"]
+        assert any(t.startswith("fsdp.") for t in tags) == (dims[0] > 1)
+        assert any(t.startswith("tp.") for t in tags) == (dims[1] > 1)
+
+
+@pytest.mark.parametrize("key,name", [
+    (key, name) for key, _, _ in R.PLACED for name in R.PLACED_ENGINES])
+def test_placed_engine_matches_reference(ref, key, name):
+    """``ServeEngine(plan=)`` under each placing plan: the reference
+    engines' greedy tokens on every rank; the rank's held params and slot
+    grid equal ``memory_report`` of the decode cell; the tape within the
+    budgets of each admitted batch and decode step; decode slots split
+    over data (the (2, 2) decode plan: 2 of the 4 a rank, the sampled
+    tokens gathered, ``serve.tokens``) and nowhere else."""
+    want, ranks = ref
+    kind = dict((k, c) for k, _, c in R.PLACED)[key]
+    dims = dict((k, d) for k, d, _ in R.PLACED)[key]
+    for res in ranks[4]:
+        out = f"{key}/{name}"
+        np.testing.assert_array_equal(res[f"{out}/engine"],
+                                      want[f"engine/{name}"])
+        held, report = res[f"{out}/engine_held"]
+        assert held == report, (held, report)
+        assert res[f"{out}/engine_budget"] == []
+        assert ("serve.tokens" in res[f"{out}/engine_tags"]) == \
+            (kind == "decode" and dims[0] > 1)
 
 
 # ---------------------------------------------------------------------------

@@ -243,3 +243,94 @@ def test_param_specs_match_reference(arch):
             got = _port_leaves(T.param_specs(
                 params, T.make_plan(_layout(layout), kind, **kw)))
             assert got == want, (layout, kind)
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, list) else tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+def test_shard_params_bytes_are_the_dry_runs(arch):
+    """``shard_params`` on the production 16×16 layout (meta tensors, no
+    ranks: the rank named by ``index``): under the prefill and decode
+    plans every rank's Σ ``nbytes`` equals ``launch.dryrun._sharded_bytes``
+    of the same params and specs, the bytes the dry run reports a rank
+    holds, and each leaf's shard is its spec's fraction of it."""
+    import torch
+
+    from repro_torch.launch.dryrun import _sharded_bytes
+    layout = make_production_mesh()
+    cfg = get_config(arch)
+    params = TM.init_params(None, cfg, device="meta")
+    for kind in ("prefill", "decode"):
+        plan = T.make_plan(layout, kind, global_batch=32,
+                           n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                           params_bytes=cfg.param_count() * 2)
+        specs = T.param_specs(params, plan)
+        want = _sharded_bytes(params, specs, layout)
+        for d, m in ((0, 0), (15, 15), (3, 12)):
+            local = T.shard_params(params, plan,
+                                   index={Axis.DATA: d, Axis.MODEL: m})
+            got = sum(t.numel() * t.element_size()
+                      for _, t in _leaves(local))
+            assert got == want, (kind, d, m)
+        for path, t in _leaves(local):
+            n = 1
+            for e in _at(specs, path):
+                n *= layout.axis_size(e) if e is not None else 1
+            assert t.device == torch.device("meta")
+            assert t.numel() * n == _at(params, path).numel(), path
+
+
+@pytest.mark.parametrize("arch", ALL_IDS)
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_shard_params_shards_rebuild_every_leaf(arch, kind):
+    """SMOKE params on a (2, 2) (data, model) layout: concatenating every
+    leaf's shards over the four ranks, along each dim in its spec's axis
+    order, rebuilds the leaf exactly; ranks that differ only along an
+    axis the leaf's spec does not name hold equal shards."""
+    import torch
+
+    from repro_torch.configs import get_smoke
+    layout = Layout((Axis.DATA, Axis.MODEL), (2, 2))
+    cfg = get_smoke(arch)
+    plan = T.make_plan(layout, kind, n_kv_heads=cfg.n_kv_heads)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    specs = T.param_specs(params, plan)
+    shards = {(d, m): T.shard_params(params, plan,
+                                     index={Axis.DATA: d, Axis.MODEL: m})
+              for d in range(2) for m in range(2)}
+    split = 0
+    for path, whole in _leaves(params):
+        spec = _at(specs, path)
+        named = [(dim, e) for dim, e in enumerate(spec) if e is not None]
+        split += bool(named)
+
+        def cat(fixed, rest):
+            if not rest:
+                idx = (fixed.get(Axis.DATA, 0), fixed.get(Axis.MODEL, 0))
+                return _at(shards[idx], path)
+            dim, ax = rest[0]
+            return torch.cat([cat({**fixed, ax: i}, rest[1:])
+                              for i in range(layout.axis_size(ax))], dim=dim)
+
+        assert torch.equal(cat({}, named), whole), path
+        for (d, m), tree in shards.items():
+            idx = (d if Axis.DATA in spec else 0,
+                   m if Axis.MODEL in spec else 0)
+            assert torch.equal(_at(tree, path), _at(shards[idx], path))
+    assert split > 0

@@ -36,6 +36,21 @@ PREFILL_CFGS = ("linear", "linear_bf16", "hybrid", "hybrid_ulysses", "gla",
 # without a named primitive (``comm.budget``)
 PORT_ONLY_TAGS = ("prefill.last", "mamba2.conv", "ring.k", "ring.v",
                   "ring_decode.o", "ring_decode.m", "ring_decode.l")
+# ... among them the weight, vocab, cache and slot placements' exchanges,
+# by tag prefix
+PLACEMENT_TAGS = ("fsdp.", "tp.", "cache_seq.", "serve.tokens")
+
+# the placing plans of the 4 ranks, (name, layout dims, kind), and the
+# configs each runs: prefill + 3 decode steps against the reference's
+# outputs for the same params and tokens (a plan does not change the
+# function); the engines' greedy tokens against the reference's engines
+PLACED = (("p22", (2, 2), "prefill"), ("d22", (2, 2), "decode"),
+          ("d14", (1, 4), "decode"))
+PLACED_CFGS = {"p22": ("linear", "hybrid", "gla", "granite", "mamba2",
+                       "moe"),
+               "d22": ("linear", "hybrid", "gla", "granite"),
+               "d14": ("linear", "hybrid", "gla")}
+PLACED_ENGINES = ("linear", "hybrid", "granite")
 
 
 def strategy(name):
@@ -74,6 +89,9 @@ def make_cfg(name, get_smoke, layer_spec, linear_attn_config):
         return dataclasses.replace(get_smoke("granite-34b"), dtype="float32")
     if name == "starcoder":
         return get_smoke("starcoder2-15b")
+    if name == "moe":
+        return dataclasses.replace(get_smoke("moonshot-v1-16b-a3b"),
+                                   dtype="float32")
     raise KeyError(name)
 
 
@@ -121,7 +139,13 @@ def tape_rows(records):
     return sorted({f"{r.op}|{r.tag}|{r.payload_bytes}" for r in records})
 
 
-def _params(npz, name, cfg):
+def placed(tag):
+    """True for a placement's exchange (``PLACEMENT_TAGS``)."""
+    return any(tag == t or (t.endswith(".") and tag.startswith(t))
+               for t in PLACEMENT_TAGS)
+
+
+def _params(npz, name, cfg, plan=None):
     from repro_torch.models.weights import params_from_jax
     prefix = f"param/{name}/"
     flat = {k[len(prefix):]: npz[k] for k in npz.files
@@ -136,7 +160,7 @@ def _params(npz, name, cfg):
     tree = _lists(tree)
     return params_from_jax(tree, cfg, device="cpu",
                            dtype=torch.float32 if cfg.dtype == "float32"
-                           else None)
+                           else None, plan=plan)
 
 
 def _lists(node):
@@ -234,9 +258,9 @@ def serve_rank(rank, world, device, npz_path):
         toks = torch.from_numpy(prefill_tokens())
         for name in PREFILL_CFGS:
             cfg = port_cfg(name)
-            params = _params(npz, name, cfg)
             pplan = make_plan(prefill_lay, "prefill", n_kv_heads=4,
                               comm=CommSpec(strategy(name)))
+            params = _params(npz, name, cfg, pplan)
             with primitives.tape() as rec:
                 logits, cache = M.prefill(params, toks, cfg, pplan,
                                           max_len=MAX_LEN)
@@ -246,7 +270,7 @@ def serve_rank(rank, world, device, npz_path):
             res[f"prefill/{name}/tape"] = tape_rows(rec)
             res[f"prefill/{name}/budget"] = B.check_budget(
                 rec, B.serve_prefill_budget(cfg, pplan, b=PREFILL_B,
-                                            s=PREFILL_S))
+                                            s=PREFILL_S, params=_shapes(cfg)))
             steps = []
             with primitives.tape() as rec:
                 for tok in decode_tokens():
@@ -256,12 +280,12 @@ def serve_rank(rank, world, device, npz_path):
             res[f"prefill/{name}/steps"] = np.stack(steps)
             res[f"prefill/{name}/decode_budget"] = B.check_budget(
                 rec, B.combine([B.serve_decode_budget(
-                    cfg, pplan, b=PREFILL_B, max_len=MAX_LEN)]
-                    * DECODE_STEPS))
+                    cfg, pplan, b=PREFILL_B, max_len=MAX_LEN,
+                    params=_shapes(cfg))] * DECODE_STEPS))
         # left padding across chunks (CONFIG is pad-safe)
         pplan = make_plan(prefill_lay, "prefill", n_kv_heads=4)
         cfg = port_cfg("linear")
-        params = _params(npz, "linear", cfg)
+        params = _params(npz, "linear", cfg, pplan)
         logits, cache = M.prefill(params, toks, cfg, pplan, max_len=MAX_LEN,
                                   pad_lens=torch.tensor(PAD_LENS))
         res["pad/logits"] = logits.numpy()
@@ -269,14 +293,15 @@ def serve_rank(rank, world, device, npz_path):
         # the decode plan: granite (MQA) prefills locally, its ring sliced
         dplan = make_plan(decode_lay, "decode", n_kv_heads=1)
         cfg = port_cfg("granite")
-        params = _params(npz, "granite", cfg)
+        params = _params(npz, "granite", cfg, dplan)
         with primitives.tape() as rec:
             logits, cache = M.prefill(params, toks, cfg, dplan,
                                       max_len=MAX_LEN)
         res["dprefill/tape"] = tape_rows(rec)
+        res["dprefill/budget"] = B.check_budget(rec, B.serve_prefill_budget(
+            cfg, dplan, b=PREFILL_B, s=PREFILL_S, params=_shapes(cfg)))
         res["dprefill/logits"] = logits.numpy()
-        res["dprefill/cache"] = _gathered_cache(cache,
-                                                dplan.cache_sp().group)
+        res["dprefill/cache"] = _placed_cache(cache, cfg, dplan)
         steps = []
         with primitives.tape() as rec:
             for tok in decode_tokens():
@@ -286,21 +311,192 @@ def serve_rank(rank, world, device, npz_path):
         res["dprefill/steps"] = np.stack(steps)
         res["dprefill/decode_tape"] = tape_rows(rec)
         res["dprefill/decode_budget"] = B.check_budget(
-            rec, B.combine([B.serve_decode_budget(cfg, dplan, b=PREFILL_B,
-                                                  max_len=MAX_LEN)]
-                           * DECODE_STEPS))
+            rec, B.combine([B.serve_decode_budget(
+                cfg, dplan, b=PREFILL_B, max_len=MAX_LEN,
+                params=_shapes(cfg))] * DECODE_STEPS))
         # the engines: both plans against the reference's engines
         for name, plan in (("linear", pplan), ("hybrid", pplan),
                            ("granite", dplan)):
             cfg = port_cfg(name)
-            params = _params(npz, name, cfg)
+            params = _params(npz, name, cfg, plan)
             eng = ServeEngine(cfg, params, plan=plan, max_len=MAX_LEN,
                               max_batch=4, device="cpu")
             with primitives.tape() as rec:
                 res[f"engine/{name}"] = eng.generate(prompts(), NEW_TOKENS)
             res[f"engine/{name}/tape"] = tape_rows(rec)
             res[f"engine/{name}/kv_bytes"] = eng.cache_stats()["kv_ring"]
+        res.update(_placed_cases(npz, toks))
     return res
+
+
+def _held(tree) -> int:
+    from repro_torch.core.tree import leaves_with_paths
+    return sum(t.numel() * t.element_size()
+               for _, t in leaves_with_paths(tree))
+
+
+def _report(cfg, plan, kind, b, max_len):
+    """``launch.dryrun.memory_report`` of a ``kind`` cell of ``b`` rows and
+    ``max_len`` tokens placed by ``plan``, the rank's own."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import memory_report
+    cell = build_cell(cfg.name, None, plan.layout, cfg_override=cfg,
+                      shape=ShapeConfig("rank", max_len, b, kind),
+                      plan=plan,
+                      run=RunConfig(infer_bf16=cfg.dtype == "bfloat16"))
+    return memory_report(cell)
+
+
+def _placed_cache(cache, cfg, plan):
+    """A cache gathered back whole, as numpy: every leaf over each axis
+    its ``cache_specs`` entry splits where the rank holds a slice (rows,
+    heads, ring slots, conv channels)."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import cache_specs
+    b = cache["pos"].shape[0]
+    ring = max([c["mixer"]["kpos"].shape[1] for c in cache["layers"]
+                if "kpos" in c["mixer"]] + [1])
+    whole = M.init_cache(cfg, b, ring, device="meta")
+    specs = cache_specs(whole, plan)
+
+    def walk(node, w, spec):
+        if isinstance(node, dict):
+            return {k: walk(node[k], w[k], spec[k]) for k in node}
+        if isinstance(node, list):
+            return [walk(*z) for z in zip(node, w, spec)]
+        for dim, entry in enumerate(spec):
+            if entry is None or node.shape[dim] == w.shape[dim]:
+                continue
+            axis = entry[0] if isinstance(entry, tuple) else entry
+            node = primitives.allgather_states(
+                node.contiguous(), plan.place(axis).group, gather_axis=dim,
+                tiled=True, tag="test.gather")
+        return np.array(node.float() if node.is_floating_point() else node)
+    return walk(cache, whole, specs)
+
+
+def _placed_cases(npz, toks):
+    """Every placing plan of ``PLACED`` on its configs: this rank's held
+    params and cache bytes against the dry run's ``memory_report``, its
+    tapes against the extended budgets, prefill + decode steps with the
+    cache gathered back, and the engines' greedy tokens."""
+    from repro_torch.comm import budget as B
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import make_plan
+    res = {}
+    for key, dims, kind in PLACED:
+        lay = _layout(dims)
+        for name in PLACED_CFGS[key] + tuple(
+                n for n in PLACED_ENGINES if n not in PLACED_CFGS[key]):
+            cfg = port_cfg(name)
+            plan = make_plan(lay, kind, n_kv_heads=cfg.n_kv_heads,
+                             n_heads=cfg.n_heads)
+            if name == "moe":
+                params = _moe_params(cfg, plan)
+            else:
+                params = _params(npz, name, cfg, plan)
+            out = f"{key}/{name}"
+            if name in PLACED_CFGS[key]:
+                with primitives.tape() as rec:
+                    logits, cache = M.prefill(params, toks, cfg, plan,
+                                              max_len=MAX_LEN)
+                res[f"{out}/logits"] = logits.float().numpy()
+                res[f"{out}/cache"] = _placed_cache(cache, cfg, plan)
+                res[f"{out}/tags"] = sorted({r.tag for r in rec})
+                budgets = [B.check_budget(rec, B.serve_prefill_budget(
+                    cfg, plan, b=PREFILL_B, s=PREFILL_S,
+                    params=_shapes(cfg)))]
+                held = {"params": _held(params)}
+                report = _report(cfg, plan, kind, PREFILL_B, MAX_LEN)
+                if kind == "prefill":
+                    held["cache"] = _held(cache)
+                steps = []
+                with primitives.tape() as rec:
+                    for tok in decode_tokens():
+                        lg, cache = M.decode_step(
+                            params, torch.from_numpy(tok), cache, cfg, plan)
+                        steps.append(lg.float().numpy())
+                res[f"{out}/steps"] = np.stack(steps)
+                budgets.append(B.check_budget(rec, B.combine(
+                    [B.serve_decode_budget(cfg, plan, b=PREFILL_B,
+                                           max_len=MAX_LEN,
+                                           params=_shapes(cfg))]
+                    * DECODE_STEPS)))
+                res[f"{out}/budget"] = budgets
+                res[f"{out}/held"] = (held, {k: report[k] for k in held})
+                if name == "moe":
+                    whole = _moe_params(cfg, None)
+                    want_l, want_c = M.prefill(whole, toks, cfg,
+                                               max_len=MAX_LEN)
+                    res[f"{out}/want_cache"] = _gathered_cache(want_c, None)
+                    want = []
+                    for tok in decode_tokens():
+                        lg, want_c = M.decode_step(
+                            whole, torch.from_numpy(tok), want_c, cfg)
+                        want.append(lg.float().numpy())
+                    res[f"{out}/want"] = (want_l.numpy(), np.stack(want))
+            if name in PLACED_ENGINES:
+                eng = _Recorded(cfg, params, plan=plan, max_len=MAX_LEN,
+                                max_batch=4, device="cpu")
+                with primitives.tape() as rec:
+                    res[f"{out}/engine"] = eng.generate(prompts(),
+                                                        NEW_TOKENS)
+                report = _report(cfg, plan, "decode", 4, MAX_LEN)
+                res[f"{out}/engine_held"] = (
+                    (_held(params), _held(eng._cache)),
+                    (report["params"], report["cache"]))
+                res[f"{out}/engine_tags"] = sorted({r.tag for r in rec})
+                res[f"{out}/engine_budget"] = B.check_budget(
+                    rec, _engine_budget(cfg, plan, eng))
+    return res
+
+
+def _Recorded(*args, **kw):
+    """A ``ServeEngine`` that keeps each admitted prefill batch's (rows,
+    length) in ``admitted``."""
+    from repro_torch.serve.engine import ServeEngine
+
+    class Recorded(ServeEngine):
+        def _admit(self, batch):
+            self.admitted.append(tuple(batch.prompts.shape))
+            return super()._admit(batch)
+
+    eng = Recorded(*args, **kw)
+    eng.admitted = []
+    return eng
+
+
+def _shapes(cfg):
+    """``cfg``'s whole params on meta: the shapes the budgets read."""
+    from repro_torch.models import model as M
+    return M.init_params(None, cfg, device="meta")
+
+
+def _moe_params(cfg, plan):
+    """MoE SMOKE params drawn from seed 0 (the reference holds the port's
+    one-device MoE, ``test_torch_moe.py``), this rank's shard under
+    ``plan``."""
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import shard_params
+    params = M.init_params(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    return params if plan is None else shard_params(params, plan)
+
+
+def _engine_budget(cfg, plan, eng):
+    """An engine run's budget: each prefill batch's and each decode
+    step's (``stats()`` counts them; the batches are (rows, length) of
+    the prompts admitted together)."""
+    from repro_torch.comm import budget as B
+    shapes = _shapes(cfg)
+    parts = [B.serve_prefill_budget(cfg, plan, b=b, s=s, params=shapes)
+             for b, s in eng.admitted]
+    parts += [B.serve_decode_budget(cfg, plan, b=eng.max_batch,
+                                    max_len=eng.max_len, engine=True,
+                                    params=shapes)] * \
+        int(eng.stats()["decode_steps"])
+    return B.combine(parts)
 
 
 def forward_rank(rank, world, device, npz_path):
@@ -313,10 +509,12 @@ def forward_rank(rank, world, device, npz_path):
     plan = make_plan(lay, "prefill", global_batch=2,
                      n_kv_heads=cfg.n_kv_heads)
     with np.load(npz_path) as npz:
-        params = _params(npz, "starcoder", cfg)
+        params = _params(npz, "starcoder", cfg, plan)
         toks = torch.from_numpy(npz["starcoder/tokens"])
     with primitives.tape() as rec:
         out = M.forward(params, toks, cfg, plan)
+    report = _report(cfg, plan, "prefill", toks.shape[0], toks.shape[1])
     return {"logits": out.float().numpy(), "tape": tape_rows(rec),
             "index": (lay.index, plan.sp.chunk_index),
-            "places": _places(lay)}
+            "places": _places(lay),
+            "held": (_held(params), report["params"])}
