@@ -124,14 +124,15 @@ line:
    token), each against its plain version and timed (K1, K2a, K2b:
    (128, 64) on ``sm90``, (16, 64) on ``simt`` in bf16 and fp32), and
    K4, K5a, K5b timed at hymba's shape (their parity runs in phase 3);
-   (b) mamba2, cut to 32 of its 64 layers (``MAMBA2_LAYERS``), serves
-   phase 4's requests by left-padded buckets (K1 and K3 32 a call,
+   (b) mamba2, cut to 20 of its 64 layers (``MAMBA2_LAYERS``), serves
+   phase 4's requests by left-padded buckets (K1 and K3 20 a call,
    ``sm90``; the reference's cache bytes per layer) with phase 4's
    decode check and a profile; (c) hymba, cut to 24 of its 32 layers
    (``HYMBA_LAYERS``), the same by exact length (K1 24 on ``simt``, K4
    24, K3 24), globals 0, 8, 16, the gap on a 1100-token prompt past the
    1024 window; (d) both
-   train 5 steps as phase 7 under full remat at lr 1e-4; (e) fp32 grad
+   train 4 steps as phase 7 under full remat at lr 1e-4 (their steps are
+   not profiled: PERF.md §5 keeps an earlier profile); (e) fp32 grad
    checks of 2 layers of each against the host CPU;
 14. zoo, the decoder-only zoo and MoE, each ``CONFIG`` cut to 2 layers at
    full width (random weights from a seed): codeqwen1.5-7b and
@@ -171,7 +172,7 @@ line:
    and trains (K1, K2a, K2b, K3 in
    the decoder, K4, K5a, K5b in the encoder and cross layers);
 16. runtime, the runtime subsystems on the full-width train path
-   (``CONFIG``, full depth, phase 7's ``RunConfig``, data and lr, 5 steps
+   (``CONFIG``, full depth, phase 7's ``RunConfig``, data and lr, 4 steps
    through ``train()`` a run): (a) the guard: a run with NaN gradients
    at step 2 (it must skip step 2 only; the per-leaf fingerprint of the
    params and moments, taken on the card, must not move across it), a
@@ -179,13 +180,14 @@ line:
    to phase 7's, ``GuardAbort`` at step 2 with two consecutive NaN
    steps, then the clean guarded run, its step p50 beside phase 7's; K1,
    K2a, K2b 32 a step each on ``sm90``; (b) that run's JSONL: compile,
-   step × 5, summary, each step's MFU = model FLOPs / (wall × 989e12)
+   step × 4, summary, each step's MFU = model FLOPs / (wall × 989e12)
    within 1%; (e) the serve CLI (``--ckpt-dir``, ``--metrics-out``) on a
    checkpoint of that run's final params (the subtree the CLI restores,
    5.3 GB): the restored step printed, its greedy tokens equal to an
    engine's on the params in memory, K1 and K3 on ``sm90``, request
    records and a summary in the JSONL; on the 2-layer cut (full width,
-   0.63 B params, 7.5 GB a checkpoint): (c) 4 steps with a checkpoint
+   its embedding and head tied: 0.36 B params, 4.3 GB a checkpoint,
+   where untied they take 7.5 GB): (c) 4 steps with a checkpoint
    every 2 (the loop's ``save_async``: each one's host copy and disk
    write timed), that run's final state overwritten with NaN (0 for
    integer leaves) and restored with verification from its newest
@@ -232,7 +234,7 @@ line:
    ``HYBRID`` whole: TP 4, heads 4 of 16, ff 1376, vocab 32064 a rank;
    (d) the (2, 2) layout's prefill and decode plans on 2-layer cuts of
    both (FSDP over data, TP 2, the decode plan's 4 slots 2 a rank), 4
-   requests, 4 greedy tokens. Every rank's tape equals ``comm.budget``'s
+   requests, 2 greedy tokens. Every rank's tape equals ``comm.budget``'s
    serving budgets; its held params and slot grid equal the dry run's
    ``memory_report`` for its plan, byte for byte; K1, K3, K4 launches per
    path, all ``sm90``; in (a), (b), (d) rank 0's sampled logits within
@@ -242,7 +244,21 @@ line:
    against the limit, and the same plan in fp32 (``SERVE_SP_FP32_NEW``
    tokens) within ``TOL_LOGITS_EXACT`` of the one-device fp32 engine,
    every argmax equal, with the bf16 plan as the control the limit must
-   fail; walls and peaks per rank;
+   fail; (e)-(h) the pieces that compute on the rank's shard, each held
+   as (c) in fp32 (its caches fp32 too) and its bf16 logged: (e)
+   mamba2-2.7b cut to 16 layers under the (1, 4) decode plan, 20 of 80
+   SSD heads a rank (K1 and K3 on them, ``sm90``; the group norm's
+   statistic and the conv caches of B and C exchanged), prompts 1024 and
+   300, 16 tokens; (f) Linear-MoE's 2-layer cut at ``CONFIG`` capacity
+   (items drop) under that plan, 16 of 64 experts a rank and one
+   ``tp.experts`` all-reduce a layer, the one-device replays routed by
+   the plan run's experts (``_Routes(force=)``); (g) hymba's global and
+   windowed layer under the (1, 4) prefill plan's batch-over-model
+   branch (25 heads): four 1024-token prompts, each rank prefilling and
+   decoding its row (K1 on ``simt``); (h) whisper-base whole, gates 1.0,
+   under the (1, 4) decode plan through the static path: every decoder,
+   cross and encoder layer on 2 of its 8 heads, no leaf gathered whole
+   (``_serve_sp_static``); walls and peaks per rank;
 19. analysis, the port's checks on the card: (a) the PAL301 guard-band
    battery (``analysis.kernel_check``) over every route of all seven
    kernels, zero findings; (b) the step sanitizer (SAN201, SAN202,
@@ -1199,9 +1215,17 @@ def _log_decays(cache):
             if path[-1] == "log_decay"]
 
 
+# ``--phases``: the phases a partial run drives (None: all of them)
+PHASES = None
+
+
 def _count(kernels, name, path, n):
-    """Add the launches a path made of kernel ``name`` to its entry."""
-    entry = next(k for k in kernels if k["name"] == name)
+    """Add the launches a path made of kernel ``name`` to its entry (a
+    partial run without phase 3 adds the entry)."""
+    entry = next((k for k in kernels if k["name"] == name), None)
+    if entry is None and PHASES is not None:
+        entry = {"name": name, "launches": None}
+        kernels.append(entry)
     entry["launches"] = (entry["launches"] or 0) + n
     entry.setdefault("launches_by_path", {})[path] = n
 
@@ -1731,7 +1755,7 @@ def train_setup(cfg, steps: int, lr: float, remat: str = "none",
 def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
                 lr: float = 3e-4, remat: str = "none",
                 batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
-                require_fall: bool = True) -> list:
+                require_fall: bool = True, profile: bool = True) -> list:
     """``steps`` steps through ``train()``: fp32 masters drawn on the card
     from seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token
     row, so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
@@ -1741,7 +1765,8 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     warm-up steps, cosine over ``steps``; ``batch`` and ``micro`` cut the
     tokens a step where the model needs it (never the width). The loss
     must fall unless ``require_fall`` is False (3 steps, 2 of them
-    warm-up). Returns the history (one metrics dict a step)."""
+    warm-up). With ``profile`` one more step is profiled (PERF.md §5).
+    Returns the history (one metrics dict a step)."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
@@ -1811,6 +1836,8 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
         tokens_per_s=f"{tokens / p50:.0f}",
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
 
+    if not profile:
+        return hist
     step_fn = make_train_step(cfg, run)
     step_batch = data.microbatched(steps, micro)
 
@@ -2849,15 +2876,16 @@ SSD_CHUNK_CASES = [("mamba2", torch.bfloat16, 512),
 # The reference's init_cache sizes at 4 slots (max_len 544; mamba2's the
 # same at 4096), for mamba2 at its 64 layers; each layer holds 1/64.
 MAMBA2_CACHE = {"linear_state": 671_170_560, "conv": 8_257_536}
-# Phase 13 serves and trains mamba2 cut to 32 of its 64 layers and hymba
+# Phase 13 serves and trains mamba2 cut to 20 of its 64 layers and hymba
 # to 24 of its 32, at full width, to keep the script inside its time
 # limit (at full depth their serving and training took 75 and 71 s;
-# PERF.md §6). Every layer holds the same cache bytes. Both stay deeper
-# than 16 layers, where the decode check's deep limit starts.
-MAMBA2_LAYERS, HYMBA_LAYERS = 32, 24
+# PERF.md §6; mamba2 went from 32 to 20 when phase 18 took its SSD heads
+# on). Every layer holds the same cache bytes. Both stay deeper than 16
+# layers, where the decode check's deep limit starts.
+MAMBA2_LAYERS, HYMBA_LAYERS = 20, 24
 HYMBA_CACHE = {"kv_ring": 89_407_488, "linear_state": 13_120_000,
                "conv": 1_253_376}         # at hymba's 32 layers
-SSM_TRAIN_STEPS = 5
+SSM_TRAIN_STEPS = 4
 # At phase 7's 3e-4 both models' fourth step throws the loss up (mamba2
 # 16.18, hymba 20.03), in bf16 and in fp32 on simt alike
 # (scripts/variant_lr_probe.py --arch ...), and at SMOKE the port's steps
@@ -3138,7 +3166,8 @@ def phase_ssm(kernels: list, mamba2, hymba) -> None:
     hymba-1.5b (``HYMBA_LAYERS`` of its 32 layers, globals 0, 8, 16) the
     same by exact length (K1 on ``simt``, K4 and K3 a layer a call), and
     the decode check again on a 1100-token prompt, past the 1024 window,
-    with rings 1280 long; (d) both train 5 steps as phase 7
+    with rings 1280 long; (d) both train ``SSM_TRAIN_STEPS`` steps as
+    phase 7
     (mamba2 under full remat, hymba under ``HYMBA_REMAT``), at
     ``SSM_TRAIN_LR``; (e) fp32 grad checks of 2 layers of each against
     the host CPU (hymba: its global and a windowed layer, 1280
@@ -3180,9 +3209,11 @@ def phase_ssm(kernels: list, mamba2, hymba) -> None:
     _free()
     part("c")
     phase_train(kernels, mamba2, "mamba2_train", steps=SSM_TRAIN_STEPS,
+                profile=False,
                 lr=SSM_TRAIN_LR, remat="full")
     _free()
     phase_train(kernels, hymba, "hymba_train", steps=SSM_TRAIN_STEPS,
+                profile=False,
                 lr=SSM_TRAIN_LR, remat=HYMBA_REMAT)
     _free()
     part("d")
@@ -3702,11 +3733,16 @@ def phase_cross(kernels: list) -> None:
 # Phase 16: the runtime subsystems on the full-width train path.
 # ---------------------------------------------------------------------------
 
-RT_STEPS = 5          # steps of each guarded run
+RT_STEPS = 4          # steps of each guarded run
 RT_NAN_STEP = 2       # chaos: NaN gradients / a forced skip at this step
 RT_RTOL = 1e-6        # the chaos drill's loss parity
 RT_MFU_RTOL = 1e-2
 RT_CUT_LAYERS = 2     # (d): the zoo's depth cut
+# (c) and (d) checkpoint the cut with its embedding and head tied: one
+# 128256 x 2048 table instead of two, 4.3 GB a checkpoint instead of 7.5
+# (the same width; at 7.5 GB its three saves and three restores took ~70
+# s of the phase's ~136 s on the card, PERF.md §6)
+RT_CUT_TIED = True
 RT_CUT_STEPS, RT_CUT_TOTAL, RT_CUT_EVERY = 4, 6, 2
 RT_F_STEPS = 2        # (f): guarded steps at (1, 2) before the checkpoint
 
@@ -4144,7 +4180,8 @@ def phase_runtime(kernels: list, cfg, train_hist) -> None:
         _free()
         shutil.rmtree(tmp / "ckpt")
         lap("e")
-        _rt_resume(dataclasses.replace(cfg, n_layers=RT_CUT_LAYERS), run,
+        _rt_resume(dataclasses.replace(cfg, n_layers=RT_CUT_LAYERS,
+                                       tie_embeddings=RT_CUT_TIED), run,
                    data, str(tmp / "cut"), str(tmp / "resume.jsonl"))
         lap("cd")
     finally:
@@ -4397,11 +4434,12 @@ SERVE_SP_DECODE_PROMPTS = (1024, 300)   # (b), (c): exact length
 SERVE_SP_DECODE_MAX_LEN = 2048          # the ring: 4 slices of 512 slots
 SERVE_SP_SEED = 18
 # (d): the (2, 2) layout's plans on a 2-layer cut, 4 slots (2 a rank under
-# the decode plan), 4 greedy tokens: every call gathers the cut's weights
-# (the 128256-row embedding and head, 0.5 GB each) over data through the
-# host, so the cut is shallow and the run short
+# the decode plan), 2 greedy tokens (one decode step): every call gathers
+# the cut's weights (the 128256-row embedding and head, 0.5 GB each) over
+# data through the host, ~1.1-1.4 s a decode step, so the cut is shallow
+# and the run short
 SERVE_SP_D_PROMPTS = (1024, 300, 1024, 300)
-SERVE_SP_D_NEW = 4
+SERVE_SP_D_NEW = 2
 # (c) at full depth in bf16 sits off the one-device bf16 engine by more
 # than TOL_LOGITS (1.45-1.49 limits on CONFIG, PERF.md §6): every rounding
 # of the bf16 stack moves with the GEMM shapes that tensor parallelism
@@ -4415,6 +4453,46 @@ SERVE_SP_D_NEW = 4
 # one-device fp32 engine, so the limit tells bf16 rounding (and any
 # larger fault) from fp32 rounding.
 SERVE_SP_FP32_NEW = 8
+# (e)-(h): the pieces that compute on the rank's shard, each in bf16
+# (logged against TOL_LOGITS) and in fp32 against the one-device fp32
+# engine (held to TOL_LOGITS_EXACT, every argmax equal), as (c).
+# (e) mamba2-2.7b at full width cut to 16 of its 64 layers, (1, 4)
+# decode plan: 20 of its 80 SSD heads a rank.
+SERVE_SP_MAMBA2_LAYERS = 16
+SERVE_SP_E_NEW = 16
+# (f) Linear-MoE (moonshot linearized) cut to 2 layers at CONFIG
+# capacity (items drop), (1, 4) decode plan: 16 of 64 experts a rank.
+SERVE_SP_F_NEW = 16
+# (g) hymba-1.5b cut to a global and a windowed layer, (1, 4) prefill
+# plan: 25 heads, so the batch-over-model branch, one row a rank.
+SERVE_SP_G_PROMPTS = (1024,) * 4
+SERVE_SP_G_NEW = 8
+# (h) whisper-base whole, gates CROSS_GATE, (1, 4) decode plan: 2 of 8
+# heads a rank in every layer, encoder and cross included; the static
+# path: 4 rows of 512 tokens, a memory of 1500 frames each.
+SERVE_SP_H_ROWS, SERVE_SP_H_LEN, SERVE_SP_H_NEW = 4, 512, 16
+SERVE_SP_H_MAX_LEN = 1024
+
+
+class _CacheDtype:
+    """Within the block, the decode caches (K/V rings, cross memories,
+    conv inputs) are kept in ``dtype`` (``blocks.CACHE_DTYPE``): the fp32
+    runs of phase 18 cache in fp32, so that only fp32 roundings are left
+    between a plan and the one-device path (a bf16 cache rounds a 1e-7
+    difference to a whole bf16 step wherever a value sits at a rounding
+    boundary)."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import blocks as B
+        self.blocks, self.saved = B, B.CACHE_DTYPE
+        B.CACHE_DTYPE = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        self.blocks.CACHE_DTYPE = self.saved
 
 
 def _serve_sp_engine():
@@ -4516,6 +4594,7 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
     params = shard_params(whole(), plan)
     _free()
     engine = submitted(cfg, params, new, under=plan)
+    routes = _Routes()
     report = memory_report(build_cell(
         cfg.name, None, plan.layout, cfg_override=cfg, plan=plan,
         shape=ShapeConfig("phase18", max_len, len(prompts), "decode"),
@@ -4526,7 +4605,7 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
     torch.cuda.reset_peak_memory_stats()
     _zero(*counters)
     t0 = time.perf_counter()
-    with primitives.tape() as records:
+    with primitives.tape() as records, routes:
         engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -4551,13 +4630,21 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
     tol = TOL_LOGITS if cfg.n_layers <= 16 else TOL_LOGITS_DEEP
     del engine._cache
 
-    def replay(c, p, run, n_new):
+    flipped = {}
+
+    def replay(c, p, run, n_new, forced_routes):
         """The one-device engine of ``c`` on ``p`` and the requests of
         ``run`` (``n_new`` tokens each), forced onto ``run``'s tokens: the
-        same batches, slots and steps, no plan; its sampled rows by uid,
-        call by call."""
+        same batches, slots and steps, no plan; an MoE's experts forced
+        onto the plan run's (``forced_routes``, rank 0's: every rank of
+        the model group routes alike), so a near tie that rounding moves
+        drops no other items (``flipped`` counts the calls whose own
+        choice differed); its sampled rows by uid, call by call."""
         one = submitted(c, p, n_new, forced=run.tokens)
-        one.run()
+        with _Routes(force=forced_routes or None) as own:
+            one.run()
+        flipped[c.dtype] = sum(not torch.equal(a, b) for a, b in
+                               zip(own.idx, forced_routes))
         check(len(one.calls) == len(run.calls),
               f"phase 18 {name}: the one-device replay took other calls")
         return [{u: row for u, row in zip(uids, rows) if u is not None}
@@ -4570,7 +4657,8 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
                 for i, uid in enumerate(uids) if uid is not None]
 
     if rank == 0:
-        for got, want in sampled(engine, replay(cfg, whole(), engine, new)):
+        for got, want in sampled(engine, replay(cfg, whole(), engine, new,
+                                                routes.idx)):
             err, within = max_err_within(got, want, tol)
             worst, ok = max(worst, err), ok and within
             top2 = torch.topk(want, 2).values
@@ -4585,25 +4673,28 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
         # run's first tokens, against the one-device fp32 engine.
         f32 = dataclasses.replace(cfg, dtype="float32")
         cast = tree_map(lambda t: t.float(), whole())
-        run32 = submitted(f32, shard_params(cast, plan), fp32_new,
-                          forced=engine.tokens, under=plan)
-        del cast
-        _free()
-        run32.run()
-        if rank == 0:
-            one32 = replay(f32, tree_map(lambda t: t.float(), whole()),
-                           run32, fp32_new)
-            rows32 = sampled(run32, one32)
-            fp32 = {"err": max(float((g - w).abs().max())
-                               for g, w in rows32),
-                    "ok": all(max_err_within(g, w, TOL_LOGITS_EXACT)[1]
-                              for g, w in rows32),
-                    "flips": sum(int(torch.argmax(g)) != int(torch.argmax(w))
-                                 for g, w in rows32),
-                    "control": max(limit_share(g, w, TOL_LOGITS_EXACT)
-                                   for g, w in sampled(engine, one32)),
-                    "calls": len(run32.calls)}
-            del one32
+        with _CacheDtype(torch.float32):
+            run32 = submitted(f32, shard_params(cast, plan), fp32_new,
+                              forced=engine.tokens, under=plan)
+            del cast
+            _free()
+            with _Routes() as routes32:
+                run32.run()
+            if rank == 0:
+                one32 = replay(f32, tree_map(lambda t: t.float(), whole()),
+                               run32, fp32_new, routes32.idx)
+                rows32 = sampled(run32, one32)
+                fp32 = {"err": max(float((g - w).abs().max())
+                                   for g, w in rows32),
+                        "ok": all(max_err_within(g, w, TOL_LOGITS_EXACT)[1]
+                                  for g, w in rows32),
+                        "flips": sum(int(torch.argmax(g))
+                                     != int(torch.argmax(w))
+                                     for g, w in rows32),
+                        "control": max(limit_share(g, w, TOL_LOGITS_EXACT)
+                                       for g, w in sampled(engine, one32)),
+                        "calls": len(run32.calls)}
+                del one32
         del run32
         _free()
     log("serve_sp", rank=rank, case=name, arch=cfg.name,
@@ -4633,6 +4724,10 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
         fp32_argmax_flips=fp32.get("flips", "not run"),
         fp32_control_bf16_plan_in_limits=f"{fp32['control']:.1f}"
         if fp32 else "not run",
+        moe_calls_routed=len(routes.idx),
+        moe_replay_calls_whose_own_route_differed=repr(
+            {str(k).split(".")[-1]: v for k, v in flipped.items()})
+        if rank == 0 else "checked on rank 0",
         transport="gloo (host-staged)", wall_s=f"{wall:.2f}",
         decode_step_p50_s=f"{stats.get('decode_step_s_p50', 0.0):.4f}",
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
@@ -4659,15 +4754,183 @@ def _serve_sp_case(rank, name, cfg, plan, prompts, max_len,
               f"the one-device argmax away from a near tie")
     want = [n_lin * len(engine.batches), n_lin * steps,
             n_soft * len(engine.batches)]
-    check(launched[:3] == want and launched[3::2] == want,
-          f"phase 18 rank {rank} {name}: launches K1/K3/K4 (total, then "
-          f"per route) {launched}; want {want}, all on sm90")
+    _check_launches(name, rank, cfg, launched, want)
     del engine, params
     _free()
     return launched, san
 
 
-def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts):
+def _serve_sp_static(rank, name, cfg, plan, prompts, max_len, new,
+                     fp32_new):
+    """An encoder model's case: the static path (``M.prefill`` with the
+    memory, then decode steps over the whole batch, as
+    ``ServeEngine.generate`` runs it) under ``plan`` on this rank, its
+    shard of the weights (gates ``CROSS_GATE``): ``SERVE_SP_H_ROWS`` rows
+    of ``SERVE_SP_H_LEN`` random tokens, a memory of random frames each,
+    ``new`` greedy tokens. Its tape against ``comm.budget`` (the prefill,
+    encoder included, and each decode step), its held params and prefill
+    cache against the dry run's ``memory_report`` of the decode cell, its
+    K4 launches (every softmax, cross and encoder layer once, ``sm90``);
+    on rank 0 the bf16 logits against the one-device path on the same
+    tokens (logged) and the plan in fp32 on the weights cast up, forced
+    onto the bf16 run's first ``fp32_new`` tokens, against the one-device
+    fp32 path (held to ``TOL_LOGITS_EXACT``, every argmax equal), as
+    ``_serve_sp_case`` holds (c)."""
+    from repro_torch.comm import budget as B
+    from repro_torch.comm import primitives
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.core.device import torch_dtype
+    from repro_torch.launch.dryrun import memory_report
+    from repro_torch.models import model as M
+    from repro_torch.sharding.rules import shard_params
+
+    def whole():
+        p = M.init_params(torch.Generator(device="cuda").manual_seed(
+            SERVE_SP_SEED), cfg)
+        _set_gates(p, CROSS_GATE)
+        return p
+
+    gen = torch.Generator(device="cuda").manual_seed(SERVE_SP_SEED)
+    rows, length = SERVE_SP_H_ROWS, SERVE_SP_H_LEN
+    frames = _memory(cfg, rows, gen)["enc_frames"]
+    toks = torch.randint(0, cfg.vocab_size, (rows, length), generator=gen,
+                         device="cuda")
+
+    def run(c, p, under, n, forced=None):
+        """``n`` greedy (or ``forced``) tokens: (logits a call, tokens a
+        call, records, the prefill's cache bytes)."""
+        logits, tokens, records = [], [], []
+        with primitives.tape() as rec:
+            lg, cache = M.prefill(p, toks, c, under, max_len=max_len,
+                                  enc_frames=frames.to(torch_dtype(c.dtype)))
+        records += rec
+        held = _held(cache)
+        for i in range(n):
+            logits.append(lg[:, :c.vocab_size].float().cpu())
+            tok = forced[i] if forced is not None else \
+                torch.argmax(lg, dim=-1).to(torch.int32)
+            tokens.append(tok)
+            if i == n - 1:
+                break
+            with primitives.tape() as rec:
+                lg, cache = M.decode_step(p, tok, cache, c, under)
+            records += rec
+        return logits, tokens, records, held
+
+    params = shard_params(whole(), plan)
+    _free()
+    counters = _serve_sp_counters()
+    torch.cuda.synchronize()
+    _zero(*counters)
+    t0 = time.perf_counter()
+    logits, tokens, records, cache_bytes = run(cfg, params, plan, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read(counters, counters)
+    shapes = M.init_params(None, cfg, device="meta")
+    budget = B.combine(
+        [B.serve_prefill_budget(cfg, plan, b=rows, s=length, params=shapes)]
+        + [B.serve_decode_budget(cfg, plan, b=rows, max_len=max_len,
+                                 params=shapes)] * (new - 1))
+    violations = B.check_budget(records, budget)
+    report = memory_report(build_cell(
+        cfg.name, None, plan.layout, cfg_override=cfg, plan=plan,
+        shape=ShapeConfig("phase18", max_len, rows, "decode"),
+        run=RunConfig()))
+    held = {"params": _held(params), "cache": cache_bytes}
+    tags = sorted({r.tag for r in records})
+    whole_rows = [t for t in tags if t.startswith(("tp.cols.", "tp.cache.",
+                                                   "cache_seq."))]
+    fp32 = {}
+    worst = 0.0
+    if rank == 0:
+        want, _, _, _ = run(cfg, whole(), None, new, forced=tokens)
+        worst = max(float((g - w).abs().max()) for g, w in zip(logits, want))
+        del want
+        _free()
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cast = tree_map(lambda t: t.float(), whole())
+    with _CacheDtype(torch.float32):
+        got32, _, _, _ = run(f32, shard_params(cast, plan), plan, fp32_new,
+                             forced=tokens)
+        del cast
+        _free()
+        want32 = run(f32, tree_map(lambda t: t.float(), whole()), None,
+                     fp32_new, forced=tokens)[0] if rank == 0 else None
+    if rank == 0:
+        fp32 = {"err": max(float((g - w).abs().max())
+                           for g, w in zip(got32, want32)),
+                "ok": all(max_err_within(g, w, TOL_LOGITS_EXACT)[1]
+                          for g, w in zip(got32, want32)),
+                "flips": sum(int((g.argmax(-1) != w.argmax(-1)).sum())
+                             for g, w in zip(got32, want32)),
+                "control": max(limit_share(g, w, TOL_LOGITS_EXACT)
+                               for g, w in zip(logits, want32))}
+        del want32
+    del got32
+    _free()
+    n_lin, n_soft = _mixer_counts(cfg)
+    log("serve_sp", rank=rank, case=name, arch=cfg.name,
+        layers=cfg.n_layers, encoder_layers=cfg.encoder.n_layers,
+        softmax=n_soft, layout=plan.layout.name, tp=plan.tp_size(),
+        heads_per_rank=cfg.n_heads // plan.tp_size(), rows=rows,
+        prompt=length, frames=cfg.encoder.n_frames, new_tokens=new,
+        tape_by_tag=repr(tags).replace(" ", ""),
+        whole_over_model_tags=repr(whole_rows),
+        tape_bytes=sum(r.traffic_bytes for r in records),
+        budget_violations=violations or "none",
+        launches_k1_k3_k4_routed=repr(launched),
+        held_bytes=repr(held).replace(" ", ""),
+        memory_report_bytes=repr({k: report[k] for k in held}).replace(
+            " ", ""),
+        bf16_max_abs_err_vs_one_device=f"{worst:.4e}" if rank == 0
+        else "checked on rank 0", bf16_tol_logged=TOL_LOGITS,
+        fp32_calls=fp32_new,
+        fp32_max_abs_err_vs_one_device_fp32=f"{fp32['err']:.4e}"
+        if fp32 else "checked on rank 0", fp32_tol=TOL_LOGITS_EXACT,
+        fp32_argmax_flips=fp32.get("flips", "checked on rank 0"),
+        fp32_control_bf16_plan_in_limits=f"{fp32['control']:.1f}"
+        if fp32 else "checked on rank 0",
+        transport="gloo (host-staged)", wall_s=f"{wall:.2f}")
+    san = _tape_san(f"phase 18 {name} rank {rank}", [records], "fp32",
+                    split=False)
+    check(not violations, f"phase 18 rank {rank} {name}: tape off its "
+          f"budget: {violations}")
+    check(held == {k: report[k] for k in held},
+          f"phase 18 rank {rank} {name}: holds {held}, the dry run "
+          f"reports {report}")
+    check(not whole_rows, f"phase 18 {name}: gathered whole {whole_rows}")
+    if fp32:
+        check(fp32["ok"] and fp32["flips"] == 0,
+              f"phase 18 {name}: the fp32 plan off the one-device fp32 "
+              f"path by {fp32['err']:.4e} (limit {TOL_LOGITS_EXACT}), "
+              f"{fp32['flips']} argmax flips")
+        check(fp32["control"] > 1,
+              f"phase 18 {name}: the bf16 plan reads {fp32['control']} "
+              f"fp32 limits from the fp32 function")
+    _check_launches(name, rank, cfg, launched, [0, 0, n_soft])
+    del params
+    _free()
+    return launched, san
+
+
+def _check_launches(name, rank, cfg, launched, want) -> None:
+    """``launched`` (K1, K3, K4 totals, then each per route) equal to
+    ``want`` (K1, K3, K4), each on its route: K1 on ``_chunk_route``'s
+    (hymba's SSD heads take ``simt``), K3 and K4 on ``sm90``."""
+    from repro_torch.kernels.flash_attention import ROUTES
+    routes = [_chunk_route(cfg), "sm90", "sm90"]
+    per_route = [w if r == route else 0 for w, route in zip(want, routes)
+                 for r in ROUTES]
+    check(launched == want + per_route,
+          f"phase 18 rank {rank} {name}: launches K1/K3/K4 (total, then "
+          f"per route) {launched}; want {want + per_route}")
+
+
+def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts,
+                   shard):
     """Phase 18 on one of four ranks sharing the card over gloo: (a) the
     prefill plan of the (4, 1) layout serving ``CONFIG`` and ``HYBRID``
     (weights whole: the prefill cells' FSDP rule drops FSDP for 2.6 GB),
@@ -4676,7 +4939,13 @@ def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts):
     that plan on ``CONFIG`` and ``HYBRID`` whole (TP 4: heads, ff and
     vocab a quarter a rank), (d) the (2, 2) layout's prefill and decode
     plans on 2-layer cuts (FSDP over data, TP 2; the decode plan's slots
-    over data)."""
+    over data); (e)-(h) the pieces that compute on the rank's shard
+    (``shard``: mamba2, Linear-MoE, hymba and whisper-base configs): (e)
+    mamba2's SSD heads and (f) Linear-MoE's experts under the (1, 4)
+    decode plan, (g) hymba's prefill rows under the (1, 4) prefill plan's
+    batch-over-model branch, (h) whisper's cross, self and encoder
+    layers on their heads under the (1, 4) decode plan (the static
+    path, ``_serve_sp_static``)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.cells import drop_prefill_fsdp
     from repro_torch.launch.mesh import (Axis, make_serving_groups,
@@ -4690,17 +4959,22 @@ def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts):
     out, san = {}, {}
 
     def case(key, cfg, layout, kind, prompts, max_len, new=SERVE_SP_NEW,
-             fp32_new=0):
+             fp32_new=0, **plan_kw):
         plan = make_plan(layout, kind, n_kv_heads=cfg.n_kv_heads,
-                         n_heads=cfg.n_heads)
+                         n_heads=cfg.n_heads, **plan_kw)
         if key.startswith("a_"):
             drop_prefill_fsdp(plan, cfg.param_count() * 2, RunConfig())
             check(plan.fsdp_axis is None, f"phase 18 {key}: FSDP kept")
         if key == "b_granite":
             check(plan.decode_cache_axis == Axis.MODEL,
                   f"phase 18: granite's decode plan {plan.rules}")
-        out[key], san[key] = _serve_sp_case(rank, key, cfg, plan, prompts,
-                                            max_len, new, fp32_new)
+        if key == "g_hymba":
+            check(plan.tp_axis is None and plan.rules["batch"] == Axis.MODEL,
+                  f"phase 18: hymba's prefill plan {plan.rules}")
+        run = _serve_sp_static if cfg.encoder is not None else \
+            _serve_sp_case
+        out[key], san[key] = run(rank, key, cfg, plan, prompts, max_len,
+                                 new, fp32_new)
 
     for key, cfg in (("a_linear", linear), ("a_hybrid", hybrid)):
         case(key, cfg, pre, "prefill", SERVE_SP_PROMPTS, SERVE_SP_MAX_LEN)
@@ -4713,6 +4987,19 @@ def _serve_sp_rank(rank, world, device, linear, hybrid, granite, cuts):
         for key, cfg in (("linear", cuts[0]), ("hybrid", cuts[1])):
             case(f"d_{kind}_{key}", cfg, sq, kind, SERVE_SP_D_PROMPTS,
                  SERVE_SP_DECODE_MAX_LEN, SERVE_SP_D_NEW)
+    mamba2, lmoe, hymba, whisper = shard
+    case("e_mamba2", mamba2, dec, "decode", SERVE_SP_DECODE_PROMPTS,
+         SERVE_SP_DECODE_MAX_LEN, SERVE_SP_E_NEW,
+         fp32_new=SERVE_SP_FP32_NEW)
+    case("f_linear_moe", lmoe, dec, "decode", SERVE_SP_DECODE_PROMPTS,
+         SERVE_SP_DECODE_MAX_LEN, SERVE_SP_F_NEW,
+         fp32_new=SERVE_SP_FP32_NEW)
+    case("g_hymba", hymba, dec, "prefill", SERVE_SP_G_PROMPTS,
+         SERVE_SP_DECODE_MAX_LEN, SERVE_SP_G_NEW,
+         fp32_new=SERVE_SP_G_NEW, global_batch=len(SERVE_SP_G_PROMPTS),
+         params_bytes=hymba.param_count() * 2)
+    case("h_whisper", whisper, dec, "decode", None, SERVE_SP_H_MAX_LEN,
+         SERVE_SP_H_NEW, fp32_new=SERVE_SP_FP32_NEW)
     return dict(out, san=san)
 
 
@@ -4734,7 +5021,7 @@ def phase_serve_sp(kernels: list, linear, hybrid) -> None:
     and ``HYBRID`` whole: K1, K3 and K4 on a rank's 4 of 16 heads; (d)
     the (2, 2) prefill and decode plans on ``CONFIG``'s and ``HYBRID``'s
     2-layer cuts (``HYBRID``'s: a linear and its softmax layer), 4
-    requests, 4 greedy tokens. Every rank's tape against ``comm.budget``,
+    requests, 2 greedy tokens. Every rank's tape against ``comm.budget``,
     its held bytes against ``memory_report``; rank 0's logits against the
     one-device path."""
     import os
@@ -4746,12 +5033,19 @@ def phase_serve_sp(kernels: list, linear, hybrid) -> None:
     cuts = (dataclasses.replace(linear, n_layers=2),
             dataclasses.replace(hybrid, pattern=hybrid.pattern[2:4],
                                 n_layers=2))
+    hymba = get_config("hymba-1.5b")
+    shard = (dataclasses.replace(get_config("mamba2-2.7b"),
+                                 n_layers=SERVE_SP_MAMBA2_LAYERS),
+             _zoo_cut(get_config("moonshot-v1-16b-a3b", linearize=0)),
+             dataclasses.replace(hymba, pattern=hymba.pattern[:2],
+                                 n_layers=2),
+             get_config("whisper-base"))
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     try:
         ranks = run_ranks(_serve_sp_rank, SERVE_SP_W, backend="gloo",
                           device="cuda",
-                          args=(linear, hybrid, granite, cuts),
+                          args=(linear, hybrid, granite, cuts, shard),
                           timeout_s=900)
     finally:
         if conf is None:
@@ -5029,7 +5323,19 @@ def phase_analysis(kernels: list, cfg, train_hist, serve_walls,
         wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """Every phase, or with ``--phases 13,18`` (a debugging aid) phases 1
+    and 2 and the named ones alone: a phase that reads an earlier one's
+    results (10, 11, 16, 17 and 19 read 4, 7, 10 or 17) needs it named
+    too, and without phase 3 the kernel line holds launches only. A
+    partial run's last line says so instead of the ``ok`` line."""
+    global PHASES
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        PHASES = {1, 2} | {int(n) for n in argv[1].split(",")}
+    elif argv:
+        print("usage: chip_smoke.py [--phases N,N,...]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
               file=sys.stderr)
@@ -5048,7 +5354,10 @@ def main() -> int:
     walls, start = {}, time.perf_counter()
 
     def timed(n, fn, *args):
-        """Phase ``n``: ``fn(*args)``, its wall kept, the device freed."""
+        """Phase ``n``: ``fn(*args)``, its wall kept, the device freed
+        (None for a phase the run leaves out)."""
+        if PHASES is not None and n not in PHASES:
+            return None
         t0 = time.perf_counter()
         out = fn(*args)
         walls[n] = round(time.perf_counter() - t0, 1)
@@ -5064,7 +5373,7 @@ def main() -> int:
         kernels += phase_bwd_kernels(kernels)
         return kernels + phase_flash_kernels()
 
-    kernels = timed(3, kernel_phases)
+    kernels = timed(3, kernel_phases) or []
 
     def serve(cfg, path, rows, length, steps):
         params = phase_serve(kernels, cfg, path)
@@ -5091,11 +5400,14 @@ def main() -> int:
     usp_tapes = timed(17, phase_usp, kernels, hybrid, sp_ranks)
     serve_sp_tapes = timed(18, phase_serve_sp, kernels, linear, hybrid)
     timed(19, phase_analysis, kernels, linear, train_hist, serve_walls,
-          usp_tapes + serve_sp_tapes)
+          (usp_tapes or []) + (serve_sp_tapes or []))
     log("walls", phase_walls_s=repr(walls).replace(" ", ""),
         total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    if PHASES is not None:
+        print(json.dumps({"partial": sorted(PHASES)}), flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -35,7 +35,6 @@ from typing import Dict, Iterable, List, Mapping, Optional
 import torch
 
 from repro_torch.comm.primitives import wire_dtype
-from repro_torch.configs.base import MambaConfig
 from repro_torch.launch.mesh import Axis
 
 
@@ -508,8 +507,63 @@ def _layer_splits(cfg, plan, params):
                    for i, spec in enumerate(cfg.layer_specs())]
 
 
+def _mixer_reduces(spec, split) -> int:
+    """All-reduces over model a layer's mixer closes with (``tp.mixer``):
+    one where its (or, for hymba, either half's) ``wo`` is row-parallel,
+    hymba's two partials summed first."""
+    if spec.mixer == "mamba2":
+        return int(split.ssd_wo)
+    if spec.mixer == "hymba":
+        return int(split.wo or split.ssd_wo)
+    return int(split.wo)
+
+
+def _layer_exchanges(cfg, spec, split, plan, params, lspecs, *, b, t, n,
+                     decode, max_len, gathers, parts):
+    """One layer's placement exchanges (``n`` layers alike) into
+    ``gathers`` / ``parts``: see :func:`placement_budget`."""
+    from repro_torch.models import blocks
+    from repro_torch.sharding.rules import Spec, cache_specs
+    tp = plan.tp_size()
+    d, act = cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
+    gathers(_param_gathers(params, lspecs, plan, split.gathered), n)
+    if tp == 1:
+        return
+    if _mixer_reduces(spec, split):
+        parts.append(_reduce_budget(n, b * t * d * 4, tp))
+    if split.ssd:
+        parts.append(_reduce_budget(n, b * t * 4, tp))          # tp.gnorm
+    if split.mlp or split.experts or (spec.mlp == "moe" and split.shared):
+        parts.append(_reduce_budget(n, b * t * d * 4, tp))
+    if not decode:
+        return
+    on_model = plan.rules.get("cache_seq") == plan.tp_axis
+    if split.q and on_model and spec.mixer in ("softmax", "hymba", "cross"):
+        slots = {"softmax": blocks.softmax_ring_len(spec, max_len),
+                 "hymba": max_len,
+                 "cross": blocks.cross_len(cfg)}[spec.mixer]
+        if slots % tp == 0:                                      # tp.q
+            parts.extend([_gather_budget(
+                [b * (cfg.n_heads // tp) * cfg.head_dim * act], tp)] * n)
+    if spec.mixer in ("mamba2", "hymba"):
+        mb = blocks._mamba_dims(cfg, spec)[0]
+        whole = blocks.mamba2_cache(cfg, spec, b, torch.device("meta"))
+        # the rows this step holds are whole: read the model entries alone
+        cspecs = {k: Spec(*(e if e == plan.tp_axis else None for e in v))
+                  for k, v in cache_specs(whole, plan).items()}
+        if not split.ssd:                                    # tp.cache.*
+            gathers(_cache_gathers(whole, cspecs, plan,
+                                   {plan.tp_axis: tp}), n)
+        elif plan.tp_axis in tuple(cspecs["conv_b"]):             # tp.conv
+            gd = mb.ngroups * mb.d_state
+            parts.extend([_gather_budget(
+                [2 * b * (mb.d_conv - 1) * (gd // tp)
+                 * whole["conv_b"].element_size()], tp)] * n)
+
+
 def placement_budget(cfg, plan, params=None, *, b: int, t: int,
-                     decode: bool, max_len: int = 1) -> CollectiveBudget:
+                     decode: bool, max_len: int = 1,
+                     encoder: bool = False) -> CollectiveBudget:
     """The weight and vocab placements' exchanges of one prefill (``t``
     tokens a row on this rank) or decode step (``t`` = 1) of ``b`` rows
     under ``plan``, ``params`` the whole params (or their meta twin) whose
@@ -517,19 +571,24 @@ def placement_budget(cfg, plan, params=None, *, b: int, t: int,
     fsdp-split leaf (``fsdp.<leaf>``, this rank's slice each) and over
     model of every leaf the layer's ``LayerSplit`` gathers
     (``tp.cols.<leaf>``); the embedding's and ``lm_head``'s fsdp gathers;
-    per layer whose ``wo`` splits over model one fp32 all-reduce of
-    ``b·t·d`` (``tp.mixer``), per dense MLP whose ff splits one more
-    (``tp.mlp``); with the vocab split, the masked lookup's all-reduce
-    (``tp.embed``) and the gather of the last position's logits' slices
-    (``tp.logits``). A decode step also gathers the caches of the
-    gather-at-use mixers over model (``tp.cache.<leaf>``; a cross layer's
-    memory slots over their axis, ``cache_seq.<leaf>``) and, where a
-    softmax ring's slots lie on the model axis, the q heads (``tp.q``)."""
+    per layer whose mixer closes row-parallel one fp32 all-reduce of
+    ``b·t·d`` (``tp.mixer``: ``wo``, an SSD's ``wo``, hymba's two halves
+    in one), per SSD layer on the rank's SSD heads one of its group
+    norm's ``b·t`` statistic (``tp.gnorm``), per dense MLP whose ff splits
+    one more (``tp.mlp``), per MoE MLP whose experts split one
+    (``tp.experts``, its shared experts' partial included; its shared
+    experts alone: ``tp.mlp``); with the vocab split, the masked lookup's
+    all-reduce (``tp.embed``) and the gather of the last position's
+    logits' slices (``tp.logits``). ``encoder``: the encoder's layers too
+    (a prefill of an encoder config: ``n_frames`` tokens a row). A decode
+    step also gathers, per SSD layer, its B and C conv caches (one
+    ``tp.conv``) where its SSD heads split, else every leaf its cache
+    splits over model (``tp.cache.<leaf>``); and, where a softmax-like
+    layer's slots lie on the model axis and its q heads split, the q
+    heads (``tp.q``)."""
     specs, splits = _layer_splits(cfg, plan, params)
     if specs is None:
         return CollectiveBudget({})
-    from repro_torch.models import blocks
-    from repro_torch.sharding.rules import cache_specs
     tp = plan.tp_size()
     d, act = cfg.d_model, 2 if cfg.dtype == "bfloat16" else 4
     parts = []
@@ -553,33 +612,18 @@ def placement_budget(cfg, plan, params=None, *, b: int, t: int,
     layer_specs = cfg.layer_specs()
     for spec in dict.fromkeys(layer_specs):   # each distinct layer once
         i, n = layer_specs.index(spec), layer_specs.count(spec)
-        split = splits[i]
-        gathers(_param_gathers(params["layers"][i], specs["layers"][i],
-                               plan, split.gathered), n)
-        if tp == 1:
-            continue
-        if split.wo:
-            parts.append(_reduce_budget(n, b * t * d * 4, tp))
-        if split.mlp:
-            parts.append(_reduce_budget(n, b * t * d * 4, tp))
-        if not decode:
-            continue
-        if spec.mixer == "softmax" and split.q and \
-                plan.rules.get("cache_seq") == plan.tp_axis:
-            ring = blocks.softmax_ring_len(spec, max_len)
-            if ring % tp == 0:
-                parts.extend([_gather_budget(
-                    [b * (cfg.n_heads // tp) * cfg.head_dim * act], tp)] * n)
-        if split.whole:
-            whole = blocks.layer_cache(cfg, spec, b, max_len,
-                                       torch.device("meta"))["mixer"]
-            cspecs = cache_specs(whole, plan)
-            axes = {plan.tp_axis: tp}
-            if spec.mixer == "cross":
-                ax = plan.rules.get("cache_seq")
-                if plan.size_of(ax) > 1:
-                    axes[ax] = plan.size_of(ax)
-            gathers(_cache_gathers(whole, cspecs, plan, axes), n)
+        _layer_exchanges(cfg, spec, splits[i], plan, params["layers"][i],
+                         specs["layers"][i], b=b, t=t, n=n, decode=decode,
+                         max_len=max_len, gathers=gathers, parts=parts)
+    if encoder and cfg.encoder is not None:
+        from repro_torch.models.model import ENCODER_SPEC
+        from repro_torch.sharding.rules import layer_split
+        enc = specs["encoder"]["layers"]
+        split = layer_split(cfg, ENCODER_SPEC, enc[0], plan)
+        _layer_exchanges(cfg, ENCODER_SPEC, split, plan,
+                         params["encoder"]["layers"][0], enc[0], b=b,
+                         t=cfg.encoder.n_frames, n=len(enc), decode=False,
+                         max_len=max_len, gathers=gathers, parts=parts)
     return combine(parts)
 
 
@@ -591,27 +635,59 @@ def _cache_gathers(tree, specs, plan, axes) -> list:
                     tree.element_size(), specs, axes)[0]
 
 
+def _moe_counts(cfg, *, b: int, w: int, rows: int) -> list:
+    """Per MoE layer, the capacity's count gathers (``moe.counts``) of a
+    call of ``b`` rows a rank, split ``w`` ways over the sequence and
+    ``rows`` ways over the rows: the (b, E) int32 counts over the SP
+    group, then what that gave over the rows' group."""
+    if cfg.moe is None:
+        return []
+    n = sum(spec.mlp == "moe" for spec in cfg.layer_specs())
+    table = b * cfg.moe.num_experts * 4
+    parts = []
+    if w > 1:
+        parts += [_gather_budget([table], w)] * n
+    if rows > 1:
+        parts += [_gather_budget([table * w], rows)] * n
+    return parts
+
+
 def serve_prefill_budget(cfg, plan, *, b: int, s: int,
                          params=None) -> CollectiveBudget:
     """One ``models.model.prefill`` of ``b`` rows of ``s`` tokens under
     ``plan`` (a ``sharding.rules.Parallelism``; read from its layout, so a
     plan without ranks has one too): the placements' exchanges
-    (:func:`placement_budget`, from ``params``' shapes); and where the
-    plan splits the prompt, per linear or SSD layer the state gather
-    (:func:`lasp2_budget`, of the rank's heads), per softmax layer the K/V
-    context exchange (:func:`hybrid_context_budget`, of its q and kv
-    heads; under "ulysses" also the ring's K/V gathers, tags ``ring.k``,
-    ``ring.v``), per SSD layer (mamba2, hymba's ``ssm``) one conv-halo
-    gather (``mamba2.conv``), and one gather of the last position's
-    hidden state (``prefill.last``)."""
+    (:func:`placement_budget`, from ``params``' shapes; the encoder's
+    layers too); and where the plan splits the prompt, per linear or SSD
+    layer the state gather (:func:`lasp2_budget`, of the rank's heads),
+    per softmax layer the K/V context exchange
+    (:func:`hybrid_context_budget`, of its q and kv heads; under
+    "ulysses" also the ring's K/V gathers, tags ``ring.k``, ``ring.v``),
+    per SSD layer (mamba2, hymba's ``ssm``) one conv-halo gather
+    (``mamba2.conv``), and one gather of the last position's hidden
+    state (``prefill.last``). Where the plan's prefill splits the rows
+    (``Parallelism.prefill_rows_axis``) each rank runs its block of them,
+    and one gather over that axis brings back every row's last hidden
+    state (``prefill.rows``). Per MoE layer under the reference's global
+    dispatch, the capacity's count gathers over each axis that splits the
+    tokens (``moe.counts``)."""
     w = _split_degree(plan, s)
     c = s // w
+    r = 1
+    if plan is not None and plan.layout is not None:
+        r = plan.size_of(plan.prefill_rows_axis(b))
+    b //= r
+    act = 2 if cfg.dtype == "bfloat16" else 4
     parts = [placement_budget(cfg, plan, params, b=b, t=c, decode=False,
-                              max_len=s)]
+                              max_len=s, encoder=True)]
+    if r > 1:
+        parts.append(_gather_budget([b * cfg.d_model * act], r))
+    if plan is not None and plan.moe_global:
+        parts += _moe_counts(cfg, b=b, w=w, rows=r)
     if w == 1:
         return combine(parts, note=f"serve prefill B={b} S={s}")
+    from repro_torch.models.blocks import _mamba_dims
     strategy, dt = plan.comm.strategy, plan.comm.dtype
-    act = 2 if cfg.dtype == "bfloat16" else 4
     tp = plan.tp_size()
     _, splits = _layer_splits(cfg, plan, params)
     for spec, split in zip(cfg.layer_specs(), splits):
@@ -622,18 +698,16 @@ def serve_prefill_budget(cfg, plan, *, b: int, s: int,
                 if cfg.linear_attn.feature_map == "taylor":
                     dk = 1 + dk + dk * dk
             else:
-                mb = cfg.mamba or MambaConfig()
-                d_in = mb.expand * cfg.d_model if spec.mixer == "mamba2" \
-                    else cfg.d_model
-                h, dk, dv = d_in // mb.headdim, mb.d_state, mb.headdim
+                mb, _, nh = _mamba_dims(cfg, spec)
+                h = nh // tp if split.ssd else nh
+                dk, dv = mb.d_state, mb.headdim
             parts.append(lasp2_budget(
                 "allgather", w,
                 state_bytes=packed_state_bytes(b, h, dk, dv, dt)))
         if spec.mixer in ("mamba2", "hymba"):
-            mb = cfg.mamba or MambaConfig()
-            d_in = mb.expand * cfg.d_model if spec.mixer == "mamba2" \
-                else cfg.d_model
-            halo = b * (mb.d_conv - 1) * (d_in + 2 * mb.ngroups
+            mb, d_in, _ = _mamba_dims(cfg, spec)
+            x_in = d_in // tp if split.ssd else d_in
+            halo = b * (mb.d_conv - 1) * (x_in + 2 * mb.ngroups
                                           * mb.d_state) * act
             parts.append(CollectiveBudget(
                 {"all-gather": 1},
@@ -669,13 +743,15 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int,
     """One ``models.model.decode_step`` of ``b`` rows under ``plan``: the
     placements' exchanges (:func:`placement_budget`, from ``params``'
     shapes), and one merge (:func:`decode_merge_budget`, of the q heads
-    the rank merges) per softmax or hymba layer whose ring the plan
-    slices (a ``cache_seq`` axis whose size divides the ring); linear and
-    SSD layers decode with no exchange of their own. ``engine``: one step
-    of a ``ServeEngine`` whose slot grid has ``b`` rows: the rank decodes
-    its :func:`serve_rows` of them and, where those split, gathers the
-    sampled int32 tokens (``serve.tokens``)."""
-    from repro_torch.models.blocks import softmax_ring_len
+    the rank merges) per softmax, hymba or cross layer whose slots the
+    plan slices (a ``cache_seq`` axis whose size divides the ring or the
+    memory); linear and SSD layers decode with no exchange of their own.
+    ``engine``: one step of a ``ServeEngine`` whose slot grid has ``b``
+    rows: the rank decodes its :func:`serve_rows` of them and, where
+    those split, gathers the sampled int32 tokens (``serve.tokens``) and,
+    per MoE layer under the reference's global dispatch, the capacity's
+    counts (``moe.counts``)."""
+    from repro_torch.models.blocks import cross_len, softmax_ring_len
     grid = b
     if engine:
         b = serve_rows(plan, grid)
@@ -685,13 +761,11 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int,
         plan.rules.get("cache_seq") == plan.tp_axis
     _, splits = _layer_splits(cfg, plan, params)
     for spec, split in zip(cfg.layer_specs(), splits):
-        if spec.mixer not in ("softmax", "hymba"):
+        if spec.mixer not in ("softmax", "hymba", "cross"):
             continue
-        ring = max_len if spec.mixer == "hymba" \
-            else softmax_ring_len(spec, max_len)
-        w = _ring_degree(plan, ring)
-        if w > 1 and split.whole and on_model:
-            w = 1                  # gathered whole over model instead
+        slots = {"softmax": softmax_ring_len(spec, max_len),
+                 "hymba": max_len, "cross": cross_len(cfg)}[spec.mixer]
+        w = _ring_degree(plan, slots)
         if w > 1:
             hq = cfg.n_heads // plan.tp_size() if split.q and not on_model \
                 else cfg.n_heads
@@ -699,6 +773,8 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int,
                                              dh=cfg.head_dim))
     if b != grid:
         parts.append(_gather_budget([b * 4], grid // b))
+        if plan.moe_global:
+            parts += _moe_counts(cfg, b=b, w=1, rows=grid // b)
     return combine(parts, note=f"serve decode B={b}")
 
 
@@ -708,20 +784,23 @@ def serve_decode_budget(cfg, plan, *, b: int, max_len: int,
 # (data, model) collectives, fp32 by design), Ulysses' head
 # repartition (the reference's model-axis all-to-alls, in the compute
 # dtype), and serving's exchanges: the last hidden state, the conv halo,
-# the ring's K/V gathers and the flash-decoding merge's o, m and l; and
-# a serving plan's placements: weights and caches gathered in their
-# storage dtype (``fsdp.*``, ``tp.cols.*``, ``tp.cache.*``,
-# ``cache_seq.*``), TP partial sums reduced in fp32 (``tp.mixer``,
-# ``tp.mlp``, ``tp.embed``), logits and q heads gathered in the compute
+# the ring's K/V gathers and the flash-decoding merge's o, m and l, the
+# prefill rows' last hidden states (``prefill.rows``, compute dtype) and
+# the MoE capacity's int32 counts (``moe.counts``); and a serving plan's
+# placements: weights and caches gathered in their storage dtype
+# (``fsdp.*``, ``tp.cols.*``, ``tp.cache.*``, ``tp.conv``,
+# ``cache_seq.*``), TP partial sums and the SSD group norm's statistic
+# reduced in fp32 (``tp.mixer``, ``tp.mlp``, ``tp.experts``,
+# ``tp.gnorm``, ``tp.embed``), logits and q heads gathered in the compute
 # dtype (``tp.logits``, ``tp.q``) and sampled tokens in int32
 # (``serve.tokens``): none is a sequence exchange the knob narrows.
 # Every other exchange, the LASP-2 state exchange and the K/V gathers of
 # LASP-2H and Ulysses, carries the wire dtype (the sanitizer's SAN203).
 WIRE_FP32_TAGS = ("train.grads", "train.agree", "zero1.param_gather",
                   "ckpt.zero1_gather", "ulysses.in", "ulysses.out",
-                  "prefill.last", "mamba2.conv", "ring.k", "ring.v",
-                  "ring_decode.", "decode.", "fsdp.", "tp.", "cache_seq.",
-                  "serve.tokens")
+                  "prefill.last", "prefill.rows", "mamba2.conv", "ring.k",
+                  "ring.v", "ring_decode.", "decode.", "fsdp.", "tp.",
+                  "cache_seq.", "serve.tokens", "moe.counts")
 
 
 def wire_exempt(tag: str) -> bool:

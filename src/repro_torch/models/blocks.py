@@ -19,15 +19,19 @@ over the whole sequence), and a softmax ring whose slot dim the plan
 places over an axis is sliced over that axis's group and read back
 through ``ring_decode_attention(sp=)``. Under a plan's tensor
 parallelism (``sharding.rules``; the caller, ``models.model``, hands each
-layer its weights with the fsdp dims gathered) linear and softmax mixers
-run on the rank's heads and close with one all-reduce after the
-row-parallel ``wo`` (``tp.mixer``), dense MLPs on its ff columns
-(``tp.mlp``), as each layer's ``sharding.rules.LayerSplit``
-(``Ctx.split``) says; mamba2, hymba and cross mixers (and MoE MLPs) get
-their weights gathered whole over model and compute every head, their
-caches stored per ``sharding.rules.cache_specs`` and gathered over model
-at use (``tp.cache.<leaf>``). MoE layers run on one device only (the
-reference's manual DP×SP step refuses them too;
+layer its weights with the fsdp dims gathered) each layer computes on
+the rank's shard as its ``sharding.rules.LayerSplit`` (``Ctx.split``)
+says: linear, softmax and cross mixers on the rank's heads, closed by one
+all-reduce after the row-parallel ``wo`` (``tp.mixer``); SSD mixers
+(mamba2, hymba's SSM half) on its SSD heads, the group norm's statistic
+summed over model (``tp.gnorm``); hymba's two halves summed before one
+all-reduce; dense MLPs on its ff columns (``tp.mlp``); MoE MLPs on its
+experts, the experts' and shared experts' partials in one all-reduce
+(``tp.experts``). What does not divide is gathered whole over model at
+use (``tp.cols.<leaf>``; an SSD cache ``tp.cache.<leaf>``). MoE layers
+take the reference's global capacity under a plan that sets
+``fsdp_axis`` (``moe_apply``); the train step's DP×SP runs them on one
+device only (the reference's manual step refuses them too;
 ``train.step.ShardedStep``). Cross-attention layers (the VLM's image
 layers, Whisper's decoder cross) attend a memory (``Ctx.img_emb`` or
 ``Ctx.enc_out``) with no RoPE and no SP path, as in the reference.
@@ -35,6 +39,7 @@ layers, Whisper's decoder cross) attend a memory (``Ctx.img_emb`` or
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
@@ -51,12 +56,13 @@ from repro_torch.core.lasp2h import (_gather_seq,
                                      ring_decode_attention,
                                      sharded_decode_attention,
                                      ulysses_context_attention)
-from repro_torch.core.tree import leaves_with_paths
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (dense_init, mlp_apply, mlp_init,
-                                       normal, rmsnorm, rmsnorm_init,
-                                       rope, row_parallel)
-from repro_torch.sharding.rules import LayerSplit, cache_specs, shard_tree
+                                       mlp_partial, normal, rmsnorm,
+                                       rmsnorm_init, rope, row_parallel,
+                                       row_partial)
+from repro_torch.sharding.rules import (LayerSplit, Place, cache_specs,
+                                        shard_leaf)
 
 
 @dataclass
@@ -72,6 +78,10 @@ class Ctx:
     enc_out: Any = None            # (B, n_frames, d) encoder output
     plan: Any = None               # sharding.rules.Parallelism (serving)
     split: Any = None              # sharding.rules.LayerSplit (this layer)
+    rows: Any = None               # sharding.rules.Place: the call's rows
+    #                                split over an axis, this rank's block
+    defer: bool = False            # hymba's halves: leave row-parallel
+    #                                outputs unsummed (``Partial``)
 
 
 # The decode caches' K/V rings and SSD conv inputs are bf16 whatever
@@ -128,21 +138,51 @@ def _qkv(p, x, ctx: Ctx, positions=None):
     return q, k, v
 
 
+class Partial(NamedTuple):
+    """A row-parallel output not yet summed over the model group: this
+    rank's fp32 ``part``, to be all-reduced over ``tp``'s group and
+    rounded to ``dtype`` (:func:`_finish`)."""
+    part: torch.Tensor
+    tp: Any
+    dtype: torch.dtype
+
+
+def _finish(y):
+    """``y`` itself, or a :class:`Partial` summed (tag ``tp.mixer``)."""
+    if not isinstance(y, Partial):
+        return y
+    return primitives.allreduce_sum(y.part, y.tp.group,
+                                    tag="tp.mixer").to(y.dtype)
+
+
+def _row_out(o, w, tp, ctx: Ctx):
+    """``o @ w``, ``w`` this rank's rows and ``o`` its columns: summed over
+    the model group in one all-reduce of the fp32 partials
+    (``layers.row_parallel``, tag ``tp.mixer``), or under ``ctx.defer``
+    left as a :class:`Partial`."""
+    if ctx.defer:
+        return Partial(row_partial(o, w), tp, o.dtype)
+    return row_parallel(o, w, tp, "tp.mixer")
+
+
+def _rows_block(o, n, tp):
+    """The rank's block of ``n`` of ``o``'s last-dim columns."""
+    return o[..., tp.index * n:(tp.index + 1) * n]
+
+
 def _out(o, w, ctx: Ctx, all_heads=False):
     """``o`` (B, S, n) through the output projection ``w``. Where ``w``
     holds this rank's rows (``LayerSplit.wo``: row-parallel over model),
     the rank multiplies its block of ``o``'s columns (``o`` holds every
     head where ``all_heads`` or the q heads do not split; else only the
-    rank's) and one all-reduce over the model group sums the fp32
-    partials (``layers.row_parallel``, tag ``tp.mixer``)."""
+    rank's), closed by one all-reduce (:func:`_row_out`)."""
     s = _split(ctx)
     w = w.to(o.dtype)
     if not s.wo:
         return o @ w
     if all_heads or not s.q:
-        n = w.shape[0]
-        o = o[..., s.tp.index * n:(s.tp.index + 1) * n]
-    return row_parallel(o, w, s.tp, "tp.mixer")
+        o = _rows_block(o, w.shape[0], s.tp)
+    return _row_out(o, w, s.tp, ctx)
 
 
 # ===========================================================================
@@ -231,14 +271,26 @@ def softmax_prefill_cache(k, v, positions, ring: int):
 
 
 def _ring_sp(ctx: Ctx):
-    """The ``SPConfig`` over the axis the plan places ring slots on, or
-    None (no plan, no such axis, or no ranks; or a mixer computing every
-    head whose ring slots lie on the model axis: its cache is sliced after
-    the step, ``layer_prefill``)."""
-    if ctx.plan is None or (_split(ctx).whole and ctx.plan.rules.get(
-            "cache_seq") == ctx.plan.tp_axis):
+    """The ``SPConfig`` over the axis the plan places ring (and cross
+    memory) slots on, or None (no plan, no such axis, or no ranks)."""
+    if ctx.plan is None:
         return None
     return ctx.plan.cache_sp()
+
+
+def _q_for_slots_on_model(q, ctx: Ctx):
+    """``(q, gathered)``: where the slots a decode step merges lie on the
+    model axis (the decode plan's ``cache_seq`` when the kv heads do not
+    divide it) and the rank holds only its q heads, every q head gathered
+    over model (tag ``tp.q``): the slots and the heads want the same
+    axis, so the rank merges them all and its ``wo`` rows take their
+    block of the merged ``o`` (``_out``)."""
+    s = _split(ctx)
+    if s.q and ctx.plan.rules.get("cache_seq") == ctx.plan.tp_axis:
+        return primitives.allgather_states(q.contiguous(), s.tp.group,
+                                           gather_axis=1, tiled=True,
+                                           tag="tp.q"), True
+    return q, False
 
 
 def shard_ring(cache, ctx: Ctx):
@@ -263,11 +315,8 @@ def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
     dtype), then attend to the ring. A ring sliced over the plan's group
     (K/V hold ``c`` of ``kpos``'s ``R`` slots) is written by the rank that
     owns the slot, its ``kpos`` by every rank, and attended through the
-    flash-decoding merge over that group. Where that group is the model
-    axis (the decode plan's ``cache_seq`` when the kv heads do not divide
-    it) the slots and the heads want the same axis: the rank gathers every
-    q head over model (tag ``tp.q``), merges them all, and its ``wo`` rows
-    take their block of the merged ``o`` (``_out``)."""
+    flash-decoding merge over that group; where that group is the model
+    axis every q head is gathered first (``_q_for_slots_on_model``)."""
     cfg = ctx.cfg
     posv = ctx.decode_pos.to(device=x.device, dtype=torch.int32)
     q, k, v = _qkv(params, x, ctx, None)
@@ -283,12 +332,7 @@ def softmax_decode(params, x, cache, ctx: Ctx, *, window=None):
         lo = sp.chunk_index * c
         own = (slot >= lo) & (slot < lo + c)
         rows, slot, k, v = rows[own], slot[own] - lo, k[own], v[own]
-        s = _split(ctx)
-        if s.q and ctx.plan.rules.get("cache_seq") == ctx.plan.tp_axis:
-            q = primitives.allgather_states(q.contiguous(), s.tp.group,
-                                            gather_axis=1, tiled=True,
-                                            tag="tp.q")
-            gathered = True
+        q, gathered = _q_for_slots_on_model(q, ctx)
     cache["k"][rows, :, slot] = k[:, :, 0].to(cache["k"].dtype)
     cache["v"][rows, :, slot] = v[:, :, 0].to(cache["v"].dtype)
     o = ring_decode_attention(q, cache["k"], cache["v"],
@@ -523,8 +567,15 @@ def _mamba_core(p, x, ctx: Ctx, spec: LayerSpec, conv_caches=None):
     SP the convs start from the previous chunk's inputs and the conv
     caches are the whole sequence's (``_conv_halo``); under the train
     step's SP (no plan) each chunk starts from zeros, as the reference's
-    manual step does."""
+    manual step does. Where the SSD heads split over model
+    (``LayerSplit.ssd``) nh is this rank's block of heads: ``wx``,
+    ``wdt``, ``conv_x``, ``a_log``, ``dt_bias`` hold its columns and
+    heads, while B and C (``wb``, ``wc``, ``conv_b``, ``conv_c``: whole on
+    every rank) are computed whole and their group repeat taken at the
+    rank's heads."""
     mb, _, nh = _mamba_dims(ctx.cfg, spec)
+    s = _split(ctx)
+    nh_l, h0 = s.heads(nh, s.ssd)
     dt_ = x.dtype
     pre = [x @ p[w].to(dt_) for w in ("wx", "wb", "wc")]
     last = None
@@ -543,23 +594,48 @@ def _mamba_core(p, x, ctx: Ctx, spec: LayerSpec, conv_caches=None):
         log_a = torch.where(ctx.resets[:, None, :],
                             torch.full((), la_core.RESET_LOG_A,
                                        device=x.device), log_a)
-    xh = _heads_split(xs, nh, mb.headdim)                      # (B,nh,S,hd)
+    xh = _heads_split(xs, nh_l, mb.headdim)                    # (B,nh,S,hd)
     v = xh * dt.transpose(1, 2)[..., None].to(dt_)
     rep = nh // mb.ngroups
-    k = torch.repeat_interleave(_heads_split(bs, mb.ngroups, mb.d_state),
-                                rep, dim=1)
-    q = torch.repeat_interleave(_heads_split(cs, mb.ngroups, mb.d_state),
-                                rep, dim=1)
+    k, q = (torch.repeat_interleave(_heads_split(t, mb.ngroups, mb.d_state),
+                                    rep, dim=1) for t in (bs, cs))
+    if nh_l != nh:
+        k, q = k[:, h0:h0 + nh_l], q[:, h0:h0 + nh_l]
     return q, k, v, log_a, xh, {"x": ccx, "b": ccb, "c": ccc}
 
 
-def _mamba_out(params, x, y, xh, cfg: ModelConfig):
-    """y + D·x, gated by silu(x @ wz), group-normed, projected out."""
+def _group_norm(params, y, ctx: Ctx, width: int):
+    """The gated output's RMS norm over the whole inner width ``width``.
+    ``y`` holds this rank's columns where the SSD heads split: the sum of
+    squares (B, S, 1) in fp32 is summed over the model group in one
+    all-reduce (tag ``tp.gnorm``) and the rank scales its columns."""
+    s = _split(ctx)
+    if not s.ssd or s.tp is None:
+        return rmsnorm(params, y, ctx.cfg.norm_eps)
+    yf = y.float()
+    ss = primitives.allreduce_sum((yf * yf).sum(-1, keepdim=True),
+                                  s.tp.group, tag="tp.gnorm")
+    scale = _rows_block(params["scale"], y.shape[-1], s.tp)
+    return (yf * torch.rsqrt(ss / width + ctx.cfg.norm_eps)
+            * scale).to(y.dtype)
+
+
+def _mamba_out(params, x, y, xh, ctx: Ctx, spec: LayerSpec):
+    """y + D·x, gated by silu(x @ wz), group-normed, projected out; on the
+    rank's SSD heads (``LayerSplit.ssd``) the norm's statistic is summed
+    over model and ``wo`` is row-parallel (``_row_out``; every head's ``y``
+    takes its block where only ``wo`` splits)."""
+    s = _split(ctx)
     y = y + params["d_skip"][None, :, None, None].to(y.dtype) * xh
     y = _heads_merge(y.to(x.dtype))
     y = y * F.silu(x @ params["wz"].to(x.dtype))
-    y = rmsnorm(params["gnorm"], y, cfg.norm_eps)
-    return y @ params["wo"].to(x.dtype)
+    y = _group_norm(params["gnorm"], y, ctx, _mamba_dims(ctx.cfg, spec)[1])
+    w = params["wo"].to(x.dtype)
+    if not s.ssd_wo:
+        return y @ w
+    if not s.ssd:
+        y = _rows_block(y, w.shape[0], s.tp)
+    return _row_out(y, w, s.tp, ctx)
 
 
 def mamba2_apply(params, x, ctx: Ctx, spec: LayerSpec):
@@ -574,7 +650,7 @@ def mamba2_apply(params, x, ctx: Ctx, spec: LayerSpec):
     else:
         y = lasp2(q, k, v, log_a, sp=ctx.sp, block_size=bs,
                   backward="autodiff")
-    return _mamba_out(params, x, y, xh, ctx.cfg)
+    return _mamba_out(params, x, y, xh, ctx, spec)
 
 
 def mamba2_cache(cfg: ModelConfig, spec: LayerSpec, batch, device):
@@ -596,30 +672,93 @@ def _conv_cache(cc):
     return {f"conv_{n}": t.to(CACHE_DTYPE) for n, t in cc.items()}
 
 
+def _ssd_cache_specs(cache, ctx: Ctx, spec: LayerSpec):
+    """``(cache_specs, shapes)`` of an SSD cache at its whole shapes (its
+    rows as ``cache`` holds them)."""
+    whole = mamba2_cache(ctx.cfg, spec, cache["m"].shape[0],
+                         torch.device("meta"))
+    return cache_specs(whole, ctx.plan), whole
+
+
+def _tp_dim(spec, axis):
+    return next((d for d, e in enumerate(spec) if e == axis), None)
+
+
+def _ssd_cache_in(cache, ctx: Ctx, spec: LayerSpec):
+    """The SSD cache as this rank's decode step reads it. Under tensor
+    parallelism the conv inputs of B and C (whole on every rank, their
+    cache split over model on its channels by ``cache_specs``) are
+    gathered in one all-gather (tag ``tp.conv``: d_conv − 1 rows a step);
+    where the rank computes every SSD head, every leaf the specs split
+    over model is gathered whole (``tp.cache.<leaf>``)."""
+    s = _split(ctx)
+    if s.tp is None:
+        return cache
+    specs, _ = _ssd_cache_specs(cache, ctx, spec)
+    axis = ctx.plan.tp_axis
+    split = [n for n in cache if _tp_dim(specs[n], axis) is not None]
+    out = dict(cache)
+    if not s.ssd:
+        for n in split:
+            out[n] = primitives.allgather_states(
+                cache[n].contiguous(), s.tp.group,
+                gather_axis=_tp_dim(specs[n], axis), tiled=True,
+                tag="tp.cache." + n)
+        return out
+    bc = [n for n in ("conv_b", "conv_c") if n in split]
+    if bc:
+        both = primitives.allgather_states(
+            torch.stack([cache[n] for n in bc]), s.tp.group,
+            gather_axis=1 + _tp_dim(specs[bc[0]], axis), tiled=True,
+            tag="tp.conv")
+        out.update(zip(bc, both.unbind(0)))
+    return out
+
+
+def _ssd_cache_out(cache, ctx: Ctx, spec: LayerSpec):
+    """This rank's slices over model, per ``cache_specs``, of the SSD cache
+    leaves its step or prefill computed whole (the conv inputs of B and
+    C; every split leaf where the rank computes every SSD head)."""
+    s = _split(ctx)
+    if s.tp is None:
+        return cache
+    specs, whole = _ssd_cache_specs(cache, ctx, spec)
+    axis, layout = ctx.plan.tp_axis, ctx.plan.layout
+    out = {}
+    for n, t in cache.items():
+        d = _tp_dim(specs[n], axis)
+        if d is not None and t.shape[d] == whole[n].shape[d]:
+            t = shard_leaf(t, specs[n], layout, axes=(axis,)).contiguous()
+        out[n] = t
+    return out
+
+
 def mamba2_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
     """One token: the conv continues from the cached inputs, the state
-    takes one recurrent step (K3 on the card, in place)."""
-    conv = {n: cache[f"conv_{n}"] for n in "xbc"}
+    takes one recurrent step (K3 on the card, in place) on the rank's SSD
+    heads."""
+    c = _ssd_cache_in(cache, ctx, spec)
+    conv = {n: c[f"conv_{n}"] for n in "xbc"}
     q, k, v, log_a, xh, cc = _mamba_core(params, x, ctx, spec, conv)
     y, m, ld = ops.linear_decode_op(
         q[..., 0, :], k[..., 0, :], v[..., 0, :], log_a[..., 0],
-        cache["m"], cache["log_decay"])
+        c["m"], c["log_decay"])
     # the reference rounds o to the activations' dtype before the skip
     y = y[:, :, None, :].to(x.dtype)
-    return _mamba_out(params, x, y, xh, ctx.cfg), \
-        {"m": m, "log_decay": ld, **_conv_cache(cc)}
+    return _mamba_out(params, x, y, xh, ctx, spec), _ssd_cache_out(
+        {"m": m, "log_decay": ld, **_conv_cache(cc)}, ctx, spec)
 
 
 def _mamba2_prefill(params, x, ctx: Ctx, spec: LayerSpec):
     """The prompt through K1 (under SP LASP-2's prefill); the cache is its
     end state, the sum of every log a (resets included) and the last
     d_conv − 1 conv inputs (the real ones: left-padding sits before
-    them)."""
+    them), each the rank's slice over model."""
     q, k, v, log_a, xh, cc = _mamba_core(params, x, ctx, spec)
     y, m, ld = lasp2_prefill(q, k, v, log_a, sp=ctx.sp,
                              block_size=ctx.cfg.linear_attn.block_size)
-    return _mamba_out(params, x, y, xh, ctx.cfg), \
-        {"m": m, "log_decay": ld, **_conv_cache(cc)}
+    return _mamba_out(params, x, y, xh, ctx, spec), _ssd_cache_out(
+        {"m": m, "log_decay": ld, **_conv_cache(cc)}, ctx, spec)
 
 
 # ===========================================================================
@@ -639,10 +778,28 @@ def hymba_window(spec: LayerSpec, ctx: Ctx):
     return None if ctx.is_global else (spec.sliding_window or 2048)
 
 
+def _halves(ctx: Ctx, attn, ssm):
+    """``(0.5·(a + s), caches)`` of hymba's halves, each ``half(hctx)``
+    run with ``ctx.defer`` so that a row-parallel ``wo`` returns its
+    :class:`Partial`: two partials are summed first and closed by one
+    all-reduce (tag ``tp.mixer``); a half computed whole adds its output
+    to the other's sum."""
+    hctx = dataclasses.replace(ctx, defer=True)
+    a, ca = attn(hctx)
+    s, cs = ssm(hctx)
+    if isinstance(a, Partial) and isinstance(s, Partial):
+        y = primitives.allreduce_sum(0.5 * (a.part + s.part), a.tp.group,
+                                     tag="tp.mixer").to(a.dtype)
+    else:
+        y = 0.5 * (_finish(a) + _finish(s))
+    return y, ca, cs
+
+
 def hymba_apply(params, x, ctx: Ctx, spec: LayerSpec):
-    a = softmax_apply(params["attn"], x, ctx, window=hymba_window(spec, ctx))
-    s = mamba2_apply(params["ssm"], x, ctx, spec)
-    return 0.5 * (a + s)
+    w = hymba_window(spec, ctx)
+    return _halves(
+        ctx, lambda c: (softmax_apply(params["attn"], x, c, window=w), None),
+        lambda c: (mamba2_apply(params["ssm"], x, c, spec), None))[0]
 
 
 def hymba_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
@@ -655,17 +812,20 @@ def hymba_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
 
 
 def _hymba_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
-    a, ca = _attn_prefill(params["attn"], x, ctx, hymba_window(spec, ctx),
-                          max_len)
-    s, cs = _mamba2_prefill(params["ssm"], x, ctx, spec)
-    return 0.5 * (a + s), {"attn": ca, "ssm": cs}
+    w = hymba_window(spec, ctx)
+    y, ca, cs = _halves(
+        ctx, lambda c: _attn_prefill(params["attn"], x, c, w, max_len),
+        lambda c: _mamba2_prefill(params["ssm"], x, c, spec))
+    return y, {"attn": ca, "ssm": cs}
 
 
 def hymba_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
-    a, ca = softmax_decode(params["attn"], x, cache["attn"], ctx,
-                           window=hymba_window(spec, ctx))
-    s, cs = mamba2_decode(params["ssm"], x, cache["ssm"], ctx, spec)
-    return 0.5 * (a + s), {"attn": ca, "ssm": cs}
+    w = hymba_window(spec, ctx)
+    y, ca, cs = _halves(
+        ctx, lambda c: softmax_decode(params["attn"], x, cache["attn"], c,
+                                      window=w),
+        lambda c: mamba2_decode(params["ssm"], x, cache["ssm"], c, spec))
+    return y, {"attn": ca, "ssm": cs}
 
 
 # ===========================================================================
@@ -680,24 +840,26 @@ def cross_init(generator, cfg: ModelConfig, dtype, device):
     return p
 
 
-def _cross_kv(params, memory, cfg: ModelConfig):
-    """k, v (B, Hkv, n_mem, dh) of the memory, in its dtype."""
+def _cross_kv(params, memory, ctx: Ctx):
+    """k, v (B, Hkv, n_mem, dh) of the memory, in its dtype; Hkv the
+    rank's kv heads (``LayerSplit.heads``)."""
+    cfg, s = ctx.cfg, _split(ctx)
+    hkv, _ = s.heads(cfg.n_kv_heads, s.kv)
     dt = memory.dtype
-    k = _heads_split(memory @ params["wk"].to(dt), cfg.n_kv_heads,
-                     cfg.head_dim)
-    v = _heads_split(memory @ params["wv"].to(dt), cfg.n_kv_heads,
-                     cfg.head_dim)
-    return k, v
+    return tuple(_heads_split(memory @ params[w].to(dt), hkv, cfg.head_dim)
+                 for w in ("wk", "wv"))
 
 
-def _cross_q(params, x, cfg: ModelConfig):
-    return _heads_split(x @ params["wq"].to(x.dtype), cfg.n_heads,
-                        cfg.head_dim)
+def _cross_q(params, x, ctx: Ctx):
+    cfg, s = ctx.cfg, _split(ctx)
+    hq, _ = s.heads(cfg.n_heads, s.q)
+    return _heads_split(x @ params["wq"].to(x.dtype), hq, cfg.head_dim)
 
 
-def _cross_y(params, o, dt):
-    """tanh(gate) · the attention output projected out, in ``dt``."""
-    y = _heads_merge(o.to(dt)) @ params["wo"].to(dt)
+def _cross_y(params, o, dt, ctx: Ctx, all_heads=False):
+    """tanh(gate) · the attention output projected out (``_out``: the
+    rank's ``wo`` rows where they split), in ``dt``."""
+    y = _out(_heads_merge(o.to(dt)), params["wo"], ctx, all_heads)
     return torch.tanh(params["gate"]).to(dt) * y
 
 
@@ -705,44 +867,68 @@ def _cross_attend(params, x, ctx: Ctx):
     """``(y, k, v)``: x's queries over the memory (``ctx.img_emb``, else
     ``ctx.enc_out``) cast to the compute dtype, through
     ``ops.flash_attention_op(causal=False)`` (K4/K5 on the card) with
-    Sq ≠ Sk; the default query offset Sk − Sq may be negative, which the
-    unmasked form never reads. Each rank of a sequence split would attend
-    its own query chunk to the whole memory, with no exchange."""
+    Sq ≠ Sk, on the rank's heads; the default query offset Sk − Sq may be
+    negative, which the unmasked form never reads. Each rank of a
+    sequence split would attend its own query chunk to the whole memory,
+    with no exchange."""
     memory = ctx.img_emb if ctx.img_emb is not None else ctx.enc_out
-    k, v = _cross_kv(params, memory.to(x.dtype), ctx.cfg)
-    o = ops.flash_attention_op(_cross_q(params, x, ctx.cfg), k, v,
-                               causal=False)
-    return _cross_y(params, o, x.dtype), k, v
+    k, v = _cross_kv(params, memory.to(x.dtype), ctx)
+    o = ops.flash_attention_op(_cross_q(params, x, ctx), k, v, causal=False)
+    return _cross_y(params, o, x.dtype, ctx), k, v
 
 
 def cross_apply(params, x, ctx: Ctx):
     return _cross_attend(params, x, ctx)[0]
 
 
+def cross_len(cfg: ModelConfig) -> int:
+    """The memory length a cross layer serves: ``n_image_tokens`` or the
+    encoder's ``n_frames`` (at least 1)."""
+    return max(cfg.n_image_tokens or (cfg.encoder.n_frames if cfg.encoder
+                                      else 0), 1)
+
+
 def cross_cache(cfg: ModelConfig, batch, device):
-    """The memory's K/V (B, Hkv, max(n_mem, 1), dh) in ``CACHE_DTYPE``;
-    n_mem is ``n_image_tokens`` or the encoder's ``n_frames``."""
-    n_mem = cfg.n_image_tokens or (cfg.encoder.n_frames if cfg.encoder
-                                   else 0)
-    shape = (batch, cfg.n_kv_heads, max(n_mem, 1), cfg.head_dim)
+    """The memory's K/V (B, Hkv, ``cross_len``, dh) in ``CACHE_DTYPE``."""
+    shape = (batch, cfg.n_kv_heads, cross_len(cfg), cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
             "v": torch.zeros(shape, dtype=CACHE_DTYPE, device=device)}
 
 
+def _memory_sp(ctx: Ctx, n: int):
+    """The ``SPConfig`` of the axis the plan places ``n`` memory slots on
+    (the ``cache_seq`` rule, where its size divides ``n``), or None."""
+    sp = _ring_sp(ctx)
+    return sp if sp is not None and n % sp.degree == 0 else None
+
+
 def _cross_prefill(params, x, ctx: Ctx):
     """The prompt's cross attention and the memory's K/V cache, from one
-    projection of the memory."""
+    projection of the memory: the rank's kv heads, its block of the
+    memory slots where the plan places them over an axis."""
     y, k, v = _cross_attend(params, x, ctx)
-    return y, {"k": k.to(CACHE_DTYPE), "v": v.to(CACHE_DTYPE)}
+    sp = _memory_sp(ctx, k.shape[2])
+    if sp is not None:
+        c, t = k.shape[2] // sp.degree, sp.chunk_index
+        k, v = (z[:, :, t * c:(t + 1) * c] for z in (k, v))
+    return y, {"k": k.to(CACHE_DTYPE).contiguous(),
+               "v": v.to(CACHE_DTYPE).contiguous()}
 
 
 def cross_decode(params, x, cache, ctx: Ctx):
     """One token's query against the whole memory cache (plain fp32
-    scores, ``sharded_decode_attention``); the cache does not change."""
-    q = _cross_q(params, x, ctx.cfg)
-    o = sharded_decode_attention(q, cache["k"], cache["v"],
-                                 cache["k"].shape[2])
-    return _cross_y(params, o, x.dtype), cache
+    scores, ``sharded_decode_attention``); the cache does not change.
+    Memory slots sliced over the plan's ``cache_seq`` group are read
+    through its flash-decoding merge (``decode.o``, ``.m``, ``.l``),
+    every q head gathered first where that group is the model axis."""
+    q = _cross_q(params, x, ctx)
+    sp, n, gathered = _memory_sp(ctx, cross_len(ctx.cfg)), \
+        cache["k"].shape[2], False
+    if sp is not None:
+        n *= sp.degree
+        q, gathered = _q_for_slots_on_model(q, ctx)
+    o = sharded_decode_attention(q, cache["k"], cache["v"], n, sp=sp)
+    return _cross_y(params, o, x.dtype, ctx, gathered), cache
 
 
 # ===========================================================================
@@ -782,21 +968,88 @@ def moe_route(probs, k: int):
     return gate[:, :k], idx[:, :k]
 
 
-def moe_apply(params, x, cfg: ModelConfig):
-    """``(y, aux)`` of the reference's one-device dispatch
-    (``_moe_dispatch``). Items (token, choice) run token-major; each takes
-    the next free slot of its expert and items past the capacity
-    (``moe_capacity`` of the whole call's tokens) go to a sink row and
-    contribute nothing. The experts run as batched products over (E, cap,
-    d); each kept item's output is scaled by its renormalised gate and the
-    ``k`` contributions summed in the compute dtype. ``aux`` (fp32) is the
-    load-balance term E·Σ me·ce (``me`` counts every top-k pick, dropped
-    ones too) plus ``router_z_coef`` times the mean squared logsumexp of
-    the router logits."""
+def _moe_places(ctx: Ctx):
+    """``(rows, seq)``: the ``Place`` of each axis that splits the call's
+    tokens where the dispatch is the reference's global one
+    (``Parallelism.moe_global``), else None each: the rows' (``ctx.rows``)
+    and the sequence's (a serving plan's ``ctx.sp``)."""
+    plan = ctx.plan
+    if plan is None or not plan.moe_global:
+        return None, None
+    seq = None
+    if ctx.sp is not None and ctx.sp.degree > 1 and not plan.sp_manual:
+        seq = Place(ctx.sp.degree, ctx.sp.chunk_index, ctx.sp.group)
+    return ctx.rows, seq
+
+
+def _moe_offsets(onehot, b: int, rows, seq):
+    """Each local item's count of the call's earlier items for its expert
+    that other ranks hold (or that lie in this rank's earlier rows), in
+    the reference's token-major (row, position) order: the rows ahead of
+    this rank's block (``rows``: lower indices hold earlier rows, as
+    ``shard_leaf`` slices them) and, in each row, the chunks ahead of this
+    rank's (``seq``). Each rank counts its items per (row, expert); one
+    int32 all-gather over each splitting axis (tag ``moe.counts``) gives
+    every rank the whole table. Returns ``(t·k,)`` int64 offsets to add
+    to the local slots, less each item's earlier local rows (those the
+    local slot counts already)."""
+    e = onehot.shape[-1]
+    counts = onehot.reshape(b, -1, e).sum(1).to(torch.int32)   # (b, E)
+    table = counts[None]                                        # (Ws, b, E)
+    if seq is not None:
+        table = primitives.allgather_states(counts, seq.group,
+                                            tag="moe.counts")
+    table = table[None]                                     # (Wr, Ws, b, E)
+    if rows is not None:
+        table = primitives.allgather_states(table[0].contiguous(),
+                                            rows.group, tag="moe.counts")
+    table = table.long()
+    r = rows.index if rows is not None else 0
+    t = seq.index if seq is not None else 0
+    per_row = table.sum(1).reshape(-1, e)                   # (Wr·b, E)
+    ahead = (torch.cumsum(per_row, 0) - per_row)[r * b:(r + 1) * b]
+    ahead = ahead + table[r, :t].sum(0)
+    local = torch.cumsum(counts.long(), 0) - counts.long()  # local rows
+    per_item = (ahead - local).repeat_interleave(onehot.shape[0] // b, 0)
+    return (per_item * onehot).sum(-1)
+
+
+def moe_apply(params, x, ctx):
+    """``(y, aux)`` of the reference's dispatch (``_moe_dispatch``);
+    ``ctx`` a ``Ctx`` (a ``ModelConfig`` alone is the one-device call).
+    Items (token, choice) run token-major; each takes the next free slot
+    of its expert and items past the capacity (``moe_capacity`` of the
+    call's tokens) go to a sink row and contribute nothing. The experts
+    run as batched products over (E, cap, d); each kept item's output is
+    scaled by its renormalised gate and the ``k`` contributions summed in
+    the compute dtype. ``aux`` (fp32) is the load-balance term E·Σ me·ce
+    (``me`` counts every top-k pick, dropped ones too) plus
+    ``router_z_coef`` times the mean squared logsumexp of the router
+    logits, over this rank's tokens.
+
+    Under a serving plan whose ``fsdp_axis`` is set the dispatch is the
+    reference's global one over the whole call: the capacity counts every
+    rank's tokens and each item's slot its rank among all the call's
+    earlier items for its expert (``_moe_offsets``); without it, each
+    token shard's own (the reference's ``shard_map`` branch). Where the
+    experts split over model (``LayerSplit.experts``) each rank routes
+    every token of its model group, which holds the same tokens: the
+    router reads ``x``, bitwise equal on every rank of the group (it
+    follows the mixer's all-reduce, or a mixer each rank computes whole
+    from the same bits), so every rank picks the same experts and slots.
+    The rank fills and runs only its experts' slots; its gate-scaled
+    items, summed over ``k`` in fp32, and the shared experts' partial on
+    their ff columns (``LayerSplit.shared``) are summed over the model
+    group in one fp32 all-reduce (tag ``tp.experts``), rounded once."""
+    if not isinstance(ctx, Ctx):
+        ctx = Ctx(cfg=ctx)
+    cfg, sp = ctx.cfg, _split(ctx)
     moe = cfg.moe
     b, s, d = x.shape
     t, e, k = b * s, moe.num_experts, moe.top_k
-    cap = moe_capacity(moe, t)
+    rows, seq = _moe_places(ctx)
+    cap = moe_capacity(moe, t * (rows.size if rows else 1)
+                       * (seq.size if seq else 1))
     dt = x.dtype
     xf = x.reshape(t, d)
     logits = (xf @ params["router"].to(dt)).float()
@@ -806,25 +1059,41 @@ def moe_apply(params, x, cfg: ModelConfig):
     flat_e = idx.reshape(-1)                               # (t·k,)
     onehot = F.one_hot(flat_e, e)                          # (t·k, e)
     slot = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(-1)
+    if rows is not None or seq is not None:
+        slot = slot + _moe_offsets(onehot, b, rows, seq)
     keep = slot < cap
-    dest = torch.where(keep, flat_e * cap + slot,
-                       torch.full_like(slot, e * cap))
+    e_l, e0 = sp.heads(e, sp.experts)
+    if e_l != e:
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + e_l)
+    dest = torch.where(keep, (flat_e - e0) * cap + slot,
+                       torch.full_like(slot, e_l * cap))
     items = torch.repeat_interleave(xf, k, dim=0)          # (t·k, d)
-    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
-    buf = buf.index_add(0, dest, items)[:e * cap].reshape(e, cap, d)
+    buf = torch.zeros((e_l * cap + 1, d), dtype=dt, device=x.device)
+    buf = buf.index_add(0, dest, items)[:e_l * cap].reshape(e_l, cap, d)
     ex = params["experts"]
     h = F.silu(torch.bmm(buf, ex["w1"].to(dt))) * torch.bmm(buf,
                                                             ex["w3"].to(dt))
-    out = torch.bmm(h, ex["w2"].to(dt)).reshape(e * cap, d)
+    out = torch.bmm(h, ex["w2"].to(dt)).reshape(e_l * cap, d)
     out = torch.cat([out, torch.zeros((1, d), dtype=dt, device=x.device)])
     y = out[dest] * (gate.reshape(-1, 1).to(dt) * keep[:, None].to(dt))
-    y = y.reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+    shared = "shared" in params
+    if sp.experts:
+        part = y.float().reshape(t, k, d).sum(dim=1)
+        if shared and sp.shared:
+            part = part + mlp_partial(params["shared"], xf)
+            shared = False
+        y = primitives.allreduce_sum(part, sp.tp.group,
+                                     tag="tp.experts").to(dt)
+    else:
+        y = y.reshape(t, k, d).sum(dim=1)
+    y = y.reshape(b, s, d)
     me = F.one_hot(idx, e).float().mean(dim=(0, 1))
     ce = probs.mean(dim=0)
     aux = e * torch.sum(me * ce) + moe.router_z_coef * torch.mean(
         torch.logsumexp(logits, dim=-1) ** 2)
-    if "shared" in params:
-        y = y + mlp_apply(params["shared"], x)
+    if shared:
+        y = y + mlp_apply(params["shared"], x,
+                          tp=sp.tp if sp.shared else None)
     return y, aux
 
 
@@ -899,59 +1168,11 @@ def _mlp_residual(params, x, ctx: Ctx, spec: LayerSpec):
         return x, 0.0
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if spec.mlp == "moe":
-        y, aux = moe_apply(params["mlp"], h, cfg)
+        y, aux = moe_apply(params["mlp"], h, ctx)
         return x + y, aux
     s = _split(ctx)
     return x + mlp_apply(params["mlp"], h, act=cfg.mlp_act,
                          tp=s.tp if s.mlp else None), 0.0
-
-
-def _cache_axes(ctx: Ctx, spec: LayerSpec) -> tuple:
-    """The axes a gather-at-use mixer's cache is gathered over and sliced
-    back on: the model axis, and for a cross layer also its memory slots'
-    (``cache_seq``) axis."""
-    plan = ctx.plan
-    axes = [plan.tp_axis]
-    if spec.mixer == "cross":
-        axes.append(plan.rules.get("cache_seq"))
-    return tuple(a for a in axes if plan.place(a) is not None)
-
-
-def _whole_specs(cache, ctx: Ctx, spec: LayerSpec):
-    """``cache_specs`` of a mixer cache at its whole shapes (its rows and
-    ring length as ``cache`` holds them)."""
-    leaves = leaves_with_paths(cache)
-    ring = next((t.shape[1] for path, t in leaves if path[-1] == "kpos"), 1)
-    whole = _MIXERS[spec.mixer].cache(ctx.cfg, spec, leaves[0][1].shape[0],
-                                      ring, torch.device("meta"))
-    return cache_specs(whole, ctx.plan)
-
-
-def _gather_cache(cache, specs, ctx: Ctx, axes):
-    """A cache gathered whole over ``axes`` (tags ``tp.cache.<leaf>`` over
-    model, ``cache_seq.<leaf>`` over the slots' axis)."""
-    if isinstance(cache, dict):
-        return {k: _gather_cache(v, specs[k], ctx, axes) if isinstance(
-            v, dict) else _gather_leaf(k, v, specs[k], ctx, axes)
-                for k, v in cache.items()}
-    return cache
-
-
-def _gather_leaf(name, t, spec, ctx: Ctx, axes):
-    for dim, entry in enumerate(spec):
-        if entry in axes:
-            tag = ("tp.cache." if entry == ctx.plan.tp_axis
-                   else "cache_seq.") + name
-            t = primitives.allgather_states(
-                t.contiguous(), ctx.plan.place(entry).group,
-                gather_axis=dim, tiled=True, tag=tag)
-    return t
-
-
-def _own_cache(cache, ctx: Ctx, spec: LayerSpec, axes):
-    """This rank's slices, over ``axes``, of a cache computed whole."""
-    return shard_tree(cache, _whole_specs(cache, ctx, spec),
-                      ctx.plan.layout, axes=axes)
 
 
 def layer_apply(params, x, ctx: Ctx, spec: LayerSpec):
@@ -969,31 +1190,19 @@ def layer_cache(cfg: ModelConfig, spec: LayerSpec, batch, max_len, device):
 
 
 def layer_prefill(params, x, ctx: Ctx, spec: LayerSpec, max_len):
-    """One layer over the prompt: ``(x, its cache)``; a gather-at-use
-    mixer's cache, computed whole over model, keeps this rank's slices."""
+    """One layer over the prompt: ``(x, its cache)``, the cache this
+    rank's slice per ``sharding.rules.cache_specs``."""
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
     y, mc = _MIXERS[spec.mixer].prefill(params["mixer"], h, ctx, spec,
                                         max_len)
-    if _split(ctx).whole:
-        axes = _cache_axes(ctx, spec)
-        if axes:
-            mc = _own_cache(mc, ctx, spec, axes)
     return _mlp_residual(params, x + y, ctx, spec)[0], {"mixer": mc}
 
 
 def layer_decode(params, x, cache, ctx: Ctx, spec: LayerSpec):
-    """One token through one layer: ``(x, its cache)``; a gather-at-use
-    mixer's cache is gathered whole over model for the step and sliced
-    back after it."""
+    """One token through one layer: ``(x, its cache)``."""
     _unported(spec)
     h = rmsnorm(params["ln1"], x, ctx.cfg.norm_eps)
-    mc, axes = cache["mixer"], ()
-    if _split(ctx).whole:
-        axes = _cache_axes(ctx, spec)
-        if axes:
-            mc = _gather_cache(mc, _whole_specs(mc, ctx, spec), ctx, axes)
-    y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, mc, ctx, spec)
-    if axes:
-        mc = _own_cache(mc, ctx, spec, axes)
+    y, mc = _MIXERS[spec.mixer].decode(params["mixer"], h, cache["mixer"],
+                                       ctx, spec)
     return _mlp_residual(params, x + y, ctx, spec)[0], {"mixer": mc}

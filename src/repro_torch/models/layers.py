@@ -79,28 +79,44 @@ def mlp_init(generator, d, d_ff, dtype, device, act="swiglu"):
     return p
 
 
+def row_partial(x, w):
+    """``x @ w`` where ``w`` holds this rank's rows of a weight split over
+    the model group (``x`` the matching columns): the rank's partial
+    product in fp32, for one all-reduce to sum (:func:`row_parallel`)."""
+    return x.float() @ w.float()
+
+
 def row_parallel(x, w, tp, tag):
     """``x @ w`` where ``w`` holds this rank's rows of a weight split over
     the model group (``x`` the matching columns): the partial product in
     fp32, summed over the group in one all-reduce (``tag``) and rounded
     to ``x``'s dtype once, as one device's product is."""
-    y = primitives.allreduce_sum(x.float() @ w.float(), tp.group, tag=tag)
+    y = primitives.allreduce_sum(row_partial(x, w), tp.group, tag=tag)
     return y.to(x.dtype)
+
+
+def _mlp_hidden(params, x, act):
+    dt = x.dtype
+    h = x @ params["w1"].to(dt)
+    if act == "swiglu":
+        return F.silu(h) * (x @ params["w3"].to(dt))
+    return F.gelu(h, approximate="tanh")     # jax.nn.gelu's default form
+
+
+def mlp_partial(params, x, act="swiglu"):
+    """The MLP's fp32 partial output on this rank's ff columns (``w1``,
+    ``w3``) and rows (``w2``), for an all-reduce to sum."""
+    return row_partial(_mlp_hidden(params, x, act), params["w2"].to(x.dtype))
 
 
 def mlp_apply(params, x, act="swiglu", tp=None):
     """The MLP; with ``tp`` the weights are this rank's ff columns
     (``w1``, ``w3``) and rows (``w2``): its partial output is summed over
     the model group in one all-reduce (tag ``tp.mlp``)."""
-    dt = x.dtype
-    h = x @ params["w1"].to(dt)
-    if act == "swiglu":
-        h = F.silu(h) * (x @ params["w3"].to(dt))
-    else:
-        h = F.gelu(h, approximate="tanh")    # jax.nn.gelu's default form
+    h = _mlp_hidden(params, x, act)
     if tp is not None:
-        return row_parallel(h, params["w2"].to(dt), tp, "tp.mlp")
-    return h @ params["w2"].to(dt)
+        return row_parallel(h, params["w2"].to(x.dtype), tp, "tp.mlp")
+    return h @ params["w2"].to(x.dtype)
 
 
 # --- embeddings ------------------------------------------------------------

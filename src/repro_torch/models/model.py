@@ -35,10 +35,13 @@ the prompt splits over the SP group, and each rank then runs its chunk
 layer's fsdp-split leaves are gathered over data just before it runs
 (tags ``fsdp.<leaf>``) and dropped after it, one layer's whole weights
 at a time, as XLA's FSDP does; the leaves a layer computes whole over
-model are gathered too (``tp.cols.<leaf>``: the gather-at-use mixers and
-MoE MLPs, the q/k/v columns of heads the model axis does not divide).
-The rest stays the rank's slice over model: its heads, ff columns and
-vocab rows (``blocks``, ``layers``). The decode cache holds what
+model are gathered too (``tp.cols.<leaf>``: the q/k/v columns of heads,
+the SSD heads or the experts the model axis does not divide). The rest
+stays the rank's slice over model: its heads, SSD heads, experts, ff
+columns and vocab rows (``blocks``, ``layers``), the encoder's layers
+split as the decoder's. A prefill plan whose batch rule splits the rows
+(the batch-over-model branch) has each rank prefill its rows. The
+decode cache holds what
 ``sharding.rules.cache_specs`` gives the rank (``init_cache(plan=)``):
 its rows where the plan places decode slots over data (``pos`` stays
 whole), its heads, its ring slots.
@@ -146,17 +149,22 @@ def hymba_global_flags(cfg: ModelConfig):
     return [spec.is_global for spec in specs]
 
 
-def _layer_ctxs(ctx: Ctx, cfg: ModelConfig, pl=None):
+def _layer_ctxs(ctx: Ctx, cfg: ModelConfig, pl=None, encoder=False):
     """One ``Ctx`` per layer: ``ctx`` itself, or a copy carrying the
     layer's hymba flag (a copy, so a layer recomputed under remat reads
     its own) and, under a serving plan's :class:`Placement` ``pl``, its
-    ``LayerSplit``."""
-    flags = hymba_global_flags(cfg)
-    ctxs = [ctx] * cfg.n_layers if flags is None else \
-        [dataclasses.replace(ctx, is_global=f) for f in flags]
+    ``LayerSplit`` (the encoder's layers' with ``encoder``)."""
+    if encoder:
+        n = cfg.encoder.n_layers
+        ctxs = [ctx] * n
+    else:
+        flags = hymba_global_flags(cfg)
+        ctxs = [ctx] * cfg.n_layers if flags is None else \
+            [dataclasses.replace(ctx, is_global=f) for f in flags]
     if pl is None:
         return ctxs
-    return [dataclasses.replace(c, split=s) for c, s in zip(ctxs, pl.layers)]
+    splits = pl.encoder if encoder else pl.layers
+    return [dataclasses.replace(c, split=s) for c, s in zip(ctxs, splits)]
 
 
 # ---------------------------------------------------------------------------
@@ -167,10 +175,12 @@ def _layer_ctxs(ctx: Ctx, cfg: ModelConfig, pl=None):
 class Placement:
     """What a serving plan places on ``cfg``'s params on this rank, decided
     once a call (:func:`placement`): ``specs``, ``param_specs`` of the
-    whole params; ``layers``, each layer's ``LayerSplit``."""
+    whole params; ``layers``, each layer's ``LayerSplit``; ``encoder``,
+    each encoder layer's."""
 
     specs: Any
     layers: tuple
+    encoder: tuple = ()
 
 
 def placement(cfg: ModelConfig, plan) -> Optional[Placement]:
@@ -179,9 +189,11 @@ def placement(cfg: ModelConfig, plan) -> Optional[Placement]:
     if plan is None or plan.layout is None or plan.layout.groups is None:
         return None
     specs = param_specs(init_params(None, cfg, device="meta"), plan)
+    enc = specs["encoder"]["layers"] if cfg.encoder is not None else []
     return Placement(specs, tuple(
         layer_split(cfg, spec, specs["layers"][i], plan)
-        for i, spec in enumerate(cfg.layer_specs())))
+        for i, spec in enumerate(cfg.layer_specs())), tuple(
+        layer_split(cfg, ENCODER_SPEC, lspecs, plan) for lspecs in enc))
 
 
 def gather_params(tree, specs, plan, whole, prefix=()):
@@ -208,18 +220,16 @@ def gather_params(tree, specs, plan, whole, prefix=()):
 
 
 def _layer_use(pl: Optional[Placement], plan, encoder=False):
-    """``use(i, p)``: layer ``i``'s params ``p`` as the layer computes on
-    them under ``plan`` (None without placements): the leaves its
-    ``LayerSplit`` names gathered whole over model. Encoder layers are
-    gathered whole."""
+    """``use(i, p)``: layer ``i``'s params ``p`` (an encoder layer's with
+    ``encoder``) as the layer computes on them under ``plan`` (None
+    without placements): the leaves its ``LayerSplit`` names gathered
+    whole over model."""
     if pl is None or (plan.fsdp_place() is None
                       and plan.tp_place() is None):
         return None
-    if encoder:
-        return lambda i, p: gather_params(
-            p, pl.specs["encoder"]["layers"][i], plan, lambda path: True)
-    return lambda i, p: gather_params(p, pl.specs["layers"][i], plan,
-                                      pl.layers[i].gathered)
+    specs = pl.specs["encoder"]["layers"] if encoder else pl.specs["layers"]
+    splits = pl.encoder if encoder else pl.layers
+    return lambda i, p: gather_params(p, specs[i], plan, splits[i].gathered)
 
 
 def _embed(params, pl: Optional[Placement], plan, name):
@@ -274,10 +284,11 @@ def encode(params, frames, cfg: ModelConfig, plan=None, *,
     """Whisper-style bidirectional encoder over (stub) frame embeddings
     (B, n_frames, d_model): the sinusoid added in ``cfg.dtype``, softmax
     layers without RoPE and unmasked, then the encoder's final norm. Under
-    a ``plan`` the encoder runs whole on every rank: its output is the
-    memory every rank's cross layers read whole (the reference's GSPMD
-    may split its frames; the function is the same), each layer's
-    weights gathered whole at use."""
+    a ``plan`` every rank encodes all its rows' frames (the reference's
+    GSPMD may split them; the function is the same), each layer on the
+    rank's heads and ff columns as the decoder's layers split
+    (``sharding.rules.LayerSplit``): its output is the memory every
+    rank's cross layers read whole."""
     dtype = torch_dtype(cfg.dtype)
     device = _device(params)
     x = torch.as_tensor(frames, device=device).to(dtype)
@@ -285,10 +296,12 @@ def encode(params, frames, cfg: ModelConfig, plan=None, *,
                                  device=device).to(dtype)[None]
     enc = params["encoder"]
     n = len(enc["layers"])
+    pl = placement(cfg, plan)
     ctx = Ctx(cfg=cfg, positions=None, causal=False)
-    x, _ = _run_layers(enc["layers"], x, [ctx] * n, [ENCODER_SPEC] * n,
-                       remat, _layer_use(placement(cfg, plan), plan,
-                                         encoder=True))
+    x, _ = _run_layers(enc["layers"], x,
+                       _layer_ctxs(ctx, cfg, pl, encoder=True),
+                       [ENCODER_SPEC] * n, remat,
+                       _layer_use(pl, plan, encoder=True))
     return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -491,7 +504,8 @@ def decode_step(params, token, cache, cfg: ModelConfig, plan=None, *,
     pos = pos_all if rows is None else pos_all[rows[0]:rows[0] + rows[1]]
     x = _lookup(params, token[:, None], pl, plan, dtype)
     ctx = Ctx(cfg=cfg, positions=pos[:, None], decode_pos=pos,
-              img_emb=img_emb, enc_out=enc_out, plan=plan)
+              img_emb=img_emb, enc_out=enc_out, plan=plan,
+              rows=None if rows is None else plan.rows_place(len(pos_all)))
     use = _layer_use(pl, plan)
     new_layers = []
     for i, (p, c, lctx, spec) in enumerate(zip(
@@ -510,8 +524,18 @@ def decode_step(params, token, cache, cfg: ModelConfig, plan=None, *,
 # Prefill (full prompt → cache)
 # ---------------------------------------------------------------------------
 
+def _row_block(t, place):
+    """``t``'s (rows first) block of rows this rank holds along ``place``
+    (None: ``t`` whole; None stays None)."""
+    if t is None or place is None:
+        return t
+    n = t.shape[0] // place.size
+    return t[place.index * n:(place.index + 1) * n]
+
+
 def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
-            pad_lens=None, img_emb=None, enc_frames=None):
+            pad_lens=None, img_emb=None, enc_frames=None,
+            split_rows: bool = True):
     """Run the prompt, returning (logits of the last position (B, V),
     decode cache).
 
@@ -534,7 +558,13 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
     so a left-padded row's reset may fall in any chunk. Only the last
     rank holds the last position: its final hidden state reaches every
     rank through one all-gather (tag ``prefill.last``), so every rank
-    returns the same logits and cache (rings sliced per the plan).
+    returns the same logits. Where a prefill plan's batch rule splits the
+    rows (``plan.prefill_rows_place``: the batch-over-model branch; off
+    with ``split_rows=False``), a rank prefills its block of them alone
+    and its cache holds those rows (``pos`` stays whole); the last
+    position's hidden states are gathered back over that axis (tag
+    ``prefill.rows``), so every rank returns every row's logits. The
+    cache holds this rank's slice per ``sharding.rules.cache_specs``.
     """
     device = _device(params)
     dtype = torch_dtype(cfg.dtype)
@@ -543,6 +573,13 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
     max_len = max_len or s
     sp, t, c = _plan_split(plan, s)
     pl = placement(cfg, plan)
+    rows = plan.prefill_rows_place(b) if plan is not None and split_rows \
+        else None
+    if pad_lens is not None:
+        pad_lens = torch.as_tensor(pad_lens, device=device).long()
+    whole_pads = pad_lens
+    tokens, pad_lens, img_emb, enc_frames = (
+        _row_block(z, rows) for z in (tokens, pad_lens, img_emb, enc_frames))
     x = _lookup(params, tokens[:, t * c:(t + 1) * c], pl, plan, dtype)
     cols = torch.arange(t * c, (t + 1) * c, device=device)[None, :]
     resets = None
@@ -551,7 +588,6 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
             raise ValueError(
                 "pad_lens prefill requires a pure linear/SSM stack with "
                 "dense MLPs")
-        pad_lens = torch.as_tensor(pad_lens, device=device).long()
         positions = cols - pad_lens[:, None]                    # (B, C)
         resets = cols == pad_lens[:, None]
         x = torch.where((cols >= pad_lens[:, None])[..., None], x,
@@ -561,7 +597,7 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
     img_emb, enc_out = _memories(params, cfg, img_emb, enc_frames, "none",
                                  plan)
     ctx = Ctx(cfg=cfg, positions=positions, resets=resets, img_emb=img_emb,
-              enc_out=enc_out, sp=sp, plan=plan)
+              enc_out=enc_out, sp=sp, plan=plan, rows=rows)
     use = _layer_use(pl, plan)
     caches = []
     for i, (p, lctx, spec) in enumerate(zip(
@@ -574,9 +610,12 @@ def prefill(params, tokens, cfg: ModelConfig, plan=None, *, max_len=None,
     x = x[:, -1:, :]
     if sp is not None:
         x = primitives.allgather_states(x, sp.group, tag="prefill.last")[-1]
+    if rows is not None:
+        x = primitives.allgather_states(x.contiguous(), rows.group,
+                                        tiled=True, tag="prefill.rows")
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = _logits(params, x, cfg, pl, plan)
     pos = torch.full((b,), s, dtype=torch.int32, device=device)
-    if pad_lens is not None:
-        pos = pos - pad_lens.to(torch.int32)      # per-row true lengths
+    if whole_pads is not None:                    # per-row true lengths
+        pos = pos - whole_pads.to(torch.int32)
     return logits[:, 0, :], {"layers": caches, "pos": pos}

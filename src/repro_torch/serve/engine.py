@@ -27,12 +27,15 @@ the weights (``sharding.rules.shard_params``) and of the cache
 (``M.init_cache(plan=)``). The prompt splits over the SP group (LASP-2
 and LASP-2H), and each softmax ring holds this rank's slice of its slots
 where the plan places them. Where the plan places decode slots over data
-(``plan.rows_place``) the slot grid's rows split over the data group:
-admission prefill runs the whole batch and keeps the rows this rank owns,
-each step decodes and samples the rank's rows (each request with its own
-generator), and one all-gather over data (tag ``serve.tokens``) hands
-every rank the same tokens, so every rank's scheduler records the same
-step. ``cache_stats`` then reports this rank's bytes.
+(``plan.rows_place``) the slot grid's rows split over that axis:
+admission prefill runs the whole batch and keeps the rows this rank owns
+(under a prefill plan whose batch rule splits the batch over the same
+axis, and whose blocks land in each rank's own slots, each rank prefills
+only its block of rows, ``M.prefill``), each step decodes and samples the
+rank's rows (each request with its own generator), and one all-gather
+(tag ``serve.tokens``) hands every rank the same tokens, so every rank's
+scheduler records the same step. ``cache_stats`` then reports this
+rank's bytes. The static path prefills every row on every rank.
 
 Encoder and image models (the cross family) serve through ``generate``
 alone, as a static batch: their per-request memories (encoder frames,
@@ -84,16 +87,22 @@ def _mix_seed(seed: int, stream: int, step: int) -> int:
     return x >> 1
 
 
-def _place(big, small, slots, rows=None) -> None:
+def _place(big, small, slots, rows=None, mine=None) -> None:
     """Write a prefill's cache tree ``small`` (rows in ``slots`` order, a
     list) into the engine's cache tree ``big``, leaf by leaf, at rows
     ``slots``; nested mixer dicts (hymba's ``attn``/``ssm``) included.
     ``rows`` (first slot, slots held): the plan places the grid's rows
     over an axis, so every leaf but ``pos`` (whole, ``cache_specs``) holds
-    this rank's block of them and takes only the rows of its slots."""
+    this rank's block of them and takes only the rows of its slots.
+    ``mine``: the prefill held only the rows of these slots (its split
+    rows), so every leaf but ``pos`` holds those rows alone."""
     if isinstance(big, dict):
         for name, sub in small.items():
-            _place(big[name], sub, slots, None if name == "pos" else rows)
+            if name == "pos":
+                _place(big[name], sub, slots)
+            else:
+                _place(big[name], sub, slots if mine is None else mine,
+                       rows)
     elif isinstance(big, list):
         for b, s in zip(big, small):
             _place(b, s, slots, rows)
@@ -248,14 +257,35 @@ class ServeEngine:
                                   + gumbel)
         return tok.to(torch.int32).cpu().numpy()
 
+    def _split_rows(self, slots) -> Optional[list]:
+        """The slots of this rank's block of an admitted batch's rows where
+        the plan's prefill splits them (``plan.prefill_rows_place``) over
+        the axis the slot grid's rows split over, and every rank's block
+        lands in its own slots; else None (the prefill runs every row and
+        each rank keeps the rows of its slots). The same on every rank:
+        the slots are."""
+        place = self.plan.prefill_rows_place(len(slots)) \
+            if self.plan is not None else None
+        if place is None or self._rows is None or \
+                self.plan.rows_axis(len(slots)) != \
+                self.plan.rows_axis(self.max_batch):
+            return None
+        nb, n = len(slots) // place.size, self._rows[2]
+        if any(s // n != j // nb for j, s in enumerate(slots)):
+            return None
+        return slots[place.index * nb:(place.index + 1) * nb]
+
     def _admit(self, batch: PrefillBatch) -> List[Request]:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(batch.prompts, device=self.device)
         pad_lens = batch.pad_lens if self.bucket_lengths else None
+        slots = [int(s) for s in batch.slots]
+        mine = self._split_rows(slots)
         logits, small = M.prefill(self.params, tokens, self.cfg, self.plan,
-                                  max_len=self.max_len, pad_lens=pad_lens)
-        _place(self._cache, small, [int(s) for s in batch.slots],
-               None if self._rows is None else self._rows[1:])
+                                  max_len=self.max_len, pad_lens=pad_lens,
+                                  split_rows=mine is not None)
+        _place(self._cache, small, slots,
+               None if self._rows is None else self._rows[1:], mine)
         temps = np.array([r.temperature for r in batch.requests], np.float32)
         seeds = np.array([[r.seed, r.stream] for r in batch.requests],
                          np.int64)
@@ -342,7 +372,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         logits, cache = M.prefill(self.params, prompts, self.cfg, self.plan,
                                   max_len=self.max_len, img_emb=img_emb,
-                                  enc_frames=enc_frames)
+                                  enc_frames=enc_frames, split_rows=False)
         temps = np.full((b,), float(temperature))
         seeds = np.stack([np.full((b,), seed), np.arange(b)], axis=1)
         tok = self._sample(logits, temps, seeds, np.zeros((b,), np.int64))

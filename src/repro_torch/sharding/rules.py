@@ -38,12 +38,30 @@ where the computation needs it whole, each exchange a recorded collective
   cache hold this rank's rows, the sampled tokens gathered back
   (``serve.tokens``).
 
-Not split in compute, stored per spec and gathered whole over model at
-use (``tp.cols.<leaf>`` for weights, ``tp.cache.<leaf>`` for caches):
-the SSD heads of mamba2 and hymba layers, MoE experts, cross layers, and
-the q/k/v columns of a head count the model axis does not divide (the
-specs test divisibility on the flattened column dim). Prefill rows over
-pod or model (the batch rule of a prefill plan) stay whole.
+* SSD heads over model (mamba2, hymba's SSM half): the rank's ``wx``,
+  ``wz``, ``wdt`` columns, ``conv_x`` channels and 1-D head leaves; ``B``
+  and ``C`` stay whole; the group norm's statistic is one all-reduce
+  (``tp.gnorm``), ``wo`` row-parallel; the split conv caches of ``B`` and
+  ``C`` are gathered at each decode step (``tp.conv``);
+* experts over model (MoE): each rank fills and runs only its experts'
+  slots of a dispatch every rank of the model group routes alike, and one
+  fp32 all-reduce sums the experts' and the shared experts' partial
+  outputs (``tp.experts``). The capacity is the reference's: its global
+  dispatch, from the whole call's tokens, wherever the plan sets
+  ``fsdp_axis`` (one all-gather of the per-row expert counts over each
+  token axis, ``moe.counts``), the per-shard one where it does not;
+* cross layers on their heads: the memory's K/V cache holds the rank's kv
+  heads, its slots sliced over the ``cache_seq`` axis and read through the
+  flash-decoding merge; Whisper's encoder layers split as the decoder's;
+* prefill rows over the prefill plan's batch axis (hymba's and whisper's
+  batch-over-model branch): each rank prefills its rows, the last
+  position's hidden state gathered back (``prefill.rows``).
+
+Still gathered whole over model at use (``tp.cols.<leaf>``, caches
+``tp.cache.<leaf>``): head counts the model axis does not divide (the
+specs test divisibility on the flattened column dim: hymba's 25:5,
+granite's single kv head), SSD heads it does not divide, experts it does
+not divide. A per-head cut there would need uneven shards.
 A layout without ranks (``make_production_mesh``) gives a plan whose
 rules, specs and SP axes are the reference's, with ``plan.sp`` None.
 """
@@ -122,7 +140,7 @@ class Parallelism:
     sequence splits over (empty: no SP), ``sp_manual`` the manual
     DP×SP(×TP) train plan, whose caller already holds per-rank chunks.
     ``sp`` is the ``core.lasp2.SPConfig`` over the SP group, set only
-    when the layout has ranks. The reference's ``backend`` and
+    when the layout has ranks. ``kind`` is ``make_plan``'s shape kind. The reference's ``backend`` and
     ``banded_windows`` have no twin: the backend follows the tensors, and
     the flash kernels' band skips the blocks the banded form skips.
     """
@@ -139,6 +157,7 @@ class Parallelism:
     decode_cache_axis: Optional[Axis] = None
     manual_axes: tuple = ()
     zero1_axis: Optional[object] = None     # Axis | tuple[Axis, ...] | None
+    kind: Optional[str] = None              # make_plan's shape kind
 
     def act(self, x, *dims):
         """The identity. The reference constrains ``x``'s sharding by its
@@ -181,6 +200,25 @@ class Parallelism:
     def rows_place(self, rows: int) -> Optional["Place"]:
         """This rank's :class:`Place` along :meth:`rows_axis`, or None."""
         return self.place(self.rows_axis(rows))
+
+    def prefill_rows_axis(self, rows: int):
+        """The axis a prefill plan's batch rule splits ``rows`` prompt rows
+        over (:meth:`rows_axis`; the batch-over-model branch, or pod), or
+        None: the rows stay whole on every rank (any other plan kind, no
+        axis of size > 1, or a count the axis does not divide)."""
+        return self.rows_axis(rows) if self.kind == "prefill" else None
+
+    def prefill_rows_place(self, rows: int) -> Optional["Place"]:
+        """This rank's :class:`Place` along :meth:`prefill_rows_axis`."""
+        return self.place(self.prefill_rows_axis(rows))
+
+    @property
+    def moe_global(self) -> bool:
+        """Whether an MoE layer dispatches over the whole call's tokens:
+        the reference's ``_moe_dispatch`` on the global ``x`` wherever the
+        plan sets ``fsdp_axis``; without it the reference's ``shard_map``
+        branch counts each token shard's capacity apart."""
+        return self.layout is not None and self.fsdp_axis is not None
 
     @property
     def sp_degree(self) -> int:
@@ -242,38 +280,43 @@ class Place:
     group: object
 
 
-# Mixers that compute every head under a plan's tensor parallelism: their
-# weights come gathered whole over model at use, their caches are stored
-# per cache_specs and gathered at use.
-GATHER_AT_USE = ("mamba2", "hymba", "cross")
-
-
 @dataclass(frozen=True)
 class LayerSplit:
     """How one layer computes under a serving plan, decided once from the
     model axis's size, the config's head counts and the layer's param
     specs (:func:`layer_split`):
 
-    * ``whole``: the mixer computes every head (``GATHER_AT_USE``): its
-      leaves are gathered over model, its cache is gathered at use;
-    * ``q``, ``kv``: the q (kv) heads split over model; otherwise the rank
+    * ``q``, ``kv``: the attention's q (kv) heads split over model (linear,
+      softmax and cross mixers, hymba's ``attn``); otherwise the rank
       computes them all, its ``wq`` (``wk``, ``wv``) gathered at use where
       the specs split the flattened columns anyway;
-    * ``wo``: ``wo`` holds the rank's rows (row-parallel, ``tp.mixer``);
+    * ``wo``: the attention's ``wo`` holds the rank's rows (row-parallel,
+      ``tp.mixer``);
+    * ``ssd``: the SSD heads split over model (mamba2, hymba's ``ssm``):
+      the rank's ``wx``, ``wz``, ``wdt`` columns, ``conv_x`` channels and
+      1-D head leaves; otherwise every SSD leaf the specs split is
+      gathered at use, and so is its cache;
+    * ``ssd_wo``: the SSD's ``wo`` holds the rank's rows;
     * ``mlp``: the dense MLP holds the rank's ff columns (``tp.mlp``);
-    * ``moe``: an MoE MLP, gathered whole over model;
-    * ``size``, ``tp``: the model axis's size and the rank's
-      :class:`Place` on it (None without ranks or for size 1).
+    * ``experts``: an MoE MLP's experts split over model (expert
+      parallelism, ``tp.experts``); ``shared``: its shared experts' ff
+      columns split;
+    * ``mixer``: the layer's mixer; ``size``, ``tp``: the model axis's
+      size and the rank's :class:`Place` on it (None without ranks or for
+      size 1).
     """
 
     size: int = 1
     tp: Optional[Place] = None
-    whole: bool = False
+    mixer: str = ""
     q: bool = False
     kv: bool = False
     wo: bool = False
+    ssd: bool = False
+    ssd_wo: bool = False
     mlp: bool = False
-    moe: bool = False
+    experts: bool = False
+    shared: bool = False
 
     def heads(self, n: int, split: bool):
         """``(heads, first head)`` of ``n`` heads that the rank computes:
@@ -285,44 +328,77 @@ class LayerSplit:
 
     def gathered(self, path) -> bool:
         """Whether the layer's leaf at ``path`` (``("mixer", "wq")``) is
-        gathered whole over model at use (tag ``tp.cols.<leaf>``)."""
+        gathered whole over model at use (tag ``tp.cols.<leaf>``; only
+        the dims its spec places on model are gathered)."""
         if self.size == 1:
             return False
+        leaf = path[-1]
         if path[0] == "mixer":
-            return self.whole or (path[-1] == "wq" and not self.q) or \
-                (path[-1] in ("wk", "wv") and not self.kv)
-        return path[0] == "mlp" and self.moe
+            if self.mixer == "mamba2" or path[1] == "ssm":
+                return not (self.ssd_wo if leaf == "wo" else self.ssd)
+            return {"wq": not self.q, "wdt": not self.q, "wk": not self.kv,
+                    "wv": not self.kv, "wo": not self.wo}.get(leaf, False)
+        if path[0] != "mlp":
+            return False
+        if "experts" in path:
+            return not self.experts
+        if "shared" in path:
+            return not self.shared
+        return not self.mlp
 
 
 def _entry(spec, dim: int):
     return spec[dim] if dim < len(spec) else None
 
 
+def _on(tree, path, dim, axis) -> bool:
+    """Whether the spec at ``path`` of ``tree`` places ``dim`` on ``axis``
+    (False where the leaf is missing)."""
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return False
+        tree = tree[k]
+    return _entry(tree, dim) == axis
+
+
 def layer_split(cfg, spec, lspecs, plan: Optional[Parallelism]) -> LayerSplit:
     """The :class:`LayerSplit` of layer ``spec`` (a ``LayerSpec``) of
     ``cfg`` under ``plan``, ``lspecs`` its :func:`param_specs` (read only
     under tensor parallelism). A linear mixer splits its q heads where the
-    model axis's size divides them; a softmax mixer where the size also
-    divides the kv heads or there is one kv head (MQA), as the GQA kernels
-    take them; kv heads split where the size divides them. Read from the
-    layout's sizes: the budgets use it without ranks."""
+    model axis's size divides them; a softmax-like mixer (softmax, cross,
+    hymba's attention) where the size also divides the kv heads or there
+    is one kv head (MQA), as the GQA kernels take them; kv heads split
+    where the size divides them. SSD heads split where the specs place
+    every per-head leaf on model (the size divides the heads and the inner
+    width alike); experts where they place the experts' dim on model.
+    Read from the layout's sizes: the budgets use it without ranks."""
     if plan is None or plan.layout is None:
-        return LayerSplit()
-    whole = spec.mixer in GATHER_AT_USE
+        return LayerSplit(mixer=spec.mixer)
     size = plan.tp_size()
     if size == 1:
-        return LayerSplit(whole=whole)
+        return LayerSplit(mixer=spec.mixer)
+    tp = plan.tp_axis
     h, hkv = cfg.n_heads, cfg.n_kv_heads
-    kv = spec.mixer in ("linear", "softmax") and hkv % size == 0
-    q = h % size == 0 and (spec.mixer == "linear" or (
-        spec.mixer == "softmax" and (kv or hkv == 1)))
+    m = spec.mixer
+    attn = m in ("linear", "softmax", "cross", "hymba")
+    kv = attn and hkv % size == 0
+    q = attn and h % size == 0 and (m == "linear" or kv or hkv == 1)
     mixer = lspecs.get("mixer", {})
-    wo = not whole and "wo" in mixer and \
-        _entry(mixer["wo"], 0) == plan.tp_axis
-    mlp = spec.mlp == "dense" and \
-        _entry(lspecs["mlp"]["w1"], 1) == plan.tp_axis
-    return LayerSplit(size, plan.tp_place(), whole, q, kv, wo, mlp,
-                      spec.mlp == "moe")
+    attn_p = ("attn",) if m == "hymba" else ()
+    ssm_p = ("ssm",) if m == "hymba" else ()
+    ssm = m in ("mamba2", "hymba")
+    ssd = ssm and all(_on(mixer, ssm_p + (leaf,), dim, tp) for leaf, dim in (
+        ("wx", 1), ("wz", 1), ("wdt", 1), ("conv_x", 1), ("a_log", 0),
+        ("d_skip", 0), ("dt_bias", 0)))
+    mlp = lspecs.get("mlp", {})
+    return LayerSplit(
+        size, plan.tp_place(), m, q, kv,
+        wo=attn and _on(mixer, attn_p + ("wo",), 0, tp),
+        ssd=ssd, ssd_wo=ssm and _on(mixer, ssm_p + ("wo",), 0, tp),
+        mlp=spec.mlp == "dense" and _on(mlp, ("w1",), 1, tp),
+        experts=spec.mlp == "moe" and all(
+            _on(mlp, ("experts", w), 0, tp) for w in ("w1", "w3", "w2")),
+        shared=spec.mlp == "moe" and _on(mlp, ("shared", "w1"), 1, tp))
 
 
 def local_plan() -> Parallelism:
@@ -497,7 +573,8 @@ def make_plan(layout: Optional[Layout], shape_kind: str, *,
     prefill — sequence over data (LASP-2/2H SP), batch over pod; when the
               heads do not divide model but the batch does and the
               weights are small, batch over model instead (hymba,
-              whisper).
+              whisper): a rank then prefills its rows
+              (``Parallelism.prefill_rows_place``).
     decode  — batch over (pod, data); the ring's slots over model when
               the KV heads do not divide it (flash decoding).
 
@@ -528,6 +605,7 @@ def make_plan(layout: Optional[Layout], shape_kind: str, *,
                 check_ulysses_heads(n_heads, n_kv_heads, shape[tp_ax], "tp")
         plan = Parallelism(
             layout=layout, comm=spec, fsdp_axis=None, tp_axis=None,
+            kind=shape_kind,
             dp_axes=(dp_ax,) if dp_ax else (),
             manual_axes=tuple(a for a in (dp_ax, seq_ax, tp_ax)
                               if a is not None),
@@ -553,7 +631,7 @@ def make_plan(layout: Optional[Layout], shape_kind: str, *,
     tp = MODEL if MODEL in axes else None
     plan = Parallelism(layout=layout, comm=spec,
                        fsdp_axis=DATA if DATA in axes else None,
-                       tp_axis=tp, dp_axes=dp)
+                       tp_axis=tp, dp_axes=dp, kind=shape_kind)
     # The SP axis: sequence when the layout names it, else data (the
     # inference layouts, where data does double duty for prefill SP).
     sp_ax = seq_ax or DATA

@@ -9,9 +9,12 @@ of starcoder2-15b SMOKE under the prefill plan of the (4, 2) (data,
 model) mesh (``distributed_checks.py:339-361``), ``M.prefill`` and
 ``M.decode_step`` under ``make_plan(mesh (4, 1), "prefill")`` for
 linear-llama3-1b SMOKE (fp32 and bf16), its 1/4 hybrid and its GLA
-variant, mamba2-2.7b and hymba-1.5b SMOKE, granite-34b SMOKE under ``make_plan(mesh (1, 4), "decode",
-n_kv_heads=1)``, and ``ServeEngine(plan=)`` under both plans; it writes
-every result, its tapes and its initial params into one npz.
+variant, mamba2-2.7b and hymba-1.5b SMOKE and moonshot SMOKE at a
+dropping capacity, granite-34b SMOKE under ``make_plan(mesh (1, 4),
+"decode", n_kv_heads=1)``, the dropping MoE and whisper-base SMOKE under
+the (1, 4) decode plan, a 3-head hybrid under the (2, 2) prefill plan's
+batch-over-model branch, and ``ServeEngine(plan=)`` under both plans; it
+writes every result, its tapes and its initial params into one npz.
 
 The port runs the same inputs and params (``torch_serve_ranks``) on one
 spawn of 4 gloo ranks and one of 8 (the (4, 2) forward). Tolerances:
@@ -34,10 +37,17 @@ the (2, 2) (data, model) prefill and decode plans and the (1, 4) decode
 plan (``torch_serve_ranks.PLACED``: FSDP over data, heads, kv heads, ff
 and vocab over model, decode slots over data) on linear, its hybrid, GLA
 and granite against the reference outputs above for the same params and
-tokens (a plan does not change the function), mamba2 and MoE SMOKE
-(gathered whole over model at use) against the reference's prefill-plan
-output and the port's one-device path, and the engines' greedy tokens
-against the reference's engines.
+tokens (a plan does not change the function), mamba2 and hymba SMOKE
+against the reference's prefill-plan outputs, a drop-free MoE SMOKE
+against the port's one-device path, and the engines' greedy tokens
+against the reference's engines. The pieces that compute on their shard
+there are held to the reference under its own plans too: moonshot SMOKE
+at capacity factor 1.0 (``moe_drop``: capacity t/4, items drop; the
+reference's global dispatch under its (4, 1) prefill and (1, 4) decode
+plans), whisper-base SMOKE (gates 0.5, its encoder frames from a seed)
+under the (1, 4) decode plan, and the hybrid with 3 heads, which takes
+the batch-over-model branch of the (2, 2) prefill plan (2 rows over
+model, each rank prefilling its row).
 """
 
 import os
@@ -330,10 +340,49 @@ def test_prefill_tape_is_the_budget_and_the_reference_rows(ref, name):
                    for r in res[f"prefill/{name}/tape"])
 
 
-def _want(name):
+def _want(name, kind="prefill"):
     """The reference's key prefix holding ``name``'s outputs: its prefill
-    plan's, granite's under its decode plan."""
-    return "dprefill" if name == "granite" else f"prefill/{name}"
+    plan's; granite's under its decode plan; MoE at a dropping capacity
+    under the plan of the same kind; whisper under the (1, 4) decode
+    plan; the 3-head hybrid under the batch-over-model branch."""
+    if name == "granite":
+        return "dprefill"
+    if name == "rows":
+        return "prows"
+    if name == "whisper" or (name == "moe_drop" and kind == "decode"):
+        return f"dplan/{name}"
+    return f"prefill/{name}"
+
+
+def _whole(tags, prefix):
+    """The ``tp.cols.*`` / ``tp.cache.*`` rows on the leaves under
+    ``prefix`` (``mixer.``, ``mlp.``): none where the piece computes on
+    its shard."""
+    return [t for t in tags if t.startswith(("tp.cols." + prefix,
+                                             "tp.cache."))]
+
+
+def _check_split_pieces(name, tags, dtags, tp, kind):
+    """The tags of the pieces that compute on their shard: MoE experts
+    and their one all-reduce, the SSD heads (the group norm's statistic,
+    the conv B/C gather at decode), cross and encoder layers on their
+    heads (under the prefill plan the memory slots lie over data and
+    decode merges them, ``decode.*``, gathering none), the prefill rows'
+    gather."""
+    if tp > 1 and name in ("moe", "moe_drop"):
+        assert not _whole(tags + dtags, "mlp."), tags
+        assert "tp.experts" in tags and "tp.experts" in dtags
+    if tp > 1 and name in ("mamba2", "hymba"):
+        ssm = "mixer." if name == "mamba2" else "mixer.ssm."
+        assert not _whole(tags + dtags, ssm), tags + dtags
+        assert "tp.gnorm" in tags and {"tp.gnorm", "tp.conv"} <= set(dtags)
+    if tp > 1 and name == "whisper":
+        assert not _whole(tags + dtags, ""), tags + dtags
+        assert not any(t.startswith("cache_seq.") for t in tags + dtags)
+        assert "tp.mixer" in tags
+        assert ("decode.o" in dtags) == (kind == "prefill")
+    if name == "rows":
+        assert "prefill.rows" in tags and tp == 1
 
 
 @pytest.mark.parametrize("key,name", [
@@ -344,18 +393,25 @@ def test_placed_plan_matches_reference(ref, key, name):
     heads, kv heads, ff and vocab over model) and its cache slice, and
     ``M.prefill`` + 3 decode steps give the reference's logits, cache
     (gathered back leaf by leaf over the axes its specs split) and steps
-    for the same params and tokens within 3e-4. mamba2 and MoE, gathered
-    whole over model at use (``tp.cols.*``, ``tp.cache.*``), match the
-    reference's prefill-plan output and the port's one-device path
-    (``test_torch_moe.py`` holds that to the reference). Held params (and
-    under the prefill plan the prefill's cache) equal the dry run's
-    ``memory_report`` byte for byte; every tape is within
-    ``serve_prefill_budget`` / ``serve_decode_budget``, with ``fsdp.*``
-    rows exactly where the plan places weights over data of size > 1 and
-    ``tp.*`` rows where the model axis is > 1."""
+    for the same params and tokens within 3e-4. The drop-free MoE matches
+    the port's one-device path (``test_torch_moe.py`` holds that to the
+    reference). Each piece computes on its shard (``_check_split_pieces``:
+    MoE on the rank's experts, one ``tp.experts`` all-reduce and no
+    ``tp.cols.mlp.*`` row; mamba2's and hymba's SSD heads; whisper's cross
+    and encoder layers on their heads; the 3-head hybrid's prefill rows
+    over model). MoE at capacity factor 1.0 (items drop) matches the
+    reference's global dispatch under its plan of the same kind, whisper
+    (gates 0.5; under p22 its memory slots over data, read through the
+    flash-decoding merge) its (1, 4) decode plan's, the 3-head hybrid its
+    batch-over-model branch's. Held params (and under the prefill plan
+    the prefill's cache) equal the dry run's ``memory_report`` byte for
+    byte; every tape is within ``serve_prefill_budget`` /
+    ``serve_decode_budget``, with ``fsdp.*`` rows exactly where the plan
+    places weights over data of size > 1 and ``tp.*`` rows where the
+    plan's model axis is > 1."""
     want, ranks = ref
     tol = TOL["float32"]
-    dims = dict((k, d) for k, d, _ in R.PLACED)[key]
+    dims, kind = {k: (d, c) for k, d, c in R.PLACED}[key]
     for res in ranks[4]:
         out = f"{key}/{name}"
         if name == "moe":
@@ -367,23 +423,23 @@ def test_placed_plan_matches_reference(ref, key, name):
             w_cache = {f"moe/{k}": v for k, v in
                        _flat(res[f"{out}/want_cache"]).items()}
             _check_cache(res[f"{out}/cache"], "moe/", w_cache, tol)
-            assert any(t.startswith("tp.cols.mlp.experts.")
-                       for t in res[f"{out}/tags"])
         else:
+            w = _want(name, kind)
             np.testing.assert_allclose(res[f"{out}/logits"],
-                                       want[f"{_want(name)}/logits"],
+                                       want[f"{w}/logits"],
                                        rtol=tol, atol=tol)
-            _check_cache(res[f"{out}/cache"], f"{_want(name)}/cache/", want,
-                         tol)
+            _check_cache(res[f"{out}/cache"], f"{w}/cache/", want, tol)
             np.testing.assert_allclose(res[f"{out}/steps"],
-                                       want[f"{_want(name)}/steps"],
+                                       want[f"{w}/steps"],
                                        rtol=tol, atol=tol)
         assert res[f"{out}/budget"] == [[], []]
         held, report = res[f"{out}/held"]
         assert held == report, (held, report)
-        tags = res[f"{out}/tags"]
+        tags, tp = res[f"{out}/tags"], res[f"{out}/tp"]
         assert any(t.startswith("fsdp.") for t in tags) == (dims[0] > 1)
-        assert any(t.startswith("tp.") for t in tags) == (dims[1] > 1)
+        assert any(t.startswith("tp.") for t in tags) == (tp > 1)
+        assert tp == (1 if name == "rows" else dims[1])
+        _check_split_pieces(name, tags, res[f"{out}/decode_tags"], tp, kind)
 
 
 @pytest.mark.parametrize("key,name", [
@@ -511,14 +567,21 @@ def _jax_reference(out_path):
                       "decode", n_kv_heads=1)
     toks = jnp.asarray(R.prefill_tokens())
     params_of = {}
-    for name in R.PREFILL_CFGS + ("granite",):
+    for name in R.PREFILL_CFGS + ("granite", "whisper", "rows"):
         cfg = cfg_of(name)
-        params_of[name] = M.init_params(jax.random.PRNGKey(0), cfg)
+        params = M.init_params(jax.random.PRNGKey(0), cfg)
+        # every cross gate at CROSS_GATE: at 0 a cross layer outputs 0
+        params_of[name] = jax.tree_util.tree_map_with_path(
+            lambda path, x: jnp.full_like(x, R.CROSS_GATE)
+            if getattr(path[-1], "key", None) == "gate" else x, params)
         save_params(name, params_of[name])
 
     def prefill_and_steps(prefix, name, plan, **kw):
         cfg = cfg_of(name)
         params = params_of[name]
+        enc = R.frames(cfg)
+        if enc is not None:
+            kw["enc_frames"] = jnp.asarray(enc)
         with tape() as recs:
             logits, cache = jax.jit(lambda p, t: M.prefill(
                 p, t, cfg, plan, max_len=R.MAX_LEN, **kw))(params, toks)
@@ -540,6 +603,19 @@ def _jax_reference(out_path):
                          n_kv_heads=4, comm=CommSpec(R.strategy(name)))
         prefill_and_steps(f"prefill/{name}", name, plan)
     prefill_and_steps("dprefill", "granite", dplan)
+    # the placed cases' own: MoE at a dropping capacity and whisper under
+    # the (1, 4) decode plan, the 3-head hybrid under the batch-over-model
+    # branch of the (2, 2) prefill plan
+    dplan4 = make_plan(Mesh(devs[:4].reshape(1, 4), (DATA_AXIS, MODEL_AXIS)),
+                       "decode", n_kv_heads=4)
+    for name in ("moe_drop", "whisper"):
+        prefill_and_steps(f"dplan/{name}", name, dplan4)
+    cfg = cfg_of("rows")
+    rplan = make_plan(Mesh(devs[:4].reshape(2, 2), (DATA_AXIS, MODEL_AXIS)),
+                      "prefill", n_kv_heads=cfg.n_kv_heads,
+                      n_heads=cfg.n_heads, **R.plan_kw(cfg))
+    assert rplan.tp_axis is None and rplan.rules["batch"] == MODEL_AXIS
+    prefill_and_steps("prows", "rows", rplan)
     cfg = cfg_of("linear")
     logits, cache = jax.jit(lambda p, t: M.prefill(
         p, t, cfg, pplan, max_len=R.MAX_LEN,

@@ -334,3 +334,68 @@ def test_shard_params_shards_rebuild_every_leaf(arch, kind):
                    m if Axis.MODEL in spec else 0)
             assert torch.equal(_at(tree, path), _at(shards[idx], path))
     assert split > 0
+
+
+# (arch, (data, model), first layer of the pattern to read, the
+# LayerSplit fields that must hold, the leaves gathered whole over model)
+SPLIT_CASES = [
+    ("mamba2-2.7b", (1, 4), 0,
+     dict(ssd=True, ssd_wo=True, q=False, wo=False), []),
+    ("hymba-1.5b", (1, 4), 0,
+     dict(ssd=False, ssd_wo=True, q=False, kv=False, wo=True, mlp=True),
+     ["mixer.attn.wq", "mixer.attn.wk", "mixer.attn.wv", "mixer.ssm.wx",
+      "mixer.ssm.wz", "mixer.ssm.conv_x"]),
+    ("hymba-1.5b", (1, 5), 0,
+     dict(ssd=True, ssd_wo=True, q=True, kv=True, wo=True, mlp=False), []),
+    ("moonshot-v1-16b-a3b", (1, 4), 0,
+     dict(q=True, kv=True, wo=True, experts=True, shared=True), []),
+    ("moonshot-v1-16b-a3b", (2, 2), 0,
+     dict(q=True, kv=True, wo=True, experts=True, shared=True), []),
+    ("phi3.5-moe-42b-a6.6b", (1, 32), 0,
+     dict(q=False, kv=False, wo=True, experts=False, shared=False),
+     ["mixer.wq", "mixer.wk", "mixer.wv"]),
+    ("whisper-base", (1, 4), 1,
+     dict(q=True, kv=True, wo=True, mlp=True), []),
+    ("llama-3.2-vision-90b", (1, 8), 4,
+     dict(q=True, kv=True, wo=True, mlp=True), []),
+    ("granite-34b", (1, 4), 0,
+     dict(q=True, kv=False, wo=True, mlp=True), ["mixer.wk", "mixer.wv"]),
+]
+
+
+@pytest.mark.parametrize("arch,dims,layer,want,whole", SPLIT_CASES)
+def test_layer_split_fields_on_meta_params(arch, dims, layer, want, whole):
+    """``layer_split`` on ``CONFIG``'s meta params under the decode plan
+    of a (data, model) layout without ranks: which pieces compute on the
+    rank's shard (attention heads, SSD heads, experts and shared experts,
+    the dense ff, the row-parallel ``wo``s), and which leaves the layer
+    still gathers whole over model at use (``gathered``: the specs place
+    them on model, their piece does not divide: hymba's 25:5 heads and
+    25 SSD heads at TP 4, phi3.5's 8 kv heads at TP 32, granite's single
+    kv head). A split piece gathers none of its leaves; whisper's
+    encoder layers split as its decoder's softmax layers do."""
+    cfg = get_config(arch)
+    plan = T.make_plan(Layout((Axis.DATA, Axis.MODEL), dims), "decode",
+                       n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads)
+    params = TM.init_params(None, cfg, device="meta")
+    specs = T.param_specs(params, plan)
+    spec = cfg.layer_specs()[layer]
+    split = T.layer_split(cfg, spec, specs["layers"][layer], plan)
+    assert split.size == dims[1] and split.mixer == spec.mixer
+    assert {k: getattr(split, k) for k in want} == want
+
+    def gathered(s, tree, specs_, prefix=()):
+        if isinstance(tree, dict):
+            return [g for k in tree
+                    for g in gathered(s, tree[k], specs_[k], prefix + (k,))]
+        return [".".join(prefix)] if Axis.MODEL in tuple(specs_) and \
+            s.gathered(prefix) else []
+
+    assert gathered(split, params["layers"][layer],
+                    specs["layers"][layer]) == whole
+    if cfg.encoder is not None:
+        enc = T.layer_split(cfg, TM.ENCODER_SPEC,
+                            specs["encoder"]["layers"][0], plan)
+        assert (enc.q, enc.kv, enc.wo, enc.mlp) == (True,) * 4
+        assert gathered(enc, params["encoder"]["layers"][0],
+                        specs["encoder"]["layers"][0]) == []

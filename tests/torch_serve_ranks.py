@@ -30,15 +30,21 @@ CACHE_LENS = (512, 300, 37)
 RING_B, RING_R, RING_WINDOW = 3, 64, 40
 
 SSM_IDS = {"mamba2": "mamba2-2.7b", "hymba": "hymba-1.5b"}
+# moe_drop: moonshot SMOKE at capacity factor 1.0 (capacity t/4: items
+# drop), where the port's per-chunk capacity differed from the
+# reference's global dispatch under a plan that sets fsdp_axis
 PREFILL_CFGS = ("linear", "linear_bf16", "hybrid", "hybrid_ulysses", "gla",
-                "mamba2", "hymba")
+                "mamba2", "hymba", "moe_drop")
 # collectives of the port's own: what the reference's GSPMD moves
 # without a named primitive (``comm.budget``)
-PORT_ONLY_TAGS = ("prefill.last", "mamba2.conv", "ring.k", "ring.v",
-                  "ring_decode.o", "ring_decode.m", "ring_decode.l")
+PORT_ONLY_TAGS = ("prefill.last", "prefill.rows", "mamba2.conv", "ring.k",
+                  "ring.v", "ring_decode.o", "ring_decode.m",
+                  "ring_decode.l", "moe.counts")
 # ... among them the weight, vocab, cache and slot placements' exchanges,
 # by tag prefix
 PLACEMENT_TAGS = ("fsdp.", "tp.", "cache_seq.", "serve.tokens")
+# the cross family's gates (0 at init hides a cross layer's output)
+CROSS_GATE = 0.5
 
 # the placing plans of the 4 ranks, (name, layout dims, kind), and the
 # configs each runs: prefill + 3 decode steps against the reference's
@@ -46,10 +52,15 @@ PLACEMENT_TAGS = ("fsdp.", "tp.", "cache_seq.", "serve.tokens")
 # function); the engines' greedy tokens against the reference's engines
 PLACED = (("p22", (2, 2), "prefill"), ("d22", (2, 2), "decode"),
           ("d14", (1, 4), "decode"))
+# (rows: the hybrid with 3 heads, which the model axis of (2, 2) does
+# not divide: its prefill plan takes the batch-over-model branch, 2 rows
+# over model, each rank prefilling its row)
 PLACED_CFGS = {"p22": ("linear", "hybrid", "gla", "granite", "mamba2",
-                       "moe"),
-               "d22": ("linear", "hybrid", "gla", "granite"),
-               "d14": ("linear", "hybrid", "gla")}
+                       "moe", "hymba", "moe_drop", "rows", "whisper"),
+               "d22": ("linear", "hybrid", "gla", "granite", "mamba2",
+                       "hymba", "moe_drop", "whisper"),
+               "d14": ("linear", "hybrid", "gla", "mamba2", "hymba",
+                       "moe_drop", "whisper")}
 PLACED_ENGINES = ("linear", "hybrid", "granite")
 
 
@@ -89,10 +100,38 @@ def make_cfg(name, get_smoke, layer_spec, linear_attn_config):
         return dataclasses.replace(get_smoke("granite-34b"), dtype="float32")
     if name == "starcoder":
         return get_smoke("starcoder2-15b")
-    if name == "moe":
-        return dataclasses.replace(get_smoke("moonshot-v1-16b-a3b"),
+    if name in ("moe", "moe_drop"):
+        cfg = dataclasses.replace(get_smoke("moonshot-v1-16b-a3b"),
+                                  dtype="float32")
+        if name == "moe_drop":
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=1.0))
+        return cfg
+    if name == "whisper":
+        return dataclasses.replace(get_smoke("whisper-base"),
                                    dtype="float32")
+    if name == "rows":
+        return dataclasses.replace(
+            make_cfg("hybrid", get_smoke, layer_spec, linear_attn_config),
+            n_heads=3, n_kv_heads=3, name="smoke-rows")
     raise KeyError(name)
+
+
+def plan_kw(cfg):
+    """``make_plan``'s sizes of a prefill of ``PREFILL_B`` rows of
+    ``cfg``'s fp32 params: the batch-over-model branch is taken where
+    the model axis does not divide the heads."""
+    return dict(global_batch=PREFILL_B, params_bytes=4 * cfg.param_count())
+
+
+def frames(cfg):
+    """The encoder frames of a prefill of ``PREFILL_B`` rows (None
+    without an encoder)."""
+    if cfg.encoder is None:
+        return None
+    rng = np.random.default_rng(17)
+    return rng.standard_normal((PREFILL_B, cfg.encoder.n_frames,
+                                cfg.d_model)).astype(np.float32)
 
 
 def port_cfg(name):
@@ -354,9 +393,10 @@ def _placed_cache(cache, cfg, plan):
     heads, ring slots, conv channels)."""
     from repro_torch.models import model as M
     from repro_torch.sharding.rules import cache_specs
+    from repro_torch.core.tree import leaves_with_paths
     b = cache["pos"].shape[0]
-    ring = max([c["mixer"]["kpos"].shape[1] for c in cache["layers"]
-                if "kpos" in c["mixer"]] + [1])
+    ring = max([t.shape[1] for path, t in leaves_with_paths(cache["layers"])
+                if path[-1] == "kpos"] + [1])
     whole = M.init_cache(cfg, b, ring, device="meta")
     specs = cache_specs(whole, plan)
 
@@ -391,19 +431,23 @@ def _placed_cases(npz, toks):
                 n for n in PLACED_ENGINES if n not in PLACED_CFGS[key]):
             cfg = port_cfg(name)
             plan = make_plan(lay, kind, n_kv_heads=cfg.n_kv_heads,
-                             n_heads=cfg.n_heads)
+                             n_heads=cfg.n_heads, **plan_kw(cfg))
             if name == "moe":
                 params = _moe_params(cfg, plan)
             else:
                 params = _params(npz, name, cfg, plan)
             out = f"{key}/{name}"
             if name in PLACED_CFGS[key]:
+                enc = frames(cfg)
                 with primitives.tape() as rec:
-                    logits, cache = M.prefill(params, toks, cfg, plan,
-                                              max_len=MAX_LEN)
+                    logits, cache = M.prefill(
+                        params, toks, cfg, plan, max_len=MAX_LEN,
+                        enc_frames=None if enc is None
+                        else torch.from_numpy(enc))
                 res[f"{out}/logits"] = logits.float().numpy()
                 res[f"{out}/cache"] = _placed_cache(cache, cfg, plan)
                 res[f"{out}/tags"] = sorted({r.tag for r in rec})
+                res[f"{out}/tp"] = plan.tp_size()
                 budgets = [B.check_budget(rec, B.serve_prefill_budget(
                     cfg, plan, b=PREFILL_B, s=PREFILL_S,
                     params=_shapes(cfg)))]
@@ -411,15 +455,28 @@ def _placed_cases(npz, toks):
                 report = _report(cfg, plan, kind, PREFILL_B, MAX_LEN)
                 if kind == "prefill":
                     held["cache"] = _held(cache)
+                # the rows a rank's cache holds (its block where the
+                # prefill split them) decode alone
+                place = plan.prefill_rows_place(PREFILL_B)
+                first, n = (0, PREFILL_B) if place is None else (
+                    place.index * (PREFILL_B // place.size),
+                    PREFILL_B // place.size)
                 steps = []
                 with primitives.tape() as rec:
                     for tok in decode_tokens():
                         lg, cache = M.decode_step(
-                            params, torch.from_numpy(tok), cache, cfg, plan)
-                        steps.append(lg.float().numpy())
-                res[f"{out}/steps"] = np.stack(steps)
+                            params, torch.from_numpy(tok[first:first + n]),
+                            cache, cfg, plan,
+                            rows=None if place is None else (first, n))
+                        steps.append(lg.float())
+                if place is not None:
+                    steps = [primitives.allgather_states(
+                        lg.contiguous(), place.group, tiled=True,
+                        tag="test.gather") for lg in steps]
+                res[f"{out}/steps"] = np.stack([lg.numpy() for lg in steps])
+                res[f"{out}/decode_tags"] = sorted({r.tag for r in rec})
                 budgets.append(B.check_budget(rec, B.combine(
-                    [B.serve_decode_budget(cfg, plan, b=PREFILL_B,
+                    [B.serve_decode_budget(cfg, plan, b=n,
                                            max_len=MAX_LEN,
                                            params=_shapes(cfg))]
                     * DECODE_STEPS)))
