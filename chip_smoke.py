@@ -38,7 +38,15 @@ line:
    in bf16 and ``simt`` in fp32 (K1 at S 512 and S 2048, the others at the
    train shape; K3 in bf16 on each route, in turns, with the wrapper's
    host us a call); K1, K2a, K2b, K3, K5a and K5b on ``sm90`` are bitwise
-   equal on two launches;
+   equal on two launches; then the widths the Pallas kernels take and the
+   earlier phases never gave the card (``phase_shape_kernels``): K1, K2a,
+   K2b on ``simt`` at (dk, dv) = (16, 16), hymba SMOKE's (8, 16), (32,
+   32) and taylor's (1057, 32) at Table 2's BH 32 x S 256 in bf16 and
+   fp32, and (16513, 128) at BH 4 x S 256 in bf16 (dk split into 9 and
+   130 slices: each pass bitwise equal on two launches); K3 at those
+   widths (8 steps, ``simt`` and the table's route; timed at 4 slots);
+   K4, K5a, K5b at dh 8, 16 and 32 (causal, windowed, GQA 4:1, ragged Sq
+   ≠ Sk, bidirectional) in both dtypes on ``simt``, timed beside SDPA;
 4. serve: full-width ``linear-llama3-1b`` (random weights from a seed,
    bf16) answers 8 ragged greedy requests through ``ServeEngine``; every
    request finishes, the launch counters show K1 and K3 (16 a decode
@@ -272,8 +280,21 @@ line:
    ``TOL_REMAT`` (1e-5) of ``none``'s, step p50 and peak
    memory of each, K1, K2a, K2b on ``sm90``; (d) the roofline
    (``launch.roofline``, counted on the meta device) of phase 7's train
-   step and phase 5's decode step beside their measured walls. Every
-   phase's wall is printed (``phase_walls_s``).
+   step and phase 5's decode step beside their measured walls;
+20. shapes, the model paths at the widths of phase 3's new cases
+   (``phase_shapes``): (a) Table 2's llama3-tiny (4 layers, d 128, 4
+   heads of 32) with each of its six modules (basic, lightning,
+   retention, gla, based, rebased), pure and as a 1/4 hybrid: 5 steps of
+   Table 2's ``RunConfig`` through ``train()``, 4 ragged requests through
+   ``ServeEngine`` with phase 4's decode check, K1, K2a, K2b, K4, K5a,
+   K5b on ``simt`` (taylor's dk 1057 for based and rebased), K3 on its
+   table's route; fp32 grad checks of based and the basic hybrid; (b)
+   based at Linear-Llama3-1B's full width serving phase 4's requests
+   through K1 and K3 at dk 16513, its ``linear_state`` constant in
+   ``max_len``; (c) every id of ``ALL_IDS`` at SMOKE serving 2 requests
+   and taking one train step, every kernel its layers run launched on
+   the route of its shapes and no kernel of a layer kind it lacks.
+   Every phase's wall is printed (``phase_walls_s``).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
 K2a, K2b, K3, K4, K5a and K5b once per route; ``launches`` summed over
@@ -281,7 +302,8 @@ the paths that ran each, listed in ``launches_by_path``, phases 10's
 and 11's per cell and rank, phase 12's to 14's per path; phase 13's
 timings at the SSM shapes under ``ssm_cases``, phase 14's at the zoo's
 head layouts under ``zoo_cases``, phase 15's at the cross shapes under
-``cross_cases``); the last line is
+``cross_cases``, phase 3's new widths under ``shape_cases``); the last
+line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 
@@ -1197,15 +1219,37 @@ def _ssm(cfg) -> bool:
     return any(spec.mixer in ("mamba2", "hymba") for spec in cfg.pattern)
 
 
+def _chunk_dims(cfg):
+    """(dk, dv) at the chunk kernels and K3 for ``cfg``'s chunk layers:
+    (d_state, headdim) for SSD heads, (1 + dh + dh², dh) under the taylor
+    feature map, (head_dim, head_dim) otherwise."""
+    if _ssm(cfg):
+        return cfg.mamba.d_state, cfg.mamba.headdim
+    dh = cfg.head_dim
+    if cfg.linear_attn.feature_map == "taylor":
+        return 1 + dh + dh * dh, dh
+    return dh, dh
+
+
 def _chunk_route(cfg) -> str:
-    """The route K1, K2a and K2b take on ``cfg``'s chunk layers: (dk, dv) =
-    (d_state, headdim) for SSD heads, (head_dim, head_dim) otherwise."""
+    """The route K1, K2a and K2b take on ``cfg``'s chunk layers."""
     from repro_torch.core.device import torch_dtype
     from repro_torch.kernels import lasp2_chunk as lc
-    dk = dv = cfg.head_dim
-    if _ssm(cfg):
-        dk, dv = cfg.mamba.d_state, cfg.mamba.headdim
-    return lc._route(torch_dtype(cfg.dtype), dk, dv)
+    return lc._route(torch_dtype(cfg.dtype), *_chunk_dims(cfg))
+
+
+def _decode_route(cfg) -> str:
+    """The route K3 takes on ``cfg``'s chunk layers."""
+    from repro_torch.core.device import torch_dtype
+    from repro_torch.kernels import lasp2_decode as ldm
+    return ldm._route(torch_dtype(cfg.dtype), *_chunk_dims(cfg))
+
+
+def _flash_route(cfg) -> str:
+    """The route K4, K5a and K5b take on ``cfg``'s attention layers."""
+    from repro_torch.core.device import torch_dtype
+    from repro_torch.kernels import flash_attention as fl
+    return fl._route(torch_dtype(cfg.dtype), cfg.head_dim)
 
 
 def _log_decays(cache):
@@ -1510,7 +1554,8 @@ def phase_decode_check(params, cfg, path, prompt, gen_toks,
 
 def _cache_formula(cfg, batch, max_len):
     """The decode cache's bytes by kind from the config: per linear layer
-    B·H·(dh² + 1)·4, per SSD layer (mamba2, hymba's ``ssm``)
+    B·H·(dk·dh + 1)·4 (dk = dh, or 1 + dh + dh² under taylor), per SSD
+    layer (mamba2, hymba's ``ssm``)
     B·nh·(d_state·headdim + 1)·4 (``linear_state``); per softmax layer
     2·B·n_kv·ring·dh·2 + B·ring·4, ring = min(window, ``max_len``), and
     ``max_len`` on every hymba layer (``kv_ring``); per SSD layer
@@ -1519,8 +1564,8 @@ def _cache_formula(cfg, batch, max_len):
     out = {"linear_state": 0, "kv_ring": 0, "conv": 0}
     for spec in cfg.layer_specs():
         if spec.mixer == "linear":
-            out["linear_state"] += batch * cfg.n_heads * (
-                cfg.head_dim ** 2 + 1) * 4
+            dk, dv = _chunk_dims(cfg)
+            out["linear_state"] += batch * cfg.n_heads * (dk * dv + 1) * 4
         if spec.mixer in ("mamba2", "hymba"):
             mb = cfg.mamba
             d_in = cfg.d_model * (mb.expand if spec.mixer == "mamba2" else 1)
@@ -1542,13 +1587,17 @@ def _cache_formula(cfg, batch, max_len):
 
 
 def phase_serve(kernels: list, cfg, path: str, want_cache=None,
-                decode_cfg=None):
-    """8 ragged greedy requests through ``ServeEngine`` (4 slots, max_len
-    544). Pure recurrent stacks (linear, mamba2) prefill left-padded
-    buckets; hybrids (LASP-2H, hymba) and stacks with softmax layers or
-    MoE MLPs prefill by exact length. Checks the launches of K1 and K4 per
-    prefill batch and K3 per decode step (K3 and K4 all on ``sm90``, K1 on
-    its shapes' route: ``simt`` for hymba's 16 x 64 heads; none of them
+                decode_cfg=None, requests: int = 8, lens=(256, 513),
+                new_tokens: int = 32):
+    """``requests`` ragged greedy requests (prompts drawn from
+    ``lens``, ``new_tokens`` each) through ``ServeEngine`` (4 slots,
+    max_len the longest prompt + ``new_tokens``: 544 by default). Pure
+    recurrent stacks (linear, mamba2) prefill left-padded buckets; hybrids
+    (LASP-2H, hymba) and stacks with softmax layers or MoE MLPs prefill by
+    exact length. Checks the launches of K1 and K4 per prefill batch and
+    K3 per decode step, each on its shapes' route alone (``sm90`` on the
+    full configs' heads; ``simt`` for hymba's 16 x 64 chunk heads, for
+    taylor's key width 1 + dh + dh² and for heads of 32; none of them
     where the stack has no such layer), the cache footprint against its
     formula (and ``want_cache``, bytes by kind, where given), and decode
     logits against a fresh prefill, on the same params under
@@ -1568,11 +1617,11 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None,
         softmax=n_soft, d_model=cfg.d_model, params=n_params, dtype=cfg.dtype,
         init_s=f"{time.perf_counter() - t0:.2f}")
 
-    new_tokens, max_batch = 32, 4
-    max_len = 512 + new_tokens
+    max_batch = 4
+    max_len = lens[1] - 1 + new_tokens
     engine = ServeEngine(cfg, params, max_len=max_len, max_batch=max_batch)
     rng = np.random.default_rng(0)
-    lens = rng.integers(256, 513, size=8)     # as launch/serve.py draws them
+    lens = rng.integers(*lens, size=requests)  # as launch/serve.py draws
     prompts = [rng.integers(0, cfg.vocab_size, size=int(n)) for n in lens]
     uids = [engine.submit(p, new_tokens, seed=0, stream=i)
             for i, p in enumerate(prompts)]
@@ -1586,8 +1635,11 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None,
     wall = time.perf_counter() - t0
     k1, k3, k4, k1_sm90, k1_simt, k3_sm90, k3_simt, k4_sm90, k4_simt = \
         _read(counters, routed)
-    k1_route = _chunk_route(cfg)
+    k1_route, k3_route, k4_route = _chunk_route(cfg), _decode_route(cfg), \
+        _flash_route(cfg)
     k1_on = {"sm90": k1_sm90, "simt": k1_simt}
+    k3_on = {"sm90": k3_sm90, "simt": k3_simt}
+    k4_on = {"sm90": k4_sm90, "simt": k4_simt}
 
     stats = engine.stats()
     batches, steps = int(stats["prefill_batches"]), int(stats["decode_steps"])
@@ -1604,17 +1656,19 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None,
           f"{k1_route} only")
     check(k3 == n_lin * steps and (k3 > 0) == (n_lin > 0),
           f"K3 launches {k3} != {n_lin} x {steps} decode steps")
-    check(k3_sm90 == k3 and k3_simt == 0,
-          f"K3 took sm90 {k3_sm90}, simt {k3_simt} times; want sm90 only")
+    check(k3_on[k3_route] == k3,
+          f"K3 took sm90 {k3_sm90}, simt {k3_simt} times; want "
+          f"{k3_route} only")
     check(k4 == n_soft * batches,
           f"K4 launches {k4} != {n_soft} x {batches} prefill batches")
-    check(k4_sm90 == k4 and k4_simt == 0,
-          f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want sm90 only")
+    check(k4_on[k4_route] == k4,
+          f"K4 took sm90 {k4_sm90}, simt {k4_simt} times; want "
+          f"{k4_route} only")
     if n_lin:
         _count(kernels, f"lasp2_chunk_fwd_{k1_route}", path, k1)
-        _count(kernels, "lasp2_decode_step_sm90", path, k3_sm90)
+        _count(kernels, f"lasp2_decode_step_{k3_route}", path, k3)
     if n_soft:
-        _count(kernels, "flash_attention_fwd_sm90", path, k4_sm90)
+        _count(kernels, f"flash_attention_fwd_{k4_route}", path, k4)
     total_new = sum(len(t) for t in results.values())
     cache = engine.cache_stats()
     # linear_state (and conv) constant in max_len, each kind its formula
@@ -1636,6 +1690,7 @@ def phase_serve(kernels: list, cfg, path: str, want_cache=None,
         k3_sm90_launches=k3_sm90, k3_per_decode_step=k3 / steps,
         k4_per_prefill_batch=k4 / batches,
         k4_launches=k4, k4_sm90_launches=k4_sm90, k1_route=k1_route,
+        k3_route=k3_route, k4_route=k4_route,
         wall_s=f"{wall:.3f}", tokens_per_s=f"{total_new / wall:.1f}",
         decode_tokens_per_s=f"{stats['decode_tokens_per_s']:.1f}",
         ttft_p50_ms=f"{stats['ttft_s_p50'] * 1e3:.2f}",
@@ -2900,13 +2955,14 @@ SSM_TRAIN_LR = 1e-4
 HYMBA_REMAT = "full"
 
 
-def _note(kernels, name, err, case=None) -> None:
-    """Fold a phase-13 case into a kernel entry: its worst error and, where
-    timed, its timing at an SSD or hymba shape under ``ssm_cases``."""
+def _note(kernels, name, err, case=None, key="ssm_cases") -> None:
+    """Fold a case into a kernel entry: its worst error and, where timed,
+    its timing under ``key`` (phase 13's SSD and hymba shapes under
+    ``ssm_cases``, phase 3's new widths under ``shape_cases``)."""
     entry = next(k for k in kernels if k["name"] == name)
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if case is not None:
-        entry.setdefault("ssm_cases", []).append(case)
+        entry.setdefault(key, []).append(case)
 
 
 def _timed_case(shape, ms, plain_ms, bound, library_ms=None):
@@ -5323,6 +5379,538 @@ def phase_analysis(kernels: list, cfg, train_hist, serve_walls,
         wall_s=f"{time.perf_counter() - t0:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 3 (shapes) and phase 20: every width the Pallas kernels take.
+# ---------------------------------------------------------------------------
+
+# (BH, S, dk, dv, dtypes) of the chunk kernels' new widths: Table 2's
+# training shape (8 rows x 4 heads x 256 tokens) at SMOKE's heads (hymba
+# SMOKE's SSD heads at d_state 8, headdim 16 too) and llama3-tiny's and at
+# taylor's 1 + 32 + 32², and taylor at Linear-Llama3-1B's dh 128 (16513
+# rows, 130 dk slices) at 4 x 256
+SHAPE_CHUNK_CASES = [(32, 256, 16, 16, (torch.bfloat16, torch.float32)),
+                     (32, 256, 8, 16, (torch.bfloat16, torch.float32)),
+                     (32, 256, 32, 32, (torch.bfloat16, torch.float32)),
+                     (32, 256, 1057, 32, (torch.bfloat16, torch.float32)),
+                     (4, 256, 16513, 128, (torch.bfloat16,))]
+# K3 at the same widths: (parity BH, timed BH, dk, dv); the timed BH is the
+# serving shape of 4 slots (x 4 heads for llama3-tiny, x 16 for full width)
+SHAPE_DECODE_CASES = [(16, 16, 16, 16), (16, 16, 8, 16), (16, 16, 32, 32),
+                      (16, 16, 1057, 32), (4, 64, 16513, 128)]
+# flash at dh 8, 16 (SMOKE's heads, in bf16 as SMOKE runs them) and 32,
+# both dtypes, all on simt: (what, B, Hq, Hkv, Sq, Sk, dh, causal, window,
+# q_offset)
+SHAPE_FLASH_CASES = [
+    (what, b, hq, hkv, sq, sk, dh, causal, window, off)
+    for dh in (8, 16, 32)
+    for what, b, hq, hkv, sq, sk, causal, window, off in (
+        ("causal", 8, 4, 4, 256, 256, True, None, None),
+        ("window", 2, 8, 8, 300, 300, True, 48, None),
+        ("gqa4", 2, 8, 2, 256, 256, True, None, None),
+        ("ragged", 2, 4, 1, 100, 137, True, None, None),
+        ("ragged_bidir", 2, 4, 2, 100, 137, False, None, None))]
+# flash times: Table 2's hybrid softmax layer (B 8 x 4 heads x 256, dh 32)
+# and qwen1.5-110b SMOKE's GQA 8:2 heads of 8 at 2 x 256
+SHAPE_FLASH_TIMED = [(8, 4, 4, 256, 32), (2, 8, 2, 256, 8)]
+
+
+def _shape_chunk_cases(kernels, gen, failures) -> None:
+    """K1, K2a and K2b at ``SHAPE_CHUNK_CASES`` (GLA's log a with a reset
+    mid-chunk, a nonzero end-state cotangent) against the plain versions
+    under phase 3's limits, on ``simt``; past one dk slice, each of the
+    three bitwise equal on two launches; each timed beside its plain
+    version and bound."""
+    from repro_torch.core.linear_attention import pick_block
+    from repro_torch.kernels import lasp2_chunk as lc
+    passes = (lc.lasp2_chunk_fwd, lc.lasp2_chunk_bwd_dq,
+              lc.lasp2_chunk_bwd_dkv)
+    fwd = lambda q, k, v, la, *_: lc.lasp2_chunk_fwd(q, k, v, la)
+    fwd_p = lambda q, k, v, la, *_: lc.lasp2_chunk_fwd_plain(q, k, v, la)
+    dq = lambda q, k, v, la, o, do, dst: lc.lasp2_chunk_bwd_dq(k, v, la, do)
+    dq_p = lambda q, k, v, la, o, do, dst: lc.lasp2_chunk_bwd_dq_plain(
+        k, v, la, do)
+    dkv = lambda *a: lc.lasp2_chunk_bwd_dkv(*a)
+    for bh, s, dk, dv, dtypes in SHAPE_CHUNK_CASES:
+        for dtype in dtypes:
+            name = str(dtype).split(".")[-1]
+            route = lc._route(dtype, dk, dv)
+            sets = [_bwd_inputs(gen, bh, s, dk, dtype, "gla", dv=dv)
+                    for _ in range(2)]
+            q, k, v, la, o_in, do, dst = sets[0]
+            before = [fn.route_launches["simt"] for fn in passes]
+            o, st, ld = lc.lasp2_chunk_fwd(q, k, v, la)
+            got = lc.lasp2_chunk_bwd(q, k, v, la, o_in, do, dst)
+            torch.cuda.synchronize()
+            launched = [fn.route_launches["simt"] - n
+                        for fn, n in zip(passes, before)]
+            block = pick_block(s, 128)
+            o_p, st_p, ld_p = lc.lasp2_chunk_fwd_plain(q, k, v, la,
+                                                       block_size=block)
+            want = lc.lasp2_chunk_bwd_plain(q, k, v, la, o_in, do, dst,
+                                            block_size=block)
+            errs, oks = {}, []
+            for key, g, w, tol in (("o", o, o_p, TOL_O[name]),
+                                   ("state", st, st_p, TOL_STATE),
+                                   ("log_decay", ld, ld_p, TOL_LD),
+                                   ("dq", got[0], want[0], TOL_GRAD[name]),
+                                   ("dk", got[1], want[1], TOL_GRAD[name]),
+                                   ("dv", got[2], want[2], TOL_GRAD[name])):
+                errs[key], good = max_err_within(g, w, tol)
+                oks.append(good)
+            slack = s * 2.0 ** -24 * float(want[3].abs().max())
+            diff = (got[3] - want[3]).abs()
+            errs["dla"] = float(diff.max())
+            oks.append(bool((diff <= 1e-3 + slack
+                             + 1e-3 * want[3].abs()).all())
+                       and bool(torch.isfinite(got[3]).all()))
+            share_o = limit_share(o, o_p, TOL_O[name])
+            del o, st, ld, got, o_p, st_p, ld_p, want
+            # the dk split: two launches of each pass bitwise equal
+            repeat = True
+            if lc.dk_slices(dk) > 1:
+                for fn in (fwd, dq, dkv):
+                    a, b = fn(*sets[0]), fn(*sets[0])
+                    a, b = ((x,) if torch.is_tensor(x) else x for x in (a, b))
+                    repeat = repeat and all(torch.equal(x, y)
+                                            for x, y in zip(a, b))
+                    del a, b
+            ok = all(oks) and route == "simt" and launched == [1, 1, 1] \
+                and repeat
+            shape = f"BH{bh}xS{s}x{dk}x{dv} {name}"
+            n = 5 if dk > 1000 else 20
+            timed = {kname: (time_ms(fn, sets, n), time_ms(fn_p, sets, 2),
+                             bound)
+                     for kname, fn, fn_p, bound in (
+                         ("lasp2_chunk_fwd", fwd, fwd_p,
+                          _chunk_bound(bh, s, dk, dv, dtype)),
+                         ("lasp2_chunk_bwd_dq", dq, dq_p,
+                          _bwd_bounds(bh, s, dk, dv, dtype)[0]),
+                         ("lasp2_chunk_bwd_dkv", dkv,
+                          lc.lasp2_chunk_bwd_dkv_plain,
+                          _bwd_bounds(bh, s, dk, dv, dtype)[1]))}
+            del sets
+            torch.cuda.empty_cache()
+            log("kernels", case="shapes", kernel="lasp2_chunk",
+                shape=repr(shape), route=route, dk_slices=lc.dk_slices(dk),
+                launches_k1_k2a_k2b=launched,
+                **{f"err_{k}": f"{v:.3e}" for k, v in errs.items()},
+                tol_o=TOL_O[name], tol_grads=TOL_GRAD[name],
+                dla_slack=f"{slack:.2e}", share_of_limit_o=f"{share_o:.3f}",
+                split_bitwise_repeatable=repeat
+                if lc.dk_slices(dk) > 1 else "one slice",
+                **{f"{kn}_ms": f"{t[0]:.4f}" for kn, t in timed.items()},
+                **{f"{kn}_plain_ms": f"{t[1]:.4f}"
+                   for kn, t in timed.items()},
+                **{f"{kn}_bound_ms": f"{t[2][0]:.4f}"
+                   for kn, t in timed.items()}, ok=ok)
+            if not ok:
+                failures.append(f"lasp2_chunk {shape}")
+            for kname, key_errs in (("lasp2_chunk_fwd",
+                                     ("o", "state", "log_decay")),
+                                    ("lasp2_chunk_bwd_dq", ("dq",)),
+                                    ("lasp2_chunk_bwd_dkv",
+                                     ("dk", "dv", "dla"))):
+                ms, plain, bound = timed[kname]
+                case = _timed_case(shape, ms, plain, bound)
+                case["dk_slices"] = lc.dk_slices(dk)
+                _note(kernels, f"{kname}_simt",
+                      max(errs[k] for k in key_errs), case, "shape_cases")
+
+
+def _shape_decode_cases(kernels, gen, failures) -> None:
+    """K3 at ``SHAPE_DECODE_CASES``: 8 steps chained from a K1 prefill
+    state on GLA's log a (a reset at step 3 for half the rows) against
+    ``recurrent_step``, on ``simt`` and, where its table takes the shape,
+    on ``sm90``; timed on the table's route at the serving BH over states
+    rotating above the 50 MB L2."""
+    from repro_torch.core.linear_attention import RESET_LOG_A
+    from repro_torch.kernels import lasp2_decode as ldm
+    from repro_torch.kernels.lasp2_chunk import lasp2_chunk_fwd
+    step, plain = ldm.lasp2_decode_step, ldm.lasp2_decode_step_plain
+    bf16 = torch.bfloat16
+
+    def draw(bh, dk, dv, n):
+        out = []
+        for i in range(n):
+            qs, ks = ((torch.randn(bh, dk, generator=gen, device="cuda")
+                       * 0.3).to(bf16) for _ in range(2))
+            vs = (torch.randn(bh, dv, generator=gen, device="cuda")
+                  * 0.5).to(bf16)
+            las = torch.nn.functional.logsigmoid(
+                torch.randn(bh, generator=gen, device="cuda") * 0.5)
+            if i == 3:
+                las[: bh // 2] = RESET_LOG_A
+            out.append((qs, ks, vs, las))
+        return out
+
+    for bh, bh_t, dk, dv in SHAPE_DECODE_CASES:
+        q, k, v, la = _chunk_inputs(gen, bh, 64, dk, bf16, "gla", dv)
+        _, st0, ld0 = lasp2_chunk_fwd(q, k, v, la)
+        steps = draw(bh, dk, dv, 8)
+        table = ldm._route(bf16, dk, dv)
+        err = {}
+        for route in sorted({"simt", table}):
+            st_k, ld_k = st0.clone(), ld0.clone()
+            st_p, ld_p = st0.clone(), ld0.clone()
+            before = dict(step.route_launches)
+            e_o, ok = 0.0, True
+            for qs, ks, vs, las in steps:
+                o_k, st_k, ld_k = step(qs, ks, vs, las, st_k, ld_k,
+                                       route=route)
+                o_p, st_p, ld_p = plain(qs, ks, vs, las, st_p, ld_p)
+                e, good = max_err_within(o_k, o_p, TOL_O["float32"])
+                e_o, ok = max(e_o, e), ok and good
+            torch.cuda.synchronize()
+            e_s, ok_s = max_err_within(st_k, st_p, TOL_STATE)
+            e_l, ok_l = max_err_within(ld_k, ld_p, TOL_LD)
+            launched = {r: step.route_launches[r] - before[r]
+                        for r in before}
+            ok = ok and ok_s and ok_l and launched == {
+                r: 8 * (r == route) for r in before}
+            err[route] = max(e_o, e_s, e_l)
+            log("kernels", case="shapes", kernel=f"lasp2_decode_step_{route}",
+                steps=8, BH=bh, dk=dk, dv=dv, log_a="gla+reset",
+                table_route=table, err_o=f"{e_o:.3e}",
+                tol_o=TOL_O["float32"], err_state=f"{e_s:.3e}",
+                tol_state=TOL_STATE, err_log_decay=f"{e_l:.3e}", ok=ok)
+            if not ok:
+                failures.append(f"lasp2_decode_step_{route} dk={dk}")
+            del st_k, st_p
+        del st0
+        n_sets = max(2, int(np.ceil(64e6 / (bh_t * dk * dv * 4))))
+        timed_steps = draw(bh_t, dk, dv, 2)
+        dec_sets = [(*timed_steps[i % 2][:4],
+                     torch.zeros(bh_t, dk, dv, device="cuda"),
+                     torch.zeros(bh_t, device="cuda"))
+                    for i in range(n_sets)]
+        fn = lambda *a: step(*a, route=table)
+        iters = 20 if dk > 1000 else 200
+        ms, plain_ms = time_ms(fn, dec_sets, iters), \
+            time_ms(lambda *a: plain(*a), dec_sets, 5)
+        bound = _decode_bound(bh_t, dk, dv, 2)
+        shape = f"BH{bh_t}x{dk}x{dv} bf16"
+        log("kernels", case="shapes", kernel=f"lasp2_decode_step_{table}",
+            shape=repr(shape), ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+            bound_ms=f"{bound[0]:.5f}", bound_by=bound[1], states=n_sets)
+        for route, e in err.items():
+            _note(kernels, f"lasp2_decode_step_{route}", e,
+                  _timed_case(shape, ms, plain_ms, bound)
+                  if route == table else None, "shape_cases")
+        del dec_sets, steps
+        torch.cuda.empty_cache()
+
+
+def _shape_flash_cases(kernels, gen, failures) -> None:
+    """K4, K5a and K5b at ``SHAPE_FLASH_CASES`` (dh 8, 16 and 32: causal,
+    windowed, GQA 4:1, ragged Sq ≠ Sk causal and bidirectional) in fp32
+    and bf16, all on ``simt``, against their plain versions under phase
+    3's limits (``_flash_check``); then each timed at
+    ``SHAPE_FLASH_TIMED`` in bf16 beside its plain version, its bound and
+    the SDPA forward and backward on K/V repeated to the query heads."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fl
+    for what, b, hq, hkv, sq, sk, dh, causal, window, off in \
+            SHAPE_FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype)
+            kw = dict(causal=causal, window=window, q_offset=off)
+            route, e, tols, ok = _flash_check(q, k, v, do, dh, dtype, kw)
+            ok = ok and route == "simt"
+            name = str(dtype).split(".")[-1]
+            log("kernels", case="shapes", kernel="flash_attention",
+                what=what, shape=f"B{b}xHq{hq}xHkv{hkv}xSq{sq}xSk{sk}x{dh}",
+                dtype=name, route=route, causal=causal, window=window,
+                **{f"err_{t}": f"{x:.3e}" for t, x in e.items()}, **tols,
+                ok=ok)
+            if not ok:
+                failures.append(f"flash {what} {name} dh{dh}")
+            for kname, keys in (("flash_attention_fwd", ("o", "lse")),
+                                ("flash_attention_bwd_dq", ("dq",)),
+                                ("flash_attention_bwd_dkv", ("dk", "dv"))):
+                _note(kernels, f"{kname}_{route}",
+                      max(e[x] for x in keys), None, "shape_cases")
+            del q, k, v, do
+    dtype = torch.bfloat16
+    for b, hq, hkv, s, dh in SHAPE_FLASH_TIMED:
+        kw = dict(causal=True)
+        pairs = b * hq * int(fl._mask(s, s, 0, s, True, None, "cuda").sum())
+        sets = []
+        for _ in range(2):
+            q, k, v, do = _flash_inputs(gen, b, hq, hkv, s, s, dh, dtype)
+            o, lse = fl.flash_attention_fwd(q, k, v, **kw)
+            sets.append((q, k, v, do, lse, (do.float() * o.float()).sum(-1)))
+        rep = lambda x: x.repeat_interleave(hq // hkv, dim=1)
+        sdpa_sets = [(q, rep(k), rep(v), do) for q, k, v, do, *_ in sets]
+        sdpa = lambda q, k, v, *_: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
+        graphs = []
+        for q, k, v, do in sdpa_sets:
+            leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            graphs.append((sdpa(*leaves), leaves, do))
+        lib = (time_ms(sdpa, sdpa_sets, 20),
+               time_ms(lambda o, leaves, do: torch.autograd.grad(
+                   o, leaves, do, retain_graph=True), graphs, 20))
+        del sdpa_sets, graphs
+        bounds = _flash_bounds(b, hq, hkv, s, s, dh, dtype, pairs)
+        shape = f"B{b}xHq{hq}xHkv{hkv}xS{s}x{dh} bf16 causal"
+        for i, (kname, fn, fn_p) in enumerate((
+                ("flash_attention_fwd",
+                 lambda q, k, v, *_: fl.flash_attention_fwd(q, k, v, **kw),
+                 lambda q, k, v, *_: fl.flash_attention_fwd_plain(
+                     q, k, v, **kw)),
+                ("flash_attention_bwd_dq",
+                 lambda *a: fl.flash_attention_bwd_dq(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dq_plain(*a, **kw)),
+                ("flash_attention_bwd_dkv",
+                 lambda *a: fl.flash_attention_bwd_dkv(*a, **kw),
+                 lambda *a: fl.flash_attention_bwd_dkv_plain(*a, **kw)))):
+            ms, plain = time_ms(fn, sets, 20), time_ms(fn_p, sets, 5)
+            library = lib[0] if i == 0 else lib[1]
+            log("kernels", case="shapes", kernel=f"{kname}_simt",
+                shape=repr(shape), ms=f"{ms:.4f}", plain_ms=f"{plain:.4f}",
+                bound_ms=f"{bounds[i][0]:.4f}", bound_by=bounds[i][1],
+                sdpa_ms=f"{library:.4f}", pairs=pairs)
+            _note(kernels, f"{kname}_simt", 0.0,
+                  _timed_case(shape, ms, plain, bounds[i], library),
+                  "shape_cases")
+        del sets
+        torch.cuda.empty_cache()
+
+
+def phase_shape_kernels(kernels: list) -> None:
+    """Phase 3's cases at the widths the Pallas kernels take and the
+    earlier phases never gave the card: ``_shape_chunk_cases``,
+    ``_shape_decode_cases``, ``_shape_flash_cases``."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    failures = []
+    t0 = time.perf_counter()
+    _shape_chunk_cases(kernels, gen, failures)
+    _shape_decode_cases(kernels, gen, failures)
+    _shape_flash_cases(kernels, gen, failures)
+    log("kernels", case="shapes", wall_s=f"{time.perf_counter() - t0:.1f}")
+    check(not failures, "kernel parity failed: " + ", ".join(failures))
+
+
+# Table 2 (benchmarks/table2_convergence.py:21-44): llama3-tiny and its
+# attention modules; rebased is built as the benchmark builds it, with
+# based's settings
+TABLE2_MODULES = ("basic", "lightning", "retention", "gla", "based",
+                  "rebased")
+TABLE2_STEPS, TABLE2_SEQ, TABLE2_BATCH = 5, 256, 8
+
+
+def table2_config(module: str, hybrid: bool):
+    """Table 2's ``_variant``: llama3-tiny (4 layers, d 128, 4 heads of 32,
+    d_ff 352, vocab 2048), linearized pure or as a 1/4 hybrid, with the
+    module's linear-attention settings."""
+    from repro_torch.configs.base import (LayerSpec, LinearAttnConfig,
+                                          ModelConfig)
+    cfg = ModelConfig(name="llama3-tiny", family="dense", n_layers=4,
+                      d_model=128, n_heads=4, n_kv_heads=4, d_ff=352,
+                      vocab_size=2048, pattern=(LayerSpec(),))
+    cfg = cfg.linearize(hybrid_every=4 if hybrid else 0)
+    lac = {"basic": LinearAttnConfig("identity", "none", "faithful"),
+           "lightning": LinearAttnConfig("silu", "lightning", "faithful"),
+           "retention": LinearAttnConfig("identity", "retention",
+                                         "faithful"),
+           "gla": LinearAttnConfig("silu", "data", "autodiff"),
+           "based": LinearAttnConfig("taylor", "none", "autodiff"),
+           "rebased": LinearAttnConfig("taylor", "none", "autodiff")}[module]
+    return dataclasses.replace(
+        cfg, linear_attn=lac,
+        name=f"linear-llama3-tiny-{module}{'-h4' if hybrid else ''}")
+
+
+def _routed_counters():
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import lasp2_chunk as lc
+    return (lc.lasp2_chunk_fwd, lc.lasp2_chunk_bwd_dq, lc.lasp2_chunk_bwd_dkv,
+            fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
+            fl.flash_attention_bwd_dkv)
+
+
+def _table2_train(kernels, cfg, path) -> list:
+    """``TABLE2_STEPS`` steps of Table 2's ``RunConfig`` (lr 1e-3, 10
+    warm-up steps of its 120, remat none, one microbatch of 8 x 256
+    ``SyntheticLM`` tokens) through ``train()``: every loss finite, none
+    skipped, K1, K2a, K2b (and K4, K5a, K5b for the hybrid) each once a
+    layer a step, every one on ``simt``."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train.loop import train
+    run = RunConfig(num_microbatches=1, total_steps=120, warmup_steps=10,
+                    learning_rate=1e-3, remat="none", seed=0)
+    data = SyntheticLM(cfg.vocab_size, TABLE2_SEQ, TABLE2_BATCH, seed=0)
+    counters = _routed_counters()
+    _zero(*counters)
+    t0 = time.perf_counter()
+    _, hist = train(cfg, run, data, log_every=10 ** 9,
+                    log_fn=lambda *_: None, max_steps=TABLE2_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read(counters, counters)
+    n_lin, n_soft = _mixer_counts(cfg)
+    lin, soft = TABLE2_STEPS * n_lin, TABLE2_STEPS * n_soft
+    want = [lin] * 3 + [soft] * 3 + [0, lin] * 3 + [0, soft] * 3
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == TABLE2_STEPS, f"{path}: {len(hist)} steps ran")
+    check(all(np.isfinite(losses)), f"{path}: non-finite loss {losses}")
+    check(not any(h["skipped"] for h in hist), f"{path}: a step skipped")
+    check(launched == want, f"{path}: K1, K2a, K2b, K4, K5a, K5b, then "
+          f"each sm90/simt launched {launched}; want {want}")
+    _count_routed(kernels, counters, counters, launched, path)
+    log(path, arch=cfg.name, linear=n_lin, softmax=n_soft,
+        dk_dv=repr(_chunk_dims(cfg)), steps=TABLE2_STEPS,
+        batch=f"{TABLE2_BATCH}x{TABLE2_SEQ}", lr=run.learning_rate,
+        losses=repr([round(x, 4) for x in losses]),
+        launches_k1_k2a_k2b_k4_k5a_k5b_routed=repr(launched),
+        wall_s=f"{wall:.2f}",
+        step_p50_ms=f"{np.median([h['dt'] for h in hist[1:]]) * 1e3:.1f}")
+    return losses
+
+
+def _smoke_memory(cfg, rows, gen, lead=()):
+    return _memory(cfg, rows, gen, lead=lead) \
+        if cfg.encoder is not None or cfg.n_image_tokens else {}
+
+
+def _smoke_serve_and_step(kernels, arch) -> None:
+    """One SMOKE id on the card: 2 ragged requests served (the static
+    path with a memory for the cross family), then one train step of 2 x
+    64 ``SyntheticLM`` tokens (with frames or image tokens for the cross
+    family); every kernel its layers run launched, on the route of its
+    shapes."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.flash_attention import ROUTES
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    from repro_torch.models import model as M
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = get_smoke(arch)
+    path = f"shapes_smoke_{arch}"
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    params = M.init_params(gen, cfg)
+    if _cross(cfg):
+        _set_gates(params, CROSS_GATE)
+    counters = _routed_counters() + (lasp2_decode_step,)
+    routed = counters
+    _zero(*counters)
+    engine = ServeEngine(cfg, params, max_len=48, max_batch=2)
+    rng = np.random.default_rng(21)
+    if _cross(cfg):
+        prompts = rng.integers(0, cfg.vocab_size, size=(2, 24))
+        out = engine.generate(prompts, 8, **_smoke_memory(cfg, 2, gen))
+        check(out.shape == (2, 8), f"{path}: tokens {out.shape}")
+    else:
+        uids = [engine.submit(rng.integers(0, cfg.vocab_size, size=n), 8,
+                              seed=0) for n in (17, 30)]
+        results = engine.run()
+        check(sorted(results) == sorted(uids)
+              and all(len(results[u]) == 8 for u in uids),
+              f"{path}: not every request finished")
+    torch.cuda.synchronize()
+    served = _read(counters, routed)
+    run = RunConfig(num_microbatches=1, total_steps=10, warmup_steps=0,
+                    learning_rate=1e-3, remat="none", seed=0)
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=0).microbatched(0, 1)
+    mem = _smoke_memory(cfg, 2, gen, lead=(1,))
+    if mem:
+        batch["frames" if cfg.encoder is not None else "img"] = \
+            next(iter(mem.values()))
+    state = init_state(gen, cfg)
+    if _cross(cfg):
+        _set_gates(state["params"], CROSS_GATE)
+    _zero(*counters)
+    state, m = make_train_step(cfg, run)(state, batch)
+    torch.cuda.synchronize()
+    trained = _read(counters, routed)
+    loss = float(m["loss"])
+    n_lin, n_soft = _mixer_counts(cfg)
+    check(np.isfinite(loss), f"{path}: loss {loss}")
+    chunk = _chunk_route(cfg) if n_lin else None
+    decode = _decode_route(cfg) if n_lin else None
+    flash = _flash_route(cfg) if n_soft else None
+    # K1, K2a, K2b, K4, K5a, K5b, K3: each kernel's route, and whether the
+    # served and the trained run use it
+    routes = (chunk,) * 3 + (flash,) * 3 + (decode,)
+    uses = {"served": (n_lin, 0, 0, n_soft, 0, 0, n_lin),
+            "trained": (n_lin, n_lin, n_lin, n_soft, n_soft, n_soft, 0)}
+    for run_name, counts in (("served", served), ("trained", trained)):
+        for i, (total, route, used) in enumerate(
+                zip(counts[:7], routes, uses[run_name])):
+            split = dict(zip(ROUTES, counts[7 + 2 * i: 9 + 2 * i]))
+            want = {r: total * (r == route) for r in ROUTES} if used \
+                else dict.fromkeys(ROUTES, 0)
+            check((total > 0) == bool(used) and split == want,
+                  f"{path}: {run_name} {counters[i].__name__} launched "
+                  f"{total}, per route {split}; want "
+                  f"{'all on ' + route if used else 'none'} ({n_lin} chunk, "
+                  f"{n_soft} attention layers)")
+    _count_routed(kernels, counters, routed,
+                  [a + b for a, b in zip(served, trained)], path)
+    log("shapes", case="smoke", arch=arch, layers=cfg.n_layers,
+        chunk_layers=n_lin, attention_layers=n_soft,
+        chunk_dk_dv=repr(_chunk_dims(cfg)) if n_lin else "none",
+        head_dim=cfg.head_dim,
+        chunk_route=_chunk_route(cfg) if n_lin else "none",
+        decode_route=_decode_route(cfg) if n_lin else "none",
+        flash_route=_flash_route(cfg) if n_soft else "none",
+        served_k1_k2a_k2b_k4_k5a_k5b_k3_routed=repr(served),
+        trained_k1_k2a_k2b_k4_k5a_k5b_k3_routed=repr(trained),
+        loss=f"{loss:.4f}", ok=True)
+    del engine, state, params
+
+
+def phase_shapes(kernels: list, linear) -> None:
+    """Phase 20: the model paths at the widths of phase 3's new cases,
+    through ``train()`` and ``ServeEngine``. (a) Table 2 at its own width:
+    llama3-tiny's six modules (``TABLE2_MODULES``), each pure and as a 1/4
+    hybrid: 5 train steps (``_table2_train``), then 4 ragged greedy
+    requests (prompts 32-95 tokens, 16 new) through ``phase_serve`` with
+    phase 4's decode check; K1, K2a, K2b on ``simt`` at (32, 32) and at
+    taylor's (1057, 32), K3 on its table's route (``sm90`` at (32, 32),
+    ``simt`` at 1057), K4, K5a, K5b on ``simt`` at dh 32; phase 9's fp32
+    grad check against the host CPU for based (K2b's dk split) and the
+    basic hybrid. (b) based at Linear-Llama3-1B's full width (``CONFIG``
+    with taylor, no decay, the autodiff backward): phase 4's 8 requests
+    with prefill through K1 at dk 16513 (130 slices), decode through K3
+    ``simt``, the decode check and ``linear_state`` (16 layers x 4 slots
+    x 16 heads x 16513 x 128 x 4 bytes) constant in ``max_len``; it does
+    not train at full width (a layer's q and k features alone would take
+    8.7 GB at 8 x 2048 tokens). (c) every id of ``ALL_IDS`` at SMOKE
+    (``_smoke_serve_and_step``)."""
+    from repro_torch.configs import ALL_IDS, LinearAttnConfig
+    walls = {}
+    for module in TABLE2_MODULES:
+        for hybrid in (False, True):
+            t0 = time.perf_counter()
+            cfg = table2_config(module, hybrid)
+            path = f"shapes_t2_{module}{'_h4' if hybrid else ''}"
+            _table2_train(kernels, cfg, path)
+            phase_serve(kernels, cfg, path, requests=4, lens=(32, 96),
+                        new_tokens=16)
+            if (module, hybrid) in (("based", False), ("basic", True)):
+                phase_grad_check(kernels, dataclasses.replace(
+                    cfg, dtype="float32"), path + "_gradcheck")
+            walls[path] = round(time.perf_counter() - t0, 1)
+            _free()
+    t0 = time.perf_counter()
+    based = dataclasses.replace(
+        linear, name=linear.name + "-based",
+        linear_attn=LinearAttnConfig("taylor", "none", "autodiff"))
+    phase_serve(kernels, based, "shapes_based_full")
+    walls["shapes_based_full"] = round(time.perf_counter() - t0, 1)
+    _free()
+    t0 = time.perf_counter()
+    for arch in ALL_IDS:
+        _smoke_serve_and_step(kernels, arch)
+        _free()
+    walls["shapes_smoke"] = round(time.perf_counter() - t0, 1)
+    log("shapes", walls_s=repr(walls).replace(" ", ""))
+
+
 def main(argv=None) -> int:
     """Every phase, or with ``--phases 13,18`` (a debugging aid) phases 1
     and 2 and the named ones alone: a phase that reads an earlier one's
@@ -5371,7 +5959,9 @@ def main(argv=None) -> int:
         kernels = phase_kernels()
         kernels += phase_decode()
         kernels += phase_bwd_kernels(kernels)
-        return kernels + phase_flash_kernels()
+        kernels += phase_flash_kernels()
+        phase_shape_kernels(kernels)
+        return kernels
 
     kernels = timed(3, kernel_phases) or []
 
@@ -5401,6 +5991,7 @@ def main(argv=None) -> int:
     serve_sp_tapes = timed(18, phase_serve_sp, kernels, linear, hybrid)
     timed(19, phase_analysis, kernels, linear, train_hist, serve_walls,
           (usp_tapes or []) + (serve_sp_tapes or []))
+    timed(20, phase_shapes, kernels, linear)
     log("walls", phase_walls_s=repr(walls).replace(" ", ""),
         total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)

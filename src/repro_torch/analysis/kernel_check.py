@@ -25,7 +25,11 @@ backward passes; flash causal, causal with ``q_offset=0``, a window of
 48, ``kv_len`` 100 short of Sk, and a nonzero ``q_offset`` (the LASP-2H
 rank offset), each through K4, K5a and K5b; the decode step with and
 without decay. Each runs at the smallest shape its route admits, with
-lengths that are not tile multiples (S 100, Sq 72, Sk 136).
+lengths that are not tile multiples (S 100, Sq 72, Sk 136), and the
+``simt`` routes also at the shapes they pad or split: the chunk kernels
+at a ragged dv (50), an odd dk (33) and a dk past one slice (200, whose
+K1 and K2b workspaces are guarded views as well), flash at dh 8 (run at
+16) and the decode step at dk 33 (a tail past its 16-row groups).
 
 On the CPU the same harness drives the plain versions (``launch`` writes
 their results into the output views), which is how the tests plant a
@@ -186,9 +190,13 @@ def _randn(gen, *shape, scale=1.0, dtype=torch.float32):
 def _chunk_cases(gen) -> List[Case]:
     from repro_torch.kernels import lasp2_chunk as lc
     out = []
-    # sm90: bf16 with dk = dv = 64 (its smallest); simt: fp32, dk 16, dv 64
+    # sm90: bf16 with dk = dv = 64 (its smallest); simt: fp32, dk 16, dv 64,
+    # a ragged dv, an odd dk, and in bf16 a dk split into two slices
     for route, dtype, dk, dv in (("sm90", torch.bfloat16, 64, 64),
-                                 ("simt", torch.float32, 16, 64)):
+                                 ("simt", torch.float32, 16, 64),
+                                 ("simt", torch.float32, 16, 50),
+                                 ("simt", torch.float32, 33, 64),
+                                 ("simt", torch.bfloat16, 200, 40)):
         assert lc._route(dtype, dk, dv) == route
         bh, s = 2, S_CHUNK
         q = _randn(gen, bh, s, dk, scale=0.3, dtype=dtype)
@@ -215,15 +223,20 @@ def _chunk_cases(gen) -> List[Case]:
                 x["dstate"], block_size=s)
             return {"dk": dk_, "dv": dv_, "dla": dla}
 
+        # the split's workspaces, guarded like any output
+        shapes = [lc.workspace(kern, bh, s, dk, dv) if route == "simt"
+                  else None for kern in ("K1", "K2b")]
+        k1_work, k2b_work = ({"work": (shape, torch.float32)}
+                             if shape else {} for shape in shapes)
         out += [
             Case("K1", "lasp2_chunk_fwd" + tag, route,
                  {"q": q, "k": k, "v": v, "log_a": la},
                  {"o": ((bh, s, dv), dtype),
                   "state": ((bh, dk, dv), torch.float32),
-                  "log_decay": ((bh,), torch.float32)},
+                  "log_decay": ((bh,), torch.float32), **k1_work},
                  lambda x, r=route: lc.fwd_entry(
                      r, x["q"], x["k"], x["v"], x["log_a"], x["o"],
-                     x["state"], x["log_decay"]),
+                     x["state"], x["log_decay"], work=x.get("work")),
                  fwd_plain, limit_dtype=dtype),
             Case("K2a", "lasp2_chunk_bwd_dq" + tag, route,
                  {"k": k, "v": v, "log_a": la, "do": do},
@@ -235,10 +248,11 @@ def _chunk_cases(gen) -> List[Case]:
                  {"q": q, "k": k, "v": v, "log_a": la, "o": o, "do": do,
                   "dstate": dst},
                  {"dk": ((bh, s, dk), dtype), "dv": ((bh, s, dv), dtype),
-                  "dla": ((bh, s), torch.float32)},
+                  "dla": ((bh, s), torch.float32), **k2b_work},
                  lambda x, r=route: lc.bwd_dkv_entry(
                      r, x["q"], x["k"], x["v"], x["log_a"], x["o"],
-                     x["do"], x["dstate"], x["dk"], x["dv"], x["dla"]),
+                     x["do"], x["dstate"], x["dk"], x["dv"], x["dla"],
+                     work=x.get("work")),
                  dkv_plain, limit_dtype=dtype),
         ]
     return out
@@ -256,9 +270,11 @@ FLASH_VARIANTS = {
 def _flash_cases(gen) -> List[Case]:
     from repro_torch.kernels import flash_attention as fl
     out = []
-    # sm90: bf16 at dh 64 (its smallest); simt: fp32 at dh 16
+    # sm90: bf16 at dh 64 (its smallest); simt: fp32 at dh 16, and at dh 8
+    # (its columns 8..15 zero-filled, never stored)
     for route, dtype, dh in (("sm90", torch.bfloat16, 64),
-                             ("simt", torch.float32, 16)):
+                             ("simt", torch.float32, 16),
+                             ("simt", torch.float32, 8)):
         assert fl._route(dtype, dh) == route
         b, hq, hkv = 1, 4, 2                  # GQA 2:1, Sk != Sq
         q = _randn(gen, b, hq, SQ, dh, scale=0.4, dtype=dtype)
@@ -322,11 +338,13 @@ def _decode_cases(gen) -> List[Case]:
     from repro_torch.kernels import lasp2_decode as dc
     out = []
     # sm90: dk 16, dv 4 (its smallest); simt: dk 16 with dv 6 (no
-    # multiple of 4), which the table sends there
+    # multiple of 4), which the table sends there, and dk 33 (a tail of one
+    # row after two 16-row groups)
     for route, dtype, dk, dv, decay in (
             ("sm90", torch.bfloat16, 16, 4, True),
             ("sm90", torch.float32, 16, 4, False),
-            ("simt", torch.float32, 16, 6, True)):
+            ("simt", torch.float32, 16, 6, True),
+            ("simt", torch.float32, 33, 6, True)):
         assert dc._route(dtype, dk, dv) == route
         bh = 5
         ins = {"q": _randn(gen, bh, dk, scale=0.3, dtype=dtype),

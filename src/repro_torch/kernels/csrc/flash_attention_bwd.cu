@@ -33,6 +33,11 @@
 // Ragged q or kv tails are zero-filled and masked; a kv tile past kv_len
 // gets zero dk and dv.
 //
+// Any head dim up to 128, as the forward: built at DH = 16, 32, 64 and 128,
+// a dh in between at the next width up (PAD), head columns past dh
+// zero-filled on load and never stored; a dh equal to a built width runs
+// the unpadded build, its strides compile-time constants.
+//
 // Shared memory at dh = 128 (fp32 tiles, odd row stride 65): K5a holds q,
 // dO, k and v k-major and the ds tile (146 KB); K5b holds k, v, q and dO
 // k-major and the p and ds tiles (163 KB). Both raise the dynamic limit.
@@ -40,6 +45,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -70,14 +77,15 @@ struct Mask {
   }
 };
 
-// rows x DH of a (rows_total, DH) tensor from row r0 into a k-major tile
-// [DH][P]; rows past `rows` are zero.
+// 64 rows of a (rows_total, dh) tensor from `src` into a k-major tile
+// [DH][P]; rows past `rows` and columns past dh are zero.
 template <typename T, int DH>
 __device__ __forceinline__ void load_kmajor(float* dst, const T* src,
-                                            int rows, int tid) {
+                                            int rows, int dh, int tid) {
   for (int idx = tid; idx < 64 * DH; idx += THREADS) {
     const int i = idx / DH, d = idx - i * DH;
-    dst[d * P + i] = (i < rows) ? to_f32(src[(size_t)i * DH + d]) : 0.f;
+    dst[d * P + i] =
+        (i < rows && d < dh) ? to_f32(src[(size_t)i * dh + d]) : 0.f;
   }
 }
 
@@ -90,14 +98,16 @@ size_t dq_smem_bytes() {
   return sizeof(float) * (size_t)(4 * DH * P + BK * P);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int hq, int hkv, int sq, int sk, Mask mask, float scale) {
+                    int hq, int hkv, int sq, int sk, int dh_in, Mask mask,
+                    float scale) {
   constexpr int NC = DH / 16;
+  const int dh = PAD ? dh_in : DH;  // a constant unless padded
   extern __shared__ float smem[];
   float* qt = smem;            // [DH][P] q tile, k-major
   float* dot = qt + DH * P;    // [DH][P] dO tile, k-major
@@ -112,11 +122,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = iq * BQ;
   const int qrows = min(BQ, sq - q0);
   const size_t qrow0 = (size_t)(b * hq + h) * sq + q0;
-  const T* kb = k + (size_t)(b * hkv + g) * sk * DH;
-  const T* vb = v + (size_t)(b * hkv + g) * sk * DH;
+  const T* kb = k + (size_t)(b * hkv + g) * sk * dh;
+  const T* vb = v + (size_t)(b * hkv + g) * sk * dh;
 
-  load_kmajor<T, DH>(qt, q + qrow0 * DH, qrows, tid);
-  load_kmajor<T, DH>(dot, dout + qrow0 * DH, qrows, tid);
+  load_kmajor<T, DH>(qt, q + qrow0 * dh, qrows, dh, tid);
+  load_kmajor<T, DH>(dot, dout + qrow0 * dh, qrows, dh, tid);
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -142,8 +152,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int k0 = ik * BK;
     const int krows = min(BK, sk - k0);
     __syncthreads();   // the last step's reads of kt, vt, dst are done
-    load_kmajor<T, DH>(kt, kb + (size_t)k0 * DH, krows, tid);
-    load_kmajor<T, DH>(vt, vb + (size_t)k0 * DH, krows, tid);
+    load_kmajor<T, DH>(kt, kb + (size_t)k0 * dh, krows, dh, tid);
+    load_kmajor<T, DH>(vt, vb + (size_t)k0 * dh, krows, dh, tid);
     __syncthreads();
 
     // s = q k^T and dp = dO v^T, one pass over dh
@@ -201,14 +211,15 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqb = dq + qrow0 * DH;
+  T* dqb = dq + qrow0 * dh;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int i = ty + 16 * r;
     if (i < qrows) {
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        store(&dqb[(size_t)i * DH + tx + 16 * c], acc[r][c] * scale);
+        if (tx + 16 * c < dh)
+          store(&dqb[(size_t)i * dh + tx + 16 * c], acc[r][c] * scale);
     }
   }
 }
@@ -222,15 +233,16 @@ size_t dkv_smem_bytes() {
   return sizeof(float) * (size_t)(4 * DH * P + 2 * BQ * P + 2 * BQ);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int hq, int hkv, int sq, int sk,
-                     Mask mask, float scale) {
+                     int dh_in, Mask mask, float scale) {
   constexpr int NC = DH / 16;
+  const int dh = PAD ? dh_in : DH;  // a constant unless padded
   extern __shared__ float smem[];
   float* kt = smem;            // [DH][P] k tile, k-major (whole block)
   float* vt = kt + DH * P;     // [DH][P] v tile, k-major (whole block)
@@ -265,8 +277,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (mask.causal) lo = max(0, floordiv(k0 - mask.q_offset, BQ));
     if (mask.has_window)
       hi = min(hi, floordiv(klast + mask.window - 1 - mask.q_offset, BQ));
-    load_kmajor<T, DH>(kt, k + krow0 * DH, krows, tid);
-    load_kmajor<T, DH>(vt, v + krow0 * DH, krows, tid);
+    load_kmajor<T, DH>(kt, k + krow0 * dh, krows, dh, tid);
+    load_kmajor<T, DH>(vt, v + krow0 * dh, krows, dh, tid);
   }
 
   for (int hg = 0; hg < rep && lo <= hi; ++hg) {
@@ -276,8 +288,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qrows = min(BQ, sq - q0);
       const size_t qrow0 = (size_t)(b * hq + h) * sq + q0;
       __syncthreads();   // the last step's reads of qt, dot, pt, dst done
-      load_kmajor<T, DH>(qt, q + qrow0 * DH, qrows, tid);
-      load_kmajor<T, DH>(dot, dout + qrow0 * DH, qrows, tid);
+      load_kmajor<T, DH>(qt, q + qrow0 * dh, qrows, dh, tid);
+      load_kmajor<T, DH>(dot, dout + qrow0 * dh, qrows, dh, tid);
       if (tid < BQ) {
         lse_s[tid] = (tid < qrows) ? lse[qrow0 + tid] : 0.f;
         delta_s[tid] = (tid < qrows) ? delta[qrow0 + tid] : 0.f;
@@ -354,87 +366,93 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkb = dk + krow0 * DH;
-  T* dvb = dv + krow0 * DH;
+  T* dkb = dk + krow0 * dh;
+  T* dvb = dv + krow0 * dh;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int j = ty + 16 * r;
     if (j < krows) {
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
-        store(&dkb[(size_t)j * DH + tx + 16 * c], acc_k[r][c] * scale);
-        store(&dvb[(size_t)j * DH + tx + 16 * c], acc_v[r][c]);
+        if (tx + 16 * c >= dh) continue;
+        store(&dkb[(size_t)j * dh + tx + 16 * c], acc_k[r][c] * scale);
+        store(&dvb[(size_t)j * dh + tx + 16 * c], acc_v[r][c]);
       }
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int b, int hq,
-              int hkv, int sq, int sk, Mask mask, float scale,
+              int hkv, int sq, int sk, int dh, Mask mask, float scale,
               cudaStream_t stream) {
   const size_t smem = dq_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T, DH, PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + BQ - 1) / BQ, hq, b);
-  flash_bwd_dq_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<T, DH, PAD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), hq, hkv, sq, sk, mask, scale);
+      static_cast<T*>(dq), hq, hkv, sq, sk, dh, mask, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int b,
-               int hq, int hkv, int sq, int sk, Mask mask, float scale,
+               int hq, int hkv, int sq, int sk, int dh, Mask mask, float scale,
                cudaStream_t stream) {
   const size_t smem = dkv_smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DH>,
+      flash_bwd_dkv_kernel<T, DH, PAD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sk + BK - 1) / BK, hkv, b);
-  flash_bwd_dkv_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, DH, PAD><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, sq, sk, mask, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), hq, hkv, sq, sk, dh, mask,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool PAD>
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta, void* out0,
-        void* out1, int b, int hq, int hkv, int sq, int sk, Mask mask,
+        void* out1, int b, int hq, int hkv, int sq, int sk, int dh, Mask mask,
         float scale, cudaStream_t st) {
   if (which == 0)
-    return launch_dq<T, DH>(q, k, v, dout, lse, delta, out0, b, hq, hkv, sq,
-                            sk, mask, scale, st);
-  return launch_dkv<T, DH>(q, k, v, dout, lse, delta, out0, out1, b, hq, hkv,
-                           sq, sk, mask, scale, st);
+    return launch_dq<T, DH, PAD>(q, k, v, dout, lse, delta, out0, b, hq, hkv,
+                                 sq, sk, dh, mask, scale, st);
+  return launch_dkv<T, DH, PAD>(q, k, v, dout, lse, delta, out0, out1, b, hq,
+                                hkv, sq, sk, dh, mask, scale, st);
 }
 
+// the smallest built width that holds dh, padded unless dh is that width
 template <typename T>
 int dispatch(int which, int dh, const void* q, const void* k, const void* v,
              const void* dout, const void* lse, const void* delta, void* out0,
              void* out1, int b, int hq, int hkv, int sq, int sk, Mask mask,
              float scale, cudaStream_t st) {
-  switch (dh) {
-    case 16:
-      return run<T, 16>(which, q, k, v, dout, lse, delta, out0, out1, b, hq,
-                        hkv, sq, sk, mask, scale, st);
-    case 64:
-      return run<T, 64>(which, q, k, v, dout, lse, delta, out0, out1, b, hq,
-                        hkv, sq, sk, mask, scale, st);
-    case 128:
-      return run<T, 128>(which, q, k, v, dout, lse, delta, out0, out1, b, hq,
-                         hkv, sq, sk, mask, scale, st);
-  }
+  auto go = [&](auto width) {
+    constexpr int W = decltype(width)::value;
+    if (dh == W)
+      return run<T, W, false>(which, q, k, v, dout, lse, delta, out0, out1, b,
+                              hq, hkv, sq, sk, dh, mask, scale, st);
+    return run<T, W, true>(which, q, k, v, dout, lse, delta, out0, out1, b,
+                           hq, hkv, sq, sk, dh, mask, scale, st);
+  };
+  if (dh < 1) return (int)cudaErrorInvalidValue;
+  if (dh <= 16) return go(std::integral_constant<int, 16>());
+  if (dh <= 32) return go(std::integral_constant<int, 32>());
+  if (dh <= 64) return go(std::integral_constant<int, 64>());
+  if (dh <= 128) return go(std::integral_constant<int, 128>());
   return (int)cudaErrorInvalidValue;
 }
 
@@ -456,8 +474,8 @@ int entry(int which, const void* q, const void* k, const void* v,
 
 // q, dout: (b, hq, sq, dh); k, v: (b, hkv, sk, dh), one dtype, bf16
 // (is_bf16 = 1) or fp32; lse, delta: (b, hq, sq) fp32; dq like q. All
-// contiguous. Needs dh in {16, 64, 128}, hq % hkv == 0, 1 <= kv_len <= sk
-// (the wrapper checks). Returns the launch's cudaGetLastError().
+// contiguous. Needs 1 <= dh <= 128, hq % hkv == 0, 1 <= kv_len <= sk (the
+// wrapper checks). Returns the launch's cudaGetLastError().
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernel `_bwd_dq_kernel` of `_bwd_call` in
 // src/repro/kernels/flash_attention.py (K5a), for bf16 q, k, v, dO at dh 64
-// or 128 (the `sm90` route of kernels/flash_attention.py; fp32 and dh 16
-// take the CUDA-core kernel of flash_attention_bwd.cu, the `simt` route).
+// or 128 (the `sm90` route of kernels/flash_attention.py; fp32 and every
+// other dh take the CUDA-core kernel of flash_attention_bwd.cu, the `simt`
+// route).
 // Same function: with the forward's mask (flash_attention_fwd_sm90.cu), its
 // saved lse (fp32) and delta = rowsum(dO * o) (fp32, from the caller),
 //   p  = valid ? exp(s - lse) : 0,   s = (q k^T) * scale,

@@ -2,8 +2,8 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_call` / `_fwd_kernel` in
 // src/repro/kernels/flash_attention.py, for bf16 q, k, v at dh 64 or 128
-// (the `sm90` route of kernels/flash_attention.py; fp32 and dh 16 take the
-// CUDA-core kernel of flash_attention_fwd.cu, the `simt` route). Same
+// (the `sm90` route of kernels/flash_attention.py; fp32 and every other dh
+// take the CUDA-core kernel of flash_attention_fwd.cu, the `simt` route). Same
 // function: query row i sits at global position q_offset + i, key j at j,
 //   valid_ij = j < kv_len [& i_pos >= j if causal]
 //                         [& i_pos - j < window if a window is set],

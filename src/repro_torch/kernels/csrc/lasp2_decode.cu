@@ -18,8 +18,11 @@
 // The thread forms M'_rj = a M_rj + k_r v_j and accumulates
 // o_j = sum_r q_r M'_rj in a register: no cross-thread reduction. Rows go
 // in groups of 16 loads issued before their stores, to keep many reads in
-// flight per thread. q and k are staged in shared memory, read by all
-// threads of the block as broadcasts.
+// flight per thread, then a tail of dk % 16 rows one at a time, so any dk
+// is exact. q and k are staged in shared memory, read by all threads of
+// the block as broadcasts: 2·dk fp32, 132 KB at the taylor feature map's
+// dk 16513 (dh 128), so the entry raises the kernel's dynamic
+// shared-memory limit above the default 48 KB where it needs to.
 //
 // In place: M' and L' overwrite M and L, which are the serving engine's
 // decode cache. The JAX engine gets the same effect by donating the cache
@@ -60,7 +63,8 @@ __global__ void decode_kernel(const T* __restrict__ q,
     const float vj = to_f32(v[(size_t)bh * dv + j]);
     float* mb = m + (size_t)bh * dk * dv + j;
     float acc = 0.f;
-    for (int r0 = 0; r0 < dk; r0 += ROWS) {
+    const int full = dk / ROWS * ROWS;
+    for (int r0 = 0; r0 < full; r0 += ROWS) {
       float mv[ROWS];
 #pragma unroll
       for (int u = 0; u < ROWS; ++u) mv[u] = mb[(size_t)(r0 + u) * dv];
@@ -70,6 +74,11 @@ __global__ void decode_kernel(const T* __restrict__ q,
         mb[(size_t)(r0 + u) * dv] = mn;
         acc = fmaf(qk[r0 + u], mn, acc);
       }
+    }
+    for (int r = full; r < dk; ++r) {
+      const float mn = fmaf(a, mb[(size_t)r * dv], qk[dk + r] * vj);
+      mb[(size_t)r * dv] = mn;
+      acc = fmaf(qk[r], mn, acc);
     }
     o[(size_t)bh * dv + j] = acc;
   }
@@ -83,6 +92,12 @@ int launch(const void* q, const void* k, const void* v, const void* la,
   const int threads = dv < 128 ? ((dv + 31) / 32) * 32 : 128;
   const dim3 grid(bh, (dv + threads - 1) / threads);
   const size_t smem = sizeof(float) * 2 * (size_t)dk;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   decode_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(la),
@@ -95,8 +110,9 @@ int launch(const void* q, const void* k, const void* v, const void* la,
 
 // q, k: (bh, dk); v: (bh, dv) in bf16 (is_bf16 = 1) or fp32; la: (bh,)
 // fp32; m: (bh, dk, dv) fp32 and log_decay: (bh,) fp32, both updated in
-// place; o: (bh, dv) fp32. All contiguous. Needs dk % 16 == 0 (the wrapper
-// checks). Returns the launch's cudaGetLastError().
+// place; o: (bh, dv) fp32. All contiguous; any dk >= 1 whose q and k fit
+// shared memory, 2·dk fp32 up to 227 KB (dk <= 29056; the wrapper checks).
+// Returns the launch's cudaGetLastError().
 extern "C" int lasp2_decode_step(const void* q, const void* k, const void* v,
                                  const void* la, void* m, void* log_decay,
                                  void* o, int bh, int dk, int dv, int is_bf16,

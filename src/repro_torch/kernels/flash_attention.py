@@ -15,8 +15,12 @@ rings) for bf16 at dh 64 and 128, in ``csrc/flash_attention_fwd_sm90.cu``,
 ``csrc/flash_attention_bwd_dq_sm90.cu`` and
 ``csrc/flash_attention_bwd_dkv_sm90.cu``; and ``simt``, the CUDA-core
 kernels of ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``
-for fp32 at any dh and bf16 at dh 16. The tensor cores have no fp32 product
-that holds fp32's 3e-4, so fp32 stays on the CUDA cores. The ``sm90``
+for fp32 at any dh and bf16 at every other dh: any dh from 1 to
+``MAX_HEAD_DIM``, run at the next width the kernels are built for (16, 32,
+64, 128) with the extra head columns zero. The tensor cores have no fp32
+product that holds fp32's 3e-4, so fp32 stays on the CUDA cores.
+:func:`refusal` is what the wrappers refuse on the card, from the tensors'
+dtypes, shapes and layouts alone. The ``sm90``
 kernels round P (and dS) to bf16 inside their products where the reference
 keeps fp32; :func:`sm90_rounding_bound` is the limit of that rounding.
 
@@ -44,7 +48,7 @@ from repro_torch.kernels.lasp2_chunk import (ROUTES, _check_devices,
                                              _check_sm90, _launch)
 
 _DTYPES = (torch.bfloat16, torch.float32)
-_HEAD_DIMS = (16, 64, 128)
+MAX_HEAD_DIM = 128
 _SOURCE_BWD = "flash_attention_bwd"
 _SM90 = {(torch.bfloat16, 64), (torch.bfloat16, 128)}
 
@@ -52,8 +56,8 @@ _SM90 = {(torch.bfloat16, 64), (torch.bfloat16, 128)}
 def _route(dtype, dh) -> str:
     """The kernel route of K4, K5a and K5b for inputs of ``dtype`` and
     head dim ``dh``, a fixed table: bf16 at dh 64 and 128 go to the
-    tensor-core kernels (``sm90``), fp32 at any dh and bf16 at dh 16 to the
-    CUDA-core kernels (``simt``)."""
+    tensor-core kernels (``sm90``), fp32 at any dh and bf16 at every other
+    dh to the CUDA-core kernels (``simt``)."""
     return "sm90" if (dtype, dh) in _SM90 else "simt"
 
 
@@ -200,24 +204,37 @@ def sm90_rounding_bound(q, k, v, do, lse, delta, *, causal=True,
 # Kernel wrappers.
 # ---------------------------------------------------------------------------
 
-def _check_cuda(name, ts, f32s):
-    """What the kernels take on the card: q, k, v (and dO) in one dtype of
-    ``_DTYPES``, lse and delta fp32, contiguous, dh in ``_HEAD_DIMS``."""
-    if ts[0].device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {ts[0].device}")
+def refusal(name, ts, f32s):
+    """What the kernels refuse, from the tensors' dtypes, shapes and
+    layouts alone (any device): None where they take it, else (exception
+    type, message). They take q, k, v (and dO) in one dtype of
+    ``_DTYPES``, lse and delta fp32, contiguous, dh from 1 to
+    ``MAX_HEAD_DIM`` and Sq >= 1."""
     dtype = ts[0].dtype
     if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
-        raise TypeError(f"{name}: q/k/v (and dO) must share one dtype of "
-                        f"{_DTYPES}; got {[t.dtype for t in ts]}")
+        return TypeError, (f"{name}: q/k/v (and dO) must share one dtype of "
+                           f"{_DTYPES}; got {[t.dtype for t in ts]}")
     if any(t.dtype != torch.float32 for t in f32s):
-        raise TypeError(f"{name}: lse and delta must be float32, got "
-                        f"{[t.dtype for t in f32s]}")
+        return TypeError, (f"{name}: lse and delta must be float32, got "
+                           f"{[t.dtype for t in f32s]}")
     if not all(t.is_contiguous() for t in (*ts, *f32s)):
-        raise ValueError(f"{name}: inputs must be contiguous")
+        return ValueError, f"{name}: inputs must be contiguous"
     dh = ts[0].shape[-1]
-    if dh not in _HEAD_DIMS or ts[0].shape[2] < 1:
-        raise ValueError(f"{name}: kernel takes dh in {_HEAD_DIMS} and "
-                         f"Sq >= 1; got dh={dh}, Sq={ts[0].shape[2]}")
+    if not 1 <= dh <= MAX_HEAD_DIM or ts[0].shape[2] < 1:
+        return ValueError, (f"{name}: kernel takes dh from 1 to "
+                            f"{MAX_HEAD_DIM} and Sq >= 1; got dh={dh}, "
+                            f"Sq={ts[0].shape[2]}")
+    return None
+
+
+def _check_cuda(name, ts, f32s):
+    """Raise unless the card's kernels take ``ts`` and ``f32s``
+    (:func:`refusal`)."""
+    if ts[0].device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {ts[0].device}")
+    refused = refusal(name, ts, f32s)
+    if refused is not None:
+        raise refused[0](refused[1])
 
 
 def _ints(q, k, q_offset, kv_len, causal, window):

@@ -18,7 +18,13 @@ on one of two routes fixed by :func:`_route`:
 bf16 terms, so that they meet the fp32 plain versions' limits. K1's and
 K2a's ``sm90`` entries launch one kernel body,
 ``csrc/lasp2_chunk_sm90.cuh`` (K1 with its operands swapped). ``simt`` is
-the CUDA-core route, for fp32 and every other shape.
+the CUDA-core route, for fp32 and every other shape: any dk and dv, the
+taylor feature map's 1 + dh + dh² among them. Past ``DK_SLICE`` rows of dk
+K1 and K2b split dk into slices across thread blocks and reduce the
+slices' partial sums in a second kernel of the same C entry, into a
+workspace the entry functions allocate (:func:`workspace`).
+:func:`refusal` is what the wrappers refuse on the card, decided from the
+tensors' dtypes, shapes and layouts alone (no device).
 
 On CPU tensors each runs its plain version. There is no other path: a CUDA
 tensor the kernel does not take raises. :class:`LASP2Chunk` is the
@@ -37,6 +43,41 @@ DEFAULT_BLOCK = 128
 _DTYPES = (torch.bfloat16, torch.float32)
 ROUTES = ("sm90", "simt")
 _SM90_DIMS = (64, 128)
+DK_SLICE = 128          # dk rows a simt block of K1 / K2b holds
+# the widest dk or dv: 64-wide tiles of one grid axis (65535 blocks)
+MAX_WIDTH = 65535 * 64
+
+
+def dk_slices(dk: int) -> int:
+    """The dk slices K1 and K2b split a ``simt`` launch into (1 up to
+    ``DK_SLICE``); past one, their C entries take a workspace."""
+    return -(-dk // DK_SLICE)
+
+
+def _slice_elems(kernel: str, bh: int, s: int, dv: int) -> int:
+    """fp32 elements one dk slice takes in ``kernel``'s workspace: K1's
+    partial o (BH·S·dv), K2b's partial dv and rowsum(K ⊙ dk)
+    (BH·S·(dv + 1))."""
+    return bh * s * (dv + (kernel == "K2b"))
+
+
+def workspace(kernel: str, bh: int, s: int, dk: int, dv: int):
+    """Shape of the fp32 workspace ``kernel`` ("K1" or "K2b") takes on
+    ``simt`` for these widths, None where dk fits one slice: K1
+    (slices, BH, S, dv), K2b (slices·BH·S·(dv + 1),). Their C entries are
+    told how many slices the given workspace holds and refuse one that
+    holds fewer than they split dk into."""
+    slices = dk_slices(dk)
+    if slices == 1:
+        return None
+    return (slices, bh, s, dv) if kernel == "K1" \
+        else (slices * _slice_elems(kernel, bh, s, dv),)
+
+
+def _work_slices(kernel, work, bh, s, dv) -> int:
+    """The dk slices ``work`` holds (0 for None)."""
+    return 0 if work is None \
+        else work.numel() // _slice_elems(kernel, bh, s, dv)
 
 
 def _route(dtype, dk, dv) -> str:
@@ -71,29 +112,43 @@ def _check(q, k, v, log_a, name="lasp2_chunk_fwd"):
             f"{tuple(v.shape)}, {tuple(log_a.shape)}")
 
 
-def _check_cuda(name, ts, f32s):
-    """What every kernel of this module takes on the card: one dtype of
-    ``_DTYPES`` for the activations ``ts``, fp32 for ``f32s``, contiguous
-    tensors, S >= 1, dk a multiple of 16 up to 128, dv a multiple of 64.
-    ``ts`` starts with a (BH, S, dk) and ends with a (BH, S, dv) tensor."""
-    if ts[0].device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {ts[0].device}")
+def refusal(name, ts, f32s):
+    """What the kernels of this module refuse, from the tensors' dtypes,
+    shapes and layouts alone (any device, the meta device too): None where
+    they take it, else ``(exception type, message)``. They take one dtype
+    of ``_DTYPES`` for the activations ``ts``, fp32 for ``f32s``,
+    contiguous tensors, BH >= 1, S >= 1 and any dk, dv from 1 to
+    ``MAX_WIDTH``. ``ts`` starts with a (BH, S, dk) and ends with a
+    (BH, S, dv) tensor."""
     dtype = ts[0].dtype
     if dtype not in _DTYPES or any(t.dtype != dtype for t in ts):
-        raise TypeError(f"{name}: q/k/v (and o, dO) must share one dtype of "
-                        f"{_DTYPES}; got {[t.dtype for t in ts]}")
+        return TypeError, (f"{name}: q/k/v (and o, dO) must share one dtype "
+                           f"of {_DTYPES}; got {[t.dtype for t in ts]}")
     if any(t.dtype != torch.float32 for t in f32s):
-        raise TypeError(f"{name}: log_a (and dstate) must be float32, got "
-                        f"{[t.dtype for t in f32s]}")
+        return TypeError, (f"{name}: log_a (and dstate) must be float32, "
+                           f"got {[t.dtype for t in f32s]}")
     if not all(t.is_contiguous() for t in (*ts, *f32s)):
-        raise ValueError(f"{name}: inputs must be contiguous")
+        return ValueError, f"{name}: inputs must be contiguous"
     bh, s, dk = ts[0].shape
     dv = ts[-1].shape[-1]
-    if s < 1 or bh < 1 or dk % 16 or not 16 <= dk <= 128 or dv % 64:
-        raise ValueError(f"{name}: kernel takes S >= 1, dk a "
-                         f"multiple of 16 up to 128, dv a multiple of 64; "
-                         f"got S={s}, dk={dk}, dv={dv}")
-    return bh, s, dk, dv
+    if s < 1 or bh < 1 or not 1 <= dk <= MAX_WIDTH \
+            or not 1 <= dv <= MAX_WIDTH:
+        return ValueError, (f"{name}: kernel takes BH >= 1, S >= 1 and dk, "
+                            f"dv from 1 to {MAX_WIDTH}; got BH={bh}, S={s}, "
+                            f"dk={dk}, dv={dv}")
+    return None
+
+
+def _check_cuda(name, ts, f32s):
+    """Raise unless the card's kernels take ``ts`` and ``f32s``
+    (:func:`refusal`); returns (BH, S, dk, dv)."""
+    if ts[0].device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {ts[0].device}")
+    refused = refusal(name, ts, f32s)
+    if refused is not None:
+        raise refused[0](refused[1])
+    bh, s, dk = ts[0].shape
+    return bh, s, dk, ts[-1].shape[-1]
 
 
 def _check_sm90(name, ts):
@@ -142,9 +197,11 @@ def lasp2_chunk_fwd(q, k, v, log_a, *, block_size: int = DEFAULT_BLOCK):
     return o, state, ld
 
 
-def fwd_entry(route, q, k, v, log_a, o, state, ld):
+def fwd_entry(route, q, k, v, log_a, o, state, ld, work=None):
     """Launch K1's C entry on ``route`` into the given outputs (checked
-    inputs; the wrapper's launch, and the guard-band battery's)."""
+    inputs; the wrapper's launch, and the guard-band battery's). ``simt``
+    past ``DK_SLICE`` rows of dk takes a workspace for the slices' partial
+    o: ``work`` (fp32, :func:`workspace`), made here if None."""
     bh, s, dk = q.shape
     dv = v.shape[-1]
     if route == "sm90":
@@ -153,9 +210,13 @@ def fwd_entry(route, q, k, v, log_a, o, state, ld):
         _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, bh, s,
                 dk, dv)
     else:
-        fn = _build.entry("lasp2_chunk_fwd", "lasp2_chunk_fwd", 7, 5)
-        _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, bh, s,
-                dk, dv, int(q.dtype == torch.bfloat16))
+        shape = workspace("K1", bh, s, dk, dv)
+        if shape is not None and work is None:
+            work = torch.empty(shape, dtype=torch.float32, device=q.device)
+        fn = _build.entry("lasp2_chunk_fwd", "lasp2_chunk_fwd", 8, 6)
+        _launch("lasp2_chunk_fwd", fn, q, k, v, log_a, o, state, ld, work,
+                _work_slices("K1", work, bh, s, dv), bh, s, dk, dv,
+                int(q.dtype == torch.bfloat16))
 
 
 # kernel launches (CUDA path only), in all and per route
@@ -342,9 +403,12 @@ def lasp2_chunk_bwd_dkv(q, k, v, log_a, o, do, dstate, *,
     return dk_out, dv_out, dla
 
 
-def bwd_dkv_entry(route, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla):
+def bwd_dkv_entry(route, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
+                  work=None):
     """Launch K2b's C entry on ``route`` into ``dk_out``, ``dv_out`` and
-    ``dla``."""
+    ``dla``; ``simt`` past ``DK_SLICE`` rows of dk takes a workspace for
+    the slices' partial dv and rowsum(K ⊙ dk): ``work`` (fp32,
+    :func:`workspace`), made here if None."""
     name = "lasp2_chunk_bwd_dkv"
     bh, s, dk = q.shape
     dv = v.shape[-1]
@@ -356,9 +420,13 @@ def bwd_dkv_entry(route, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla):
     else:
         n_scratch = torch.empty((bh, dk, dv), dtype=torch.float32,
                                 device=q.device)
-        fn = _build.entry("lasp2_chunk_bwd", name, 11, 5)
+        shape = workspace("K2b", bh, s, dk, dv)
+        if shape is not None and work is None:
+            work = torch.empty(shape, dtype=torch.float32, device=q.device)
+        fn = _build.entry("lasp2_chunk_bwd", name, 12, 6)
         _launch(name, fn, q, k, v, log_a, o, do, dstate, dk_out, dv_out, dla,
-                n_scratch, bh, s, dk, dv, int(q.dtype == torch.bfloat16))
+                n_scratch, work, _work_slices("K2b", work, bh, s, dv), bh, s,
+                dk, dv, int(q.dtype == torch.bfloat16))
 
 
 # kernel launches (CUDA path only), in all and per route

@@ -10,9 +10,12 @@ bound in each header), on the route :func:`_route` fixes:
   asynchronous copies; for dk a multiple of 16 up to 256 and dv a multiple
   of 4 (every full config);
 * ``simt``: ``csrc/lasp2_decode.cu``, the CUDA-core kernel, for every other
-  dk that is a multiple of 16.
+  shape: any dk up to ``SIMT_MAX_DK`` (its q and k in shared memory; the
+  taylor feature map's 1 + dh + dh² is 16513 at dh 128) and any dv.
 
-Both update ``state`` and ``log_decay`` in place. On CPU tensors it runs
+Both update ``state`` and ``log_decay`` in place. :func:`refusal` is what
+the wrapper refuses on the card, from the tensors' dtypes, shapes and
+layouts alone. On CPU tensors it runs
 the plain version, :func:`lasp2_decode_step_plain` (``recurrent_step``),
 which returns new tensors. Callers use the returned tensors either way. A
 CUDA tensor that the kernels do not take raises: there is no other path.
@@ -28,6 +31,9 @@ from repro_torch.kernels import _build
 _DTYPES = (torch.bfloat16, torch.float32)
 ROUTES = ("sm90", "simt")
 _SM90_MAX_DK = 256
+# the simt kernel stages q and k (2·dk fp32) in at most 227 KB of shared
+# memory
+SIMT_MAX_DK = 227 * 1024 // 8
 # route -> (source, symbol, pointers, ints) of its C entry
 _ENTRIES = {"sm90": ("lasp2_decode_sm90", "lasp2_decode_step_sm90", 7, 4),
             "simt": ("lasp2_decode", "lasp2_decode_step", 7, 4)}
@@ -70,6 +76,34 @@ def _check(q, k, v, log_a, state, log_decay):
                         + ((log_a,) if log_a is not None else ())))
 
 
+def refusal(q, k, v, log_a, state, log_decay):
+    """What the kernels refuse, from the tensors' dtypes, shapes and
+    layouts alone (any device): None where they take it, else (exception
+    type, message). They take q/k/v in one dtype of ``_DTYPES``, fp32
+    ``log_a`` (or None), ``state`` and ``log_decay``, contiguous tensors,
+    BH >= 1, dk from 1 to ``SIMT_MAX_DK`` and dv >= 1."""
+    dtype = q.dtype
+    if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
+        return TypeError, (f"lasp2_decode_step: q/k/v must share one dtype "
+                           f"of {_DTYPES}; got {dtype}, {k.dtype}, "
+                           f"{v.dtype}")
+    if state.dtype != torch.float32 or log_decay.dtype != torch.float32 \
+            or (log_a is not None and log_a.dtype != torch.float32):
+        return TypeError, ("lasp2_decode_step: log_a, state and log_decay "
+                           "must be float32")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and state.is_contiguous() and log_decay.is_contiguous()
+            and (log_a is None or log_a.is_contiguous())):
+        return ValueError, "lasp2_decode_step: all inputs must be contiguous"
+    bh, dk = q.shape
+    dv = v.shape[1]
+    if bh < 1 or not 1 <= dk <= SIMT_MAX_DK or dv < 1:
+        return ValueError, (f"lasp2_decode_step: kernel takes BH >= 1, dk "
+                            f"from 1 to {SIMT_MAX_DK} and dv >= 1; got "
+                            f"BH={bh}, dk={dk}, dv={dv}")
+    return None
+
+
 def lasp2_decode_step(q, k, v, log_a, state, log_decay, *, route=None):
     """Batched single-token recurrent decode.
 
@@ -88,23 +122,12 @@ def lasp2_decode_step(q, k, v, log_a, state, log_decay, *, route=None):
         return lasp2_decode_step_plain(q, k, v, log_a, state, log_decay)
     if dev.type != "cuda":
         raise ValueError(f"lasp2_decode_step: no kernel for {dev}")
+    refused = refusal(q, k, v, log_a, state, log_decay)
+    if refused is not None:
+        raise refused[0](refused[1])
     dtype = q.dtype
-    if dtype not in _DTYPES or k.dtype != dtype or v.dtype != dtype:
-        raise TypeError(f"lasp2_decode_step: q/k/v must share one dtype of "
-                        f"{_DTYPES}; got {dtype}, {k.dtype}, {v.dtype}")
-    if state.dtype != torch.float32 or log_decay.dtype != torch.float32 \
-            or (log_a is not None and log_a.dtype != torch.float32):
-        raise TypeError("lasp2_decode_step: log_a, state and log_decay must "
-                        "be float32")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
-            and state.is_contiguous() and log_decay.is_contiguous()
-            and (log_a is None or log_a.is_contiguous())):
-        raise ValueError("lasp2_decode_step: all inputs must be contiguous")
     bh, dk = q.shape
     dv = v.shape[1]
-    if bh < 1 or dk < 16 or dk % 16 or dv < 1:
-        raise ValueError(f"lasp2_decode_step: kernel takes dk a multiple of "
-                         f"16; got dk={dk}, dv={dv}")
     table = _route(dtype, dk, dv)
     if route is None:
         route = table

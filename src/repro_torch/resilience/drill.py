@@ -56,9 +56,9 @@ _LAYOUTS = {}
 
 
 def drill_config():
-    """SMOKE ``linear-llama3-1b`` widened to d 128 in 2 heads of 64: the
-    smallest heads the chunk kernels take (dk a multiple of 16, dv of
-    64), where SMOKE's own heads of 16 fit none."""
+    """SMOKE ``linear-llama3-1b`` widened to d 128 in 2 heads of 64, the
+    heads the drill's recorded runs took (the chunk kernels take SMOKE's
+    own heads of 16 as well)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke

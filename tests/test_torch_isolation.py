@@ -31,7 +31,7 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

@@ -13,7 +13,14 @@ the same limits against the fp32 plain version. K3, the decode step, runs
 on each route by ``route=`` (its table sends dk a multiple of 16 up to 256
 with dv a multiple of 4 to ``sm90``, the rest to ``simt``), at the same
 limits, in place, and on ``sm90`` also bitwise repeatable and inside a
-replayed CUDA graph.
+replayed CUDA graph. Besides the widths the models had before, every
+kernel runs at the shapes the reference's Pallas kernels take and the
+repo's configs hand them: chunk (dk, dv) = (16, 16), (32, 32), (8, 16)
+(hymba SMOKE's SSD heads), odd (33, 50), (130, 70) just past one dk slice
+and the taylor widths (1057, 32) and (16513, 128), all on ``simt`` (K1
+and K2b split dk past 128 rows into slices they reduce in a second
+kernel, bitwise repeatable); K3 at dk 8, 33, 1057 and 16513 on ``simt``;
+flash at dh 8, 32 and 100 (run at the next built width, 16, 32 or 128).
 bf16 flash results at 2^-7·|want| + 2^-8·rms(want), plus, on the ``sm90``
 route of K4, K5a and K5b, which rounds P and dS to bf16 inside its
 products, 2^-8 times those products over absolute values
@@ -69,9 +76,17 @@ def _close_bf16(got, want, extra=None):
         f"{int(bad.sum())} entries off, max {float((got - want).abs().max())}"
 
 
+# the shapes the models had before, then every width the Pallas kernels
+# take: SMOKE's and Table 2's heads, hymba SMOKE's SSD heads, odd widths,
+# one row past a dk slice, and the taylor feature map at Table 2's dh 32
+NEW_CHUNK_SHAPES = [(16, 16), (32, 32), (8, 16), (33, 50), (130, 70),
+                    (1057, 32)]
+
+
 @pytest.mark.parametrize("s", [1, 37, 64, 200, 512])
 @pytest.mark.parametrize("dk,dv", [(16, 64), (64, 64), (128, 128),
-                                   (64, 128), (128, 64), (32, 192)])
+                                   (64, 128), (128, 64), (32, 192)]
+                         + NEW_CHUNK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_kernel_matches_plain(gen, s, dk, dv, dtype):
     bh = 6
@@ -193,7 +208,8 @@ def test_decode_sm90_replays_in_a_cuda_graph(gen):
 
 
 @pytest.mark.parametrize("dk,dv", [(128, 30), (272, 64), (64, 2),
-                                   (64, 258)])
+                                   (64, 258), (8, 16), (33, 16), (1057, 32),
+                                   (16513, 128)])
 def test_decode_routes_shapes_sm90_does_not_take_to_simt(gen, dk, dv):
     """Shapes outside the sm90 table launch the simt kernel, not an error;
     forcing sm90 on them raises."""
@@ -214,10 +230,20 @@ def test_decode_routes_shapes_sm90_does_not_take_to_simt(gen, dk, dv):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    q = torch.zeros(2, 8, 24, device="cuda")           # dk % 16 != 0
+    """Every width is taken now; an empty sequence, a dtype outside bf16
+    and fp32, mixed devices, non-contiguous inputs and a non-fp32 log a
+    are not."""
+    q = torch.zeros(2, 0, 24, device="cuda")           # S = 0
+    la = torch.zeros(2, 0, device="cuda")
+    with pytest.raises(ValueError, match="S >= 1"):
+        lasp2_chunk_fwd(q, q, q, la)
+    h = torch.zeros(2, 8, 24, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="one dtype"):
+        lasp2_chunk_fwd(h, h, h, torch.zeros(2, 8, device="cuda"))
+    with pytest.raises(ValueError, match="several devices"):
+        lasp2_chunk_fwd(h.float(), h.float(), h.float(), torch.zeros(2, 8))
+    q = torch.zeros(2, 8, 24, device="cuda")
     la = torch.zeros(2, 8, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 16"):
-        lasp2_chunk_fwd(q, q, q[..., :16].repeat(1, 1, 4), la)
     x = torch.zeros(2, 16, 8, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
         lasp2_chunk_fwd(x.transpose(1, 2), x.transpose(1, 2),
@@ -242,8 +268,9 @@ def _bwd_inputs(gen, bh, s, dk, dv, dtype):
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 200, 512])
-@pytest.mark.parametrize("dk", [16, 32, 64, 128])
-@pytest.mark.parametrize("dv", [64, 128, 192])
+@pytest.mark.parametrize("dk,dv", [(dk, dv) for dk in (16, 32, 64, 128)
+                                   for dv in (64, 128, 192)]
+                         + NEW_CHUNK_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_chunk_bwd_kernels_match_plain(gen, s, dk, dv, dtype):
     """K2a and K2b against the plain passes, with resets and decays, each on
@@ -419,6 +446,76 @@ def test_chunk_dq_sm90_is_bitwise_repeatable(gen, dk, dv):
     assert torch.equal(first, second)
 
 
+@pytest.mark.parametrize("dk,dv", [(1057, 32), (16513, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunk_kernels_at_the_taylor_widths(gen, dk, dv, dtype):
+    """K1, K2a and K2b at the taylor feature map's key widths, 1 + dh + dh²
+    at Table 2's dh 32 and Linear-Llama3-1B's 128, BH 4 x S 256 (dk split
+    into 9 and 130 slices), on ``simt``, against the plain versions at the
+    limits of ``test_chunk_bwd_kernels_match_plain``."""
+    ins = _bwd_inputs(gen, 4, 256, dk, dv, dtype)
+    q, k, v, la = ins[:4]
+    passes = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv)
+    before = [fn.route_launches["simt"] for fn in passes]
+    o, st, ld = lasp2_chunk_fwd(q, k, v, la)
+    got = lasp2_chunk_bwd(*ins)
+    torch.cuda.synchronize()
+    assert [fn.route_launches["simt"] - n
+            for fn, n in zip(passes, before)] == [1, 1, 1]
+    o_p, st_p, ld_p = lasp2_chunk_fwd_plain(q, k, v, la, block_size=128)
+    _close(o, o_p, TOL[dtype])
+    _close(st, st_p, 1e-4)
+    _close(ld, ld_p, 1e-5)
+    want = lasp2_chunk_bwd_plain(*ins, block_size=128)
+    tol = 1e-3 if dtype == torch.float32 else 4e-2
+    for g, w in zip(got[:3], want[:3]):
+        _close(g, w, tol)
+    slack = 256 * 2.0 ** -24 * float(want[3].abs().max())
+    torch.testing.assert_close(got[3], want[3], rtol=1e-3,
+                               atol=1e-3 + slack)
+
+
+@pytest.mark.parametrize("dk,dv", [(16, 16), (130, 70), (1057, 32),
+                                   (16513, 128)])
+def test_chunk_simt_is_bitwise_repeatable(gen, dk, dv):
+    """K1, K2a and K2b on ``simt`` sum in a fixed order with no atomics,
+    across dk slices too (the slices' partial o, dv and rowsum(K ⊙ dk)
+    reduced in slice order): two launches agree bit for bit."""
+    ins = _bwd_inputs(gen, 4, 200, dk, dv, torch.float32)
+    q, k, v, la, _, do, _ = ins
+    for fn, args in ((lasp2_chunk_fwd, (q, k, v, la)),
+                     (lasp2_chunk_bwd_dq, (k, v, la, do)),
+                     (lasp2_chunk_bwd_dkv, ins)):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), fn.__name__
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2b"])
+def test_chunk_split_refuses_a_short_workspace(gen, kernel):
+    """Past one dk slice the ``simt`` C entries check the workspace they
+    are handed: one slice short of what they split dk into raises, never
+    writes past its end."""
+    bh, s, dk, dv = 2, 64, 300, 40
+    q, k, v, la, o, do, dst = _bwd_inputs(gen, bh, s, dk, dv, torch.float32)
+    shape = list(lc.workspace(kernel, bh, s, dk, dv))
+    shape[0] -= shape[0] // lc.dk_slices(dk)
+    work = torch.zeros(shape, device="cuda")
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        if kernel == "K1":
+            lc.fwd_entry("simt", q, k, v, la, torch.empty_like(v),
+                         torch.empty(bh, dk, dv, device="cuda"),
+                         torch.empty(bh, device="cuda"), work=work)
+        else:
+            lc.bwd_dkv_entry("simt", q, k, v, la, o, do, dst,
+                             torch.empty_like(q), torch.empty_like(v),
+                             torch.empty(bh, s, device="cuda"), work=work)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("which", ["fwd", "dq"])
 def test_chunk_fwd_and_dq_sm90_reject_misaligned_inputs(gen, which):
     """K1 and K2a read by TMA from a 16-byte aligned base: a bf16 input at
@@ -449,12 +546,15 @@ def test_chunk_dkv_sm90_rejects_misaligned_inputs(gen):
 
 
 def test_bwd_wrappers_reject_what_the_kernels_do_not_take(gen):
-    q = torch.zeros(2, 8, 24, device="cuda")           # dk % 16 != 0
+    """Any width goes through (dk 24 among them); a dtype outside bf16 and
+    fp32, a non-fp32 dM and non-contiguous inputs do not."""
+    q = torch.zeros(2, 8, 24, device="cuda")
     v = torch.zeros(2, 8, 64, device="cuda")
     la = torch.zeros(2, 8, device="cuda")
     dst = torch.zeros(2, 24, 64, device="cuda")
-    with pytest.raises(ValueError, match="multiple of 16"):
-        lasp2_chunk_bwd(q, q, v, la, v, v, dst)
+    with pytest.raises(TypeError, match="one dtype"):
+        lasp2_chunk_bwd(q.half(), q.half(), v.half(), la, v.half(),
+                        v.half(), dst)
     with pytest.raises(TypeError, match="float32"):
         lasp2_chunk_bwd(q[..., :16].contiguous(), q[..., :16].contiguous(),
                         v, la, v, v, dst[:, :16].contiguous().half())
@@ -477,7 +577,7 @@ def _flash_inputs(gen, b, hq, hkv, sq, sk, dh, dtype):
 @pytest.mark.parametrize("sq,sk,hq,hkv", [(64, 64, 4, 4), (100, 100, 4, 2),
                                           (37, 200, 8, 1), (256, 256, 8, 2),
                                           (128, 300, 4, 4), (200, 200, 25, 5)])
-@pytest.mark.parametrize("dh", [16, 64, 128])
+@pytest.mark.parametrize("dh", [16, 64, 128, 8, 32, 100])
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None),
                                            (True, 48), (False, 48)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -610,6 +710,27 @@ def test_flash_autograd_launches_each_kernel_once(gen):
     assert o.shape == q.shape and all(torch.isfinite(g).all() for g in grads)
 
 
+@pytest.mark.parametrize("dh", [8, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_simt_is_bitwise_repeatable(gen, dh, dtype):
+    """K4, K5a and K5b on ``simt`` at the padded widths (dh 8 run at 16,
+    32 at 32): each block owns its outputs and sums in a fixed order, two
+    launches agree bit for bit."""
+    q, k, v, do = _flash_inputs(gen, 2, 8, 2, 300, 300, dh, dtype)
+    o, lse = fl.flash_attention_fwd(q, k, v, window=96)
+    delta = (do.float() * o.float()).sum(-1)
+    for fn, args in ((fl.flash_attention_fwd, (q, k, v)),
+                     (fl.flash_attention_bwd_dq, (q, k, v, do, lse, delta)),
+                     (fl.flash_attention_bwd_dkv,
+                      (q, k, v, do, lse, delta))):
+        first, second = fn(*args, window=96), fn(*args, window=96)
+        torch.cuda.synchronize()
+        first = first if isinstance(first, tuple) else (first,)
+        second = second if isinstance(second, tuple) else (second,)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b), fn.__name__
+
+
 @pytest.mark.parametrize("dh", [64, 128])
 def test_flash_dq_sm90_is_bitwise_repeatable(gen, dh):
     """K5a on the ``sm90`` route: each block owns its dq rows and sums its
@@ -657,8 +778,10 @@ def test_flash_sm90_rejects_misaligned_inputs(gen):
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(gen):
-    q = torch.zeros(1, 2, 8, 32, device="cuda")          # dh 32
-    with pytest.raises(ValueError, match="dh in"):
+    """Any dh from 1 to 128 goes through; a wider head, non-contiguous
+    inputs, mixed dtypes and non-fp32 statistics do not."""
+    q = torch.zeros(1, 2, 8, 160, device="cuda")         # dh 160
+    with pytest.raises(ValueError, match="dh from 1 to 128"):
         fl.flash_attention_fwd(q, q, q)
     x = torch.zeros(1, 2, 64, 8, device="cuda")
     with pytest.raises(ValueError, match="contiguous"):
