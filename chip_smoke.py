@@ -234,7 +234,7 @@ line:
    the (4, 1) (data, model) layout serving ``CONFIG`` and ``HYBRID`` at
    full width and depth, weights whole (the prefill cells' FSDP rule)
    (prompts 4096, 1024 and 1023 split 4 ways where 4 divides them,
-   ``CONFIG`` bucketing 1023 to 1024 with left padding; 32 greedy tokens;
+   ``CONFIG`` bucketing 1023 to 1024 with left padding; 16 greedy tokens;
    the hybrid's window rings sliced 4 ways and merged at decode); (b)
    the decode plan of the (1, 4) layout serving granite-34b's 2-layer
    cut (prompts 1024 and 300 prefilled whole, its rings sliced over the
@@ -293,7 +293,18 @@ line:
    through K1 and K3 at dk 16513, its ``linear_state`` constant in
    ``max_len``; (c) every id of ``ALL_IDS`` at SMOKE serving 2 requests
    and taking one train step, every kernel its layers run launched on
-   the route of its shapes and no kernel of a layer kind it lacks.
+   the route of its shapes and no kernel of a layer kind it lacks;
+21. precision and twins (``phase_precision_and_twins``): (a) ``CONFIG``
+   whole, 4 steps of phase 7's data through ``train()`` under neither of
+   ``RunConfig``'s precision fields, ``cast_params_once`` (one bf16 copy
+   of the matrices a step), ``bf16_params`` (bf16 storage, fp32 moments)
+   and both: losses finite, K1, K2a and K2b launched per step and route
+   as in phase 7, each setting's step p50, peak memory and profiled
+   device ms; (b) the four example twins (``examples/torch_*.py``) at
+   their default sizes on the card with their asserts: quickstart,
+   serve_hybrid, train_linear_llama3 (20 steps with ``--resume-demo``, 10
+   with ``--hybrid``) and long_context_sp (8 gloo ranks sharing the card,
+   S 65536, bf16).
    Every phase's wall is printed (``phase_walls_s``).
 
 The line before the last is the kernel table as JSON, 14 entries (K1,
@@ -1793,24 +1804,27 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 10, 2048, 8, 2
 
 
 def train_setup(cfg, steps: int, lr: float, remat: str = "none",
-                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO):
+                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
+                **run_kw):
     """Phase 7's ``RunConfig`` and data: 2 microbatches of 4 x 2048 from
     ``SyntheticLM`` (4 documents per row, so resets fall mid-row), peak
     learning rate ``lr`` after 2 warm-up steps, cosine over ``steps``;
     ``batch`` rows in ``micro`` microbatches where a model needs fewer
-    tokens a microbatch."""
+    tokens a microbatch; ``run_kw`` sets other ``RunConfig`` fields
+    (phase 21's precision fields)."""
     from repro_torch.configs.base import RunConfig
     from repro_torch.data.pipeline import SyntheticLM
     run = RunConfig(num_microbatches=micro, remat=remat,
                     learning_rate=lr, warmup_steps=2, total_steps=steps,
-                    seed=0)
+                    seed=0, **run_kw)
     return run, SyntheticLM(cfg.vocab_size, TRAIN_SEQ, batch, seed=0)
 
 
 def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
                 lr: float = 3e-4, remat: str = "none",
                 batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
-                require_fall: bool = True, profile: bool = True) -> list:
+                require_fall: bool = True, profile: bool = True,
+                run_kw=None, summary=None) -> list:
     """``steps`` steps through ``train()``: fp32 masters drawn on the card
     from seed 0, bf16 compute, ``SyntheticLM`` (4 documents per 2048-token
     row, so resets fall mid-row), 2 microbatches of 4 x 2048 (BH 64 at the
@@ -1821,7 +1835,9 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     tokens a step where the model needs it (never the width). The loss
     must fall unless ``require_fall`` is False (3 steps, 2 of them
     warm-up). With ``profile`` one more step is profiled (PERF.md §5).
-    Returns the history (one metrics dict a step)."""
+    ``run_kw`` sets other ``RunConfig`` fields; a ``summary`` dict gets
+    the step p50 (ms), the peak device memory (GB) and the profiled
+    step's device ms. Returns the history (one metrics dict a step)."""
     from repro_torch.kernels import flash_attention as fl
     from repro_torch.kernels.lasp2_chunk import (lasp2_chunk_bwd_dkv,
                                                  lasp2_chunk_bwd_dq,
@@ -1829,7 +1845,8 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
     from repro_torch.train.loop import train
     from repro_torch.train.step import make_train_step
 
-    run, data = train_setup(cfg, steps, lr, remat, batch, micro)
+    run, data = train_setup(cfg, steps, lr, remat, batch, micro,
+                            **(run_kw or {}))
     counters = (lasp2_chunk_fwd, lasp2_chunk_bwd_dq, lasp2_chunk_bwd_dkv,
                 fl.flash_attention_fwd, fl.flash_attention_bwd_dq,
                 fl.flash_attention_bwd_dkv)
@@ -1880,6 +1897,7 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
         softmax=n_soft, decay=cfg.linear_attn.decay, steps=steps, lr=lr,
         batch=f"{batch}x{TRAIN_SEQ}", microbatches=micro,
         remat=run.remat, param_dtype=cfg.param_dtype, dtype=cfg.dtype,
+        run_kw=repr(run_kw or {}).replace(" ", ""),
         loss_first=f"{losses[0]:.4f}",
         loss_last3=f"{np.mean(losses[-3:]):.4f}",
         losses=repr([round(x, 4) for x in losses]),
@@ -1890,6 +1908,9 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
         step0_ms=f"{hist[0]['dt'] * 1e3:.1f}", step_p50_ms=f"{p50 * 1e3:.1f}",
         tokens_per_s=f"{tokens / p50:.0f}",
         max_memory_allocated_gb=f"{peak / 1e9:.2f}")
+    if summary is not None:
+        summary.update(step_p50_ms=round(p50 * 1e3, 1),
+                       peak_gb=round(peak / 1e9, 2))
 
     if not profile:
         return hist
@@ -1908,6 +1929,8 @@ def phase_train(kernels: list, cfg, path: str, steps: int = TRAIN_STEPS,
         device_kernel_ms=f"{device:.3f}" if device else "not measured",
         device_idle_share=idle, kernels_per_call=f"{n_kernels:.0f}",
         top=repr(top))
+    if summary is not None:
+        summary["device_ms"] = round(device, 3) if device else None
     return hist
 
 
@@ -3455,7 +3478,8 @@ def phase_zoo(kernels: list) -> None:
     copy, ``_drop_free``), and the MoE pair also at ``CONFIG`` capacity
     against the host CPU (``phase_moe_capacity``); (b) each trains
     ``ZOO_TRAIN_STEPS`` steps of phase 7's schedule (qwen1.5-110b as
-    ``ZOO_TRAIN_CUT``), losses finite, K4, K5a, K5b counted a step; (c)
+    ``ZOO_TRAIN_CUT``), losses finite, K4, K5a, K5b counted a step (not
+    profiled: PERF.md §5 keeps an earlier profile); (c)
     Linear-MoE, ``moonshot-v1-16b-a3b`` linearized (every layer linear
     attention + MoE) serves (K1 a prefill batch, K3 a decode step,
     ``sm90``) and trains (K1, K2a, K2b); (d) fp32 grad checks of codeqwen
@@ -3495,7 +3519,8 @@ def phase_zoo(kernels: list) -> None:
         layers = cut.pop("layers")
         phase_train(kernels, _zoo_cut(get_config(arch), layers),
                     f"zoo_{short}_train", steps=ZOO_TRAIN_STEPS,
-                    lr=ZOO_TRAIN_LR, require_fall=False, **cut)
+                    lr=ZOO_TRAIN_LR, require_fall=False, profile=False,
+                    **cut)
         _free()
     part("b")
     lmoe = _zoo_cut(get_config("moonshot-v1-16b-a3b", linearize=0))
@@ -3506,7 +3531,8 @@ def phase_zoo(kernels: list) -> None:
     del params
     _free()
     phase_train(kernels, lmoe, "zoo_linear_moe_train",
-                steps=ZOO_TRAIN_STEPS, lr=ZOO_TRAIN_LR, require_fall=False)
+                steps=ZOO_TRAIN_STEPS, lr=ZOO_TRAIN_LR, require_fall=False,
+                profile=False)
     _free()
     part("c")
     for arch in ("codeqwen1.5-7b", "moonshot-v1-16b-a3b"):
@@ -4484,7 +4510,7 @@ def phase_usp(kernels: list, hybrid, sp_ranks) -> None:
 
 SERVE_SP_W = 4
 SERVE_SP_PROMPTS = (4096, 1024, 1023)   # 1023: bucketed, or prefilled whole
-SERVE_SP_NEW = 32
+SERVE_SP_NEW = 16                       # greedy tokens a request
 SERVE_SP_MAX_LEN = 4608
 SERVE_SP_DECODE_PROMPTS = (1024, 300)   # (b), (c): exact length
 SERVE_SP_DECODE_MAX_LEN = 2048          # the ring: 4 slices of 512 slots
@@ -5069,11 +5095,11 @@ def phase_serve_sp(kernels: list, linear, hybrid) -> None:
     each rank's chunk and one state all-gather a linear layer; K4 on the
     gathered K/V; 1023 is bucketed and left-padded by ``CONFIG`` and
     prefilled whole by ``HYBRID``, whose 2048-slot window rings are sliced
-    4 ways and merged at decode), 32 greedy tokens; (b) ``make_plan((1,
+    4 ways and merged at decode), 16 greedy tokens; (b) ``make_plan((1,
     4), "decode", n_kv_heads=1)``: granite-34b's 2-layer cut, prompts of
     1024 and 300 prefilled whole, its 2048-slot rings sliced over the
     model group (every q head gathered for the merge), its heads, ff and
-    vocab split 4 ways, 32 greedy tokens; (c) the same plan on ``CONFIG``
+    vocab split 4 ways, 16 greedy tokens; (c) the same plan on ``CONFIG``
     and ``HYBRID`` whole: K1, K3 and K4 on a rank's 4 of 16 heads; (d)
     the (2, 2) prefill and decode plans on ``CONFIG``'s and ``HYBRID``'s
     2-layer cuts (``HYBRID``'s: a linear and its softmax layer), 4
@@ -5911,6 +5937,195 @@ def phase_shapes(kernels: list, linear) -> None:
     log("shapes", walls_s=repr(walls).replace(" ", ""))
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the precision fields on the main train path; the example twins.
+# ---------------------------------------------------------------------------
+
+PRECISION_SETTINGS = {"none": {}, "cast_once": {"cast_params_once": True},
+                      "bf16_params": {"bf16_params": True},
+                      "both": {"cast_params_once": True,
+                               "bf16_params": True}}
+PRECISION_STEPS = 4
+TWIN_TRAIN_STEPS = 20       # the train twin's --steps (300 by default)
+TWIN_NAMES = ("quickstart", "serve_hybrid", "train_linear_llama3",
+              "long_context_sp")
+
+
+def _twins(names=TWIN_NAMES) -> dict:
+    """The example twins (``examples/torch_*.py``) by name, imported from
+    ``examples/`` (the long-context twin's spawned ranks import it so)."""
+    import importlib
+    if str(ROOT / "examples") not in sys.path:
+        sys.path.insert(0, str(ROOT / "examples"))
+    return {n: importlib.import_module(f"torch_{n}") for n in names}
+
+
+# the long-context twin's calls a rank makes, each with the one kernel it
+# must launch (K1 or K4: indices into _twin_counters()); "local" is
+# lasp2 over the whole sequence (sp=None)
+LONG_CONTEXT_CALLS = {"local": 0, "lasp2": 0, "lasp1": 0,
+                      "megatron_sp_attention": 3}
+
+
+def _twin_counters():
+    """K1, K2a, K2b, K4, K5a, K5b, K3's wrappers, in that order."""
+    from repro_torch.kernels.lasp2_decode import lasp2_decode_step
+    return _routed_counters() + (lasp2_decode_step,)
+
+
+def _long_context_rank(rank, world, device, *args):
+    """One rank of the long-context twin (its ``_rank``), with the
+    twin's ``lasp2``, ``lasp1`` and ``megatron_sp_attention`` wrapped in
+    this process so that each call's launches are read from 0. Returns
+    ``_rank``'s result with ``launched``: ``_read``'s list by call
+    (``LONG_CONTEXT_CALLS``)."""
+    twin = _twins(("long_context_sp",))["long_context_sp"]
+    counters = _twin_counters()
+    launched = {}
+
+    def counted(name, fn):
+        def call(*a, **kw):
+            _zero(*counters)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            key = "local" if name == "lasp2" and kw.get("sp") is None \
+                else name
+            launched[key] = _read(counters, counters)
+            return out
+        return call
+
+    for name in ("lasp2", "lasp1", "megatron_sp_attention"):
+        setattr(twin, name, counted(name, getattr(twin, name)))
+    return {**twin._rank(rank, world, device, *args), "launched": launched}
+
+
+def _long_context_launches(kernels, ranks, routes) -> None:
+    """Every rank's every call of the long-context twin launched its one
+    kernel (``LONG_CONTEXT_CALLS``), all on its route (``routes``: K1's,
+    K4's), and no other kernel; the launches join the kernel line."""
+    from repro_torch.kernels.flash_attention import ROUTES
+    counters = _twin_counters()
+    for rank, res in enumerate(ranks):
+        got = res["launched"]
+        check(sorted(got) == sorted(LONG_CONTEXT_CALLS),
+              f"twin_long_context_sp rank {rank}: calls {sorted(got)}")
+        total = [0] * len(_read(counters, counters))
+        for call, want in LONG_CONTEXT_CALLS.items():
+            n = got.get(call, total)
+            route = routes[0] if want == 0 else routes[1]
+            on = len(counters) + want * len(ROUTES) + ROUTES.index(route)
+            check(n[want] > 0 and n[on] == n[want]
+                  and sum(n[:len(counters)]) == n[want],
+                  f"twin_long_context_sp rank {rank} {call}: K1, K2a, K2b, "
+                  f"K4, K5a, K5b, K3 launched {n[:len(counters)]}, "
+                  f"{n[on]} on {route}")
+            total = [a + b for a, b in zip(total, n)]
+        _count_routed(kernels, counters, counters, total,
+                      f"twin_long_context_sp_rank{rank}")
+        log("twins", path="twin_long_context_sp", rank=rank,
+            launches_k1_k2a_k2b_k4_k5a_k5b_k3=repr(
+                total[:len(counters)]).replace(" ", ""),
+            by_call=repr({c: got[c][LONG_CONTEXT_CALLS[c]]
+                          for c in LONG_CONTEXT_CALLS}).replace(" ", ""))
+
+
+def _twin_launches(kernels, path, run, want):
+    """``run()`` with every wrapper's counters from 0; each of K1, K2a,
+    K2b, K4, K5a, K5b, K3 must launch exactly where ``want`` (a set of
+    their indices) says. Returns ``run()``'s result."""
+    counters = _twin_counters()
+    _zero(*counters)
+    out = run()
+    torch.cuda.synchronize()
+    launched = _read(counters, counters)
+    check(all((n > 0) == (i in want) for i, n in enumerate(launched[:7])),
+          f"{path}: K1, K2a, K2b, K4, K5a, K5b, K3 launched {launched[:7]}; "
+          f"want launches at {sorted(want)}")
+    _count_routed(kernels, counters, counters, launched, path)
+    log("twins", path=path, launches_k1_k2a_k2b_k4_k5a_k5b_k3=repr(
+        launched[:7]).replace(" ", ""))
+    return out
+
+
+def phase_precision_and_twins(kernels: list, linear) -> None:
+    """Phase 21. (a) ``RunConfig``'s precision fields on the main train
+    path: ``CONFIG`` whole, ``PRECISION_STEPS`` steps of phase 7's data and
+    schedule through ``train()`` under neither field, ``cast_params_once``,
+    ``bf16_params`` and both (``phase_train``: losses finite, none
+    skipped, K1, K2a, K2b 16 x 2 a step each on ``sm90``, as phase 7), each
+    with its step p50, peak memory and one profiled step's device ms. (b)
+    the four example twins at their default sizes on the card:
+    quickstart's 60 steps must drop the loss by more than 0.2;
+    serve_hybrid's own asserts (every request its tokens, the linear state
+    constant in ``max_len``, the ring capped at the window); the train
+    twin's ~100M model for ``TWIN_TRAIN_STEPS`` steps with
+    ``--resume-demo`` (the second run resumes at half) and for half as many
+    with ``--hybrid``, every loss finite; long_context_sp's 8 gloo ranks
+    sharing the card, LASP-2 sharded within the bf16 limit of the local
+    computation and LASP-2's and LASP-1's tapes within their budgets. The
+    in-process twins' launches are counted, and each long-context rank
+    counts its own, call by call (``_long_context_rank``): LASP-2, the
+    local computation and LASP-1 through K1, Megatron-SP through K4.
+    Each part's wall is printed."""
+    walls = {}
+    summaries = {}
+    for name, flags in PRECISION_SETTINGS.items():
+        t0 = time.perf_counter()
+        summaries[name] = {}
+        phase_train(kernels, linear, f"precision_{name}",
+                    steps=PRECISION_STEPS, require_fall=False, run_kw=flags,
+                    summary=summaries[name])
+        walls[f"precision_{name}"] = round(time.perf_counter() - t0, 1)
+        _free()
+    log("precision", arch=linear.name, steps=PRECISION_STEPS,
+        **{name: repr(v).replace(" ", "") for name, v in summaries.items()})
+
+    twins = _twins()
+    t0 = time.perf_counter()
+    first, last = _twin_launches(kernels, "twin_quickstart",
+                                 lambda: twins["quickstart"].main([]),
+                                 {0, 1, 2})
+    check(last < first - 0.2, f"twin_quickstart: loss {first} -> {last}")
+    walls["twin_quickstart"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    _twin_launches(kernels, "twin_serve_hybrid",
+                   lambda: twins["serve_hybrid"].main([]), {0, 3, 6})
+    walls["twin_serve_hybrid"] = round(time.perf_counter() - t0, 1)
+    _free()
+    for steps, flag, want in ((TWIN_TRAIN_STEPS, "--resume-demo", {0, 1, 2}),
+                              (TWIN_TRAIN_STEPS // 2, "--hybrid",
+                               {0, 1, 2, 3, 4, 5})):
+        t0 = time.perf_counter()
+        path = f"twin_train{flag.replace('-', '_')}"
+        hist, state = _twin_launches(
+            kernels, path, lambda: twins["train_linear_llama3"].main(
+                ["--steps", str(steps), flag]), want)
+        losses = [h["loss"] for h in hist]
+        first_step = steps // 2 if flag == "--resume-demo" else 0
+        check(int(state["step"]) == steps and hist[0]["step"] == first_step
+              and all(np.isfinite(losses)),
+              f"{path}: steps {[h['step'] for h in hist]}, final "
+              f"{int(state['step'])}, losses {losses}")
+        del hist, state
+        walls[path] = round(time.perf_counter() - t0, 1)
+        _free()
+    t0 = time.perf_counter()
+    lc_twin = twins["long_context_sp"]
+    rel, tapes, ranks = lc_twin.long_context_sp(rank_fn=_long_context_rank)
+    check(rel < TOL_O["bfloat16"],
+          f"twin_long_context_sp: LASP-2 sharded {rel} off local")
+    from repro_torch.kernels import flash_attention as fl
+    from repro_torch.kernels import lasp2_chunk as lc
+    _long_context_launches(kernels, ranks, (
+        lc._route(torch.bfloat16, lc_twin.D, lc_twin.D),
+        fl._route(torch.bfloat16, lc_twin.D)))
+    del ranks
+    walls["twin_long_context_sp"] = round(time.perf_counter() - t0, 1)
+    log("twins", long_context_rel=f"{rel:.3e}",
+        tapes=repr(tapes).replace(" ", ""),
+        walls_s=repr(walls).replace(" ", ""))
+
+
 def main(argv=None) -> int:
     """Every phase, or with ``--phases 13,18`` (a debugging aid) phases 1
     and 2 and the named ones alone: a phase that reads an earlier one's
@@ -5992,6 +6207,7 @@ def main(argv=None) -> int:
     timed(19, phase_analysis, kernels, linear, train_hist, serve_walls,
           (usp_tapes or []) + (serve_sp_tapes or []))
     timed(20, phase_shapes, kernels, linear)
+    timed(21, phase_precision_and_twins, kernels, linear)
     log("walls", phase_walls_s=repr(walls).replace(" ", ""),
         total_s=f"{time.perf_counter() - start:.1f}")
     print(smi, flush=True)

@@ -260,6 +260,13 @@ class RunConfig:
     adam_b2: float = 0.95            # paper §4.1
     seed: int = 0
     zero1: bool = True               # shard optimizer state over data ranks
+    # Mixed precision of the train steps (``train.step.cast_matrices``):
+    # one copy a step, in ``cfg.dtype``, of each fp32 param of 2 or more
+    # dims in the reference's stacked layout, made outside the microbatch
+    # loop (the gradients land on the fp32 masters); and those params
+    # stored in bf16, the Adam moments fp32.
+    cast_params_once: bool = False
+    bf16_params: bool = False
     # SP communication (``repro_torch.comm``): the exchange strategy, its
     # overlap with the intra-chunk kernel, and the wire dtype of the state
     # and K/V exchanges (bf16 halves their bytes; combines stay fp32);

@@ -26,6 +26,18 @@ place (``repro_torch.optim.adamw``); the returned state holds the same
 tensors. The forward runs in ``cfg.dtype`` (bf16 on the card): every
 matrix is cast at its use, and the gradients land on the fp32 masters.
 
+Two ``RunConfig`` fields change the precision of the params, as in the
+reference: under ``run.cast_params_once`` each step makes one copy in
+``cfg.dtype`` of every fp32 param of 2 or more dims in the reference's
+stacked layout before the microbatch loop (:func:`cast_matrices`),
+differentiates with respect to the copies and sums their gradients in
+fp32 for AdamW to apply to the masters; under ``run.bf16_params`` those
+params are stored in bf16 (:func:`state_from_params`), the Adam moments
+stay fp32, each microbatch's bf16 gradients are summed in fp32, and
+AdamW rounds its fp32 result into each bf16 leaf. Both steps'
+collectives stay as they are: the one gradient reduction and ZeRO-1's
+param gather carry fp32.
+
 The step runs on the params' device: on the card every linear layer
 launches the chunk kernels (K1 forward, K2a and K2b backward) through
 ``ops.linear_attention_op``.
@@ -44,6 +56,7 @@ import torch
 
 from repro_torch.comm import primitives
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.device import torch_dtype
 from repro_torch.core.lasp2 import SPConfig
 from repro_torch.core.lasp2h import check_ulysses_heads
 from repro_torch.core.tree import leaves_with_paths, tree_map
@@ -77,11 +90,45 @@ def check_layout_strategy(strategy: str, tp: int) -> None:
             f"sequence axis); use 'allgather' or 'ulysses'")
 
 
+def cast_matrices(params, dtype: torch.dtype):
+    """The reference's ``_cast_tree``: each fp32 leaf of 2 or more dims in
+    the reference's layout as a new tensor in ``dtype``, detached from
+    the param; every other leaf as it is (every leaf, when ``dtype`` is
+    fp32). The reference stacks each pattern position's layers over a
+    leading group axis, so a layer's 1-d leaves (norm scales, biases, the
+    SSD heads' ``dt_bias``, ``a_log`` and ``d_skip``) have 2 dims there
+    and are cast with the matrices; its 0-d ``gate``, the final norms'
+    scales and every leaf outside ``layers`` of fewer than 2 dims stay
+    fp32."""
+    def cast(path, p):
+        dims = p.dim() + ("layers" in path)
+        if p.dtype == torch.float32 and dims >= 2 and \
+                dtype != torch.float32:
+            return p.detach().to(dtype)
+        return p
+    it = iter([cast(path, p) for path, p in leaves_with_paths(params)])
+    return tree_map(lambda _: next(it), params)
+
+
+def _compute_params(cfg: ModelConfig, run: RunConfig, params):
+    """The params the forward reads: under ``run.cast_params_once`` this
+    step's copies in ``cfg.dtype`` (:func:`cast_matrices`), leaves that
+    require gradients; else ``params``."""
+    if not run.cast_params_once:
+        return params
+    return tree_map(lambda p: p.requires_grad_(True),
+                    cast_matrices(params, torch_dtype(cfg.dtype)))
+
+
 def state_from_params(params, zero1: int = 1, run: RunConfig = None):
-    """A fresh train state around ``params`` (fp32 masters): they are made
-    to require gradients, the moments start at zero (one rank's flat
+    """A fresh train state around ``params`` (fp32 masters; under
+    ``run.bf16_params`` the matrices stored in bf16 as the reference's
+    ``init_state`` stores them, :func:`cast_matrices`): they are made to
+    require gradients, the fp32 moments start at zero (one rank's flat
     slice of ``zero1`` when above 1), step 0; with ``run.guard`` also the
     guard's state."""
+    if run is not None and run.bf16_params:
+        params = cast_matrices(params, torch.bfloat16)
     for _, p in leaves_with_paths(params):
         p.requires_grad_(True)
     opt = adamw.zero1_init(params, zero1) if zero1 > 1 \
@@ -96,7 +143,9 @@ def state_from_params(params, zero1: int = 1, run: RunConfig = None):
 def init_state(generator: torch.Generator, cfg: ModelConfig, *, device=None,
                zero1: int = 1, run: RunConfig = None):
     """Random fp32 master params (``cfg.param_dtype``) on ``device`` (the
-    card unless another device is named) and a fresh train state."""
+    card unless another device is named) and a fresh train state
+    (:func:`state_from_params`: the matrices in bf16 under
+    ``run.bf16_params``)."""
     params = M.init_params(generator, cfg, device=device,
                            param_dtype=cfg.param_dtype)
     return state_from_params(params, zero1, run)
@@ -120,8 +169,8 @@ def make_loss_fn(cfg: ModelConfig, run: RunConfig):
 
 def _accum_grads(loss_fn, params, batch):
     """Loop over the leading microbatch dim, summing the objective's
-    gradients in fp32, then average. Returns ``(grads tree, mean
-    cross-entropy)``."""
+    gradients with respect to ``params`` in fp32 (a bf16 leaf's too), then
+    average. Returns ``(fp32 grads tree, mean cross-entropy)``."""
     leaves = [p for _, p in leaves_with_paths(params)]
     n_micro = batch["tokens"].shape[0]
     acc, losses = None, []
@@ -198,7 +247,10 @@ def make_train_step(cfg: ModelConfig, run: RunConfig, layout=None):
         device = leaves_with_paths(params)[0][1].device
         batch = {k: torch.as_tensor(v).to(device, non_blocking=True)
                  for k, v in batch.items()}
-        grads, loss = _accum_grads(loss_fn, params, batch)
+        # under cast_params_once the gradients of the copies are those of
+        # the masters, summed in fp32 (the reference's cast back)
+        grads, loss = _accum_grads(loss_fn,
+                                   _compute_params(cfg, run, params), batch)
         for _, g in leaves_with_paths(grads):
             health.chaos_poison_nan(g, state["step"], run.chaos_nan_steps)
         gnorm, ok, new_guard, ginfo = _clip(
@@ -246,7 +298,10 @@ class ShardedStep:
     - the unnormalised local objective (the CE sum of this rank's rows and
       chunk), its gradients accumulated by autograd over the microbatches
       into per-leaf views of ONE flat fp32 buffer (a second full-width
-      copy is what a full-width step on one card could not hold);
+      copy is what a full-width step on one card could not hold); a bf16
+      leaf's gradient (``run.bf16_params``, or the step's copy under
+      ``run.cast_params_once``) is added to its view in fp32 after each
+      microbatch;
     - every collective of the model on its SP group (the sp·tp token
       group), by ``run.comm_strategy``: per linear layer one state
       all-gather forward (``lasp2.states``) or the ring's hops
@@ -333,13 +388,22 @@ class ShardedStep:
             raise NotImplementedError(
                 "encoder/VLM aux inputs are not supported on the 2D DP×SP "
                 "training plan yet")
-        leaves = [p for _, p in leaves_with_paths(params)]
+        compute = _compute_params(self.cfg, self.run, params)
+        leaves = [p for _, p in leaves_with_paths(compute)]
         device = leaves[0].device
         buf, n = self._buffer(params)
         buf.zero_()
-        off = 0
+        # an fp32 leaf's gradient accumulates in its view of the buffer; a
+        # bf16 leaf's (bf16_params, or this step's copy) is added to its
+        # view in fp32 after each microbatch, the reference's
+        # acc + g.astype(f32)
+        low, off = [], 0
         for p in leaves:
-            p.grad = buf[off:off + p.numel()].view_as(p)
+            view = buf[off:off + p.numel()].view_as(p)
+            if p.dtype == torch.float32:
+                p.grad = view
+            else:
+                low.append((p, view))
             off += p.numel()
         batch = shard_batch({k: torch.as_tensor(v) for k, v in
                              batch.items()}, self.layout)
@@ -349,12 +413,17 @@ class ShardedStep:
         try:
             for i in range(batch["tokens"].shape[0]):
                 micro = {k: v[i].to(device) for k, v in batch.items()}
-                logits = M.forward(params, micro["tokens"], self.cfg,
+                logits = M.forward(compute, micro["tokens"], self.cfg,
                                    remat=self.run.remat,
                                    resets=micro.get("resets"), sp=self.sp)
                 ce_sum, n_valid, _ = M.lm_loss_sum(logits, micro["labels"])
                 del logits
                 ce_sum.backward()
+                with torch.no_grad():
+                    for p, view in low:
+                        if p.grad is not None:
+                            view.add_(p.grad)
+                            p.grad = None
                 ce += ce_sum.detach()
                 cnt += n_valid
                 bad |= torch.logical_not(torch.isfinite(ce_sum.detach()))

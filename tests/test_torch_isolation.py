@@ -31,12 +31,14 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-        + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"]
+        + [ROOT / "chip_smoke.py", ROOT / "chip_kernel_ab.py"] \
+        + sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = _port_files()
     assert len(files) > 15
+    assert len([p for p in files if p.parent.name == "examples"]) == 4
     bad = []
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -15,6 +15,13 @@ step's (``tests/test_torch_train.py``); ZeRO-1 against replicated AdamW
 1e-6, and the bf16 wire against fp32 2e-2
 (``tests/distributed_checks.py:513-549``).
 
+The precision fields ride the (2, 2) spawn: SMOKE in bf16 compute under
+``cast_params_once``, ``bf16_params`` and both, against the reference's
+manual step under the same fields (losses and grad norms 4e-2, the
+reference's bf16 limit; params and moments after each step within
+``tests/torch_precision.py``'s limits), each tape held to the flags-off
+one.
+
 The guard and checkpoints across layouts ride the same spawns: the
 guarded step at (2, 2) against the reference's guarded manual step
 (NaN gradients at step 1), and ``train()`` checkpoints written at
@@ -32,6 +39,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import torch_precision as P
 import torch_sp_ranks as R
 from repro_torch.configs.base import RunConfig
 from repro_torch.launch.mesh import TrainingGroups, run_ranks
@@ -39,6 +47,7 @@ from repro_torch.launch.mesh import TrainingGroups, run_ranks
 HERE = Path(__file__).resolve()
 ROOT = HERE.parent.parent
 TOL = 1e-3
+TOL_BF16 = 4e-2
 TOL_RESUME = 1e-5
 
 
@@ -405,6 +414,70 @@ def test_guard_adds_no_collective(dp2sp2):
         assert r["guard_clean"]["losses"] == r["losses"]
 
 
+@pytest.mark.parametrize("flags", ["cast_once", "bf16_params", "both"])
+def test_precision_flags_match_reference_at_dp2sp2(dp2sp2, flags):
+    """``ShardedStep`` at (2, 2) with ZeRO-1 in bf16 compute under
+    ``cast_params_once``, ``bf16_params`` and both: every rank's 3 losses
+    and grad norms within the bf16 limit 4e-2 of the reference's manual
+    step under the same fields, the params' dtypes the reference's, and
+    the first step's tape the flags-off tape row for row (ops, tags,
+    payload bytes), the gradient reduction and ZeRO-1's param gather in
+    fp32 on the wire; after each step the params and the moments (joined
+    from the ZeRO-1 slices) within ``tests/torch_precision.py``'s limits
+    of the reference's, as in the one-device test."""
+    _, _, ranks, want = dp2sp2
+    for r in ranks:
+        got, plain = r["precision"][flags], r["precision"]["none"]
+        for mine, key in (("losses", "loss"), ("gnorms", "gnorm")):
+            np.testing.assert_allclose(got[mine],
+                                       want[f"precision/{flags}/{key}"],
+                                       rtol=TOL_BF16, atol=TOL_BF16,
+                                       err_msg=key)
+        assert got["param_dtypes"] == _rows(
+            want[f"precision/{flags}/dtypes"])
+        assert got["opt_type"] == "Zero1AdamState"
+        assert got["tape"] == plain["tape"]
+        assert got["wire"] == plain["wire"] == [
+            ("train.grads", "float32"), ("zero1.param_gather", "float32")]
+    port = _precision_trajectory(ranks, flags)
+    ref = [{kind: _prefixed(want, f"precision/{flags}/{i}/{kind}/")
+            for kind in ("params", "m", "v")} | {
+                "lr": float(want[f"precision/{flags}/{i}/lr"])}
+           for i in range(R.N_STEPS)]
+    dtypes = {k: str(v) for k, v in
+              _prefixed(want, f"precision/{flags}/dtype/").items()}
+    assert P.mismatches(port, ref, dtypes, R.RUN["learning_rate"]) == []
+
+
+def _prefixed(want, prefix):
+    return {k[len(prefix):]: v for k, v in want.items()
+            if k.startswith(prefix)}
+
+
+def _precision_trajectory(ranks, flags):
+    """The port's trajectory under ``flags`` in the reference's keys: the
+    params of the first rank of token chunk 0, the moments joined from
+    each ZeRO-1 slice's first rank."""
+    n_pattern = len(R.precision_cfg().pattern)
+    held = [r["precision"][flags] for r in ranks
+            if r["precision"][flags]["steps"]]
+    first = held[0]
+    paths = list(zip(first["paths"], first["shapes"]))
+    n = sum(int(np.prod(s)) for s in first["shapes"])
+    by_slice = {}
+    for res in held:
+        by_slice.setdefault(res["zero_index"], res)
+    slices = [by_slice[i] for i in sorted(by_slice)]
+    out = []
+    for i, step in enumerate(first["steps"]):
+        out.append({"lr": step["lr"], "params": P.reference_keys(
+            paths, step["params"], n_pattern)})
+        for kind in ("m", "v"):
+            flat = np.concatenate([s["steps"][i][kind] for s in slices])
+            out[-1][kind] = P.reference_keys(paths, flat[:n], n_pattern)
+    return out
+
+
 def test_flight_recorder_sees_no_drift_under_a_layout(dp2sp2):
     """``train(sink=)`` at (2, 2): only rank 0 emits; its ``compile``
     record holds the first step's tape and issued view, op by op the same
@@ -674,8 +747,16 @@ def test_train_cli_under_torchrun_with_comm_strategy(strategy):
 # The reference side (run as a script, in its own process).
 # ---------------------------------------------------------------------------
 
+def _jax_key(path):
+    """A reference tree path joined with "/" ("groups/0/mixer/wq")."""
+    return "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
+                    for k in path)
+
+
 def _jax_reference(path):
     import jax
+    import jax.numpy as jnp
+    from jax.flatten_util import ravel_pytree
 
     from repro.comm import primitives as jprim
     from repro.comm.spec import CommSpec
@@ -708,9 +789,7 @@ def _jax_reference(path):
         if not any(k.startswith(f"{prefix}/") for k in out):
             for p, leaf in jax.tree_util.tree_flatten_with_path(
                     state["params"])[0]:
-                key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
-                               for k in p)
-                out[f"{prefix}/{key}"] = np.asarray(leaf)
+                out[f"{prefix}/{_jax_key(p)}"] = np.asarray(leaf)
         step = jax.jit(make_train_step(cfg, run, plan))
         losses = []
         for i in range(R.N_STEPS):
@@ -724,6 +803,44 @@ def _jax_reference(path):
                     R.tape_rows(rec))
             losses.append(float(m["loss"]))
         out[f"dp{dp}sp{sp}/{kind}loss"] = np.array(losses)
+    for name, flags in R.PRECISION_FLAGS.items():
+        if not flags:
+            continue
+        cfg = R.precision_cfg(get_smoke)
+        frun = JRunConfig(**R.RUN, **flags)
+        plan = make_plan(make_training_mesh(2, 2), "train",
+                         global_batch=R.DATA["global_batch"],
+                         n_kv_heads=cfg.n_kv_heads, n_heads=cfg.n_heads,
+                         zero1=True, comm=CommSpec(dtype="fp32"))
+        state = init_state(jax.random.PRNGKey(0), cfg, frun, plan)
+        step = jax.jit(make_train_step(cfg, frun, plan))
+        losses, gnorms = [], []
+        for i in range(R.N_STEPS):
+            state, m = step(state, data.microbatched(i, frun.num_microbatches))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            # the trajectory: params, and the flat ZeRO-1 moments unraveled
+            # onto the params' leaves in fp32
+            wide = jax.tree.map(lambda x: x.astype(jnp.float32),
+                                state["params"])
+            n = ravel_pytree(wide)[0].size
+            unravel = ravel_pytree(wide)[1]
+            pre = f"precision/{name}/{i}"
+            out[f"{pre}/lr"] = np.array(float(m["lr"]))
+            for kind, tree in (("params", wide),
+                               ("m", unravel(state["opt"].m[:n])),
+                               ("v", unravel(state["opt"].v[:n]))):
+                for kp, leaf in jax.tree_util.tree_flatten_with_path(
+                        tree)[0]:
+                    out[f"{pre}/{kind}/{_jax_key(kp)}"] = np.asarray(leaf)
+        for kp, leaf in jax.tree_util.tree_flatten_with_path(
+                state["params"])[0]:
+            out[f"precision/{name}/dtype/{_jax_key(kp)}"] = np.array(
+                str(leaf.dtype))
+        out[f"precision/{name}/loss"] = np.array(losses)
+        out[f"precision/{name}/gnorm"] = np.array(gnorms)
+        out[f"precision/{name}/dtypes"] = np.array(sorted(
+            {str(x.dtype) for x in jax.tree.leaves(state["params"])}))
     _jax_guard_reference(out, smoke, data)
     _jax_ssm_reference(out)
     np.savez(path, **out)

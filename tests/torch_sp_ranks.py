@@ -450,6 +450,69 @@ def _steps(npz_path, device, layout, n, drop_resets=False, hybrid=False,
     return state, losses, first
 
 
+# The precision cells: SMOKE in bf16 compute at (2, 2) with ZeRO-1 under
+# each of RunConfig's precision fields and both, and with neither (the
+# tape they are held to).
+PRECISION_FLAGS = {"none": {}, "cast_once": dict(cast_params_once=True),
+                   "bf16_params": dict(bf16_params=True),
+                   "both": dict(cast_params_once=True, bf16_params=True)}
+FP32_WIRE_TAGS = ("train.grads", "zero1.param_gather")
+
+
+def precision_cfg(get_smoke=None):
+    """SMOKE in its own bf16 compute: the port's, or the reference's
+    from its ``get_smoke``."""
+    if get_smoke is None:
+        from repro_torch.configs import get_smoke
+    return get_smoke(ARCH)
+
+
+def _precision_steps(npz_path, device, layout):
+    """N_STEPS bf16-compute steps from the reference's params under each
+    ``PRECISION_FLAGS`` setting: losses, grad norms, the first step's tape,
+    the wire dtypes of its gradient reduction and param gather, and the
+    params' dtypes after the steps. The ranks of token chunk 0 also return
+    the trajectory: each step's lr, params (flat, fp32) and this rank's
+    ZeRO-1 slices of the moments, with the leaves' paths and shapes and
+    the slice's index."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.tree import leaves_with_paths
+    from repro_torch.train.step import (make_train_step, state_from_params,
+                                        zero1_degree)
+    keep = layout.chunk_index == 0
+    out = {}
+    for name, flags in PRECISION_FLAGS.items():
+        run = RunConfig(**RUN, **flags)
+        state = state_from_params(_params(npz_path, device),
+                                  zero1_degree(run, layout), run)
+        step = make_train_step(precision_cfg(), run, layout)
+        res = {"losses": [], "gnorms": [], "tape": None, "steps": []}
+        for batch in _batches()[:N_STEPS]:
+            with primitives.tape() as rec:
+                state, m = step(state, batch)
+            if res["tape"] is None:
+                res["tape"] = tape_rows(rec)
+                res["wire"] = [(r.tag, r.dtype) for r in rec
+                               if r.tag in FP32_WIRE_TAGS]
+            res["losses"].append(m["loss"])
+            res["gnorms"].append(m["grad_norm"])
+            if keep:
+                res["steps"].append({
+                    "lr": float(m["lr"]),
+                    "params": _flat(state["params"]).numpy(),
+                    "m": state["opt"].m.detach().clone().numpy(),
+                    "v": state["opt"].v.detach().clone().numpy()})
+        leaves = leaves_with_paths(state["params"])
+        res["paths"] = [path for path, _ in leaves]
+        res["shapes"] = [tuple(p.shape) for _, p in leaves]
+        res["zero_index"] = layout.zero_index
+        res["param_dtypes"] = sorted({str(p.dtype).replace("torch.", "")
+                                      for p in _flat_leaves(state["params"])})
+        res["opt_type"] = type(state["opt"]).__name__
+        out[name] = res
+    return out
+
+
 def _flat(tree):
     from repro_torch.core.tree import leaves_with_paths
     return torch.cat([t.detach().reshape(-1).float()
@@ -628,6 +691,7 @@ def step_rank(rank, world, device, dp, sp, npz_path, ckpt_root=None):
         res["guard_nan"] = _guarded_steps(npz_path, device, layout,
                                           chaos_nan_steps=(GUARD_NAN_STEP,))
         res["guard_clean"] = _guarded_steps(npz_path, device, layout)
+        res["precision"] = _precision_steps(npz_path, device, layout)
         # checkpoints at (2, 2) with ZeRO-1, with the flight recorder on
         # rank 0
         from repro_torch.obs import InMemorySink
